@@ -1,0 +1,405 @@
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. device: requires CUDA; prints the card's name and power limit;
+2. build: compiles the port's CUDA source with nvcc (sm_90a);
+3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
+   on the card at B=128, D=3136, P in {1600, 576}, cosine and euclidean,
+   square and hexa (distances and loss to 1e-5, BMUs equal outside near
+   ties), and the op's closed-form gradients against autograd through the
+   plain version (atol 1e-6, rtol 1e-4, and the largest difference at most
+   1e-4 of the largest gradient);
+4. train: the flagship config ``configs/vit_som/vit_som_mnist.yaml`` as
+   shipped (full width, 40x40 map, batch 128, float32) on synthetic
+   MNIST-shaped data for 40 steps, then the clustering eval; the kernel's
+   launch count over that run must equal train steps + eval batches;
+5. timings: the device time of the kernel, its plain version and one
+   library product (the median of 30 CUDA-event timed calls each, the card
+   held by a spin while the host issues them; L2 flushed before each call,
+   and again with the inputs resident in L2) against the card's bound, at
+   P = 1600 and 576.
+
+The last lines are the ``kernels`` JSON, the nvidia-smi line and the result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from vitsom_tpu_torch.config import load_config
+from vitsom_tpu_torch.data.synthetic import build_datamodule
+from vitsom_tpu_torch.ops import _build, som_fused
+from vitsom_tpu_torch.som import layer as som
+from vitsom_tpu_torch.train import steps as steps_lib
+from vitsom_tpu_torch.train.trainer import Trainer
+from vitsom_tpu_torch.utils.device import resolve_device
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_mnist.yaml")
+TRAIN_STEPS = 40
+SYNTHETIC_SIZE = 4096  # + 819 test images, concatenated for clustering
+B, EMB, D = 128, 16, 3136  # D = 196 patch tokens x emb 16
+MAPS = {1600: (40, 40), 576: (24, 24)}
+TOL = 1e-5
+GRAD_ATOL, GRAD_RTOL, GRAD_REL_TO_MAX = 1e-6, 1e-4, 1e-4
+TIMED_RUNS = 30
+L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def allclose_err(a, b, atol, rtol):
+    """(max |a - b|, whether |a - b| <= atol + rtol * |b| everywhere)."""
+    diff = (a - b).abs()
+    return float(diff.max()), bool((diff <= atol + rtol * b.abs()).all())
+
+
+def time_call(fn, flush=None, runs=TIMED_RUNS, chunk=5, warmup=5):
+    """(device_ms, host_ms) of one call of ``fn`` on the card.
+
+    ``device_ms`` is the median over ``runs`` calls of a CUDA-event pair
+    around each call. The calls are issued in chunks of ``chunk``, each
+    behind a spin kernel (``torch.cuda._sleep``) that holds the card until
+    the host has issued the whole chunk, so the events time the card's work
+    and not the host's Python and launches (a plain version's host work
+    outlasts its kernels). A chunk whose first event had already completed
+    when the host finished issuing it was not held: it is discarded and the
+    spin doubled. Chunks stay small, so the launch queue never fills and
+    blocks the host. ``host_ms`` is the host time to issue one call.
+
+    With ``flush`` (a buffer larger than the 50 MB L2), the buffer is
+    zeroed before each call, outside its event pair, so the call finds its
+    inputs in device memory and not in L2, as the train step's SOM forward
+    finds the prototypes after the optimizer has streamed all parameters
+    and moments. Without it the inputs stay resident in L2 across calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin, device, host = 20_000_000, [], []
+    while len(device) < runs:
+        check(spin <= 2**31, "could not hold the card while issuing the timed calls")
+        torch.cuda._sleep(spin)
+        pairs = []
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            if flush is not None:
+                flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        issue_ms = (time.perf_counter() - t0) * 1e3 / chunk
+        held = not pairs[0][0].query()
+        torch.cuda.synchronize()
+        if not held:
+            spin *= 2
+            continue
+        device += [a.elapsed_time(b) for a, b in pairs]
+        host.append(issue_ms)
+    return statistics.median(device[:runs]), statistics.median(host)
+
+
+def inputs(p, seed, dev):
+    """x [B, D] laid out as the model hands it over: the patch tokens of a
+    [B, 1 + N, E] token buffer, a view whose rows are N*E + E floats apart."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randn(B, 1 + D // EMB, EMB, generator=g, device=dev)
+    x = tokens[:, 1:].reshape(B, D)
+    protos = torch.randn(p, D, generator=g, device=dev) * 0.5
+    return x, protos
+
+
+def grad_inputs(p, seed, dev):
+    """Inputs whose BMUs are unambiguous: row b is prototype j_b plus noise
+    of a fifth of its size. On plain random inputs a row's two nearest
+    prototypes can lie within float32 rounding of each other (the euclidean
+    distances are ~60 and differ by ~1e-4 between two summation orders over
+    D), so the kernel and the plain version may pick different BMUs and
+    hence other weights for that row; here both backward passes see the same
+    BMUs, and the comparison tests the backward alone."""
+    noise, protos = inputs(p, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    j = torch.randperm(p, generator=g, device=dev)[:B]
+    return protos[j] + 0.1 * noise, protos
+
+
+def near_ties(dist, distance):
+    """(rows exempt from the BMU check, rows whose two smallest distances lie
+    within the absolute TOL): on such rows the BMU may flip between two
+    summation orders. Cosine distances are ~1 and use the absolute TOL.
+    Euclidean distances are ~60 at these inputs, and two summation orders
+    over D already differ by up to ~1e-5 there, so for them the margin is
+    widened on purpose to TOL * max(|d|, 1)."""
+    top2 = torch.topk(dist, 2, dim=1, largest=False).values
+    gap = top2[:, 1] - top2[:, 0]
+    absolute = gap <= TOL
+    if distance == "cosine":
+        return absolute, absolute
+    return gap <= TOL * top2[:, 0].abs().clamp_min(1.0), absolute
+
+
+def phase_kernel_vs_plain(dev):
+    """Phase 3; returns the largest distance/loss error."""
+    worst = 0.0
+    temp = 3.7
+    for p, map_size in MAPS.items():
+        cols = map_size[1]
+        for distance in ("cosine", "euclidean"):
+            for topology in ("square", "hexa"):
+                x, protos = inputs(p, 1000 + p, dev)
+                kl, kb, kd = som_fused._kernel_forward(x, protos, temp, cols, topology, distance)
+                kl2, _, _ = som_fused._kernel_forward(x, protos, temp, cols, topology, distance)
+                rl, rb, rd = som_fused.fused_som_reference(x, protos, temp, cols, topology, distance)
+                torch.cuda.synchronize()
+                derr, dok = allclose_err(kd, rd, TOL, TOL)
+                near_tie, near_tie_abs = near_ties(rd, distance)
+                mismatch = (kb != rb) & ~near_tie
+                # the loss with the kernel's BMUs over the plain distances: equal
+                # to the plain loss wherever the BMUs agree
+                w = torch.exp(
+                    -som_fused.grid_d2_rows(kb, p, cols, topology) / som.two_t_squared(temp)
+                )
+                ref_loss = torch.sum(w * rd) / (B * p)
+                lerr, lok = allclose_err(kl, ref_loss, TOL, TOL)
+                worst = max(worst, derr, lerr)
+                print(
+                    f"kernel_vs_plain P={p} {distance} {topology}: dist_max_abs_err={derr:.3e} "
+                    f"loss={float(kl):.7f} plain_loss={float(rl):.7f} loss_abs_err={lerr:.3e} "
+                    f"bmu_mismatch={int(mismatch.sum())} near_tie_rows={int(near_tie.sum())} "
+                    f"near_tie_rows_abs={int(near_tie_abs.sum())} "
+                    f"deterministic={bool(torch.equal(kl, kl2))}",
+                    flush=True,
+                )
+                check(dok, f"distances disagree at P={p} {distance} {topology}: {derr}")
+                check(lok, f"loss disagrees at P={p} {distance} {topology}: {lerr}")
+                check(int(mismatch.sum()) == 0, f"BMU mismatch at P={p} {distance} {topology}")
+                check(torch.equal(kl, kl2), "two kernel runs gave different losses")
+                check(kb.dtype == torch.int64 and kd.shape == (B, p), "bad output dtype/shape")
+
+        for distance in ("cosine", "euclidean"):
+            x, protos = grad_inputs(p, 2000 + p, dev)
+            xk, pk = x.clone().requires_grad_(), protos.clone().requires_grad_()
+            kl, kb, _ = som_fused.FusedSOM.apply(xk, pk, temp, cols, "square", distance)
+            kl.backward()
+            xr, pr = x.clone().requires_grad_(), protos.clone().requires_grad_()
+            rl, rb, _ = som_fused.fused_som_reference(xr, pr, temp, cols, "square", distance)
+            rl.backward()
+            check(torch.equal(kb, rb), f"BMUs differ on the gradient inputs at P={p} {distance}")
+            for name, a, b in (("dx", xk.grad, xr.grad), ("dp", pk.grad, pr.grad)):
+                err, ok = allclose_err(a, b, GRAD_ATOL, GRAD_RTOL)
+                scale = float(b.abs().max())
+                # atol 1e-6 alone exceeds the cosine gradients (~1e-7)
+                ok = ok and err <= GRAD_REL_TO_MAX * scale
+                print(
+                    f"grad_vs_autograd P={p} {distance} {name}: max_abs_err={err:.3e} "
+                    f"max_abs_grad={scale:.3e} rel_to_max={err / max(scale, 1e-30):.3e}",
+                    flush=True,
+                )
+                check(ok, f"{name} disagrees at P={p} {distance}: {err}")
+    return worst
+
+
+def phase_train(dev):
+    """Phase 4; returns the kernel's launch count over the main path."""
+    cfg = load_config(
+        CONFIG, {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE}
+    )
+    print(
+        f"config: map={cfg.som.map_size} emb={cfg.vit.emb_dim} depth={cfg.vit.depth} "
+        f"dec_emb={cfg.vit.dec_emb_dim} dec_depth={cfg.vit.dec_depth} heads={cfg.vit.heads} "
+        f"batch={cfg.batch_size} distance={cfg.som.distance_fcn} "
+        f"use_pallas_som={cfg.train.use_pallas_som} remat={cfg.train.remat_blocks} "
+        f"compute={cfg.train.compute_dtype}",
+        flush=True,
+    )
+    dm = build_datamodule(cfg, dev)
+    trainer = Trainer(cfg, device=dev, dm=dm)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    eval_batches = dm.n_train // cfg.batch_size
+
+    som_fused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    hist = trainer.fit(max_steps=TRAIN_STEPS)
+    res = trainer.evaluate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = som_fused.LAUNCHES
+
+    recon = hist["train/recon_loss"]
+    total = hist["train/total_loss"]
+    steady = trainer.step_ms[5:]
+    step_ms = statistics.median(steady)
+    print(
+        f"train: params={n_params} images={dm.n_train} steps={trainer.step} "
+        f"recon_loss first={recon[0]:.6f} last={recon[-1]:.6f} "
+        f"total_loss last={total[-1]:.6f} som_loss last={hist['train/som_loss'][-1]:.6f}",
+        flush=True,
+    )
+    print(
+        f"train: median_step_ms={step_ms:.4f} images_per_s={cfg.batch_size / step_ms * 1e3:.1f} "
+        f"(steps 6-{trainer.step}, CUDA events between step ends) wall_s={wall:.3f}",
+        flush=True,
+    )
+    print(
+        f"eval: purity={res['purity']:.4f} nmi={res['nmi']:.4f} "
+        f"batches={eval_batches} inference_s={res['inference_time']:.4f}",
+        flush=True,
+    )
+    print(
+        f"launches: som_fused={launches} expected={trainer.step + eval_batches} "
+        f"(train steps {trainer.step} + eval batches {eval_batches})",
+        flush=True,
+    )
+    check(trainer.step == TRAIN_STEPS, f"trained {trainer.step} steps, not {TRAIN_STEPS}")
+    check(all(math.isfinite(v) for v in total), "non-finite total loss")
+    check(recon[-1] < recon[0], f"recon loss did not fall: {recon[0]} -> {recon[-1]}")
+    check(launches == trainer.step + eval_batches, "kernel launch count != steps + eval batches")
+    check(0.0 <= res["purity"] <= 1.0 and 0.0 <= res["nmi"] <= 1.0, "bad purity/NMI")
+
+    # the kernel-based eval step against the plain SOM path on one batch
+    model = trainer.model
+    batch = next(dm.eval_batches())
+    temp = trainer.current_temperature()
+    out = steps_lib.make_vit_som_eval_step(cfg, model)(batch, temp)
+    with torch.no_grad():
+        _, recon_img, _, dist, bmu = model(batch["image"])
+        table = torch.from_numpy(som.grid_sq_distances(cfg.som.map_size, cfg.som.topology)).to(dev)
+        # the plain loss at the kernel's BMUs: equal to the plain path's
+        # wherever the BMUs agree, and still comparable on a near tie
+        ref_som = som.som_loss(som.neighborhood_weights(out["bmu"], table, temp), dist)
+    near_tie, near_tie_abs = near_ties(dist, cfg.som.distance_fcn)
+    mism = int(((out["bmu"] != bmu) & ~near_tie).sum())
+    serr = abs(float(out["som_loss"]) - float(ref_som))
+    print(
+        f"eval_step_vs_plain: bmu_mismatch={mism} near_tie_rows={int(near_tie.sum())} "
+        f"near_tie_rows_abs={int(near_tie_abs.sum())} "
+        f"som_loss_abs_err={serr:.3e} recon_shape={tuple(recon_img.shape)}",
+        flush=True,
+    )
+    check(mism == 0 and serr <= TOL + TOL * abs(float(ref_som)), "eval step disagrees with plain path")
+    check(tuple(recon_img.shape) == (cfg.batch_size, 28, 28, 1), "bad recon shape")
+    return launches
+
+
+def phase_timings(dev):
+    """Phase 5; returns the row of the main path's map (the first of MAPS).
+
+    Each function is timed with L2 flushed before each call (``ms``, the
+    main path's condition) and with its inputs resident in L2 (``warm``)."""
+    rows = {}
+    temp = 3.7
+    l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    for p, map_size in MAPS.items():
+        cols = map_size[1]
+        x, protos = inputs(p, 3000 + p, dev)
+        xn = x / x.norm(dim=1, keepdim=True)
+        pn_t = (protos / protos.norm(dim=1, keepdim=True)).T
+        fns = {
+            "kernel": lambda: som_fused._kernel_forward(x, protos, temp, cols, "square", "cosine"),
+            "plain": lambda: som_fused.fused_som_reference(x, protos, temp, cols, "square", "cosine"),
+            "library": lambda: torch.matmul(xn, pn_t),
+        }
+        cold = {k: time_call(fn, l2_flush)[0] for k, fn in fns.items()}
+        warm = {k: time_call(fn) for k, fn in fns.items()}
+        flops = 2.0 * B * p * D
+        nbytes = (B * D + p * D + B * p) * 4 + B * 8 + 4
+        t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(
+            f"timing P={p} ({map_size[0]}x{map_size[1]} cosine square, B={B} D={D}, L2 flushed): "
+            f"kernel_ms={cold['kernel']:.5f} plain_ms={cold['plain']:.5f} "
+            f"library_ms={cold['library']:.5f} bound_ms={bound_ms:.5f} ({bound_by}: "
+            f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB) "
+            f"kernel_gflops={flops / cold['kernel'] / 1e6:.1f} "
+            f"kernel_share_of_bound={bound_ms / cold['kernel']:.4f}",
+            flush=True,
+        )
+        print(
+            f"timing P={p} inputs in L2: " + " ".join(f"{k}_ms={v[0]:.5f}" for k, v in warm.items())
+            + "; host_ms to issue one call: " + " ".join(f"{k}={v[1]:.5f}" for k, v in warm.items()),
+            flush=True,
+        )
+        rows[p] = dict(ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["library"],
+                       bound_ms=bound_ms, bound_by=bound_by)
+    return rows[next(iter(MAPS))]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    try:
+        dev = resolve_device("cuda")
+        smi = nvidia_smi_line()
+        print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
+              f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
+        print(f"nvidia-smi: {smi}", flush=True)
+
+        t0 = time.perf_counter()
+        info = _build.build("som_fused")
+        print(f"build: {time.perf_counter() - t0:.2f} s for som_fused.cu", flush=True)
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"build[som_fused]: {line.strip()}", flush=True)
+
+        max_err = phase_kernel_vs_plain(dev)
+        launches = phase_train(dev)
+        timing = phase_timings(dev)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+
+    kernels = [{
+        "name": "som_fused",
+        "route": "cuda",
+        "source": "vitsom_tpu_torch/ops/csrc/som_fused.cu",
+        "replaces": "vitsom_tpu/ops/som_pallas.py:95",
+        "launches": launches,
+        "max_abs_err": max_err,
+        **timing,
+    }]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,333 @@
+"""The port's training path against the JAX package, on the CPU.
+
+Schedules, the optimizer's parameter groups, the synthetic data, the
+metrics, the eval step and, for the slice as a whole, three train steps
+from shared weights and batches against ``make_vit_som_train_step`` with
+``use_pallas_som=True`` (the Pallas kernel in interpret mode).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from flax import traverse_util
+
+from vitsom_tpu.config import (
+    Config, DataConfig, OptimizerConfig, SOMConfig, TrainConfig, ViTConfig,
+)
+from vitsom_tpu.data.datasets import make_synthetic as jmake_synthetic
+from vitsom_tpu.eval import metrics as jmetrics
+from vitsom_tpu.models.vit_som import ViTSOM as JViTSOM
+from vitsom_tpu.train import optim as joptim
+from vitsom_tpu.train import schedules as jsched
+from vitsom_tpu.train import steps as jsteps
+from vitsom_tpu_torch import config as tconfig
+from vitsom_tpu_torch import convert
+from vitsom_tpu_torch.data import synthetic as tdata
+from vitsom_tpu_torch.eval import metrics as tmetrics
+from vitsom_tpu_torch.models.vit_som import ViTSOM as TViTSOM
+from vitsom_tpu_torch.ops import som_fused
+from vitsom_tpu_torch.train import optim as toptim
+from vitsom_tpu_torch.train import schedules as tsched
+from vitsom_tpu_torch.train import steps as tsteps
+from vitsom_tpu_torch.train import trainer as ttrainer
+
+
+def _slice_cfg(use_pallas=True, **opt):
+    """The config of test_pallas_kernels.py's fused-vs-XLA train-step test."""
+    return Config(
+        model_arch="vit_som",
+        total_epochs=2,
+        batch_size=4,
+        gamma=0.005,
+        som=SOMConfig(map_size=(4, 4), t_max=5.0, t_min=0.1, distance_fcn="cosine"),
+        vit=ViTConfig(patch_size=7, emb_dim=16, depth=1, heads=2, dec_emb_dim=8, dec_depth=1),
+        data=DataConfig(dataset="mnist", num_classes=0, num_channels=1, input_size=28),
+        train=TrainConfig(use_pallas_som=use_pallas),
+        optimizer=OptimizerConfig(**opt),
+    ).validate()
+
+
+@functools.lru_cache(maxsize=None)
+def _init_params():
+    model = JViTSOM(_slice_cfg())
+    return jax.jit(model.init)(jax.random.key(0), jnp.zeros((4, 28, 28, 1)))["params"]
+
+
+def _torch_model(jcfg, params):
+    tcfg = tconfig.config_from_dict(jcfg.to_dict())
+    model = TViTSOM(tcfg)
+    model.load_state_dict(convert.flax_to_state_dict(params), strict=True)
+    return tcfg, model
+
+
+# ---------------------------------------------------------------------------
+# schedules and optimizer groups
+# ---------------------------------------------------------------------------
+
+
+def test_warmup_cosine_factor_matches():
+    for e in (0, 1, 5, 24, 25, 26, 100, 499, 500):
+        j = float(jsched.warmup_cosine_epoch_factor(jnp.asarray(e), 25, 500, 1e-5))
+        t = tsched.warmup_cosine_epoch_factor(e, 25, 500, 1e-5)
+        np.testing.assert_allclose(t, j, rtol=1e-6)
+    # min_lr is a floor on the factor, not an absolute learning rate
+    assert tsched.warmup_cosine_epoch_factor(500, 25, 500, 1e-5) == pytest.approx(1e-5)
+
+
+@pytest.mark.parametrize(
+    "scheduler,warmup", [("cosine_annealing", 25), ("cosine_annealing", 0),
+                         ("cosine_simple", 0), ("constant", 0)]
+)
+def test_lr_schedule_matches(scheduler, warmup):
+    opt = OptimizerConfig(scheduler=scheduler, warmup_epochs=warmup, min_lr=1e-5)
+    topt = tconfig.OptimizerConfig(scheduler=scheduler, warmup_epochs=warmup, min_lr=1e-5)
+    j = jsched.make_lr_schedule(opt, 500, 38, 0.005)
+    t = tsched.make_lr_schedule(topt, 500, 38, 0.005)
+    for step in (0, 37, 38, 39, 1000, 18999):
+        np.testing.assert_allclose(t(step), float(j(jnp.asarray(step))), rtol=1e-6)
+
+
+def test_gamma_ramp_matches():
+    for it in (0, 1, 500, 9499, 9500, 20000):
+        j = float(jsched.gamma_ramp(jnp.asarray(it), 0.005, 9500))
+        np.testing.assert_allclose(tsched.gamma_ramp(it, 0.005, 9500), j, rtol=1e-6)
+
+
+@pytest.mark.parametrize("apply_layer_decay", [False, True])
+def test_optimizer_groups_match(apply_layer_decay):
+    jcfg = _slice_cfg(apply_layer_decay=apply_layer_decay)
+    params = _init_params()
+    tcfg, model = _torch_model(jcfg, params)
+    for jmap, tmap in (
+        (joptim.build_weight_decay_map(params, jcfg), toptim.build_weight_decay_map(model, tcfg)),
+        (joptim.build_lr_scale_map(params, jcfg), toptim.build_lr_scale_map(model, tcfg)),
+    ):
+        flat = traverse_util.flatten_dict(jmap, sep="/")
+        names = convert.key_map(flat)
+        assert set(names.values()) == set(tmap)
+        for k, v in flat.items():
+            assert tmap[names[k]] == pytest.approx(float(v), rel=1e-7), k
+    assert toptim.base_learning_rate(tcfg) == joptim.base_learning_rate(jcfg)
+    opt = toptim.make_optimizer(tcfg, model)
+    n = sum(len(g["params"]) for g in opt.param_groups)
+    assert n == len(list(model.parameters()))
+
+
+@pytest.mark.parametrize(
+    "opt_type,apply_layer_decay", [("adamw", False), ("adamw", True), ("adam", False)]
+)
+def test_optimizer_update_matches(opt_type, apply_layer_decay):
+    """Four updates of the same parameters by the same gradients, the port's
+    ``torch.optim.AdamW`` groups against the JAX package's optax chain.
+
+    The gradients are drawn afresh at every step with magnitudes
+    log-uniform over [1e-9, 1e-1], so the moments, the bias corrections and
+    the placement of eps (near |g| ~ 1e-8) all shape the result; the lr of
+    1e-2 makes the decoupled decay (lr * wd * |p| per step) and the layer
+    scales (0.75^k) large against the tolerance. Parameters hold at atol
+    1e-4 * lr: float32 rounding of the two formulas."""
+    jcfg = _slice_cfg(type=opt_type, apply_layer_decay=apply_layer_decay)
+    params = _init_params()
+    tcfg, model = _torch_model(jcfg, params)
+    lr = 1e-2
+    tx = joptim.make_optimizer(jcfg, params, lambda count: lr)
+    jparams, jstate = params, tx.init(params)
+    opt = toptim.make_optimizer(tcfg, model)
+    named = dict(model.named_parameters())
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        flat = {}
+        for k, v in traverse_util.flatten_dict(params, sep="/").items():
+            mag = 10.0 ** rng.uniform(-9, -1, size=v.shape)
+            flat[k] = (rng.choice([-1.0, 1.0], size=v.shape) * mag).astype(np.float32)
+        grads = traverse_util.unflatten_dict(flat, sep="/")
+        updates, jstate = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        toptim.set_learning_rate(opt, lr)
+        for name, g in convert.flax_to_state_dict(grads).items():
+            named[name].grad = g
+        opt.step()
+    final = convert.flax_to_state_dict(jax.device_get(jparams))
+    for name, p in model.state_dict().items():
+        np.testing.assert_allclose(
+            p.numpy(), final[name].numpy(), atol=1e-4 * lr, rtol=0, err_msg=name
+        )
+
+
+# ---------------------------------------------------------------------------
+# data and metrics
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("size", [64, 300])
+def test_synthetic_matches(size):
+    kw = dict(dataset="mnist", allow_synthetic=True, synthetic_size=size)
+    j = jmake_synthetic(DataConfig(**kw))
+    t = tdata.make_synthetic(tconfig.DataConfig(**kw))
+    for name in ("train_x", "train_y", "test_x", "test_y"):
+        np.testing.assert_array_equal(getattr(t, name), getattr(j, name), err_msg=name)
+
+
+def test_datamodule_concat_and_batches():
+    cfg = tconfig.load_config(
+        "configs/vit_som/vit_som_mnist.yaml",
+        {"data.allow_synthetic": True, "data.synthetic_size": 100, "batch_size": 16},
+    )
+    raw = jmake_synthetic(DataConfig(dataset="mnist", allow_synthetic=True, synthetic_size=100))
+    dm = tdata.build_datamodule(cfg, device="cpu")
+    x = np.concatenate([raw.train_x, raw.test_x]).astype(np.float32) / 255.0
+    assert dm.n_train == 164 and dm.steps_per_epoch == 10
+    np.testing.assert_allclose(dm.images.numpy(), x, rtol=1e-7)
+    np.testing.assert_array_equal(dm.labels.numpy(), np.concatenate([raw.train_y, raw.test_y]))
+    batches = list(dm.train_batches(torch.Generator().manual_seed(0)))
+    assert len(batches) == 10 and all(b["image"].shape == (16, 28, 28, 1) for b in batches)
+    seen = torch.cat([b["label"] for b in batches])
+    assert seen.shape == (160,)
+    assert sum(1 for _ in dm.eval_batches()) == 10
+    assert sum(b["image"].shape[0] for b in dm.eval_batches(drop_last=False)) == 164
+
+
+def test_metrics_match():
+    rng = np.random.default_rng(0)
+    y_true = rng.integers(0, 10, size=500)
+    y_pred = np.where(rng.random(500) < 0.6, y_true * 3, rng.integers(0, 64, size=500))
+    assert tmetrics.purity(y_true, y_pred) == jmetrics.purity(y_true, y_pred)
+    assert tmetrics.nmi(y_true, y_pred) == jmetrics.nmi(y_true, y_pred)
+    assert tmetrics.purity(y_true, y_true) == 1.0
+    assert tmetrics.nmi(y_true, y_true) == pytest.approx(1.0)
+
+
+# ---------------------------------------------------------------------------
+# eval step and the slice as a whole
+# ---------------------------------------------------------------------------
+
+
+def test_eval_step_matches():
+    jcfg = _slice_cfg()
+    params = _init_params()
+    tcfg, tmodel = _torch_model(jcfg, params)
+    x = np.random.default_rng(1).uniform(size=(4, 28, 28, 1)).astype(np.float32)
+    temp = 2.0
+    j = jax.jit(jsteps.make_vit_som_eval_step(jcfg, JViTSOM(jcfg)))(
+        params, {"image": jnp.asarray(x), "label": jnp.zeros((4,), jnp.int32)}, jnp.float32(temp)
+    )
+    t = tsteps.make_vit_som_eval_step(tcfg, tmodel)({"image": torch.from_numpy(x)}, temp)
+    np.testing.assert_array_equal(t["bmu"].numpy(), np.asarray(j["bmu"]))
+    for k in ("som_loss", "recon_loss", "total_loss"):
+        np.testing.assert_allclose(float(t[k]), float(j[k]), rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def _capture_grads(tx):
+    """Wraps an optax transformation so its state also keeps the last
+    gradients it was given."""
+
+    def init(p):
+        return tx.init(p), jax.tree_util.tree_map(jnp.zeros_like, p)
+
+    def update(g, state, p=None):
+        u, inner = tx.update(g, state[0], p)
+        return u, (inner, g)
+
+    return optax.GradientTransformation(init, update)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_train_steps_match(use_pallas):
+    """Three steps from the same weights and batches. The first step's
+    gradients hold at atol 1e-6 / rtol 1e-4 and every step's losses at
+    rtol 1e-5.
+
+    Each parameter's update over the three steps, p_3 - p_0, is held
+    against JAX's at atol 0.05 * lr (lr is constant here) on every
+    component whose two gradients agree, at each step, to 1e-3 of
+    max(|g|, eps). Adam's normalised step g / (|g| + eps) moves by at most
+    |dg| * eps / max(|g|, eps)^2 for a gradient change dg, so there the two
+    updates differ by ~1e-3 * lr per step, plus float32 rounding of p
+    (~1e-2 * lr at |p| ~ 0.5). The other components carry float32 noise:
+    the key bias, whose exact gradient is 0 (softmax ignores a logit shift
+    shared by all keys), gets |g| ~ 1e-9 of either sign in each framework,
+    which Adam turns into a step of up to lr, so they hold only at
+    6 * lr = 2 * 3 steps * lr. At least 99 % of the components must be
+    held to the tight bound. ``test_optimizer_update_matches`` holds the
+    AdamW update itself (moments, eps, decay, layer scales) tightly."""
+    jcfg = _slice_cfg(use_pallas)
+    params = _init_params()
+    jmodel = JViTSOM(jcfg)
+    statics = jsteps.StepStatics(steps_per_epoch=3, total_epochs=2, dataset_len=12, batch_size=4)
+    jsch = jsched.make_lr_schedule(jcfg.optimizer, 2, 3, joptim.base_learning_rate(jcfg))
+    tx = _capture_grads(joptim.make_optimizer(jcfg, params, jsch))
+    state = jsteps.TrainState(
+        step=jnp.asarray(0, jnp.int32), params=params, opt_state=tx.init(params)
+    )
+    jstep = jax.jit(jsteps.make_vit_som_train_step(jcfg, jmodel, tx, statics, jsch))
+
+    tcfg, tmodel = _torch_model(jcfg, params)
+    opt = toptim.make_optimizer(tcfg, tmodel)
+    tstatics = tsteps.StepStatics(3, 2, 12, 4)
+    tsch = tsched.make_lr_schedule(tcfg.optimizer, 2, 3, toptim.base_learning_rate(tcfg))
+    tstep = tsteps.make_vit_som_train_step(tcfg, tmodel, opt, tstatics, tsch)
+    named = dict(tmodel.named_parameters())
+    start = {name: p.detach().clone() for name, p in named.items()}
+    eps = tcfg.optimizer.eps
+    agree = {name: torch.ones_like(p, dtype=torch.bool) for name, p in named.items()}
+
+    xs = np.random.default_rng(7).uniform(size=(3, 4, 28, 28, 1)).astype(np.float32)
+    launches = som_fused.LAUNCHES
+    for i in range(3):
+        state, jm = jstep(state, {"image": jnp.asarray(xs[i]), "label": jnp.zeros((4,), jnp.int32)})
+        tm = tstep(i, {"image": torch.from_numpy(xs[i])})
+        for k in ("train/recon_loss", "train/som_loss", "train/total_loss"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+        for k in ("hp/gamma", "hp/temperature", "hp/lr"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-6, err_msg=k)
+        grads = convert.flax_to_state_dict(jax.device_get(state.opt_state[1]))
+        for name, g in grads.items():
+            tg = named[name].grad
+            if i == 0:
+                np.testing.assert_allclose(tg.numpy(), g.numpy(), atol=1e-6, rtol=1e-4, err_msg=name)
+            agree[name] &= (tg - g).abs() <= 1e-3 * g.abs().clamp_min(eps)
+    assert som_fused.LAUNCHES == launches  # CPU tensors take the plain version
+
+    lr = tsch(0)
+    assert all(tsch(i) == lr for i in range(3))
+    final = convert.flax_to_state_dict(jax.device_get(state.params))
+    tight = sum(int(a.sum()) for a in agree.values())
+    assert tight >= 0.99 * sum(a.numel() for a in agree.values())
+    for name, p in named.items():
+        t_upd = (p.detach() - start[name]).numpy()
+        j_upd = (final[name] - start[name]).numpy()
+        a = agree[name].numpy()
+        np.testing.assert_allclose(t_upd[a], j_upd[a], atol=0.05 * lr, rtol=0, err_msg=name)
+        np.testing.assert_allclose(t_upd, j_upd, atol=6 * lr, rtol=0, err_msg=name)
+
+
+def test_trainer_fits_and_evaluates_on_cpu():
+    cfg = tconfig.load_config(
+        "configs/vit_som/vit_som_mnist.yaml",
+        {"data.allow_synthetic": True, "data.synthetic_size": 200, "batch_size": 16,
+         "som.map_size": [6, 6], "vit.depth": 1, "vit.dec_depth": 1},
+    )
+    tr = ttrainer.Trainer(cfg, device="cpu")
+    hist = tr.fit(max_steps=15)
+    assert tr.step == 15 and len(tr.step_ms) == 15
+    assert hist["train/recon_loss"].shape == (15,)
+    assert hist["train/recon_loss"][-1] < hist["train/recon_loss"][0]
+    assert np.all(np.isfinite(hist["train/total_loss"]))
+    res = tr.evaluate()
+    assert 0.0 <= res["purity"] <= 1.0 and 0.0 <= res["nmi"] <= 1.0
+
+
+def test_trainer_cli_on_cpu(capsys):
+    results = ttrainer.main([
+        "--config", "configs/vit_som/vit_som_mnist.yaml", "--synthetic", "--runs", "1",
+        "--max-steps", "2", "--device", "cpu", "--batch-size", "8",
+        "--override", "data.synthetic_size=64", "--override", "som.map_size=[4, 4]",
+        "--override", "vit.depth=1",
+    ])
+    assert len(results) == 1 and results[0]["steps"] == 2
+    assert '"mean_std"' in capsys.readouterr().out
