@@ -7,7 +7,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the port's CUDA source with nvcc (sm_90a);
+2. build: compiles the port's CUDA sources with nvcc (sm_90a), one nvcc
+   per source, all started together, and prints ptxas's register and spill
+   lines;
 3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
    on the card at B=128, D=3136, P in {1600, 576}, cosine and euclidean,
    square and hexa (distances and loss to 1e-5, BMUs equal outside near
@@ -17,14 +19,43 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. train: the flagship config ``configs/vit_som/vit_som_mnist.yaml`` as
    shipped (full width, 40x40 map, batch 128, float32) on synthetic
    MNIST-shaped data for 40 steps, then the clustering eval; the kernel's
-   launch count over that run must equal train steps + eval batches;
+   launch count over that run must equal train steps + eval batches, and
+   the attention kernels must not run (the yaml's attention is ``xla``);
 5. timings: the device time of the kernel, its plain version and one
    library product (the median of 30 CUDA-event timed calls each, the card
    held by a spin while the host issues them; L2 flushed before each call,
    and again with the inputs resident in L2) against the card's bound, at
-   P = 1600 and 576.
+   P = 1600 and 576;
+6. attention kernels vs plain: the forward kernel's o and lse and the
+   backward kernel's dq, dk, dv against their plain PyTorch versions
+   (atol/rtol 1e-5, the JAX tests' tolerance), and the gradients also
+   against autograd through ``xla_attention``, at (B, N, H, hd) =
+   (128, 197, 2, 8) and (128, 197, 2, 2) (the flagship's encoder and
+   decoder), (128, 65, 3, 64) and (128, 65, 3, 32) (the emb-192 configs)
+   and (128, 257, 3, 64) (the largest N of a shipped ViT config), with q,
+   k, v both as strided views of a fused qkv buffer and contiguous; two
+   runs of each kernel must agree bitwise;
+7. train with ``train.attn_impl: pallas``: phase 4's run again, with the
+   attention kernels. Its step-0 losses must equal phase 4's within rtol
+   1e-5 (same seed, same first batch), and every kernel's launch count must
+   equal what the code implies (below);
+8. train with ``train.attn_impl: hybrid`` for 10 steps at full width: the
+   forward kernel never runs, the backward kernel once per block a step;
+9. attention timings: each kernel, its plain version and one library call
+   (``scaled_dot_product_attention`` and its gradient, which the port never
+   calls) against the bound, at (128, 197, 2, 8), (128, 197, 2, 2) and
+   (128, 65, 3, 64), L2 flushed, with phase 5's timer.
+
+Launch counts on a train run of S steps and E eval batches, with one
+attention call per block (A = depth + dec_depth = 6 on the flagship) and
+remat_blocks (each block's forward runs again in the backward): the fused
+SOM kernel runs S + E times; with ``pallas`` the attention forward kernel
+runs (2 S + E) A times and the backward kernel S A times; with ``hybrid``
+the forward kernel 0 times and the backward kernel S A times.
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the result.
+The whole script takes about 30 seconds on an H100, the builds (~5 s)
+included.
 """
 
 from __future__ import annotations
@@ -36,12 +67,16 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 from vitsom_tpu_torch.config import load_config
 from vitsom_tpu_torch.data.synthetic import build_datamodule
-from vitsom_tpu_torch.ops import _build, som_fused
+from vitsom_tpu_torch.models.vit_som import model_attn_impl
+from vitsom_tpu_torch.ops import _build, attention_fused, som_fused
+from vitsom_tpu_torch.ops.attention import xla_attention
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import steps as steps_lib
 from vitsom_tpu_torch.train.trainer import Trainer
@@ -50,6 +85,14 @@ from vitsom_tpu_torch.utils.device import resolve_device
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_mnist.yaml")
 TRAIN_STEPS = 40
+HYBRID_STEPS = 10
+KERNEL_SOURCES = ("som_fused", "attention")
+# (B, N, H, hd): the flagship's encoder and decoder, the emb-192 configs'
+# encoder and decoder, and the largest N of a shipped ViT config
+ATTN_SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 3, 64), (128, 65, 3, 32),
+               (128, 257, 3, 64)]
+ATTN_TIMED = ATTN_SHAPES[:3]
+FIRST_LOSSES = ("train/recon_loss", "train/som_loss", "train/total_loss")
 SYNTHETIC_SIZE = 4096  # + 819 test images, concatenated for clustering
 B, EMB, D = 128, 16, 3136  # D = 196 patch tokens x emb 16
 MAPS = {1600: (40, 40), 576: (24, 24)}
@@ -231,62 +274,100 @@ def phase_kernel_vs_plain(dev):
     return worst
 
 
-def phase_train(dev):
-    """Phase 4; returns the kernel's launch count over the main path."""
-    cfg = load_config(
-        CONFIG, {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE}
-    )
+def reset_launches():
+    som_fused.LAUNCHES = 0
+    attention_fused.LAUNCHES_FWD = 0
+    attention_fused.LAUNCHES_BWD = 0
+
+
+def read_launches():
+    return {"som_fused": som_fused.LAUNCHES, "attention_fwd": attention_fused.LAUNCHES_FWD,
+            "attention_bwd": attention_fused.LAUNCHES_BWD}
+
+
+def expected_launches(cfg, impl, steps, eval_batches):
+    """What the code implies (module docstring): one attention call per
+    block; with remat each block's forward runs again in the backward; the
+    eval runs the forward only, under no_grad."""
+    per_forward = cfg.vit.depth + cfg.vit.dec_depth
+    passes = 2 if cfg.train.remat_blocks else 1
+    return {
+        "som_fused": steps + eval_batches,
+        "attention_fwd": (steps * passes + eval_batches) * per_forward if impl == "pallas" else 0,
+        "attention_bwd": steps * per_forward if impl in ("pallas", "hybrid") else 0,
+    }
+
+
+def train_run(dev, label, impl, steps, evaluate):
+    """Trains the flagship yaml (attention ``impl``, or as shipped when
+    None) for ``steps`` steps and, with ``evaluate``, runs the clustering
+    eval; prints and checks what every train phase checks. Returns
+    (cfg, dm, trainer, hist, launches)."""
+    over = {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE}
+    if impl is not None:
+        over["train.attn_impl"] = impl
+    cfg = load_config(CONFIG, over)
+    impl = model_attn_impl(cfg)
     print(
-        f"config: map={cfg.som.map_size} emb={cfg.vit.emb_dim} depth={cfg.vit.depth} "
+        f"{label}: config map={cfg.som.map_size} emb={cfg.vit.emb_dim} depth={cfg.vit.depth} "
         f"dec_emb={cfg.vit.dec_emb_dim} dec_depth={cfg.vit.dec_depth} heads={cfg.vit.heads} "
         f"batch={cfg.batch_size} distance={cfg.som.distance_fcn} "
         f"use_pallas_som={cfg.train.use_pallas_som} remat={cfg.train.remat_blocks} "
-        f"compute={cfg.train.compute_dtype}",
+        f"compute={cfg.train.compute_dtype} attn_impl={impl}",
         flush=True,
     )
     dm = build_datamodule(cfg, dev)
     trainer = Trainer(cfg, device=dev, dm=dm)
     n_params = sum(p.numel() for p in trainer.model.parameters())
-    eval_batches = dm.n_train // cfg.batch_size
+    eval_batches = dm.n_train // cfg.batch_size if evaluate else 0
 
-    som_fused.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
-    hist = trainer.fit(max_steps=TRAIN_STEPS)
-    res = trainer.evaluate()
+    hist = trainer.fit(max_steps=steps)
+    res = trainer.evaluate() if evaluate else None
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = som_fused.LAUNCHES
+    launches = read_launches()
+    want = expected_launches(cfg, impl, trainer.step, eval_batches)
 
     recon = hist["train/recon_loss"]
     total = hist["train/total_loss"]
-    steady = trainer.step_ms[5:]
-    step_ms = statistics.median(steady)
+    step_ms = statistics.median(trainer.step_ms[5:])
     print(
-        f"train: params={n_params} images={dm.n_train} steps={trainer.step} "
+        f"{label}: params={n_params} images={dm.n_train} steps={trainer.step} "
         f"recon_loss first={recon[0]:.6f} last={recon[-1]:.6f} "
         f"total_loss last={total[-1]:.6f} som_loss last={hist['train/som_loss'][-1]:.6f}",
         flush=True,
     )
     print(
-        f"train: median_step_ms={step_ms:.4f} images_per_s={cfg.batch_size / step_ms * 1e3:.1f} "
+        f"{label}: median_step_ms={step_ms:.4f} images_per_s={cfg.batch_size / step_ms * 1e3:.1f} "
         f"(steps 6-{trainer.step}, CUDA events between step ends) wall_s={wall:.3f}",
         flush=True,
     )
+    if res is not None:
+        print(
+            f"{label} eval: purity={res['purity']:.4f} nmi={res['nmi']:.4f} "
+            f"batches={eval_batches} inference_s={res['inference_time']:.4f}",
+            flush=True,
+        )
+        check(0.0 <= res["purity"] <= 1.0 and 0.0 <= res["nmi"] <= 1.0, "bad purity/NMI")
     print(
-        f"eval: purity={res['purity']:.4f} nmi={res['nmi']:.4f} "
-        f"batches={eval_batches} inference_s={res['inference_time']:.4f}",
+        f"{label} launches: " + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items())
+        + f" [train steps {trainer.step}, eval batches {eval_batches}]",
         flush=True,
     )
-    print(
-        f"launches: som_fused={launches} expected={trainer.step + eval_batches} "
-        f"(train steps {trainer.step} + eval batches {eval_batches})",
-        flush=True,
-    )
-    check(trainer.step == TRAIN_STEPS, f"trained {trainer.step} steps, not {TRAIN_STEPS}")
+    check(trainer.step == steps, f"trained {trainer.step} steps, not {steps}")
     check(all(math.isfinite(v) for v in total), "non-finite total loss")
+    check(all(math.isfinite(v) for v in hist["train/som_loss"]), "non-finite SOM loss")
     check(recon[-1] < recon[0], f"recon loss did not fall: {recon[0]} -> {recon[-1]}")
-    check(launches == trainer.step + eval_batches, "kernel launch count != steps + eval batches")
-    check(0.0 <= res["purity"] <= 1.0 and 0.0 <= res["nmi"] <= 1.0, "bad purity/NMI")
+    check(launches == want, f"{label}: launch counts {launches} != {want}")
+    return cfg, dm, trainer, hist, launches
+
+
+def phase_train(dev):
+    """Phase 4; returns (the SOM kernel's launch count over the main path,
+    the step-0 losses)."""
+    cfg, dm, trainer, hist, launches = train_run(dev, "train", None, TRAIN_STEPS, evaluate=True)
 
     # the kernel-based eval step against the plain SOM path on one batch
     model = trainer.model
@@ -310,7 +391,143 @@ def phase_train(dev):
     )
     check(mism == 0 and serr <= TOL + TOL * abs(float(ref_som)), "eval step disagrees with plain path")
     check(tuple(recon_img.shape) == (cfg.batch_size, 28, 28, 1), "bad recon shape")
+    return launches["som_fused"], {k: float(hist[k][0]) for k in FIRST_LOSSES}
+
+
+def phase_train_attention(dev, impl, steps, evaluate, xla_first):
+    """Phases 7 and 8; returns the launch counts."""
+    _, _, _, hist, launches = train_run(dev, f"train_{impl}", impl, steps, evaluate)
+    for k in FIRST_LOSSES:
+        a, b = float(hist[k][0]), xla_first[k]
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        print(f"train_{impl} step0 {k}={a:.8f} xla={b:.8f} rel_err={rel:.3e}", flush=True)
+        check(rel <= TOL, f"{impl} step-0 {k} differs from the xla run: {a} vs {b}")
     return launches
+
+
+def attn_inputs(shape, seed, dev, strided):
+    """q, k, v [B, N, D] and a cotangent do. ``strided``: q, k, v are views
+    of one [B, N, 3, D] buffer, rows 3 D floats apart, as the model's
+    fused qkv projection hands them over below dim 128."""
+    b, n, h, hd = shape
+    d = h * hd
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        buf = torch.randn(b, n, 3, d, generator=g, device=dev)
+        q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+    else:
+        q, k, v = (torch.randn(b, n, d, generator=g, device=dev) for _ in range(3))
+    return q, k, v, torch.randn(b, n, d, generator=g, device=dev)
+
+
+def phase_attention_vs_plain(dev):
+    """Phase 6; returns the largest forward and backward errors."""
+    worst = {"attention_fwd": 0.0, "attention_bwd": 0.0}
+    for shape in ATTN_SHAPES:
+        b, n, h, hd = shape
+        for strided in (True, False):
+            q, k, v, do = attn_inputs(shape, 4000 + n + hd, dev, strided)
+            o, lse = attention_fused._kernel_forward(q, k, v, h)
+            o2, lse2 = attention_fused._kernel_forward(q, k, v, h)
+            ro, rlse = attention_fused.fused_attention_reference(q, k, v, h)
+            # the backward on the plain forward's residuals, beside its plain version
+            grads = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
+            grads2 = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
+            rgrads = attention_fused.fused_attention_bwd_reference(q, k, v, ro, rlse, do, h)
+            leaves = [x.detach().reshape(b, n, h, hd).requires_grad_() for x in (q, k, v)]
+            xo, _ = xla_attention(*leaves)
+            agrads = torch.autograd.grad(xo, leaves, do.reshape(b, n, h, hd))
+            torch.cuda.synchronize()
+            errs = {"o": allclose_err(o, ro, TOL, TOL), "lse": allclose_err(lse, rlse, TOL, TOL)}
+            for name, a, r, x in zip(("dq", "dk", "dv"), grads, rgrads, agrads):
+                errs[name] = allclose_err(a, r, TOL, TOL)
+                errs[name + "_vs_autograd"] = allclose_err(a, x.reshape(b, n, h * hd), TOL, TOL)
+            same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
+            layout = "strided" if strided else "contiguous"
+            print(
+                f"attention_vs_plain (B,N,H,hd)={shape} {layout}: "
+                + " ".join(f"{k}_max_abs_err={e:.3e}" for k, (e, _) in errs.items())
+                + f" deterministic={same}",
+                flush=True,
+            )
+            for k, (e, ok) in errs.items():
+                check(ok, f"attention {k} disagrees at {shape} {layout}: {e}")
+                side = "attention_fwd" if k in ("o", "lse") else "attention_bwd"
+                worst[side] = max(worst[side], e)
+            check(same, f"two attention kernel runs differ at {shape} {layout}")
+            check(o.shape == (b, n, h * hd) and lse.shape == (b, h, n), "bad attention output shape")
+    return worst
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend PyTorch's dispatcher picks for these inputs (printed
+    beside the library time only)."""
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "not reported"
+    from torch.nn.attention import SDPBackend
+
+    names = {m.value: name for name, m in SDPBackend.__members__.items()}
+    return names.get(int(choose(q, k, v)), "unknown")
+
+
+def phase_attention_timings(dev):
+    """Phase 9; returns {(shape, kernel name): row} of the timed shapes.
+
+    The kernels and plain versions take the main path's layout (strided
+    views below dim 128); the library call takes pre-transposed contiguous
+    [B, H, N, hd] tensors. Bytes count each input and output once; the
+    JAX CostEstimate's 7*B*N*D*4 backward bytes leaves out one tensor."""
+    rows = {}
+    l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    for shape in ATTN_TIMED:
+        b, n, h, hd = shape
+        d = h * hd
+        q, k, v, do = attn_inputs(shape, 5000 + n + hd, dev, strided=d < 128)
+        o, lse = attention_fused._kernel_forward(q, k, v, h)
+        heads_first = [x.reshape(b, n, h, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
+        leaves = [x.clone().requires_grad_() for x in heads_first]
+        do_t = do.reshape(b, n, h, hd).transpose(1, 2).contiguous()
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+        cases = {
+            "attention_fwd": (
+                {"kernel": lambda: attention_fused._kernel_forward(q, k, v, h),
+                 "plain": lambda: attention_fused.fused_attention_reference(q, k, v, h),
+                 "library": lambda: F.scaled_dot_product_attention(*heads_first)},
+                4 * b * h * n * n * hd, 16 * b * n * d + 4 * b * h * n, b * h * n * n,
+                sdpa_backend(*heads_first),
+            ),
+            "attention_bwd": (
+                {"kernel": lambda: attention_fused._kernel_backward(q, k, v, o, lse, do, h),
+                 "plain": lambda: attention_fused.fused_attention_bwd_reference(
+                     q, k, v, o, lse, do, h),
+                 "library": lambda: torch.autograd.grad(
+                     sdpa_out, leaves, do_t, retain_graph=True)},
+                10 * b * h * n * n * hd, 32 * b * n * d + 4 * b * h * n, b * h * n * n,
+                sdpa_backend(*leaves),
+            ),
+        }
+        for name, (fns, flops, nbytes, n_exp, backend) in cases.items():
+            t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}
+            t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            print(
+                f"timing {name} (B,N,H,hd)={shape} ({'strided' if d < 128 else 'contiguous'}, "
+                f"L2 flushed): kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
+                f"library_ms={t['library']:.5f} (sdpa backend {backend}) "
+                f"bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e6:.1f} MFLOP fp32, "
+                f"{nbytes / 1e6:.3f} MB; exp needed={n_exp / 1e6:.3f} M"
+                + (f", the kernel computes {2 * n_exp / 1e6:.3f} M in its two passes"
+                   if name == "attention_bwd" else "")
+                + f") kernel_share_of_bound={bound_ms / t['kernel']:.4f}",
+                flush=True,
+            )
+            rows[(shape, name)] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                       library_ms=t["library"], bound_ms=bound_ms,
+                                       bound_by=bound_by)
+    return rows
 
 
 def phase_timings(dev):
@@ -357,6 +574,21 @@ def phase_timings(dev):
     return rows[next(iter(MAPS))]
 
 
+def phase_build():
+    """Phase 2: one nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        infos = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+    print(f"build: {time.perf_counter() - t0:.2f} s for "
+          + ", ".join(f"{name}.cu ({info['seconds']:.2f} s)" for name, info in infos.items()),
+          flush=True)
+    for name, info in infos.items():
+        for line in info["log"].splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill")) or (
+                    "error" in line.lower()):
+                print(f"build[{name}]: {line.strip()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -368,16 +600,14 @@ def main() -> int:
               f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
         print(f"nvidia-smi: {smi}", flush=True)
 
-        t0 = time.perf_counter()
-        info = _build.build("som_fused")
-        print(f"build: {time.perf_counter() - t0:.2f} s for som_fused.cu", flush=True)
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"build[som_fused]: {line.strip()}", flush=True)
-
+        phase_build()
         max_err = phase_kernel_vs_plain(dev)
-        launches = phase_train(dev)
+        som_launches, xla_first = phase_train(dev)
         timing = phase_timings(dev)
+        attn_err = phase_attention_vs_plain(dev)
+        pallas = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
+        phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
+        attn_timing = phase_attention_timings(dev)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -387,10 +617,21 @@ def main() -> int:
         "route": "cuda",
         "source": "vitsom_tpu_torch/ops/csrc/som_fused.cu",
         "replaces": "vitsom_tpu/ops/som_pallas.py:95",
-        "launches": launches,
+        "launches": som_launches,
         "max_abs_err": max_err,
         **timing,
     }]
+    for name, replaces in (("attention_fwd", "vitsom_tpu/ops/attention_pallas.py:100"),
+                           ("attention_bwd", "vitsom_tpu/ops/attention_pallas.py:163")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vitsom_tpu_torch/ops/csrc/attention.cu",
+            "replaces": replaces,
+            "launches": pallas[name],
+            "max_abs_err": attn_err[name],
+            **attn_timing[(ATTN_TIMED[0], name)],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vitsom_tpu"))
-print(len(names))
+print(len(names), "vitsom_tpu_torch.ops.attention_fused" in names)
 print("BAD", bad)
 """
 
@@ -36,8 +36,9 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n_modules) >= 20
+    counts, bad = out.stdout.strip().splitlines()[-2:]
+    n_modules, has_attention = counts.split()
+    assert int(n_modules) >= 21 and has_attention == "True"
     assert bad == "BAD []", bad
 
 
@@ -69,6 +70,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(os.path, "isfile", lambda path: False)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("som_fused")
+    for name in ("som_fused", "attention"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(name)
     assert list(tmp_path.iterdir()) == []

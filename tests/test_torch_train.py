@@ -30,14 +30,14 @@ from vitsom_tpu_torch import convert
 from vitsom_tpu_torch.data import synthetic as tdata
 from vitsom_tpu_torch.eval import metrics as tmetrics
 from vitsom_tpu_torch.models.vit_som import ViTSOM as TViTSOM
-from vitsom_tpu_torch.ops import som_fused
+from vitsom_tpu_torch.ops import attention_fused, som_fused
 from vitsom_tpu_torch.train import optim as toptim
 from vitsom_tpu_torch.train import schedules as tsched
 from vitsom_tpu_torch.train import steps as tsteps
 from vitsom_tpu_torch.train import trainer as ttrainer
 
 
-def _slice_cfg(use_pallas=True, **opt):
+def _slice_cfg(use_pallas=True, attn_impl="", remat=False, **opt):
     """The config of test_pallas_kernels.py's fused-vs-XLA train-step test."""
     return Config(
         model_arch="vit_som",
@@ -47,7 +47,7 @@ def _slice_cfg(use_pallas=True, **opt):
         som=SOMConfig(map_size=(4, 4), t_max=5.0, t_min=0.1, distance_fcn="cosine"),
         vit=ViTConfig(patch_size=7, emb_dim=16, depth=1, heads=2, dec_emb_dim=8, dec_depth=1),
         data=DataConfig(dataset="mnist", num_classes=0, num_channels=1, input_size=28),
-        train=TrainConfig(use_pallas_som=use_pallas),
+        train=TrainConfig(use_pallas_som=use_pallas, attn_impl=attn_impl, remat_blocks=remat),
         optimizer=OptimizerConfig(**opt),
     ).validate()
 
@@ -58,9 +58,9 @@ def _init_params():
     return jax.jit(model.init)(jax.random.key(0), jnp.zeros((4, 28, 28, 1)))["params"]
 
 
-def _torch_model(jcfg, params):
+def _torch_model(jcfg, params, attn_impl="xla"):
     tcfg = tconfig.config_from_dict(jcfg.to_dict())
-    model = TViTSOM(tcfg)
+    model = TViTSOM(tcfg, attn_impl=attn_impl)
     model.load_state_dict(convert.flax_to_state_dict(params), strict=True)
     return tcfg, model
 
@@ -236,9 +236,21 @@ def _capture_grads(tx):
     return optax.GradientTransformation(init, update)
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_train_steps_match(use_pallas):
-    """Three steps from the same weights and batches. The first step's
+@pytest.mark.parametrize(
+    "use_pallas,attn_impl,remat",
+    [
+        pytest.param(True, "xla", False, id="True"),
+        pytest.param(False, "xla", False, id="False"),
+        pytest.param(True, "pallas", False, id="True-pallas"),
+        pytest.param(True, "hybrid", False, id="True-hybrid"),
+        pytest.param(True, "pallas", True, id="True-pallas-remat"),
+    ],
+)
+def test_train_steps_match(use_pallas, attn_impl, remat):
+    """Three steps from the same weights and batches, with the attention
+    impl ``attn_impl`` on both sides (``pallas``/``hybrid``: the Pallas
+    kernels in interpret mode against the port's plain versions of its CUDA
+    kernels) and, in one case, block remat. The first step's
     gradients hold at atol 1e-6 / rtol 1e-4 and every step's losses at
     rtol 1e-5.
 
@@ -255,9 +267,9 @@ def test_train_steps_match(use_pallas):
     6 * lr = 2 * 3 steps * lr. At least 99 % of the components must be
     held to the tight bound. ``test_optimizer_update_matches`` holds the
     AdamW update itself (moments, eps, decay, layer scales) tightly."""
-    jcfg = _slice_cfg(use_pallas)
+    jcfg = _slice_cfg(use_pallas, attn_impl=attn_impl, remat=remat)
     params = _init_params()
-    jmodel = JViTSOM(jcfg)
+    jmodel = JViTSOM(jcfg, attn_impl=attn_impl)
     statics = jsteps.StepStatics(steps_per_epoch=3, total_epochs=2, dataset_len=12, batch_size=4)
     jsch = jsched.make_lr_schedule(jcfg.optimizer, 2, 3, joptim.base_learning_rate(jcfg))
     tx = _capture_grads(joptim.make_optimizer(jcfg, params, jsch))
@@ -266,7 +278,7 @@ def test_train_steps_match(use_pallas):
     )
     jstep = jax.jit(jsteps.make_vit_som_train_step(jcfg, jmodel, tx, statics, jsch))
 
-    tcfg, tmodel = _torch_model(jcfg, params)
+    tcfg, tmodel = _torch_model(jcfg, params, attn_impl)
     opt = toptim.make_optimizer(tcfg, tmodel)
     tstatics = tsteps.StepStatics(3, 2, 12, 4)
     tsch = tsched.make_lr_schedule(tcfg.optimizer, 2, 3, toptim.base_learning_rate(tcfg))
@@ -277,7 +289,7 @@ def test_train_steps_match(use_pallas):
     agree = {name: torch.ones_like(p, dtype=torch.bool) for name, p in named.items()}
 
     xs = np.random.default_rng(7).uniform(size=(3, 4, 28, 28, 1)).astype(np.float32)
-    launches = som_fused.LAUNCHES
+    launches = som_fused.LAUNCHES, attention_fused.LAUNCHES_FWD, attention_fused.LAUNCHES_BWD
     for i in range(3):
         state, jm = jstep(state, {"image": jnp.asarray(xs[i]), "label": jnp.zeros((4,), jnp.int32)})
         tm = tstep(i, {"image": torch.from_numpy(xs[i])})
@@ -291,7 +303,8 @@ def test_train_steps_match(use_pallas):
             if i == 0:
                 np.testing.assert_allclose(tg.numpy(), g.numpy(), atol=1e-6, rtol=1e-4, err_msg=name)
             agree[name] &= (tg - g).abs() <= 1e-3 * g.abs().clamp_min(eps)
-    assert som_fused.LAUNCHES == launches  # CPU tensors take the plain version
+    # CPU tensors take the plain versions
+    assert (som_fused.LAUNCHES, attention_fused.LAUNCHES_FWD, attention_fused.LAUNCHES_BWD) == launches
 
     lr = tsch(0)
     assert all(tsch(i) == lr for i in range(3))

@@ -2,9 +2,11 @@
 
 Counterpart of ``vitsom_tpu/ops/attention.py``. The ``"xla"`` path is plain
 eager attention in float32: two batched products and a softmax, which the
-JAX package leaves to XLA outside any Pallas kernel. The other ``impl`` keys
-keep their names so that configs read the same; their kernels are later
-items of the port (ROADMAP.md Queue 2 items 2-3, Queue 1 item 4).
+JAX package leaves to XLA outside any Pallas kernel. ``"pallas"`` runs the
+hand-written CUDA forward and backward kernels (``attention_fused``);
+``"hybrid"`` pairs the eager forward with the backward kernel. The bf16
+impls keep their names so that configs read the same; they are a later
+slice of the port (ROADMAP.md Queue 1, bf16 compute path).
 """
 
 from __future__ import annotations
@@ -13,11 +15,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from vitsom_tpu_torch.ops.attention_fused import (
+    FusedAttention, fused_attention, fused_attention_reference,
+)
+
 _LATER = {
-    "pallas": "the hand-written attention forward/backward kernels (ROADMAP Queue 2 items 2-3)",
-    "hybrid": "the attention backward kernel (ROADMAP Queue 2 item 3)",
-    "xla_bf16": "the bf16 compute path (ROADMAP Queue 1 item 4, bf16 attention)",
-    "xla_bf16s": "the bf16 compute path (ROADMAP Queue 1 item 4, bf16 attention)",
+    "xla_bf16": "the bf16 compute path (ROADMAP Queue 1, bf16 attention)",
+    "xla_bf16s": "the bf16 compute path (ROADMAP Queue 1, bf16 attention)",
 }
 
 
@@ -42,6 +46,31 @@ def xla_attention(
     return out, (attn if return_attn else None)
 
 
+class HybridAttention(FusedAttention):
+    """Eager forward, backward kernel: the JAX package's ``hybrid_attention``.
+
+    The forward has the numerics of ``_hybrid_fwd`` (max, exp, denominator,
+    ``p / denom``, ``lse = m + log(denom)``), which is the forward kernel's
+    plain version, run eagerly on any device. Inside an autograd.Function
+    it records no graph, so only the [B, N, D]-sized residuals (q, k, v, o)
+    and lse [B, H, N] are kept; the backward (inherited) launches the
+    backward kernel on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        o, lse = fused_attention_reference(q, k, v, heads)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.heads = heads
+        return o
+
+
+def hybrid_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q, k, v: [B, N, H, hd] -> out [B, N, H, hd]."""
+    b, n, h, hd = q.shape
+    o = HybridAttention.apply(*(x.reshape(b, n, h * hd) for x in (q, k, v)), h)
+    return o.reshape(b, n, h, hd)
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -50,12 +79,16 @@ def multi_head_attention(
     return_attn: bool = False,
     bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Dispatch over attention implementations; only ``"xla"`` is ported.
+    """Dispatch over attention implementations, as the JAX package does.
 
-    As in the JAX package, ``return_attn=True`` takes the float32
-    :func:`xla_attention` path whatever ``impl`` says (offline visualisation
-    only)."""
-    if impl != "xla" and not return_attn:
+    ``return_attn=True`` takes the float32 :func:`xla_attention` path
+    whatever ``impl`` says (offline visualisation only), and so does a
+    ``bias`` with ``pallas``/``hybrid``, whose kernels take none."""
+    if impl == "pallas" and not return_attn and bias is None:
+        return fused_attention(q, k, v), None
+    if impl == "hybrid" and not return_attn and bias is None:
+        return hybrid_attention(q, k, v), None
+    if impl not in ("xla", "pallas", "hybrid") and not return_attn:
         if impl in _LATER:
             raise NotImplementedError(
                 f"attn_impl={impl!r} is not ported yet; it arrives with {_LATER[impl]}"

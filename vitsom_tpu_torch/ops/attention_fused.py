@@ -1,0 +1,234 @@
+"""Fused multi-head attention: hand-written CUDA forward and backward kernels.
+
+Counterpart of ``vitsom_tpu/ops/attention_pallas.py``. The kernels in
+``csrc/attention.cu`` replace its TPU kernels ``_attn_fwd_kernel`` and
+``_attn_bwd_kernel``; the source's header gives their design and their bound
+on the H100. Tensors stay in the model's [B, N, D] layout (D = H * hd, heads
+are column slices), as in the JAX package:
+
+- forward: q, k, v -> o [B, N, D] and the row log-sum-exp lse [B, H, N];
+- backward: q, k, v, o, lse and the cotangent do -> dq, dk, dv [B, N, D],
+  recomputing the probabilities from lse (flash-attention residuals: no
+  N x N tensor is saved or written).
+
+On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
+tensor it runs the plain PyTorch version beside it. There is no fallback
+from one to the other. q, k and v may be strided views (the model slices
+them out of its fused qkv buffer) as long as their column stride is 1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from vitsom_tpu_torch.ops import _build
+
+# Kernel launches since the last reset (plain ints: chip_smoke.py zeroes
+# them before a main-path run and reads them after).
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+
+# head dims the kernels are built for (csrc/attention.cu, ATTN_HEAD_DIMS)
+HEAD_DIMS = (2, 8, 16, 32, 48, 64)
+# dynamic shared memory one block may opt into on Hopper (H100, H200)
+SMEM_LIMIT_BYTES = 232448
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("attention")
+        view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]  # ptr, batch/row strides
+        dims = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]  # B, N, H, hd, scale, stream
+        lib.attention_forward.argtypes = view * 3 + [ctypes.c_void_p] * 2 + dims
+        lib.attention_forward.restype = ctypes.c_int
+        lib.attention_backward.argtypes = (
+            view * 4 + [ctypes.c_void_p] + view + [ctypes.c_void_p] * 3 + dims
+        )
+        lib.attention_backward.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def smem_bytes(n: int, head_dim: int, backward: bool) -> int:
+    """Dynamic shared memory of one CTA: two staged [N, hd] operands, plus
+    lse and delta rows in the backward."""
+    return 4 * (2 * n * head_dim + (2 * n if backward else 0))
+
+
+def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, n, d = x.shape
+    return x.reshape(b, n, heads, d // heads)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def fused_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: [B, N, D] q, k, v ->
+    (o [B, N, D], lse [B, H, N]), the outputs of ``_fused_attention_fwd_impl``
+    in the JAX package (and the numerics of its ``_hybrid_fwd``)."""
+    b, n, d = q.shape
+    scale = (d // heads) ** -0.5
+    scores = torch.einsum("bnhd,bmhd->bhnm", _split(q, heads), _split(k, heads)) * scale
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bhnm,bmhd->bnhd", p / denom, _split(v, heads))
+    return o.reshape(b, n, d), (m + torch.log(denom))[..., 0]
+
+
+def fused_attention_bwd_reference(q, k, v, o, lse, do, heads: int):
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv), each
+    [B, N, D], as ``_fused_attention_bwd_impl`` computes them."""
+    b, n, d = q.shape
+    scale = (d // heads) ** -0.5
+    qh, kh, vh, oh, doh = (_split(x, heads) for x in (q, k, v, o, do))
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale - lse[..., None])
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, doh)
+    dp = torch.einsum("bnhd,bmhd->bhnm", doh, vh)
+    delta = torch.sum(doh * oh, dim=-1).transpose(1, 2)[..., None]  # [B, H, N, 1]
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kh)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qh)
+    return tuple(x.reshape(b, n, d) for x in (dq, dk, dv))
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def _check(tensors, heads: int, backward: bool):
+    """(B, N, hd) after checking what the kernels take; raises otherwise."""
+    ref = tensors[0]
+    if ref.ndim != 3:
+        raise ValueError(f"attention kernels take [B, N, D] tensors, got {tuple(ref.shape)}")
+    b, n, d = ref.shape
+    for x in tensors:
+        if not x.is_cuda or x.device != ref.device:
+            raise ValueError("attention kernel inputs must be on the same CUDA device")
+        if x.dtype != torch.float32:
+            raise TypeError(f"attention kernels take float32, got {x.dtype}")
+        if tuple(x.shape) != (b, n, d):
+            raise ValueError(f"shape {tuple(x.shape)} differs from {(b, n, d)}")
+        if x.stride(2) != 1:
+            raise ValueError(f"attention kernels need unit column stride, got strides {x.stride()}")
+    if b < 1 or n < 1 or heads < 1 or d % heads:
+        raise ValueError(f"bad attention shape B={b} N={n} D={d} heads={heads}")
+    hd = d // heads
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not built; the kernels cover {HEAD_DIMS}")
+    need = smem_bytes(n, hd, backward)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"N={n} at head_dim {hd} needs {need} bytes of shared memory per block, "
+            f"more than {SMEM_LIMIT_BYTES}"
+        )
+    return b, n, hd
+
+
+def _view(x: torch.Tensor):
+    return (x.data_ptr(), x.stride(0), x.stride(1))
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _kernel_forward(q, k, v, heads: int):
+    global LAUNCHES_FWD
+    b, n, hd = _check((q, k, v), heads, backward=False)
+    o = torch.empty((b, n, heads * hd), device=q.device, dtype=torch.float32)
+    lse = torch.empty((b, heads, n), device=q.device, dtype=torch.float32)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.attention_forward(
+            *_view(q), *_view(k), *_view(v), o.data_ptr(), lse.data_ptr(),
+            b, n, heads, hd, hd**-0.5, _stream(q.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"attention_forward launch failed with code {rc}")
+    LAUNCHES_FWD += 1
+    return o, lse
+
+
+def _kernel_backward(q, k, v, o, lse, do, heads: int):
+    global LAUNCHES_BWD
+    b, n, hd = _check((q, k, v, o, do), heads, backward=True)
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (b, heads, n) or not lse.is_contiguous()):
+        raise ValueError("lse must be a contiguous float32 [B, H, N] tensor beside q")
+    dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=torch.float32)
+                  for _ in range(3))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.attention_backward(
+            *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(), *_view(do),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, n, heads, hd, hd**-0.5, _stream(q.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"attention_backward launch failed with code {rc}")
+    LAUNCHES_BWD += 1
+    return dq, dk, dv
+
+
+def attention_forward(q, k, v, heads: int):
+    """(o, lse): the forward kernel for CUDA tensors, its plain version for
+    CPU tensors."""
+    if q.is_cuda:
+        return _kernel_forward(q, k, v, heads)
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    return fused_attention_reference(q, k, v, heads)
+
+
+def attention_backward(q, k, v, o, lse, do, heads: int):
+    """(dq, dk, dv): the backward kernel for CUDA tensors, its plain version
+    for CPU tensors."""
+    if q.is_cuda:
+        return _kernel_backward(q, k, v, o, lse, do, heads)
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    return fused_attention_bwd_reference(q, k, v, o, lse, do, heads)
+
+
+# ---------------------------------------------------------------------------
+# autograd op
+# ---------------------------------------------------------------------------
+
+
+class FusedAttention(torch.autograd.Function):
+    """[B, N, D] q, k, v -> o. Saves (q, k, v, o, lse), the residuals of
+    ``attention_pallas.py:155``; the backward is the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        o, lse = attention_forward(q, k, v, heads)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.heads = heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        return (*attention_backward(q, k, v, o, lse, do, ctx.heads), None)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q, k, v: [B, N, H, hd] -> out [B, N, H, hd], softmax(q k^T / sqrt(hd)) v."""
+    b, n, h, hd = q.shape
+    o = FusedAttention.apply(*(x.reshape(b, n, h * hd) for x in (q, k, v)), h)
+    return o.reshape(b, n, h, hd)

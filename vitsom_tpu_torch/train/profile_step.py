@@ -1,9 +1,12 @@
 """Where the time of the port's ViT-SOM train step goes, on one card.
 
-    python -m vitsom_tpu_torch.train.profile_step [--steps 20] [--trace out/trace.json]
+    python -m vitsom_tpu_torch.train.profile_step [--steps 20] [--trace out/trace.json] \
+        [--override train.attn_impl=pallas]
 
 Builds the flagship config (``configs/vit_som/vit_som_mnist.yaml`` as
-shipped) on synthetic MNIST-shaped data, warms up, then prints:
+shipped, with any ``--override key=value``, yaml-parsed as the trainer's
+command line takes them) on synthetic MNIST-shaped data, warms up, then
+prints:
 
 1. ``wall``: the median step time of the trainer's own step, host clock,
    synchronised after each step, with no profiler attached;
@@ -12,7 +15,8 @@ shipped) on synthetic MNIST-shaped data, warms up, then prints:
    launched per step, the device's idle share of the profiled wall time,
    the device-side span of the optimizer's own ``Optimizer.step`` range
    (which ``torch.optim`` records; from its first kernel's start to its
-   last kernel's end, gaps included), and the kernels with the most device
+   last kernel's end, gaps included), the share of busy time in the fused
+   SOM and the attention kernels, and the kernels with the most device
    time. ``--trace`` writes the Chrome trace.
 
 Needs a CUDA card; imports nothing of JAX.
@@ -29,6 +33,7 @@ import time
 import torch
 
 from vitsom_tpu_torch.config import load_config
+from vitsom_tpu_torch.models.vit_som import model_attn_impl
 from vitsom_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -45,18 +50,26 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace", type=str, default=None, help="write the Chrome trace here")
+    ap.add_argument("--override", action="append", default=[],
+                    help="dotted config override key=value (yaml-parsed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
 
+    import yaml
+
     overrides = {"data.allow_synthetic": True, "data.synthetic_size": 4096}
+    for ov in args.override:
+        k, _, v = ov.partition("=")
+        overrides[k] = yaml.safe_load(v)
     cfg = load_config(os.path.join(ROOT, "configs/vit_som/vit_som_mnist.yaml"), overrides)
     tr = Trainer(cfg, device="cuda")
     batches = list(tr.dm.train_batches(torch.Generator().manual_seed(0)))
     n = args.steps
     print(f"device: {torch.cuda.get_device_name(0)} torch={torch.__version__} "
-          f"map={cfg.som.map_size} batch={cfg.batch_size} steps={n}", flush=True)
+          f"map={cfg.som.map_size} batch={cfg.batch_size} steps={n} "
+          f"attn_impl={model_attn_impl(cfg)}", flush=True)
 
     step = 0
 
@@ -107,9 +120,11 @@ def main(argv=None):
         f"kernels_per_step={len(kernels) / n:.1f}",
         flush=True,
     )
-    som_us = sum(_device_us(e) for e in rows if "som_" in e.key)
-    print(f"profile: som_fused_kernels_ms_per_step={som_us / 1e3 / n:.4f} "
-          f"share_of_busy={som_us / max(busy_us, 1e-9):.4f}", flush=True)
+    for label, tag in (("som_fused_kernels", "som_"), ("attention_fwd_kernel", "attn_fwd_kernel"),
+                       ("attention_bwd_kernel", "attn_bwd_kernel")):
+        us = sum(_device_us(e) for e in rows if tag in e.key)
+        print(f"profile: {label}_ms_per_step={us / 1e3 / n:.4f} "
+              f"share_of_busy={us / max(busy_us, 1e-9):.4f}", flush=True)
     opt_us = sum(_device_us(e) for e in averages if annotation(e) and "Optimizer.step" in e.key)
     print(f"profile: optimizer_step_device_span_ms_per_step={opt_us / 1e3 / n:.4f}"
           if opt_us else "profile: optimizer_step_device_span_ms_per_step=not recorded",
