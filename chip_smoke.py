@@ -44,22 +44,60 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. attention timings: each kernel, its plain version and one library call
    (``scaled_dot_product_attention`` and its gradient, which the port never
    calls) against the bound, at (128, 197, 2, 8), (128, 197, 2, 2) and
-   (128, 65, 3, 64), L2 flushed, with phase 5's timer.
+   (128, 65, 3, 64), L2 flushed, with phase 5's timer;
+10. fused block kernels vs plain: the forward kernel's y against its plain
+   version (atol 2e-5, rtol 1e-5, ``tests/test_block_pallas.py:64``) and
+   against the port's eager ``models/vit.Block``; the backward kernel's dx
+   and 12 weight gradients against its plain version (the closed form) and
+   against autograd through the eager Block (atol 2e-5, rtol 1e-4,
+   ``:89-94``, and the largest difference at most 1e-4 of the largest
+   gradient), at (B, N, D, H, mlp_ratio) = (128, 197, 16, 2, 4) and
+   (128, 197, 4, 2, 4) (the flagship's encoder and decoder blocks at full
+   width) and the JAX tests' (8, 197, 16, 2, 4), (4, 65, 24, 3, 4),
+   (3, 17, 16, 2, 2), (4, 33, 16, 2, 4); two runs of each kernel must agree
+   bitwise. Weights are xavier-uniform with biases and LayerNorm parameters
+   0.02 off their init; the cotangent is a standard normal at the JAX tests'
+   shapes (their own) and a standard normal over B at B 128, the cotangent
+   of a batch-mean loss: a unit cotangent summed over 128 x 197 rows gives
+   weight gradients of ~400, where two float32 summation orders already
+   differ by more than atol 2e-5;
+11. the fused block on the flagship's activations, the slice's main path:
+   phase 4's trained model runs one eval batch while every block's input is
+   captured (4 encoder, 2 decoder blocks); each goes through
+   ``make_fused_block`` with ``block_weights(blk)`` and is held against
+   ``blk(x)`` at phase 10's bounds; then a fixed cotangent is backpropagated
+   through the first encoder and the first decoder block both ways and the
+   parameters' and inputs' gradients compared;
+12. block timings at the two flagship shapes: each kernel (the backward with
+   its reduction launch), its plain version, and the port's eager Block
+   (forward under no_grad, and forward + backward) with ``attn_impl`` xla
+   and pallas, L2 flushed, against the bound. No single PyTorch call
+   computes a block, so the eager xla Block stands in the ``library_ms``
+   column. Bounds: forward 2 B N (4 D^2 + 2 D M) + 4 B H N^2 hd operations;
+   backward the forward + 4 B N (4 D^2 + 2 D M) (each product's input and
+   weight gradients) + 8 B H N^2 hd (dv = p^T do, dp = do v^T, dq = ds k,
+   dk = ds^T q); bytes x and y (x, dy and dx) and the weights (in the
+   backward also their summed gradients). The backward kernel's second
+   q k^T (p recomputed from lse) and its [B, W] partial gradients are
+   artifacts of its design, not of the function, and are not counted.
 
 Launch counts on a train run of S steps and E eval batches, with one
 attention call per block (A = depth + dec_depth = 6 on the flagship) and
 remat_blocks (each block's forward runs again in the backward): the fused
 SOM kernel runs S + E times; with ``pallas`` the attention forward kernel
 runs (2 S + E) A times and the backward kernel S A times; with ``hybrid``
-the forward kernel 0 times and the backward kernel S A times.
+the forward kernel 0 times and the backward kernel S A times. No train run
+launches a block kernel. Phase 11 launches the block forward kernel once per
+flagship block plus once for each of the two blocks it backpropagates
+through (6 + 2 = 8), and the backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the result.
-The whole script takes about 30 seconds on an H100, the builds (~5 s)
-included.
+The whole script takes about 50 seconds on an H100, the builds included.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -73,25 +111,35 @@ import torch
 import torch.nn.functional as F
 
 from vitsom_tpu_torch.config import load_config
+from vitsom_tpu_torch.convert import block_weights
 from vitsom_tpu_torch.data.synthetic import build_datamodule
+from vitsom_tpu_torch.models.vit import Block
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
-from vitsom_tpu_torch.ops import _build, attention_fused, som_fused
+from vitsom_tpu_torch.ops import _build, attention_fused, block_fused, som_fused
 from vitsom_tpu_torch.ops.attention import xla_attention
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import steps as steps_lib
 from vitsom_tpu_torch.train.trainer import Trainer
+from vitsom_tpu_torch.utils import initializers
 from vitsom_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_mnist.yaml")
 TRAIN_STEPS = 40
 HYBRID_STEPS = 10
-KERNEL_SOURCES = ("som_fused", "attention")
+KERNEL_SOURCES = ("som_fused", "attention", "block")
 # (B, N, H, hd): the flagship's encoder and decoder, the emb-192 configs'
 # encoder and decoder, and the largest N of a shipped ViT config
 ATTN_SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 3, 64), (128, 65, 3, 32),
                (128, 257, 3, 64)]
 ATTN_TIMED = ATTN_SHAPES[:3]
+# (B, N, D, H, mlp_ratio): the flagship's encoder and decoder blocks at full
+# width, then the JAX tests' blocks (tests/test_block_pallas.py:46-53, :68)
+BLOCK_SHAPES = [(128, 197, 16, 2, 4.0), (128, 197, 4, 2, 4.0), (8, 197, 16, 2, 4.0),
+                (4, 65, 24, 3, 4.0), (3, 17, 16, 2, 2.0), (4, 33, 16, 2, 4.0)]
+BLOCK_TIMED = BLOCK_SHAPES[:2]
+BLOCK_Y_TOL = (2e-5, 1e-5)
+BLOCK_GRAD_TOL = (2e-5, 1e-4)
 FIRST_LOSSES = ("train/recon_loss", "train/som_loss", "train/total_loss")
 SYNTHETIC_SIZE = 4096  # + 819 test images, concatenated for clustering
 B, EMB, D = 128, 16, 3136  # D = 196 patch tokens x emb 16
@@ -278,11 +326,14 @@ def reset_launches():
     som_fused.LAUNCHES = 0
     attention_fused.LAUNCHES_FWD = 0
     attention_fused.LAUNCHES_BWD = 0
+    block_fused.LAUNCHES_FWD = 0
+    block_fused.LAUNCHES_BWD = 0
 
 
 def read_launches():
     return {"som_fused": som_fused.LAUNCHES, "attention_fwd": attention_fused.LAUNCHES_FWD,
-            "attention_bwd": attention_fused.LAUNCHES_BWD}
+            "attention_bwd": attention_fused.LAUNCHES_BWD,
+            "block_fwd": block_fused.LAUNCHES_FWD, "block_bwd": block_fused.LAUNCHES_BWD}
 
 
 def expected_launches(cfg, impl, steps, eval_batches):
@@ -295,6 +346,8 @@ def expected_launches(cfg, impl, steps, eval_batches):
         "som_fused": steps + eval_batches,
         "attention_fwd": (steps * passes + eval_batches) * per_forward if impl == "pallas" else 0,
         "attention_bwd": steps * per_forward if impl in ("pallas", "hybrid") else 0,
+        "block_fwd": 0,
+        "block_bwd": 0,
     }
 
 
@@ -366,7 +419,7 @@ def train_run(dev, label, impl, steps, evaluate):
 
 def phase_train(dev):
     """Phase 4; returns (the SOM kernel's launch count over the main path,
-    the step-0 losses)."""
+    the step-0 losses, the trainer, the data module)."""
     cfg, dm, trainer, hist, launches = train_run(dev, "train", None, TRAIN_STEPS, evaluate=True)
 
     # the kernel-based eval step against the plain SOM path on one batch
@@ -391,7 +444,7 @@ def phase_train(dev):
     )
     check(mism == 0 and serr <= TOL + TOL * abs(float(ref_som)), "eval step disagrees with plain path")
     check(tuple(recon_img.shape) == (cfg.batch_size, 28, 28, 1), "bad recon shape")
-    return launches["som_fused"], {k: float(hist[k][0]) for k in FIRST_LOSSES}
+    return launches["som_fused"], {k: float(hist[k][0]) for k in FIRST_LOSSES}, trainer, dm
 
 
 def phase_train_attention(dev, impl, steps, evaluate, xla_first):
@@ -574,6 +627,213 @@ def phase_timings(dev):
     return rows[next(iter(MAPS))]
 
 
+def block_inputs(shape, seed, dev):
+    """(the port's eager Block, x, the cotangent dy) at ``shape``: xavier-
+    uniform weights, biases and LayerNorm parameters 0.02 off their init;
+    dy over B at B 128 (module docstring, phase 10)."""
+    b, n, d, h, ratio = shape
+    g = torch.Generator().manual_seed(seed)
+    blk = Block(d, h, ratio)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if p.ndim == 2:
+                initializers.xavier_uniform_(p, g)
+            else:
+                p.copy_(float(name.endswith("norm1.weight") or name.endswith("norm2.weight"))
+                        + 0.02 * torch.randn(p.shape, generator=g))
+    x = torch.randn(b, n, d, generator=g)
+    dy = torch.randn(b, n, d, generator=g) / (b if b >= 128 else 1)
+    return blk.to(dev), x.to(dev), dy.to(dev)
+
+
+def block_param_grads(blk):
+    """The eager Block's parameter gradients in the fused weight layout."""
+    shadow = copy.deepcopy(blk)
+    with torch.no_grad():
+        for p, q in zip(shadow.parameters(), blk.parameters()):
+            p.copy_(q.grad)
+    return {k: v.detach() for k, v in block_weights(shadow).items()}
+
+
+def grad_err(a, b):
+    """(max |a - b|, within atol 2e-5 / rtol 1e-4 everywhere and at most 1e-4
+    of max |b|)."""
+    err, ok = allclose_err(a, b, *BLOCK_GRAD_TOL)
+    return err, ok and err <= GRAD_REL_TO_MAX * float(b.abs().max())
+
+
+def phase_block_vs_plain(dev):
+    """Phase 10; returns the largest forward and backward errors against the
+    plain versions."""
+    worst = {"block_fwd": 0.0, "block_bwd": 0.0}
+    for shape in BLOCK_SHAPES:
+        b, n, d, h, ratio = shape
+        blk, x, dy = block_inputs(shape, 6000 + n + d, dev)
+        w = {k: v.detach() for k, v in block_weights(blk).items()}
+        y = block_fused._kernel_forward(x, w, h)
+        y2 = block_fused._kernel_forward(x, w, h)
+        yr = block_fused.fused_block_reference(x, w, h)
+        dx, dw = block_fused._kernel_backward(x, dy, w, h)
+        dx2, dw2 = block_fused._kernel_backward(x, dy, w, h)
+        dxr, dwr = block_fused.fused_block_bwd_reference(x, dy, w, h)
+        xl = x.clone().requires_grad_()
+        ye = blk(xl)
+        ye.backward(dy)
+        dwa = block_param_grads(blk)
+        torch.cuda.synchronize()
+        errs = {"y": allclose_err(y, yr, *BLOCK_Y_TOL),
+                "y_vs_eager": allclose_err(y, ye.detach(), *BLOCK_Y_TOL),
+                "dx": grad_err(dx, dxr), "dx_vs_autograd": grad_err(dx, xl.grad)}
+        rel = 0.0
+        for name in block_fused.WEIGHT_NAMES:
+            errs[name] = grad_err(dw[name], dwr[name])
+            errs[name + "_vs_autograd"] = grad_err(dw[name], dwa[name])
+            rel = max(rel, errs[name][0] / float(dwr[name].abs().max()))
+        same = (torch.equal(y, y2) and torch.equal(dx, dx2)
+                and all(torch.equal(dw[k], dw2[k]) for k in dw))
+        wname = max(block_fused.WEIGHT_NAMES, key=lambda k: errs[k][0])
+        aname = max(block_fused.WEIGHT_NAMES, key=lambda k: errs[k + "_vs_autograd"][0])
+        print(
+            f"block_vs_plain (B,N,D,H,mlp)={shape} dy_std={float(dy.std()):.4f}: "
+            f"y_max_abs_err={errs['y'][0]:.3e} y_vs_eager={errs['y_vs_eager'][0]:.3e} "
+            f"dx={errs['dx'][0]:.3e} dx_vs_autograd={errs['dx_vs_autograd'][0]:.3e} "
+            f"weight_grads: worst={errs[wname][0]:.3e} ({wname}) "
+            f"worst_vs_autograd={errs[aname + '_vs_autograd'][0]:.3e} ({aname}) "
+            f"rel_to_max={rel:.3e} "
+            f"max_abs_grad={max(float(g.abs().max()) for g in dwr.values()):.3e} "
+            f"deterministic={same}",
+            flush=True,
+        )
+        for k, (e, ok) in errs.items():
+            check(ok, f"block {k} disagrees at {shape}: {e}")
+            side = "block_fwd" if k in ("y", "y_vs_eager") else "block_bwd"
+            if not k.endswith("_vs_autograd") and k != "y_vs_eager":
+                worst[side] = max(worst[side], e)
+        check(same, f"two block kernel runs differ at {shape}")
+        check(y.shape == x.shape and dx.shape == x.shape, "bad block output shape")
+        check(all(tuple(dw[k].shape) == tuple(w[k].shape) for k in w), "bad weight grad shape")
+    return worst
+
+
+def phase_block_flagship(dev, trainer, dm):
+    """Phase 11: the fused block on the flagship's own activations; returns
+    the launch counts of that run."""
+    vit = trainer.model.vit
+    blocks = list(vit.blocks) + list(vit.decoder_blocks)
+    captured = []
+    hooks = [blk.register_forward_pre_hook(lambda mod, args: captured.append(args[0].detach().clone()))
+             for blk in blocks]
+    with torch.no_grad():
+        vit(next(dm.eval_batches())["image"])
+    for hook in hooks:
+        hook.remove()
+    check(len(captured) == len(blocks) == 6, f"captured {len(captured)} block inputs, not 6")
+
+    def fused_for(blk, x):
+        ratio = blk.mlp.fc1.out_features / blk.attn.dim
+        return block_fused.make_fused_block(blk.attn.dim, blk.attn.num_heads, ratio, x.shape[1])
+
+    reset_launches()
+    for idx, (blk, x) in enumerate(zip(blocks, captured)):
+        with torch.no_grad():
+            y = fused_for(blk, x)(x, block_weights(blk))
+            ye = blk(x)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(y, ye, *BLOCK_Y_TOL)
+        kind = "encoder" if idx < len(vit.blocks) else "decoder"
+        print(f"block_flagship {kind} block {idx} x={tuple(x.shape)} |x|max={float(x.abs().max()):.3f}: "
+              f"y_vs_eager max_abs_err={err:.3e}", flush=True)
+        check(ok, f"fused block {idx} disagrees with the eager block: {err}")
+    for idx in (0, len(vit.blocks)):
+        blk, x = blocks[idx], captured[idx]
+        g = torch.Generator(device=dev).manual_seed(8000 + idx)
+        cot = torch.randn(x.shape, generator=g, device=dev) / x.shape[0]
+        blk.zero_grad(set_to_none=True)
+        xf = x.clone().requires_grad_()
+        fused_for(blk, x)(xf, block_weights(blk)).backward(cot)
+        fused = {name: p.grad.clone() for name, p in blk.named_parameters()}
+        blk.zero_grad(set_to_none=True)
+        xe = x.clone().requires_grad_()
+        blk(xe).backward(cot)
+        torch.cuda.synchronize()
+        errs = {"dx": grad_err(xf.grad, xe.grad)}
+        errs.update({name: grad_err(fused[name], p.grad) for name, p in blk.named_parameters()})
+        blk.zero_grad(set_to_none=True)
+        wname = max(errs, key=lambda k: errs[k][0])
+        print(f"block_flagship grads block {idx}: dx_max_abs_err={errs['dx'][0]:.3e} "
+              f"worst={errs[wname][0]:.3e} ({wname}) params={len(errs) - 1}", flush=True)
+        for k, (e, ok) in errs.items():
+            check(ok, f"fused block {idx} gradient {k} disagrees with autograd: {e}")
+    launches = read_launches()
+    want = {"som_fused": 0, "attention_fwd": 0, "attention_bwd": 0,
+            "block_fwd": len(blocks) + 2, "block_bwd": 2}
+    print("block_flagship launches: "
+          + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items()), flush=True)
+    check(launches == want, f"block launch counts {launches} != {want}")
+    return launches
+
+
+def phase_block_timings(dev):
+    """Phase 12; returns {(shape, kernel name): row} of the timed shapes."""
+    rows = {}
+    l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    for shape in BLOCK_TIMED:
+        b, n, d, h, ratio = shape
+        m, hd = int(d * ratio), d // h
+        blk, x, dy = block_inputs(shape, 7000 + d, dev)
+        blk_pallas = Block(d, h, ratio, attn_impl="pallas").to(dev)
+        blk_pallas.load_state_dict(blk.state_dict())
+        w = {k: v.detach() for k, v in block_weights(blk).items()}
+        xl = x.clone().requires_grad_()
+
+        def eager_fwd(mod):
+            with torch.no_grad():
+                return mod(x)
+
+        def eager_fwd_bwd(mod):
+            return torch.autograd.grad(mod(xl), [xl, *mod.parameters()], dy)
+
+        n_w = sum(v.numel() for v in w.values())
+        products = 2 * b * n * (4 * d * d + 2 * d * m)
+        fwd_flops = products + 4 * b * h * n * n * hd
+        cases = {
+            "block_fwd": (
+                {"kernel": lambda: block_fused._kernel_forward(x, w, h),
+                 "plain": lambda: block_fused.fused_block_reference(x, w, h),
+                 "eager_xla": lambda: eager_fwd(blk),
+                 "eager_pallas": lambda: eager_fwd(blk_pallas)},
+                fwd_flops, 4 * (2 * b * n * d + n_w),
+            ),
+            "block_bwd": (
+                {"kernel": lambda: block_fused._kernel_backward(x, dy, w, h),
+                 "plain": lambda: block_fused.fused_block_bwd_reference(x, dy, w, h),
+                 "eager_xla": lambda: eager_fwd_bwd(blk),
+                 "eager_pallas": lambda: eager_fwd_bwd(blk_pallas)},
+                fwd_flops + 2 * products + 8 * b * h * n * n * hd,
+                4 * (3 * b * n * d + 2 * n_w),
+            ),
+        }
+        for name, (fns, flops, nbytes) in cases.items():
+            t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}
+            t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            eager = "forward" if name == "block_fwd" else "forward + backward"
+            print(
+                f"timing {name} (B,N,D,H,M)={(b, n, d, h, m)} (L2 flushed): "
+                f"kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
+                f"eager_block_xla_ms={t['eager_xla']:.5f} eager_block_pallas_ms={t['eager_pallas']:.5f} "
+                f"(eager Block {eager}) bound_ms={bound_ms:.5f} ({bound_by}: "
+                f"{flops / 1e6:.1f} MFLOP fp32, {nbytes / 1e6:.3f} MB) "
+                f"kernel_share_of_bound={bound_ms / t['kernel']:.4f}",
+                flush=True,
+            )
+            rows[(shape, name)] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                       library_ms=t["eager_xla"], bound_ms=bound_ms,
+                                       bound_by=bound_by)
+    return rows
+
+
 def phase_build():
     """Phase 2: one nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -602,12 +862,15 @@ def main() -> int:
 
         phase_build()
         max_err = phase_kernel_vs_plain(dev)
-        som_launches, xla_first = phase_train(dev)
+        som_launches, xla_first, trainer, dm = phase_train(dev)
         timing = phase_timings(dev)
         attn_err = phase_attention_vs_plain(dev)
         pallas = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
         phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
         attn_timing = phase_attention_timings(dev)
+        block_err = phase_block_vs_plain(dev)
+        block_launches = phase_block_flagship(dev, trainer, dm)
+        block_timing = phase_block_timings(dev)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -631,6 +894,17 @@ def main() -> int:
             "launches": pallas[name],
             "max_abs_err": attn_err[name],
             **attn_timing[(ATTN_TIMED[0], name)],
+        })
+    for name, replaces in (("block_fwd", "vitsom_tpu/ops/block_pallas.py:226"),
+                           ("block_bwd", "vitsom_tpu/ops/block_pallas.py:235")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vitsom_tpu_torch/ops/csrc/block.cu",
+            "replaces": replaces,
+            "launches": block_launches[name],
+            "max_abs_err": block_err[name],
+            **block_timing[(BLOCK_TIMED[0], name)],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

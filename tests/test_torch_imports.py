@@ -24,7 +24,7 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vitsom_tpu"))
-print(len(names), "vitsom_tpu_torch.ops.attention_fused" in names)
+print(len(names), all(f"vitsom_tpu_torch.ops.{m}" in names for m in ("attention_fused", "block_fused")))
 print("BAD", bad)
 """
 
@@ -37,8 +37,8 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     counts, bad = out.stdout.strip().splitlines()[-2:]
-    n_modules, has_attention = counts.split()
-    assert int(n_modules) >= 21 and has_attention == "True"
+    n_modules, has_kernel_modules = counts.split()
+    assert int(n_modules) >= 22 and has_kernel_modules == "True"
     assert bad == "BAD []", bad
 
 
@@ -70,7 +70,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(os.path, "isfile", lambda path: False)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    for name in ("som_fused", "attention"):
+    for name in ("som_fused", "attention", "block"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
     assert list(tmp_path.iterdir()) == []

@@ -16,6 +16,10 @@ Module names: ``block_i``/``dec_block_i`` -> ``blocks.i``/``decoder_blocks.i``;
 in ``Attention_0``, ``Dense_0`` is the fused qkv and ``Dense_1`` the output
 projection below dim 128, while at dim >= 128 the named ``query/key/value``
 projections come first and ``Dense_0`` is the output projection.
+
+``block_weights_from_flax`` and ``block_weights`` map one transformer block,
+Flax or the port's, onto the weight dict of the fused block op
+(``ops/block_fused.py``).
 """
 
 from __future__ import annotations
@@ -109,6 +113,56 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"unexpected kernel rank {arr.ndim} at {key}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return out
+
+
+def block_weights_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A Flax ``Block``'s parameters (nested, or flat with ``/``-joined keys)
+    -> the fused block's weights (``ops/block_fused.WEIGHT_NAMES``, each
+    ``[in, out]``). At dim >= 128 the named ``query/key/value`` projections
+    are concatenated into ``qkv_kernel [D, 3D]`` and ``Dense_0`` is the
+    output projection; below, ``Dense_0`` is the fused qkv and ``Dense_1``
+    the projection."""
+    flat = {k: np.asarray(v) for k, v in flatten(params).items()}
+    if "Attention_0/query/kernel" in flat:
+        qkv = [np.concatenate([flat[f"Attention_0/{nm}/{leaf}"] for nm in ("query", "key", "value")],
+                              axis=-1) for leaf in ("kernel", "bias")]
+        proj = "Attention_0/Dense_0"
+    else:
+        qkv = [flat[f"Attention_0/Dense_0/{leaf}"] for leaf in ("kernel", "bias")]
+        proj = "Attention_0/Dense_1"
+    arrays = {
+        "ln1_scale": flat["LayerNorm_0/scale"], "ln1_bias": flat["LayerNorm_0/bias"],
+        "qkv_kernel": qkv[0], "qkv_bias": qkv[1],
+        "proj_kernel": flat[f"{proj}/kernel"], "proj_bias": flat[f"{proj}/bias"],
+        "ln2_scale": flat["LayerNorm_1/scale"], "ln2_bias": flat["LayerNorm_1/bias"],
+        "fc1_kernel": flat["Mlp_0/Dense_0/kernel"], "fc1_bias": flat["Mlp_0/Dense_0/bias"],
+        "fc2_kernel": flat["Mlp_0/Dense_1/kernel"], "fc2_bias": flat["Mlp_0/Dense_1/bias"],
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(v).copy()) for k, v in arrays.items()}
+
+
+def block_weights(blk) -> Dict[str, torch.Tensor]:
+    """The port's ``models/vit.Block`` -> the fused block's weights, as views
+    of its parameters (``nn.Linear`` weights transposed to ``[in, out]``; a
+    ``torch.cat`` of the split q/k/v projections at dim >= 128), so gradients
+    through ``ops/block_fused.FusedBlock`` reach the module's parameters."""
+    attn = blk.attn
+    lins = (attn.query, attn.key, attn.value) if attn.split_qkv else (attn.qkv,)
+    if any(lin.bias is None for lin in lins):
+        raise ValueError("the fused block carries a qkv bias; this block has none")
+    if attn.split_qkv:
+        qkv_kernel = torch.cat([lin.weight.t() for lin in lins], dim=1)
+        qkv_bias = torch.cat([lin.bias for lin in lins])
+    else:
+        qkv_kernel, qkv_bias = attn.qkv.weight.t(), attn.qkv.bias
+    return {
+        "ln1_scale": blk.norm1.weight, "ln1_bias": blk.norm1.bias,
+        "qkv_kernel": qkv_kernel, "qkv_bias": qkv_bias,
+        "proj_kernel": attn.proj.weight.t(), "proj_bias": attn.proj.bias,
+        "ln2_scale": blk.norm2.weight, "ln2_bias": blk.norm2.bias,
+        "fc1_kernel": blk.mlp.fc1.weight.t(), "fc1_bias": blk.mlp.fc1.bias,
+        "fc2_kernel": blk.mlp.fc2.weight.t(), "fc2_bias": blk.mlp.fc2.bias,
+    }
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:

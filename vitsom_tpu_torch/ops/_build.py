@@ -26,6 +26,10 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
+# dynamic shared memory one CTA may opt into on Hopper (H100, H200); the
+# kernel wrappers refuse shapes whose working set needs more
+SMEM_LIMIT_BYTES = 232448
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 

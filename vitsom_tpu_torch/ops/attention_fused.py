@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from vitsom_tpu_torch.ops import _build
+from vitsom_tpu_torch.ops._build import SMEM_LIMIT_BYTES
 
 # Kernel launches since the last reset (plain ints: chip_smoke.py zeroes
 # them before a main-path run and reads them after).
@@ -33,8 +34,6 @@ LAUNCHES_BWD = 0
 
 # head dims the kernels are built for (csrc/attention.cu, ATTN_HEAD_DIMS)
 HEAD_DIMS = (2, 8, 16, 32, 48, 64)
-# dynamic shared memory one block may opt into on Hopper (H100, H200)
-SMEM_LIMIT_BYTES = 232448
 
 _LIB = None
 

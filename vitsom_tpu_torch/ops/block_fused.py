@@ -1,0 +1,369 @@
+"""Fully fused pre-norm transformer block: hand-written CUDA forward and
+backward kernels.
+
+Counterpart of ``vitsom_tpu/ops/block_pallas.py``. The kernels in
+``csrc/block.cu`` replace its TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``;
+the source's header gives their design and their bound on the H100. One op
+runs a whole block on x [B, N, D] f32:
+
+    LN1 -> QKV -> per-head attention -> proj -> residual
+        -> LN2 -> fc1 -> GELU -> fc2 -> residual
+
+- forward: x and the 12 weights -> y [B, N, D];
+- backward: x, dy and the weights -> dx and the 12 weight gradients,
+  recomputing the forward (the saved residuals are x and the weights alone,
+  as in the JAX ``block_fwd``).
+
+Weights follow the JAX package's names, order and ``[in, out]`` layouts
+(``WEIGHT_NAMES``, ``weight_shapes``); ``vitsom_tpu_torch.convert`` maps a
+Flax ``Block`` or the port's ``models/vit.Block`` onto them.
+
+GELU is exact-erf in both the plain versions (``torch.erf``) and the kernels
+(CUDA ``erff``): it is the function the model computes
+(``vitsom_tpu/models/vit.py:73``). The TPU kernel carries the Abramowitz-Stegun
+7.1.26 polynomial only because Mosaic has no erf lowering; it differs from erf
+by at most 1.5e-7, far inside the 2e-5 tolerance the block is held to.
+
+On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU tensor
+it runs the plain PyTorch version beside it. There is no fallback from one to
+the other. The kernels cover the (D, head_dim, M) in ``BUILT_SHAPES`` and any
+N whose per-CTA working set fits in shared memory; a wide block such as emb
+192 (1.8 MB of weights) needs a weight-streaming design and is refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Mapping, Tuple
+
+import torch
+
+from vitsom_tpu_torch.ops import _build
+from vitsom_tpu_torch.ops._build import SMEM_LIMIT_BYTES
+
+LN_EPS = 1e-6
+
+WEIGHT_NAMES = (
+    "ln1_scale", "ln1_bias", "qkv_kernel", "qkv_bias", "proj_kernel",
+    "proj_bias", "ln2_scale", "ln2_bias", "fc1_kernel", "fc1_bias",
+    "fc2_kernel", "fc2_bias",
+)
+
+# Kernel launches since the last reset, one per wrapper call (the backward's
+# weight-gradient reduction is part of its call). Plain ints: chip_smoke.py
+# zeroes them before a main-path run and reads them after.
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+
+# (dim, head_dim, mlp_hidden) the kernels are built for (csrc/block.cu,
+# BLOCK_SHAPES): the flagship's encoder and decoder blocks and the JAX tests'
+# blocks
+BUILT_SHAPES = ((16, 8, 64), (16, 8, 32), (24, 8, 96), (4, 2, 16))
+
+_LIB = None
+
+
+def weight_shapes(dim: int, mlp_hidden: int) -> Dict[str, Tuple[int, ...]]:
+    return {
+        "ln1_scale": (dim,), "ln1_bias": (dim,),
+        "qkv_kernel": (dim, 3 * dim), "qkv_bias": (3 * dim,),
+        "proj_kernel": (dim, dim), "proj_bias": (dim,),
+        "ln2_scale": (dim,), "ln2_bias": (dim,),
+        "fc1_kernel": (dim, mlp_hidden), "fc1_bias": (mlp_hidden,),
+        "fc2_kernel": (mlp_hidden, dim), "fc2_bias": (dim,),
+    }
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("block")
+        ptr = ctypes.c_void_p
+        dims = [ctypes.c_int] * 5 + [ctypes.c_float, ptr]  # B, N, D, hd, M, scale, stream
+        lib.block_forward.argtypes = [ptr] * 4 + dims
+        lib.block_forward.restype = ctypes.c_int
+        lib.block_backward.argtypes = [ptr] * 7 + dims
+        lib.block_backward.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _ln(x, scale, bias):
+    """(LayerNorm(x), xhat, rstd) with the mean and biased variance."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    xc = x - mu
+    rstd = torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    return xhat * scale + bias, xhat, rstd
+
+
+def _ln_bwd(dout, xhat, rstd, scale):
+    """(dx, dscale, dbias) over the rows of 2-D operands."""
+    dxhat = dout * scale
+    m1 = torch.mean(dxhat, dim=-1, keepdim=True)
+    m2 = torch.mean(dxhat * xhat, dim=-1, keepdim=True)
+    return rstd * (dxhat - m1 - xhat * m2), torch.sum(dout * xhat, dim=0), torch.sum(dout, dim=0)
+
+
+def _gelu(x):
+    return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def _gelu_grad(x):
+    cdf = 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    return cdf + x * torch.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+
+
+def _heads(t, b, n, heads):
+    """[B*N, D] column slice -> [B, H, N, hd]."""
+    return t.reshape(b, n, heads, -1).transpose(1, 2)
+
+
+def _forward(x, w: Mapping[str, torch.Tensor], heads: int):
+    """The block forward on x [B, N, D]; returns (y [B*N, D], the
+    intermediates the backward needs)."""
+    b, n, d = x.shape
+    scale = (d // heads) ** -0.5
+    x2 = x.reshape(b * n, d)
+    h1, xhat1, rstd1 = _ln(x2, w["ln1_scale"], w["ln1_bias"])
+    qkv = h1 @ w["qkv_kernel"] + w["qkv_bias"]
+    q, k, v = (_heads(qkv[:, i * d:(i + 1) * d], b, n, heads) for i in range(3))
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    o = (p @ v).transpose(1, 2).reshape(b * n, d)
+    r = x2 + o @ w["proj_kernel"] + w["proj_bias"]
+    h2, xhat2, rstd2 = _ln(r, w["ln2_scale"], w["ln2_bias"])
+    m1 = h2 @ w["fc1_kernel"] + w["fc1_bias"]
+    gm = _gelu(m1)
+    y = r + gm @ w["fc2_kernel"] + w["fc2_bias"]
+    cache = dict(h1=h1, xhat1=xhat1, rstd1=rstd1, q=q, k=k, v=v, p=p, o=o,
+                 h2=h2, xhat2=xhat2, rstd2=rstd2, m1=m1, gm=gm)
+    return y, cache
+
+
+def fused_block_reference(x: torch.Tensor, w: Mapping[str, torch.Tensor], heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel: y [B, N, D], as
+    ``_block_fwd_core`` computes it (softmax over rows, exact-erf GELU)."""
+    y, _ = _forward(x, w, heads)
+    return y.reshape(x.shape)
+
+
+def fused_block_bwd_reference(
+    x: torch.Tensor, dy: torch.Tensor, w: Mapping[str, torch.Tensor], heads: int
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain PyTorch version of the backward kernel: (dx, {name: grad}), the
+    closed form of ``_bwd_kernel`` (``block_pallas.py:249-283``) in torch ops,
+    without autograd."""
+    b, n, d = x.shape
+    scale = (d // heads) ** -0.5
+    _, c = _forward(x, w, heads)
+    dy2 = dy.reshape(b * n, d)
+
+    # MLP
+    g = {"fc2_kernel": c["gm"].T @ dy2, "fc2_bias": dy2.sum(0)}
+    dm1 = (dy2 @ w["fc2_kernel"].T) * _gelu_grad(c["m1"])
+    g["fc1_kernel"] = c["h2"].T @ dm1
+    g["fc1_bias"] = dm1.sum(0)
+    dln2, g["ln2_scale"], g["ln2_bias"] = _ln_bwd(
+        dm1 @ w["fc1_kernel"].T, c["xhat2"], c["rstd2"], w["ln2_scale"])
+    dr = dy2 + dln2
+
+    # projection and attention
+    g["proj_kernel"] = c["o"].T @ dr
+    g["proj_bias"] = dr.sum(0)
+    do = _heads(dr @ w["proj_kernel"].T, b, n, heads)
+    p = c["p"]
+    dv = p.transpose(-1, -2) @ do
+    dp = do @ c["v"].transpose(-1, -2)
+    ds = (dp - torch.sum(dp * p, dim=-1, keepdim=True)) * p * scale
+    dq, dk = ds @ c["k"], ds.transpose(-1, -2) @ c["q"]
+    dqkv = torch.cat([t.transpose(1, 2).reshape(b * n, d) for t in (dq, dk, dv)], dim=1)
+    g["qkv_kernel"] = c["h1"].T @ dqkv
+    g["qkv_bias"] = dqkv.sum(0)
+    dln1, g["ln1_scale"], g["ln1_bias"] = _ln_bwd(
+        dqkv @ w["qkv_kernel"].T, c["xhat1"], c["rstd1"], w["ln1_scale"])
+    dx = (dr + dln1).reshape(b, n, d)
+    return dx, {name: g[name] for name in WEIGHT_NAMES}
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def _pad(c: int) -> int:
+    """csrc/block.cu's row stride: c rounded up to an odd multiple of 4."""
+    return ((c + 3) // 4 | 1) * 4
+
+
+def smem_bytes(n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> int:
+    """Dynamic shared memory of one CTA (csrc/block.cu fwd_smem/bwd_smem): the
+    weights, qkv [N, 3D] and the attention output [N, D]; the backward adds
+    four more [N, D] buffers, an [N, max(M, 3D)] one, rstd2 [N] and the
+    attention's lse and delta [H, N]. Rows are padded."""
+    floats = sum(math.prod(s) for s in weight_shapes(dim, mlp_hidden).values())
+    if backward:
+        floats += n * (_pad(3 * dim) + 5 * _pad(dim) + _pad(max(mlp_hidden, 3 * dim)) + 1 + 2 * heads)
+    else:
+        floats += n * (_pad(3 * dim) + _pad(dim))
+    return 4 * floats
+
+
+def check_shape(b: int, n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> None:
+    """Raises ValueError unless the kernels take this block shape. Needs no
+    CUDA."""
+    if min(b, n, dim, heads, mlp_hidden) < 1 or dim % heads:
+        raise ValueError(f"bad block shape B={b} N={n} D={dim} heads={heads} M={mlp_hidden}")
+    need = smem_bytes(n, dim, heads, mlp_hidden, backward)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"the fused block at N={n} D={dim} M={mlp_hidden} needs {need} bytes of shared "
+            f"memory per CTA, more than {SMEM_LIMIT_BYTES}: a block this wide or this long "
+            "needs a weight-streaming design the kernels do not have"
+        )
+    if (dim, dim // heads, mlp_hidden) not in BUILT_SHAPES:
+        raise ValueError(
+            f"(dim, head_dim, mlp_hidden) = {(dim, dim // heads, mlp_hidden)} is not built; "
+            f"the kernels cover {BUILT_SHAPES}"
+        )
+
+
+def _check(x: torch.Tensor, w: Mapping[str, torch.Tensor], heads: int, backward: bool,
+           dy: torch.Tensor = None) -> Tuple[int, int, int, int]:
+    """(B, N, D, M) after checking what the kernels take; raises ValueError
+    otherwise. Dtypes and shapes are checked before the device, so a CPU
+    tensor reaches every check."""
+    if x.ndim != 3:
+        raise ValueError(f"the fused block takes x [B, N, D], got {tuple(x.shape)}")
+    b, n, d = x.shape
+    acts = (x,) if dy is None else (x, dy)
+    tensors = acts + tuple(w[name] for name in WEIGHT_NAMES)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"the fused block takes float32, got {sorted({str(t.dtype) for t in tensors})}")
+    m = w["fc1_kernel"].shape[-1]
+    for name, shape in weight_shapes(d, m).items():
+        if tuple(w[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(w[name].shape)}, not {shape}")
+    for t in acts:
+        if tuple(t.shape) != (b, n, d) or not t.is_contiguous():
+            raise ValueError(f"x and dy must be contiguous {(b, n, d)} tensors")
+    check_shape(b, n, d, heads, m, backward)
+    if not x.is_cuda or any(t.device != x.device for t in tensors):
+        raise ValueError("fused block kernel inputs must be on the same CUDA device")
+    if any(t.data_ptr() % 16 for t in acts):
+        raise ValueError("x and dy must be 16-byte aligned")
+    return b, n, d, m
+
+
+def _weight_args(w: Mapping[str, torch.Tensor]):
+    """(pointer array, stride array): each weight as a [rows, cols] view."""
+    ptrs, strides = [], []
+    for name in WEIGHT_NAMES:
+        t = w[name]
+        ptrs.append(t.data_ptr())
+        strides += list(t.stride()) if t.ndim == 2 else [0, t.stride(0)]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _kernel_forward(x, w, heads: int):
+    global LAUNCHES_FWD
+    b, n, d, m = _check(x, w, heads, backward=False)
+    y = torch.empty_like(x)
+    ptrs, strides = _weight_args(w)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.block_forward(x.data_ptr(), ptrs, strides, y.data_ptr(),
+                               b, n, d, d // heads, m, (d // heads) ** -0.5, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"block_forward launch failed with code {rc}")
+    LAUNCHES_FWD += 1
+    return y
+
+
+def _kernel_backward(x, dy, w, heads: int):
+    global LAUNCHES_BWD
+    b, n, d, m = _check(x, w, heads, backward=True, dy=dy)
+    shapes = weight_shapes(d, m)
+    sizes = [math.prod(shapes[name]) for name in WEIGHT_NAMES]
+    dx = torch.empty_like(x)
+    part = torch.empty((b, sum(sizes)), device=x.device, dtype=torch.float32)
+    dw = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
+    ptrs, strides = _weight_args(w)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.block_backward(x.data_ptr(), dy.data_ptr(), ptrs, strides, dx.data_ptr(),
+                                part.data_ptr(), dw.data_ptr(),
+                                b, n, d, d // heads, m, (d // heads) ** -0.5, _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"block_backward launch failed with code {rc}")
+    LAUNCHES_BWD += 1
+    grads = {name: g.view(shapes[name]) for name, g in zip(WEIGHT_NAMES, dw.split(sizes))}
+    return dx, grads
+
+
+def block_forward(x, w, heads: int):
+    """y: the forward kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if x.is_cuda:
+        return _kernel_forward(x, w, heads)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return fused_block_reference(x, w, heads)
+
+
+def block_backward(x, dy, w, heads: int):
+    """(dx, {name: grad}): the backward kernel for CUDA tensors, its plain
+    version for CPU tensors."""
+    if x.is_cuda:
+        return _kernel_backward(x, dy, w, heads)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return fused_block_bwd_reference(x, dy, w, heads)
+
+
+# ---------------------------------------------------------------------------
+# autograd op
+# ---------------------------------------------------------------------------
+
+
+class FusedBlock(torch.autograd.Function):
+    """x [B, N, D] and the 12 weights (``WEIGHT_NAMES`` order) -> y. Saves
+    (x, weights), the residuals of ``block_pallas.py:387-388``; the backward
+    is the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, heads, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.heads = heads
+        return block_forward(x, dict(zip(WEIGHT_NAMES, weights)), heads)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *weights = ctx.saved_tensors
+        dx, dw = block_backward(x, dy.contiguous(), dict(zip(WEIGHT_NAMES, weights)), ctx.heads)
+        return (dx, None, *(dw[name] for name in WEIGHT_NAMES))
+
+
+def make_fused_block(dim: int, num_heads: int, mlp_ratio: float, seq_len: int):
+    """Returns ``block(x [B, seq_len, dim] f32, weights dict) -> y`` with the
+    fused forward and backward kernels (``block_pallas.make_fused_block``)."""
+    shapes = weight_shapes(dim, int(dim * mlp_ratio))
+
+    def block(x: torch.Tensor, w: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        if tuple(x.shape[1:]) != (seq_len, dim):
+            raise ValueError(f"x has shape {tuple(x.shape)}, not [B, {seq_len}, {dim}]")
+        for name, shape in shapes.items():
+            if tuple(w[name].shape) != shape:
+                raise ValueError(f"{name} has shape {tuple(w[name].shape)}, not {shape}")
+        return FusedBlock.apply(x, num_heads, *(w[name] for name in WEIGHT_NAMES))
+
+    return block
