@@ -9,13 +9,25 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA sources with nvcc (sm_90a), one nvcc
    per source, all started together, and prints ptxas's register and spill
-   lines;
+   lines; counts the tensor-core instructions in the SOM kernel's SASS
+   (``cuobjdump`` beside nvcc) and fails without a TF32 wgmma (HGMMA) or
+   without ``cuobjdump``;
 3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
-   on the card at B=128, D=3136, P in {1600, 576}, cosine and euclidean,
-   square and hexa (distances and loss to 1e-5, BMUs equal outside near
-   ties), and the op's closed-form gradients against autograd through the
-   plain version (atol 1e-6, rtol 1e-4, and the largest difference at most
-   1e-4 of the largest gradient);
+   on the card at every shipped ViT-SOM SOM shape (``SOM_SHAPES``: B, D =
+   patch tokens x emb, P) and one ragged shape (B 13, D 1000, P 132), x the
+   strided patch-token view of a [B, 1 + N, E] token buffer. Cosine and
+   euclidean x square and hexa at P 1600 and 576 and at the ragged shape;
+   cosine/square elsewhere, with euclidean added at D 37632. Distances and
+   loss to 1e-5, BMUs equal outside near ties, distances and loss bitwise
+   equal across two runs; the kernel's distances also against a float64
+   evaluation, at most twice the plain float32 version's error there plus
+   1e-7 (so a product short of float32 accuracy, one or two TF32 products
+   in place of three, fails at every shape). The op's closed-form gradients
+   against autograd
+   through the plain version (atol 1e-6, rtol 1e-4, and the largest
+   difference at most 1e-4 of the largest gradient) at P 1600 and at
+   D 37632, P 196, on rows close to their BMU, where the cosine distances
+   are also held to 1e-5, and all of them against float64 as above;
 4. train: the flagship config ``configs/vit_som/vit_som_mnist.yaml`` as
    shipped (full width, 40x40 map, batch 128, float32) on synthetic
    MNIST-shaped data for 40 steps, then the clustering eval; the kernel's
@@ -24,8 +36,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. timings: the device time of the kernel, its plain version and one
    library product (the median of 30 CUDA-event timed calls each, the card
    held by a spin while the host issues them; L2 flushed before each call,
-   and again with the inputs resident in L2) against the card's bound, at
-   P = 1600 and 576;
+   and again with the inputs resident in L2) at every shape of
+   ``SOM_SHAPES``, with the split count S and the CTAs of the kernel's
+   grid, against the card's bound: three TF32 tensor-core products per
+   float32-accurate product (3 * 2 B P D at 495 TFLOP/s) or the bytes at
+   3.35 TB/s, whichever is longer, beside the FP32 non-tensor figure
+   (2 B P D at 67 TFLOP/s);
 6. attention kernels vs plain: the forward kernel's o and lse and the
    backward kernel's dq, dk, dv against their plain PyTorch versions
    (atol/rtol 1e-5, the JAX tests' tolerance), and the gradients also
@@ -92,7 +108,7 @@ flagship block plus once for each of the two blocks it backpropagates
 through (6 + 2 = 8), and the backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON, the nvidia-smi line and the result.
-The whole script takes about 50 seconds on an H100, the builds included.
+The whole script takes about 70 seconds on an H100, the builds included.
 """
 
 from __future__ import annotations
@@ -142,14 +158,34 @@ BLOCK_Y_TOL = (2e-5, 1e-5)
 BLOCK_GRAD_TOL = (2e-5, 1e-4)
 FIRST_LOSSES = ("train/recon_loss", "train/som_loss", "train/total_loss")
 SYNTHETIC_SIZE = 4096  # + 819 test images, concatenated for clustering
-B, EMB, D = 128, 16, 3136  # D = 196 patch tokens x emb 16
-MAPS = {1600: (40, 40), 576: (24, 24)}
+# (B, N, E, map) of every shipped ViT-SOM SOM: its latent is the N patch
+# tokens of emb E, D = N * E; the first is the main path's
+SOM_SHAPES = [
+    (128, 196, 16, (40, 40)),   # vit_som_mnist, _fmnist
+    (128, 196, 16, (24, 24)),   # bench.py's 24x24 map
+    (128, 256, 16, (40, 40)),   # vit_som_svhn
+    (128, 64, 16, (40, 40)),    # vit_som_usps
+    (128, 64, 192, (4, 4)),     # vit_som_cifar-10
+    (128, 64, 192, (14, 14)),   # vit_som_cifar-100
+    (128, 196, 192, (14, 14)),  # vit_som_medmnist, _flowers-17, _flowers-102
+    (512, 256, 192, (14, 14)),  # vit_som_tiny-imagenet
+]
+# B 13, D 1000 (not a multiple of the 32-deep chunk), P 132: every edge mask
+# and a short last split
+SOM_RAGGED = (13, 250, 4, (12, 11))
+SOM_FULL_MATRIX = SOM_SHAPES[:2] + [SOM_RAGGED]  # cosine/euclidean x square/hexa
+SOM_EUCLIDEAN = SOM_SHAPES[6]  # euclidean beside cosine at D 37632
+SOM_GRAD = [SOM_SHAPES[0], SOM_EUCLIDEAN]
 TOL = 1e-5
+# the kernel's distance error against float64 may be at most this factor of
+# the plain float32 version's, plus the slack
+F64_FACTOR, F64_SLACK = 2.0, 1e-7
 GRAD_ATOL, GRAD_RTOL, GRAD_REL_TO_MAX = 1e-6, 1e-4, 1e-4
 TIMED_RUNS = 30
 L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # tensor cores; a float32-accurate 3xTF32 product is 3 of them
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -222,27 +258,37 @@ def time_call(fn, flush=None, runs=TIMED_RUNS, chunk=5, warmup=5):
     return statistics.median(device[:runs]), statistics.median(host)
 
 
-def inputs(p, seed, dev):
+def som_dims(shape):
+    """(B, D, P, map) of a ``SOM_SHAPES`` entry."""
+    b, n, e, map_size = shape
+    return b, n * e, map_size[0] * map_size[1], map_size
+
+
+def inputs(shape, seed, dev):
     """x [B, D] laid out as the model hands it over: the patch tokens of a
-    [B, 1 + N, E] token buffer, a view whose rows are N*E + E floats apart."""
+    [B, 1 + N, E] token buffer, a view whose rows are N*E + E floats apart;
+    and prototypes [P, D]."""
+    b, n, e, _ = shape
+    _, d, p, _ = som_dims(shape)
     g = torch.Generator(device=dev).manual_seed(seed)
-    tokens = torch.randn(B, 1 + D // EMB, EMB, generator=g, device=dev)
-    x = tokens[:, 1:].reshape(B, D)
-    protos = torch.randn(p, D, generator=g, device=dev) * 0.5
+    tokens = torch.randn(b, 1 + n, e, generator=g, device=dev)
+    x = tokens[:, 1:].reshape(b, d)
+    protos = torch.randn(p, d, generator=g, device=dev) * 0.5
     return x, protos
 
 
-def grad_inputs(p, seed, dev):
+def grad_inputs(shape, seed, dev):
     """Inputs whose BMUs are unambiguous: row b is prototype j_b plus noise
     of a fifth of its size. On plain random inputs a row's two nearest
     prototypes can lie within float32 rounding of each other (the euclidean
     distances are ~60 and differ by ~1e-4 between two summation orders over
     D), so the kernel and the plain version may pick different BMUs and
     hence other weights for that row; here both backward passes see the same
-    BMUs, and the comparison tests the backward alone."""
-    noise, protos = inputs(p, seed, dev)
+    BMUs, and the comparison tests the backward alone. Needs P >= B."""
+    b, _, p, _ = som_dims(shape)
+    noise, protos = inputs(shape, seed, dev)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
-    j = torch.randperm(p, generator=g, device=dev)[:B]
+    j = torch.randperm(p, generator=g, device=dev)[:b]
     return protos[j] + 0.1 * noise, protos
 
 
@@ -261,64 +307,117 @@ def near_ties(dist, distance):
     return gap <= TOL * top2[:, 0].abs().clamp_min(1.0), absolute
 
 
+def float64_err(kd, rd, exact):
+    """(the kernel's, the plain version's largest distance error against
+    the float64 distances ``exact``, whether the kernel's is within
+    F64_FACTOR of the plain version's plus F64_SLACK)."""
+    kerr = float((kd.double() - exact).abs().max())
+    perr = float((rd.detach().double() - exact).abs().max())
+    return kerr, perr, kerr <= F64_FACTOR * perr + F64_SLACK
+
+
+def som_shape_label(shape):
+    b, d, p, map_size = som_dims(shape)
+    splits, depth = som_fused.plan_splits(b, p, d)
+    return (f"B={b} D={d} P={p} ({map_size[0]}x{map_size[1]}) S={splits} "
+            f"split_depth={depth} ctas={som_fused.grid_ctas(b, p, d)}")
+
+
 def phase_kernel_vs_plain(dev):
     """Phase 3; returns the largest distance/loss error."""
     worst = 0.0
     temp = 3.7
-    for p, map_size in MAPS.items():
+    for idx, shape in enumerate(SOM_SHAPES + [SOM_RAGGED]):
+        b, d, p, map_size = som_dims(shape)
+        cols = map_size[1]
+        label = som_shape_label(shape)
+        cases = [("cosine", "square")]
+        if shape in SOM_FULL_MATRIX:
+            cases = [(dist, top) for dist in ("cosine", "euclidean") for top in ("square", "hexa")]
+        elif shape == SOM_EUCLIDEAN:
+            cases.append(("euclidean", "square"))
+        x, protos = inputs(shape, 1000 + idx, dev)
+        exact = {}  # float64 distances, to show each float32 version's own error
+        for distance, topology in cases:
+            kl, kb, kd = som_fused._kernel_forward(x, protos, temp, cols, topology, distance)
+            kl2, _, kd2 = som_fused._kernel_forward(x, protos, temp, cols, topology, distance)
+            rl, rb, rd = som_fused.fused_som_reference(x, protos, temp, cols, topology, distance)
+            if distance not in exact:
+                exact[distance] = som_fused.fused_som_reference(
+                    x.double(), protos.double(), temp, cols, topology, distance)[2]
+            torch.cuda.synchronize()
+            derr, dok = allclose_err(kd, rd, TOL, TOL)
+            near_tie, near_tie_abs = near_ties(rd, distance)
+            mismatch = (kb != rb) & ~near_tie
+            # the loss with the kernel's BMUs over the plain distances: equal
+            # to the plain loss wherever the BMUs agree
+            w = torch.exp(
+                -som_fused.grid_d2_rows(kb, p, cols, topology) / som.two_t_squared(temp)
+            )
+            ref_loss = torch.sum(w * rd) / (b * p)
+            lerr, lok = allclose_err(kl, ref_loss, TOL, TOL)
+            same = torch.equal(kl, kl2) and torch.equal(kd, kd2)
+            kerr, perr, f64_ok = float64_err(kd, rd, exact[distance])
+            worst = max(worst, derr, lerr)
+            print(
+                f"kernel_vs_plain {label} {distance} {topology}: dist_max_abs_err={derr:.3e} "
+                f"loss={float(kl):.7f} plain_loss={float(rl):.7f} loss_abs_err={lerr:.3e} "
+                f"bmu_mismatch={int(mismatch.sum())} near_tie_rows={int(near_tie.sum())} "
+                f"near_tie_rows_abs={int(near_tie_abs.sum())} deterministic={same} "
+                f"float64: kernel_err={kerr:.3e} plain_err={perr:.3e}",
+                flush=True,
+            )
+            where = f"B={b} D={d} P={p} {distance} {topology}"
+            check(dok, f"distances disagree at {where}: {derr}")
+            check(f64_ok, f"distances further from float64 than {F64_FACTOR} x the plain "
+                          f"version's + {F64_SLACK} at {where}: {kerr} vs {perr}")
+            check(lok, f"loss disagrees at {where}: {lerr}")
+            check(int(mismatch.sum()) == 0, f"BMU mismatch at {where}")
+            check(same, f"two kernel runs gave different losses or distances at {where}")
+            check(kb.dtype == torch.int64 and kd.shape == (b, p), "bad output dtype/shape")
+
+    for shape in SOM_GRAD:
+        b, d, p, map_size = som_dims(shape)
         cols = map_size[1]
         for distance in ("cosine", "euclidean"):
-            for topology in ("square", "hexa"):
-                x, protos = inputs(p, 1000 + p, dev)
-                kl, kb, kd = som_fused._kernel_forward(x, protos, temp, cols, topology, distance)
-                kl2, _, _ = som_fused._kernel_forward(x, protos, temp, cols, topology, distance)
-                rl, rb, rd = som_fused.fused_som_reference(x, protos, temp, cols, topology, distance)
-                torch.cuda.synchronize()
-                derr, dok = allclose_err(kd, rd, TOL, TOL)
-                near_tie, near_tie_abs = near_ties(rd, distance)
-                mismatch = (kb != rb) & ~near_tie
-                # the loss with the kernel's BMUs over the plain distances: equal
-                # to the plain loss wherever the BMUs agree
-                w = torch.exp(
-                    -som_fused.grid_d2_rows(kb, p, cols, topology) / som.two_t_squared(temp)
-                )
-                ref_loss = torch.sum(w * rd) / (B * p)
-                lerr, lok = allclose_err(kl, ref_loss, TOL, TOL)
-                worst = max(worst, derr, lerr)
-                print(
-                    f"kernel_vs_plain P={p} {distance} {topology}: dist_max_abs_err={derr:.3e} "
-                    f"loss={float(kl):.7f} plain_loss={float(rl):.7f} loss_abs_err={lerr:.3e} "
-                    f"bmu_mismatch={int(mismatch.sum())} near_tie_rows={int(near_tie.sum())} "
-                    f"near_tie_rows_abs={int(near_tie_abs.sum())} "
-                    f"deterministic={bool(torch.equal(kl, kl2))}",
-                    flush=True,
-                )
-                check(dok, f"distances disagree at P={p} {distance} {topology}: {derr}")
-                check(lok, f"loss disagrees at P={p} {distance} {topology}: {lerr}")
-                check(int(mismatch.sum()) == 0, f"BMU mismatch at P={p} {distance} {topology}")
-                check(torch.equal(kl, kl2), "two kernel runs gave different losses")
-                check(kb.dtype == torch.int64 and kd.shape == (B, p), "bad output dtype/shape")
-
-        for distance in ("cosine", "euclidean"):
-            x, protos = grad_inputs(p, 2000 + p, dev)
+            x, protos = grad_inputs(shape, 2000 + d + p, dev)
             xk, pk = x.clone().requires_grad_(), protos.clone().requires_grad_()
-            kl, kb, _ = som_fused.FusedSOM.apply(xk, pk, temp, cols, "square", distance)
+            kl, kb, kd = som_fused.FusedSOM.apply(xk, pk, temp, cols, "square", distance)
             kl.backward()
             xr, pr = x.clone().requires_grad_(), protos.clone().requires_grad_()
-            rl, rb, _ = som_fused.fused_som_reference(xr, pr, temp, cols, "square", distance)
+            rl, rb, rd = som_fused.fused_som_reference(xr, pr, temp, cols, "square", distance)
             rl.backward()
-            check(torch.equal(kb, rb), f"BMUs differ on the gradient inputs at P={p} {distance}")
-            for name, a, b in (("dx", xk.grad, xr.grad), ("dp", pk.grad, pr.grad)):
-                err, ok = allclose_err(a, b, GRAD_ATOL, GRAD_RTOL)
-                scale = float(b.abs().max())
+            where = f"B={b} D={d} P={p} {distance}"
+            check(torch.equal(kb, rb), f"BMUs differ on the gradient inputs at {where}")
+            # rows close to their BMU, as trained latents are: the cosine
+            # distances hold to the same bound; the euclidean ones cancel
+            # |x|^2 - 2 x.p + |p|^2 to a small difference, where the plain
+            # version itself is ~1e-4 off float64, so they are held only
+            # against float64, relative to the plain version's error there
+            d64 = som_fused.fused_som_reference(
+                x.double(), protos.double(), temp, cols, "square", distance)[2]
+            derr, dok = allclose_err(kd, rd.detach(), TOL, TOL)
+            kerr, perr, f64_ok = float64_err(kd, rd, d64)
+            print(
+                f"near_bmu {where}: dist_max_abs_err={derr:.3e} float64: "
+                f"kernel_err={kerr:.3e} plain_err={perr:.3e}",
+                flush=True,
+            )
+            if distance == "cosine":
+                check(dok, f"distances disagree near the BMUs at {where}: {derr}")
+            check(f64_ok, f"distances near the BMUs further from float64 than {F64_FACTOR} x "
+                          f"the plain version's + {F64_SLACK} at {where}: {kerr} vs {perr}")
+            for name, a, r in (("dx", xk.grad, xr.grad), ("dp", pk.grad, pr.grad)):
+                err, ok = allclose_err(a, r, GRAD_ATOL, GRAD_RTOL)
+                scale = float(r.abs().max())
                 # atol 1e-6 alone exceeds the cosine gradients (~1e-7)
                 ok = ok and err <= GRAD_REL_TO_MAX * scale
                 print(
-                    f"grad_vs_autograd P={p} {distance} {name}: max_abs_err={err:.3e} "
+                    f"grad_vs_autograd {where} {name}: max_abs_err={err:.3e} "
                     f"max_abs_grad={scale:.3e} rel_to_max={err / max(scale, 1e-30):.3e}",
                     flush=True,
                 )
-                check(ok, f"{name} disagrees at P={p} {distance}: {err}")
+                check(ok, f"{name} disagrees at {where}: {err}")
     return worst
 
 
@@ -584,16 +683,18 @@ def phase_attention_timings(dev):
 
 
 def phase_timings(dev):
-    """Phase 5; returns the row of the main path's map (the first of MAPS).
+    """Phase 5; returns the row of the main path's shape (the first of
+    SOM_SHAPES).
 
     Each function is timed with L2 flushed before each call (``ms``, the
     main path's condition) and with its inputs resident in L2 (``warm``)."""
     rows = {}
     temp = 3.7
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
-    for p, map_size in MAPS.items():
+    for idx, shape in enumerate(SOM_SHAPES):
+        b, d, p, map_size = som_dims(shape)
         cols = map_size[1]
-        x, protos = inputs(p, 3000 + p, dev)
+        x, protos = inputs(shape, 3000 + idx, dev)
         xn = x / x.norm(dim=1, keepdim=True)
         pn_t = (protos / protos.norm(dim=1, keepdim=True)).T
         fns = {
@@ -603,28 +704,32 @@ def phase_timings(dev):
         }
         cold = {k: time_call(fn, l2_flush)[0] for k, fn in fns.items()}
         warm = {k: time_call(fn) for k, fn in fns.items()}
-        flops = 2.0 * B * p * D
-        nbytes = (B * D + p * D + B * p) * 4 + B * 8 + 4
-        t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        flops = 2.0 * b * p * d
+        nbytes = (b * d + p * d + b * p) * 4 + b * 8 + 4
+        t_ops = 3 * flops / TF32_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         print(
-            f"timing P={p} ({map_size[0]}x{map_size[1]} cosine square, B={B} D={D}, L2 flushed): "
+            f"timing {som_shape_label(shape)} cosine square (L2 flushed): "
             f"kernel_ms={cold['kernel']:.5f} plain_ms={cold['plain']:.5f} "
             f"library_ms={cold['library']:.5f} bound_ms={bound_ms:.5f} ({bound_by}: "
-            f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB) "
-            f"kernel_gflops={flops / cold['kernel'] / 1e6:.1f} "
-            f"kernel_share_of_bound={bound_ms / cold['kernel']:.4f}",
+            f"3xTF32 {3 * flops / 1e9:.3f} GFLOP {t_ops:.5f} ms, {nbytes / 1e6:.2f} MB "
+            f"{t_bytes:.5f} ms) fp32_non_tensor_ms={flops / FP32_FLOPS * 1e3:.5f} "
+            f"kernel_share_of_bound={bound_ms / cold['kernel']:.4f} "
+            f"kernel_vs_library={cold['kernel'] / cold['library']:.3f}",
             flush=True,
         )
         print(
-            f"timing P={p} inputs in L2: " + " ".join(f"{k}_ms={v[0]:.5f}" for k, v in warm.items())
+            f"timing B={b} D={d} P={p} inputs in L2: "
+            + " ".join(f"{k}_ms={v[0]:.5f}" for k, v in warm.items())
             + "; host_ms to issue one call: " + " ".join(f"{k}={v[1]:.5f}" for k, v in warm.items()),
             flush=True,
         )
-        rows[p] = dict(ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["library"],
-                       bound_ms=bound_ms, bound_by=bound_by)
-    return rows[next(iter(MAPS))]
+        rows[idx] = dict(ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["library"],
+                         bound_ms=bound_ms, bound_by=bound_by)
+        del x, protos, xn, pn_t
+    return rows[0]
 
 
 def block_inputs(shape, seed, dev):
@@ -847,6 +952,19 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers", "spill")) or (
                     "error" in line.lower()):
                 print(f"build[{name}]: {line.strip()}", flush=True)
+    # the SOM kernel's products must run on the tensor cores (wgmma: HGMMA in SASS)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
+    sass = subprocess.run([cuobjdump, "-sass", infos["som_fused"]["path"]], capture_output=True,
+                          text=True, check=True).stdout
+    ops = {}
+    for line in sass.splitlines():
+        for word in line.replace(";", " ").split():
+            if word.startswith(("HGMMA", "HMMA")):
+                ops[word] = ops.get(word, 0) + 1
+    print(f"build[som_fused]: tensor-core instructions in SASS: {ops}", flush=True)
+    check(any(op.startswith("HGMMA") and "TF32" in op for op in ops),
+          "som_fused.cu has no TF32 wgmma (HGMMA) in its SASS")
 
 
 def main() -> int:

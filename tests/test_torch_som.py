@@ -7,6 +7,11 @@ its plain PyTorch version. The CUDA kernel itself is held against that
 plain version on the card by ``chip_smoke.py``.
 """
 
+import glob
+import os
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +21,11 @@ import torch
 from vitsom_tpu.config import SOMConfig
 from vitsom_tpu.ops import som_pallas
 from vitsom_tpu.som import layer as jsom
+from vitsom_tpu_torch.config import load_config
 from vitsom_tpu_torch.ops import som_fused
 from vitsom_tpu_torch.som import layer as tsom
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _t(a):
@@ -100,6 +108,7 @@ def test_init_prototypes_distribution(distance_fcn):
         (16, (8, 8), 40),
         (8, (12, 11), 130),  # P=132, not a multiple of any tile
         (13, (24, 24), 65),  # odd batch, P=576
+        (8, (4, 4), 2048),  # deep latent, small map, as the emb-192 configs
     ],
 )
 def test_fused_som_matches_pallas(distance_fcn, topology, b, map_size, d):
@@ -176,6 +185,77 @@ def test_grid_d2_rows_matches_jax():
 def test_fused_som_rejects_manhattan():
     with pytest.raises(ValueError):
         som_fused.make_fused_som((8, 8), "square", "manhattan")
+
+
+def _shipped_som_shapes():
+    """(B, N, E, P) of every shipped ViT-SOM config's SOM, and bench.py's
+    24x24 map on the flagship latent: the latent is N patch tokens of emb E."""
+    shapes = set()
+    for path in sorted(glob.glob(os.path.join(ROOT, "configs", "vit_som", "*.yaml"))):
+        cfg = load_config(path)
+        n = (cfg.data.input_size // cfg.vit.patch_size) ** 2
+        assert cfg.som_latent_dim() == n * cfg.vit.emb_dim
+        shapes.add((cfg.batch_size, n, cfg.vit.emb_dim, cfg.som.map_size[0] * cfg.som.map_size[1]))
+    assert len(shapes) == 7
+    return sorted(shapes) + [(128, 196, 16, 576)]
+
+
+@pytest.mark.parametrize("b,n,e,p", _shipped_som_shapes() + [(13, 250, 4, 132), (1, 1, 4, 1)])
+def test_plan_splits_covers_depth_in_chunks(b, n, e, p):
+    d = n * e
+    chunk = som_fused.CHUNK
+    splits, depth = som_fused.plan_splits(b, p, d)
+    chunks = -(-d // chunk)
+    assert splits >= 1 and depth % chunk == 0 and depth >= chunk
+    # splits [s depth, (s + 1) depth) cover every chunk once, in order, and
+    # the last one is not empty
+    assert (splits - 1) * depth < chunks * chunk <= splits * depth
+    tiles = -(-b // som_fused.TILE_B) * -(-p // som_fused.TILE_P)
+    ctas = som_fused.grid_ctas(b, p, d)
+    assert ctas == tiles * splits
+    # one wave of one CTA an SM, filled to within evening-out, unless the
+    # depth has no chunk left to give a further split
+    assert ctas <= som_fused.WAVE_CTAS or splits == 1
+    assert ctas >= 0.9 * som_fused.WAVE_CTAS or splits == chunks
+
+
+def test_plan_splits_at_the_main_path():
+    # vit_som_mnist.yaml: B 128, 196 tokens x emb 16, 40x40 map -> 26 tiles,
+    # S 5 of 20 chunks (18 in the last), 130 CTAs
+    assert som_fused.plan_splits(128, 1600, 3136) == (5, 640)
+    assert som_fused.grid_ctas(128, 1600, 3136) == 130
+
+
+@pytest.mark.parametrize("b,n,e,p", _shipped_som_shapes())
+def test_check_shape_accepts_shipped_layouts(b, n, e, p):
+    # x is tokens[:, 1:].reshape(B, -1): rows (1 + N) E floats apart,
+    # starting E floats into the token buffer
+    base = 1 << 20
+    som_fused.check_shape(b, p, n * e, (1 + n) * e, x_ptr=base + 4 * e, p_ptr=base)
+
+
+def test_check_shape_names_what_it_refuses():
+    som_fused.check_shape(8, 16, 64, 64)
+    with pytest.raises(ValueError, match="ldx % 4"):
+        som_fused.check_shape(8, 16, 64, 66)
+    with pytest.raises(ValueError, match="ldx"):
+        som_fused.check_shape(8, 16, 64, 60)
+    with pytest.raises(ValueError, match="D % 4"):
+        som_fused.check_shape(8, 16, 62, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        som_fused.check_shape(8, 16, 64, 64, x_ptr=8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        som_fused.check_shape(8, 16, 64, 64, p_ptr=4)
+    with pytest.raises(ValueError, match="empty"):
+        som_fused.check_shape(0, 16, 64, 64)
+
+
+def test_tiles_match_the_kernel_source():
+    # plan_splits and the workspace use the kernel's tile sizes; the
+    # wrapper also refuses a built library whose sizes differ
+    src = (Path(som_fused.__file__).parent / "csrc" / "som_fused.cu").read_text()
+    tiles = {k: int(v) for k, v in re.findall(r"constexpr int (kB[MNK]) = (\d+);", src)}
+    assert tiles == {"kBM": som_fused.TILE_B, "kBN": som_fused.TILE_P, "kBK": som_fused.CHUNK}
 
 
 def test_fused_som_cpu_path_does_not_launch():

@@ -10,13 +10,37 @@ Replaces the TPU kernel ``vitsom_tpu/ops/som_pallas.py:_som_kernel``
 - ``bmu``: [B] int64 argmin of each row, the first index on a tie;
 - ``dist``: [B, P] cosine or euclidean distances.
 
-On a CUDA tensor the forward runs ``csrc/som_fused.cu`` (three launches:
-a tiled distance SGEMM with fused norms, a per-row argmin/weights pass and a
-fixed-order loss reduction; the source's header gives its design and its
-bound on the H100: operations, 1.28 GFLOP of float32 FMA at the 40x40 map).
-On a CPU tensor it runs ``fused_som_reference``, the plain PyTorch version
-of the same function. A CUDA tensor never falls back to the plain version:
-the kernel launches or the call raises.
+On a CUDA tensor the forward runs ``csrc/som_fused.cu``, two launches:
+
+1. a grid of (128-prototype tiles, 64-row batch tiles, S splits of D). In
+   each CTA two producer warpgroups copy 32-deep chunks of x and the
+   prototypes with ``cp.async`` into a 3-stage shared-memory ring and split
+   every value into a TF32 big part and a TF32 residual; a consumer
+   warpgroup multiplies them on the tensor cores with ``wgmma`` in the
+   3xTF32 form (small*big + big*small + big*big, float32 accuracy), each
+   chunk's products added to an FP32 accumulator outside the tensor cores.
+   The CTA writes partial dot products and partial sums of squares to a
+   workspace;
+2. one CTA per batch row sums the S partials in a fixed order, forms the
+   distances, the first-index argmin, the weights and the row's loss term;
+   the last row to finish sums the row terms in row order. No float
+   atomics: two runs give bitwise-equal distances and losses.
+
+``plan_splits`` picks S from the shape alone: as many splits as fit the
+grid in one wave of the H100's 132 SMs (one CTA an SM), evened out over
+whole chunks. At the main path's shape (B 128, D 3136, P 1600) that is S 5
+and 130 CTAs. Bound there on an H100 SXM: 3 TF32 products of 2*B*P*D =
+3.85 GFLOP at 495 TFLOP/s, 7.78 us, against 22.5 MB at 3.35 TB/s, 6.72 us:
+operations. What still holds the kernel back: shared-memory bandwidth (3
+reads of both operands a product, beside the copies and splits), the
+consumer's wait for its accumulator once a chunk, and the finalize's fixed
+cost. ``check_shape`` states what the copies need (16-byte aligned
+operands, ``ldx`` and D multiples of 4); every shipped ViT-SOM config meets
+it.
+
+On a CPU tensor the op runs ``fused_som_reference``, the plain PyTorch
+version of the same function. A CUDA tensor never falls back to the plain
+version: the kernel launches or the call raises.
 
 The backward is the closed form of ``som_pallas.py:260-286`` in torch ops
 (weights are stop-gradient; they depend on the inputs only through the
@@ -56,15 +80,83 @@ def _lib():
             ctypes.c_void_p, ctypes.c_longlong,  # x, ldx
             ctypes.c_void_p,  # prototypes
             ctypes.c_void_p, ctypes.c_void_p,  # dist, bmu
-            ctypes.c_void_p, ctypes.c_void_p,  # row_partial, loss
+            ctypes.c_void_p, ctypes.c_void_p,  # workspace, loss
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, P, D
+            ctypes.c_int, ctypes.c_int,  # splits, chunks per split
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # cols, hexa, cosine
             ctypes.c_float,  # temperature
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
+        tiles = (ctypes.c_int * 3)()
+        lib.som_fused_tiles(tiles)
+        if tuple(tiles) != (TILE_B, TILE_P, CHUNK):
+            raise RuntimeError(
+                f"som_fused.cu tiles (kBM, kBN, kBK) = {tuple(tiles)} differ from "
+                f"TILE_B, TILE_P, CHUNK = {(TILE_B, TILE_P, CHUNK)}"
+            )
         _LIB = lib
     return _LIB
+
+
+# ---------------------------------------------------------------------------
+# the kernel's grid and what its copies need (no CUDA needed)
+# ---------------------------------------------------------------------------
+
+# som_fused.cu's kBM, kBN, kBK; _lib() refuses a library whose tiles differ
+TILE_B, TILE_P, CHUNK = 64, 128, 32
+WAVE_CTAS = 132  # one CTA on each SM of the H100
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_splits(b: int, p: int, d: int) -> Tuple[int, int]:
+    """(S, depth per split) of the kernel's split over D, from the shape alone.
+
+    S is the largest number of splits whose grid of (P tiles x B tiles x S)
+    CTAs fits one wave of ``WAVE_CTAS`` (at least 1, at most one split per
+    32-deep chunk), then evened out: every split takes the same whole
+    number of chunks, the last the rest (never none)."""
+    tiles = _cdiv(b, TILE_B) * _cdiv(p, TILE_P)
+    chunks = _cdiv(d, CHUNK)
+    s = max(1, min(WAVE_CTAS // tiles, chunks))
+    per = _cdiv(chunks, s)
+    return _cdiv(chunks, per), per * CHUNK
+
+
+def grid_ctas(b: int, p: int, d: int) -> int:
+    """CTAs of the kernel's first launch at this shape."""
+    return _cdiv(b, TILE_B) * _cdiv(p, TILE_P) * plan_splits(b, p, d)[0]
+
+
+def workspace_floats(b: int, p: int, splits: int) -> int:
+    """Floats of the kernel's workspace: partial dot products [S, B, P],
+    partial sums of squares [S, B] and [S, P], row loss terms [B] and the
+    finalize's count of finished rows."""
+    return splits * (b * p + b + p) + b + 1
+
+
+def check_shape(b: int, p: int, d: int, ldx: int, x_ptr: int = 0, p_ptr: int = 0) -> None:
+    """Raises ValueError unless the kernel takes this shape and layout: its
+    16-byte ``cp.async`` copies need x's and the prototypes' base addresses
+    16-byte aligned and x's row stride ``ldx`` and the depth D multiples of 4
+    floats. Needs no CUDA."""
+    if min(b, p, d) < 1:
+        raise ValueError(f"empty input: B={b}, P={p}, D={d}")
+    if d % 4:
+        raise ValueError(f"the fused SOM kernel needs D % 4 == 0 (16-byte copies), got D={d}")
+    if ldx % 4 or ldx < d:
+        raise ValueError(
+            f"the fused SOM kernel needs x's row stride ldx % 4 == 0 and ldx >= D, "
+            f"got ldx={ldx}, D={d}"
+        )
+    if x_ptr % 16 or p_ptr % 16:
+        raise ValueError(
+            "the fused SOM kernel needs x and the prototypes 16-byte aligned, got "
+            f"addresses {x_ptr:#x} and {p_ptr:#x}"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -141,20 +233,21 @@ def _kernel_forward(x, prototypes, temperature, cols, topology, distance_fcn):
         raise ValueError("x needs unit column stride and prototypes must be contiguous")
     b, d = x.shape
     p = prototypes.shape[0]
-    if b < 1 or p < 1 or d < 1:
-        raise ValueError(f"empty input: B={b}, P={p}, D={d}")
+    check_shape(b, p, d, x.stride(0), x.data_ptr(), prototypes.data_ptr())
+    splits, depth = plan_splits(b, p, d)
     dev = x.device
     dist = torch.empty((b, p), device=dev, dtype=torch.float32)
     bmu = torch.empty((b,), device=dev, dtype=torch.int64)
-    row_partial = torch.empty((b,), device=dev, dtype=torch.float32)
+    workspace = torch.empty((workspace_floats(b, p, splits),), device=dev, dtype=torch.float32)
     loss = torch.empty((), device=dev, dtype=torch.float32)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.som_fused_forward(
             x.data_ptr(), x.stride(0), prototypes.data_ptr(),
-            dist.data_ptr(), bmu.data_ptr(), row_partial.data_ptr(), loss.data_ptr(),
-            b, p, d, cols, int(topology == "hexa"), int(distance_fcn == "cosine"),
+            dist.data_ptr(), bmu.data_ptr(), workspace.data_ptr(), loss.data_ptr(),
+            b, p, d, splits, depth // CHUNK,
+            cols, int(topology == "hexa"), int(distance_fcn == "cosine"),
             float(temperature), stream,
         )
     if rc != 0:
