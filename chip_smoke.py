@@ -9,9 +9,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA sources with nvcc (sm_90a), one nvcc
    per source, all started together, and prints ptxas's register and spill
-   lines; counts the tensor-core instructions in the SOM kernel's SASS
-   (``cuobjdump`` beside nvcc) and fails without a TF32 wgmma (HGMMA) or
-   without ``cuobjdump``;
+   lines; counts the tensor-core instructions in the SASS (``cuobjdump``
+   beside nvcc) of the SOM kernel, which fails without a TF32 wgmma
+   (HGMMA), and of the two hd >= 32 attention kernels, which fail without a
+   TF32 mma (HMMA or HGMMA); fails without ``cuobjdump``;
 3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
    on the card at every shipped ViT-SOM SOM shape (``SOM_SHAPES``: B, D =
    patch tokens x emb, P) and one ragged shape (B 13, D 1000, P 132), x the
@@ -45,12 +46,19 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. attention kernels vs plain: the forward kernel's o and lse and the
    backward kernel's dq, dk, dv against their plain PyTorch versions
    (atol/rtol 1e-5, the JAX tests' tolerance), and the gradients also
-   against autograd through ``xla_attention``, at (B, N, H, hd) =
-   (128, 197, 2, 8) and (128, 197, 2, 2) (the flagship's encoder and
-   decoder), (128, 65, 3, 64) and (128, 65, 3, 32) (the emb-192 configs)
-   and (128, 257, 3, 64) (the largest N of a shipped ViT config), with q,
-   k, v both as strided views of a fused qkv buffer and contiguous; two
-   runs of each kernel must agree bitwise;
+   against autograd through ``xla_attention``, at every encoder and decoder
+   shape of a shipped ViT config (``ATTN_SHAPES``: hd 8 and 2 at N 197, 65
+   and 257; hd 64 and 32 at N 65 and 197, B 128, and at N 257, B 512), with
+   q, k, v both as strided views of a fused qkv buffer and contiguous; two
+   runs of each kernel must agree bitwise; each output's error against a
+   float64 evaluation may be at most twice the plain float32 version's
+   there plus 1e-7 (``F64_FACTOR``, ``F64_SLACK``), which a product short of
+   float32 accuracy fails. There both backwards take the float64 forward's
+   o and lse rounded to float32, so each is held on its own arithmetic: a
+   backward handed the plain forward's lse recomputes p from scores that
+   round differently from the ones that lse normalised, an error the plain
+   backward, whose scores are that forward's to the bit, does not have.
+   ``scaled_dot_product_attention``'s float64 error is printed beside them;
 7. train with ``train.attn_impl: pallas``: phase 4's run again, with the
    attention kernels. Its step-0 losses must equal phase 4's within rtol
    1e-5 (same seed, same first batch), and every kernel's launch count must
@@ -59,8 +67,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    forward kernel never runs, the backward kernel once per block a step;
 9. attention timings: each kernel, its plain version and one library call
    (``scaled_dot_product_attention`` and its gradient, which the port never
-   calls) against the bound, at (128, 197, 2, 8), (128, 197, 2, 2) and
-   (128, 65, 3, 64), L2 flushed, with phase 5's timer;
+   calls) at every hd >= 32 shape of ``ATTN_SHAPES`` and the flagship's
+   two, L2 flushed, with phase 5's timer, against the bound: operations
+   4 B H N^2 hd (forward) and 10 B H N^2 hd (backward), as three TF32
+   products at 495 TFLOP/s for the tensor-core kernels (hd >= 32) and at
+   the FP32 67 TFLOP/s for the row kernels (printed for both), or the bytes
+   at 3.35 TB/s, whichever is longer;
 10. fused block kernels vs plain: the forward kernel's y against its plain
    version (atol 2e-5, rtol 1e-5, ``tests/test_block_pallas.py:64``) and
    against the port's eager ``models/vit.Block``; the backward kernel's dx
@@ -96,6 +108,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    backward also their summed gradients). The backward kernel's second
    q k^T (p recomputed from lse) and its [B, W] partial gradients are
    artifacts of its design, not of the function, and are not counted.
+13. the emb-192 ViT-SOM: ``configs/vit_som/vit_som_cifar-10.yaml`` at its
+   full widths and depth (emb 192, depth 12, 3 heads: hd 64; decoder emb 96,
+   depth 2: hd 32; N 65; 4x4 map, SOM latent 64 x 192; batch 128, float32,
+   no remat) on the clustering objective (``data.num_classes`` 0: the
+   yaml's 10 select the classification head, not ported) with un-augmented
+   synthetic 32x32x3 images (the cifar transforms are not ported), 20 steps
+   and the clustering eval with ``xla`` attention, then with ``pallas``:
+   step-0 losses equal within rtol 1e-5, launch counts equal to the formula
+   below, recon loss falling, losses finite, reconstructions [128, 32, 32,
+   3]; median step ms and images/s of both are printed.
 
 Launch counts on a train run of S steps and E eval batches, with one
 attention call per block (A = depth + dec_depth = 6 on the flagship) and
@@ -103,12 +125,19 @@ remat_blocks (each block's forward runs again in the backward): the fused
 SOM kernel runs S + E times; with ``pallas`` the attention forward kernel
 runs (2 S + E) A times and the backward kernel S A times; with ``hybrid``
 the forward kernel 0 times and the backward kernel S A times. No train run
-launches a block kernel. Phase 11 launches the block forward kernel once per
-flagship block plus once for each of the two blocks it backpropagates
-through (6 + 2 = 8), and the backward kernel once for each of those (2).
+launches a block kernel. The cifar-10 config has no remat (A = 14): its
+``pallas`` run of S steps and E eval batches launches the attention
+forward kernel (S + E) 14 times, the backward S 14 times (each launch of
+the backward at N 65 is one kernel; at N 197 and 257 its dq partials add a
+second, counted with it) and the SOM kernel S + E times. Phase 11
+launches the block forward kernel once per flagship block plus once for
+each of the two blocks it backpropagates through (6 + 2 = 8), and the
+backward kernel once for each of those (2).
 
-The last lines are the ``kernels`` JSON, the nvidia-smi line and the result.
-The whole script takes about 70 seconds on an H100, the builds included.
+The last lines are the ``kernels`` JSON (the attention kernels' rows: the
+cifar-10 ``pallas`` run's launches and the (128, 65, 3, 64) timings), the
+nvidia-smi line and the result. The whole script takes about 75 seconds on
+an H100, the builds included.
 """
 
 from __future__ import annotations
@@ -123,12 +152,13 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vitsom_tpu_torch.config import load_config
 from vitsom_tpu_torch.convert import block_weights
-from vitsom_tpu_torch.data.synthetic import build_datamodule
+from vitsom_tpu_torch.data.synthetic import DataModule, build_datamodule, make_synthetic
 from vitsom_tpu_torch.models.vit import Block
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
 from vitsom_tpu_torch.ops import _build, attention_fused, block_fused, som_fused
@@ -141,14 +171,25 @@ from vitsom_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_mnist.yaml")
+CIFAR_CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_cifar-10.yaml")
 TRAIN_STEPS = 40
 HYBRID_STEPS = 10
+CIFAR_STEPS = 20
 KERNEL_SOURCES = ("som_fused", "attention", "block")
-# (B, N, H, hd): the flagship's encoder and decoder, the emb-192 configs'
-# encoder and decoder, and the largest N of a shipped ViT config
-ATTN_SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 3, 64), (128, 65, 3, 32),
-               (128, 257, 3, 64)]
-ATTN_TIMED = ATTN_SHAPES[:3]
+# (B, N, H, hd): every encoder and decoder attention shape of a shipped ViT
+# config (B, N from the yaml; heads 2 and 3)
+ATTN_SHAPES = [
+    (128, 197, 2, 8), (128, 197, 2, 2),    # vit_som_mnist, _fmnist (the flagship)
+    (128, 65, 2, 8), (128, 65, 2, 2),      # vit_som_usps
+    (128, 257, 2, 8), (128, 257, 2, 2),    # vit_som_svhn
+    (128, 65, 3, 64), (128, 65, 3, 32),    # vit_som_cifar-10, _cifar-100, vit_cifar-10
+    (128, 197, 3, 64), (128, 197, 3, 32),  # vit_som_medmnist, _flowers-17, _flowers-102
+    (512, 257, 3, 64), (512, 257, 3, 32),  # vit_som_tiny-imagenet, vit_cifar-100, vit_svhn
+]
+# the tensor-core kernels' shapes (hd >= 32) and the flagship's two
+ATTN_TIMED = [s for s in ATTN_SHAPES if s[3] >= 32] + ATTN_SHAPES[:2]
+# the cifar-10 run's encoder shape: the kernels JSON line's attention rows
+ATTN_MAIN = (128, 65, 3, 64)
 # (B, N, D, H, mlp_ratio): the flagship's encoder and decoder blocks at full
 # width, then the JAX tests' blocks (tests/test_block_pallas.py:46-53, :68)
 BLOCK_SHAPES = [(128, 197, 16, 2, 4.0), (128, 197, 4, 2, 4.0), (8, 197, 16, 2, 4.0),
@@ -308,9 +349,9 @@ def near_ties(dist, distance):
 
 
 def float64_err(kd, rd, exact):
-    """(the kernel's, the plain version's largest distance error against
-    the float64 distances ``exact``, whether the kernel's is within
-    F64_FACTOR of the plain version's plus F64_SLACK)."""
+    """(the kernel's, the plain version's largest error against the float64
+    values ``exact``, whether the kernel's is within F64_FACTOR of the plain
+    version's plus F64_SLACK)."""
     kerr = float((kd.double() - exact).abs().max())
     perr = float((rd.detach().double() - exact).abs().max())
     return kerr, perr, kerr <= F64_FACTOR * perr + F64_SLACK
@@ -450,25 +491,39 @@ def expected_launches(cfg, impl, steps, eval_batches):
     }
 
 
-def train_run(dev, label, impl, steps, evaluate):
-    """Trains the flagship yaml (attention ``impl``, or as shipped when
-    None) for ``steps`` steps and, with ``evaluate``, runs the clustering
-    eval; prints and checks what every train phase checks. Returns
-    (cfg, dm, trainer, hist, launches)."""
-    over = {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE}
+def raw_synthetic_datamodule(cfg, dev):
+    """The config's synthetic stand-in (``make_synthetic``), scaled to [0, 1]
+    as ``build_datamodule`` scales the mnist family, with no transform and
+    no augmentation: the cifar transforms are not ported, and
+    ``build_datamodule`` refuses cifar."""
+    raw = make_synthetic(cfg.data)
+    x = np.concatenate([raw.train_x, raw.test_x])
+    y = np.concatenate([raw.train_y, raw.test_y])
+    return DataModule(cfg, torch.from_numpy(x).to(dev).float() / 255.0, torch.from_numpy(y).to(dev))
+
+
+def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_datamodule,
+              data="synthetic MNIST-shaped images", extra=None):
+    """Trains ``config`` (attention ``impl``, or as shipped when None; more
+    overrides in ``extra``) for ``steps`` steps on the data module
+    ``make_dm`` builds and, with ``evaluate``, runs the clustering eval;
+    prints and checks what every train phase checks. Returns (cfg, dm,
+    trainer, hist, launches)."""
+    over = {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE, **(extra or {})}
     if impl is not None:
         over["train.attn_impl"] = impl
-    cfg = load_config(CONFIG, over)
+    cfg = load_config(config, over)
     impl = model_attn_impl(cfg)
     print(
-        f"{label}: config map={cfg.som.map_size} emb={cfg.vit.emb_dim} depth={cfg.vit.depth} "
-        f"dec_emb={cfg.vit.dec_emb_dim} dec_depth={cfg.vit.dec_depth} heads={cfg.vit.heads} "
-        f"batch={cfg.batch_size} distance={cfg.som.distance_fcn} "
-        f"use_pallas_som={cfg.train.use_pallas_som} remat={cfg.train.remat_blocks} "
-        f"compute={cfg.train.compute_dtype} attn_impl={impl}",
+        f"{label}: config {os.path.basename(config)} map={cfg.som.map_size} emb={cfg.vit.emb_dim} "
+        f"depth={cfg.vit.depth} dec_emb={cfg.vit.dec_emb_dim} dec_depth={cfg.vit.dec_depth} "
+        f"heads={cfg.vit.heads} patch={cfg.vit.patch_size} batch={cfg.batch_size} "
+        f"distance={cfg.som.distance_fcn} use_pallas_som={cfg.train.use_pallas_som} "
+        f"remat={cfg.train.remat_blocks} compute={cfg.train.compute_dtype} attn_impl={impl} "
+        f"num_classes={cfg.data.num_classes} data={data}",
         flush=True,
     )
-    dm = build_datamodule(cfg, dev)
+    dm = make_dm(cfg, dev)
     trainer = Trainer(cfg, device=dev, dm=dm)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     eval_batches = dm.n_train // cfg.batch_size if evaluate else 0
@@ -546,14 +601,57 @@ def phase_train(dev):
     return launches["som_fused"], {k: float(hist[k][0]) for k in FIRST_LOSSES}, trainer, dm
 
 
-def phase_train_attention(dev, impl, steps, evaluate, xla_first):
-    """Phases 7 and 8; returns the launch counts."""
-    _, _, _, hist, launches = train_run(dev, f"train_{impl}", impl, steps, evaluate)
+def check_first_losses(label, hist, xla_first):
+    """The step-0 losses of ``hist`` against the xla run's, within rtol TOL."""
     for k in FIRST_LOSSES:
         a, b = float(hist[k][0]), xla_first[k]
         rel = abs(a - b) / max(abs(b), 1e-30)
-        print(f"train_{impl} step0 {k}={a:.8f} xla={b:.8f} rel_err={rel:.3e}", flush=True)
-        check(rel <= TOL, f"{impl} step-0 {k} differs from the xla run: {a} vs {b}")
+        print(f"{label} step0 {k}={a:.8f} xla={b:.8f} rel_err={rel:.3e}", flush=True)
+        check(rel <= TOL, f"{label} step-0 {k} differs from the xla run: {a} vs {b}")
+
+
+def phase_train_attention(dev, impl, steps, evaluate, xla_first):
+    """Phases 7 and 8; returns the launch counts."""
+    _, _, _, hist, launches = train_run(dev, f"train_{impl}", impl, steps, evaluate)
+    check_first_losses(f"train_{impl}", hist, xla_first)
+    return launches
+
+
+def phase_train_cifar(dev):
+    """Phase 13: the emb-192 ViT-SOM at full width; returns the pallas run's
+    launch counts.
+
+    ``configs/vit_som/vit_som_cifar-10.yaml`` at its full widths and depth
+    (emb 192, depth 12, 3 heads, decoder emb 96 and depth 2, 4x4 map, SOM
+    latent D = 64 x 192, batch 128, float32, no remat), trained on the
+    clustering objective (``data.num_classes`` 0: the yaml's 10 select the
+    classification head, which is not ported) on un-augmented synthetic
+    32x32x3 images (the cifar transforms and augmentation are not ported),
+    once with
+    ``xla`` and once with ``pallas`` attention, CIFAR_STEPS steps and the
+    clustering eval each. The pallas run's step-0 losses equal the xla
+    run's within rtol 1e-5 and its launch counts the formula (module
+    docstring); its reconstructions of one eval batch are finite and
+    [128, 32, 32, 3]."""
+    data = "un-augmented synthetic 32x32x3 images (cifar transforms not ported)"
+    first, launches = None, None
+    for impl in ("xla", "pallas"):
+        label = f"cifar10_{impl}"
+        cfg, dm, trainer, hist, launches = train_run(
+            dev, label, impl, CIFAR_STEPS, True, config=CIFAR_CONFIG,
+            make_dm=raw_synthetic_datamodule, data=data, extra={"data.num_classes": 0})
+        if first is None:
+            first = {k: float(hist[k][0]) for k in FIRST_LOSSES}
+        else:
+            check_first_losses(label, hist, first)
+        with torch.no_grad():
+            _, recon_img, _, dist, _ = trainer.model(next(dm.eval_batches())["image"])
+        shape = (cfg.batch_size, cfg.data.input_size, cfg.data.input_size, cfg.data.num_channels)
+        print(f"{label}: recon_shape={tuple(recon_img.shape)} dist_shape={tuple(dist.shape)}",
+              flush=True)
+        check(tuple(recon_img.shape) == shape == (128, 32, 32, 3), "bad cifar-10 recon shape")
+        check(bool(torch.isfinite(recon_img).all()), "non-finite cifar-10 reconstruction")
+        del trainer, dm
     return launches
 
 
@@ -570,6 +668,17 @@ def attn_inputs(shape, seed, dev, strided):
     else:
         q, k, v = (torch.randn(b, n, d, generator=g, device=dev) for _ in range(3))
     return q, k, v, torch.randn(b, n, d, generator=g, device=dev)
+
+
+def sdpa_grads(q, k, v, do, heads):
+    """o and (dq, dk, dv) of ``scaled_dot_product_attention`` in the kernels'
+    [B, N, D] layout (the yardstick's float64 error; the port never calls it)."""
+    b, n, d = q.shape
+    leaves = [x.detach().reshape(b, n, heads, d // heads).transpose(1, 2).contiguous()
+              .requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do.reshape(b, n, heads, d // heads).transpose(1, 2))
+    return tuple(x.detach().transpose(1, 2).reshape(b, n, d) for x in (out, *grads))
 
 
 def phase_attention_vs_plain(dev):
@@ -589,11 +698,27 @@ def phase_attention_vs_plain(dev):
             leaves = [x.detach().reshape(b, n, h, hd).requires_grad_() for x in (q, k, v)]
             xo, _ = xla_attention(*leaves)
             agrads = torch.autograd.grad(xo, leaves, do.reshape(b, n, h, hd))
+            # float64 outputs: each float32 version's own error; both
+            # backwards take the float64 forward's o and lse rounded to float32
+            q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+            eo, else64 = attention_fused.fused_attention_reference(q64, k64, v64, h)
+            exact = (eo, else64, *attention_fused.fused_attention_bwd_reference(
+                q64, k64, v64, eo, else64, do64, h))
+            res = (eo.float(), else64.float())
+            kgrads = attention_fused._kernel_backward(q, k, v, *res, do, h)
+            pgrads = attention_fused.fused_attention_bwd_reference(q, k, v, *res, do, h)
+            sdpa = sdpa_grads(q, k, v, do, h)
             torch.cuda.synchronize()
             errs = {"o": allclose_err(o, ro, TOL, TOL), "lse": allclose_err(lse, rlse, TOL, TOL)}
             for name, a, r, x in zip(("dq", "dk", "dv"), grads, rgrads, agrads):
                 errs[name] = allclose_err(a, r, TOL, TOL)
                 errs[name + "_vs_autograd"] = allclose_err(a, x.reshape(b, n, h * hd), TOL, TOL)
+            f64 = {}
+            for name, a, r, e in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *kgrads),
+                                     (ro, rlse, *pgrads), exact):
+                f64[name] = float64_err(a, r, e)
+            sdpa_f64 = [float((x.double() - e).abs().max())
+                        for x, e in zip(sdpa, (eo, *exact[2:]))]
             same = (torch.equal(o, o2) and torch.equal(lse, lse2)
                     and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
             layout = "strided" if strided else "contiguous"
@@ -603,12 +728,22 @@ def phase_attention_vs_plain(dev):
                 + f" deterministic={same}",
                 flush=True,
             )
+            print(
+                f"attention_vs_float64 (B,N,H,hd)={shape} {layout}: "
+                + " ".join(f"{k}: kernel={ke:.3e} plain={pe:.3e}" for k, (ke, pe, _) in f64.items())
+                + " sdpa: " + " ".join(f"{k}={e:.3e}" for k, e in zip(("o", "dq", "dk", "dv"), sdpa_f64)),
+                flush=True,
+            )
             for k, (e, ok) in errs.items():
                 check(ok, f"attention {k} disagrees at {shape} {layout}: {e}")
                 side = "attention_fwd" if k in ("o", "lse") else "attention_bwd"
                 worst[side] = max(worst[side], e)
+            for k, (ke, pe, ok) in f64.items():
+                check(ok, f"attention {k} further from float64 than {F64_FACTOR} x the plain "
+                          f"version's + {F64_SLACK} at {shape} {layout}: {ke} vs {pe}")
             check(same, f"two attention kernel runs differ at {shape} {layout}")
             check(o.shape == (b, n, h * hd) and lse.shape == (b, h, n), "bad attention output shape")
+            del q64, k64, v64, do64, exact, eo, else64, sdpa, res, kgrads, pgrads
     return worst
 
 
@@ -625,7 +760,8 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def phase_attention_timings(dev):
-    """Phase 9; returns {(shape, kernel name): row} of the timed shapes.
+    """Phase 9; returns {(shape, kernel name): row} of the timed shapes
+    (``ATTN_TIMED``).
 
     The kernels and plain versions take the main path's layout (strided
     views below dim 128); the library call takes pre-transposed contiguous
@@ -660,25 +796,34 @@ def phase_attention_timings(dev):
                 sdpa_backend(*leaves),
             ),
         }
+        tensor = hd in attention_fused.MMA_HEAD_DIMS
         for name, (fns, flops, nbytes, n_exp, backend) in cases.items():
             t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}
-            t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            # the tensor-core kernels do a float32-accurate product as three
+            # TF32 products; the row kernels run on the FP32 cores
+            t_fp32 = flops / FP32_FLOPS * 1e3
+            t_ops = 3 * flops / TF32_FLOPS * 1e3 if tensor else t_fp32
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ms = max(t_ops, t_bytes)
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            two_pass = name == "attention_bwd" and not tensor
             print(
                 f"timing {name} (B,N,H,hd)={shape} ({'strided' if d < 128 else 'contiguous'}, "
                 f"L2 flushed): kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
                 f"library_ms={t['library']:.5f} (sdpa backend {backend}) "
-                f"bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e6:.1f} MFLOP fp32, "
-                f"{nbytes / 1e6:.3f} MB; exp needed={n_exp / 1e6:.3f} M"
-                + (f", the kernel computes {2 * n_exp / 1e6:.3f} M in its two passes"
-                   if name == "attention_bwd" else "")
-                + f") kernel_share_of_bound={bound_ms / t['kernel']:.4f}",
+                f"bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e6:.1f} MFLOP "
+                + (f"as 3xTF32 {t_ops:.5f} ms" if tensor else f"fp32 {t_ops:.5f} ms")
+                + f", {nbytes / 1e6:.3f} MB {t_bytes:.5f} ms; fp32_non_tensor_ms={t_fp32:.5f}; "
+                f"exp needed={n_exp / 1e6:.3f} M"
+                + (f", the kernel computes {2 * n_exp / 1e6:.3f} M in its two passes" if two_pass else "")
+                + f") kernel_share_of_bound={bound_ms / t['kernel']:.4f} "
+                f"kernel_vs_library={t['kernel'] / t['library']:.3f}",
                 flush=True,
             )
             rows[(shape, name)] = dict(ms=t["kernel"], plain_ms=t["plain"],
                                        library_ms=t["library"], bound_ms=bound_ms,
                                        bound_by=bound_by)
+        del q, k, v, do, o, lse, heads_first, leaves, do_t, sdpa_out
     return rows
 
 
@@ -952,19 +1097,30 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers", "spill")) or (
                     "error" in line.lower()):
                 print(f"build[{name}]: {line.strip()}", flush=True)
-    # the SOM kernel's products must run on the tensor cores (wgmma: HGMMA in SASS)
+    # the SOM kernel's and the hd >= 32 attention kernels' products must run
+    # on the tensor cores in TF32 (wgmma: HGMMA; mma.sync: HMMA in SASS)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
-    sass = subprocess.run([cuobjdump, "-sass", infos["som_fused"]["path"]], capture_output=True,
-                          text=True, check=True).stdout
-    ops = {}
-    for line in sass.splitlines():
-        for word in line.replace(";", " ").split():
-            if word.startswith(("HGMMA", "HMMA")):
-                ops[word] = ops.get(word, 0) + 1
-    print(f"build[som_fused]: tensor-core instructions in SASS: {ops}", flush=True)
-    check(any(op.startswith("HGMMA") and "TF32" in op for op in ops),
-          "som_fused.cu has no TF32 wgmma (HGMMA) in its SASS")
+    for name, kernels, kinds in (
+            ("som_fused", ("som_partial_kernel",), ("HGMMA",)),
+            ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA"))):
+        sass = subprocess.run([cuobjdump, "-sass", infos[name]["path"]], capture_output=True,
+                              text=True, check=True).stdout
+        ops, function = {}, None  # {function: {instruction: count}}
+        for line in sass.splitlines():
+            if "Function :" in line:
+                function = line.split("Function :", 1)[1].strip()
+                ops[function] = {}
+            for word in line.replace(";", " ").split():
+                if function and word.startswith(("HGMMA", "HMMA")):
+                    ops[function][word] = ops[function].get(word, 0) + 1
+        for kernel in kernels:
+            found = {f: c for f, c in ops.items() if kernel in f}
+            check(found, f"{name}.cu: no {kernel} in the SASS")
+            for function, counts in found.items():
+                print(f"build[{name}]: tensor-core instructions of {function}: {counts}", flush=True)
+                check(any(op.startswith(kinds) and "TF32" in op for op in counts),
+                      f"{function} has no TF32 {'/'.join(kinds)} in its SASS")
 
 
 def main() -> int:
@@ -983,12 +1139,13 @@ def main() -> int:
         som_launches, xla_first, trainer, dm = phase_train(dev)
         timing = phase_timings(dev)
         attn_err = phase_attention_vs_plain(dev)
-        pallas = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
+        phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
         phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
         attn_timing = phase_attention_timings(dev)
         block_err = phase_block_vs_plain(dev)
         block_launches = phase_block_flagship(dev, trainer, dm)
         block_timing = phase_block_timings(dev)
+        cifar = phase_train_cifar(dev)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1009,9 +1166,9 @@ def main() -> int:
             "route": "cuda",
             "source": "vitsom_tpu_torch/ops/csrc/attention.cu",
             "replaces": replaces,
-            "launches": pallas[name],
+            "launches": cifar[name],
             "max_abs_err": attn_err[name],
-            **attn_timing[(ATTN_TIMED[0], name)],
+            **attn_timing[(ATTN_MAIN, name)],
         })
     for name, replaces in (("block_fwd", "vitsom_tpu/ops/block_pallas.py:226"),
                            ("block_bwd", "vitsom_tpu/ops/block_pallas.py:235")):

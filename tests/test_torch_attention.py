@@ -10,6 +10,8 @@ atol 2e-4 / rtol 1e-3 for the hybrid op's gradients (``:341``).
 """
 
 import glob
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -175,6 +177,67 @@ def test_shipped_vit_head_dims_are_built():
                 assert tfused.smem_bytes(n, hd, backward=True) <= tfused.SMEM_LIMIT_BYTES, path
     assert {2, 8, 32, 64} <= {hd for hd, _ in seen}
     assert max(n for _, n in seen) == 257
+
+
+def test_tiles_and_shared_memory_match_the_kernel_source():
+    """The wrapper plans the tensor-core kernels' grid, shared memory and dq
+    workspace with the source's tile constants (and refuses a built library
+    whose constants differ); its ``mma_plan`` and ``smem_bytes`` give the
+    chunks, warps, CTAs and bytes the source's header states per shape."""
+    src = (Path(tfused.__file__).parent / "csrc" / "attention.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (kRowTile|kMaxWarps|kPad|kKeyBlock) = (\d+);", src)}
+    assert consts == {"kRowTile": tfused.ROW_TILE, "kMaxWarps": tfused.MAX_WARPS,
+                      "kPad": tfused.SMEM_PAD, "kKeyBlock": tfused.KEY_BLOCK}
+    built = re.findall(r"X\((\d+), (launch_fwd(?:_mma)?),", src)
+    assert tuple(int(hd) for hd, _ in built) == tfused.HEAD_DIMS
+    assert tuple(int(hd) for hd, fwd in built if fwd == "launch_fwd_mma") == tfused.MMA_HEAD_DIMS
+    rows = re.findall(
+        r"smem N (\d+), hd (\d+): (\d+) x (\d+), (\d+) CTAs(?: at B (\d+))?; "
+        r"forward (\d+) B, backward (\d+) B", src)
+    assert len(rows) == 6
+    for n, hd, chunks, warps, ctas, batch, fwd, bwd in rows:
+        n, hd = int(n), int(hd)
+        assert tfused.mma_plan(n) == (int(chunks), int(warps))
+        assert int(ctas) == int(batch or 128) * 3 * int(chunks)
+        assert tfused.smem_bytes(n, hd, backward=False) == int(fwd)
+        assert tfused.smem_bytes(n, hd, backward=True) == int(bwd)
+
+
+def _vit_shapes(path):
+    """{(N, head_dim)} of a config's encoder and decoder attention."""
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    vit, data = cfg["vit"], cfg["data"]
+    n = (data["input_size"] // vit["patch_size"]) ** 2 + 1
+    return {(n, emb // vit["heads"]) for emb in (vit["emb_dim"], vit.get("dec_emb_dim")) if emb}
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob("configs/vit_som/*.yaml")))
+def test_check_shape_takes_every_shipped_vit_som_shape(path):
+    """``check_shape`` (the shape rules ``_check`` applies before a launch)
+    accepts each (N, head_dim) of the config, forward and backward; with
+    hd >= 32 the tensor-core kernels' shared memory at that N fits."""
+    for n, hd in _vit_shapes(path):
+        for backward in (False, True):
+            tfused.check_shape(n, hd, backward)
+            assert tfused.smem_bytes(n, hd, backward) <= tfused.SMEM_LIMIT_BYTES
+
+
+def test_check_shape_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="not built"):
+        tfused.check_shape(65, 24, backward=False)
+    # the tensor-core kernels stream keys (forward) and query tiles
+    # (backward); only the backward's lse and delta rows grow with N
+    assert tfused.smem_bytes(4096, 64, backward=False) == tfused.smem_bytes(65, 64, backward=False)
+    tfused.check_shape(4096, 64, backward=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused.check_shape(30000, 64, backward=True)
+    # the row kernels stage all of K and V
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused.check_shape(4096, 8, backward=False)
+    assert tfused.mma_plan(65) == (1, 5) and tfused.mma_plan(128) == (1, 8)
+    assert tfused.mma_plan(129) == (2, 5) and tfused.mma_plan(257) == (3, 6)
 
 
 @pytest.mark.parametrize(

@@ -14,7 +14,9 @@ are column slices), as in the JAX package:
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. There is no fallback
 from one to the other. q, k and v may be strided views (the model slices
-them out of its fused qkv buffer) as long as their column stride is 1.
+them out of its fused qkv buffer) as long as their column stride is 1; at
+head dims from 32 up (the tensor-core kernels) their rows must also start
+on 16-byte boundaries, as the model's views do.
 """
 
 from __future__ import annotations
@@ -32,8 +34,13 @@ from vitsom_tpu_torch.ops._build import SMEM_LIMIT_BYTES
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
-# head dims the kernels are built for (csrc/attention.cu, ATTN_HEAD_DIMS)
+# head dims the kernels are built for (csrc/attention.cu, ATTN_HEAD_DIMS);
+# from 32 up they run the tensor-core kernels
 HEAD_DIMS = (2, 8, 16, 32, 48, 64)
+MMA_HEAD_DIMS = (32, 48, 64)
+# the tensor-core kernels' tile constants (kRowTile, kMaxWarps, kPad,
+# kKeyBlock: 8-key tiles a forward ring stage holds)
+ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = 16, 8, 4, 4
 
 _LIB = None
 
@@ -47,17 +54,65 @@ def _lib():
         lib.attention_forward.argtypes = view * 3 + [ctypes.c_void_p] * 2 + dims
         lib.attention_forward.restype = ctypes.c_int
         lib.attention_backward.argtypes = (
-            view * 4 + [ctypes.c_void_p] + view + [ctypes.c_void_p] * 3 + dims
+            view * 4 + [ctypes.c_void_p] + view + [ctypes.c_void_p] * 4 + dims
         )
         lib.attention_backward.restype = ctypes.c_int
+        tiles = (ctypes.c_int * 4)()
+        lib.attention_tiles(tiles)
+        want = (ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK)
+        if tuple(tiles) != want:
+            raise RuntimeError(
+                f"attention.cu tiles (kRowTile, kMaxWarps, kPad, kKeyBlock) = {tuple(tiles)} "
+                f"differ from ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = {want}"
+            )
         _LIB = lib
     return _LIB
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def mma_plan(n: int) -> Tuple[int, int]:
+    """(chunks C, warps W) of one (b, h) in the tensor-core kernels: the
+    ceil(N / 16) row tiles (query tiles in the forward, key tiles in the
+    backward) cut into C chunks of at most ``MAX_WARPS`` warp tiles each."""
+    tiles = _cdiv(n, ROW_TILE)
+    chunks = _cdiv(tiles, MAX_WARPS)
+    return chunks, _cdiv(tiles, chunks)
+
+
 def smem_bytes(n: int, head_dim: int, backward: bool) -> int:
-    """Dynamic shared memory of one CTA: two staged [N, hd] operands, plus
-    lse and delta rows in the backward."""
-    return 4 * (2 * n * head_dim + (2 * n if backward else 0))
+    """Dynamic shared memory of one CTA (``csrc/attention.cu``'s header).
+
+    hd <= 16: two staged [N, hd] operands, plus lse and delta rows in the
+    backward. hd >= 32: rows of hd + SMEM_PAD floats; the forward a
+    two-stage ring of K and V blocks of 8 * KEY_BLOCK keys; the backward its
+    chunk's K and V rows, a two-stage ring of 16-row q and do tiles, lse and
+    delta (N rounded up to 16) and a [16, keys] ds tile whose row stride is
+    8 mod 32 floats."""
+    if head_dim not in MMA_HEAD_DIMS:
+        return 4 * (2 * n * head_dim + (2 * n if backward else 0))
+    ld = head_dim + SMEM_PAD
+    if not backward:
+        return 4 * 2 * 2 * 8 * KEY_BLOCK * ld
+    nq = _cdiv(n, ROW_TILE) * ROW_TILE
+    keys = mma_plan(n)[1] * ROW_TILE
+    lds = keys + (8 - keys) % 32
+    return 4 * ((2 * keys + 4 * ROW_TILE) * ld + 2 * nq + ROW_TILE * lds)
+
+
+def check_shape(n: int, head_dim: int, backward: bool) -> None:
+    """Raises ValueError unless the kernels take sequence length ``n`` at
+    ``head_dim`` (built, and its CTA's working set fits in shared memory)."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not built; the kernels cover {HEAD_DIMS}")
+    need = smem_bytes(n, head_dim, backward)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"N={n} at head_dim {head_dim} needs {need} bytes of shared memory per block, "
+            f"more than {SMEM_LIMIT_BYTES}"
+        )
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -125,14 +180,15 @@ def _check(tensors, heads: int, backward: bool):
     if b < 1 or n < 1 or heads < 1 or d % heads:
         raise ValueError(f"bad attention shape B={b} N={n} D={d} heads={heads}")
     hd = d // heads
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} is not built; the kernels cover {HEAD_DIMS}")
-    need = smem_bytes(n, hd, backward)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"N={n} at head_dim {hd} needs {need} bytes of shared memory per block, "
-            f"more than {SMEM_LIMIT_BYTES}"
-        )
+    check_shape(n, hd, backward)
+    if hd in MMA_HEAD_DIMS:
+        # the tensor-core kernels copy rows in 16-byte pieces
+        for x in tensors:
+            if x.data_ptr() % 16 or x.stride(0) % 4 or x.stride(1) % 4:
+                raise ValueError(
+                    f"head_dim {hd} copies rows in 16-byte pieces: pointer and row/batch "
+                    f"strides {x.stride()[:2]} must be 16-byte aligned"
+                )
     return b, n, hd
 
 
@@ -169,11 +225,15 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
         raise ValueError("lse must be a contiguous float32 [B, H, N] tensor beside q")
     dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=torch.float32)
                   for _ in range(3))
+    chunks = mma_plan(n)[0] if hd in MMA_HEAD_DIMS else 1
+    # the key chunks' dq partials, summed in chunk order by a second launch
+    part = (torch.empty((chunks, b, n, heads * hd), device=q.device, dtype=torch.float32)
+            if chunks > 1 else None)
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.attention_backward(
             *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(), *_view(do),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
             b, n, heads, hd, hd**-0.5, _stream(q.device),
         )
     if rc != 0:
