@@ -48,8 +48,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    (atol/rtol 1e-5, the JAX tests' tolerance), and the gradients also
    against autograd through ``xla_attention``, at every encoder and decoder
    shape of a shipped ViT config (``ATTN_SHAPES``: hd 8 and 2 at N 197, 65
-   and 257; hd 64 and 32 at N 65 and 197, B 128, and at N 257, B 512), with
-   q, k, v both as strided views of a fused qkv buffer and contiguous; two
+   and 257; hd 64 and 32 at N 65 and 197, B 128, and at N 257, B 512) and
+   the JAX tests' row shapes (2, 33, 2, 16) and (1, 9, 1, 8)
+   (``ATTN_TEST_SHAPES``), with q, k, v both as strided views of a fused
+   qkv buffer and contiguous, and at an hd 2 shape whose views start 4
+   bytes off an 8-byte boundary (``ATTN_ODD_SHAPES``: the row kernels'
+   4-byte copies; 16- and 8-byte copies run at the other row shapes); two
    runs of each kernel must agree bitwise; each output's error against a
    float64 evaluation may be at most twice the plain float32 version's
    there plus 1e-7 (``F64_FACTOR``, ``F64_SLACK``), which a product short of
@@ -67,12 +71,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    forward kernel never runs, the backward kernel once per block a step;
 9. attention timings: each kernel, its plain version and one library call
    (``scaled_dot_product_attention`` and its gradient, which the port never
-   calls) at every hd >= 32 shape of ``ATTN_SHAPES`` and the flagship's
-   two, L2 flushed, with phase 5's timer, against the bound: operations
-   4 B H N^2 hd (forward) and 10 B H N^2 hd (backward), as three TF32
-   products at 495 TFLOP/s for the tensor-core kernels (hd >= 32) and at
-   the FP32 67 TFLOP/s for the row kernels (printed for both), or the bytes
-   at 3.35 TB/s, whichever is longer;
+   calls) at all 12 shapes of ``ATTN_SHAPES`` (``ATTN_TIMED``: the six
+   hd >= 32 shapes, then the six row shapes), L2 flushed, with phase 5's
+   timer, against the bound: the largest of the operations 4 B H N^2 hd (forward) and 10 B H N^2 hd
+   (backward), as three TF32 products at 495 TFLOP/s for the tensor-core
+   kernels (hd >= 32) and at the FP32 67 TFLOP/s for the row kernels
+   (printed for both), the B H N^2 exponentials (one a pair, forward and
+   backward) at 16 a clock an SM at 1.98 GHz, and the bytes at 3.35 TB/s;
+   for each row kernel its CTAs, threads, shared memory, copy width and
+   resident CTAs an SM;
 10. fused block kernels vs plain: the forward kernel's y against its plain
    version (atol 2e-5, rtol 1e-5, ``tests/test_block_pallas.py:64``) and
    against the port's eager ``models/vit.Block``; the backward kernel's dx
@@ -136,7 +143,7 @@ backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON (the attention kernels' rows: the
 cifar-10 ``pallas`` run's launches and the (128, 65, 3, 64) timings), the
-nvidia-smi line and the result. The whole script takes about 75 seconds on
+nvidia-smi line and the result. The whole script takes about 65 seconds on
 an H100, the builds included.
 """
 
@@ -186,8 +193,14 @@ ATTN_SHAPES = [
     (128, 197, 3, 64), (128, 197, 3, 32),  # vit_som_medmnist, _flowers-17, _flowers-102
     (512, 257, 3, 64), (512, 257, 3, 32),  # vit_som_tiny-imagenet, vit_cifar-100, vit_svhn
 ]
-# the tensor-core kernels' shapes (hd >= 32) and the flagship's two
-ATTN_TIMED = [s for s in ATTN_SHAPES if s[3] >= 32] + ATTN_SHAPES[:2]
+# the JAX tests' row-kernel shapes (tests/test_pallas_kernels.py:48, :69):
+# hd 16, and N 9, a ragged row count
+ATTN_TEST_SHAPES = [(2, 33, 2, 16), (1, 9, 1, 8)]
+# an hd 2 shape whose q, k, v rows start 4 bytes off an 8-byte boundary (row
+# stride 3 D + 1 floats): the row kernels' 4-byte copies
+ATTN_ODD_SHAPES = [(128, 197, 2, 2)]
+# the tensor-core kernels' shapes (hd >= 32) and the six row-kernel shapes
+ATTN_TIMED = [s for s in ATTN_SHAPES if s[3] >= 32] + ATTN_SHAPES[:6]
 # the cifar-10 run's encoder shape: the kernels JSON line's attention rows
 ATTN_MAIN = (128, 65, 3, 64)
 # (B, N, D, H, mlp_ratio): the flagship's encoder and decoder blocks at full
@@ -228,6 +241,10 @@ L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # tensor cores; a float32-accurate 3xTF32 product is 3 of them
 HBM_BYTES_PER_S = 3.35e12
+# the boost clock behind FP32_FLOPS (132 SMs x 128 FP32 lanes x 2 x 1.98 GHz)
+# and the SFU's exponentials a clock an SM (compute capability 9.0)
+SM_CLOCK_HZ = 1.98e9
+SFU_EXP_PER_CLOCK = 16
 
 
 class SmokeFailure(Exception):
@@ -655,16 +672,21 @@ def phase_train_cifar(dev):
     return launches
 
 
-def attn_inputs(shape, seed, dev, strided):
-    """q, k, v [B, N, D] and a cotangent do. ``strided``: q, k, v are views
-    of one [B, N, 3, D] buffer, rows 3 D floats apart, as the model's
-    fused qkv projection hands them over below dim 128."""
+def attn_inputs(shape, seed, dev, layout):
+    """q, k, v [B, N, D] and a cotangent do. ``layout`` "strided": q, k, v
+    are views of one [B, N, 3, D] buffer, rows 3 D floats apart, as the
+    model's fused qkv projection hands them over below dim 128; "odd": views
+    of a [B, N, 3 D + 1] buffer from float 1 on, so every row starts 4 bytes
+    off an 8-byte boundary; "contiguous": three tensors."""
     b, n, h, hd = shape
     d = h * hd
     g = torch.Generator(device=dev).manual_seed(seed)
-    if strided:
+    if layout == "strided":
         buf = torch.randn(b, n, 3, d, generator=g, device=dev)
         q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+    elif layout == "odd":
+        buf = torch.randn(b, n, 3 * d + 1, generator=g, device=dev)
+        q, k, v = (buf[:, :, 1 + i * d:1 + (i + 1) * d] for i in range(3))
     else:
         q, k, v = (torch.randn(b, n, d, generator=g, device=dev) for _ in range(3))
     return q, k, v, torch.randn(b, n, d, generator=g, device=dev)
@@ -684,66 +706,74 @@ def sdpa_grads(q, k, v, do, heads):
 def phase_attention_vs_plain(dev):
     """Phase 6; returns the largest forward and backward errors."""
     worst = {"attention_fwd": 0.0, "attention_bwd": 0.0}
-    for shape in ATTN_SHAPES:
+    cases = [(s, layout) for s in ATTN_SHAPES + ATTN_TEST_SHAPES
+             for layout in ("strided", "contiguous")]
+    for shape, layout in cases + [(s, "odd") for s in ATTN_ODD_SHAPES]:
         b, n, h, hd = shape
-        for strided in (True, False):
-            q, k, v, do = attn_inputs(shape, 4000 + n + hd, dev, strided)
-            o, lse = attention_fused._kernel_forward(q, k, v, h)
-            o2, lse2 = attention_fused._kernel_forward(q, k, v, h)
-            ro, rlse = attention_fused.fused_attention_reference(q, k, v, h)
-            # the backward on the plain forward's residuals, beside its plain version
-            grads = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
-            grads2 = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
-            rgrads = attention_fused.fused_attention_bwd_reference(q, k, v, ro, rlse, do, h)
-            leaves = [x.detach().reshape(b, n, h, hd).requires_grad_() for x in (q, k, v)]
-            xo, _ = xla_attention(*leaves)
-            agrads = torch.autograd.grad(xo, leaves, do.reshape(b, n, h, hd))
-            # float64 outputs: each float32 version's own error; both
-            # backwards take the float64 forward's o and lse rounded to float32
-            q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
-            eo, else64 = attention_fused.fused_attention_reference(q64, k64, v64, h)
-            exact = (eo, else64, *attention_fused.fused_attention_bwd_reference(
-                q64, k64, v64, eo, else64, do64, h))
-            res = (eo.float(), else64.float())
-            kgrads = attention_fused._kernel_backward(q, k, v, *res, do, h)
-            pgrads = attention_fused.fused_attention_bwd_reference(q, k, v, *res, do, h)
-            sdpa = sdpa_grads(q, k, v, do, h)
-            torch.cuda.synchronize()
-            errs = {"o": allclose_err(o, ro, TOL, TOL), "lse": allclose_err(lse, rlse, TOL, TOL)}
-            for name, a, r, x in zip(("dq", "dk", "dv"), grads, rgrads, agrads):
-                errs[name] = allclose_err(a, r, TOL, TOL)
-                errs[name + "_vs_autograd"] = allclose_err(a, x.reshape(b, n, h * hd), TOL, TOL)
-            f64 = {}
-            for name, a, r, e in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *kgrads),
-                                     (ro, rlse, *pgrads), exact):
-                f64[name] = float64_err(a, r, e)
-            sdpa_f64 = [float((x.double() - e).abs().max())
-                        for x, e in zip(sdpa, (eo, *exact[2:]))]
-            same = (torch.equal(o, o2) and torch.equal(lse, lse2)
-                    and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
-            layout = "strided" if strided else "contiguous"
-            print(
-                f"attention_vs_plain (B,N,H,hd)={shape} {layout}: "
-                + " ".join(f"{k}_max_abs_err={e:.3e}" for k, (e, _) in errs.items())
-                + f" deterministic={same}",
-                flush=True,
-            )
-            print(
-                f"attention_vs_float64 (B,N,H,hd)={shape} {layout}: "
-                + " ".join(f"{k}: kernel={ke:.3e} plain={pe:.3e}" for k, (ke, pe, _) in f64.items())
-                + " sdpa: " + " ".join(f"{k}={e:.3e}" for k, e in zip(("o", "dq", "dk", "dv"), sdpa_f64)),
-                flush=True,
-            )
-            for k, (e, ok) in errs.items():
-                check(ok, f"attention {k} disagrees at {shape} {layout}: {e}")
-                side = "attention_fwd" if k in ("o", "lse") else "attention_bwd"
-                worst[side] = max(worst[side], e)
-            for k, (ke, pe, ok) in f64.items():
-                check(ok, f"attention {k} further from float64 than {F64_FACTOR} x the plain "
-                          f"version's + {F64_SLACK} at {shape} {layout}: {ke} vs {pe}")
-            check(same, f"two attention kernel runs differ at {shape} {layout}")
-            check(o.shape == (b, n, h * hd) and lse.shape == (b, h, n), "bad attention output shape")
-            del q64, k64, v64, do64, exact, eo, else64, sdpa, res, kgrads, pgrads
+        q, k, v, do = attn_inputs(shape, 4000 + n + hd, dev, layout)
+        o, lse = attention_fused._kernel_forward(q, k, v, h)
+        o2, lse2 = attention_fused._kernel_forward(q, k, v, h)
+        ro, rlse = attention_fused.fused_attention_reference(q, k, v, h)
+        # the backward on the plain forward's residuals, beside its plain version
+        grads = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
+        grads2 = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
+        rgrads = attention_fused.fused_attention_bwd_reference(q, k, v, ro, rlse, do, h)
+        leaves = [x.detach().reshape(b, n, h, hd).requires_grad_() for x in (q, k, v)]
+        xo, _ = xla_attention(*leaves)
+        agrads = torch.autograd.grad(xo, leaves, do.reshape(b, n, h, hd))
+        # float64 outputs: each float32 version's own error; both
+        # backwards take the float64 forward's o and lse rounded to float32
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+        eo, else64 = attention_fused.fused_attention_reference(q64, k64, v64, h)
+        exact = (eo, else64, *attention_fused.fused_attention_bwd_reference(
+            q64, k64, v64, eo, else64, do64, h))
+        res = (eo.float(), else64.float())
+        kgrads = attention_fused._kernel_backward(q, k, v, *res, do, h)
+        pgrads = attention_fused.fused_attention_bwd_reference(q, k, v, *res, do, h)
+        sdpa = sdpa_grads(q, k, v, do, h)
+        torch.cuda.synchronize()
+        errs = {"o": allclose_err(o, ro, TOL, TOL), "lse": allclose_err(lse, rlse, TOL, TOL)}
+        for name, a, r, x in zip(("dq", "dk", "dv"), grads, rgrads, agrads):
+            errs[name] = allclose_err(a, r, TOL, TOL)
+            errs[name + "_vs_autograd"] = allclose_err(a, x.reshape(b, n, h * hd), TOL, TOL)
+        f64 = {}
+        for name, a, r, e in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *kgrads),
+                                 (ro, rlse, *pgrads), exact):
+            f64[name] = float64_err(a, r, e)
+        sdpa_f64 = [float((x.double() - e).abs().max())
+                    for x, e in zip(sdpa, (eo, *exact[2:]))]
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
+        if hd not in attention_fused.MMA_HEAD_DIMS:
+            width = attention_fused.row_copy_width((q, k, v, ro, do), hd)
+            check(layout != "odd" or width == 4, f"odd views at {shape} copy {width} bytes")
+            layout += f", {width}-byte row copies"
+            print(f"attention_row_launch (B,N,H,hd)={shape} {layout}: (CTAs, threads, "
+                  f"smem bytes, resident CTAs an SM) forward "
+                  f"{attention_fused.row_launch(b, n, h, hd, False, width)} backward "
+                  f"{attention_fused.row_launch(b, n, h, hd, True, width)}", flush=True)
+        print(
+            f"attention_vs_plain (B,N,H,hd)={shape} {layout}: "
+            + " ".join(f"{k}_max_abs_err={e:.3e}" for k, (e, _) in errs.items())
+            + f" deterministic={same}",
+            flush=True,
+        )
+        print(
+            f"attention_vs_float64 (B,N,H,hd)={shape} {layout}: "
+            + " ".join(f"{k}: kernel={ke:.3e} plain={pe:.3e}" for k, (ke, pe, _) in f64.items())
+            + " sdpa: " + " ".join(f"{k}={e:.3e}" for k, e in zip(("o", "dq", "dk", "dv"), sdpa_f64)),
+            flush=True,
+        )
+        for k, (e, ok) in errs.items():
+            check(ok, f"attention {k} disagrees at {shape} {layout}: {e}")
+            side = "attention_fwd" if k in ("o", "lse") else "attention_bwd"
+            worst[side] = max(worst[side], e)
+        for k, (ke, pe, ok) in f64.items():
+            check(ok, f"attention {k} further from float64 than {F64_FACTOR} x the plain "
+                      f"version's + {F64_SLACK} at {shape} {layout}: {ke} vs {pe}")
+        check(same, f"two attention kernel runs differ at {shape} {layout}")
+        check(o.shape == (b, n, h * hd) and lse.shape == (b, h, n), "bad attention output shape")
+        del q64, k64, v64, do64, exact, eo, else64, sdpa, res, kgrads, pgrads
     return worst
 
 
@@ -766,13 +796,17 @@ def phase_attention_timings(dev):
     The kernels and plain versions take the main path's layout (strided
     views below dim 128); the library call takes pre-transposed contiguous
     [B, H, N, hd] tensors. Bytes count each input and output once; the
-    JAX CostEstimate's 7*B*N*D*4 backward bytes leaves out one tensor."""
+    JAX CostEstimate's 7*B*N*D*4 backward bytes leaves out one tensor.
+    Exponentials: one a (query, key) pair, forward and backward alike."""
     rows = {}
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_per_s = sms * SFU_EXP_PER_CLOCK * SM_CLOCK_HZ
     for shape in ATTN_TIMED:
         b, n, h, hd = shape
         d = h * hd
-        q, k, v, do = attn_inputs(shape, 5000 + n + hd, dev, strided=d < 128)
+        layout = "strided" if d < 128 else "contiguous"
+        q, k, v, do = attn_inputs(shape, 5000 + n + hd, dev, layout)
         o, lse = attention_fused._kernel_forward(q, k, v, h)
         heads_first = [x.reshape(b, n, h, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
         leaves = [x.clone().requires_grad_() for x in heads_first]
@@ -803,21 +837,33 @@ def phase_attention_timings(dev):
             # TF32 products; the row kernels run on the FP32 cores
             t_fp32 = flops / FP32_FLOPS * 1e3
             t_ops = 3 * flops / TF32_FLOPS * 1e3 if tensor else t_fp32
+            t_exp = n_exp / exp_per_s * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            bound_ms = max(t_ops, t_exp, t_bytes)
+            bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
+            detail = ("bytes" if bound_by == "bytes" else
+                      "exponentials" if t_exp > t_ops else "3xTF32" if tensor else "fp32")
             two_pass = name == "attention_bwd" and not tensor
+            launch = ""
+            if not tensor:
+                width = attention_fused.row_copy_width(
+                    (q, k, v) if name == "attention_fwd" else (q, k, v, o, do), hd)
+                ctas, threads, smem, resident = attention_fused.row_launch(
+                    b, n, h, hd, name == "attention_bwd", width)
+                launch = (f" ctas={ctas} threads={threads} smem_bytes={smem} "
+                          f"resident_ctas_per_sm={resident} row_copy_bytes={width}")
             print(
-                f"timing {name} (B,N,H,hd)={shape} ({'strided' if d < 128 else 'contiguous'}, "
+                f"timing {name} (B,N,H,hd)={shape} ({layout}, "
                 f"L2 flushed): kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
                 f"library_ms={t['library']:.5f} (sdpa backend {backend}) "
-                f"bound_ms={bound_ms:.5f} ({bound_by}: {flops / 1e6:.1f} MFLOP "
+                f"bound_ms={bound_ms:.5f} ({detail}: {flops / 1e6:.1f} MFLOP "
                 + (f"as 3xTF32 {t_ops:.5f} ms" if tensor else f"fp32 {t_ops:.5f} ms")
                 + f", {nbytes / 1e6:.3f} MB {t_bytes:.5f} ms; fp32_non_tensor_ms={t_fp32:.5f}; "
-                f"exp needed={n_exp / 1e6:.3f} M"
+                f"exp needed={n_exp / 1e6:.3f} M at {sms} SMs x {SFU_EXP_PER_CLOCK} a clock x "
+                f"{SM_CLOCK_HZ / 1e9:.2f} GHz {t_exp:.5f} ms"
                 + (f", the kernel computes {2 * n_exp / 1e6:.3f} M in its two passes" if two_pass else "")
                 + f") kernel_share_of_bound={bound_ms / t['kernel']:.4f} "
-                f"kernel_vs_library={t['kernel'] / t['library']:.3f}",
+                f"kernel_vs_library={t['kernel'] / t['library']:.3f}" + launch,
                 flush=True,
             )
             rows[(shape, name)] = dict(ms=t["kernel"], plain_ms=t["plain"],

@@ -263,3 +263,120 @@ def test_config_selects_attention_impl(over, want):
     impls = {m.attn_impl for m in build_vit_som(cfg, device="cpu").modules()
              if isinstance(m, tvit.Attention)}
     assert impls == {want}
+
+
+# the row kernels' (hd <= 16) shapes: every shipped one (B, N, H, hd), and
+# the JAX tests' hd 16 and ragged N 9 (tests/test_pallas_kernels.py:48, :69)
+ROW_SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 2, 8), (128, 65, 2, 2),
+              (128, 257, 2, 8), (128, 257, 2, 2), (2, 33, 2, 16), (1, 9, 1, 8)]
+
+
+def test_row_plan_and_shared_memory_match_the_kernel_source():
+    """The wrapper's row-kernel constants are the source's, and its
+    ``row_plan`` and ``smem_bytes`` give the chunks, threads, CTAs and bytes
+    the source's header states for each row shape (the resident CTAs an SM
+    there are the card's, which ``chip_smoke.py`` phase 9 prints)."""
+    src = (Path(tfused.__file__).parent / "csrc" / "attention.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kRowThreads|kRowLanes|kRowRows) = (\d+);", src)}
+    assert consts == {"kRowThreads": tfused.ROW_THREADS, "kRowLanes": tfused.ROW_LANES,
+                      "kRowRows": tfused.ROW_ROWS}
+    rows = re.findall(
+        r"rows (fwd|bwd) N (\d+), hd (\d+): (\d+)(?: \+ (\d+))? x (\d+) threads, (\d+) CTAs "
+        r"at B (\d+), H (\d+); (\d+) B; (\d+) an SM", src)
+    assert len(rows) == 2 * len(ROW_SHAPES)
+    seen = set()
+    for kind, n, hd, ca, cb, threads, ctas, b, h, smem, _ in rows:
+        n, hd, b, h = int(n), int(hd), int(b), int(h)
+        backward = kind == "bwd"
+        plan = tfused.row_plan(n, hd, backward)
+        want = (int(ca), int(cb), int(threads)) if backward else (int(ca), int(threads))
+        assert plan == want, (kind, n, hd)
+        assert int(ctas) == b * h * sum(plan[:-1])
+        assert tfused.smem_bytes(n, hd, backward) == int(smem)
+        seen.add((kind, (b, n, h, hd)))
+    assert seen == {(kind, s) for s in ROW_SHAPES for kind in ("fwd", "bwd")}
+
+
+@pytest.mark.parametrize("hd", [2, 8, 16])
+def test_row_plan_gives_every_chunk_rows(hd):
+    """Every chunk of ``row_plan`` holds at least one row and at most a
+    CTA's worth, in whole warps (the kernels rely on it); the tensor-core
+    head dims have no row plan."""
+    lanes, per_group = tfused.ROW_LANES, tfused.ROW_ROWS
+    assert 32 % lanes == 0 and tfused.ROW_THREADS % 32 == 0
+    for n in range(1, 300):
+        for backward in (False, True):
+            plan = tfused.row_plan(n, hd, backward)
+            chunks, threads = plan[0], plan[-1]
+            if backward:
+                assert plan[1] == chunks
+            rows = -(-n // chunks)
+            assert (chunks - 1) * rows < n <= chunks * rows
+            assert threads % 32 == 0 and threads <= tfused.ROW_THREADS
+            assert -(-rows // per_group) * lanes <= threads
+    with pytest.raises(ValueError, match="no row kernel"):
+        tfused.row_plan(65, 64, False)
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_check_shape_takes_the_row_kernel_shapes(shape):
+    """No alignment or size rule refuses a row shape the kernels take; the
+    row kernels stage all of K and V (q and do in pass A), so shared memory
+    still binds at N 4096, hd 8."""
+    _, n, _, hd = shape
+    for backward in (False, True):
+        tfused.check_shape(n, hd, backward)
+        with pytest.raises(ValueError, match="shared memory"):
+            tfused.check_shape(4096, 8, backward)
+
+
+def _model_qkv_views(monkeypatch):
+    """q, k, v of every attention call of the flagship ViT-SOM's forward on
+    the CPU, as the model slices them out of its fused qkv buffer, in the
+    [B, N, D] layout the kernels take."""
+    from vitsom_tpu_torch.config import load_config
+    from vitsom_tpu_torch.models import vit as tvit
+    from vitsom_tpu_torch.models.vit_som import build_vit_som
+
+    calls = []
+    inner = tattn.multi_head_attention
+
+    def record(q, k, v, **kw):
+        b, n, h, hd = q.shape
+        calls.append(([x.reshape(b, n, h * hd) for x in (q, k, v)], hd))
+        return inner(q, k, v, **kw)
+
+    monkeypatch.setattr(tvit.attention_ops, "multi_head_attention", record)
+    cfg = load_config("configs/vit_som/vit_som_mnist.yaml", {"som.map_size": [2, 2]})
+    model = build_vit_som(cfg, device="cpu")
+    with torch.no_grad():
+        model(torch.rand(2, 28, 28, 1))
+    return calls
+
+
+def test_row_copy_width_of_the_models_views(monkeypatch):
+    """16-byte copies for the flagship encoder's q, k, v (hd 8: rows of 48
+    floats, heads 8 floats apart), 8-byte for its decoder's (hd 2: heads 2
+    floats apart); every head's row start is a multiple of the width."""
+    calls = _model_qkv_views(monkeypatch)
+    assert [hd for _, hd in calls] == [8] * 4 + [2] * 2
+    for views, hd in calls:
+        width = tfused.row_copy_width(views, hd)
+        assert width == (16 if hd == 8 else 8)
+        for x in views:
+            assert not x.is_contiguous() and x.stride(1) == 3 * x.shape[2]
+            for h in range(x.shape[2] // hd):
+                assert (x.data_ptr() + 4 * h * hd) % width == 0
+
+
+def test_row_copy_width_of_an_odd_view():
+    """Rows starting 4 bytes off an 8-byte boundary copy 4 bytes at a time;
+    an odd row stride does too."""
+    buf = torch.zeros(2, 9, 3 * 16 + 1)
+    views = [buf[:, :, 1 + 16 * i:17 + 16 * i] for i in range(3)]
+    assert tfused.row_copy_width(views, 8) == 4
+    assert tfused.row_copy_width(views, 2) == 4
+    dense = [torch.zeros(2, 9, 16) for _ in range(3)]
+    assert tfused.row_copy_width(dense, 8) == 16 and tfused.row_copy_width(dense, 2) == 8
+    assert tfused.row_copy_width([buf[:, :, :16]], 8) == 4

@@ -16,7 +16,9 @@ tensor it runs the plain PyTorch version beside it. There is no fallback
 from one to the other. q, k and v may be strided views (the model slices
 them out of its fused qkv buffer) as long as their column stride is 1; at
 head dims from 32 up (the tensor-core kernels) their rows must also start
-on 16-byte boundaries, as the model's views do.
+on 16-byte boundaries, as the model's views do. Below (the row kernels)
+any such view is taken: the wrapper passes the widest row copy, 16, 8 or
+4 bytes, that the views' pointers and strides allow (``row_copy_width``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ MMA_HEAD_DIMS = (32, 48, 64)
 # the tensor-core kernels' tile constants (kRowTile, kMaxWarps, kPad,
 # kKeyBlock: 8-key tiles a forward ring stage holds)
 ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = 16, 8, 4, 4
+# the row kernels' (hd <= 16): threads of a CTA at most (kRowThreads),
+# lanes of a row group (kRowLanes) and rows a group (kRowRows)
+ROW_THREADS, ROW_LANES, ROW_ROWS = 128, 2, 2
 
 _LIB = None
 
@@ -50,20 +55,23 @@ def _lib():
     if _LIB is None:
         lib = _build.load("attention")
         view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]  # ptr, batch/row strides
-        dims = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]  # B, N, H, hd, scale, stream
+        # B, N, H, hd, scale, the row copy width in bytes, stream
+        dims = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.attention_forward.argtypes = view * 3 + [ctypes.c_void_p] * 2 + dims
         lib.attention_forward.restype = ctypes.c_int
         lib.attention_backward.argtypes = (
             view * 4 + [ctypes.c_void_p] + view + [ctypes.c_void_p] * 4 + dims
         )
         lib.attention_backward.restype = ctypes.c_int
-        tiles = (ctypes.c_int * 4)()
+        lib.attention_row_launch.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.attention_row_launch.restype = ctypes.c_int
+        tiles = (ctypes.c_int * 7)()
         lib.attention_tiles(tiles)
-        want = (ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK)
+        want = (ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK, ROW_THREADS, ROW_LANES, ROW_ROWS)
         if tuple(tiles) != want:
             raise RuntimeError(
-                f"attention.cu tiles (kRowTile, kMaxWarps, kPad, kKeyBlock) = {tuple(tiles)} "
-                f"differ from ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = {want}"
+                "attention.cu tiles (kRowTile, kMaxWarps, kPad, kKeyBlock, kRowThreads, "
+                f"kRowLanes, kRowRows) = {tuple(tiles)} differ from the wrapper's {want}"
             )
         _LIB = lib
     return _LIB
@@ -80,6 +88,46 @@ def mma_plan(n: int) -> Tuple[int, int]:
     tiles = _cdiv(n, ROW_TILE)
     chunks = _cdiv(tiles, MAX_WARPS)
     return chunks, _cdiv(tiles, chunks)
+
+
+def row_plan(n: int, head_dim: int, backward: bool) -> Tuple[int, ...]:
+    """The row kernels' grid at sequence length ``n`` (head dims below 32,
+    the same plan at each): a group of ``ROW_LANES`` lanes holds
+    ``ROW_ROWS`` rows, a CTA at most ``ROW_THREADS`` threads; the N rows of a
+    (b, h) are spread evenly over C chunks, a CTA each, rounded up to warps.
+    Forward (C, threads); backward (C_A, C_B, threads), the key chunks of
+    pass A and the query chunks of pass B in one launch."""
+    if head_dim not in HEAD_DIMS or head_dim in MMA_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} has no row kernel")
+    chunks = _cdiv(n, ROW_THREADS // ROW_LANES * ROW_ROWS)
+    threads = _cdiv(_cdiv(_cdiv(n, chunks), ROW_ROWS) * ROW_LANES, 32) * 32
+    return (chunks, chunks, threads) if backward else (chunks, threads)
+
+
+def row_copy_width(views, head_dim: int) -> int:
+    """Bytes (16, 8 or 4) of the widest copy the row kernels can make of
+    every head's row in ``views``: each view's pointer and batch and row
+    strides, and the head offsets (``head_dim`` floats), must be multiples
+    of it. The flagship encoder's q, k, v views (rows 48 floats, heads 8
+    floats apart) take 16; its decoder's (heads 2 floats apart) 8."""
+    for width in (16, 8):
+        f = width // 4
+        if head_dim % f == 0 and all(
+                x.data_ptr() % width == 0 and x.stride(0) % f == 0 and x.stride(1) % f == 0
+                for x in views):
+            return width
+    return 4
+
+
+def row_launch(b: int, n: int, heads: int, head_dim: int, backward: bool,
+               width: int) -> Tuple[int, int, int, int]:
+    """(CTAs, threads, shared memory bytes, resident CTAs an SM) of a row
+    kernel's launch, from the built library (CUDA only)."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().attention_row_launch(b, n, heads, head_dim, int(backward), width, out)
+    if rc != 0:
+        raise RuntimeError(f"attention_row_launch failed with code {rc}")
+    return tuple(out)
 
 
 def smem_bytes(n: int, head_dim: int, backward: bool) -> int:
@@ -209,7 +257,7 @@ def _kernel_forward(q, k, v, heads: int):
     with torch.cuda.device(q.device):
         rc = lib.attention_forward(
             *_view(q), *_view(k), *_view(v), o.data_ptr(), lse.data_ptr(),
-            b, n, heads, hd, hd**-0.5, _stream(q.device),
+            b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v), hd), _stream(q.device),
         )
     if rc != 0:
         raise RuntimeError(f"attention_forward launch failed with code {rc}")
@@ -234,7 +282,7 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
         rc = lib.attention_backward(
             *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(), *_view(do),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
-            b, n, heads, hd, hd**-0.5, _stream(q.device),
+            b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v, o, do), hd), _stream(q.device),
         )
     if rc != 0:
         raise RuntimeError(f"attention_backward launch failed with code {rc}")

@@ -16,15 +16,72 @@
 //
 // Two designs, chosen by head dim:
 //
-// 1. hd <= 16 (the flagship's 8 and 2): attn_fwd_kernel / attn_bwd_kernel,
-//    a row per thread on the FP32 cores. One CTA per (b, h) stages K and V
-//    (the backward: q and do, then k and v, in two passes) in shared memory;
-//    keys go in chunks of 8 with an online softmax. A TF32 product is 8 deep,
-//    so at hd 2 it would waste three quarters of every product: the tensor
-//    cores do not pay here. Bound at (128, 197, 2, 8) by FP32 operations at
-//    67 TFLOP/s (forward 4.75 us, backward 11.9 us); at hd 2 by the 9.9 M
-//    exponentials of a forward (twice that in the two-pass backward).
+// 1. hd <= 16 (the flagship's 8 and 2; 16 of the JAX tests): attn_fwd_kernel
+//    / attn_bwd_kernel on the FP32 cores. A TF32 product is 8 deep, so at
+//    hd 2 it would waste three quarters of every product: the tensor cores
+//    do not pay here.
+//    - Rows: a group of kRowLanes (2) consecutive lanes holds kRowRows (2)
+//      rows. Its lanes split the other side's rows (keys in the forward and
+//      in pass B, queries in pass A), lane l taking those = l (mod 2), and
+//      each key or query row read from shared memory serves both rows.
+//      That read, 64 bytes a (row, key) pair at hd 8 without the reuse,
+//      bounds these kernels: shared memory hands 128 B a clock an SM to
+//      registers however few distinct addresses a warp reads, 19 us of
+//      reads at (128, 197, 2, 8), in the first design (one thread a row,
+//      one CTA of 7 warps per (b, h), 1.9 an SM) as in a design of 4 lanes
+//      a row at 32 warps an SM, which was no faster than it. Three rows a
+//      thread or more cost more in registers (128-167) than they save.
+//    - Grid: a (b, h)'s N rows are spread evenly over C chunks of at most
+//      kRowThreads / kRowLanes * kRowRows rows, a CTA each
+//      (ops/attention_fused.py:row_plan). Every CTA stages its (b, h)'s K
+//      and V in shared memory (the backward's pass-A CTAs q, do, lse and
+//      delta); the other CTAs of that (b, h) read them again from L2.
+//    - Forward: a lane walks its keys in online-softmax steps of kKeyChunk
+//      keys, then 4, 2 and 1 (no padded key slots), with the score
+//      arithmetic of the first design: an in-order fmaf chain over d, then
+//      * scale. The two lanes' partials (m, l, acc) of a row merge by an
+//      xor shuffle, the lower lane's always first, so both hold the same
+//      bits.
+//    - Backward: one launch of pass-A CTAs (key chunks: dk, dv) and pass-B
+//      CTAs (query chunks: dq) side by side; partials sum by xor shuffles.
+//      Each CTA forms the deltas it needs. p = exp(s * scale - lse), dp and
+//      ds are the two-pass design's expressions, so every exponential is
+//      computed twice, once in each pass: the cost that remains (a one-pass
+//      backward would sum dq over lanes that hold other key rows).
+//    - Copies: the wrapper picks the widest row copy, 16, 8 or 4 bytes, that
+//      every view's pointer and strides allow (attention_fused.py:
+//      row_copy_width). The kernels are instantiated per width, so their
+//      copy loops carry no branch, and the launcher refuses a width that a
+//      view contradicts.
+//    - Bound at (128, 197, 2, 8): FP32 operations at 67 TFLOP/s (forward
+//      4.75 us, backward 11.9 us). At hd 2 the forward's 9.9 M exponentials
+//      at 16 a clock an SM (the SFU rate) take 2.38 us, above its FP32
+//      operations' 1.19 us; the backward needs the same exponentials and is
+//      bound by its operations (2.97 us). At (128, 197, 2, 8) the kernels
+//      take 0.0268 / 0.0577 ms against the first design's 0.0363 / 0.0774
+//      (in turns on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+//    Per row shape: chunks (the backward's C_A + C_B), threads a CTA, CTAs,
+//    dynamic shared memory a CTA (ops/attention_fused.py:row_plan and
+//    smem_bytes give the same) and resident CTAs an SM (cudaOccupancyMax-
+//    ActiveBlocksPerMultiprocessor on an H100, chip_smoke.py phase 9):
+//     rows fwd N 197, hd 8: 2 x 128 threads, 512 CTAs at B 128, H 2; 12608 B; 5 an SM
+//     rows bwd N 197, hd 8: 2 + 2 x 128 threads, 1024 CTAs at B 128, H 2; 14184 B; 4 an SM
+//     rows fwd N 197, hd 2: 2 x 128 threads, 512 CTAs at B 128, H 2; 3152 B; 9 an SM
+//     rows bwd N 197, hd 2: 2 + 2 x 128 threads, 1024 CTAs at B 128, H 2; 4728 B; 10 an SM
+//     rows fwd N 65, hd 8: 1 x 96 threads, 256 CTAs at B 128, H 2; 4160 B; 6 an SM
+//     rows bwd N 65, hd 8: 1 + 1 x 96 threads, 512 CTAs at B 128, H 2; 4680 B; 5 an SM
+//     rows fwd N 65, hd 2: 1 x 96 threads, 256 CTAs at B 128, H 2; 1040 B; 12 an SM
+//     rows bwd N 65, hd 2: 1 + 1 x 96 threads, 512 CTAs at B 128, H 2; 1560 B; 13 an SM
+//     rows fwd N 257, hd 8: 3 x 96 threads, 768 CTAs at B 128, H 2; 16448 B; 6 an SM
+//     rows bwd N 257, hd 8: 3 + 3 x 96 threads, 1536 CTAs at B 128, H 2; 18504 B; 5 an SM
+//     rows fwd N 257, hd 2: 3 x 96 threads, 768 CTAs at B 128, H 2; 4112 B; 12 an SM
+//     rows bwd N 257, hd 2: 3 + 3 x 96 threads, 1536 CTAs at B 128, H 2; 6168 B; 13 an SM
+//     rows fwd N 33, hd 16: 1 x 64 threads, 4 CTAs at B 2, H 2; 4224 B; 8 an SM
+//     rows bwd N 33, hd 16: 1 + 1 x 64 threads, 8 CTAs at B 2, H 2; 4488 B; 4 an SM
+//     rows fwd N 9, hd 8: 1 x 32 threads, 1 CTAs at B 1, H 1; 576 B; 20 an SM
+//     rows bwd N 9, hd 8: 1 + 1 x 32 threads, 2 CTAs at B 1, H 1; 648 B; 16 an SM
 //
+
 // 2. hd >= 32 (the emb-192 configs' 64 and 32; 48 of the JAX tests):
 //    attn_fwd_mma_kernel / attn_bwd_mma_kernel, 3xTF32 products on the
 //    tensor cores with mma.sync m16n8k8.
@@ -98,8 +155,9 @@
 //   (512, 257, 3, 32): fwd 60.80 us | 78.70 us; bwd 121.14 | 196.75 us: ops
 // ptxas (sm_90a), registers / spill stores: attn_fwd_mma_kernel hd 64
 // 128 / 172 B, hd 48 127 / 0, hd 32 122 / 0; attn_bwd_mma_kernel hd 64
-// 128 / 172 B, hd 48 128 / 136 B, hd 32 128 / 0; the row kernels at most
-// 120 / 0 (chip_smoke.py phase 2 prints them for every build).
+// 128 / 172 B, hd 48 128 / 136 B, hd 32 128 / 0; the row kernels forward /
+// backward hd 8 96 / 118, hd 2 56 / 48, hd 16 128 / 200, no spills
+// (chip_smoke.py phase 2 prints them for every build).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,9 +165,17 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kKeyChunk = 8;
+constexpr int kKeyChunk = 8;    // keys of a row kernel's online-softmax step
 constexpr int kBadHeadDim = -1;
+constexpr int kBadCopyWidth = -2;
+// the row kernels (hd <= 16): threads of a CTA at most, lanes of a row
+// group (a power of two that divides 32) and rows a group
+constexpr int kRowThreads = 128;
+constexpr int kRowLanes = 2;
+constexpr int kRowRows = 2;
+// at most two lanes, so a row group's first lane always holds a key and the
+// forward's merge never meets two lanes without one
+static_assert(kRowLanes == 1 || kRowLanes == 2, "row groups of one or two lanes");
 constexpr int kRowTile = 16;   // rows of a warp's tile: the mma's M
 constexpr int kMaxWarps = 8;   // warp tiles of a CTA
 constexpr int kPad = 4;        // floats after each staged row
@@ -130,8 +196,39 @@ __device__ __forceinline__ const float* row_ptr(const View& x, int b, int r, int
 }
 
 // ---------------------------------------------------------------------------
-// hd <= 16: a row per thread on the FP32 cores
+// hd <= 16: row groups of kRowLanes lanes and kRowRows rows, on the FP32 cores
 // ---------------------------------------------------------------------------
+
+// VW consecutive floats, device memory -> registers -> shared memory. VW is
+// the row copy width in floats (4, 2 or 1) that the launcher has checked
+// every pointer and stride against.
+template <int VW>
+__device__ __forceinline__ void ldg_vec(const float* __restrict__ g, float* r) {
+  if constexpr (VW == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(g));
+    r[0] = x.x;
+    r[1] = x.y;
+    r[2] = x.z;
+    r[3] = x.w;
+  } else if constexpr (VW == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(g));
+    r[0] = x.x;
+    r[1] = x.y;
+  } else {
+    r[0] = __ldg(g);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void st_vec(float* s, const float* r) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(s) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(s) = make_float2(r[0], r[1]);
+  } else {
+    s[0] = r[0];
+  }
+}
 
 // W floats from shared memory, as 16- or 8-byte loads where the width allows
 template <int W>
@@ -158,11 +255,12 @@ __device__ __forceinline__ void lds(const float* s, float (&r)[W]) {
   }
 }
 
-// W floats from device memory (strided views: no alignment assumed)
-template <int W>
-__device__ __forceinline__ void ldg(const float* __restrict__ g, float (&r)[W]) {
+// one head's HD floats of row r of a strided view, in VW-float copies
+template <int HD, int VW>
+__device__ __forceinline__ void ldg_row(const View& x, int b, int r, int col0, float (&out)[HD]) {
+  const float* g = row_ptr(x, b, r, col0);
 #pragma unroll
-  for (int i = 0; i < W; ++i) r[i] = g[i];
+  for (int i = 0; i < HD / VW; ++i) ldg_vec<VW>(g + VW * i, out + VW * i);
 }
 
 template <int W>
@@ -173,177 +271,306 @@ __device__ __forceinline__ float dot(const float (&a)[W], const float (&b)[W]) {
   return s;
 }
 
-// rows [0, N) of one head's HD columns of a strided view -> dense [N][HD]
-template <int HD>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, long long sr,
-                                      int N) {
-  for (int e = threadIdx.x; e < N * HD; e += blockDim.x) {
-    const int r = e / HD;
-    dst[e] = src[(long long)r * sr + (e - r * HD)];
+// rows [0, N) of one head's HD columns of two strided views -> dense [N][HD]
+// tiles in shared memory, VW floats a copy (HD / VW copies a row: a shift,
+// not a division)
+template <int HD, int VW>
+__device__ __forceinline__ void stage2(float* sa, float* sb, const View& a, const View& b, int bi,
+                                       int col0, int N) {
+  constexpr unsigned kPerRow = HD / VW;
+  const float* ga = row_ptr(a, bi, 0, col0);
+  const float* gb = row_ptr(b, bi, 0, col0);
+  for (unsigned e = threadIdx.x; e < N * kPerRow; e += blockDim.x) {
+    const unsigned r = e / kPerRow, c = VW * (e % kPerRow);
+    float x[VW], y[VW];
+    ldg_vec<VW>(ga + r * a.sr + c, x);
+    ldg_vec<VW>(gb + r * b.sr + c, y);
+    st_vec<VW>(sa + r * HD + c, x);
+    st_vec<VW>(sb + r * HD + c, y);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMaxThreads)
+// the lanes of this thread's row group (L consecutive lanes of a warp)
+template <int L>
+__device__ __forceinline__ unsigned group_mask() {
+  return ((1u << L) - 1u) << ((threadIdx.x % 32) & ~(L - 1));
+}
+
+// x summed over the L lanes of a row group by xor shuffles: a + b == b + a
+// in float, so every lane of the group ends with the same bits
+template <int L, int W>
+__device__ __forceinline__ void group_sum(float (&x)[W]) {
+  const unsigned mask = group_mask<L>();
+#pragma unroll
+  for (int off = 1; off < L; off <<= 1)
+#pragma unroll
+    for (int d = 0; d < W; ++d) x[d] += __shfl_xor_sync(mask, x[d], off);
+}
+
+// lane `lane` of a row group stores its HD / L columns of a row in vector
+// stores
+template <int HD, int L>
+__device__ __forceinline__ void store_cols(float* row, const float (&x)[HD], int lane) {
+  constexpr int W = HD / L;                                 // columns a lane stores
+  constexpr int S = W % 4 == 0 ? 4 : (W % 2 == 0 ? 2 : 1);  // floats a store
+#pragma unroll
+  for (int g = 0; g < HD / W; ++g)
+    if (lane == g)
+#pragma unroll
+      for (int w = 0; w < W; w += S) st_vec<S>(row + g * W + w, x + g * W + w);
+}
+
+// one online-softmax step over K keys j0, j0 + L, ..., all < N, for a
+// thread's R rows: each key and value row is read from shared memory once
+// for all R. Per row a running max, and the step's sums formed first and
+// added once into the running sums.
+template <int K, int HD, int L, int R>
+__device__ __forceinline__ void softmax_step(const float (&qr)[R][HD], const float* ks,
+                                             const float* vs, int j0, float scale,
+                                             float (&m)[R], float (&l)[R],
+                                             float (&acc)[R][HD]) {
+  float s[R][K];
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    float kr[HD];
+    lds<HD>(ks + (j0 + t * L) * HD, kr);
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r][t] = dot<HD>(qr[r], kr) * scale;
+  }
+  float m_new[R], corr[R], lc[R], pv[R][HD];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float cm = s[r][0];
+#pragma unroll
+    for (int t = 1; t < K; ++t) cm = fmaxf(cm, s[r][t]);
+    m_new[r] = fmaxf(m[r], cm);
+    corr[r] = expf(m[r] - m_new[r]);  // 0 on the first step, 1 if the max held
+    lc[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) pv[r][d] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    float vr[HD];
+    lds<HD>(vs + (j0 + t * L) * HD, vr);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float p = expf(s[r][t] - m_new[r]);
+      lc[r] += p;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) pv[r][d] = fmaf(p, vr[d], pv[r][d]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    l[r] = fmaf(l[r], corr[r], lc[r]);
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc[r][d] = fmaf(acc[r][d], corr[r], pv[r][d]);
+    m[r] = m_new[r];
+  }
+}
+
+// Forward. C query chunks of `rows` rows a (b, h), blockIdx.x = (b H + h) C
+// + c. Each CTA stages its (b, h)'s K and V. Rows go R at a time to a group
+// of L consecutive threads, lane l of the group taking keys j = l (mod L) in
+// online-softmax steps of kKeyChunk keys, then 4, 2, 1. The lanes' partials
+// (m, l, acc) of a row merge by xor shuffles, the lower lane of each pair
+// always first, so every lane of the group holds the same bits.
+template <int HD, int VW>
+__global__ void __launch_bounds__(kRowThreads)
 attn_fwd_kernel(View q, View k, View v, float* __restrict__ o, float* __restrict__ lse, int N,
-                int H, float scale) {
+                int H, int chunks, int rows, float scale) {
+  constexpr int L = kRowLanes, R = kRowRows;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
   float* vs = smem + N * HD;
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int col0 = h * HD;
-  stage<HD>(ks, row_ptr(k, b, 0, col0), k.sr, N);
-  stage<HD>(vs, row_ptr(v, b, 0, col0), v.sr, N);
+  const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
+  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int g = threadIdx.x / L, lane = threadIdx.x % L;
+  const int end = min(c * rows + rows, N);  // past this chunk's last row
+  const int i0 = c * rows + g * R;          // this group's first row
+  float qr[R][HD];
+#pragma unroll
+  for (int r = 0; r < R; ++r) ldg_row<HD, VW>(q, b, min(i0 + r, N - 1), col0, qr[r]);
+  stage2<HD, VW>(ks, vs, k, v, b, col0, N);
   __syncthreads();
+  if (i0 >= end) return;  // whole groups: every shuffle below has its lanes
 
-  const long long D = (long long)H * HD;
-  for (int r0 = 0; r0 < N; r0 += blockDim.x) {
-    const int i = r0 + threadIdx.x;
-    const int ii = min(i, N - 1);
-    float qr[HD], acc[HD];
-    ldg<HD>(row_ptr(q, b, ii, col0), qr);
+  float acc[R][HD], m[R], l[R];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-    float m = -INFINITY, l = 0.f;
-    for (int j0 = 0; j0 < N; j0 += kKeyChunk) {
-      float s[kKeyChunk];
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;  // what a lane without keys (lane >= N) keeps
+    l[r] = 0.f;
 #pragma unroll
-      for (int c = 0; c < kKeyChunk; ++c) {
-        float kr[HD];
-        lds<HD>(ks + min(j0 + c, N - 1) * HD, kr);
-        s[c] = dot<HD>(qr, kr) * scale;
-        if (j0 + c >= N) s[c] = -INFINITY;
+    for (int d = 0; d < HD; ++d) acc[r][d] = 0.f;
+  }
+  int j0 = lane;
+  for (; j0 + (kKeyChunk - 1) * L < N; j0 += kKeyChunk * L)
+    softmax_step<kKeyChunk, HD, L, R>(qr, ks, vs, j0, scale, m, l, acc);
+  if (j0 + 3 * L < N) {
+    softmax_step<4, HD, L, R>(qr, ks, vs, j0, scale, m, l, acc);
+    j0 += 4 * L;
+  }
+  if (j0 + L < N) {
+    softmax_step<2, HD, L, R>(qr, ks, vs, j0, scale, m, l, acc);
+    j0 += 2 * L;
+  }
+  if (j0 < N) softmax_step<1, HD, L, R>(qr, ks, vs, j0, scale, m, l, acc);
+
+  const unsigned mask = group_mask<L>();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int off = 1; off < L; off <<= 1) {
+      const bool low = (lane & off) == 0;
+      const float m2 = __shfl_xor_sync(mask, m[r], off);
+      const float l2 = __shfl_xor_sync(mask, l[r], off);
+      const float m_lo = low ? m[r] : m2, m_hi = low ? m2 : m[r];
+      const float mx = fmaxf(m_lo, m_hi);  // finite: lane 0 holds key 0
+      const float c_lo = expf(m_lo - mx), c_hi = expf(m_hi - mx);
+      l[r] = fmaf(low ? l2 : l[r], c_hi, (low ? l[r] : l2) * c_lo);
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        const float a2 = __shfl_xor_sync(mask, acc[r][d], off);
+        acc[r][d] = fmaf(low ? a2 : acc[r][d], c_hi, (low ? acc[r][d] : a2) * c_lo);
       }
-      float cm = s[0];
-#pragma unroll
-      for (int c = 1; c < kKeyChunk; ++c) cm = fmaxf(cm, s[c]);
-      const float m_new = fmaxf(m, cm);
-      const float corr = expf(m - m_new);  // 0 on the first chunk, 1 if the max held
-      // the chunk's sums first, then one add each into the running sums:
-      // those see N / 8 adds, not N
-      float lc = 0.f, pv[HD];
-#pragma unroll
-      for (int d = 0; d < HD; ++d) pv[d] = 0.f;
-#pragma unroll
-      for (int c = 0; c < kKeyChunk; ++c) {
-        const float p = expf(s[c] - m_new);
-        lc += p;
-        float vr[HD];
-        lds<HD>(vs + min(j0 + c, N - 1) * HD, vr);
-#pragma unroll
-        for (int d = 0; d < HD; ++d) pv[d] = fmaf(p, vr[d], pv[d]);
-      }
-      l = fmaf(l, corr, lc);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(acc[d], corr, pv[d]);
-      m = m_new;
+      m[r] = mx;
     }
-    if (i < N) {
-      float* orow = o + ((long long)b * N + i) * D + col0;
+    const int i = i0 + r;
+    if (i < end) {
 #pragma unroll
-      for (int d = 0; d < HD; ++d) orow[d] = acc[d] / l;
-      lse[((long long)b * H + h) * N + i] = m + logf(l);
+      for (int d = 0; d < HD; ++d) acc[r][d] = acc[r][d] / l[r];
+      store_cols<HD, L>(o + ((long long)b * N + i) * H * HD + col0, acc[r], lane);
+      if (lane == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
     }
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMaxThreads)
+// Backward, one launch of 2 B H C CTAs: the first B H C are pass-A CTAs (key
+// chunk c of (b, h) = blockIdx.x / C: dk, dv), the rest pass-B CTAs (query
+// chunk c: dq). Both recompute p = exp(s * scale - lse) and ds = p (dp -
+// delta) scale with the two-pass design's expressions. A pass-A CTA stages
+// q, do, lse and every row's delta = rowsum(do o); a pass-B CTA stages k and
+// v and forms its own rows' deltas. Rows go R at a time to a group of L
+// lanes, which split the other side's rows (lane l takes those = l mod L),
+// read each of them from shared memory once for all R, and sum their
+// partials by xor shuffles.
+template <int HD, int VW>
+__global__ void __launch_bounds__(kRowThreads)
 attn_bwd_kernel(View q, View k, View v, View o, const float* __restrict__ lse, View dout,
                 float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int N,
-                int H, float scale) {
+                int H, int chunks, int rows, float scale) {
+  constexpr int L = kRowLanes, R = kRowRows;
   extern __shared__ __align__(16) float smem[];
-  float* as = smem;            // q in pass A, k in pass B: [N][HD]
-  float* bs = smem + N * HD;   // do in pass A, v in pass B
-  float* lse_s = smem + 2 * N * HD;
-  float* delta_s = lse_s + N;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int col0 = h * HD;
+  const int per_pass = gridDim.x / 2;
+  const bool pass_a = blockIdx.x < per_pass;
+  const int idx = pass_a ? blockIdx.x : blockIdx.x - per_pass;
+  const int bh = idx / chunks, c = idx - bh * chunks;
+  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int g = threadIdx.x / L, lane = threadIdx.x % L;
+  const int end = min(c * rows + rows, N);
+  const int r0 = c * rows + g * R;  // this group's first row: keys in pass A, queries in B
+  const float* lse_bh = lse + (long long)bh * N;
   const long long D = (long long)H * HD;
 
-  stage<HD>(as, row_ptr(q, b, 0, col0), q.sr, N);
-  stage<HD>(bs, row_ptr(dout, b, 0, col0), dout.sr, N);
-  const float* lse_bh = lse + ((long long)b * H + h) * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) lse_s[i] = lse_bh[i];
-  // delta_i = rowsum(do_i * o_i) over this head, once per row
-  for (int r0 = 0; r0 < N; r0 += blockDim.x) {
-    const int i = r0 + threadIdx.x;
-    const int ii = min(i, N - 1);
-    float orow[HD], drow[HD];
-    ldg<HD>(row_ptr(o, b, ii, col0), orow);
-    ldg<HD>(row_ptr(dout, b, ii, col0), drow);
-    const float delta = dot<HD>(orow, drow);
-    if (i < N) delta_s[i] = delta;
-  }
-  __syncthreads();
-
-  // pass A: a thread owns key row j; dv_j = sum_i p_ij do_i, dk_j = sum_i ds_ij q_i
-  for (int r0 = 0; r0 < N; r0 += blockDim.x) {
-    const int j = r0 + threadIdx.x;
-    const int jj = min(j, N - 1);
-    float kr[HD], vr[HD], dkr[HD], dvr[HD];
-    ldg<HD>(row_ptr(k, b, jj, col0), kr);
-    ldg<HD>(row_ptr(v, b, jj, col0), vr);
+  if (pass_a) {
+    float* qs = smem;  // [N][HD]
+    float* dos = smem + N * HD;
+    float* lse_s = smem + 2 * N * HD;
+    float* delta_s = lse_s + N;
+    float kr[R][HD], vr[R][HD];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dkr[d] = dvr[d] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      ldg_row<HD, VW>(k, b, min(r0 + r, N - 1), col0, kr[r]);
+      ldg_row<HD, VW>(v, b, min(r0 + r, N - 1), col0, vr[r]);
+    }
+    stage2<HD, VW>(qs, dos, q, dout, b, col0, N);
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      float orow[HD], drow[HD];
+      ldg_row<HD, VW>(o, b, i, col0, orow);
+      ldg_row<HD, VW>(dout, b, i, col0, drow);
+      lse_s[i] = lse_bh[i];
+      delta_s[i] = dot<HD>(orow, drow);
+    }
+    __syncthreads();
+    if (r0 >= end) return;
+    // dv_j = sum_i p_ij do_i, dk_j = sum_i ds_ij q_i
+    float dkr[R][HD], dvr[R][HD];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int d = 0; d < HD; ++d) dkr[r][d] = dvr[r][d] = 0.f;
 #pragma unroll 2
-    for (int i = 0; i < N; ++i) {
+    for (int i = lane; i < N; i += L) {
       float qi[HD], doi[HD];
-      lds<HD>(as + i * HD, qi);
-      lds<HD>(bs + i * HD, doi);
-      const float p = expf(dot<HD>(qi, kr) * scale - lse_s[i]);
-      const float dp = dot<HD>(doi, vr);
-      const float ds = p * (dp - delta_s[i]) * scale;
+      lds<HD>(qs + i * HD, qi);
+      lds<HD>(dos + i * HD, doi);
+      const float lse_i = lse_s[i], delta_i = delta_s[i];
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dvr[d] = fmaf(p, doi[d], dvr[d]);
-        dkr[d] = fmaf(ds, qi[d], dkr[d]);
+      for (int r = 0; r < R; ++r) {
+        const float p = expf(dot<HD>(qi, kr[r]) * scale - lse_i);
+        const float dp = dot<HD>(doi, vr[r]);
+        const float ds = p * (dp - delta_i) * scale;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) {
+          dvr[r][d] = fmaf(p, doi[d], dvr[r][d]);
+          dkr[r][d] = fmaf(ds, qi[d], dkr[r][d]);
+        }
       }
     }
-    if (j < N) {
-      const long long off = ((long long)b * N + j) * D + col0;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dk[off + d] = dkr[d];
-        dv[off + d] = dvr[d];
+    for (int r = 0; r < R; ++r) {
+      group_sum<L>(dkr[r]);
+      group_sum<L>(dvr[r]);
+      if (r0 + r < end) {
+        const long long out = ((long long)b * N + r0 + r) * D + col0;
+        store_cols<HD, L>(dk + out, dkr[r], lane);
+        store_cols<HD, L>(dv + out, dvr[r], lane);
       }
     }
-  }
-  __syncthreads();
-  stage<HD>(as, row_ptr(k, b, 0, col0), k.sr, N);
-  stage<HD>(bs, row_ptr(v, b, 0, col0), v.sr, N);
-  __syncthreads();
-
-  // pass B: a thread owns query row i; dq_i = sum_j ds_ij k_j
-  for (int r0 = 0; r0 < N; r0 += blockDim.x) {
-    const int i = r0 + threadIdx.x;
-    const int ii = min(i, N - 1);
-    float qi[HD], doi[HD], dqr[HD];
-    ldg<HD>(row_ptr(q, b, ii, col0), qi);
-    ldg<HD>(row_ptr(dout, b, ii, col0), doi);
-    const float lse_i = lse_s[ii];
-    const float delta_i = delta_s[ii];
+  } else {
+    float* ks = smem;  // [N][HD]
+    float* vs = smem + N * HD;
+    float qi[R][HD], doi[R][HD], lse_i[R], delta_i[R];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dqr[d] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const int i = min(r0 + r, N - 1);
+      float oi[HD];
+      ldg_row<HD, VW>(q, b, i, col0, qi[r]);
+      ldg_row<HD, VW>(dout, b, i, col0, doi[r]);
+      ldg_row<HD, VW>(o, b, i, col0, oi);
+      lse_i[r] = lse_bh[i];
+      delta_i[r] = dot<HD>(oi, doi[r]);
+    }
+    stage2<HD, VW>(ks, vs, k, v, b, col0, N);
+    __syncthreads();
+    if (r0 >= end) return;
+    // dq_i = sum_j ds_ij k_j
+    float dqr[R][HD];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int d = 0; d < HD; ++d) dqr[r][d] = 0.f;
 #pragma unroll 2
-    for (int j = 0; j < N; ++j) {
+    for (int j = lane; j < N; j += L) {
       float kj[HD], vj[HD];
-      lds<HD>(as + j * HD, kj);
-      lds<HD>(bs + j * HD, vj);
-      const float p = expf(dot<HD>(qi, kj) * scale - lse_i);
-      const float dp = dot<HD>(doi, vj);
-      const float ds = p * (dp - delta_i) * scale;
+      lds<HD>(ks + j * HD, kj);
+      lds<HD>(vs + j * HD, vj);
 #pragma unroll
-      for (int d = 0; d < HD; ++d) dqr[d] = fmaf(ds, kj[d], dqr[d]);
+      for (int r = 0; r < R; ++r) {
+        const float p = expf(dot<HD>(qi[r], kj) * scale - lse_i[r]);
+        const float dp = dot<HD>(doi[r], vj);
+        const float ds = p * (dp - delta_i[r]) * scale;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) dqr[r][d] = fmaf(ds, kj[d], dqr[r][d]);
+      }
     }
-    if (i < N) {
-      float* out = dq + ((long long)b * N + i) * D + col0;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) out[d] = dqr[d];
+    for (int r = 0; r < R; ++r) {
+      group_sum<L>(dqr[r]);
+      if (r0 + r < end)
+        store_cols<HD, L>(dq + ((long long)b * N + r0 + r) * D + col0, dqr[r], lane);
     }
   }
 }
@@ -764,12 +991,24 @@ __global__ void dq_sum_kernel(const float4* __restrict__ part, float4* __restric
   }
 }
 
-// threads per CTA: the fewest passes over the N rows, at most kMaxThreads
-// rows a pass, spread evenly and rounded up to warps
-int threads_for(int N) {
-  const int passes = (N + kMaxThreads - 1) / kMaxThreads;
-  const int per_pass = (N + passes - 1) / passes;
-  return (per_pass + 31) / 32 * 32;
+// the row kernels' chunks C of a (b, h) at sequence length N: at most
+// kRowThreads / kRowLanes * kRowRows rows a CTA, spread evenly over the
+// chunks, the CTA rounded up to warps (ops/attention_fused.py:row_plan)
+void row_plan(int N, int* chunks, int* rows, int* threads) {
+  const int most = kRowThreads / kRowLanes * kRowRows;
+  *chunks = (N + most - 1) / most;
+  *rows = (N + *chunks - 1) / *chunks;
+  *threads = ((*rows + kRowRows - 1) / kRowRows * kRowLanes + 31) / 32 * 32;
+}
+
+size_t row_smem(int N, int HD, bool backward) {
+  return sizeof(float) * (2 * (size_t)N * HD + (backward ? 2 * (size_t)N : 0));
+}
+
+// whether a view's pointer and strides take VW-float copies
+bool takes_width(const View& x, int vw) {
+  return reinterpret_cast<uintptr_t>(x.ptr) % (sizeof(float) * vw) == 0 && x.sb % vw == 0 &&
+         x.sr % vw == 0;
 }
 
 // chunks C and warps W of a (b, h) at sequence length N (see the header)
@@ -789,32 +1028,76 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
+template <int HD, int VW>
+int launch_fwd_rows(View q, View k, View v, float* o, float* lse, int B, int N, int H, float scale,
+                    cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  if (HD % VW || !takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW))
+    return kBadCopyWidth;
+  int chunks, rows, threads;
+  row_plan(N, &chunks, &rows, &threads);
+  const size_t smem = row_smem(N, HD, false);
+  cudaError_t err = allow_smem(attn_fwd_kernel<HD, VW>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_kernel<HD, VW><<<B * H * chunks, threads, smem, s>>>(q, k, v, o, lse, N, H, chunks,
+                                                                rows, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int VW>
+int launch_bwd_rows(View q, View k, View v, View o, const float* lse, View dout, float* dq,
+                    float* dk, float* dv, int B, int N, int H, float scale, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  if (HD % VW || !takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW) ||
+      !takes_width(o, VW) || !takes_width(dout, VW))
+    return kBadCopyWidth;
+  int chunks, rows, threads;
+  row_plan(N, &chunks, &rows, &threads);
+  const size_t smem = row_smem(N, HD, true);
+  cudaError_t err = allow_smem(attn_bwd_kernel<HD, VW>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_kernel<HD, VW><<<2 * B * H * chunks, threads, smem, s>>>(
+      q, k, v, o, lse, dout, dq, dk, dv, N, H, chunks, rows, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the row launchers at the copy width the wrapper chose (bytes: 16, 8, 4)
 template <int HD>
 int launch_fwd(View q, View k, View v, float* o, float* lse, int B, int N, int H, float scale,
-               cudaStream_t s) {
-  static size_t allowed = 48 * 1024;
-  const size_t smem = sizeof(float) * 2 * (size_t)N * HD;
-  cudaError_t err = allow_smem(attn_fwd_kernel<HD>, smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_kernel<HD><<<B * H, threads_for(N), smem, s>>>(q, k, v, o, lse, N, H, scale);
-  return static_cast<int>(cudaGetLastError());
+               int width, cudaStream_t s) {
+  switch (width) {
+    case 16:
+      if constexpr (HD % 4 == 0) return launch_fwd_rows<HD, 4>(q, k, v, o, lse, B, N, H, scale, s);
+      return kBadCopyWidth;
+    case 8:
+      return launch_fwd_rows<HD, 2>(q, k, v, o, lse, B, N, H, scale, s);
+    case 4:
+      return launch_fwd_rows<HD, 1>(q, k, v, o, lse, B, N, H, scale, s);
+    default:
+      return kBadCopyWidth;
+  }
 }
 
 template <int HD>
 int launch_bwd(View q, View k, View v, View o, const float* lse, View dout, float* dq, float* dk,
-               float* dv, float*, int B, int N, int H, float scale, cudaStream_t s) {
-  static size_t allowed = 48 * 1024;
-  const size_t smem = sizeof(float) * (2 * (size_t)N * HD + 2 * (size_t)N);
-  cudaError_t err = allow_smem(attn_bwd_kernel<HD>, smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_kernel<HD><<<B * H, threads_for(N), smem, s>>>(q, k, v, o, lse, dout, dq, dk, dv, N,
-                                                          H, scale);
-  return static_cast<int>(cudaGetLastError());
+               float* dv, float*, int B, int N, int H, float scale, int width, cudaStream_t s) {
+  switch (width) {
+    case 16:
+      if constexpr (HD % 4 == 0)
+        return launch_bwd_rows<HD, 4>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
+      return kBadCopyWidth;
+    case 8:
+      return launch_bwd_rows<HD, 2>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
+    case 4:
+      return launch_bwd_rows<HD, 1>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
+    default:
+      return kBadCopyWidth;
+  }
 }
 
 template <int HD>
 int launch_fwd_mma(View q, View k, View v, float* o, float* lse, int B, int N, int H, float scale,
-                   cudaStream_t s) {
+                   int, cudaStream_t s) {
   static size_t allowed = 48 * 1024;
   int chunks, warps;
   mma_plan(N, &chunks, &warps);
@@ -828,7 +1111,7 @@ int launch_fwd_mma(View q, View k, View v, float* o, float* lse, int B, int N, i
 
 template <int HD>
 int launch_bwd_mma(View q, View k, View v, View o, const float* lse, View dout, float* dq,
-                   float* dk, float* dv, float* dq_part, int B, int N, int H, float scale,
+                   float* dk, float* dv, float* dq_part, int B, int N, int H, float scale, int,
                    cudaStream_t s) {
   static size_t allowed = 48 * 1024;
   int chunks, warps;
@@ -850,6 +1133,44 @@ int launch_bwd_mma(View q, View k, View v, View o, const float* lse, View dout, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// {CTAs, threads, dynamic shared memory bytes, resident CTAs an SM} of a
+// row kernel's launch (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <typename Kernel>
+int row_info(Kernel kernel, int ctas_per_chunk, int N, int HD, bool backward, int* out) {
+  int chunks, rows, threads;
+  row_plan(N, &chunks, &rows, &threads);
+  const size_t smem = row_smem(N, HD, backward);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(smem > 48 * 1024 ? smem : 48 * 1024));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, kernel, threads, smem);
+  out[0] = ctas_per_chunk * chunks;
+  out[1] = threads;
+  out[2] = (int)smem;
+  return static_cast<int>(err);
+}
+
+template <int HD, int VW>
+int row_info_at(int B, int N, int H, int backward, int* out) {
+  return backward ? row_info(attn_bwd_kernel<HD, VW>, 2 * B * H, N, HD, true, out)
+                  : row_info(attn_fwd_kernel<HD, VW>, B * H, N, HD, false, out);
+}
+
+template <int HD>
+int row_info_width(int B, int N, int H, int backward, int width, int* out) {
+  switch (width) {
+    case 16:
+      if constexpr (HD % 4 == 0) return row_info_at<HD, 4>(B, N, H, backward, out);
+      return kBadCopyWidth;
+    case 8:
+      return row_info_at<HD, 2>(B, N, H, backward, out);
+    case 4:
+      return row_info_at<HD, 1>(B, N, H, backward, out);
+    default:
+      return kBadCopyWidth;
+  }
+}
+
 }  // namespace
 
 // The head dims the kernels are built for, with their launchers: every
@@ -859,8 +1180,9 @@ int launch_bwd_mma(View q, View k, View v, View o, const float* lse, View dout, 
   X(32, launch_fwd_mma, launch_bwd_mma) X(48, launch_fwd_mma, launch_bwd_mma)                \
   X(64, launch_fwd_mma, launch_bwd_mma)
 
-// The tensor-core kernels' tile constants (kRowTile, kMaxWarps, kPad,
-// kKeyBlock): ops/attention_fused.py plans the grid, shared memory and the
+// The kernels' tile constants (kRowTile, kMaxWarps, kPad, kKeyBlock of the
+// tensor-core kernels; kRowThreads, kRowLanes, kRowRows of the row
+// kernels): ops/attention_fused.py plans the grids, shared memory and the
 // dq workspace with them and refuses to load a library whose constants
 // differ.
 extern "C" void attention_tiles(int* out) {
@@ -868,26 +1190,49 @@ extern "C" void attention_tiles(int* out) {
   out[1] = kMaxWarps;
   out[2] = kPad;
   out[3] = kKeyBlock;
+  out[4] = kRowThreads;
+  out[5] = kRowLanes;
+  out[6] = kRowRows;
+}
+
+// A row kernel's launch (hd 2, 8, 16; forward, or backward when `backward`)
+// at the copy width `row_copy_bytes`: out = {CTAs, threads, dynamic shared
+// memory bytes, resident CTAs an SM}. Returns 0, or an error code.
+extern "C" int attention_row_launch(int B, int N, int H, int hd, int backward,
+                                    int row_copy_bytes, int* out) {
+  switch (hd) {
+    case 2:
+      return row_info_width<2>(B, N, H, backward, row_copy_bytes, out);
+    case 8:
+      return row_info_width<8>(B, N, H, backward, row_copy_bytes, out);
+    case 16:
+      return row_info_width<16>(B, N, H, backward, row_copy_bytes, out);
+    default:
+      return kBadHeadDim;
+  }
 }
 
 // Both entry points launch on `stream`, allocate nothing and return
-// cudaGetLastError() as an int (0 on success), or -1 for a head dim that is
-// not built. q, k, v, o and do are [B, N, H*hd] views with unit column
-// stride, batch stride *_sb and row stride *_sr in floats (the model hands
-// over q, k, v sliced out of its fused qkv buffer, rows 3*D apart); at
-// hd >= 32 they and their strides are 16-byte aligned. The outputs o,
-// lse [B, H, N], dq, dk, dv are contiguous. dq_part is the backward's
-// [C, B, N, D] workspace, read only where the plan has C > 1.
+// cudaGetLastError() as an int (0 on success), -1 for a head dim that is
+// not built, or -2 for a row copy width that a view contradicts. q, k, v,
+// o and do are [B, N, H*hd] views with unit column stride, batch stride
+// *_sb and row stride *_sr in floats (the model hands over q, k, v sliced
+// out of its fused qkv buffer, rows 3*D apart); at hd >= 32 they and their
+// strides are 16-byte aligned. At hd <= 16 the row kernels copy rows
+// row_copy_bytes (16, 8 or 4) at a time, which every view's pointer and
+// strides, and hd * 4, must be multiples of; hd >= 32 ignores it. The
+// outputs o, lse [B, H, N], dq, dk, dv are contiguous. dq_part is the
+// backward's [C, B, N, D] workspace, read only where the plan has C > 1.
 extern "C" int attention_forward(const float* q, long long q_sb, long long q_sr, const float* k,
                                  long long k_sb, long long k_sr, const float* v, long long v_sb,
                                  long long v_sr, float* o, float* lse, int B, int N, int H,
-                                 int hd, float scale, void* stream) {
+                                 int hd, float scale, int row_copy_bytes, void* stream) {
   const View qv{q, q_sb, q_sr}, kv{k, k_sb, k_sr}, vv{v, v_sb, v_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
 #define ATTN_FWD_CASE(HD, FWD, BWD) \
   case HD:                          \
-    return FWD<HD>(qv, kv, vv, o, lse, B, N, H, scale, s);
+    return FWD<HD>(qv, kv, vv, o, lse, B, N, H, scale, row_copy_bytes, s);
     ATTN_HEAD_DIMS(ATTN_FWD_CASE)
 #undef ATTN_FWD_CASE
     default:
@@ -901,14 +1246,15 @@ extern "C" int attention_backward(const float* q, long long q_sb, long long q_sr
                                   const float* lse, const float* dout, long long do_sb,
                                   long long do_sr, float* dq, float* dk, float* dv,
                                   float* dq_part, int B, int N, int H, int hd, float scale,
-                                  void* stream) {
+                                  int row_copy_bytes, void* stream) {
   const View qv{q, q_sb, q_sr}, kv{k, k_sb, k_sr}, vv{v, v_sb, v_sr}, ov{o, o_sb, o_sr},
       dov{dout, do_sb, do_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
 #define ATTN_BWD_CASE(HD, FWD, BWD) \
   case HD:                          \
-    return BWD<HD>(qv, kv, vv, ov, lse, dov, dq, dk, dv, dq_part, B, N, H, scale, s);
+    return BWD<HD>(qv, kv, vv, ov, lse, dov, dq, dk, dv, dq_part, B, N, H, scale, \
+                    row_copy_bytes, s);
     ATTN_HEAD_DIMS(ATTN_BWD_CASE)
 #undef ATTN_BWD_CASE
     default:
