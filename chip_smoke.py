@@ -11,8 +11,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    per source, all started together, and prints ptxas's register and spill
    lines; counts the tensor-core instructions in the SASS (``cuobjdump``
    beside nvcc) of the SOM kernel, which fails without a TF32 wgmma
-   (HGMMA), and of the two hd >= 32 attention kernels, which fail without a
-   TF32 mma (HMMA or HGMMA); fails without ``cuobjdump``;
+   (HGMMA), of the two hd >= 32 attention kernels, which fail without a
+   TF32 mma (HMMA or HGMMA), and of every instantiation of the fused block's
+   ``block_fwd_kernel`` and ``block_bwd_kernel``, which fail without a TF32
+   mma (HMMA); fails without ``cuobjdump``;
 3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
    on the card at every shipped ViT-SOM SOM shape (``SOM_SHAPES``: B, D =
    patch tokens x emb, P) and one ragged shape (B 13, D 1000, P 132), x the
@@ -90,9 +92,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    (128, 197, 4, 2, 4) (the flagship's encoder and decoder blocks at full
    width) and the JAX tests' (8, 197, 16, 2, 4), (4, 65, 24, 3, 4),
    (3, 17, 16, 2, 2), (4, 33, 16, 2, 4); two runs of each kernel must agree
-   bitwise. Weights are xavier-uniform with biases and LayerNorm parameters
-   0.02 off their init; the cotangent is a standard normal at the JAX tests'
-   shapes (their own) and a standard normal over B at B 128, the cotangent
+   bitwise; y, dx and each of the 12 gradients may be at most
+   ``BLOCK_F64_FACTOR`` (5) times the plain float32 version's error against
+   a float64 evaluation of the plain version, plus ``F64_SLACK``, which a
+   product short of 3xTF32 fails by a factor of hundreds. Weights are
+   xavier-uniform with biases and LayerNorm parameters 0.02 off their init;
+   the cotangent is a standard normal at the JAX tests' shapes (their own)
+   and a standard normal over B at B 128, the cotangent
    of a batch-mean loss: a unit cotangent summed over 128 x 197 rows gives
    weight gradients of ~400, where two float32 summation orders already
    differ by more than atol 2e-5;
@@ -106,15 +112,22 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. block timings at the two flagship shapes: each kernel (the backward with
    its reduction launch), its plain version, and the port's eager Block
    (forward under no_grad, and forward + backward) with ``attn_impl`` xla
-   and pallas, L2 flushed, against the bound. No single PyTorch call
-   computes a block, so the eager xla Block stands in the ``library_ms``
-   column. Bounds: forward 2 B N (4 D^2 + 2 D M) + 4 B H N^2 hd operations;
+   and pallas, L2 flushed, against the bound, with each kernel's CTAs,
+   threads and shared memory. No single PyTorch call computes a block, so
+   the eager xla Block stands in the ``library_ms`` column. The bound is the
+   largest of three terms: the operations as three TF32 products at 495
+   TFLOP/s (the kernels' products run on the tensor cores, but for attention
+   at hd 2 on the FP32 cores; the FP32 figure at 67 TFLOP/s is printed
+   beside it), the B H N^2 exponentials (one a
+   pair, forward and backward, as in phase 9) at 16 a clock an SM, and the
+   bytes. Operations: forward 2 B N (4 D^2 + 2 D M) + 4 B H N^2 hd;
    backward the forward + 4 B N (4 D^2 + 2 D M) (each product's input and
    weight gradients) + 8 B H N^2 hd (dv = p^T do, dp = do v^T, dq = ds k,
    dk = ds^T q); bytes x and y (x, dy and dx) and the weights (in the
    backward also their summed gradients). The backward kernel's second
-   q k^T (p recomputed from lse) and its [B, W] partial gradients are
-   artifacts of its design, not of the function, and are not counted.
+   q k^T (p recomputed from lse), its second exponential of each pair and
+   its [B, W] partial gradients are artifacts of its design, not of the
+   function, and are not counted.
 13. the emb-192 ViT-SOM: ``configs/vit_som/vit_som_cifar-10.yaml`` at its
    full widths and depth (emb 192, depth 12, 3 heads: hd 64; decoder emb 96,
    depth 2: hd 32; N 65; 4x4 map, SOM latent 64 x 192; batch 128, float32,
@@ -143,8 +156,8 @@ backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON (the attention kernels' rows: the
 cifar-10 ``pallas`` run's launches and the (128, 65, 3, 64) timings), the
-nvidia-smi line and the result. The whole script takes about 65 seconds on
-an H100, the builds included.
+nvidia-smi line and the result. The whole script takes about 90 seconds on
+an H100, the builds included (block.cu, the longest, about 33 s).
 """
 
 from __future__ import annotations
@@ -210,6 +223,14 @@ BLOCK_SHAPES = [(128, 197, 16, 2, 4.0), (128, 197, 4, 2, 4.0), (8, 197, 16, 2, 4
 BLOCK_TIMED = BLOCK_SHAPES[:2]
 BLOCK_Y_TOL = (2e-5, 1e-5)
 BLOCK_GRAD_TOL = (2e-5, 1e-4)
+# The block kernels' outputs against float64 may be at most this factor of
+# the plain float32 version's error, plus F64_SLACK. The earlier FP32 block
+# kernels (one row a thread) already read 1.65-4.64x at y and above 2 at nine
+# of the 14 outputs (PERF.md, section 6): the kernels sum rows and columns in
+# long float32 chains, where the plain version's cuBLAS products and torch
+# sums sum in blocks. A product short of 3xTF32 reads far above it (a 1xTF32
+# mutant, same section).
+BLOCK_F64_FACTOR = 5.0
 FIRST_LOSSES = ("train/recon_loss", "train/som_loss", "train/total_loss")
 SYNTHETIC_SIZE = 4096  # + 819 test images, concatenated for clustering
 # (B, N, E, map) of every shipped ViT-SOM SOM: its latent is the N patch
@@ -976,6 +997,13 @@ def phase_block_vs_plain(dev):
         ye = blk(xl)
         ye.backward(dy)
         dwa = block_param_grads(blk)
+        # float64: each output's error against a float64 evaluation of the
+        # plain version, beside the plain float32 version's own
+        w64 = {k: v.double() for k, v in w.items()}
+        y64 = block_fused.fused_block_reference(x.double(), w64, h)
+        dx64, dw64 = block_fused.fused_block_bwd_reference(x.double(), dy.double(), w64, h)
+        f64 = {"y": float64_err(y, yr, y64), "dx": float64_err(dx, dxr, dx64)}
+        f64.update({k: float64_err(dw[k], dwr[k], dw64[k]) for k in block_fused.WEIGHT_NAMES})
         torch.cuda.synchronize()
         errs = {"y": allclose_err(y, yr, *BLOCK_Y_TOL),
                 "y_vs_eager": allclose_err(y, ye.detach(), *BLOCK_Y_TOL),
@@ -1000,6 +1028,14 @@ def phase_block_vs_plain(dev):
             f"deterministic={same}",
             flush=True,
         )
+        print(f"block_vs_float64 (B,N,D,H,mlp)={shape}: "
+              + " ".join(f"{k}={ke / max(pe, 1e-30):.2f}" for k, (ke, pe, _) in f64.items())
+              + f" (kernel / plain float32 error; largest kernel error "
+              f"{max(ke for ke, _, _ in f64.values()):.3e})", flush=True)
+        for k, (ke, pe, _) in f64.items():
+            check(ke <= BLOCK_F64_FACTOR * pe + F64_SLACK,
+                  f"block {k} further from float64 than {BLOCK_F64_FACTOR} x the plain version's + "
+                  f"{F64_SLACK} at {shape}: {ke} vs {pe}")
         for k, (e, ok) in errs.items():
             check(ok, f"block {k} disagrees at {shape}: {e}")
             side = "block_fwd" if k in ("y", "y_vs_eager") else "block_bwd"
@@ -1073,6 +1109,8 @@ def phase_block_timings(dev):
     """Phase 12; returns {(shape, kernel name): row} of the timed shapes."""
     rows = {}
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_per_s = sms * SFU_EXP_PER_CLOCK * SM_CLOCK_HZ
     for shape in BLOCK_TIMED:
         b, n, d, h, ratio = shape
         m, hd = int(d * ratio), d // h
@@ -1109,19 +1147,33 @@ def phase_block_timings(dev):
                 4 * (3 * b * n * d + 2 * n_w),
             ),
         }
+        n_exp = b * h * n * n  # one a (query, key) pair, forward and backward alike
         for name, (fns, flops, nbytes) in cases.items():
             t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}
-            t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            # a float32-accurate product takes least time as three TF32
+            # products on the tensor cores (the kernels' form, but for the
+            # FP32 attention at hd 2); the FP32 figure is printed beside it
+            t_fp32 = flops / FP32_FLOPS * 1e3
+            t_ops = 3 * flops / TF32_FLOPS * 1e3
+            t_exp = n_exp / exp_per_s * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(t_ops, t_exp, t_bytes)
+            bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
+            detail = ("bytes" if bound_by == "bytes" else
+                      "exponentials" if t_exp > t_ops else "3xTF32")
             eager = "forward" if name == "block_fwd" else "forward + backward"
+            threads = (block_fused.fwd_threads(n) if name == "block_fwd"
+                       else block_fused.bwd_threads(n))
             print(
                 f"timing {name} (B,N,D,H,M)={(b, n, d, h, m)} (L2 flushed): "
                 f"kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
                 f"eager_block_xla_ms={t['eager_xla']:.5f} eager_block_pallas_ms={t['eager_pallas']:.5f} "
-                f"(eager Block {eager}) bound_ms={bound_ms:.5f} ({bound_by}: "
-                f"{flops / 1e6:.1f} MFLOP fp32, {nbytes / 1e6:.3f} MB) "
-                f"kernel_share_of_bound={bound_ms / t['kernel']:.4f}",
+                f"(eager Block {eager}) bound_ms={bound_ms:.5f} ({detail}: {flops / 1e6:.1f} MFLOP "
+                f"as 3xTF32 {t_ops:.5f} ms, {nbytes / 1e6:.3f} MB {t_bytes:.5f} ms; "
+                f"fp32_non_tensor_ms={t_fp32:.5f}; exp needed={n_exp / 1e6:.3f} M at {sms} SMs x "
+                f"{SFU_EXP_PER_CLOCK} a clock x {SM_CLOCK_HZ / 1e9:.2f} GHz {t_exp:.5f} ms) "
+                f"kernel_share_of_bound={bound_ms / t['kernel']:.4f} ctas={b} threads={threads} "
+                f"smem_bytes={block_fused.smem_bytes(n, d, h, m, name == 'block_bwd')}",
                 flush=True,
             )
             rows[(shape, name)] = dict(ms=t["kernel"], plain_ms=t["plain"],
@@ -1143,13 +1195,15 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers", "spill")) or (
                     "error" in line.lower()):
                 print(f"build[{name}]: {line.strip()}", flush=True)
-    # the SOM kernel's and the hd >= 32 attention kernels' products must run
-    # on the tensor cores in TF32 (wgmma: HGMMA; mma.sync: HMMA in SASS)
+    # the SOM kernel's, the hd >= 32 attention kernels' and every block
+    # kernel instantiation's products must run on the tensor cores in TF32
+    # (wgmma: HGMMA; mma.sync: HMMA in SASS)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
     for name, kernels, kinds in (
             ("som_fused", ("som_partial_kernel",), ("HGMMA",)),
-            ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA"))):
+            ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA")),
+            ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",))):
         sass = subprocess.run([cuobjdump, "-sass", infos[name]["path"]], capture_output=True,
                               text=True, check=True).stdout
         ops, function = {}, None  # {function: {instruction: count}}

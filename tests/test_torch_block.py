@@ -12,6 +12,8 @@ for gradients (``:89-94``).
 """
 
 import copy
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -169,7 +171,7 @@ def _small_weights(dim, mlp_hidden, dtype):
             for name, shape in tblock.weight_shapes(dim, mlp_hidden).items()}
 
 
-@pytest.mark.parametrize("case", ["emb192", "not_built", "float64", "cpu_tensor"])
+@pytest.mark.parametrize("case", ["emb192", "not_built", "float64", "cpu_tensor", "bwd_past_16_tiles"])
 def test_kernel_checks_refuse(case):
     """What the kernels do not cover raises ValueError before any launch."""
     launches = tblock.LAUNCHES_FWD
@@ -179,6 +181,10 @@ def test_kernel_checks_refuse(case):
     elif case == "not_built":
         with pytest.raises(ValueError, match="not built"):
             tblock.check_shape(2, 17, 32, 2, 128, backward=False)
+    elif case == "bwd_past_16_tiles":  # the backward gives each row tile a warp
+        tblock.check_shape(2, 257, 16, 2, 64, backward=False)
+        with pytest.raises(ValueError, match="warps"):
+            tblock.check_shape(2, 257, 16, 2, 64, backward=True)
     elif case == "float64":
         w = _small_weights(16, 64, torch.float64)
         with pytest.raises(ValueError, match="float32"):
@@ -197,3 +203,55 @@ def test_flagship_block_shapes_fit():
         for backward in (False, True):
             tblock.check_shape(128, 197, dim, 2, mlp_hidden, backward)
     assert tblock.smem_bytes(197, 16, 2, 64, backward=True) <= tblock.SMEM_LIMIT_BYTES
+
+
+# (B, N, D, heads, M): the flagship's encoder and decoder blocks and the JAX
+# tests' blocks, every shape chip_smoke.py holds the kernels at
+BLOCK_SHAPES = [(128, 197, 16, 2, 64), (128, 197, 4, 2, 16), (8, 197, 16, 2, 64),
+                (4, 65, 24, 3, 96), (3, 17, 16, 2, 32), (4, 33, 16, 2, 64)]
+
+
+def _kernel_source():
+    return (Path(tblock.__file__).parent / "csrc" / "block.cu").read_text()
+
+
+def test_constants_match_the_kernel_source():
+    """The wrapper's row tile, fragment block, thread limits and row stride
+    are the kernels' own."""
+    src = _kernel_source()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kTile"] == tblock.ROW_TILE == 16
+    assert consts["kFrag"] == tblock.FRAG_FLOATS == 128
+    assert consts["kMaxThreads"] == tblock.MAX_THREADS
+    assert consts["kFwdThreads"] == tblock.FWD_THREADS
+    assert consts["kSlices"] == tblock.WGRAD_SLICES
+    assert "constexpr int wpad(int c) { return r8(c) + 4; }" in src
+    assert "constexpr int r8(int c) { return (c + 7) / 8 * 8; }" in src
+    assert [tblock._wpad(c) for c in (4, 12, 16, 48, 64, 96)] == [12, 20, 20, 52, 68, 100]
+    # a stride of 4 mod 8 floats: rows 2t at column g fall in 32 distinct banks
+    for c in (4, 16, 24, 48, 64, 96):
+        ld = tblock._wpad(c)
+        banks = {(2 * t * ld + g) % 32 for t in range(4) for g in range(8)}
+        assert len(banks) == 32, c
+
+
+@pytest.mark.parametrize("b,n,dim,heads,m", BLOCK_SHAPES)
+def test_smem_fits_at_every_held_shape(b, n, dim, heads, m):
+    for backward in (False, True):
+        tblock.check_shape(b, n, dim, heads, m, backward)
+        assert tblock.smem_bytes(n, dim, heads, m, backward) <= tblock.SMEM_LIMIT_BYTES
+
+
+def test_launch_plan_at_the_flagship_shapes():
+    """13 row tiles at N 197: 26 forward warps (two a tile), 13 backward
+    warps; the layouts' shared memory in bytes."""
+    assert tblock.row_tiles(197) == 13
+    assert tblock.fwd_threads(197) == 832 and tblock.bwd_threads(197) == 416
+    assert tblock.fwd_threads(17) == 128 and tblock.bwd_threads(17) == 64
+    assert tblock.fwd_threads(1000) == tblock.FWD_THREADS
+    assert tblock.staged_floats(16, 64) == 3760 and tblock.staged_floats(4, 16) == 720
+    assert tblock.smem_bytes(197, 16, 2, 64, backward=False) == 98240
+    assert tblock.smem_bytes(197, 4, 2, 16, backward=False) == 79424
+    assert tblock.wgrad_scratch(16, 64) == 10 * 3 * 128  # fc2 8 tiles + proj 2
+    assert tblock.smem_bytes(197, 16, 2, 64, backward=True) == 220096
+    assert tblock.smem_bytes(197, 4, 2, 16, backward=True) == 149056

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use into ``build/vitsom_tpu_torch/<name>-<hash>.so`` under the repository
-root, the hash covering the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. There is no fallback: a missing
-nvcc or a failed build raises.
+root, the hash covering the source, every header it includes with
+``#include "..."`` (``csrc/tf32_mma.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. There is no
+fallback: a missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,9 +50,27 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the headers it includes with ``#include
+    "..."``, transitively, each once, in the order first met."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def target_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -27,8 +27,9 @@ by at most 1.5e-7, far inside the 2e-5 tolerance the block is held to.
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. There is no fallback from one to
 the other. The kernels cover the (D, head_dim, M) in ``BUILT_SHAPES`` and any
-N whose per-CTA working set fits in shared memory; a wide block such as emb
-192 (1.8 MB of weights) needs a weight-streaming design and is refused.
+N whose per-CTA working set fits in shared memory (the backward, which gives
+each 16-row tile a warp, up to N 256); a wide block such as emb 192 (1.8 MB
+of weights) needs a weight-streaming design and is refused.
 """
 
 from __future__ import annotations
@@ -196,22 +197,88 @@ def fused_block_bwd_reference(
 # ---------------------------------------------------------------------------
 
 
-def _pad(c: int) -> int:
-    """csrc/block.cu's row stride: c rounded up to an odd multiple of 4."""
-    return ((c + 3) // 4 | 1) * 4
+# csrc/block.cu's constants: rows of a warp's tile, floats of a fragment
+# block (32 lanes x 4), the forward's and the backward's thread limits
+ROW_TILE = 16
+FRAG_FLOATS = 128
+FWD_THREADS = 832
+MAX_THREADS = 512
+WGRAD_SLICES = 3  # row-step ranges a weight-gradient tile is split into
+
+
+def _r8(c: int) -> int:
+    return (c + 7) // 8 * 8
+
+
+def _wpad(c: int) -> int:
+    """csrc/block.cu's wpad: a shared-memory row stride, c rounded up to 8
+    floats plus 4."""
+    return _r8(c) + 4
+
+
+def staged_floats(dim: int, mlp_hidden: int) -> int:
+    """Floats of the weights as the kernels stage them (csrc/block.cu
+    staged_floats): each [r8(rows)][wpad(cols)], a vector one row."""
+    total = 0
+    for name in WEIGHT_NAMES:
+        shape = weight_shapes(dim, mlp_hidden)[name]
+        rows, cols = (shape if len(shape) == 2 else (1, shape[0]))
+        total += (1 if rows == 1 else _r8(rows)) * _wpad(cols)
+    return total
+
+
+def row_tiles(n: int) -> int:
+    return (n + ROW_TILE - 1) // ROW_TILE
+
+
+def fwd_threads(n: int) -> int:
+    """Threads of a forward CTA (csrc/block.cu fwd_threads): two warps a
+    row tile, at most FWD_THREADS."""
+    return 32 * min(2 * row_tiles(n), FWD_THREADS // 32)
+
+
+def bwd_threads(n: int) -> int:
+    """Threads of a backward CTA: a warp a row tile (check_shape refuses N
+    past MAX_THREADS / 32 tiles)."""
+    return 32 * row_tiles(n)
+
+
+def _wgrad_tiles(a: int, c: int) -> int:
+    """16 x 8 tiles of an [a][c] weight gradient."""
+    return (a + 15) // 16 * ((c + 7) // 8)
+
+
+def wgrad_scratch(dim: int, mlp_hidden: int) -> int:
+    """Floats of the backward's weight-gradient scratch (csrc/block.cu
+    wgrad_scratch): the most tiles of one phase (fc2 + proj, fc1, qkv),
+    WGRAD_SLICES partial tiles of FRAG_FLOATS each."""
+    most = max(_wgrad_tiles(mlp_hidden, dim) + _wgrad_tiles(dim, dim),
+               _wgrad_tiles(dim, mlp_hidden), _wgrad_tiles(dim, 3 * dim))
+    return most * WGRAD_SLICES * FRAG_FLOATS
 
 
 def smem_bytes(n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> int:
-    """Dynamic shared memory of one CTA (csrc/block.cu fwd_smem/bwd_smem): the
-    weights, qkv [N, 3D] and the attention output [N, D]; the backward adds
-    four more [N, D] buffers, an [N, max(M, 3D)] one, rstd2 [N] and the
-    attention's lse and delta [H, N]. Rows are padded."""
-    floats = sum(math.prod(s) for s in weight_shapes(dim, mlp_hidden).values())
-    if backward:
-        floats += n * (_pad(3 * dim) + 5 * _pad(dim) + _pad(max(mlp_hidden, 3 * dim)) + 1 + 2 * heads)
-    else:
-        floats += n * (_pad(3 * dim) + _pad(dim))
-    return 4 * floats
+    """Dynamic shared memory of one CTA (csrc/block.cu fwd_floats and
+    BwdLayout), for T = ceil(N / 16) row tiles of NP = 16 T rows and U
+    floats of one fragment buffer (H heads x T tiles x head_dim / 8 k-steps
+    x FRAG_FLOATS). The forward: the staged weights, q, k, v as attention
+    fragments (k and v split into two TF32 parts: 5 U) and the attention
+    output [NP][wpad(D)]. The backward: the weights, lse and delta [H][NP],
+    d(residual) [NP][wpad(D)], do as fragments (2 U), then the largest of
+    three phases' buffers on one region: the forward recompute's attention
+    output and fragments; the MLP backward's attention output, xhat2, d(h2),
+    dy and gelu(m1) / d(m1) [NP][wpad(M)]; the attention backward's q, k, v
+    fragments (5 U), xhat1, d(h1) and d(qkv) [NP][wpad(3D)]; then the weight
+    gradients' scratch."""
+    tiles, ks = row_tiles(n), _r8(dim // heads) // 8
+    rows, u = tiles * ROW_TILE, heads * tiles * ks * FRAG_FLOATS
+    ld, lm, lq = _wpad(dim), _wpad(mlp_hidden), _wpad(3 * dim)
+    if not backward:
+        return 4 * (staged_floats(dim, mlp_hidden) + 5 * u + rows * ld)
+    fwd_mlp = rows * ld + max(5 * u, 3 * rows * ld + rows * lm)
+    attn = 5 * u + 2 * rows * ld + rows * lq
+    return 4 * (staged_floats(dim, mlp_hidden) + 2 * heads * rows + rows * ld + 2 * u
+                + max(fwd_mlp, attn) + wgrad_scratch(dim, mlp_hidden))
 
 
 def check_shape(b: int, n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> None:
@@ -219,6 +286,11 @@ def check_shape(b: int, n: int, dim: int, heads: int, mlp_hidden: int, backward:
     CUDA."""
     if min(b, n, dim, heads, mlp_hidden) < 1 or dim % heads:
         raise ValueError(f"bad block shape B={b} N={n} D={dim} heads={heads} M={mlp_hidden}")
+    if backward and row_tiles(n) > MAX_THREADS // 32:
+        raise ValueError(
+            f"the fused block backward at N={n} needs {row_tiles(n)} warps, one a 16-row tile, "
+            f"more than {MAX_THREADS // 32}"
+        )
     need = smem_bytes(n, dim, heads, mlp_hidden, backward)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(

@@ -163,6 +163,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kKeyChunk = 8;    // keys of a row kernel's online-softmax step
@@ -611,60 +613,6 @@ __device__ __forceinline__ void stage_async(float* dst, const View& x, int b, in
     cp_async16(smem_u32(dst + r * LD + 4 * c), row_ptr(x, b, min(gr, N - 1), col0 + 4 * c),
                gr < N);
   }
-}
-
-// round to nearest TF32, ties away from zero: cvt.rna.tf32.f32 for finite a
-__device__ __forceinline__ uint32_t tf32_rna(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
-}
-
-// an A fragment as two TF32 parts, a = big + small to float32 accuracy
-struct Frag {
-  uint32_t big[4], small[4];
-};
-
-__device__ __forceinline__ Frag split_a(float a0, float a1, float a2, float a3) {
-  const float a[4] = {a0, a1, a2, a3};
-  Frag f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f.big[i] = tf32_rna(a[i]);
-    f.small[i] = tf32_rna(a[i] - __uint_as_float(f.big[i]));
-  }
-  return f;
-}
-
-// d += a b on one m16n8k8 tile, TF32 operands, f32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b to float32 accuracy, b = (b0, b1) this thread's B fragment: three
-// TF32 products summed from zero, then one rounding add
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag& a, float b0, float b1) {
-  const uint32_t bb0 = tf32_rna(b0), bb1 = tf32_rna(b1);
-  const uint32_t bs0 = tf32_rna(b0 - __uint_as_float(bb0));
-  const uint32_t bs1 = tf32_rna(b1 - __uint_as_float(bb1));
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(s, a.small, bb0, bb1);
-  mma_tf32(s, a.big, bs0, bs1);
-  mma_tf32(s, a.big, bb0, bb1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += s[i];
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // C query chunks of W warps per (b, h); warp w of chunk c owns query rows
