@@ -33,9 +33,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    are also held to 1e-5, and all of them against float64 as above;
 4. train: the flagship config ``configs/vit_som/vit_som_mnist.yaml`` as
    shipped (full width, 40x40 map, batch 128, float32) on synthetic
-   MNIST-shaped data for 40 steps, then the clustering eval; the kernel's
-   launch count over that run must equal train steps + eval batches, and
-   the attention kernels must not run (the yaml's attention is ``xla``);
+   MNIST-shaped data for 40 steps through ``Trainer.fit``, which runs two
+   eager warm-up steps, captures the third as a CUDA graph and replays it
+   for the rest, then the clustering eval; the kernel's launch count over
+   that run (the wrappers count in Python, so a replay adds nothing: see
+   below) must equal 3 + eval batches, and the attention kernels must not
+   run (the yaml's attention is ``xla``);
+   A (``graph_xla``). the same 40 steps from the same seed run eagerly
+   (``fit(eager=True)``: the same step body, batches and kernels, step by
+   step): every step's three losses and every final parameter equal the
+   graphed run's within rtol 1e-5 (bitwise expected; the largest
+   differences are printed), with both runs' median ms a step and
+   images/s beside the card's name and power limit;
 5. timings: the device time of the kernel, its plain version and one
    library product (the median of 30 CUDA-event timed calls each, the card
    held by a spin while the host issues them; L2 flushed before each call,
@@ -65,12 +74,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    round differently from the ones that lse normalised, an error the plain
    backward, whose scores are that forward's to the bit, does not have.
    ``scaled_dot_product_attention``'s float64 error is printed beside them;
-7. train with ``train.attn_impl: pallas``: phase 4's run again, with the
-   attention kernels. Its step-0 losses must equal phase 4's within rtol
-   1e-5 (same seed, same first batch), and every kernel's launch count must
-   equal what the code implies (below);
-8. train with ``train.attn_impl: hybrid`` for 10 steps at full width: the
-   forward kernel never runs, the backward kernel once per block a step;
+7. train with ``train.attn_impl: pallas``: phase 4's run again, graphed,
+   with the attention kernels. Its step-0 losses must equal phase 4's
+   within rtol 1e-5 (same seed, same first batch), and every kernel's
+   launch count must equal what the code implies (below);
+   A (``graph_pallas``). phase A's hold of that run against its eager run;
+8. train with ``train.attn_impl: hybrid`` for 10 steps at full width,
+   graphed: the forward kernel never runs, the backward kernel once per
+   block a step;
 9. attention timings: each kernel, its plain version and one library call
    (``scaled_dot_product_attention`` and its gradient, which the port never
    calls) at all 12 shapes of ``ATTN_SHAPES`` (``ATTN_TIMED``: the six
@@ -137,9 +148,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the clustering eval with ``xla`` attention, then with ``pallas``:
    step-0 losses equal within rtol 1e-5, launch counts equal to the formula
    below, recon loss falling, losses finite, reconstructions [128, 32, 32,
-   3]; median step ms and images/s of both are printed.
+   3]; median step ms and images/s of both are printed. Both runs graphed.
+B. ``bench.py``'s configuration: the flagship yaml with the overrides of
+   ``bench.py:38-59`` (``BENCH_OVERRIDES``: 24x24 map, ``compute_dtype:
+   bfloat16``, ``attn_impl: xla_bf16``, no remat, the fused SOM), cut to
+   the phase-4 data (4096 + 819 synthetic images, not 70000) and 40 steps
+   (not 500 epochs); graphed with the clustering eval, then held against
+   its eager run as phase A holds the flagship; recon loss falling, losses
+   finite, parameters float32, purity and NMI printed;
+C. the kernels under replay: ``vitsom_tpu_torch.train.profile_step`` (a
+   process of its own each: one profiler session a process) profiles R =
+   20 eager steps and R replays of the flagship with ``xla`` and with
+   ``pallas`` and of phase B's configuration; each hand-written kernel's
+   count in the profiler's records (CUPTI records a graph's kernels) must
+   be R times its count a step in both modes: the SOM's two launches once
+   a step, and with ``pallas`` the attention forward 12 times and the
+   backward 6 times a step. Wall and device busy ms a step, the idle share
+   and the kernels a step of each are printed beside the card's name and
+   power limit.
 
-Launch counts on a train run of S steps and E eval batches, with one
+The launch counts below count what the wrappers issue from Python. A
+graphed run of S > 2 steps issues its two warm-up steps and the one step
+it captures (the capture records the launches; each replay runs them
+again, unseen by Python), so there S stands for 3; an eager run issues
+all S. Launch counts on a train run of S steps and E eval batches, with one
 attention call per block (A = depth + dec_depth = 6 on the flagship) and
 remat_blocks (each block's forward runs again in the backward): the fused
 SOM kernel runs S + E times; with ``pallas`` the attention forward kernel
@@ -156,8 +188,8 @@ backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON (the attention kernels' rows: the
 cifar-10 ``pallas`` run's launches and the (128, 65, 3, 64) timings), the
-nvidia-smi line and the result. The whole script takes about 90 seconds on
-an H100, the builds included (block.cu, the longest, about 33 s).
+nvidia-smi line and the result. The whole script takes about 3 minutes on
+an H100, the builds included (block.cu, the longest, about 28 s).
 """
 
 from __future__ import annotations
@@ -178,14 +210,14 @@ import torch.nn.functional as F
 
 from vitsom_tpu_torch.config import load_config
 from vitsom_tpu_torch.convert import block_weights
-from vitsom_tpu_torch.data.synthetic import DataModule, build_datamodule, make_synthetic
+from vitsom_tpu_torch.data.synthetic import build_datamodule, raw_synthetic_datamodule
 from vitsom_tpu_torch.models.vit import Block
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
 from vitsom_tpu_torch.ops import _build, attention_fused, block_fused, som_fused
 from vitsom_tpu_torch.ops.attention import xla_attention
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import steps as steps_lib
-from vitsom_tpu_torch.train.trainer import Trainer
+from vitsom_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
 from vitsom_tpu_torch.utils import initializers
 from vitsom_tpu_torch.utils.device import resolve_device
 
@@ -195,6 +227,18 @@ CIFAR_CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_cifar-10.yaml")
 TRAIN_STEPS = 40
 HYBRID_STEPS = 10
 CIFAR_STEPS = 20
+PROFILE_STEPS = 20  # R: the graph replays (and eager steps) profile_step profiles
+# bench.py:38-59's overrides of the flagship yaml, the configuration behind
+# the repo's BENCH_*.json; the smoke cuts its data (70000 synthetic images)
+# to SYNTHETIC_SIZE and its 500 epochs to TRAIN_STEPS steps
+BENCH_OVERRIDES = {
+    "som.map_size": [24, 24], "train.use_pallas_som": True,
+    "train.compute_dtype": "bfloat16", "train.attn_impl": "xla_bf16",
+    "train.remat_blocks": False,
+}
+# a graphed run's per-step losses and final parameters against the eager
+# run's (the same step body and kernels: bitwise equality is expected)
+GRAPH_RTOL = 1e-5
 KERNEL_SOURCES = ("som_fused", "attention", "block")
 # (B, N, H, hd): every encoder and decoder attention shape of a shipped ViT
 # config (B, N from the yaml; heads 2 and 3)
@@ -514,6 +558,13 @@ def read_launches():
             "block_fwd": block_fused.LAUNCHES_FWD, "block_bwd": block_fused.LAUNCHES_BWD}
 
 
+def issued_steps(steps, eager):
+    """Train steps whose launches the wrappers' counters see: every eager
+    step; of a graphed run, the WARMUP_STEPS eager steps and the one
+    captured (its replays launch no Python)."""
+    return steps if eager or steps <= WARMUP_STEPS else WARMUP_STEPS + 1
+
+
 def expected_launches(cfg, impl, steps, eval_batches):
     """What the code implies (module docstring): one attention call per
     block; with remat each block's forward runs again in the backward; the
@@ -529,24 +580,14 @@ def expected_launches(cfg, impl, steps, eval_batches):
     }
 
 
-def raw_synthetic_datamodule(cfg, dev):
-    """The config's synthetic stand-in (``make_synthetic``), scaled to [0, 1]
-    as ``build_datamodule`` scales the mnist family, with no transform and
-    no augmentation: the cifar transforms are not ported, and
-    ``build_datamodule`` refuses cifar."""
-    raw = make_synthetic(cfg.data)
-    x = np.concatenate([raw.train_x, raw.test_x])
-    y = np.concatenate([raw.train_y, raw.test_y])
-    return DataModule(cfg, torch.from_numpy(x).to(dev).float() / 255.0, torch.from_numpy(y).to(dev))
-
-
 def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_datamodule,
-              data="synthetic MNIST-shaped images", extra=None):
+              data="synthetic MNIST-shaped images", extra=None, eager=False):
     """Trains ``config`` (attention ``impl``, or as shipped when None; more
     overrides in ``extra``) for ``steps`` steps on the data module
-    ``make_dm`` builds and, with ``evaluate``, runs the clustering eval;
-    prints and checks what every train phase checks. Returns (cfg, dm,
-    trainer, hist, launches)."""
+    ``make_dm`` builds, as replays of one captured step (``eager``: the
+    step body step by step) and, with ``evaluate``, runs the clustering
+    eval; prints and checks what every train phase checks. Returns (cfg,
+    dm, trainer, hist, launches)."""
     over = {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE, **(extra or {})}
     if impl is not None:
         over["train.attn_impl"] = impl
@@ -558,7 +599,8 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
         f"heads={cfg.vit.heads} patch={cfg.vit.patch_size} batch={cfg.batch_size} "
         f"distance={cfg.som.distance_fcn} use_pallas_som={cfg.train.use_pallas_som} "
         f"remat={cfg.train.remat_blocks} compute={cfg.train.compute_dtype} attn_impl={impl} "
-        f"num_classes={cfg.data.num_classes} data={data}",
+        f"num_classes={cfg.data.num_classes} data={data} "
+        f"mode={'eager' if eager else 'graphed'}",
         flush=True,
     )
     dm = make_dm(cfg, dev)
@@ -568,12 +610,14 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
 
     reset_launches()
     t0 = time.perf_counter()
-    hist = trainer.fit(max_steps=steps)
+    hist = trainer.fit(max_steps=steps, eager=eager)
     res = trainer.evaluate() if evaluate else None
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    want = expected_launches(cfg, impl, trainer.step, eval_batches)
+    want = expected_launches(cfg, impl, issued_steps(trainer.step, eager), eval_batches)
+    check(eager or trainer.step <= WARMUP_STEPS or trainer.graph is not None,
+          f"{label}: the graphed run captured no graph")
 
     recon = hist["train/recon_loss"]
     total = hist["train/total_loss"]
@@ -598,7 +642,8 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
         check(0.0 <= res["purity"] <= 1.0 and 0.0 <= res["nmi"] <= 1.0, "bad purity/NMI")
     print(
         f"{label} launches: " + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items())
-        + f" [train steps {trainer.step}, eval batches {eval_batches}]",
+        + f" [train steps {trainer.step} ({issued_steps(trainer.step, eager)} issued from "
+        f"Python, the rest graph replays), eval batches {eval_batches}]",
         flush=True,
     )
     check(trainer.step == steps, f"trained {trainer.step} steps, not {steps}")
@@ -611,8 +656,9 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
 
 def phase_train(dev):
     """Phase 4; returns (the SOM kernel's launch count over the main path,
-    the step-0 losses, the trainer, the data module)."""
-    cfg, dm, trainer, hist, launches = train_run(dev, "train", None, TRAIN_STEPS, evaluate=True)
+    the step-0 losses, the run: train_run's tuple)."""
+    run = train_run(dev, "train", None, TRAIN_STEPS, evaluate=True)
+    cfg, dm, trainer, hist, launches = run
 
     # the kernel-based eval step against the plain SOM path on one batch
     model = trainer.model
@@ -636,7 +682,7 @@ def phase_train(dev):
     )
     check(mism == 0 and serr <= TOL + TOL * abs(float(ref_som)), "eval step disagrees with plain path")
     check(tuple(recon_img.shape) == (cfg.batch_size, 28, 28, 1), "bad recon shape")
-    return launches["som_fused"], {k: float(hist[k][0]) for k in FIRST_LOSSES}, trainer, dm
+    return launches["som_fused"], {k: float(hist[k][0]) for k in FIRST_LOSSES}, run
 
 
 def check_first_losses(label, hist, xla_first):
@@ -649,10 +695,106 @@ def check_first_losses(label, hist, xla_first):
 
 
 def phase_train_attention(dev, impl, steps, evaluate, xla_first):
-    """Phases 7 and 8; returns the launch counts."""
-    _, _, _, hist, launches = train_run(dev, f"train_{impl}", impl, steps, evaluate)
-    check_first_losses(f"train_{impl}", hist, xla_first)
-    return launches
+    """Phases 7 and 8; returns the run (train_run's tuple)."""
+    run = train_run(dev, f"train_{impl}", impl, steps, evaluate)
+    check_first_losses(f"train_{impl}", run[3], xla_first)
+    return run
+
+
+def phase_graphed_vs_eager(dev, label, impl, graphed, smi, extra=None):
+    """Phases A and B: the graphed run ``graphed`` (train_run's tuple)
+    against an eager run of the same config, seed and steps (the same step
+    body, batches and kernels): every step's three losses and every final
+    parameter within rtol GRAPH_RTOL (bitwise equality expected; the largest
+    differences are printed). Prints both runs' median ms a step and
+    images/s beside the card's name and power limit."""
+    cfg, _, tr_g, hist_g, _ = graphed
+    _, _, tr_e, hist_e, _ = train_run(dev, f"{label}_eager", impl, tr_g.step, False,
+                                      extra=extra, eager=True)
+    for k in FIRST_LOSSES:
+        a, b = np.asarray(hist_g[k]), np.asarray(hist_e[k])
+        check(a.shape == b.shape, f"{label}: {k} has {a.shape} steps graphed, {b.shape} eager")
+        diff = np.abs(a - b)
+        rel = float((diff / np.maximum(np.abs(b), 1e-30)).max())
+        print(f"{label} graphed_vs_eager {k}: steps={len(a)} max_abs_diff={diff.max():.3e} "
+              f"max_rel_diff={rel:.3e} bitwise_equal_steps={int((a == b).sum())}", flush=True)
+        check(rel <= GRAPH_RTOL, f"{label}: graphed {k} differs from eager by {rel:.3e}")
+    worst, equal, total = (0.0, ""), 0, 0
+    for (name, pg), (_, pe) in zip(tr_g.model.named_parameters(), tr_e.model.named_parameters()):
+        d = (pg.detach() - pe.detach()).abs()
+        rel = float((d / pe.detach().abs().clamp_min(1e-30)).max())
+        worst = max(worst, (rel, name))
+        equal += int((d == 0).sum())
+        total += d.numel()
+        check(bool((d <= GRAPH_RTOL * pe.detach().abs()).all()),
+              f"{label}: final parameter {name} differs graphed vs eager (max rel {rel:.3e})")
+    print(f"{label} graphed_vs_eager params: max_rel_diff={worst[0]:.3e} ({worst[1]}) "
+          f"bitwise_equal={equal}/{total}", flush=True)
+    for mode, tr in (("graphed", tr_g), ("eager", tr_e)):
+        ms = statistics.median(tr.step_ms[5:])
+        print(f"{label} {mode}: median_step_ms={ms:.4f} images_per_s={cfg.batch_size / ms * 1e3:.1f} "
+              f"(steps 6-{tr.step}, CUDA events between step ends) card: {smi}", flush=True)
+
+
+def phase_bench(dev, smi):
+    """Phase B: bench.py's configuration (BENCH_OVERRIDES), graphed with the
+    clustering eval, then held against its eager run as phase A holds the
+    flagship."""
+    run = train_run(dev, "bench", None, TRAIN_STEPS, evaluate=True, extra=BENCH_OVERRIDES)
+    cfg, _, trainer, _, _ = run
+    check(cfg.train.compute_dtype == "bfloat16" and model_attn_impl(cfg) == "xla_bf16"
+          and not cfg.train.remat_blocks and tuple(cfg.som.map_size) == (24, 24),
+          "phase B did not build bench.py's configuration")
+    check(next(trainer.model.parameters()).dtype == torch.float32, "bf16 parameters")
+    phase_graphed_vs_eager(dev, "bench", None, run, smi, extra=BENCH_OVERRIDES)
+
+
+def profile_run(label, overrides):
+    """``profile_step`` on the flagship yaml with ``overrides``, in a process
+    of its own (one profiler session a process); returns its JSON line."""
+    cmd = [sys.executable, "-m", "vitsom_tpu_torch.train.profile_step", "--config", CONFIG,
+           "--steps", str(PROFILE_STEPS)]
+    for k, v in overrides.items():
+        cmd += ["--override", f"{k}={json.dumps(v)}"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"profile_step[{label}]: {line}", flush=True)
+    check(out.returncode == 0 and lines,
+          f"profile_step[{label}] failed ({out.returncode}): {out.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_profiles(smi):
+    """Phase C: the kernels that execute under replay. ``profile_step``
+    profiles PROFILE_STEPS eager steps and PROFILE_STEPS replays of the
+    captured step of the flagship with ``xla`` and with ``pallas`` and of
+    bench.py's configuration; each hand-written kernel's count in the
+    profiler's records must be R times its count a step (the flagship's and
+    the bench configuration's attention runs the row kernels, hd 8 and 2),
+    in both modes. Prints wall and device busy ms a step, the idle share
+    and the kernels a step beside the card's name and power limit."""
+    for label, over in (("xla", {}), ("pallas", {"train.attn_impl": "pallas"}),
+                        ("bench", BENCH_OVERRIDES)):
+        res = profile_run(label, over)
+        cfg = load_config(CONFIG, {"data.allow_synthetic": True, **over})
+        per = expected_launches(cfg, model_attn_impl(cfg), PROFILE_STEPS, 0)
+        want = {"som_partial_kernel": per["som_fused"], "som_finalize_kernel": per["som_fused"],
+                "attn_fwd_kernel": per["attention_fwd"], "attn_fwd_mma_kernel": 0,
+                "attn_bwd_kernel": per["attention_bwd"], "attn_bwd_mma_kernel": 0}
+        for mode in ("eager", "graphed"):
+            r = res[mode]
+            print(f"profile {label} {mode}: wall_ms_per_step={r['wall_ms_per_step']:.4f} "
+                  f"images_per_s={cfg.batch_size / r['wall_ms_per_step'] * 1e3:.1f} "
+                  f"step_ms_median={r['step_ms_median']:.4f} "
+                  f"device_busy_ms_per_step={r['device_busy_ms_per_step']:.4f} "
+                  f"device_idle_share={r['device_idle_share']:.4f} "
+                  f"kernels_per_step={r['kernels_per_step']:.1f} card: {smi}", flush=True)
+            print(f"profile {label} {mode} kernels over R={PROFILE_STEPS}: "
+                  + " ".join(f"{k}={r['kernel_counts'][k]} (expected {v})" for k, v in want.items()),
+                  flush=True)
+            check(r["kernel_counts"] == want,
+                  f"profile {label} {mode}: kernel counts {r['kernel_counts']} != {want}")
 
 
 def phase_train_cifar(dev):
@@ -899,9 +1041,11 @@ def phase_timings(dev):
     SOM_SHAPES).
 
     Each function is timed with L2 flushed before each call (``ms``, the
-    main path's condition) and with its inputs resident in L2 (``warm``)."""
+    main path's condition) and with its inputs resident in L2 (``warm``).
+    The temperature is a device tensor, as the train step hands it over (a
+    host float would add a fill kernel to every timed call)."""
     rows = {}
-    temp = 3.7
+    temp = torch.full((), 3.7, device=dev)
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     for idx, shape in enumerate(SOM_SHAPES):
         b, d, p, map_size = som_dims(shape)
@@ -1236,16 +1380,21 @@ def main() -> int:
 
         phase_build()
         max_err = phase_kernel_vs_plain(dev)
-        som_launches, xla_first, trainer, dm = phase_train(dev)
+        som_launches, xla_first, flagship = phase_train(dev)
+        phase_graphed_vs_eager(dev, "graph_xla", None, flagship, smi)
         timing = phase_timings(dev)
         attn_err = phase_attention_vs_plain(dev)
-        phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
+        run = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
+        phase_graphed_vs_eager(dev, "graph_pallas", "pallas", run, smi)
+        del run
         phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
         attn_timing = phase_attention_timings(dev)
         block_err = phase_block_vs_plain(dev)
-        block_launches = phase_block_flagship(dev, trainer, dm)
+        block_launches = phase_block_flagship(dev, flagship[2], flagship[1])
         block_timing = phase_block_timings(dev)
         cifar = phase_train_cifar(dev)
+        phase_bench(dev, smi)
+        phase_profiles(smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

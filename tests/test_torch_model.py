@@ -97,11 +97,19 @@ def test_xla_attention_matches(shape):
 
 @pytest.mark.parametrize("impl", ["xla_bf16", "xla_bf16s"])
 def test_unported_attention_impls_raise(impl):
+    """The bf16 impls run (``tests/test_torch_bf16.py`` holds them against
+    the JAX package) and fall back to the float32 path with
+    ``return_attn``; what is not ported, bf16 inputs to the float32-only
+    attention kernels, raises."""
     x = torch.zeros(1, 3, 1, 4)
-    with pytest.raises(NotImplementedError):
-        tattn.multi_head_attention(x, x, x, impl=impl)
+    out, attn = tattn.multi_head_attention(x, x, x, impl=impl)
+    assert attn is None and out.shape == x.shape and out.dtype == torch.float32
     out, attn = tattn.multi_head_attention(x, x, x, impl=impl, return_attn=True)
-    assert attn.shape == (1, 1, 3, 3)
+    assert attn.shape == (1, 1, 3, 3) and attn.dtype == torch.float32
+    xb = x.to(torch.bfloat16)
+    for kernel_impl in ("pallas", "hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tattn.multi_head_attention(xb, xb, xb, impl=kernel_impl)
 
 
 def test_convert_roundtrip_exact():

@@ -7,6 +7,7 @@ from shared weights and batches against ``make_vit_som_train_step`` with
 """
 
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -122,6 +123,24 @@ def test_optimizer_groups_match(apply_layer_decay):
     "opt_type,apply_layer_decay", [("adamw", False), ("adamw", True), ("adam", False)]
 )
 def test_optimizer_update_matches(opt_type, apply_layer_decay):
+    _check_optimizer_update(opt_type, apply_layer_decay)
+
+
+@pytest.mark.parametrize(
+    "opt_type,apply_layer_decay", [("adamw", False), ("adamw", True), ("adam", False)]
+)
+def test_capturable_optimizer_update_matches(opt_type, apply_layer_decay, monkeypatch):
+    """``test_optimizer_update_matches`` with the optimizer the card runs:
+    ``capturable=True`` (step counts on the device, bias corrections in
+    float32 tensor arithmetic, foreach), each group's lr a tensor written
+    in place. torch takes a capturable optimizer on accelerators only, so
+    the test lets it take the CPU: the arithmetic is the same code."""
+    monkeypatch.setattr(importlib.import_module("torch.optim.adam"),
+                        "_get_capturable_supported_devices", lambda supports_xla=True: ["cpu"])
+    _check_optimizer_update(opt_type, apply_layer_decay, capturable=True)
+
+
+def _check_optimizer_update(opt_type, apply_layer_decay, capturable=False):
     """Four updates of the same parameters by the same gradients, the port's
     ``torch.optim.AdamW`` groups against the JAX package's optax chain.
 
@@ -138,6 +157,11 @@ def test_optimizer_update_matches(opt_type, apply_layer_decay):
     tx = joptim.make_optimizer(jcfg, params, lambda count: lr)
     jparams, jstate = params, tx.init(params)
     opt = toptim.make_optimizer(tcfg, model)
+    if capturable:
+        # the port's groups with the card's settings
+        opt = torch.optim.AdamW([{**g, "capturable": True, "foreach": True}
+                                 for g in opt.param_groups])
+        assert all(torch.is_tensor(g["lr"]) and g["capturable"] for g in opt.param_groups)
     named = dict(model.named_parameters())
     rng = np.random.default_rng(3)
     for _ in range(4):
@@ -148,10 +172,12 @@ def test_optimizer_update_matches(opt_type, apply_layer_decay):
         grads = traverse_util.unflatten_dict(flat, sep="/")
         updates, jstate = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        toptim.set_learning_rate(opt, lr)
+        toptim.set_learning_rate(opt, torch.tensor(lr))
         for name, g in convert.flax_to_state_dict(grads).items():
             named[name].grad = g
         opt.step()
+    if capturable:
+        assert all(opt.state[p]["step"].dtype == torch.float32 for p in named.values())
     final = convert.flax_to_state_dict(jax.device_get(jparams))
     for name, p in model.state_dict().items():
         np.testing.assert_allclose(
@@ -289,8 +315,13 @@ def _check_train_steps(jcfg, params, attn_impl, xs):
     tcfg, tmodel = _torch_model(jcfg, params, attn_impl)
     opt = toptim.make_optimizer(tcfg, tmodel)
     tstatics = tsteps.StepStatics(steps, 2, steps * batch, batch)
-    tsch = tsched.make_lr_schedule(tcfg.optimizer, 2, steps, toptim.base_learning_rate(tcfg))
-    tstep = tsteps.make_vit_som_train_step(tcfg, tmodel, opt, tstatics, tsch)
+    base_lr = toptim.base_learning_rate(tcfg)
+    tsch = tsched.make_lr_schedule(tcfg.optimizer, 2, steps, base_lr)
+    dstate = tsteps.DeviceState("cpu", steps)
+    tstep = tsteps.make_vit_som_train_step(
+        tcfg, tmodel, opt, tstatics,
+        tsched.make_lr_schedule_tensor(tcfg.optimizer, 2, steps, base_lr), dstate,
+    )
     named = dict(tmodel.named_parameters())
     start = {name: p.detach().clone() for name, p in named.items()}
     eps = tcfg.optimizer.eps
@@ -299,7 +330,9 @@ def _check_train_steps(jcfg, params, attn_impl, xs):
     launches = som_fused.LAUNCHES, attention_fused.LAUNCHES_FWD, attention_fused.LAUNCHES_BWD
     for i in range(steps):
         state, jm = jstep(state, {"image": jnp.asarray(xs[i]), "label": jnp.zeros((batch,), jnp.int32)})
-        tm = tstep(i, {"image": torch.from_numpy(xs[i])})
+        tm = tsteps.metrics_dict(tstep({"image": torch.from_numpy(xs[i])}))
+        assert int(dstate.step) == i + 1
+        assert tsteps.metrics_dict(dstate.metrics[i]) == tm
         for k in ("train/recon_loss", "train/som_loss", "train/total_loss"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
         for k in ("hp/gamma", "hp/temperature", "hp/lr"):

@@ -10,7 +10,11 @@ later slices of the port.
 ``DataModule`` keeps the clustering split (train + test concatenated, as
 the reference trains and evaluates clustering on it) on the device as
 float32 in [0, 1], and draws each epoch's shuffled drop-last batches from a
-``torch.Generator``.
+``torch.Generator``: one batch at a time (``train_batches``), or all of an
+epoch's at once into a fixed buffer (``fill_epoch``), the counterpart of
+the JAX trainer's one bulk gather an epoch
+(``vitsom_tpu/train/trainer.py:464-469``), from which a captured train
+step reads its batch with a device index (``epoch_batch``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ _NATIVE_HW = {
     "mnist": 28, "fmnist": 28, "usps": 16, "medmnist": 28,
     "cifar-10": 32, "cifar-100": 32, "svhn": 32, "tiny-imagenet": 64,
 }
+
+
+# the datasets whose transform (ToTensor: x / 255) is ported
+MNIST_FAMILY = ("mnist", "fmnist", "usps", "synthetic")
 
 
 @dataclass
@@ -112,6 +120,30 @@ class DataModule:
             idx = perm[s * bs : (s + 1) * bs]
             yield {"image": self.images[idx], "label": self.labels[idx]}
 
+    def epoch_buffer(self) -> torch.Tensor:
+        """An uninitialised [steps_per_epoch * B, H, W, C] buffer on the
+        data's device, for ``fill_epoch``."""
+        rows = self.steps_per_epoch * self.cfg.batch_size
+        return torch.empty((rows, *self.images.shape[1:]), dtype=self.images.dtype,
+                           device=self.images.device)
+
+    def fill_epoch(self, generator: torch.Generator, out: torch.Tensor) -> None:
+        """Gather one epoch's shuffled drop-last batches into ``out`` (from
+        ``epoch_buffer``), batch after batch, with one ``index_select``.
+        The permutation is the same draw from ``generator`` that
+        ``train_batches`` makes, so ``out`` holds the batches it would
+        yield, in its order."""
+        perm = torch.randperm(self.n_train, generator=generator).to(self.images.device)
+        torch.index_select(self.images, 0, perm[: out.shape[0]], out=out)
+
+    def epoch_batch(self, buffer: torch.Tensor, index: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Batch ``index`` (a 0-d int64 tensor on the device) of a filled
+        epoch buffer, read with a device index: no host value, so a CUDA
+        graph replays it for whatever batch ``index`` holds."""
+        bs = self.cfg.batch_size
+        batches = buffer.view(buffer.shape[0] // bs, bs, *buffer.shape[1:])
+        return {"image": batches.index_select(0, index.reshape(1))[0]}
+
     def eval_batches(self, drop_last: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
         bs = self.cfg.batch_size
         n = self.n_train
@@ -120,12 +152,26 @@ class DataModule:
             yield {"image": self.images[s : s + bs], "label": self.labels[s : s + bs]}
 
 
+def raw_synthetic_datamodule(cfg: Config, device="cuda") -> DataModule:
+    """The config's synthetic stand-in (``make_synthetic``), train and test
+    concatenated and scaled to [0, 1] as the mnist family is, with no
+    transform and no augmentation, for any dataset. ``build_datamodule``
+    refuses the datasets whose transforms are not ported (cifar and the
+    rest); this module lets their models run at their real shapes for
+    timing and smoke runs."""
+    dev = resolve_device(device)
+    raw = make_synthetic(cfg.data)
+    x = np.concatenate([raw.train_x, raw.test_x])
+    y = np.concatenate([raw.train_y, raw.test_y])
+    return DataModule(cfg, torch.from_numpy(x).to(dev).float() / 255.0, torch.from_numpy(y).to(dev))
+
+
 def build_datamodule(cfg: Config, device="cuda") -> DataModule:
     """Load (or synthesise) the dataset and move the clustering split to
     ``device`` (default: the card)."""
     if cfg.classification:
         raise NotImplementedError("the classification split is not ported yet")
-    if cfg.data.dataset not in ("mnist", "fmnist", "usps", "synthetic"):
+    if cfg.data.dataset not in MNIST_FAMILY:
         raise NotImplementedError(
             f"the {cfg.data.dataset} transforms are not ported yet (mnist family only)"
         )

@@ -1,12 +1,16 @@
 """Multi-head attention dispatch.
 
 Counterpart of ``vitsom_tpu/ops/attention.py``. The ``"xla"`` path is plain
-eager attention in float32: two batched products and a softmax, which the
-JAX package leaves to XLA outside any Pallas kernel. ``"pallas"`` runs the
-hand-written CUDA forward and backward kernels (``attention_fused``);
-``"hybrid"`` pairs the eager forward with the backward kernel. The bf16
-impls keep their names so that configs read the same; they are a later
-slice of the port (ROADMAP.md Queue 1, bf16 compute path).
+eager attention with float32 scores: two batched products and a softmax,
+which the JAX package leaves to XLA outside any Pallas kernel.
+``"pallas"`` runs the hand-written CUDA forward and backward kernels
+(``attention_fused``); ``"hybrid"`` pairs the eager forward with the
+backward kernel. The bf16 impls are XLA ops in the JAX package, so they
+are torch ops here, not kernels: ``"xla_bf16"`` (bf16 scores and a bf16
+softmax) and ``"xla_bf16s"`` (bf16 scores and probs, float32 softmax
+arithmetic, a custom backward that keeps only the bf16 probs). The CUDA
+kernels take float32 only: ``pallas``/``hybrid`` refuse bf16 inputs
+(ROADMAP Queue 1, bf16 inputs to the attention kernels).
 """
 
 from __future__ import annotations
@@ -19,10 +23,11 @@ from vitsom_tpu_torch.ops.attention_fused import (
     FusedAttention, fused_attention, fused_attention_reference,
 )
 
-_LATER = {
-    "xla_bf16": "the bf16 compute path (ROADMAP Queue 1, bf16 attention)",
-    "xla_bf16s": "the bf16 compute path (ROADMAP Queue 1, bf16 attention)",
-}
+_BF16_KERNELS_LATER = (
+    "the attention kernels take float32 only; bf16 inputs to attn_impl={impl!r} are "
+    "queued (ROADMAP Queue 1, bf16 inputs to the pallas/hybrid attention kernels): "
+    "use xla, xla_bf16 or xla_bf16s with compute_dtype bfloat16"
+)
 
 
 def xla_attention(
@@ -35,15 +40,74 @@ def xla_attention(
     """q, k, v: [B, N, H, hd] -> out [B, N, H, hd] (+ optional [B, H, N, N]).
 
     ``bias``: optional additive [H, N, N] (or broadcastable) term applied to
-    the scaled scores before the softmax."""
+    the scaled scores before the softmax. The scores and the output are
+    float32 whatever the inputs' dtype: bf16 inputs (``compute_dtype:
+    bfloat16``) enter both products upcast, which is exact for the products
+    and gives the float32 accumulation of the JAX version's
+    ``preferred_element_type``; the probs are cast to v's dtype between
+    them, as there."""
     head_dim = q.shape[-1]
     scale = head_dim**-0.5
-    scores = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+    scores = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     if bias is not None:
         scores = scores + bias.to(scores.dtype)[None]
     attn = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhnm,bmhd->bnhd", attn.to(v.dtype), v)
+    out = torch.einsum("bhnm,bmhd->bnhd", attn.to(v.dtype).float(), v.float())
     return out, (attn if return_attn else None)
+
+
+def _bf16_scores(q, k, bias):
+    """[B, H, N, N] bf16 scores of bf16 ``q * scale`` and k: one rounding of
+    a float32-accumulated product (a bias is added in float32 before it)."""
+    scale = q.shape[-1] ** -0.5
+    qb = (q * scale).to(torch.bfloat16)
+    kb = k.to(torch.bfloat16)
+    if bias is None:
+        return torch.einsum("bnhd,bmhd->bhnm", qb, kb)
+    scores = torch.einsum("bnhd,bmhd->bhnm", qb.float(), kb.float())
+    return (scores + bias.float()[None]).to(torch.bfloat16)
+
+
+def xla_attention_bf16_scores(q, k, v, bias=None) -> Tuple[torch.Tensor, None]:
+    """``vitsom_tpu/ops/attention.py:xla_attention_bf16_scores``: the scale
+    folded into q, bf16 [B, H, N, N] scores, a bf16 softmax (torch's bf16
+    softmax computes in float32 and rounds its output once; XLA's rounds
+    between its steps), and a bf16 product with v accumulated in float32.
+    Returns the output as float32, as the JAX version does (its values are
+    bf16-rounded, the model casts them to bf16 next)."""
+    attn = torch.softmax(_bf16_scores(q, k, bias), dim=-1)
+    out = torch.einsum("bhnm,bmhd->bnhd", attn, v.to(torch.bfloat16))
+    return out.float(), None
+
+
+class SoftmaxF32MathBf16Store(torch.autograd.Function):
+    """``_softmax_f32math_bf16store``: softmax over a bf16 tensor in float32
+    arithmetic with a bf16 output. The only saved tensor is the bf16 probs;
+    the backward is ``p (g - sum(g p))`` in float32 arithmetic with a bf16
+    result, the JAX custom VJP's."""
+
+    @staticmethod
+    def forward(ctx, scores):
+        probs = torch.softmax(scores.float(), dim=-1).to(torch.bfloat16)
+        ctx.save_for_backward(probs)
+        return probs
+
+    @staticmethod
+    def backward(ctx, g):
+        (probs,) = ctx.saved_tensors
+        pf = probs.float()
+        gf = g.float()
+        inner = torch.sum(gf * pf, dim=-1, keepdim=True)
+        return (pf * (gf - inner)).to(torch.bfloat16)
+
+
+def xla_attention_bf16_store(q, k, v, bias=None) -> Tuple[torch.Tensor, None]:
+    """``vitsom_tpu/ops/attention.py:xla_attention_bf16_store``: bf16 scores
+    and probs in memory, the softmax's arithmetic in float32
+    (``SoftmaxF32MathBf16Store``). Returns the output as float32."""
+    attn = SoftmaxF32MathBf16Store.apply(_bf16_scores(q, k, bias))
+    out = torch.einsum("bhnm,bmhd->bnhd", attn, v.to(torch.bfloat16))
+    return out.float(), None
 
 
 class HybridAttention(FusedAttention):
@@ -83,15 +147,18 @@ def multi_head_attention(
 
     ``return_attn=True`` takes the float32 :func:`xla_attention` path
     whatever ``impl`` says (offline visualisation only), and so does a
-    ``bias`` with ``pallas``/``hybrid``, whose kernels take none."""
-    if impl == "pallas" and not return_attn and bias is None:
-        return fused_attention(q, k, v), None
-    if impl == "hybrid" and not return_attn and bias is None:
+    ``bias`` with ``pallas``/``hybrid``, whose kernels take none. Those
+    kernels take float32 only and refuse bf16 inputs."""
+    if impl in ("pallas", "hybrid") and not return_attn and bias is None:
+        if q.dtype != torch.float32:
+            raise NotImplementedError(_BF16_KERNELS_LATER.format(impl=impl))
+        if impl == "pallas":
+            return fused_attention(q, k, v), None
         return hybrid_attention(q, k, v), None
-    if impl not in ("xla", "pallas", "hybrid") and not return_attn:
-        if impl in _LATER:
-            raise NotImplementedError(
-                f"attn_impl={impl!r} is not ported yet; it arrives with {_LATER[impl]}"
-            )
+    if impl == "xla_bf16" and not return_attn:
+        return xla_attention_bf16_scores(q, k, v, bias=bias)
+    if impl == "xla_bf16s" and not return_attn:
+        return xla_attention_bf16_store(q, k, v, bias=bias)
+    if impl not in ("xla", "pallas", "hybrid", "xla_bf16", "xla_bf16s"):
         raise ValueError(f"unknown attention impl {impl!r}")
     return xla_attention(q, k, v, return_attn=return_attn, bias=bias)

@@ -41,7 +41,10 @@
 //       row sums the S partials in a fixed order, forms the distances as
 //       the single-pass kernel did (the same rsqrtf(fmaxf(., 1e-24f)) and
 //       fmaxf(., 0)), writes the row of dist, takes the first-index argmin,
-//       then the analytic weights and the row's sum of w * dist. The last
+//       then the analytic weights and the row's sum of w * dist. T comes
+//       through a device pointer, read once a CTA, as the Pallas kernel
+//       reads it from a (1, 1) SMEM operand: a CUDA graph that captured the
+//       launch replays it with each step's temperature. The last
 //       row to finish (an integer counter, reset by (a)) sums the B row
 //       terms in row order into the loss. Every sum has a fixed order, so
 //       two runs give bitwise-equal distances and losses.
@@ -402,7 +405,8 @@ som_finalize_kernel(const float* __restrict__ part_dot, const float* __restrict_
                     const float* __restrict__ part_p2, float* __restrict__ dist,
                     long long* __restrict__ bmu, float* __restrict__ row_partial,
                     unsigned int* __restrict__ rows_done, float* __restrict__ loss, int B, int P,
-                    int S, int C, int G, int cols, int hexa, int cosine, float two_t2) {
+                    int S, int C, int G, int cols, int hexa, int cosine,
+                    const float* __restrict__ temperature) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
   __shared__ float s_dot[kFinalizeThreads], s_p2[kFinalizeThreads];
   __shared__ float s_val[32];
@@ -521,6 +525,9 @@ som_finalize_kernel(const float* __restrict__ part_dot, const float* __restrict_
   __syncthreads();
   const int k = s_bmu;
 
+  // 2 T^2 as (2 T) T, the host's and the plain version's order
+  const float t = *temperature;
+  const float two_t2 = 2.f * t * t;
   float ba, bb;
   grid_coords(k, cols, hexa, &ba, &bb);
   auto weight = [&](int jj) {
@@ -589,11 +596,12 @@ extern "C" void som_fused_tiles(int* out) {
 // 16-byte aligned, ldx and D multiples of 4. The grid has `splits` splits
 // of `split_chunks` 32-deep chunks (the last may have fewer, none is
 // empty). `workspace` holds splits * (B*P + B + P) + B + 1 floats (the last
-// one the row counter). Nothing is allocated here.
+// one the row counter). `temperature` points to one float on the device,
+// read after (a) completes. Nothing is allocated here.
 extern "C" int som_fused_forward(const float* x, long long ldx, const float* p, float* dist,
                                  long long* bmu, float* workspace, float* loss, int B, int P,
                                  int D, int splits, int split_chunks, int cols, int hexa,
-                                 int cosine, float temperature, void* stream) {
+                                 int cosine, const float* temperature, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool smem_raised = false;
   if (!smem_raised) {
@@ -617,10 +625,9 @@ extern "C" int som_fused_forward(const float* x, long long ldx, const float* p, 
   const int C = P < kFinalizeThreads ? P : kFinalizeThreads;
   const int G = min(min(splits, kMaxGroups), kFinalizeThreads / C);
   const int threads = (C * G + 31) / 32 * 32;
-  const float two_t2 = 2.0f * temperature * temperature;
   err = launch(som_finalize_kernel, dim3(B), threads, 0, s, true, (const float*)part_dot,
                (const float*)part_x2, (const float*)part_p2, dist, bmu, row_partial, rows_done,
-               loss, B, P, splits, C, G, cols, hexa, cosine, two_t2);
+               loss, B, P, splits, C, G, cols, hexa, cosine, temperature);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

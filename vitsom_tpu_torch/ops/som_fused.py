@@ -60,7 +60,7 @@ from typing import Tuple
 import torch
 
 from vitsom_tpu_torch.ops import _build
-from vitsom_tpu_torch.som.layer import two_t_squared
+from vitsom_tpu_torch.som.layer import two_t_squared_tensor
 
 _SQRT3_2 = 0.8660254037844386
 
@@ -84,7 +84,7 @@ def _lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, P, D
             ctypes.c_int, ctypes.c_int,  # splits, chunks per split
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # cols, hexa, cosine
-            ctypes.c_float,  # temperature
+            ctypes.c_void_p,  # temperature: one float on the device
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -190,18 +190,31 @@ def grid_d2_rows(bmu_idx: torch.Tensor, n_prototypes: int, cols: int, topology: 
 # ---------------------------------------------------------------------------
 
 
+def temperature_tensor(temperature, device) -> torch.Tensor:
+    """The temperature as a 0-d float32 tensor on ``device``: a tensor is
+    moved (a no-op where it already lies there), a host float is written by
+    a fill kernel (no host-to-device copy), rounded to float32 as the
+    kernel's former by-value argument was."""
+    if isinstance(temperature, torch.Tensor):
+        return temperature.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(temperature), dtype=torch.float32, device=device)
+
+
 def fused_som_reference(
     x: torch.Tensor,
     prototypes: torch.Tensor,
-    temperature: float,
+    temperature,
     cols: int,
     topology: str,
     distance_fcn: str,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel's forward: (loss, bmu, dist).
 
-    Differentiable through autograd (the weights are built from the
-    integer BMU, so no gradient flows through them)."""
+    ``temperature`` is a host float or a float32 tensor; either way ``2 T^2``
+    is formed in float32 tensor arithmetic, as the kernel forms it, so the
+    two give bitwise-equal results. Differentiable through autograd (the
+    weights are built from the integer BMU, so no gradient flows through
+    them)."""
     if distance_fcn == "cosine":
         xn = x * torch.rsqrt(torch.clamp_min(torch.sum(x * x, dim=1, keepdim=True), 1e-24))
         pn = prototypes * torch.rsqrt(
@@ -216,7 +229,8 @@ def fused_som_reference(
         raise ValueError(f"fused SOM supports euclidean/cosine, got {distance_fcn}")
     b, p = dist.shape
     bmu = torch.argmin(dist, dim=1)
-    w = torch.exp(-grid_d2_rows(bmu, p, cols, topology) / two_t_squared(temperature))
+    two_t2 = two_t_squared_tensor(temperature_tensor(temperature, dist.device))
+    w = torch.exp(-grid_d2_rows(bmu, p, cols, topology) / two_t2)
     loss = torch.sum(w * dist) / (b * p)
     return loss, bmu, dist
 
@@ -240,6 +254,7 @@ def _kernel_forward(x, prototypes, temperature, cols, topology, distance_fcn):
     bmu = torch.empty((b,), device=dev, dtype=torch.int64)
     workspace = torch.empty((workspace_floats(b, p, splits),), device=dev, dtype=torch.float32)
     loss = torch.empty((), device=dev, dtype=torch.float32)
+    temperature = temperature_tensor(temperature, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -248,7 +263,7 @@ def _kernel_forward(x, prototypes, temperature, cols, topology, distance_fcn):
             dist.data_ptr(), bmu.data_ptr(), workspace.data_ptr(), loss.data_ptr(),
             b, p, d, splits, depth // CHUNK,
             cols, int(topology == "hexa"), int(distance_fcn == "cosine"),
-            float(temperature), stream,
+            temperature.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"som_fused_forward launch failed with CUDA error {rc}")
@@ -274,20 +289,23 @@ def som_fused_forward(x, prototypes, temperature, cols, topology, distance_fcn):
 class FusedSOM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, prototypes, temperature, cols, topology, distance_fcn):
+        temperature = temperature_tensor(temperature, x.device)
         loss, bmu, dist = som_fused_forward(
             x, prototypes, temperature, cols, topology, distance_fcn
         )
-        ctx.save_for_backward(x, prototypes, bmu, dist)
-        ctx.cfg = (float(temperature), cols, topology, distance_fcn)
+        # the temperature is saved as a tensor, never as a host float: a
+        # captured step's backward reads the value its forward read
+        ctx.save_for_backward(x, prototypes, bmu, dist, temperature)
+        ctx.cfg = (cols, topology, distance_fcn)
         ctx.mark_non_differentiable(bmu, dist)
         return loss, bmu, dist
 
     @staticmethod
     def backward(ctx, g, _g_bmu, _g_dist):
-        x, prototypes, bmu, dist = ctx.saved_tensors
-        temperature, cols, topology, distance_fcn = ctx.cfg
+        x, prototypes, bmu, dist, temperature = ctx.saved_tensors
+        cols, topology, distance_fcn = ctx.cfg
         b, p = dist.shape
-        w = torch.exp(-grid_d2_rows(bmu, p, cols, topology) / two_t_squared(temperature))
+        w = torch.exp(-grid_d2_rows(bmu, p, cols, topology) / two_t_squared_tensor(temperature))
         c = (g / (b * p)) * w  # [B, P]
         if distance_fcn == "euclidean":
             e = torch.where(dist > 0.0, c / dist, torch.zeros_like(c))
@@ -307,9 +325,11 @@ class FusedSOM(torch.autograd.Function):
 def make_fused_som(map_size: Tuple[int, int], topology: str, distance_fcn: str):
     """Returns ``fused(x, prototypes, temperature) -> (loss, bmu, distances)``.
 
-    ``temperature`` is a host float (the trainer computes it from its step
-    counter). ``bmu`` and ``distances`` are non-differentiable outputs; the
-    gradient reaches ``x`` and ``prototypes`` through ``loss``."""
+    ``temperature`` is a float32 tensor on x's device (the train step
+    computes it there from its step tensor; the kernel reads it through a
+    pointer) or a host float (the eval step). ``bmu`` and ``distances`` are
+    non-differentiable outputs; the gradient reaches ``x`` and
+    ``prototypes`` through ``loss``."""
     if distance_fcn not in ("euclidean", "cosine"):
         raise ValueError(
             f"fused SOM kernel supports euclidean/cosine, got {distance_fcn} "
@@ -320,6 +340,6 @@ def make_fused_som(map_size: Tuple[int, int], topology: str, distance_fcn: str):
     cols = int(map_size[1])
 
     def fused(x, prototypes, temperature):
-        return FusedSOM.apply(x, prototypes, float(temperature), cols, topology, distance_fcn)
+        return FusedSOM.apply(x, prototypes, temperature, cols, topology, distance_fcn)
 
     return fused

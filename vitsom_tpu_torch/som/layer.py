@@ -10,9 +10,12 @@ plus plain functions.
 - ``bmu``                  — argmin over prototypes, first index on a tie
 - ``neighborhood_weights`` — Gaussian weights gathered from the grid table
 - ``som_loss``             — mean of weighted distances
-- ``temperature_schedule`` — exponential Tmax -> Tmin decay, computed on the
-  host in float32 arithmetic (the trainer passes the result to the kernel
-  by value, with no device synchronisation)
+- ``temperature_schedule`` — exponential Tmax -> Tmin decay at a host step,
+  in numpy float32 arithmetic (the eval temperature)
+- ``temperature_schedule_tensor`` / ``two_t_squared_tensor`` — the same
+  functions of a step tensor on the model's device, in float32 tensor
+  arithmetic: the train step computes them on the device, as the JAX step
+  computes them from ``state.step``, so a captured step reads no host value
 """
 
 from __future__ import annotations
@@ -114,8 +117,11 @@ def neighborhood_weights(
 ) -> torch.Tensor:
     """Gaussian neighbourhood weights, [B, P], from a row gather of the
     static [P, P] table. They depend on the inputs only through the integer
-    BMU, so no gradient flows through them."""
+    BMU, so no gradient flows through them. ``temperature`` is a host float
+    or a float32 tensor (the train step's, on the device)."""
     d2 = grid_sq_dist[bmu_indices]
+    if isinstance(temperature, torch.Tensor):
+        return torch.exp(-d2 / two_t_squared_tensor(temperature))
     return torch.exp(-d2 / two_t_squared(temperature))
 
 
@@ -124,6 +130,13 @@ def two_t_squared(temperature) -> float:
     the CUDA kernel both compute it in float32)."""
     t = np.float32(temperature)
     return float(np.float32(2.0) * t * t)
+
+
+def two_t_squared_tensor(temperature: torch.Tensor) -> torch.Tensor:
+    """``2 T^2`` of a float32 tensor, as ``(2 T) T``: the products and their
+    order of ``two_t_squared`` and of the CUDA kernel, so all three round
+    alike."""
+    return (2.0 * temperature) * temperature
 
 
 def som_loss(weights: torch.Tensor, distances: torch.Tensor) -> torch.Tensor:
@@ -143,6 +156,21 @@ def temperature_schedule(
     """
     frac = np.float32(iteration) / np.float32(total_iterations - 1.0)
     return float(np.float32(t_max) * np.float32(t_min / t_max) ** frac)
+
+
+def temperature_schedule_tensor(
+    step: torch.Tensor, total_iterations: float, t_max: float, t_min: float
+) -> torch.Tensor:
+    """``temperature_schedule`` of an integer step tensor, a float32 tensor
+    on its device. The constants round to float32 as the host version
+    rounds them; ``pow`` is the device's, which may differ from numpy's by
+    an ulp (the eager and the captured step share this function, so they
+    agree with each other bitwise). Python scalars enter the device
+    arithmetic as kernel arguments, never as host-to-device copies, so a
+    CUDA graph can capture it."""
+    frac = step.to(torch.float32) / float(np.float32(total_iterations - 1.0))
+    ratio = float(np.float32(t_min / t_max))
+    return float(np.float32(t_max)) * torch.pow(ratio, frac)
 
 
 def total_iterations(dataset_len: int, batch_size: int, total_epochs: int) -> float:

@@ -13,6 +13,15 @@ Counterpart of ``vitsom_tpu/train/optim.py``:
 scale) pair is the same update as optax's ``scale_by_adam ->
 add_decayed_weights -> scale_by_learning_rate`` chain: bias-corrected
 moments, eps outside the square root, decoupled decay scaled by the lr.
+
+Each group's lr is a 0-d float32 tensor on the parameters' device, which
+the train step overwrites in place (``set_learning_rate``), so a CUDA graph
+that captured the step replays it with each step's lr. On the card the
+optimizer is ``capturable``: its step counts live on the device and the
+bias corrections are computed there, in float32, as optax computes them;
+the eager run on the card uses the same optimizer, so an eager and a
+captured run differ only by the capture. On the CPU (the tests) torch
+takes no capturable optimizer; the tensor lr is read on the host there.
 """
 
 from __future__ import annotations
@@ -72,17 +81,19 @@ def base_learning_rate(cfg: Config) -> float:
     return cfg.optimizer.lr
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Set each group's lr to ``lr * lr_scale`` (before each update)."""
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: torch.Tensor) -> None:
+    """Write ``lr * lr_scale`` into each group's lr tensor, in place (before
+    each update); ``lr`` is a 0-d float32 tensor on the parameters' device
+    (the train step's), so nothing is read on the host."""
     for group in optimizer.param_groups:
-        group["lr"] = lr * group["lr_scale"]
+        group["lr"].copy_(lr * group["lr_scale"])
 
 
 def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
     """AdamW (or Adam as AdamW without decay) with one group per distinct
-    (weight decay, lr scale); each group records its ``lr_scale``, and the
-    train step calls ``set_learning_rate(opt, schedule(step))`` before each
-    update."""
+    (weight decay, lr scale); each group records its ``lr_scale`` and holds
+    its own lr tensor, and the train step calls ``set_learning_rate(opt,
+    schedule(step))`` before each update. ``capturable`` on the card."""
     opt = cfg.optimizer
     if cfg.train.adam_mu_dtype != "float32":
         raise NotImplementedError("train.adam_mu_dtype=bfloat16 is not ported yet")
@@ -92,12 +103,17 @@ def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
     for name, p in model.named_parameters():
         key = (wd[name] if opt.type == "adamw" else 0.0, scale[name])
         groups.setdefault(key, []).append(p)
+    dev = next(model.parameters()).device
+    lr = base_learning_rate(cfg)
     param_groups = [
-        {"params": ps, "weight_decay": d, "lr_scale": s} for (d, s), ps in groups.items()
+        {"params": ps, "weight_decay": d, "lr_scale": s,
+         "lr": torch.full((), lr * s, dtype=torch.float32, device=dev)}
+        for (d, s), ps in groups.items()
     ]
     return torch.optim.AdamW(
         param_groups,
-        lr=base_learning_rate(cfg),
+        lr=lr,
         betas=(opt.beta_1, opt.beta_2),
         eps=opt.eps,
+        capturable=dev.type == "cuda",
     )

@@ -14,7 +14,10 @@ def resolve_device(device="cuda") -> torch.device:
 
     A float32 convolution goes through cuDNN in TF32 by default, which keeps
     about three decimal digits; the JAX reference computes in float32, so
-    both TF32 switches are turned off here, at every entry point.
+    both TF32 switches are turned off here, at every entry point. bf16
+    products (``compute_dtype: bfloat16``) accumulate in float32 in the JAX
+    package (``preferred_element_type``); cuBLAS may otherwise reduce
+    split-K partials in bf16, so that is turned off too.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -23,4 +26,5 @@ def resolve_device(device="cuda") -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
