@@ -142,9 +142,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 13. the emb-192 ViT-SOM: ``configs/vit_som/vit_som_cifar-10.yaml`` at its
    full widths and depth (emb 192, depth 12, 3 heads: hd 64; decoder emb 96,
    depth 2: hd 32; N 65; 4x4 map, SOM latent 64 x 192; batch 128, float32,
-   no remat) on the clustering objective (``data.num_classes`` 0: the
-   yaml's 10 select the classification head, not ported) with un-augmented
-   synthetic 32x32x3 images (the cifar transforms are not ported), 20 steps
+   no remat) on the clustering objective (``data.num_classes`` 0; phase D
+   runs the yaml as shipped, with its 10 classes) with un-augmented
+   synthetic 32x32x3 images (``raw_synthetic_datamodule``: the clustering of
+   an augmented dataset is not ported), 20 steps
    and the clustering eval with ``xla`` attention, then with ``pallas``:
    step-0 losses equal within rtol 1e-5, launch counts equal to the formula
    below, recon loss falling, losses finite, reconstructions [128, 32, 32,
@@ -166,6 +167,30 @@ C. the kernels under replay: ``vitsom_tpu_torch.train.profile_step`` (a
    backward 6 times a step. Wall and device busy ms a step, the idle share
    and the kernels a step of each are printed beside the card's name and
    power limit.
+D. classification as shipped: ``configs/vit_som/vit_som_cifar-10.yaml``
+   (``data.num_classes`` 10, label smoothing 0.1, the full augmentation
+   stack on the device, the 80/20 split) at full width and depth on
+   synthetic cifar-shaped data at the real split sizes (``data.
+   synthetic_size`` 50000: 40000 train, 10000 val, 10000 test rows; 312
+   steps an epoch). With ``pallas`` attention: one full epoch graphed (each
+   epoch's batches augmented into the epoch buffer before the steps, by
+   replays of one captured augmentation at the epoch's draws, held against
+   eager calls at three batches), the validation after it, then the test eval (accuracy,
+   precision, recall, F1) after the val split is released. With ``xla``:
+   the first CLS_STEPS steps graphed, then the same steps eagerly (the
+   eager hold: the augmented epoch buffers bitwise equal, every step's
+   three losses and every final parameter within rtol 1e-5). Then
+   ``configs/vit/vit_cifar-10.yaml`` (the ViT baseline) with ``pallas``,
+   CLS_STEPS graphed steps and its test eval. Checks: step-0 losses of
+   ``xla`` and ``pallas`` equal within rtol 1e-5; every loss finite; the
+   step-0 ``cls_loss`` within 0.3 of ln 10; val and test accuracy in [0,
+   1]; the augmented epoch buffer finite, each channel's mean within 1 of
+   0 and its std in (0.3, 2); the wrappers' launch counts equal the
+   formula below; and ``profile_step`` on the ``pallas`` configuration (R
+   = 20 replays, as phase C) counts R times a step's kernels. Prints ms a
+   step and images/s graphed and eager, the augmentation's ms an epoch,
+   validation and test ms and the test metrics beside the card's name and
+   power limit.
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
@@ -181,15 +206,25 @@ launches a block kernel. The cifar-10 config has no remat (A = 14): its
 ``pallas`` run of S steps and E eval batches launches the attention
 forward kernel (S + E) 14 times, the backward S 14 times (each launch of
 the backward at N 65 is one kernel; at N 197 and 257 its dq partials add a
-second, counted with it) and the SOM kernel S + E times. Phase 11
+second, counted with it) and the SOM kernel S + E times. A
+classification train step runs the encoder only (its loss reads no
+reconstruction; depth 12, no remat), the eval step the encoder and the
+decoder: phase D's ViT-SOM ``pallas`` run of S steps and E eval batches
+(the val batches of each validation, the test batches and the one warm-up
+batch of the test eval) launches the attention forward kernel 12 S + 14 E
+times, the backward 12 S times and the SOM kernel S + E times; the ViT
+baseline (no decoder, no SOM) the forward 12 S + 12 E times, the backward
+12 S times and the SOM kernel never. Phase 11
 launches the block forward kernel once per flagship block plus once for
 each of the two blocks it backpropagates through (6 + 2 = 8), and the
 backward kernel once for each of those (2).
 
-The last lines are the ``kernels`` JSON (the attention kernels' rows: the
-cifar-10 ``pallas`` run's launches and the (128, 65, 3, 64) timings), the
-nvidia-smi line and the result. The whole script takes about 3 minutes on
-an H100, the builds included (block.cu, the longest, about 28 s).
+The last lines are the ``kernels`` JSON (the SOM and attention kernels'
+``launches``: phase D's ViT-SOM ``pallas`` run, this slice's main path,
+with every path's count under ``launches_by_path``; the attention rows'
+timings at (128, 65, 3, 64)), the nvidia-smi line and the result. The
+whole script takes about 5 minutes on an H100, the builds included
+(block.cu, the longest, about 28 s).
 """
 
 from __future__ import annotations
@@ -224,6 +259,12 @@ from vitsom_tpu_torch.utils.device import resolve_device
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_mnist.yaml")
 CIFAR_CONFIG = os.path.join(ROOT, "configs", "vit_som", "vit_som_cifar-10.yaml")
+VIT_CONFIG = os.path.join(ROOT, "configs", "vit", "vit_cifar-10.yaml")
+# phase D: cifar-10's 50000 train images (40000 train + 10000 val after the
+# 80/20 split) and a 10000-image test split (synthetic_size // 5)
+CLS_SYNTHETIC_SIZE = 50000
+CLS_STEPS = 40  # the xla run, its eager hold and the ViT baseline
+CLS_LOSSES = ("train/cls_loss", "train/som_loss", "train/total_loss")
 TRAIN_STEPS = 40
 HYBRID_STEPS = 10
 CIFAR_STEPS = 20
@@ -568,13 +609,18 @@ def issued_steps(steps, eager):
 def expected_launches(cfg, impl, steps, eval_batches):
     """What the code implies (module docstring): one attention call per
     block; with remat each block's forward runs again in the backward; the
-    eval runs the forward only, under no_grad."""
-    per_forward = cfg.vit.depth + cfg.vit.dec_depth
+    eval runs the forward only, under no_grad. A classification train step
+    runs the encoder only, the ViT-SOM eval step the decoder too; the ViT
+    baseline has no decoder and no SOM."""
+    som_model = cfg.model_arch == "vit_som"
+    eval_blocks = cfg.vit.depth + (cfg.vit.dec_depth if som_model else 0)
+    train_blocks = cfg.vit.depth if cfg.classification else eval_blocks
     passes = 2 if cfg.train.remat_blocks else 1
     return {
-        "som_fused": steps + eval_batches,
-        "attention_fwd": (steps * passes + eval_batches) * per_forward if impl == "pallas" else 0,
-        "attention_bwd": steps * per_forward if impl in ("pallas", "hybrid") else 0,
+        "som_fused": steps + eval_batches if som_model else 0,
+        "attention_fwd": (steps * passes * train_blocks + eval_batches * eval_blocks
+                          if impl == "pallas" else 0),
+        "attention_bwd": steps * train_blocks if impl in ("pallas", "hybrid") else 0,
         "block_fwd": 0,
         "block_bwd": 0,
     }
@@ -655,10 +701,9 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
 
 
 def phase_train(dev):
-    """Phase 4; returns (the SOM kernel's launch count over the main path,
-    the step-0 losses, the run: train_run's tuple)."""
+    """Phase 4; returns (the step-0 losses, the run: train_run's tuple)."""
     run = train_run(dev, "train", None, TRAIN_STEPS, evaluate=True)
-    cfg, dm, trainer, hist, launches = run
+    cfg, dm, trainer, hist, _ = run
 
     # the kernel-based eval step against the plain SOM path on one batch
     model = trainer.model
@@ -682,7 +727,7 @@ def phase_train(dev):
     )
     check(mism == 0 and serr <= TOL + TOL * abs(float(ref_som)), "eval step disagrees with plain path")
     check(tuple(recon_img.shape) == (cfg.batch_size, 28, 28, 1), "bad recon shape")
-    return launches["som_fused"], {k: float(hist[k][0]) for k in FIRST_LOSSES}, run
+    return {k: float(hist[k][0]) for k in FIRST_LOSSES}, run
 
 
 def check_first_losses(label, hist, xla_first):
@@ -711,7 +756,14 @@ def phase_graphed_vs_eager(dev, label, impl, graphed, smi, extra=None):
     cfg, _, tr_g, hist_g, _ = graphed
     _, _, tr_e, hist_e, _ = train_run(dev, f"{label}_eager", impl, tr_g.step, False,
                                       extra=extra, eager=True)
-    for k in FIRST_LOSSES:
+    compare_runs(label, cfg, tr_g, hist_g, tr_e, hist_e, FIRST_LOSSES, smi)
+
+
+def compare_runs(label, cfg, tr_g, hist_g, tr_e, hist_e, losses, smi):
+    """A graphed run's ``losses`` at every step and final parameters against
+    its eager run's, within rtol GRAPH_RTOL (phases A, B, D), and both
+    runs' median ms a step and images/s."""
+    for k in losses:
         a, b = np.asarray(hist_g[k]), np.asarray(hist_e[k])
         check(a.shape == b.shape, f"{label}: {k} has {a.shape} steps graphed, {b.shape} eager")
         diff = np.abs(a - b)
@@ -749,10 +801,11 @@ def phase_bench(dev, smi):
     phase_graphed_vs_eager(dev, "bench", None, run, smi, extra=BENCH_OVERRIDES)
 
 
-def profile_run(label, overrides):
-    """``profile_step`` on the flagship yaml with ``overrides``, in a process
-    of its own (one profiler session a process); returns its JSON line."""
-    cmd = [sys.executable, "-m", "vitsom_tpu_torch.train.profile_step", "--config", CONFIG,
+def profile_run(label, overrides, config=CONFIG):
+    """``profile_step`` on ``config`` (the flagship yaml) with ``overrides``,
+    in a process of its own (one profiler session a process); returns its
+    JSON line."""
+    cmd = [sys.executable, "-m", "vitsom_tpu_torch.train.profile_step", "--config", config,
            "--steps", str(PROFILE_STEPS)]
     for k, v in overrides.items():
         cmd += ["--override", f"{k}={json.dumps(v)}"]
@@ -765,36 +818,46 @@ def profile_run(label, overrides):
     return json.loads(lines[-1])
 
 
+def profile_check(label, config, over, smi):
+    """``profile_step`` on ``config`` with ``over`` (profile_run), its
+    numbers printed beside the card's name and power limit, and each
+    hand-written kernel's count under R = PROFILE_STEPS steps held to R
+    times its count a step, in both modes (the hd <= 16 configurations run
+    the row kernels, hd >= 32 the tensor-core kernels). Returns the JSON."""
+    res = profile_run(label, over, config)
+    cfg = load_config(config, {"data.allow_synthetic": True, **over})
+    per = expected_launches(cfg, model_attn_impl(cfg), PROFILE_STEPS, 0)
+    mma = cfg.vit.emb_dim // cfg.vit.heads >= 32
+    want = {"som_partial_kernel": per["som_fused"], "som_finalize_kernel": per["som_fused"],
+            "attn_fwd_kernel": 0 if mma else per["attention_fwd"],
+            "attn_fwd_mma_kernel": per["attention_fwd"] if mma else 0,
+            "attn_bwd_kernel": 0 if mma else per["attention_bwd"],
+            "attn_bwd_mma_kernel": per["attention_bwd"] if mma else 0}
+    for mode in ("eager", "graphed"):
+        r = res[mode]
+        print(f"profile {label} {mode}: wall_ms_per_step={r['wall_ms_per_step']:.4f} "
+              f"images_per_s={cfg.batch_size / r['wall_ms_per_step'] * 1e3:.1f} "
+              f"step_ms_median={r['step_ms_median']:.4f} "
+              f"device_busy_ms_per_step={r['device_busy_ms_per_step']:.4f} "
+              f"device_idle_share={r['device_idle_share']:.4f} "
+              f"kernels_per_step={r['kernels_per_step']:.1f} card: {smi}", flush=True)
+        print(f"profile {label} {mode} kernels over R={PROFILE_STEPS}: "
+              + " ".join(f"{k}={r['kernel_counts'][k]} (expected {v})" for k, v in want.items()),
+              flush=True)
+        check(r["kernel_counts"] == want,
+              f"profile {label} {mode}: kernel counts {r['kernel_counts']} != {want}")
+    return res
+
+
 def phase_profiles(smi):
     """Phase C: the kernels that execute under replay. ``profile_step``
     profiles PROFILE_STEPS eager steps and PROFILE_STEPS replays of the
     captured step of the flagship with ``xla`` and with ``pallas`` and of
-    bench.py's configuration; each hand-written kernel's count in the
-    profiler's records must be R times its count a step (the flagship's and
-    the bench configuration's attention runs the row kernels, hd 8 and 2),
-    in both modes. Prints wall and device busy ms a step, the idle share
-    and the kernels a step beside the card's name and power limit."""
+    bench.py's configuration (``profile_check``; the flagship's and the
+    bench configuration's attention runs the row kernels, hd 8 and 2)."""
     for label, over in (("xla", {}), ("pallas", {"train.attn_impl": "pallas"}),
                         ("bench", BENCH_OVERRIDES)):
-        res = profile_run(label, over)
-        cfg = load_config(CONFIG, {"data.allow_synthetic": True, **over})
-        per = expected_launches(cfg, model_attn_impl(cfg), PROFILE_STEPS, 0)
-        want = {"som_partial_kernel": per["som_fused"], "som_finalize_kernel": per["som_fused"],
-                "attn_fwd_kernel": per["attention_fwd"], "attn_fwd_mma_kernel": 0,
-                "attn_bwd_kernel": per["attention_bwd"], "attn_bwd_mma_kernel": 0}
-        for mode in ("eager", "graphed"):
-            r = res[mode]
-            print(f"profile {label} {mode}: wall_ms_per_step={r['wall_ms_per_step']:.4f} "
-                  f"images_per_s={cfg.batch_size / r['wall_ms_per_step'] * 1e3:.1f} "
-                  f"step_ms_median={r['step_ms_median']:.4f} "
-                  f"device_busy_ms_per_step={r['device_busy_ms_per_step']:.4f} "
-                  f"device_idle_share={r['device_idle_share']:.4f} "
-                  f"kernels_per_step={r['kernels_per_step']:.1f} card: {smi}", flush=True)
-            print(f"profile {label} {mode} kernels over R={PROFILE_STEPS}: "
-                  + " ".join(f"{k}={r['kernel_counts'][k]} (expected {v})" for k, v in want.items()),
-                  flush=True)
-            check(r["kernel_counts"] == want,
-                  f"profile {label} {mode}: kernel counts {r['kernel_counts']} != {want}")
+        profile_check(label, CONFIG, over, smi)
 
 
 def phase_train_cifar(dev):
@@ -804,16 +867,15 @@ def phase_train_cifar(dev):
     ``configs/vit_som/vit_som_cifar-10.yaml`` at its full widths and depth
     (emb 192, depth 12, 3 heads, decoder emb 96 and depth 2, 4x4 map, SOM
     latent D = 64 x 192, batch 128, float32, no remat), trained on the
-    clustering objective (``data.num_classes`` 0: the yaml's 10 select the
-    classification head, which is not ported) on un-augmented synthetic
-    32x32x3 images (the cifar transforms and augmentation are not ported),
-    once with
+    clustering objective (``data.num_classes`` 0; phase D trains the yaml's
+    classification as shipped) on un-augmented synthetic 32x32x3 images
+    (``raw_synthetic_datamodule``), once with
     ``xla`` and once with ``pallas`` attention, CIFAR_STEPS steps and the
     clustering eval each. The pallas run's step-0 losses equal the xla
     run's within rtol 1e-5 and its launch counts the formula (module
     docstring); its reconstructions of one eval batch are finite and
     [128, 32, 32, 3]."""
-    data = "un-augmented synthetic 32x32x3 images (cifar transforms not ported)"
+    data = "un-augmented synthetic 32x32x3 images (clustering objective)"
     first, launches = None, None
     for impl in ("xla", "pallas"):
         label = f"cifar10_{impl}"
@@ -833,6 +895,152 @@ def phase_train_cifar(dev):
         check(bool(torch.isfinite(recon_img).all()), "non-finite cifar-10 reconstruction")
         del trainer, dm
     return launches
+
+
+def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True):
+    """Trains ``config`` as shipped (classification, augmentation on the
+    device) with attention ``impl`` on synthetic cifar-shaped data at the
+    real split sizes (``dm``, or a new classification data module) for
+    ``steps`` steps (None: one epoch), graphed or ``eager``; a finished
+    epoch validates, and ``evaluate`` runs the test eval. Prints and checks
+    what phase D checks of every run. Returns (cfg, dm, trainer, hist,
+    launches, test metrics or None)."""
+    over = {"data.allow_synthetic": True, "data.synthetic_size": CLS_SYNTHETIC_SIZE,
+            "train.attn_impl": impl}
+    cfg = load_config(config, over)
+    aug = cfg.data.augment
+    print(
+        f"{label}: config {os.path.basename(config)} model={cfg.model_arch} emb={cfg.vit.emb_dim} "
+        f"depth={cfg.vit.depth} heads={cfg.vit.heads} dec_emb={cfg.vit.dec_emb_dim} "
+        f"dec_depth={cfg.vit.dec_depth} patch={cfg.vit.patch_size} batch={cfg.batch_size} "
+        f"map={cfg.som.map_size} num_classes={cfg.data.num_classes} "
+        f"smoothing={cfg.optimizer.smoothing} use_pallas_som={cfg.train.use_pallas_som} "
+        f"attn_impl={model_attn_impl(cfg)} augment=(randaug_n={aug.randaug_n} "
+        f"autoaugment={aug.autoaugment} reprob={aug.reprob} flip={aug.horizontal_flip}) "
+        f"mode={'eager' if eager else 'graphed'}",
+        flush=True,
+    )
+    if dm is None:
+        t0 = time.perf_counter()
+        dm = build_datamodule(cfg, dev)
+        print(f"{label}: data train={dm.n_train} val={dm.split_len('val')} "
+              f"test={dm.split_len('test')} steps_per_epoch={dm.steps_per_epoch} "
+              f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+    trainer = Trainer(cfg, device=dev, dm=dm)
+    steps = dm.steps_per_epoch if steps is None else steps
+
+    reset_launches()
+    hist = trainer.fit(max_steps=steps, eager=eager)
+    res = trainer.evaluate() if evaluate else None
+    torch.cuda.synchronize()
+    launches = read_launches()
+    bs = cfg.batch_size
+    eval_batches = (len(trainer.val_history) * (dm.split_len("val") // bs)
+                    + ((dm.split_len("test") // bs) + 1 if evaluate else 0))
+    want = expected_launches(cfg, model_attn_impl(cfg), issued_steps(trainer.step, eager),
+                             eval_batches)
+    check(eager or trainer.graph is not None, f"{label}: the graphed run captured no graph")
+    check(trainer.step == steps, f"{label}: trained {trainer.step} steps, not {steps}")
+
+    keys = steps_lib.metric_keys(cfg)
+    losses = [k for k in keys if k.endswith("_loss")]
+    step_ms = statistics.median(trainer.step_ms[5:])
+    first_cls = float(hist["train/cls_loss"][0])
+    print(f"{label}: steps={trainer.step} "
+          + " ".join(f"{k[6:]} first={hist[k][0]:.6f} last={hist[k][-1]:.6f}" for k in losses),
+          flush=True)
+    print(f"{label}: median_step_ms={step_ms:.4f} images_per_s={bs / step_ms * 1e3:.1f} "
+          f"(steps 6-{trainer.step}, CUDA events between step ends) augmentation_ms_per_epoch="
+          + ",".join(f"{v:.1f}" for v in trainer.fill_ms)
+          + f" ({dm.steps_per_epoch} batches of {bs} gathered and augmented into the epoch buffer)",
+          flush=True)
+    for v in trainer.val_history:
+        print(f"{label} validation epoch {v['epoch']} (step {v['step']}): "
+              + " ".join(f"{k}={v[k]:.6f}" for k in sorted(v) if k.startswith("val/"))
+              + f" ms={v['seconds'] * 1e3:.1f} batches={dm.split_len('val') // bs} "
+              f"(the first includes the val split's transform)", flush=True)
+        check(0.0 <= v["val/accuracy"] <= 1.0, f"{label}: val accuracy {v['val/accuracy']}")
+        check(all(math.isfinite(v[k]) for k in v if k.startswith("val/")),
+              f"{label}: non-finite validation numbers")
+    if res is not None:
+        print(f"{label} test: accuracy={res['accuracy']:.6f} precision={res['precision']:.6f} "
+              f"recall={res['recall']:.6f} f1={res['f1']:.6f} "
+              f"ms={res['inference_time'] * 1e3:.1f} batches={dm.split_len('test') // bs} "
+              f"(after one warm-up batch)", flush=True)
+        check(0.0 <= res["accuracy"] <= 1.0, f"{label}: test accuracy {res['accuracy']}")
+    print(f"{label} launches: " + " ".join(f"{k}={v} (expected {want[k]})"
+                                           for k, v in launches.items())
+          + f" [train steps {trainer.step} ({issued_steps(trainer.step, eager)} issued from "
+          f"Python), eval batches {eval_batches}]", flush=True)
+    for k in losses:
+        check(all(math.isfinite(v) for v in hist[k]), f"{label}: non-finite {k}")
+    check(abs(first_cls - math.log(cfg.data.num_classes)) <= 0.3,
+          f"{label}: step-0 cls_loss {first_cls} is not within 0.3 of ln 10")
+    check(launches == want, f"{label}: launch counts {launches} != {want}")
+
+    images = trainer.epoch_images["image"]
+    mean = images.mean(dim=(0, 1, 2))
+    std = images.std(dim=(0, 1, 2))
+    print(f"{label}: epoch buffer {tuple(images.shape)} channel mean="
+          + ",".join(f"{float(m):.4f}" for m in mean) + " std="
+          + ",".join(f"{float(d):.4f}" for d in std), flush=True)
+    check(bool(torch.isfinite(images).all()), f"{label}: non-finite augmented images")
+    check(bool((mean.abs() < 1).all() and (std > 0.3).all() and (std < 2).all()),
+          f"{label}: the augmented images leave the normalised domain")
+    return cfg, dm, trainer, hist, launches, res
+
+
+def hold_augmentation(dm, trainer):
+    """The captured augmentation (replays of one graph, batch after batch)
+    against eager calls of the same ops at the same draws, at the first,
+    middle and last batch of ``trainer``'s epoch buffer: bitwise equality
+    expected; held to one grey level on at most 0.1 % of the values."""
+    bs = trainer.cfg.batch_size
+    grey = 1.0 / (255.0 * min(dm.augment.std))
+    ms, worst, frac = [], 0.0, 0.0
+    for k in (0, dm.steps_per_epoch // 2, dm.steps_per_epoch - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = dm.augment_batch_eagerly(k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        diff = (trainer.epoch_images["image"][k * bs:(k + 1) * bs] - eager).abs()
+        worst = max(worst, float(diff.max()))
+        frac = max(frac, float((diff > 0).float().mean()))
+    print(f"augmentation graphed_vs_eager: max_abs_diff={worst:.3e} (one grey level "
+          f"{grey:.3e}) differing_share={frac:.3e} eager_ms_per_batch="
+          + ",".join(f"{v:.2f}" for v in ms)
+          + f" graphed_ms_per_batch={trainer.fill_ms[0] / dm.steps_per_epoch:.3f} "
+          f"(fill_epoch's {trainer.fill_ms[0]:.1f} ms / {dm.steps_per_epoch} batches, the "
+          f"epoch's draws, gathers and copies included)", flush=True)
+    check(worst <= grey * 1.001 and frac <= 1e-3,
+          f"the captured augmentation differs from its eager calls: {worst} on {frac}")
+
+
+def phase_classification(dev, smi):
+    """Phase D; returns {path: launch counts} of its ``pallas`` runs."""
+    _, dm, tr, hist, launches, _ = cls_run(dev, "cls_pallas", CIFAR_CONFIG, "pallas", None)
+    first = {k: float(hist[k][0]) for k in CLS_LOSSES}
+    hold_augmentation(dm, tr)
+    del tr
+    cfg, _, tr_g, hist_g, _, _ = cls_run(dev, "cls_xla", CIFAR_CONFIG, "xla", CLS_STEPS, dm,
+                                         evaluate=False)
+    for k in CLS_LOSSES:
+        a, b = float(hist_g[k][0]), first[k]
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        print(f"cls_xla step0 {k}={a:.8f} pallas={b:.8f} rel_err={rel:.3e}", flush=True)
+        check(rel <= TOL, f"cls step-0 {k}: xla {a} vs pallas {b}")
+    _, _, tr_e, hist_e, _, _ = cls_run(dev, "cls_xla_eager", CIFAR_CONFIG, "xla", CLS_STEPS, dm,
+                                       eager=True, evaluate=False)
+    same = all(torch.equal(tr_g.epoch_images[k], tr_e.epoch_images[k]) for k in ("image", "label"))
+    print(f"cls graphed_vs_eager: augmented epoch buffers bitwise equal={same}", flush=True)
+    check(same, "the eager hold's augmented epoch buffer differs from the graphed run's")
+    compare_runs("cls", cfg, tr_g, hist_g, tr_e, hist_e, CLS_LOSSES, smi)
+    del tr_g, tr_e
+    _, _, _, _, vit_launches, _ = cls_run(dev, "vit_pallas", VIT_CONFIG, "pallas", CLS_STEPS, dm)
+    del dm
+    profile_check("cls_pallas", CIFAR_CONFIG, {"train.attn_impl": "pallas"}, smi)
+    return {"classification_pallas": launches, "vit_baseline_pallas": vit_launches}
 
 
 def attn_inputs(shape, seed, dev, layout):
@@ -1380,11 +1588,12 @@ def main() -> int:
 
         phase_build()
         max_err = phase_kernel_vs_plain(dev)
-        som_launches, xla_first, flagship = phase_train(dev)
+        xla_first, flagship = phase_train(dev)
         phase_graphed_vs_eager(dev, "graph_xla", None, flagship, smi)
         timing = phase_timings(dev)
         attn_err = phase_attention_vs_plain(dev)
         run = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
+        flagship_pallas = run[4]
         phase_graphed_vs_eager(dev, "graph_pallas", "pallas", run, smi)
         del run
         phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
@@ -1393,18 +1602,29 @@ def main() -> int:
         block_launches = phase_block_flagship(dev, flagship[2], flagship[1])
         block_timing = phase_block_timings(dev)
         cifar = phase_train_cifar(dev)
+        cls_paths = phase_classification(dev, smi)
         phase_bench(dev, smi)
         phase_profiles(smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
+    # launches: this slice's main path (phase D's ViT-SOM pallas run) and,
+    # by path, every train run that launches the kernel
+    paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
+             "cifar10_clustering_pallas": cifar, **cls_paths}
+    main_path = cls_paths["classification_pallas"]
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items() if counts[name]}
+
     kernels = [{
         "name": "som_fused",
         "route": "cuda",
         "source": "vitsom_tpu_torch/ops/csrc/som_fused.cu",
         "replaces": "vitsom_tpu/ops/som_pallas.py:95",
-        "launches": som_launches,
+        "launches": main_path["som_fused"],
+        "launches_by_path": by_path("som_fused"),
         "max_abs_err": max_err,
         **timing,
     }]
@@ -1415,7 +1635,8 @@ def main() -> int:
             "route": "cuda",
             "source": "vitsom_tpu_torch/ops/csrc/attention.cu",
             "replaces": replaces,
-            "launches": cifar[name],
+            "launches": main_path[name],
+            "launches_by_path": by_path(name),
             "max_abs_err": attn_err[name],
             **attn_timing[(ATTN_MAIN, name)],
         })

@@ -253,14 +253,14 @@ def test_config_selects_attention_impl(over, want):
     from vitsom_tpu.train.trainer import build_model
     from vitsom_tpu_torch.config import load_config
     from vitsom_tpu_torch.models import vit as tvit
-    from vitsom_tpu_torch.models.vit_som import build_vit_som, model_attn_impl
+    from vitsom_tpu_torch.models.vit_som import build_model as tbuild_model, model_attn_impl
 
     path = "configs/vit_som/vit_som_mnist.yaml"
     small = {"som.map_size": [2, 2], **over}
     assert build_model(jload(path, small)).attn_impl == want
     cfg = load_config(path, small)
     assert model_attn_impl(cfg) == want
-    impls = {m.attn_impl for m in build_vit_som(cfg, device="cpu").modules()
+    impls = {m.attn_impl for m in tbuild_model(cfg, device="cpu").modules()
              if isinstance(m, tvit.Attention)}
     assert impls == {want}
 
@@ -337,7 +337,7 @@ def _model_qkv_views(monkeypatch):
     [B, N, D] layout the kernels take."""
     from vitsom_tpu_torch.config import load_config
     from vitsom_tpu_torch.models import vit as tvit
-    from vitsom_tpu_torch.models.vit_som import build_vit_som
+    from vitsom_tpu_torch.models.vit_som import build_model
 
     calls = []
     inner = tattn.multi_head_attention
@@ -349,7 +349,7 @@ def _model_qkv_views(monkeypatch):
 
     monkeypatch.setattr(tvit.attention_ops, "multi_head_attention", record)
     cfg = load_config("configs/vit_som/vit_som_mnist.yaml", {"som.map_size": [2, 2]})
-    model = build_vit_som(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
     with torch.no_grad():
         model(torch.rand(2, 28, 28, 1))
     return calls

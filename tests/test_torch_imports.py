@@ -2,7 +2,8 @@
 
 Importing ``vitsom_tpu_torch`` (every submodule) and ``chip_smoke`` in a
 fresh interpreter must load no ``jax``, ``flax``, ``optax`` or
-``vitsom_tpu`` module; and an entry point called without a device on a
+``vitsom_tpu`` module, and no ``PIL`` or ``torchvision`` (the card's
+machine has neither); and an entry point called without a device on a
 machine without CUDA raises instead of running on the CPU.
 """
 
@@ -23,8 +24,12 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vitsom_tpu"))
-print(len(names), all(f"vitsom_tpu_torch.ops.{m}" in names for m in ("attention_fused", "block_fused")))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vitsom_tpu", "PIL",
+                                    "torchvision"))
+print(len(names), all(m in names for m in (
+    "vitsom_tpu_torch.ops.attention_fused", "vitsom_tpu_torch.ops.block_fused",
+    "vitsom_tpu_torch.data.augment", "vitsom_tpu_torch.data.device_augment",
+    "vitsom_tpu_torch.data.pipeline")))
 print("BAD", bad)
 """
 
@@ -38,14 +43,14 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, bad = out.stdout.strip().splitlines()[-2:]
     n_modules, has_kernel_modules = counts.split()
-    assert int(n_modules) >= 22 and has_kernel_modules == "True"
+    assert int(n_modules) >= 25 and has_kernel_modules == "True"
     assert bad == "BAD []", bad
 
 
 def test_entry_points_refuse_cpu_without_cuda(monkeypatch):
     from vitsom_tpu_torch.config import load_config
     from vitsom_tpu_torch.data.synthetic import build_datamodule
-    from vitsom_tpu_torch.models.vit_som import build_vit_som
+    from vitsom_tpu_torch.models.vit_som import build_model
     from vitsom_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -53,10 +58,35 @@ def test_entry_points_refuse_cpu_without_cuda(monkeypatch):
         os.path.join(ROOT, "configs/vit_som/vit_som_mnist.yaml"),
         {"data.allow_synthetic": True, "data.synthetic_size": 64},
     )
-    for call in (lambda: Trainer(cfg), lambda: build_vit_som(cfg),
+    for call in (lambda: Trainer(cfg), lambda: build_model(cfg),
                  lambda: build_datamodule(cfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_classification_entry_points_refuse_cpu_without_cuda(monkeypatch):
+    """The classification slice's entry points default to the card: the
+    model builder for ``vit_som`` with a head and for ``vit``, the
+    classification data module, and the trainer."""
+    import inspect
+
+    from vitsom_tpu_torch.config import load_config
+    from vitsom_tpu_torch.data.pipeline import build_classification_datamodule
+    from vitsom_tpu_torch.data.synthetic import build_datamodule
+    from vitsom_tpu_torch.models.vit_som import build_model
+    from vitsom_tpu_torch.train.trainer import Trainer
+
+    for fn in (build_model, build_classification_datamodule, build_datamodule, Trainer):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for path in ("configs/vit_som/vit_som_cifar-10.yaml", "configs/vit/vit_cifar-10.yaml"):
+        cfg = load_config(os.path.join(ROOT, path),
+                          {"data.allow_synthetic": True, "data.synthetic_size": 64})
+        assert cfg.classification
+        for call in (lambda: Trainer(cfg), lambda: build_model(cfg),
+                     lambda: build_datamodule(cfg)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

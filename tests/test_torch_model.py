@@ -186,12 +186,12 @@ def test_initializer_distributions():
 def test_fresh_model_init_matches_jax_distributions():
     """A model built by the port has the JAX package's init distributions:
     per-parameter std within a few percent of the Flax init's."""
-    from vitsom_tpu_torch.models.vit_som import build_vit_som
+    from vitsom_tpu_torch.models.vit_som import build_model
 
     _, tcfg = _cfgs(128, 1, 1, False)
     _, params, _ = _pair(128)
     ref = convert.flax_to_state_dict(params)
-    model = build_vit_som(tcfg, device="cpu", seed=0)
+    model = build_model(tcfg, device="cpu", seed=0)
     for name, p in model.state_dict().items():
         r = ref[name]
         if float(r.std()) == 0.0:  # zero biases, unit LayerNorm scales

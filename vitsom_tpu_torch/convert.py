@@ -11,6 +11,9 @@ arrays). The layout rules:
 - a LayerNorm ``scale`` becomes ``weight``;
 - ``prototypes`` and ``cls_token`` carry over as they are.
 
+The classifier head's ``cls_head/Dense_0`` is the port's ``cls_head``
+(``ViTSOM`` with ``num_classes > 0``, ``ViTClassifier``).
+
 Module names: ``block_i``/``dec_block_i`` -> ``blocks.i``/``decoder_blocks.i``;
 ``LayerNorm_0/1`` -> ``norm1/2``; ``Mlp_0/Dense_0/1`` -> ``mlp.fc1/fc2``;
 in ``Attention_0``, ``Dense_0`` is the fused qkv and ``Dense_1`` the output
@@ -59,8 +62,14 @@ def _split_blocks(flat_keys) -> set:
     return {k.split("/Attention_0/query/")[0] for k in flat_keys if "/Attention_0/query/" in k}
 
 
+# the Flax ClsHead's one Dense is the port's ClsHead (an nn.Linear)
+_CLS_HEAD = ("cls_head/Dense_0", "cls_head")
+
+
 def _module_path(path: str, split: set) -> str:
     """Flax module path (without the leaf name) -> torch module path."""
+    if path == _CLS_HEAD[0]:
+        return _CLS_HEAD[1]
     parts = path.split("/")
     if parts[0] != "vit":
         return path
@@ -194,6 +203,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.n
                 fpath = f"{head}/Attention_0/{'Dense_0' if is_split else 'Dense_1'}"
             else:
                 raise KeyError(f"unknown block parameter {key}")
+        elif mod == _CLS_HEAD[1]:
+            fpath = _CLS_HEAD[0]
         else:
             fpath = mod.replace(".", "/")
         is_norm = "norm" in fpath.rsplit("/", 1)[-1] or "LayerNorm" in fpath

@@ -1,27 +1,30 @@
-"""Synthetic MNIST-shaped clustering data and a device-resident data module.
+"""Synthetic stand-in data and the clustering data module.
 
 ``make_synthetic`` is the port's own copy of the part of
-``vitsom_tpu/data/datasets.make_synthetic`` that MNIST-shaped clustering
-uses (``synthetic_overlap == 0``: class templates + uniform noise): the same
-seed (``zlib.crc32(dataset)``), the same draws in the same order, the same
-uint8 arrays. The overlap generators and reading the raw dataset files are
-later slices of the port.
+``vitsom_tpu/data/datasets.make_synthetic`` that the shipped configs use
+(``synthetic_overlap == 0``: class templates + uniform noise, at each
+dataset's stored resolution): the same seed (``zlib.crc32(dataset)``), the
+same draws in the same order, the same uint8 arrays. The overlap
+generators and reading the raw dataset files are later slices of the port.
 
 ``DataModule`` keeps the clustering split (train + test concatenated, as
 the reference trains and evaluates clustering on it) on the device as
-float32 in [0, 1], and draws each epoch's shuffled drop-last batches from a
-``torch.Generator``: one batch at a time (``train_batches``), or all of an
-epoch's at once into a fixed buffer (``fill_epoch``), the counterpart of
-the JAX trainer's one bulk gather an epoch
-(``vitsom_tpu/train/trainer.py:464-469``), from which a captured train
-step reads its batch with a device index (``epoch_batch``).
+float32 in [0, 1] (the mnist family's transform), and draws each epoch's
+shuffled drop-last batches from a ``torch.Generator``: one batch at a time
+(``train_batches``), or all of an epoch's at once into a fixed buffer
+(``fill_epoch``), the counterpart of the JAX trainer's one bulk gather an
+epoch (``vitsom_tpu/train/trainer.py:464-469``), from which a captured
+train step reads its batch with a device index (``epoch_batch``).
+``build_datamodule`` returns it for clustering configs and the
+classification module of ``data/pipeline.py`` (train/val/test split,
+augmentation on the device) for ``num_classes > 0``.
 """
 
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -127,12 +130,14 @@ class DataModule:
         return torch.empty((rows, *self.images.shape[1:]), dtype=self.images.dtype,
                            device=self.images.device)
 
-    def fill_epoch(self, generator: torch.Generator, out: torch.Tensor) -> None:
+    def fill_epoch(self, generator: torch.Generator, out: torch.Tensor,
+                   augment: Optional[torch.Generator] = None) -> None:
         """Gather one epoch's shuffled drop-last batches into ``out`` (from
         ``epoch_buffer``), batch after batch, with one ``index_select``.
         The permutation is the same draw from ``generator`` that
         ``train_batches`` makes, so ``out`` holds the batches it would
-        yield, in its order."""
+        yield, in its order. ``augment`` is not read: the clustering
+        transform draws no random numbers."""
         perm = torch.randperm(self.n_train, generator=generator).to(self.images.device)
         torch.index_select(self.images, 0, perm[: out.shape[0]], out=out)
 
@@ -156,9 +161,11 @@ def raw_synthetic_datamodule(cfg: Config, device="cuda") -> DataModule:
     """The config's synthetic stand-in (``make_synthetic``), train and test
     concatenated and scaled to [0, 1] as the mnist family is, with no
     transform and no augmentation, for any dataset. ``build_datamodule``
-    refuses the datasets whose transforms are not ported (cifar and the
-    rest); this module lets their models run at their real shapes for
-    timing and smoke runs."""
+    takes clustering on the mnist family and classification on any
+    dataset (``data/pipeline.py``); the clustering of the other datasets,
+    whose JAX train transform augments, is not ported. This module lets
+    their models run clustering at their real shapes for timing and smoke
+    runs."""
     dev = resolve_device(device)
     raw = make_synthetic(cfg.data)
     x = np.concatenate([raw.train_x, raw.test_x])
@@ -166,14 +173,19 @@ def raw_synthetic_datamodule(cfg: Config, device="cuda") -> DataModule:
     return DataModule(cfg, torch.from_numpy(x).to(dev).float() / 255.0, torch.from_numpy(y).to(dev))
 
 
-def build_datamodule(cfg: Config, device="cuda") -> DataModule:
-    """Load (or synthesise) the dataset and move the clustering split to
-    ``device`` (default: the card)."""
+def build_datamodule(cfg: Config, device="cuda"):
+    """Load (or synthesise) the dataset and move it to ``device`` (default:
+    the card): the clustering split as a ``DataModule``, or for
+    ``num_classes > 0`` the classification split as a
+    ``pipeline.ClassificationDataModule``."""
     if cfg.classification:
-        raise NotImplementedError("the classification split is not ported yet")
+        from vitsom_tpu_torch.data.pipeline import build_classification_datamodule
+
+        return build_classification_datamodule(cfg, device)
     if cfg.data.dataset not in MNIST_FAMILY:
         raise NotImplementedError(
-            f"the {cfg.data.dataset} transforms are not ported yet (mnist family only)"
+            f"clustering on {cfg.data.dataset} (an augmented train transform) is not "
+            "ported yet (mnist family only)"
         )
     dev = resolve_device(device)
     raw = load_raw(cfg.data)

@@ -1,14 +1,17 @@
-"""Clustering metrics (numpy), the port's own copy.
+"""Clustering and classification metrics (numpy), the port's own copy.
 
 Same definitions as ``vitsom_tpu/eval/metrics.py``:
 
 - ``purity``: each cluster adopts its most common true label; the score is
   the fraction of points whose adopted label matches their true one;
 - ``nmi``: normalised mutual information with arithmetic-mean
-  normalisation (sklearn's default).
+  normalisation (sklearn's default);
+- ``classification_metrics``: accuracy and macro precision, recall and F1.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -56,3 +59,33 @@ def nmi(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     if denom <= 0:
         return 0.0 if mi == 0 else 1.0
     return float(np.clip(mi / denom, 0.0, 1.0))
+
+
+def classification_metrics(y_true: np.ndarray, y_pred: np.ndarray) -> Dict[str, float]:
+    """Accuracy + macro precision/recall/F1 over the classes seen in either
+    array; a class whose precision or recall has a zero denominator is left
+    out of that mean (and of F1's), sklearn's ``zero_division=np.nan``."""
+    y_true = np.asarray(y_true).reshape(-1)
+    y_pred = np.asarray(y_pred).reshape(-1)
+    classes = np.unique(np.concatenate([y_true, y_pred]))
+    accuracy = float(np.mean(y_true == y_pred))
+    precisions, recalls, f1s = [], [], []
+    for c in classes:
+        tp = float(np.sum((y_pred == c) & (y_true == c)))
+        fp = float(np.sum((y_pred == c) & (y_true != c)))
+        fn = float(np.sum((y_pred != c) & (y_true == c)))
+        prec = tp / (tp + fp) if (tp + fp) > 0 else np.nan
+        rec = tp / (tp + fn) if (tp + fn) > 0 else np.nan
+        if np.isnan(prec) or np.isnan(rec):
+            f1 = np.nan
+        else:
+            f1 = 2 * prec * rec / (prec + rec) if (prec + rec) > 0 else 0.0
+        precisions.append(prec)
+        recalls.append(rec)
+        f1s.append(f1)
+    return {
+        "accuracy": accuracy,
+        "precision": float(np.nanmean(precisions)),
+        "recall": float(np.nanmean(recalls)),
+        "f1": float(np.nanmean(f1s)),
+    }

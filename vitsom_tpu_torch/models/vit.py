@@ -169,6 +169,7 @@ class ViTAutoencoder(nn.Module):
         attn_impl: str = "xla",
         remat: bool = False,
         dtype=torch.float32,
+        decoder: bool = True,
     ):
         super().__init__()
         self.patch_size = patch_size
@@ -183,11 +184,6 @@ class ViTAutoencoder(nn.Module):
             torch.from_numpy(get_2d_sincos_pos_embed(embed_dim, grid, cls_token=True)[None]),
             persistent=False,
         )
-        self.register_buffer(
-            "dec_pos_embed",
-            torch.from_numpy(get_2d_sincos_pos_embed(decoder_embed_dim, grid, cls_token=True)[None]),
-            persistent=False,
-        )
         # holds the OIHW patch-embed weight; applied as patchify + linear
         # (the same function as the strided conv, with no cuDNN algorithm
         # choice and no TF32 in it)
@@ -199,6 +195,13 @@ class ViTAutoencoder(nn.Module):
         )
         # no dtype in the JAX package: float32 out whatever comes in
         self.encoder_norm = LayerNorm(embed_dim, eps=LN_EPS)
+        if not decoder:
+            return
+        self.register_buffer(
+            "dec_pos_embed",
+            torch.from_numpy(get_2d_sincos_pos_embed(decoder_embed_dim, grid, cls_token=True)[None]),
+            persistent=False,
+        )
         self.decoder_embed = Dense(embed_dim, decoder_embed_dim, compute_dtype=dtype)
         self.decoder_blocks = nn.ModuleList(
             Block(decoder_embed_dim, decoder_num_heads, mlp_ratio, qkv_bias, attn_impl, dtype)
@@ -261,6 +264,10 @@ class ViTAutoencoder(nn.Module):
             x = self._block(blk, x)
         return self.encoder_norm(x)
 
+    def forward_features(self, x):
+        """The CLS token after the encoder norm, [B, D] float32."""
+        return self.encode_tokens(x)[:, 0]
+
     # --- decoder ---
 
     def forward_decoder(self, tokens):
@@ -278,10 +285,12 @@ class ViTAutoencoder(nn.Module):
         return tokens[:, 0], tokens[:, 1:], unpatchify(pred, self.patch_size, self.in_chans)
 
 
-def build_vit_autoencoder(cfg, attn_impl: str = "xla") -> ViTAutoencoder:
+def build_vit_autoencoder(cfg, attn_impl: str = "xla", decoder: bool = True) -> ViTAutoencoder:
     """Construct from a ``Config``; decoder heads = encoder heads, as the
     reference wires it. ``train.compute_dtype`` selects the compute dtype
-    (module docstring); parameters stay float32."""
+    (module docstring); parameters stay float32. ``decoder=False`` builds
+    the encoder only: the JAX ``ViTClassifier`` never calls its decoder, so
+    Flax creates none of its parameters."""
     return ViTAutoencoder(
         img_size=cfg.data.input_size,
         patch_size=cfg.vit.patch_size,
@@ -297,4 +306,14 @@ def build_vit_autoencoder(cfg, attn_impl: str = "xla") -> ViTAutoencoder:
         attn_impl=attn_impl,
         remat=cfg.train.remat_blocks,
         dtype=_DTYPES[cfg.train.compute_dtype],
+        decoder=decoder,
     )
+
+
+class ClsHead(nn.Linear):
+    """Linear classifier head: N(0, .02) weight, torch-default bias (the
+    JAX package's ``ClsHead``)."""
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        init.normal_(self.weight, 0.02, generator)
+        init.torch_default_bias_(self.bias, self.in_features, generator)

@@ -6,18 +6,23 @@
 Builds ``--config`` (default ``configs/vit_som/vit_som_mnist.yaml``, the
 flagship, as shipped) with any ``--override key=value`` (yaml-parsed, as
 the trainer's command line takes them) on its synthetic stand-in data
-(mnist family: ``build_datamodule``; other datasets, whose transforms are
-not ported: ``raw_synthetic_datamodule``, un-augmented; a classification
-config needs ``--override data.num_classes=0``, the clustering objective), and
-measures the trainer's step in both of its modes: ``eager`` (the step body
+(``build_datamodule``: mnist-family clustering, and classification as
+shipped, the 80/20 split augmented on the device; the clustering of other
+datasets, e.g. ``--override data.num_classes=0`` on a cifar config:
+``raw_synthetic_datamodule``, un-augmented), and measures the trainer's
+step in both of its modes: ``eager`` (the step body
 called step by step, ``Trainer.fit(eager=True)``) and ``graphed`` (one
 captured step replayed, ``Trainer.fit``). For each mode it warms up, then
 prints:
 
 1. ``wall``: host-clock milliseconds a step over ``--steps`` steps of
-   ``fit`` (its epoch gather and its one metrics read included, a
-   synchronisation at the end), and the median of the trainer's own
-   ``step_ms`` (CUDA events between step ends), with no profiler attached;
+   ``fit``, continuing the epoch (its one metrics read included, and an
+   epoch gather where an epoch ends inside the window; a synchronisation
+   at the end), and the median of the trainer's own ``step_ms`` (CUDA
+   events between step ends), with no profiler attached. A classification
+   config's synthetic split is sized so that one epoch holds every
+   measured step: its epoch fill (gather + augmentation) runs once, in the
+   first warm-up, and no validation falls inside a window;
 2. ``profile``: ``torch.profiler`` over ``--steps`` more steps of each
    mode, in one profiler session (a second session in one process has
    recorded no kernels): device busy time a step (the sum of kernel
@@ -72,7 +77,8 @@ def _annotation(e) -> bool:
 
 
 def _fit(tr: Trainer, mode: str, n: int):
-    return tr.fit(max_steps=tr.step + n, eager=mode == "eager")
+    """``n`` steps of ``fit`` in ``mode``, continuing the current epoch."""
+    return tr.fit(max_steps=tr.step + n, eager=mode == "eager", new_epoch=False)
 
 
 def _wall(tr: Trainer, mode: str, n: int) -> dict:
@@ -109,7 +115,13 @@ def profile(config: str, overrides: dict, n: int, trace=None) -> dict:
     their numbers."""
     over = {"data.allow_synthetic": True, "data.synthetic_size": 4096, **overrides}
     cfg = load_config(config, over)
-    ported = cfg.data.dataset in MNIST_FAMILY
+    if cfg.classification and "data.synthetic_size" not in overrides:
+        # one epoch holds every step measured (with a margin for the val
+        # share), so no epoch fill (augmentation) or validation falls in a
+        # measured window
+        rows = (2 * WARMUP_STEPS + 4 * n + 1) * cfg.batch_size * 2
+        cfg = load_config(config, {**over, "data.synthetic_size": rows})
+    ported = cfg.data.dataset in MNIST_FAMILY or cfg.classification
     dm = (build_datamodule if ported else raw_synthetic_datamodule)(cfg, "cuda")
     tr = Trainer(cfg, device="cuda", dm=dm)
     print(f"device: {torch.cuda.get_device_name(0)} torch={torch.__version__} "

@@ -1,23 +1,36 @@
-"""ViT-SOM train and eval steps in PyTorch.
+"""ViT-SOM and ViT-classifier train and eval steps in PyTorch.
 
-Counterpart of the ViT-SOM part of ``vitsom_tpu/train/steps.py``. The JAX
+Counterpart of the ViT-SOM and plain-classifier parts of
+``vitsom_tpu/train/steps.py``. The JAX
 step is one pure jitted function over a TrainState whose ``step`` lives on
 the device, and the trainer scans it over an epoch. Here the model and the
 optimizer hold the parameters and moments, and a ``DeviceState`` holds the
 rest of what the JAX TrainState and the scan's stacked outputs hold: the
 global step as an int64 tensor on the device, and a [capacity, 6] float32
-metrics buffer. The train step reads the step tensor, computes the
+metrics buffer (six columns for ViT-SOM, two for the classifier:
+``metric_keys``). The train step reads the step tensor, computes the
 temperature, the gamma ramp and the learning rate from it on the device,
-runs forward, backward and AdamW, writes its six metrics into its row of
-the buffer and increments the step tensor. It reads nothing on the host
+runs forward, backward and AdamW, writes its metrics into its row of the
+buffer and increments the step tensor. It reads nothing on the host
 and has no host-side value that changes from step to step, so the trainer
 can capture it once as a CUDA graph and replay it (``train/trainer.py``);
 the eager run calls the same function.
 
-Loss recipe (clustering): L1(recon, x) + gamma(t) * som_loss, gamma ramping
-linearly over the first half of the total steps. With
-``train.use_pallas_som`` (the flagship config) the SOM loss comes from the
-fused SOM op: the CUDA kernel on the card, its plain version on the CPU.
+Loss recipes, as the JAX package's:
+
+- ViT-SOM clustering: L1(recon, x) + gamma(t) * som_loss, gamma ramping
+  linearly over the first half of the total steps;
+- ViT-SOM classification (``data.num_classes > 0``): CE(logits, y, label
+  smoothing) + gamma(t) * som_loss. The loss reads no reconstruction, so
+  the step runs the encoder only (``ViTSOM.encode``), as XLA drops the
+  decoder from the JAX step; the decoder's parameters get zero gradients,
+  as optax hands them, so AdamW still decays them;
+- ViT classifier (``model_arch: vit``): CE with the smoothing the caller
+  passes (the JAX trainer passes 0 for ``vit``).
+
+With ``train.use_pallas_som`` (every shipped ViT-SOM config) the SOM loss
+comes from the fused SOM op: the CUDA kernel on the card, its plain version
+on the CPU.
 """
 
 from __future__ import annotations
@@ -60,35 +73,103 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 0.0):
+    """Mean CE against one-hot targets smoothed as optax's ``smooth_labels``
+    (``(1 - s) * onehot + s / K``, torch's ``label_smoothing``); ``labels``
+    are class indices. Written out, so a captured step holds no check."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, labels.long().reshape(-1, 1))[:, 0]
+    if smoothing > 0.0:
+        nll = (1.0 - smoothing) * nll - smoothing * logp.mean(dim=-1)
+    return nll.mean()
+
+
 def _uses_fused_som(cfg: Config) -> bool:
     return cfg.train.use_pallas_som and cfg.som.distance_fcn in ("euclidean", "cosine")
 
 
-# the columns of the metrics buffer, in the order the step writes them
+# the columns of the metrics buffer, in the order the step writes them:
+# ViT-SOM clustering, ViT-SOM classification, the ViT classifier
 METRIC_KEYS = (
     "train/recon_loss", "train/som_loss", "train/total_loss",
     "hp/gamma", "hp/temperature", "hp/lr",
 )
+CLS_METRIC_KEYS = ("train/cls_loss",) + METRIC_KEYS[1:]
+CLASSIFIER_METRIC_KEYS = ("train/cls_loss", "hp/lr")
+
+
+def metric_keys(cfg: Config) -> tuple:
+    """The metrics-buffer columns of ``cfg``'s train step."""
+    if cfg.model_arch == "vit":
+        return CLASSIFIER_METRIC_KEYS
+    return CLS_METRIC_KEYS if cfg.classification else METRIC_KEYS
 
 
 class DeviceState:
     """The train step's state beside the model and the optimizer, on one
     device: ``step`` (0-d int64, the global step), ``epoch_start`` (0-d
     int64, the global step of the current epoch's first step) and
-    ``metrics`` ([capacity, 6] float32, row ``step - epoch_start`` holds
-    that step's ``METRIC_KEYS``: the counterpart of the scan's stacked
-    metrics). Their addresses never change, so a captured step reads and
-    writes the same tensors at every replay."""
+    ``metrics`` ([capacity, len(keys)] float32, row ``step - epoch_start``
+    holds that step's ``keys``, ``metric_keys(cfg)``: the counterpart of the
+    scan's stacked metrics). Their addresses never change, so a captured
+    step reads and writes the same tensors at every replay."""
 
-    def __init__(self, device, capacity: int):
+    def __init__(self, device, capacity: int, keys: Sequence[str] = METRIC_KEYS):
+        self.keys = tuple(keys)
         self.step = torch.zeros((), dtype=torch.int64, device=device)
         self.epoch_start = torch.zeros((), dtype=torch.int64, device=device)
-        self.metrics = torch.zeros((capacity, len(METRIC_KEYS)), dtype=torch.float32,
+        self.metrics = torch.zeros((capacity, len(self.keys)), dtype=torch.float32,
                                    device=device)
 
     def row(self) -> torch.Tensor:
         """The current step's row of ``metrics``, a 0-d int64 tensor."""
         return self.step - self.epoch_start
+
+    def write(self, values: torch.Tensor) -> None:
+        """Write a step's metrics into its row and advance the step."""
+        self.metrics.index_copy_(0, self.row().reshape(1), values.reshape(1, -1))
+        self.step.add_(1)
+
+
+def _model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _zero_missing_grads(model) -> None:
+    """Give every parameter that the loss did not reach a zero gradient:
+    optax hands such parameters zeros, and AdamW then still decays them,
+    where ``torch.optim.AdamW`` would skip a ``None`` gradient. The zeros
+    are written into the same tensors at every step of a captured graph."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def _som_loss_fn(cfg: Config, model):
+    """``(z, temperature) -> (som_loss, bmu)``: the fused SOM op with
+    ``train.use_pallas_som`` (euclidean and cosine maps), else the plain
+    distances with the neighbourhood weights held constant."""
+    if _uses_fused_som(cfg):
+        fused_som = som_fused.make_fused_som(
+            cfg.som.map_size, cfg.som.topology, cfg.som.distance_fcn
+        )
+
+        def fused(z, temperature):
+            loss, bmu_idx, _ = fused_som(z, model.prototypes, temperature)
+            return loss, bmu_idx
+
+        return fused
+    grid_d2 = torch.from_numpy(
+        som.grid_sq_distances(cfg.som.map_size, cfg.som.topology)
+    ).to(_model_device(model))
+
+    def plain(z, temperature):
+        distances = som.compute_distances(z, model.prototypes, cfg.som.distance_fcn)
+        bmu_idx = som.bmu(distances)
+        weights = som.neighborhood_weights(bmu_idx, grid_d2, temperature)
+        return som.som_loss(weights.detach(), distances), bmu_idx
+
+    return plain
 
 
 def make_vit_som_train_step(
@@ -101,22 +182,17 @@ def make_vit_som_train_step(
 ):
     """Returns ``train_step(batch) -> metrics row``: one forward, backward
     and optimizer update at the step ``state.step`` holds, for a batch on
-    the model's device. ``lr_schedule`` maps the step tensor to the lr
+    the model's device (``image``; and ``label``, class indices, with
+    ``num_classes > 0``). ``lr_schedule`` maps the step tensor to the lr
     tensor (``schedules.make_lr_schedule_tensor``). The step writes its
-    metrics into row ``state.row()`` of ``state.metrics``, increments
-    ``state.step`` and returns the values it wrote (a [6] tensor).
-    Gradients stay in ``p.grad`` until the next step."""
-    if cfg.classification:
-        raise NotImplementedError("ViT-SOM classification is not ported yet")
+    metrics (``metric_keys(cfg)``) into row ``state.row()`` of
+    ``state.metrics``, increments ``state.step`` and returns the values it
+    wrote. Gradients stay in ``p.grad`` until the next step."""
     total_iters = statics.total_iterations_float
     ramp_end = statics.ramp_up_end_step
-    use_fused = _uses_fused_som(cfg)
-    if use_fused:
-        fused_som = som_fused.make_fused_som(
-            cfg.som.map_size, cfg.som.topology, cfg.som.distance_fcn
-        )
-    else:
-        grid_d2 = torch.from_numpy(som.grid_sq_distances(cfg.som.map_size, cfg.som.topology))
+    classification = cfg.classification
+    smoothing = cfg.optimizer.smoothing
+    som_loss_fn = _som_loss_fn(cfg, model)
 
     def train_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         x = batch["image"]
@@ -129,23 +205,21 @@ def make_vit_som_train_step(
         optim.set_learning_rate(optimizer, lr)
 
         optimizer.zero_grad(set_to_none=True)
-        if use_fused:
-            _, recon, _, z = model.features(x)
-            som_l, _, _ = fused_som(z, model.prototypes, temperature)
+        if classification:
+            logits, z = model.encode(x)
+            main_l = cross_entropy(logits, batch["label"], smoothing)
         else:
-            _, recon, _, distances, bmu_idx = model(x)
-            weights = som.neighborhood_weights(
-                bmu_idx, grid_d2.to(distances.device), temperature
-            )
-            som_l = som.som_loss(weights.detach(), distances)
-        recon_l = l1_loss(recon, x)
-        total = recon_l + cur_gamma * som_l
+            _, recon, _, z = model.features(x)
+            main_l = l1_loss(recon, x)
+        som_l, _ = som_loss_fn(z, temperature)
+        total = main_l + cur_gamma * som_l
         total.backward()
+        if classification:
+            _zero_missing_grads(model)
         optimizer.step()
-        values = torch.stack([recon_l.detach(), som_l.detach(), total.detach(),
+        values = torch.stack([main_l.detach(), som_l.detach(), total.detach(),
                               cur_gamma, temperature, lr])
-        state.metrics.index_copy_(0, state.row().reshape(1), values.reshape(1, -1))
-        state.step.add_(1)
+        state.write(values)
         return values
 
     return train_step
@@ -153,57 +227,115 @@ def make_vit_som_train_step(
 
 def make_vit_som_eval_step(cfg: Config, model):
     """Returns ``eval_step(batch, temperature) -> dict`` with ``bmu``,
-    ``som_loss``, ``recon_loss`` and ``total_loss`` (full, unramped gamma).
+    ``som_loss``, ``recon_loss`` and ``total_loss`` (full, unramped gamma);
+    with ``num_classes > 0`` also ``logits`` and ``cls_loss`` (label
+    smoothing kept, as the JAX eval step keeps it), and ``total_loss`` is
+    ``cls_loss + gamma * som_loss``. The decoder runs: ``recon_loss`` is
+    reported in both modes.
 
     It takes (loss, bmu, distances) from the fused SOM forward under
     ``torch.no_grad()``: the kernel on the card, its plain version on the
     CPU. That is the same function as the JAX package's plain eval path at
     the same temperature (cosine/euclidean maps; manhattan uses the plain
     distances)."""
-    if cfg.classification:
-        raise NotImplementedError("ViT-SOM classification is not ported yet")
     gamma = cfg.gamma
+    smoothing = cfg.optimizer.smoothing
     if cfg.som.distance_fcn in ("euclidean", "cosine"):
         fused_som = som_fused.make_fused_som(
             cfg.som.map_size, cfg.som.topology, cfg.som.distance_fcn
         )
     else:
         fused_som = None
-        grid_d2 = torch.from_numpy(som.grid_sq_distances(cfg.som.map_size, cfg.som.topology))
+        grid_d2 = torch.from_numpy(
+            som.grid_sq_distances(cfg.som.map_size, cfg.som.topology)
+        ).to(_model_device(model))
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], temperature: float) -> Dict[str, torch.Tensor]:
         x = batch["image"]
+        _, recon, logits, z = model.features(x)
         if fused_som is not None:
-            _, recon, _, z = model.features(x)
             som_l, bmu_idx, _ = fused_som(z, model.prototypes, temperature)
         else:
-            _, recon, _, distances, bmu_idx = model(x)
-            weights = som.neighborhood_weights(bmu_idx, grid_d2.to(x.device), temperature)
+            distances = som.compute_distances(z, model.prototypes, cfg.som.distance_fcn)
+            bmu_idx = som.bmu(distances)
+            weights = som.neighborhood_weights(bmu_idx, grid_d2, temperature)
             som_l = som.som_loss(weights, distances)
         recon_l = l1_loss(recon, x)
+        out = {"bmu": bmu_idx, "som_loss": som_l, "recon_loss": recon_l}
+        if logits is not None:
+            cls_l = cross_entropy(logits, batch["label"], smoothing)
+            out.update(logits=logits, cls_loss=cls_l, total_loss=cls_l + gamma * som_l)
+        else:
+            out["total_loss"] = recon_l + gamma * som_l
+        return out
+
+    return eval_step
+
+
+def make_classifier_train_step(
+    cfg: Config,
+    model,
+    optimizer: torch.optim.Optimizer,
+    lr_schedule: Callable[[torch.Tensor], torch.Tensor],
+    smoothing: float,
+    state: DeviceState,
+):
+    """Returns ``train_step(batch) -> metrics row`` for the ViT classifier:
+    CE(logits, label, ``smoothing``), backward and AdamW at the step
+    ``state.step`` holds; writes ``CLASSIFIER_METRIC_KEYS`` (the loss and
+    the lr) into the metrics buffer, as ``make_vit_som_train_step`` does.
+    ``vit`` draws no random numbers in its forward (its blocks ignore
+    ``drop_path``), so the step has no RNG."""
+    if cfg.model_arch != "vit":
+        raise NotImplementedError(f"the {cfg.model_arch} classifier step is not ported yet")
+
+    def train_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        lr = lr_schedule(state.step)
+        optim.set_learning_rate(optimizer, lr)
+        optimizer.zero_grad(set_to_none=True)
+        loss = cross_entropy(model(batch["image"]), batch["label"], smoothing)
+        loss.backward()
+        optimizer.step()
+        values = torch.stack([loss.detach(), lr])
+        state.write(values)
+        return values
+
+    return train_step
+
+
+def make_classifier_eval_step(cfg: Config, model):
+    """Returns ``eval_step(batch, temperature=None) -> dict`` with
+    ``logits``, ``bmu`` (zeros) and ``cls_loss``; ``vit`` validates with
+    plain CE, as the JAX package's ``make_classifier_eval_step`` does."""
+    if cfg.model_arch != "vit":
+        raise NotImplementedError(f"the {cfg.model_arch} classifier eval is not ported yet")
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor], temperature=None) -> Dict[str, torch.Tensor]:
+        logits = model(batch["image"])
         return {
-            "bmu": bmu_idx,
-            "som_loss": som_l,
-            "recon_loss": recon_l,
-            "total_loss": recon_l + gamma * som_l,
+            "logits": logits,
+            "bmu": torch.zeros(logits.shape[0], dtype=torch.int64, device=logits.device),
+            "cls_loss": cross_entropy(logits, batch["label"]),
         }
 
     return eval_step
 
 
-def metrics_dict(row) -> Dict[str, float]:
-    """One row of the metrics buffer (a [6] tensor or array) -> {name:
-    float}, with one device-to-host transfer."""
+def metrics_dict(row, keys: Sequence[str] = METRIC_KEYS) -> Dict[str, float]:
+    """One row of the metrics buffer (a tensor or array) -> {name: float}
+    over ``keys`` (the buffer's ``DeviceState.keys``), with one
+    device-to-host transfer."""
     vals = row.detach().cpu().numpy() if isinstance(row, torch.Tensor) else np.asarray(row)
-    return {k: float(v) for k, v in zip(METRIC_KEYS, vals)}
+    return {k: float(v) for k, v in zip(keys, vals)}
 
 
-def stack_metrics(rows: Sequence) -> Dict[str, np.ndarray]:
-    """[[n_i, 6] metrics-buffer rows, host arrays or tensors] -> {name:
-    [sum n_i] float array}, the keys of ``METRIC_KEYS``."""
+def stack_metrics(rows: Sequence, keys: Sequence[str] = METRIC_KEYS) -> Dict[str, np.ndarray]:
+    """[[n_i, len(keys)] metrics-buffer rows, host arrays or tensors] ->
+    {name: [sum n_i] float array} over ``keys``."""
     if not len(rows):
         return {}
     host = np.concatenate([r.detach().cpu().numpy() if isinstance(r, torch.Tensor)
                            else np.asarray(r) for r in rows]).astype(np.float64)
-    return {k: host[:, i] for i, k in enumerate(METRIC_KEYS)}
+    return {k: host[:, i] for i, k in enumerate(keys)}
