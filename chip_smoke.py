@@ -37,7 +37,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    eager warm-up steps, captures the third as a CUDA graph and replays it
    for the rest, then the clustering eval; the kernel's launch count over
    that run (the wrappers count in Python, so a replay adds nothing: see
-   below) must equal 3 + eval batches, and the attention kernels must not
+   below) must equal 3 + eval batches (a warm-up batch and 38), and the
+   attention kernels must not
    run (the yaml's attention is ``xla``);
    A (``graph_xla``). the same 40 steps from the same seed run eagerly
    (``fit(eager=True)``: the same step body, batches and kernels, step by
@@ -191,12 +192,52 @@ D. classification as shipped: ``configs/vit_som/vit_som_cifar-10.yaml``
    step and images/s graphed and eager, the augmentation's ms an epoch,
    validation and test ms and the test metrics beside the card's name and
    power limit.
+E. the family at its shipped shapes (``phase_family``), every run graphed
+   with ``pallas`` attention on synthetic data: E1, this slice's main
+   path, ``configs/vit_som/vit_som_tiny-imagenet.yaml`` as shipped (emb
+   192, depth 12, 3 heads, patch 4: attention at (512, 257, 3, 64) with
+   the backward's dq partials; B 512; 200 classes; the SOM at (512, 49152,
+   196); the whole augmentation at 64x64) on 4096 + 819 images (the
+   90/10 split: 3686 / 410 / 819, 7 steps an epoch): one epoch,
+   validation and the test eval, the captured augmentation held against
+   its eager calls, the same epoch eagerly (graphed equal to eager within
+   GRAPH_RTOL, parameters included), 3 steps with ``xla`` (step-0 losses
+   equal within rtol 1e-5) and ``profile_step`` on it; E2
+   ``vit_som_flowers-102.yaml`` (224x224, patch 16, N 197, B 128; the
+   augmentation in chunks of 16 images, captured as one graph and held
+   against its eager calls) and E3 ``vit_som_svhn.yaml`` (emb 16: the row
+   kernels at N 257; a 40x40 map), each one epoch of 20 steps (3200 +
+   640 images), validation and the test eval; E4 ``vit_tiny-imagenet.yaml``
+   on E1's data, one epoch and the test eval; E5 every other yaml of the
+   family (``vit_som`` cifar-100, medmnist, flowers-17, fmnist, usps;
+   ``vit`` cifar-100, svhn, medmnist, flowers-17, flowers-102): 3 steps
+   and one eval batch each (a classification split of 15 B / 4 images, so
+   the 3 steps are an epoch and its validation one ragged batch; the two
+   B-512 flowers ViTs so augment 1536 images, not 3277; the clustering
+   yamls on 320 + 64 images and the eval step on one batch). Losses
+   finite; launch counts equal the formula below; step ms, images/s,
+   augmentation, validation and test ms beside the card's name and power
+   limit;
+F. DESOM (``phase_desom``; no kernel: its manhattan SOM is eager in both
+   packages, and every wrapper's count must stay 0): F1
+   ``configs/desom/desom_mnist.yaml`` as shipped (784-500-500-2000-10, an
+   8x8 manhattan map, B 128, adam) for 40 steps and the clustering eval,
+   held against its eager run; F2 the same with ``ae.batch_norm`` true for
+   10 steps, graphed against eager with BatchNorm's running mean and var
+   held too; F3 ``desom_flowers17.yaml`` as shipped (the static 224x224
+   path: the train rows eval-transformed once; input 150528, 17 classes,
+   B 256; 12 steps an epoch) for one epoch, validation and the test eval,
+   and ``profile_step`` on it; F4 ``desom_fmnist.yaml`` and
+   ``desom_usps.yaml``, 3 steps and the clustering eval each.
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
 it captures (the capture records the launches; each replay runs them
 again, unseen by Python), so there S stands for 3; an eager run issues
-all S. Launch counts on a train run of S steps and E eval batches, with one
+all S. E counts every eval batch, and each clustering eval and test eval
+runs one warm-up batch first (counted in E); a split smaller than a batch
+is one ragged batch. Launch counts on a train run of S steps and E eval
+batches, with one
 attention call per block (A = depth + dec_depth = 6 on the flagship) and
 remat_blocks (each block's forward runs again in the backward): the fused
 SOM kernel runs S + E times; with ``pallas`` the attention forward kernel
@@ -220,11 +261,12 @@ each of the two blocks it backpropagates through (6 + 2 = 8), and the
 backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON (the SOM and attention kernels'
-``launches``: phase D's ViT-SOM ``pallas`` run, this slice's main path,
-with every path's count under ``launches_by_path``; the attention rows'
-timings at (128, 65, 3, 64)), the nvidia-smi line and the result. The
-whole script takes about 5 minutes on an H100, the builds included
-(block.cu, the longest, about 28 s).
+``launches``: phase E1's ``pallas`` run, this slice's main path, with
+every path's count under ``launches_by_path``; the SOM row's timings at
+(512, 49152, 196) and the attention rows' at (512, 257, 3, 64), E1's
+shapes), the nvidia-smi line and the result. The whole script takes about
+8 minutes on an H100, the builds included (block.cu, the longest, about
+28 s).
 """
 
 from __future__ import annotations
@@ -267,6 +309,24 @@ CLS_STEPS = 40  # the xla run, its eager hold and the ViT baseline
 CLS_LOSSES = ("train/cls_loss", "train/som_loss", "train/total_loss")
 TRAIN_STEPS = 40
 HYBRID_STEPS = 10
+# phases E and F: the family's and DESOM's yamls
+FAMILY = os.path.join(ROOT, "configs", "vit_som")
+VIT_FAMILY = os.path.join(ROOT, "configs", "vit")
+TINY_CONFIG = os.path.join(FAMILY, "vit_som_tiny-imagenet.yaml")
+FLOWERS_CONFIG = os.path.join(FAMILY, "vit_som_flowers-102.yaml")
+SVHN_CONFIG = os.path.join(FAMILY, "vit_som_svhn.yaml")
+VIT_TINY_CONFIG = os.path.join(VIT_FAMILY, "vit_tiny-imagenet.yaml")
+# E5: every other yaml of the family, 3 graphed steps each
+E5_CONFIGS = [os.path.join(FAMILY, f"vit_som_{n}.yaml")
+              for n in ("cifar-100", "medmnist", "flowers-17", "fmnist", "usps")] + [
+    os.path.join(VIT_FAMILY, f"vit_{n}.yaml")
+    for n in ("cifar-100", "svhn", "medmnist", "flowers-17", "flowers-102")]
+E_STEPS = 20  # E2, E3: one epoch of 20 steps (synthetic_size 3200 at B 128)
+E5_STEPS = 3
+DESOM = os.path.join(ROOT, "configs", "desom")
+DESOM_MNIST = os.path.join(DESOM, "desom_mnist.yaml")
+DESOM_FLOWERS = os.path.join(DESOM, "desom_flowers17.yaml")
+DESOM_BN_STEPS = 10
 CIFAR_STEPS = 20
 PROFILE_STEPS = 20  # R: the graph replays (and eager steps) profile_step profiles
 # bench.py:38-59's overrides of the flagship yaml, the configuration behind
@@ -299,8 +359,9 @@ ATTN_TEST_SHAPES = [(2, 33, 2, 16), (1, 9, 1, 8)]
 ATTN_ODD_SHAPES = [(128, 197, 2, 2)]
 # the tensor-core kernels' shapes (hd >= 32) and the six row-kernel shapes
 ATTN_TIMED = [s for s in ATTN_SHAPES if s[3] >= 32] + ATTN_SHAPES[:6]
-# the cifar-10 run's encoder shape: the kernels JSON line's attention rows
-ATTN_MAIN = (128, 65, 3, 64)
+# the main path's (phase E1, vit_som_tiny-imagenet) encoder shape: the
+# kernels JSON line's attention rows
+ATTN_MAIN = (512, 257, 3, 64)
 # (B, N, D, H, mlp_ratio): the flagship's encoder and decoder blocks at full
 # width, then the JAX tests' blocks (tests/test_block_pallas.py:46-53, :68)
 BLOCK_SHAPES = [(128, 197, 16, 2, 4.0), (128, 197, 4, 2, 4.0), (8, 197, 16, 2, 4.0),
@@ -334,6 +395,7 @@ SOM_SHAPES = [
 # and a short last split
 SOM_RAGGED = (13, 250, 4, (12, 11))
 SOM_FULL_MATRIX = SOM_SHAPES[:2] + [SOM_RAGGED]  # cosine/euclidean x square/hexa
+SOM_MAIN = 7  # the main path's (phase E1) SOM: the kernels JSON line's SOM row
 SOM_EUCLIDEAN = SOM_SHAPES[6]  # euclidean beside cosine at D 37632
 SOM_GRAD = [SOM_SHAPES[0], SOM_EUCLIDEAN]
 TOL = 1e-5
@@ -626,23 +688,52 @@ def expected_launches(cfg, impl, steps, eval_batches):
     }
 
 
+def describe(cfg) -> str:
+    """The model's widths as a run's first line prints them."""
+    if cfg.model_arch == "desom":
+        d = cfg.data
+        return (f"model=desom ae={[d.num_channels * d.input_size ** 2, *cfg.ae.encoder_dims]} "
+                f"act={cfg.ae.act} batch_norm={cfg.ae.batch_norm} map={cfg.som.map_size} "
+                f"optimizer={cfg.optimizer.type} lr={cfg.optimizer.lr}")
+    return (f"model={cfg.model_arch} map={cfg.som.map_size} emb={cfg.vit.emb_dim} "
+            f"depth={cfg.vit.depth} dec_emb={cfg.vit.dec_emb_dim} dec_depth={cfg.vit.dec_depth} "
+            f"heads={cfg.vit.heads} patch={cfg.vit.patch_size}")
+
+
+def steady_ms(step_ms):
+    """The median step time from the sixth step on (the warm-up steps, the
+    capture and the first replays excluded), or of every step of a shorter
+    run."""
+    return statistics.median(step_ms[5:] or step_ms)
+
+
+def steady_steps(n):
+    """The steps ``steady_ms`` reads, as printed."""
+    return f"steps 6-{n}" if n > 5 else f"steps 1-{n}"
+
+
+def eval_batch_count(n, batch_size):
+    """The eval batches of an ``n``-row split: drop-last, or the whole split
+    as one ragged batch when it is smaller than one batch."""
+    return n // batch_size if n >= batch_size else 1
+
+
 def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_datamodule,
-              data="synthetic MNIST-shaped images", extra=None, eager=False):
+              data="synthetic MNIST-shaped images", extra=None, eager=False, falls=True):
     """Trains ``config`` (attention ``impl``, or as shipped when None; more
     overrides in ``extra``) for ``steps`` steps on the data module
     ``make_dm`` builds, as replays of one captured step (``eager``: the
     step body step by step) and, with ``evaluate``, runs the clustering
-    eval; prints and checks what every train phase checks. Returns (cfg,
-    dm, trainer, hist, launches)."""
+    eval (one warm-up batch, then every batch); prints and checks what
+    every train phase checks (with ``falls``, that the recon loss fell).
+    Returns (cfg, dm, trainer, hist, launches)."""
     over = {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE, **(extra or {})}
     if impl is not None:
         over["train.attn_impl"] = impl
     cfg = load_config(config, over)
     impl = model_attn_impl(cfg)
     print(
-        f"{label}: config {os.path.basename(config)} map={cfg.som.map_size} emb={cfg.vit.emb_dim} "
-        f"depth={cfg.vit.depth} dec_emb={cfg.vit.dec_emb_dim} dec_depth={cfg.vit.dec_depth} "
-        f"heads={cfg.vit.heads} patch={cfg.vit.patch_size} batch={cfg.batch_size} "
+        f"{label}: config {os.path.basename(config)} {describe(cfg)} batch={cfg.batch_size} "
         f"distance={cfg.som.distance_fcn} use_pallas_som={cfg.train.use_pallas_som} "
         f"remat={cfg.train.remat_blocks} compute={cfg.train.compute_dtype} attn_impl={impl} "
         f"num_classes={cfg.data.num_classes} data={data} "
@@ -652,7 +743,7 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
     dm = make_dm(cfg, dev)
     trainer = Trainer(cfg, device=dev, dm=dm)
     n_params = sum(p.numel() for p in trainer.model.parameters())
-    eval_batches = dm.n_train // cfg.batch_size if evaluate else 0
+    eval_batches = eval_batch_count(dm.n_train, cfg.batch_size) + 1 if evaluate else 0
 
     reset_launches()
     t0 = time.perf_counter()
@@ -667,7 +758,7 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
 
     recon = hist["train/recon_loss"]
     total = hist["train/total_loss"]
-    step_ms = statistics.median(trainer.step_ms[5:])
+    step_ms = steady_ms(trainer.step_ms)
     print(
         f"{label}: params={n_params} images={dm.n_train} steps={trainer.step} "
         f"recon_loss first={recon[0]:.6f} last={recon[-1]:.6f} "
@@ -676,13 +767,13 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
     )
     print(
         f"{label}: median_step_ms={step_ms:.4f} images_per_s={cfg.batch_size / step_ms * 1e3:.1f} "
-        f"(steps 6-{trainer.step}, CUDA events between step ends) wall_s={wall:.3f}",
+        f"({steady_steps(trainer.step)}, CUDA events between step ends) wall_s={wall:.3f}",
         flush=True,
     )
     if res is not None:
         print(
             f"{label} eval: purity={res['purity']:.4f} nmi={res['nmi']:.4f} "
-            f"batches={eval_batches} inference_s={res['inference_time']:.4f}",
+            f"batches={eval_batches} (one a warm-up) inference_s={res['inference_time']:.4f}",
             flush=True,
         )
         check(0.0 <= res["purity"] <= 1.0 and 0.0 <= res["nmi"] <= 1.0, "bad purity/NMI")
@@ -695,7 +786,8 @@ def train_run(dev, label, impl, steps, evaluate, config=CONFIG, make_dm=build_da
     check(trainer.step == steps, f"trained {trainer.step} steps, not {steps}")
     check(all(math.isfinite(v) for v in total), "non-finite total loss")
     check(all(math.isfinite(v) for v in hist["train/som_loss"]), "non-finite SOM loss")
-    check(recon[-1] < recon[0], f"recon loss did not fall: {recon[0]} -> {recon[-1]}")
+    check(all(math.isfinite(v) for v in recon), "non-finite recon loss")
+    check(not falls or recon[-1] < recon[0], f"recon loss did not fall: {recon[0]} -> {recon[-1]}")
     check(launches == want, f"{label}: launch counts {launches} != {want}")
     return cfg, dm, trainer, hist, launches
 
@@ -746,16 +838,16 @@ def phase_train_attention(dev, impl, steps, evaluate, xla_first):
     return run
 
 
-def phase_graphed_vs_eager(dev, label, impl, graphed, smi, extra=None):
-    """Phases A and B: the graphed run ``graphed`` (train_run's tuple)
+def phase_graphed_vs_eager(dev, label, impl, graphed, smi, extra=None, config=CONFIG):
+    """Phases A, B and F: the graphed run ``graphed`` (train_run's tuple)
     against an eager run of the same config, seed and steps (the same step
     body, batches and kernels): every step's three losses and every final
-    parameter within rtol GRAPH_RTOL (bitwise equality expected; the largest
-    differences are printed). Prints both runs' median ms a step and
-    images/s beside the card's name and power limit."""
+    parameter and buffer within rtol GRAPH_RTOL (bitwise equality expected;
+    the largest differences are printed). Prints both runs' median ms a
+    step and images/s beside the card's name and power limit."""
     cfg, _, tr_g, hist_g, _ = graphed
     _, _, tr_e, hist_e, _ = train_run(dev, f"{label}_eager", impl, tr_g.step, False,
-                                      extra=extra, eager=True)
+                                      config=config, extra=extra, eager=True)
     compare_runs(label, cfg, tr_g, hist_g, tr_e, hist_e, FIRST_LOSSES, smi)
 
 
@@ -772,20 +864,24 @@ def compare_runs(label, cfg, tr_g, hist_g, tr_e, hist_e, losses, smi):
               f"max_rel_diff={rel:.3e} bitwise_equal_steps={int((a == b).sum())}", flush=True)
         check(rel <= GRAPH_RTOL, f"{label}: graphed {k} differs from eager by {rel:.3e}")
     worst, equal, total = (0.0, ""), 0, 0
-    for (name, pg), (_, pe) in zip(tr_g.model.named_parameters(), tr_e.model.named_parameters()):
+    named_g = [*tr_g.model.named_parameters(), *tr_g.model.named_buffers()]
+    named_e = [*tr_e.model.named_parameters(), *tr_e.model.named_buffers()]
+    check([n for n, _ in named_g] == [n for n, _ in named_e], f"{label}: models differ")
+    for (name, pg), (_, pe) in zip(named_g, named_e):
         d = (pg.detach() - pe.detach()).abs()
         rel = float((d / pe.detach().abs().clamp_min(1e-30)).max())
         worst = max(worst, (rel, name))
         equal += int((d == 0).sum())
         total += d.numel()
         check(bool((d <= GRAPH_RTOL * pe.detach().abs()).all()),
-              f"{label}: final parameter {name} differs graphed vs eager (max rel {rel:.3e})")
-    print(f"{label} graphed_vs_eager params: max_rel_diff={worst[0]:.3e} ({worst[1]}) "
-          f"bitwise_equal={equal}/{total}", flush=True)
+              f"{label}: final {name} differs graphed vs eager (max rel {rel:.3e})")
+    n_buffers = sum(b.numel() for _, b in tr_g.model.named_buffers())
+    print(f"{label} graphed_vs_eager params and buffers ({n_buffers} buffer values): "
+          f"max_rel_diff={worst[0]:.3e} ({worst[1]}) bitwise_equal={equal}/{total}", flush=True)
     for mode, tr in (("graphed", tr_g), ("eager", tr_e)):
-        ms = statistics.median(tr.step_ms[5:])
+        ms = steady_ms(tr.step_ms)
         print(f"{label} {mode}: median_step_ms={ms:.4f} images_per_s={cfg.batch_size / ms * 1e3:.1f} "
-              f"(steps 6-{tr.step}, CUDA events between step ends) card: {smi}", flush=True)
+              f"({steady_steps(tr.step)}, CUDA events between step ends) card: {smi}", flush=True)
 
 
 def phase_bench(dev, smi):
@@ -897,23 +993,25 @@ def phase_train_cifar(dev):
     return launches
 
 
-def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True):
+def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True,
+            size=CLS_SYNTHETIC_SIZE):
     """Trains ``config`` as shipped (classification, augmentation on the
-    device) with attention ``impl`` on synthetic cifar-shaped data at the
-    real split sizes (``dm``, or a new classification data module) for
-    ``steps`` steps (None: one epoch), graphed or ``eager``; a finished
-    epoch validates, and ``evaluate`` runs the test eval. Prints and checks
-    what phase D checks of every run. Returns (cfg, dm, trainer, hist,
-    launches, test metrics or None)."""
-    over = {"data.allow_synthetic": True, "data.synthetic_size": CLS_SYNTHETIC_SIZE,
-            "train.attn_impl": impl}
+    device, or the static path's train rows transformed once) with
+    attention ``impl`` (None: as shipped) on ``size`` synthetic images
+    (``dm``, or a new classification data module) for ``steps`` steps
+    (None: one epoch), graphed or ``eager``; a finished epoch validates,
+    and ``evaluate`` runs the test eval (one warm-up batch, then every
+    batch). Prints and checks what phase D checks of every run. Returns
+    (cfg, dm, trainer, hist, launches, test metrics or None)."""
+    over = {"data.allow_synthetic": True, "data.synthetic_size": size}
+    if impl is not None:
+        over["train.attn_impl"] = impl
     cfg = load_config(config, over)
     aug = cfg.data.augment
     print(
-        f"{label}: config {os.path.basename(config)} model={cfg.model_arch} emb={cfg.vit.emb_dim} "
-        f"depth={cfg.vit.depth} heads={cfg.vit.heads} dec_emb={cfg.vit.dec_emb_dim} "
-        f"dec_depth={cfg.vit.dec_depth} patch={cfg.vit.patch_size} batch={cfg.batch_size} "
-        f"map={cfg.som.map_size} num_classes={cfg.data.num_classes} "
+        f"{label}: config {os.path.basename(config)} {describe(cfg)} batch={cfg.batch_size} "
+        f"num_classes={cfg.data.num_classes} input={cfg.data.input_size}x"
+        f"{cfg.data.input_size}x{cfg.data.num_channels} "
         f"smoothing={cfg.optimizer.smoothing} use_pallas_som={cfg.train.use_pallas_som} "
         f"attn_impl={model_attn_impl(cfg)} augment=(randaug_n={aug.randaug_n} "
         f"autoaugment={aug.autoaugment} reprob={aug.reprob} flip={aug.horizontal_flip}) "
@@ -925,7 +1023,7 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
         dm = build_datamodule(cfg, dev)
         print(f"{label}: data train={dm.n_train} val={dm.split_len('val')} "
               f"test={dm.split_len('test')} steps_per_epoch={dm.steps_per_epoch} "
-              f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+              f"static={dm.static} built in {time.perf_counter() - t0:.2f} s", flush=True)
     trainer = Trainer(cfg, device=dev, dm=dm)
     steps = dm.steps_per_epoch if steps is None else steps
 
@@ -935,8 +1033,8 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
     torch.cuda.synchronize()
     launches = read_launches()
     bs = cfg.batch_size
-    eval_batches = (len(trainer.val_history) * (dm.split_len("val") // bs)
-                    + ((dm.split_len("test") // bs) + 1 if evaluate else 0))
+    eval_batches = (len(trainer.val_history) * eval_batch_count(dm.split_len("val"), bs)
+                    + (eval_batch_count(dm.split_len("test"), bs) + 1 if evaluate else 0))
     want = expected_launches(cfg, model_attn_impl(cfg), issued_steps(trainer.step, eager),
                              eval_batches)
     check(eager or trainer.graph is not None, f"{label}: the graphed run captured no graph")
@@ -944,20 +1042,22 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
 
     keys = steps_lib.metric_keys(cfg)
     losses = [k for k in keys if k.endswith("_loss")]
-    step_ms = statistics.median(trainer.step_ms[5:])
+    step_ms = steady_ms(trainer.step_ms)
     first_cls = float(hist["train/cls_loss"][0])
     print(f"{label}: steps={trainer.step} "
           + " ".join(f"{k[6:]} first={hist[k][0]:.6f} last={hist[k][-1]:.6f}" for k in losses),
           flush=True)
     print(f"{label}: median_step_ms={step_ms:.4f} images_per_s={bs / step_ms * 1e3:.1f} "
-          f"(steps 6-{trainer.step}, CUDA events between step ends) augmentation_ms_per_epoch="
+          f"({steady_steps(trainer.step)}, CUDA events between step ends) augmentation_ms_per_epoch="
           + ",".join(f"{v:.1f}" for v in trainer.fill_ms)
-          + f" ({dm.steps_per_epoch} batches of {bs} gathered and augmented into the epoch buffer)",
-          flush=True)
+          + f" ({dm.steps_per_epoch} batches of {bs} gathered"
+          + (" from the transformed rows" if dm.static else " and augmented")
+          + " into the epoch buffer)", flush=True)
     for v in trainer.val_history:
         print(f"{label} validation epoch {v['epoch']} (step {v['step']}): "
               + " ".join(f"{k}={v[k]:.6f}" for k in sorted(v) if k.startswith("val/"))
-              + f" ms={v['seconds'] * 1e3:.1f} batches={dm.split_len('val') // bs} "
+              + f" ms={v['seconds'] * 1e3:.1f} "
+              f"batches={eval_batch_count(dm.split_len('val'), bs)} "
               f"(the first includes the val split's transform)", flush=True)
         check(0.0 <= v["val/accuracy"] <= 1.0, f"{label}: val accuracy {v['val/accuracy']}")
         check(all(math.isfinite(v[k]) for k in v if k.startswith("val/")),
@@ -965,7 +1065,8 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
     if res is not None:
         print(f"{label} test: accuracy={res['accuracy']:.6f} precision={res['precision']:.6f} "
               f"recall={res['recall']:.6f} f1={res['f1']:.6f} "
-              f"ms={res['inference_time'] * 1e3:.1f} batches={dm.split_len('test') // bs} "
+              f"ms={res['inference_time'] * 1e3:.1f} "
+              f"batches={eval_batch_count(dm.split_len('test'), bs)} "
               f"(after one warm-up batch)", flush=True)
         check(0.0 <= res["accuracy"] <= 1.0, f"{label}: test accuracy {res['accuracy']}")
     print(f"{label} launches: " + " ".join(f"{k}={v} (expected {want[k]})"
@@ -974,8 +1075,11 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
           f"Python), eval batches {eval_batches}]", flush=True)
     for k in losses:
         check(all(math.isfinite(v) for v in hist[k]), f"{label}: non-finite {k}")
-    check(abs(first_cls - math.log(cfg.data.num_classes)) <= 0.3,
-          f"{label}: step-0 cls_loss {first_cls} is not within 0.3 of ln 10")
+    # the ViT heads start near 0 (std 0.02), so their first CE is near ln K;
+    # DESOM's classifier starts at torch's Linear init on an O(1) latent
+    check(cfg.model_arch == "desom" or abs(first_cls - math.log(cfg.data.num_classes)) <= 0.3,
+          f"{label}: step-0 cls_loss {first_cls} is not within 0.3 of "
+          f"ln {cfg.data.num_classes}")
     check(launches == want, f"{label}: launch counts {launches} != {want}")
 
     images = trainer.epoch_images["image"]
@@ -1007,12 +1111,16 @@ def hold_augmentation(dm, trainer):
         diff = (trainer.epoch_images["image"][k * bs:(k + 1) * bs] - eager).abs()
         worst = max(worst, float(diff.max()))
         frac = max(frac, float((diff > 0).float().mean()))
-    print(f"augmentation graphed_vs_eager: max_abs_diff={worst:.3e} (one grey level "
+    s, c = dm.train_x.shape[1], dm.train_x.shape[3]
+    chunk = dm.augment.chunk_size(bs, s, c)
+    print(f"augmentation {s}x{s}x{c} -> {dm.augment.size}: graphed_vs_eager "
+          f"max_abs_diff={worst:.3e} (one grey level "
           f"{grey:.3e}) differing_share={frac:.3e} eager_ms_per_batch="
           + ",".join(f"{v:.2f}" for v in ms)
           + f" graphed_ms_per_batch={trainer.fill_ms[0] / dm.steps_per_epoch:.3f} "
           f"(fill_epoch's {trainer.fill_ms[0]:.1f} ms / {dm.steps_per_epoch} batches, the "
-          f"epoch's draws, gathers and copies included)", flush=True)
+          f"epoch's draws, gathers and copies included) chunks_per_batch={bs // chunk} "
+          f"of {chunk} images", flush=True)
     check(worst <= grey * 1.001 and frac <= 1e-3,
           f"the captured augmentation differs from its eager calls: {worst} on {frac}")
 
@@ -1041,6 +1149,151 @@ def phase_classification(dev, smi):
     del dm
     profile_check("cls_pallas", CIFAR_CONFIG, {"train.attn_impl": "pallas"}, smi)
     return {"classification_pallas": launches, "vit_baseline_pallas": vit_launches}
+
+
+def family_size(cfg, steps):
+    """The synthetic_size whose split holds one epoch of ``steps`` steps and
+    a val split of fewer rows than a batch (so one ragged val batch): N =
+    15 B / 4 gives 3 B train rows and 3 B / 4 val rows at 80/20."""
+    check(steps == 3 and cfg.data.dataset != "tiny-imagenet", "family_size is for E5's splits")
+    return 15 * cfg.batch_size // 4
+
+
+def family_quick_run(dev, config, smi):
+    """E5: ``config`` as shipped with ``pallas`` attention, E5_STEPS graphed
+    steps and one eval batch: for classification the epoch is those steps
+    (``family_size``) and the validation after it is one ragged batch; for
+    clustering (320 + 64 synthetic images: three batches) the eval step
+    runs on the first batch of the concat. Returns the launch counts."""
+    label = "e5_" + os.path.basename(config)[:-5]
+    cfg = load_config(config, {"data.allow_synthetic": True})
+    if cfg.classification:
+        _, dm, tr, hist, launches, _ = cls_run(dev, label, config, "pallas", E5_STEPS,
+                                               evaluate=False,
+                                               size=family_size(cfg, E5_STEPS))
+        check(len(tr.val_history) == 1 and dm.split_len("val") < cfg.batch_size,
+              f"{label}: expected one ragged validation batch")
+        del tr, dm
+        return launches
+    cfg, dm, tr, hist, launches = train_run(
+        dev, label, "pallas", E5_STEPS, False, config=config,
+        extra={"data.synthetic_size": 320}, falls=False)
+    check(dm.steps_per_epoch == E5_STEPS, f"{label}: {dm.steps_per_epoch} steps an epoch")
+    reset_launches()
+    out = tr.eval_step(next(dm.eval_batches()), tr.current_temperature())
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = expected_launches(cfg, "pallas", 0, 1)
+    print(f"{label} eval batch: som_loss={float(out['som_loss']):.6f} "
+          f"recon_loss={float(out['recon_loss']):.6f} launches={got} (expected {want}) "
+          f"card: {smi}", flush=True)
+    check(math.isfinite(float(out["total_loss"])) and got == want,
+          f"{label}: eval batch {got} != {want} or non-finite")
+    del tr, dm
+    return {k: launches[k] + got[k] for k in launches}
+
+
+def phase_family(dev, smi):
+    """Phase E, the family at its shipped shapes; returns {path: launch
+    counts}, E1's (the main path) under ``tiny_imagenet_pallas``.
+
+    E1: ``vit_som_tiny-imagenet.yaml`` as shipped with ``pallas`` (emb 192,
+    depth 12, 3 heads, patch 4: N 257, B 512, 200 classes, a 14x14 map:
+    the SOM at (512, 49152, 196), the whole augmentation at 64x64) on 4096
+    + 819 synthetic images (3686 / 410 / 819 after the 90/10 split: 7 steps
+    an epoch): one graphed epoch, validation (one ragged batch) and the
+    test eval; the captured augmentation against its eager calls; the same
+    7 steps eagerly (graphed equal to eager within GRAPH_RTOL, parameters
+    included); 3 graphed steps with ``xla`` (step-0 losses equal within
+    rtol 1e-5). E4: ``vit_tiny-imagenet.yaml`` on the same data, one
+    graphed epoch (7 steps) and the test eval. E2: ``vit_som_flowers-
+    102.yaml`` (224x224, patch 16: N 197, B 128, 102 classes; the
+    augmentation in 16-image chunks) on 3200 + 640 images: one graphed
+    epoch of 20 steps, validation and the test eval, and the captured 224
+    augmentation against its eager calls. E3: ``vit_som_svhn.yaml`` (emb
+    16, patch 2: the row kernels at N 257; a 40x40 map) likewise, 20 steps.
+    E5: every other yaml of the family, ``family_quick_run``. Every
+    trainer, graph and data module is released before the next run."""
+    paths = {}
+    _, dm, tr_g, hist_g, launches, _ = cls_run(dev, "tiny_imagenet_pallas", TINY_CONFIG,
+                                               "pallas", None, size=SYNTHETIC_SIZE)
+    paths["tiny_imagenet_pallas"] = launches
+    check(dm.steps_per_epoch == 7 and dm.split_len("val") == 410,
+          f"E1: {dm.steps_per_epoch} steps, {dm.split_len('val')} val rows")
+    first = {k: float(hist_g[k][0]) for k in CLS_LOSSES}
+    hold_augmentation(dm, tr_g)
+    cfg, _, tr_e, hist_e, _, _ = cls_run(dev, "tiny_imagenet_pallas_eager", TINY_CONFIG,
+                                         "pallas", None, dm, eager=True, evaluate=False,
+                                         size=SYNTHETIC_SIZE)
+    compare_runs("tiny_imagenet", cfg, tr_g, hist_g, tr_e, hist_e, CLS_LOSSES, smi)
+    del tr_g, tr_e
+    torch.cuda.empty_cache()
+    _, _, tr, hist, _, _ = cls_run(dev, "tiny_imagenet_xla", TINY_CONFIG, "xla", E5_STEPS, dm,
+                                   evaluate=False, size=SYNTHETIC_SIZE)
+    for k in CLS_LOSSES:
+        a, b = float(hist[k][0]), first[k]
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        print(f"tiny_imagenet_xla step0 {k}={a:.8f} pallas={b:.8f} rel_err={rel:.3e}", flush=True)
+        check(rel <= TOL, f"E1 step-0 {k}: xla {a} vs pallas {b}")
+    del tr
+    torch.cuda.empty_cache()
+    _, _, tr, _, paths["vit_tiny_imagenet_pallas"], _ = cls_run(
+        dev, "vit_tiny_imagenet_pallas", VIT_TINY_CONFIG, "pallas", None, dm,
+        size=SYNTHETIC_SIZE)
+    del tr, dm
+    torch.cuda.empty_cache()
+    for label, config in (("flowers102_pallas", FLOWERS_CONFIG), ("svhn_pallas", SVHN_CONFIG)):
+        _, dm, tr, _, paths[label], _ = cls_run(dev, label, config, "pallas", None, size=3200)
+        check(dm.steps_per_epoch == E_STEPS, f"{label}: {dm.steps_per_epoch} steps an epoch")
+        if config == FLOWERS_CONFIG:
+            hold_augmentation(dm, tr)
+        del tr, dm
+        torch.cuda.empty_cache()
+    for config in E5_CONFIGS:
+        paths["e5_" + os.path.basename(config)[:-5]] = family_quick_run(dev, config, smi)
+        torch.cuda.empty_cache()
+    profile_check("tiny_imagenet_pallas", TINY_CONFIG, {"train.attn_impl": "pallas"}, smi)
+    return paths
+
+
+def phase_desom(dev, smi):
+    """Phase F, DESOM (no kernel: its manhattan SOM is eager in both
+    packages, so every wrapper's count must stay 0).
+
+    F1: ``desom_mnist.yaml`` as shipped (784-500-500-2000-10, an 8x8
+    manhattan map, B 128, adam at a constant lr 1e-3) on 4096 + 819
+    synthetic MNIST-shaped images: TRAIN_STEPS graphed steps and the
+    clustering eval, then the same steps eagerly (losses, parameters within
+    GRAPH_RTOL). F2: the same with ``ae.batch_norm`` true, DESOM_BN_STEPS
+    steps, graphed against eager with the running mean and var held too.
+    F3: ``desom_flowers17.yaml`` as shipped (the static 224x224 path:
+    150528-500-500-2000-10, 17 classes, B 256) on 4096 + 819 images (3277
+    / 819 / 819: 12 steps an epoch): one graphed epoch, validation and the
+    test eval, and ``profile_step`` on it. F4: ``desom_fmnist.yaml`` and
+    ``desom_usps.yaml`` (B 256): E5_STEPS graphed steps and the clustering
+    eval each."""
+    run = train_run(dev, "desom_mnist", None, TRAIN_STEPS, True, config=DESOM_MNIST,
+                    data="synthetic MNIST-shaped images")
+    phase_graphed_vs_eager(dev, "desom_mnist", None, run, smi, config=DESOM_MNIST)
+    del run
+    bn = {"ae.batch_norm": True}
+    run = train_run(dev, "desom_mnist_bn", None, DESOM_BN_STEPS, False, config=DESOM_MNIST,
+                    extra=bn)
+    check(any("running_var" in n for n, _ in run[2].model.named_buffers()), "F2: no BatchNorm")
+    phase_graphed_vs_eager(dev, "desom_mnist_bn", None, run, smi, extra=bn, config=DESOM_MNIST)
+    del run
+    torch.cuda.empty_cache()
+    _, dm, tr, _, launches, _ = cls_run(dev, "desom_flowers17", DESOM_FLOWERS, None, None,
+                                        size=SYNTHETIC_SIZE)
+    check(dm.static and dm.steps_per_epoch == 12, "F3: not the static path's 12 steps")
+    check(sum(launches.values()) == 0, f"F3: a kernel ran: {launches}")
+    del tr, dm
+    torch.cuda.empty_cache()
+    for name in ("desom_fmnist", "desom_usps"):
+        train_run(dev, name, None, E5_STEPS, True, config=os.path.join(DESOM, f"{name}.yaml"),
+                  falls=False)
+        torch.cuda.empty_cache()
+    profile_check("desom_flowers17", DESOM_FLOWERS, {}, smi)
 
 
 def attn_inputs(shape, seed, dev, layout):
@@ -1245,8 +1498,8 @@ def phase_attention_timings(dev):
 
 
 def phase_timings(dev):
-    """Phase 5; returns the row of the main path's shape (the first of
-    SOM_SHAPES).
+    """Phase 5; returns the row of the main path's shape (SOM_SHAPES[SOM_MAIN],
+    phase E1's).
 
     Each function is timed with L2 flushed before each call (``ms``, the
     main path's condition) and with its inputs resident in L2 (``warm``).
@@ -1293,7 +1546,7 @@ def phase_timings(dev):
         rows[idx] = dict(ms=cold["kernel"], plain_ms=cold["plain"], library_ms=cold["library"],
                          bound_ms=bound_ms, bound_by=bound_by)
         del x, protos, xn, pn_t
-    return rows[0]
+    return rows[SOM_MAIN]
 
 
 def block_inputs(shape, seed, dev):
@@ -1603,17 +1856,19 @@ def main() -> int:
         block_timing = phase_block_timings(dev)
         cifar = phase_train_cifar(dev)
         cls_paths = phase_classification(dev, smi)
+        family_paths = phase_family(dev, smi)
+        phase_desom(dev, smi)
         phase_bench(dev, smi)
         phase_profiles(smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
-    # launches: this slice's main path (phase D's ViT-SOM pallas run) and,
-    # by path, every train run that launches the kernel
+    # launches: this slice's main path (phase E1's vit_som_tiny-imagenet
+    # pallas run) and, by path, every train run that launches the kernel
     paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
-             "cifar10_clustering_pallas": cifar, **cls_paths}
-    main_path = cls_paths["classification_pallas"]
+             "cifar10_clustering_pallas": cifar, **cls_paths, **family_paths}
+    main_path = family_paths["tiny_imagenet_pallas"]
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items() if counts[name]}

@@ -29,7 +29,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), all(m in names for m in (
     "vitsom_tpu_torch.ops.attention_fused", "vitsom_tpu_torch.ops.block_fused",
     "vitsom_tpu_torch.data.augment", "vitsom_tpu_torch.data.device_augment",
-    "vitsom_tpu_torch.data.pipeline")))
+    "vitsom_tpu_torch.data.pipeline", "vitsom_tpu_torch.models.ae",
+    "vitsom_tpu_torch.models.desom")))
 print("BAD", bad)
 """
 
@@ -43,7 +44,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, bad = out.stdout.strip().splitlines()[-2:]
     n_modules, has_kernel_modules = counts.split()
-    assert int(n_modules) >= 25 and has_kernel_modules == "True"
+    assert int(n_modules) >= 27 and has_kernel_modules == "True"
     assert bad == "BAD []", bad
 
 
@@ -83,6 +84,26 @@ def test_classification_entry_points_refuse_cpu_without_cuda(monkeypatch):
         cfg = load_config(os.path.join(ROOT, path),
                           {"data.allow_synthetic": True, "data.synthetic_size": 64})
         assert cfg.classification
+        for call in (lambda: Trainer(cfg), lambda: build_model(cfg),
+                     lambda: build_datamodule(cfg)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+
+
+def test_desom_entry_points_refuse_cpu_without_cuda(monkeypatch):
+    """DESOM's entry points default to the card too: its model, the
+    mnist clustering module, the static classification module
+    (``desom_flowers17.yaml``) and the trainer."""
+    from vitsom_tpu_torch.config import load_config
+    from vitsom_tpu_torch.data.synthetic import build_datamodule
+    from vitsom_tpu_torch.models.vit_som import build_model
+    from vitsom_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for path in ("configs/desom/desom_mnist.yaml", "configs/desom/desom_flowers17.yaml"):
+        cfg = load_config(os.path.join(ROOT, path),
+                          {"data.allow_synthetic": True, "data.synthetic_size": 8})
+        assert cfg.model_arch == "desom"
         for call in (lambda: Trainer(cfg), lambda: build_model(cfg),
                      lambda: build_datamodule(cfg)):
             with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,4 +1,5 @@
-"""Carry ViT-SOM parameters between the JAX package's layout and the port's.
+"""Carry ViT-SOM and DESOM parameters between the JAX package's layout and
+the port's.
 
 ``flax_to_state_dict`` turns a Flax parameter tree (nested dicts, or a flat
 dict with ``/``-joined keys such as ``vit/block_0/Attention_0/Dense_0/kernel``)
@@ -14,6 +15,12 @@ arrays). The layout rules:
 The classifier head's ``cls_head/Dense_0`` is the port's ``cls_head``
 (``ViTSOM`` with ``num_classes > 0``, ``ViTClassifier``).
 
+DESOM's tree maps path for path (``autoencoder/encoder/dense_0`` ->
+``autoencoder.encoder.dense_0``, ``autoencoder/decoder/bn_1``, ``classifier``);
+its Flax ``batch_stats`` (``.../bn_i/mean`` and ``var``) are the BatchNorm
+buffers ``running_mean`` and ``running_var``: ``flax_to_state_dict(params,
+batch_stats)`` takes them, ``batch_stats_to_flax`` gives them back.
+
 Module names: ``block_i``/``dec_block_i`` -> ``blocks.i``/``decoder_blocks.i``;
 ``LayerNorm_0/1`` -> ``norm1/2``; ``Mlp_0/Dense_0/1`` -> ``mlp.fc1/fc2``;
 in ``Attention_0``, ``Dense_0`` is the fused qkv and ``Dense_1`` the output
@@ -28,7 +35,7 @@ Flax or the port's, onto the weight dict of the fused block op
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -72,7 +79,7 @@ def _module_path(path: str, split: set) -> str:
         return _CLS_HEAD[1]
     parts = path.split("/")
     if parts[0] != "vit":
-        return path
+        return ".".join(parts)
     if len(parts) > 1 and _BLOCK_RE.match(parts[1]):
         kind, idx = _BLOCK_RE.match(parts[1]).groups()
         head = f"vit.{'blocks' if kind == 'block' else 'decoder_blocks'}.{idx}"
@@ -107,10 +114,19 @@ def key_map(flax_keys) -> Dict[str, str]:
     return out
 
 
-def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ViT-SOM parameters -> the port's ``state_dict``."""
-    flat = {k: np.asarray(v) for k, v in flatten(params).items()}
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax ViT-SOM or DESOM parameters (and DESOM's ``batch_stats``) -> the
+    port's ``state_dict``."""
     out = {}
+    for key, arr in flatten(batch_stats or {}).items():
+        mod, _, leaf = key.rpartition("/")
+        out[f"{mod.replace('/', '.')}.{_BATCH_STATS[leaf]}"] = torch.from_numpy(
+            np.array(arr, dtype=np.float32))
+    flat = {k: np.asarray(v) for k, v in flatten(params).items()}
     for key, name in key_map(flat).items():
         arr = flat[key]
         if key.endswith("/kernel"):
@@ -121,6 +137,17 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"unexpected kernel rank {arr.ndim} at {key}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return out
+
+
+def batch_stats_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's BatchNorm buffers -> flat ``/``-keyed Flax ``batch_stats``."""
+    inv = {v: k for k, v in _BATCH_STATS.items()}
+    out = {}
+    for key, t in state_dict.items():
+        mod, _, leaf = key.rpartition(".")
+        if leaf in inv:
+            out[f"{mod.replace('.', '/')}/{inv[leaf]}"] = t.detach().cpu().numpy().copy()
     return out
 
 
@@ -175,13 +202,16 @@ def block_weights(blk) -> Dict[str, torch.Tensor]:
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The port's ``state_dict`` -> flat ``/``-keyed Flax parameters."""
+    """The port's ``state_dict`` -> flat ``/``-keyed Flax parameters (the
+    BatchNorm buffers are ``batch_stats_to_flax``'s)."""
     split = {
         k.split(".attn.query.")[0] for k in state_dict if ".attn.query." in k
     }
     inv_sub = {v: k for k, v in _BLOCK_SUB.items()}
     out = {}
     for key, t in state_dict.items():
+        if key.rpartition(".")[2] in ("running_mean", "running_var"):
+            continue
         arr = t.detach().cpu().numpy()
         if key == "prototypes":
             out[key] = arr.copy()
@@ -207,7 +237,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.n
             fpath = _CLS_HEAD[0]
         else:
             fpath = mod.replace(".", "/")
-        is_norm = "norm" in fpath.rsplit("/", 1)[-1] or "LayerNorm" in fpath
+        last = fpath.rsplit("/", 1)[-1]
+        is_norm = "norm" in last or "LayerNorm" in fpath or last.startswith("bn_")
         if leaf == "weight" and is_norm:
             out[f"{fpath}/scale"] = arr.copy()
         elif leaf == "weight":

@@ -649,12 +649,20 @@ class DeviceTrainAugment:
             x = apply_erase(x, {"rects": rects})
         return x
 
-    def apply(self, images: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        b, h, _, c = images.shape
+    def chunk_size(self, b: int, h: int, c: int) -> int:
+        """Images a chunk of a [b, h, h, c] batch holds: the most whose
+        warps stay within ``CHUNK_BUDGET_BYTES`` (an S x S x max(h, S)
+        float32 weight and temporary set of 2 + c planes an image) that
+        divides ``b``."""
         per_img = self.size * self.size * max(h, self.size) * 4 * (2 + c)
         chunk = max(1, min(b, CHUNK_BUDGET_BYTES // max(per_img, 1)))
         while b % chunk:
             chunk -= 1
+        return chunk
+
+    def apply(self, images: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        b, h, _, c = images.shape
+        chunk = self.chunk_size(b, h, c)
         if chunk == b:
             return self._apply(images, params)
         return torch.cat([

@@ -1,9 +1,10 @@
 """The classification split, resident on one device, with augmentation on
-the device.
+the device or a static train transform.
 
 Counterpart of the classification branch of ``vitsom_tpu/data/pipeline.py``
-(``build_datamodule``) and of its device-augment path
-(``DataModule.use_device_augment``):
+(``build_datamodule``), of its device-augment path
+(``DataModule.use_device_augment``) and of its static path
+(``DataModule.is_static``, ``device_arrays``):
 
 - the dataset's train split is divided 80/20 (90/10 for tiny-imagenet)
   into train and val by a ``np.random.default_rng(0)`` permutation
@@ -19,8 +20,18 @@ Counterpart of the classification branch of ``vitsom_tpu/data/pipeline.py``
   CUDA graph reading its batch index, permutation and parameters from
   fixed device buffers and replayed batch after batch. The JAX package
   augments inside its epoch scan; the per-image distribution is the same;
+- where the train transform draws nothing (``augment.is_static_transform``:
+  no crop, RandAugment, flip or erasing configured, e.g.
+  ``desom_flowers17.yaml``), the JAX package's train transform is its eval
+  transform. The train rows are then eval-transformed on the device once,
+  at construction, and stay resident as float32; each epoch fill is one
+  gather of the shuffled rows into the epoch buffer, as the clustering
+  module's, and no augmentation graph is built;
 - val and test are eval-transformed on the device once, when first asked
   for, and cached there (``eval_arrays``) until ``release``.
+
+The host augmentation path (``data.device_augment: false`` with a random
+train transform) is not ported (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -36,8 +47,11 @@ from vitsom_tpu_torch.data.device_augment import make_device_train_augment
 from vitsom_tpu_torch.data.synthetic import load_raw
 from vitsom_tpu_torch.utils.device import resolve_device
 
-# images eval-transformed in one call (bounds the warp's temporaries)
+# images eval-transformed in one call: at most EVAL_TRANSFORM_CHUNK, and at
+# most EVAL_TRANSFORM_BYTES of float64 source pixels (PIL's resample runs in
+# float64: about four such tensors are live at once)
 EVAL_TRANSFORM_CHUNK = 2048
+EVAL_TRANSFORM_BYTES = 1 << 30
 
 
 def classification_split(n: int, dataset: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -48,22 +62,40 @@ def classification_split(n: int, dataset: str) -> Tuple[np.ndarray, np.ndarray]:
     return perm[n_val:], perm[:n_val]
 
 
+def eval_transform_chunks(transform, x: torch.Tensor) -> torch.Tensor:
+    """``transform`` of uint8 images [N, H, W, C], in chunks of at most
+    ``EVAL_TRANSFORM_CHUNK`` images and ``EVAL_TRANSFORM_BYTES`` of float64
+    source pixels."""
+    per_image = 8 * int(np.prod(x.shape[1:]))
+    chunk = max(1, min(EVAL_TRANSFORM_CHUNK, EVAL_TRANSFORM_BYTES // per_image))
+    return torch.cat([transform(part) for part in x.split(chunk)])
+
+
 class ClassificationDataModule:
-    """Train (raw uint8), val and test (uint8, eval-transformed on demand)
-    splits on one device; labels int64 class indices."""
+    """Train (raw uint8, or eval-transformed float32 on the static path),
+    val and test (uint8, eval-transformed on demand) splits on one device;
+    labels int64 class indices."""
 
     def __init__(self, cfg: Config, train: Tuple[torch.Tensor, torch.Tensor],
                  val: Tuple[torch.Tensor, torch.Tensor], test: Tuple[torch.Tensor, torch.Tensor]):
-        if aug_lib.is_static_transform(cfg.data) or not cfg.data.device_augment:
+        self.static = aug_lib.is_static_transform(cfg.data)
+        if not self.static and not cfg.data.device_augment:
             raise NotImplementedError(
-                "the port augments classification data on the device only "
-                "(data.device_augment with a random train transform)"
+                "the host augmentation path (data.device_augment: false with a random "
+                "train transform) is not ported yet (ROADMAP Queue 1 item 4)"
             )
         self.cfg = cfg
         self.train_x, self.train_y = train
         self.raw = {"val": val, "test": test}
-        self.augment = make_device_train_augment(cfg.data)
         self.eval_transform = aug_lib.make_eval_transform(cfg.data)
+        # the static path's resident transformed train rows; the augmented
+        # path's device augmentation
+        self.train_images: Optional[torch.Tensor] = None
+        self.augment = None
+        if self.static:
+            self.train_images = eval_transform_chunks(self.eval_transform, self.train_x)
+        else:
+            self.augment = make_device_train_augment(cfg.data)
         self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         # the epoch's permutation and draws, and the batch index, at fixed
         # addresses: what the captured augmentation reads
@@ -99,11 +131,16 @@ class ClassificationDataModule:
         ``epoch_buffer``): the permutation drawn on the CPU from
         ``generator``, the augmentation's parameters on the device from
         ``augment`` (a generator on the data's device), then each batch
-        gathered and augmented (module docstring)."""
+        gathered and augmented (module docstring). On the static path the
+        transformed rows are gathered in one ``index_select`` and
+        ``augment`` is not read."""
         bs = self.cfg.batch_size
         rows = out["label"].shape[0]
         perm = torch.randperm(self.n_train, generator=generator).to(self.device)[:rows]
         torch.index_select(self.train_y, 0, perm, out=out["label"])
+        if self.static:
+            torch.index_select(self.train_images, 0, perm, out=out["image"])
+            return
         _, h, w, _ = self.train_x.shape
         params = self.augment.sample(augment, rows, h, w, self.device)
         if self._perm is None or self._perm.shape[0] != rows:
@@ -175,9 +212,7 @@ class ClassificationDataModule:
         transformed on the device the first time and cached."""
         if split not in self._cache:
             x, y = self.raw[split]
-            images = torch.cat([self.eval_transform(part)
-                                for part in x.split(EVAL_TRANSFORM_CHUNK)])
-            self._cache[split] = (images, y)
+            self._cache[split] = (eval_transform_chunks(self.eval_transform, x), y)
         return self._cache[split]
 
     def release(self, split: str) -> None:

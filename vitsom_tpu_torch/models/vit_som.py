@@ -6,7 +6,8 @@ flattened patch tokens (``use_reduced=False``, all shipped configs) or the
 CLS token; the prototypes are a trainable [P, latent] parameter; with
 ``data.num_classes > 0`` a linear head (``ClsHead``) maps the CLS token to
 logits. ``ViTClassifier`` is the baseline of ``model_arch: vit``: the same
-encoder and head, no decoder and no SOM.
+encoder and head, no decoder and no SOM. ``build_model`` also builds
+``models/desom.DESOM``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from vitsom_tpu_torch.config import Config
+from vitsom_tpu_torch.models.desom import DESOM
 from vitsom_tpu_torch.models.vit import ClsHead, build_vit_autoencoder, unpatchify
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.utils.device import resolve_device
@@ -112,18 +114,23 @@ class ViTClassifier(nn.Module):
         return self.cls_head(self.vit.forward_features(x))
 
 
-_MODELS = {"vit_som": ViTSOM, "vit": ViTClassifier}
+_MODELS = {"vit_som": ViTSOM, "vit": ViTClassifier, "desom": DESOM}
 
 
 def build_model(cfg: Config, device="cuda", seed: int = 0) -> nn.Module:
-    """A freshly initialised ``ViTSOM`` (``model_arch: vit_som``) or
-    ``ViTClassifier`` (``vit``) on ``device`` (default: the card).
+    """A freshly initialised ``ViTSOM`` (``model_arch: vit_som``),
+    ``ViTClassifier`` (``vit``) or ``DESOM`` (``desom``, in
+    ``models/desom.py``; it takes flattened images) on ``device`` (default:
+    the card).
 
     The weights are drawn on the CPU from ``torch.Generator().manual_seed(
     seed)`` and then moved, so a seed gives the same model on any device."""
     if cfg.model_arch not in _MODELS:
         raise NotImplementedError(f"model_arch {cfg.model_arch} is not ported yet")
     dev = resolve_device(device)
-    model = _MODELS[cfg.model_arch](cfg, attn_impl=model_attn_impl(cfg))
+    if cfg.model_arch == "desom":
+        model = DESOM(cfg)
+    else:
+        model = _MODELS[cfg.model_arch](cfg, attn_impl=model_attn_impl(cfg))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev)

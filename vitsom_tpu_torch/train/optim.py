@@ -8,6 +8,9 @@ Counterpart of ``vitsom_tpu/train/optim.py``:
   torch.optim.AdamW's default 1e-2 applies: ``default_group_weight_decay``.
 - Layer-wise lr scales (``apply_layer_decay``) are off by default, as in
   the reference, which computes them but never applies them.
+- DESOM (``desom``): no decoupled decay on any parameter, with the
+  config's ``adam`` or ``adamw``, at the raw ``optimizer.lr`` (no ``x B /
+  256``); its yamls keep the default ``constant`` scheduler.
 
 ``torch.optim.AdamW`` with one parameter group per distinct (decay, lr
 scale) pair is the same update as optax's ``scale_by_adam ->
@@ -47,12 +50,14 @@ def vit_layer_id(name: str, num_layers: int) -> int:
 
 def build_weight_decay_map(model: torch.nn.Module, cfg: Config) -> Dict[str, float]:
     """Per-parameter decoupled weight-decay coefficients."""
-    if cfg.model_arch not in ("vit_som", "vit"):
+    if cfg.model_arch not in ("vit_som", "vit", "desom"):
         raise NotImplementedError(f"the {cfg.model_arch} optimizer groups are not ported yet")
     opt = cfg.optimizer
     out = {}
     for name, p in model.named_parameters():
-        if name.startswith("vit."):
+        if cfg.model_arch == "desom":
+            out[name] = 0.0
+        elif name.startswith("vit."):
             out[name] = 0.0 if p.ndim == 1 else opt.weight_decay
         else:
             out[name] = opt.default_group_weight_decay

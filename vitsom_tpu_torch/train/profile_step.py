@@ -1,4 +1,5 @@
-"""Where the time of the port's ViT-SOM train step goes, on one card.
+"""Where the time of the port's train step (ViT-SOM, DESOM, ViT) goes, on
+one card.
 
     python -m vitsom_tpu_torch.train.profile_step [--config PATH] [--steps 20] \
         [--override train.attn_impl=pallas] [--trace out/trace.json]
@@ -19,10 +20,14 @@ prints:
    ``fit``, continuing the epoch (its one metrics read included, and an
    epoch gather where an epoch ends inside the window; a synchronisation
    at the end), and the median of the trainer's own ``step_ms`` (CUDA
-   events between step ends), with no profiler attached. A classification
-   config's synthetic split is sized so that one epoch holds every
-   measured step: its epoch fill (gather + augmentation) runs once, in the
-   first warm-up, and no validation falls inside a window;
+   events between step ends), with no profiler attached. An augmented
+   classification config's synthetic split is sized so that one epoch
+   holds every measured step: its epoch fill (gather + augmentation) runs
+   once, in the first warm-up, and no validation falls inside a window. On
+   the static classification path (``desom_flowers17.yaml``) an epoch fill
+   is one gather, so the split keeps its size and the windows hold their
+   epochs' gathers, as the clustering configs' do; validation is turned
+   off (``train.eval_every_n_epochs``), so none falls in a window;
 2. ``profile``: ``torch.profiler`` over ``--steps`` more steps of each
    mode, in one profiler session (a second session in one process has
    recorded no kernels): device busy time a step (the sum of kernel
@@ -52,6 +57,7 @@ import time
 import torch
 
 from vitsom_tpu_torch.config import load_config
+from vitsom_tpu_torch.data.augment import is_static_transform
 from vitsom_tpu_torch.data.synthetic import (
     MNIST_FAMILY, build_datamodule, raw_synthetic_datamodule,
 )
@@ -115,7 +121,9 @@ def profile(config: str, overrides: dict, n: int, trace=None) -> dict:
     their numbers."""
     over = {"data.allow_synthetic": True, "data.synthetic_size": 4096, **overrides}
     cfg = load_config(config, over)
-    if cfg.classification and "data.synthetic_size" not in overrides:
+    if cfg.classification and is_static_transform(cfg.data):
+        cfg = load_config(config, {**over, "train.eval_every_n_epochs": 10**9})
+    elif cfg.classification and "data.synthetic_size" not in overrides:
         # one epoch holds every step measured (with a margin for the val
         # share), so no epoch fill (augmentation) or validation falls in a
         # measured window

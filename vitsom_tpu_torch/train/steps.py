@@ -1,17 +1,17 @@
-"""ViT-SOM and ViT-classifier train and eval steps in PyTorch.
+"""ViT-SOM, DESOM and ViT-classifier train and eval steps in PyTorch.
 
-Counterpart of the ViT-SOM and plain-classifier parts of
+Counterpart of the ViT-SOM, DESOM and plain-classifier parts of
 ``vitsom_tpu/train/steps.py``. The JAX
 step is one pure jitted function over a TrainState whose ``step`` lives on
 the device, and the trainer scans it over an epoch. Here the model and the
 optimizer hold the parameters and moments, and a ``DeviceState`` holds the
 rest of what the JAX TrainState and the scan's stacked outputs hold: the
-global step as an int64 tensor on the device, and a [capacity, 6] float32
-metrics buffer (six columns for ViT-SOM, two for the classifier:
-``metric_keys``). The train step reads the step tensor, computes the
-temperature, the gamma ramp and the learning rate from it on the device,
-runs forward, backward and AdamW, writes its metrics into its row of the
-buffer and increments the step tensor. It reads nothing on the host
+global step as an int64 tensor on the device, and a [capacity, K] float32
+metrics buffer (K = 6 columns for ViT-SOM, 5 or 6 for DESOM, 2 for the
+classifier: ``metric_keys``). The train step reads the step tensor,
+computes the temperature, the gamma ramp and the learning rate from it on
+the device, runs forward, backward and AdamW, writes its metrics into its
+row of the buffer and increments the step tensor. It reads nothing on the host
 and has no host-side value that changes from step to step, so the trainer
 can capture it once as a CUDA graph and replay it (``train/trainer.py``);
 the eager run calls the same function.
@@ -25,6 +25,11 @@ Loss recipes, as the JAX package's:
   the step runs the encoder only (``ViTSOM.encode``), as XLA drops the
   decoder from the JAX step; the decoder's parameters get zero gradients,
   as optax hands them, so AdamW still decays them;
+- DESOM clustering: L1(decoded, x_flat) + gamma * som_loss (constant
+  gamma); DESOM classification: CE (no smoothing) + gamma * (som_loss +
+  recon_loss). The neighbourhood weights are held constant; BatchNorm, if
+  on, normalises with the batch's statistics and moves its running
+  averages in place (``models/ae.py``);
 - ViT classifier (``model_arch: vit``): CE with the smoothing the caller
   passes (the JAX trainer passes 0 for ``vit``).
 
@@ -76,9 +81,14 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 0.0):
     """Mean CE against one-hot targets smoothed as optax's ``smooth_labels``
     (``(1 - s) * onehot + s / K``, torch's ``label_smoothing``); ``labels``
-    are class indices. Written out, so a captured step holds no check."""
+    are class indices. Written out, so a captured step holds no check. A
+    label outside [0, K) has an all-zero one-hot row, as ``jax.nn.one_hot``
+    gives it (the synthetic medmnist stand-in draws 10 labels for 9
+    classes): its term is the smoothing's alone."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(1, labels.long().reshape(-1, 1))[:, 0]
+    labels = labels.long().reshape(-1, 1)
+    valid = (labels >= 0) & (labels < logp.shape[-1])
+    nll = -(logp.gather(1, labels.clamp(0, logp.shape[-1] - 1)) * valid)[:, 0]
     if smoothing > 0.0:
         nll = (1.0 - smoothing) * nll - smoothing * logp.mean(dim=-1)
     return nll.mean()
@@ -96,12 +106,17 @@ METRIC_KEYS = (
 )
 CLS_METRIC_KEYS = ("train/cls_loss",) + METRIC_KEYS[1:]
 CLASSIFIER_METRIC_KEYS = ("train/cls_loss", "hp/lr")
+# DESOM clustering; classification adds the CE in front
+DESOM_METRIC_KEYS = ("train/recon_loss", "train/som_loss", "train/total_loss",
+                     "hp/temperature", "hp/lr")
 
 
 def metric_keys(cfg: Config) -> tuple:
     """The metrics-buffer columns of ``cfg``'s train step."""
     if cfg.model_arch == "vit":
         return CLASSIFIER_METRIC_KEYS
+    if cfg.model_arch == "desom":
+        return (("train/cls_loss",) if cfg.classification else ()) + DESOM_METRIC_KEYS
     return CLS_METRIC_KEYS if cfg.classification else METRIC_KEYS
 
 
@@ -135,6 +150,13 @@ def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def _grid_table(cfg: Config, model) -> torch.Tensor:
+    """The static [P, P] squared grid distances on the model's device."""
+    return torch.from_numpy(
+        som.grid_sq_distances(cfg.som.map_size, cfg.som.topology)
+    ).to(_model_device(model))
+
+
 def _zero_missing_grads(model) -> None:
     """Give every parameter that the loss did not reach a zero gradient:
     optax hands such parameters zeros, and AdamW then still decays them,
@@ -159,9 +181,7 @@ def _som_loss_fn(cfg: Config, model):
             return loss, bmu_idx
 
         return fused
-    grid_d2 = torch.from_numpy(
-        som.grid_sq_distances(cfg.som.map_size, cfg.som.topology)
-    ).to(_model_device(model))
+    grid_d2 = _grid_table(cfg, model)
 
     def plain(z, temperature):
         distances = som.compute_distances(z, model.prototypes, cfg.som.distance_fcn)
@@ -246,9 +266,7 @@ def make_vit_som_eval_step(cfg: Config, model):
         )
     else:
         fused_som = None
-        grid_d2 = torch.from_numpy(
-            som.grid_sq_distances(cfg.som.map_size, cfg.som.topology)
-        ).to(_model_device(model))
+        grid_d2 = _grid_table(cfg, model)
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], temperature: float) -> Dict[str, torch.Tensor]:
@@ -269,6 +287,73 @@ def make_vit_som_eval_step(cfg: Config, model):
         else:
             out["total_loss"] = recon_l + gamma * som_l
         return out
+
+    return eval_step
+
+
+def make_desom_train_step(
+    cfg: Config,
+    model,
+    optimizer: torch.optim.Optimizer,
+    statics: StepStatics,
+    lr_schedule: Callable[[torch.Tensor], torch.Tensor],
+    state: DeviceState,
+):
+    """Returns ``train_step(batch) -> metrics row`` for DESOM: the images
+    flattened to [B, C*H*W], one ``forward_with_recon`` (BatchNorm on the
+    batch's statistics), the plain SOM loss at the temperature of the step
+    ``state.step`` holds, backward and Adam, as ``make_vit_som_train_step``
+    does; writes ``metric_keys(cfg)`` into the metrics buffer."""
+    grid_d2 = _grid_table(cfg, model)
+    total_iters = statics.total_iterations_float
+    classification = cfg.classification
+    gamma = cfg.gamma
+
+    def train_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        x = batch["image"]
+        x_flat = x.reshape(x.shape[0], -1)
+        step = state.step
+        temperature = som.temperature_schedule_tensor(
+            step, total_iters, cfg.som.t_max, cfg.som.t_min
+        )
+        lr = lr_schedule(step)
+        optim.set_learning_rate(optimizer, lr)
+
+        optimizer.zero_grad(set_to_none=True)
+        logits, _, distances, bmu_idx, decoded = model.forward_with_recon(x_flat, train=True)
+        weights = som.neighborhood_weights(bmu_idx, grid_d2, temperature)
+        som_l = som.som_loss(weights.detach(), distances)
+        recon_l = l1_loss(decoded, x_flat)
+        if classification:
+            cls_l = cross_entropy(logits, batch["label"])
+            total = cls_l + gamma * (som_l + recon_l)
+            front = [cls_l.detach()]
+        else:
+            total = recon_l + gamma * som_l
+            front = []
+        total.backward()
+        optimizer.step()
+        values = torch.stack(front + [recon_l.detach(), som_l.detach(), total.detach(),
+                                      temperature, lr])
+        state.write(values)
+        return values
+
+    return train_step
+
+
+def make_desom_eval_step(cfg: Config, model):
+    """Returns ``eval_step(batch, temperature=None) -> dict`` with ``bmu``,
+    ``logits`` ([B, 1] zeros without a classifier, as the JAX step) and
+    ``latent``, from the flattened images, BatchNorm on its running
+    averages. It computes no loss, as the JAX step computes none."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor], temperature=None) -> Dict[str, torch.Tensor]:
+        x = batch["image"]
+        logits, z, _, bmu_idx = model(x.reshape(x.shape[0], -1))
+        if logits is None:
+            logits = torch.zeros((x.shape[0], 1), dtype=z.dtype, device=z.device)
+        return {"bmu": bmu_idx, "logits": logits, "latent": z}
 
     return eval_step
 

@@ -1,17 +1,20 @@
-"""ViT-SOM (clustering and classification) and ViT-classifier trainer in
-PyTorch, and its command line.
+"""ViT-SOM, DESOM (clustering and classification) and ViT-classifier
+trainer in PyTorch, and its command line.
 
 Counterpart of ``vitsom_tpu/train/trainer.py`` and
-``experiments/benchmarking/train.py`` for ``model_arch`` ``vit_som`` and
-``vit``. Clustering trains on the train + test concat and evaluates purity
-and NMI there; classification (``data.num_classes > 0``) trains on the
-80/20 split with the augmentation on the device, validates after each
-epoch (``best_val_accuracy``) and evaluates accuracy, precision, recall and
-F1 on the test split from the last state. Checkpoints (and so the save of
-the best validation state), TensorBoard and the multi-run harness's
-aggregation files are later slices of the port; their config keys are read
-and ignored, as are the TPU dispatch keys (``train.epochs_per_dispatch``,
-``scan_splits``, ...).
+``experiments/benchmarking/train.py`` for ``model_arch`` ``vit_som``,
+``desom`` and ``vit``. Clustering trains on the train + test concat and
+evaluates purity and NMI there; classification (``data.num_classes > 0``)
+trains on the 80/20 split (augmented on the device, or transformed once
+where the train transform is static), validates after each epoch
+(``best_val_accuracy``) and evaluates accuracy, precision, recall and F1
+on the test split from the last state. DESOM's BatchNorm running averages
+are buffers of the model, moved in place by the train step and read by the
+eval step. Checkpoints (and so the save of the best validation state),
+TensorBoard (and so DESOM's image grids, ``train.log_images_every_n_epochs``)
+and the multi-run harness's aggregation files are later slices of the port;
+their config keys are read and ignored, as are the TPU dispatch keys
+(``train.epochs_per_dispatch``, ``scan_splits``, ...).
 
 The JAX trainer compiles a whole epoch into one program (``_build_epoch_fn``:
 one permutation and bulk gather of the epoch's batches, a ``lax.scan`` of
@@ -45,6 +48,8 @@ Run on the card (the default device):
         --config configs/vit_som/vit_som_mnist.yaml --synthetic --max-steps 30
     python -m vitsom_tpu_torch.train.trainer \\
         --config configs/vit_som/vit_som_cifar-10.yaml --synthetic --max-steps 30
+    python -m vitsom_tpu_torch.train.trainer \\
+        --config configs/desom/desom_mnist.yaml --synthetic --epochs 3
 """
 
 from __future__ import annotations
@@ -72,8 +77,8 @@ WARMUP_STEPS = 2
 
 
 class Trainer:
-    """Trains one ViT-SOM or ViT-classifier run on one device (default: the
-    card).
+    """Trains one ViT-SOM, DESOM or ViT-classifier run on one device
+    (default: the card).
 
     The weights come from ``train.seed + run_id`` through a
     ``torch.Generator``; the epoch permutations from a second generator with
@@ -81,9 +86,9 @@ class Trainer:
     device, with the same seed."""
 
     def __init__(self, cfg: Config, device="cuda", dm=None, run_id: int = 0):
-        if cfg.model_arch not in ("vit_som", "vit"):
+        if cfg.model_arch not in ("vit_som", "vit", "desom"):
             raise NotImplementedError(
-                f"the port trains vit_som and vit (later slices: DESOM, the other "
+                f"the port trains vit_som, desom and vit (later slices: the other "
                 f"baselines), not {cfg.model_arch}"
             )
         self.cfg = cfg
@@ -112,6 +117,11 @@ class Trainer:
                 cfg, self.model, self.optimizer, self.lr_schedule, 0.0, self.state
             )
             self.eval_step = steps_lib.make_classifier_eval_step(cfg, self.model)
+        elif cfg.model_arch == "desom":
+            self.train_step = steps_lib.make_desom_train_step(
+                cfg, self.model, self.optimizer, self.statics, self.lr_schedule, self.state
+            )
+            self.eval_step = steps_lib.make_desom_eval_step(cfg, self.model)
         else:
             self.train_step = steps_lib.make_vit_som_train_step(
                 cfg, self.model, self.optimizer, self.statics, self.lr_schedule, self.state
@@ -300,7 +310,8 @@ def _elapsed_ms(a, b, cuda: bool) -> float:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="vitsom-tpu PyTorch trainer (ViT-SOM clustering and classification, ViT)")
+        description="vitsom-tpu PyTorch trainer (ViT-SOM and DESOM clustering and "
+                    "classification, ViT)")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--runs", type=int, default=None, help="override train.n_runs")
     parser.add_argument("--epochs", type=int, default=None, help="override total_epochs")
