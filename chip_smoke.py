@@ -229,6 +229,40 @@ F. DESOM (``phase_desom``; no kernel: its manhattan SOM is eager in both
    B 256; 12 steps an epoch) for one epoch, validation and the test eval,
    and ``profile_step`` on it; F4 ``desom_fmnist.yaml`` and
    ``desom_usps.yaml``, 3 steps and the clustering eval each.
+G. the dataset readers, checkpoints, TensorBoard and the N-run protocol
+   (``phase_protocol``), on files the phase writes from the seed into a
+   temporary directory in their published formats, read with no fallback
+   (``data.allow_synthetic`` false): G1 small files of MNIST IDX (raw and
+   gzipped), cifar-10 and cifar-100 pickles, ``pathmnist.npz``,
+   ``reutersidf10k.npy`` and svhn ``.mat`` through ``load_raw``, bitwise
+   equal to what was written (svhn's label 10 -> 0, the NHWC transposes);
+   it prints which formats this machine cannot read (usps needs h5py, the
+   jpg sources PIL) and why, which is no failure. G2 the flagship protocol:
+   MNIST as gzipped IDX files of 60000 + 10000 images, ``vit_som_mnist.yaml``
+   as shipped for one epoch (546 graphed steps), two runs (the protocol's
+   5 runs and the yaml's epochs cut) through ``trainer.main`` with
+   ``--json-out``, its trainer wrapped (``ProtocolProbe``): the device
+   images equal the IDX bytes / 255; the clustering eval just before
+   ``save_checkpoint("last")`` equals the protocol's eval from the
+   restored state; the restored parameters, AdamW moments and step counts,
+   lr tensors and device step equal the saved ones bitwise, at the same
+   addresses; each run's event file holds the JAX trainer's tags at the
+   epoch's last step; the JSON the harness's keys (``peak_memory_gb`` from
+   ``torch.cuda.max_memory_allocated``); the SOM launches 2 x (3 + 2 x 547)
+   (each run's steps, the hold's eval and the protocol's). G3 a restore
+   into a captured step: a flagship trainer on G2's files runs 20 graphed
+   steps, saves, runs 20 more (state S); restored to step 20 with its
+   graph captured, its next 20 steps are replays only and reach S bitwise;
+   a fresh trainer restored from the same checkpoint reaches S after its
+   warm-up and capture. G4 ``vit_som_cifar-10.yaml`` as shipped with
+   ``pallas`` attention from the python pickles of 50000 + 10000 images,
+   two epochs, one run through ``trainer.main``: the ``best`` checkpoint
+   equals the parameters copied after the validation with the highest
+   ``val/accuracy``; the test eval runs; the event file holds the JAX
+   tags (train, hp, perf and val) at both epochs' last steps; the launch
+   counts equal the formula below (this slice's main path). Prints the
+   read, write, save and restore times, the checkpoint bytes, the epoch's
+   images/s and the peak memory beside the card's name and power limit.
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
@@ -261,23 +295,28 @@ each of the two blocks it backpropagates through (6 + 2 = 8), and the
 backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON (the SOM and attention kernels'
-``launches``: phase E1's ``pallas`` run, this slice's main path, with
-every path's count under ``launches_by_path``; the SOM row's timings at
-(512, 49152, 196) and the attention rows' at (512, 257, 3, 64), E1's
+``launches``: phase G4's protocol run, this slice's main path, with every
+path's count under ``launches_by_path``; the SOM row's timings at (512,
+49152, 196) and the attention rows' at (512, 257, 3, 64), phase E1's
 shapes), the nvidia-smi line and the result. The whole script takes about
-8 minutes on an H100, the builds included (block.cu, the longest, about
+9 minutes on an H100, the builds included (block.cu, the longest, about
 28 s).
 """
 
 from __future__ import annotations
 
 import copy
+import gzip
+import importlib.util
 import json
 import math
 import os
+import pickle
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -285,8 +324,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vitsom_tpu_torch.config import load_config
+from vitsom_tpu_torch.config import DataConfig, load_config
 from vitsom_tpu_torch.convert import block_weights
+from vitsom_tpu_torch.data import datasets
 from vitsom_tpu_torch.data.synthetic import build_datamodule, raw_synthetic_datamodule
 from vitsom_tpu_torch.models.vit import Block
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
@@ -294,8 +334,9 @@ from vitsom_tpu_torch.ops import _build, attention_fused, block_fused, som_fused
 from vitsom_tpu_torch.ops.attention import xla_attention
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import steps as steps_lib
+from vitsom_tpu_torch.train import trainer as trainer_mod
 from vitsom_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
-from vitsom_tpu_torch.utils import initializers
+from vitsom_tpu_torch.utils import initializers, tb_writer
 from vitsom_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1828,6 +1869,416 @@ def phase_build():
                       f"{function} has no TF32 {'/'.join(kinds)} in its SASS")
 
 
+# ---------------------------------------------------------------------------
+# phase G: the dataset readers, checkpoints, TensorBoard logging and the
+# N-run protocol, on dataset files written from the seed in their published
+# formats (no synthetic fallback: data.allow_synthetic stays false)
+# ---------------------------------------------------------------------------
+
+G2_RUNS = 2  # the protocol's n_runs (5 shipped), cut
+G3_STEPS = 20
+G4_EPOCHS = 2
+G4_OVER = {"train.attn_impl": "pallas"}
+# the flagship's (and any ViT-SOM clustering run's) TensorBoard tags at an
+# epoch's last step, as the JAX trainer writes them
+PROTOCOL_TAGS = steps_lib.METRIC_KEYS + ("perf/images_per_sec_per_chip",)
+CLS_VAL_TAGS = ("val/accuracy", "val/cls_loss", "val/som_loss", "val/recon_loss",
+                "val/total_loss")
+
+
+def write_idx(path, arr):
+    """An IDX file (big-endian dims, then the bytes), gzipped for a .gz path."""
+    header = struct.pack(">I", (0x08 << 8) | arr.ndim) + struct.pack(f">{arr.ndim}I", *arr.shape)
+    opener = (lambda p: gzip.open(p, "wb", compresslevel=6)) if path.endswith(".gz") else (
+        lambda p: open(p, "wb"))
+    with opener(path) as f:
+        f.write(header)
+        f.write(np.ascontiguousarray(arr, dtype=np.uint8).tobytes())
+
+
+def write_mnist(d, raw, gz):
+    """``raw`` (uint8 [N, 28, 28, 1] images, labels) as MNIST's four IDX
+    files in ``d``."""
+    os.makedirs(d, exist_ok=True)
+    ext = ".gz" if gz else ""
+    for stem, x, y in (("train", raw.train_x, raw.train_y), ("t10k", raw.test_x, raw.test_y)):
+        write_idx(os.path.join(d, f"{stem}-images-idx3-ubyte{ext}"), x[..., 0])
+        write_idx(os.path.join(d, f"{stem}-labels-idx1-ubyte{ext}"), y.astype(np.uint8))
+
+
+def write_cifar(root, raw, hundred=False):
+    """``raw`` (uint8 NHWC) as the python pickles of cifar-10 (five train
+    batches and a test batch) or cifar-100 (train, test): [N, 3072] CHW rows
+    and a label list."""
+    d = os.path.join(root, "cifar-100-python" if hundred else "cifar-10-batches-py")
+    os.makedirs(d, exist_ok=True)
+    key = b"fine_labels" if hundred else b"labels"
+    train = np.array_split(np.arange(len(raw.train_y)), 1 if hundred else 5)
+    files = [("train" if hundred else f"data_batch_{i + 1}", raw.train_x[idx], raw.train_y[idx])
+             for i, idx in enumerate(train)]
+    files.append(("test" if hundred else "test_batch", raw.test_x, raw.test_y))
+    for name, x, y in files:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"data": x.transpose(0, 3, 1, 2).reshape(len(x), -1),
+                         key: [int(v) for v in y]}, f, protocol=4)
+
+
+def splits_equal(a, b):
+    return all(getattr(a, k).dtype == getattr(b, k).dtype
+               and np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("train_x", "train_y", "test_x", "test_y"))
+
+
+def timed_read(cfg_data):
+    t0 = time.perf_counter()
+    raw = datasets.load_raw(cfg_data)
+    return raw, time.perf_counter() - t0
+
+
+def phase_readers(root):
+    """G1: small files of each format the card's machine can read, through
+    ``load_raw`` with no fallback, bitwise against what was written (the
+    readers' own transforms applied: CHW -> HWC, HWCN -> NHWC, svhn's label
+    10 -> 0, reuters' 80/20 cut); prints which formats this machine cannot
+    read and why."""
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(12)
+
+    def images(n, shape):
+        return rng.integers(0, 256, size=(n, *shape), dtype=np.uint8)
+
+    def labels(n, k):
+        return rng.integers(0, k, size=n).astype(np.int64)
+
+    cases = []
+    for gz in (False, True):
+        raw = datasets.ArraySplits(images(12, (28, 28, 1)), labels(12, 10),
+                                   images(7, (28, 28, 1)), labels(7, 10))
+        d = os.path.join(root, "g1", "gz" if gz else "raw")
+        write_mnist(os.path.join(d, "mnist"), raw, gz)
+        cases.append(("mnist idx" + (".gz" if gz else ""), "mnist", d, raw))
+    for hundred in (False, True):
+        raw = datasets.ArraySplits(images(10, (32, 32, 3)), labels(10, 100 if hundred else 10),
+                                   images(4, (32, 32, 3)), labels(4, 100 if hundred else 10))
+        d = os.path.join(root, "g1", "cifar")
+        write_cifar(d, raw, hundred)
+        cases.append(("cifar-100 pickles" if hundred else "cifar-10 pickles",
+                      "cifar-100" if hundred else "cifar-10", d, raw))
+    d = os.path.join(root, "g1", "npz")
+    os.makedirs(d)
+    raw = datasets.ArraySplits(images(6, (28, 28, 3)), labels(6, 9), images(3, (28, 28, 3)),
+                               labels(3, 9))
+    np.savez(os.path.join(d, "pathmnist.npz"), train_images=raw.train_x,
+             train_labels=raw.train_y[:, None], test_images=raw.test_x,
+             test_labels=raw.test_y[:, None])
+    cases.append(("pathmnist.npz", "medmnist", d, raw))
+    x, y = rng.random((10, 2000)), labels(10, 4)
+    np.save(os.path.join(d, "reutersidf10k.npy"), {"data": x, "label": y[:, None]})
+    x32 = x.astype(np.float32)
+    cases.append(("reutersidf10k.npy", "reuters-10k", d,
+                  datasets.ArraySplits(x32[:8], y[:8], x32[8:], y[8:])))
+    want = []
+    for f, n in (("train_32x32.mat", 9), ("test_32x32.mat", 5)):
+        x, y = images(n, (32, 32, 3)), rng.integers(1, 11, size=n)
+        y[0] = 10
+        savemat(os.path.join(d, f), {"X": x.transpose(1, 2, 3, 0),
+                                     "y": y[:, None].astype(np.uint8)})
+        want += [x, np.where(y == 10, 0, y).astype(np.int64)]
+    cases.append(("svhn .mat", "svhn", d, datasets.ArraySplits(*want)))
+    for label, name, d, want in cases:
+        got, seconds = timed_read(DataConfig(dataset=name, data_dir=d))
+        same = splits_equal(got, want)
+        print(f"G1 {label}: load_raw({name}) train={got.train_x.shape} {got.train_x.dtype} "
+              f"test={got.test_x.shape} bitwise_equal_to_written={same} "
+              f"read_ms={seconds * 1e3:.2f}", flush=True)
+        check(same, f"G1: {label} read back differs from what was written")
+    for formats, lib in (("usps (usps.h5)", "h5py"),
+                         ("flowers-17, flowers-102, tiny-imagenet (jpg)", "PIL")):
+        if importlib.util.find_spec(lib) is None:
+            print(f"G1 {formats}: not readable on this machine: {lib} is not installed (the "
+                  f"reader raises its ImportError; nothing substitutes for it)", flush=True)
+        else:
+            print(f"G1 {formats}: {lib} is installed", flush=True)
+
+
+def tensors_of(tr):
+    """[(name, tensor)] of everything a checkpoint holds, the live tensors."""
+    out = list(tr.model.state_dict().items())
+    for i, p in enumerate(tr.model.parameters()):
+        out += [(f"adamw.{i}.{k}", v) for k, v in tr.optimizer.state[p].items()]
+    out += [(f"lr.{i}", g["lr"]) for i, g in enumerate(tr.optimizer.param_groups)]
+    out += [(f"state.{k}", getattr(tr.state, k)) for k in ("step", "epoch_start", "metrics")]
+    return out
+
+
+def snapshot(tr):
+    return {k: v.detach().clone() for k, v in tensors_of(tr)}
+
+
+def same_state(label, a, b):
+    """Checks two snapshots bitwise; prints the count."""
+    check(a.keys() == b.keys(), f"{label}: other tensors")
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    values = sum(v.numel() for v in a.values())
+    print(f"{label}: {len(a)} tensors ({values} values: parameters, buffers, AdamW moments and "
+          f"step counts, lr tensors, device step, epoch start, metrics rows) bitwise_equal="
+          f"{not differ}" + (f" first_differing={differ[:3]}" if differ else ""), flush=True)
+    check(not differ, f"{label}: {differ[:3]} differ")
+
+
+class ProtocolProbe(Trainer):
+    """The trainer the protocol ``main`` builds, with holds around what it
+    does: the clustering eval just before ``save_checkpoint("last")``, a
+    snapshot of the saved tensors, the time and bytes of each save, the
+    restored tensors against the snapshot (bitwise, at the same addresses)
+    and a copy of the parameters after each validation."""
+
+    instances = []
+    on_init = None
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.saves, self.epoch_copies = [], []
+        ProtocolProbe.instances.append(self)
+        if ProtocolProbe.on_init is not None:
+            ProtocolProbe.on_init(self)
+
+    def save_checkpoint(self, tag="last", params=None, batch_stats=None):
+        if tag == "last" and not self.cfg.classification:
+            self.before_save = self.evaluate()
+        self.saved = snapshot(self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = super().save_checkpoint(tag, params, batch_stats)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.saves.append((tag, ms, os.path.getsize(os.path.join(path, "state.pt"))))
+        return path
+
+    def restore_checkpoint(self, tag="last", path=None):
+        held = [v.data_ptr() for _, v in tensors_of(self)]
+        t0 = time.perf_counter()
+        super().restore_checkpoint(tag, path)
+        torch.cuda.synchronize()
+        self.restore_ms = (time.perf_counter() - t0) * 1e3
+        same_state(f"restore {tag}", snapshot(self), self.saved)
+        check([v.data_ptr() for _, v in tensors_of(self)] == held,
+              "the restore rebound a tensor a captured step reads")
+
+    def validate(self, epoch):
+        out = super().validate(epoch)
+        if out is not None:
+            self.epoch_copies.append({k: v.detach().clone()
+                                      for k, v in self.model.state_dict().items()})
+        return out
+
+
+def run_protocol(label, argv, on_init=None):
+    """``trainer.main(argv)`` with ``ProtocolProbe`` as its trainer; returns
+    (the runs' results, the probes, the launch counts, the JSON written)."""
+    json_path = argv[argv.index("--json-out") + 1]
+    ProtocolProbe.instances, ProtocolProbe.on_init = [], on_init
+    trainer_mod.Trainer = ProtocolProbe
+    print(f"{label}: python -m vitsom_tpu_torch.train.trainer " + " ".join(argv), flush=True)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        results = trainer_mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        trainer_mod.Trainer = Trainer
+        ProtocolProbe.on_init = None
+    with open(json_path) as f:
+        payload = json.load(f)
+    print(f"{label}: protocol wall_s={wall:.3f} json={json.dumps(payload)}", flush=True)
+    return results, ProtocolProbe.instances, launches, payload
+
+
+def check_events(label, tr, tags):
+    """The run's event file holds exactly ``tags`` at the steps each epoch
+    ends; returns its scalars."""
+    spe = tr.dm.steps_per_epoch
+    want = {(t, spe * (e + 1)) for t in tags for e in range(tr.epochs_done)}
+    got = tb_writer.read_scalar_events(tr.logger.path)
+    have = {(t, s) for t, s, _ in got}
+    print(f"{label} events: {tr.logger.path} records={len(got)} "
+          f"tags={sorted({t for t, _ in have})} "
+          f"steps={sorted({s for _, s in have})} equal_to_the_jax_set={have == want}", flush=True)
+    check(have == want, f"{label}: event tags {sorted(have ^ want)[:6]} differ from the JAX set")
+    return got
+
+
+def phase_protocol_flagship(dev, root, smi):
+    """G2: ``vit_som_mnist.yaml`` as shipped from gzipped IDX files of 60000
+    + 10000 images, one epoch, two runs through the protocol ``main``.
+    Returns (the data dir, the launch counts)."""
+    mnist = datasets.make_synthetic(DataConfig(dataset="mnist", synthetic_size=60000))
+    raw = datasets.ArraySplits(mnist.train_x, mnist.train_y, mnist.test_x[:10000],
+                               mnist.test_y[:10000])
+    d = os.path.join(root, "mnist_full")
+    t0 = time.perf_counter()
+    write_mnist(os.path.join(d, "mnist"), raw, gz=True)
+    sizes = sum(os.path.getsize(os.path.join(d, "mnist", f))
+                for f in os.listdir(os.path.join(d, "mnist")))
+    got, read_s = timed_read(DataConfig(dataset="mnist", data_dir=d))
+    print(f"G2 data: MNIST as four gzipped IDX files, {sizes} bytes, written in "
+          f"{time.perf_counter() - t0 - read_s:.3f} s; load_raw read them in {read_s:.3f} s "
+          f"(gunzip + parse of 60000 + 10000 28x28 images)", flush=True)
+    check(splits_equal(got, raw), "G2: the gzipped IDX files read back differ")
+    u8 = torch.from_numpy(np.concatenate([raw.train_x, raw.test_x])).to(dev)
+    want_images = u8.float() / 255.0
+    want_labels = torch.from_numpy(np.concatenate([raw.train_y, raw.test_y])).to(dev)
+    exact = torch.from_numpy(np.concatenate([raw.train_x, raw.test_x]).astype(np.float32)
+                             / np.float32(255)).to(dev)
+
+    def hold_images(tr):
+        same = torch.equal(tr.dm.images, want_images) and torch.equal(tr.dm.labels, want_labels)
+        ulp = float((tr.dm.images - exact).abs().max())
+        print(f"G2 run {tr.run_id}: device images {tuple(tr.dm.images.shape)} equal the IDX "
+              f"bytes / 255 (as the module divides on the card) bitwise={same}; max |diff| to "
+              f"numpy's correctly rounded division {ulp:.3e}", flush=True)
+        check(same, "G2: the device images are not the IDX bytes / 255")
+
+    argv = ["--config", CONFIG, "--epochs", "1", "--runs", str(G2_RUNS),
+            "--json-out", os.path.join(root, "g2.json"),
+            "--override", f"data.data_dir={d}",
+            "--override", f"train.checkpoint_dir={os.path.join(root, 'g2_states')}",
+            "--override", f"train.log_dir={os.path.join(root, 'g2_logs')}"]
+    results, probes, launches, payload = run_protocol("G2", argv, hold_images)
+    cfg = probes[0].cfg
+    check(len(probes) == G2_RUNS and not cfg.data.allow_synthetic, "G2: not two file-backed runs")
+    evals = eval_batch_count(probes[0].dm.n_train, cfg.batch_size) + 1
+    want = expected_launches(cfg, model_attn_impl(cfg), G2_RUNS * issued_steps(
+        probes[0].step, False), G2_RUNS * 2 * evals)
+    for tr, res in zip(probes, results):
+        check(tr.graph is not None and tr.step == tr.dm.steps_per_epoch,
+              "G2: a run was not one graphed epoch")
+        (tag, save_ms, nbytes), = tr.saves
+        scalars = check_events(f"G2 run {tr.run_id}", tr, PROTOCOL_TAGS)
+        ips = [v for t, _, v in scalars if t == "perf/images_per_sec_per_chip"][0]
+        same_eval = all(res[k] == tr.before_save[k] for k in ("purity", "nmi"))
+        print(f"G2 run {tr.run_id}: steps={tr.step} median_step_ms={res['median_step_ms']:.4f} "
+              f"epoch_s={tr.dm.steps_per_epoch * cfg.batch_size / ips:.3f} "
+              f"perf/images_per_sec_per_chip={ips:.1f} checkpoint {tag}: {nbytes} bytes "
+              f"save_ms={save_ms:.1f} restore_ms={tr.restore_ms:.1f}; from the restored state "
+              f"purity={res['purity']:.6f} nmi={res['nmi']:.6f}, just before the save "
+              f"purity={tr.before_save['purity']:.6f} nmi={tr.before_save['nmi']:.6f} "
+              f"equal={same_eval} run_s={res['run_seconds']:.3f}", flush=True)
+        check(same_eval, "G2: the restored state evaluates otherwise than the saved one")
+    keys = {"purity", "nmi", "run_duration", "inference_time", "images_per_sec_per_chip",
+            "peak_memory_gb"}
+    check(set(payload) == keys and all(len(v) == G2_RUNS and all(map(math.isfinite, v))
+                                       for v in payload.values()),
+          f"G2: --json-out holds {sorted(payload)}, not the harness's keys")
+    print(f"G2: peak_memory_gb={payload.get('peak_memory_gb')} (torch.cuda.max_memory_allocated) "
+          f"{smi}", flush=True)
+    print("G2 launches: " + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items())
+          + f" [{G2_RUNS} runs x (3 issued steps + 2 clustering evals of {evals} batches: the "
+          f"hold's, just before the save, and the protocol's, after the restore)]", flush=True)
+    check(launches == want, f"G2: launch counts {launches} != {want}")
+    return d, launches
+
+
+def phase_restore_captured(dev, d, root):
+    """G3: a checkpoint restored into a trainer whose step is captured, and
+    into a fresh one, continues bitwise as the uninterrupted run."""
+    cfg = load_config(CONFIG, {"data.data_dir": d,
+                               "train.checkpoint_dir": os.path.join(root, "g3_states"),
+                               "train.log_dir": os.path.join(root, "g3_logs")})
+    dm = build_datamodule(cfg, dev)
+    tr = Trainer(cfg, device=dev, dm=dm)
+    tr.fit(max_steps=G3_STEPS)
+    check(tr.graph is not None, "G3: no graph was captured")
+    tr.save_checkpoint("g3")
+    tr.fit(max_steps=2 * G3_STEPS, new_epoch=False)
+    uninterrupted = snapshot(tr)
+    graph, held = tr.graph, [v.data_ptr() for _, v in tensors_of(tr)]
+    tr.restore_checkpoint("g3")
+    check(tr.graph is graph and [v.data_ptr() for _, v in tensors_of(tr)] == held,
+          "G3: the restore replaced the graph or rebound a tensor")
+    reset_launches()
+    tr.fit(max_steps=2 * G3_STEPS)
+    replays_only = read_launches()["som_fused"] == 0
+    print(f"G3: restored step {G3_STEPS} into the captured trainer, then {G3_STEPS} steps "
+          f"(graph replays only: {replays_only})", flush=True)
+    check(replays_only, "G3: the restored trainer issued a step from Python")
+    same_state("G3 captured trainer", snapshot(tr), uninterrupted)
+    fresh = Trainer(cfg, device=dev, dm=dm)
+    fresh.restore_checkpoint("g3")
+    fresh.fit(max_steps=2 * G3_STEPS)
+    check(fresh.graph is not None, "G3: the fresh trainer captured no graph")
+    same_state(f"G3 fresh trainer ({WARMUP_STEPS} warm-up steps, a capture, replays)",
+               snapshot(fresh), uninterrupted)
+
+
+def phase_protocol_cifar(dev, root, smi):
+    """G4: ``vit_som_cifar-10.yaml`` as shipped with ``pallas`` attention
+    from python pickles of 50000 + 10000 images, two epochs, one run through
+    the protocol ``main``. Returns the launch counts."""
+    raw = datasets.make_synthetic(DataConfig(dataset="cifar-10", num_classes=10,
+                                             num_channels=3, input_size=32,
+                                             synthetic_size=50000))
+    t0 = time.perf_counter()
+    write_cifar(root, raw)
+    written = time.perf_counter() - t0
+    got, read_s = timed_read(DataConfig(dataset="cifar-10", data_dir=root))
+    print(f"G4 data: cifar-10 as six python pickles (50000 + 10000 32x32x3 images), written in "
+          f"{written:.3f} s; load_raw read them in {read_s:.3f} s", flush=True)
+    check(splits_equal(got, raw), "G4: the pickles read back differ")
+    argv = ["--config", CIFAR_CONFIG, "--epochs", str(G4_EPOCHS), "--runs", "1",
+            "--json-out", os.path.join(root, "g4.json"),
+            "--override", f"data.data_dir={root}",
+            "--override", f"train.checkpoint_dir={os.path.join(root, 'g4_states')}",
+            "--override", f"train.log_dir={os.path.join(root, 'g4_logs')}"]
+    for k, v in G4_OVER.items():
+        argv += ["--override", f"{k}={v}"]
+    results, (tr,), launches, payload = run_protocol("G4", argv)
+    cfg, dm, res = tr.cfg, tr.dm, results[0]
+    bs = cfg.batch_size
+    check(tr.graph is not None and tr.epochs_done == G4_EPOCHS, "G4: not two graphed epochs")
+    accs = [v["val/accuracy"] for v in tr.val_history]
+    best = int(np.argmax(accs))
+    ck = torch.load(os.path.join(tr.checkpoint_dir("best"), "state.pt"), map_location=dev,
+                    weights_only=True)
+    same = all(torch.equal(ck["model"][k], v) for k, v in tr.epoch_copies[best].items())
+    print(f"G4: val/accuracy by epoch {accs}; the best checkpoint equals the parameters copied "
+          f"after epoch {best}'s validation bitwise={same}; saves (tag, ms, bytes) {tr.saves}; "
+          f"test accuracy={res['accuracy']:.6f} f1={res['f1']:.6f} "
+          f"median_step_ms={res['median_step_ms']:.4f} augmentation_ms_per_epoch="
+          + ",".join(f"{v:.1f}" for v in res["fill_ms_per_epoch"]), flush=True)
+    check(same and len(tr.epoch_copies) == G4_EPOCHS,
+          "G4: the best checkpoint is not the best epoch's")
+    check(0.0 <= res["accuracy"] <= 1.0, "G4: no test accuracy")
+    scalars = check_events("G4", tr, steps_lib.metric_keys(cfg) + (
+        "perf/images_per_sec_per_chip",) + CLS_VAL_TAGS)
+    print("G4: perf/images_per_sec_per_chip by epoch "
+          + ",".join(f"{v:.1f}" for t, _, v in scalars if t == "perf/images_per_sec_per_chip")
+          + f" peak_memory_gb={payload.get('peak_memory_gb')} {smi}", flush=True)
+    keys = {"accuracy", "precision", "recall", "f1", "run_duration", "inference_time",
+            "images_per_sec_per_chip", "peak_memory_gb"}
+    check(set(payload) == keys, f"G4: --json-out holds {sorted(payload)}")
+    evals = (G4_EPOCHS * eval_batch_count(dm.split_len("val"), bs)
+             + eval_batch_count(dm.split_len("test"), bs) + 1)
+    want = expected_launches(cfg, model_attn_impl(cfg), issued_steps(tr.step, False), evals)
+    print("G4 launches: " + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items())
+          + f" [3 issued steps, eval batches {evals}: two validations, the test eval and its "
+          f"warm-up batch]", flush=True)
+    check(launches == want, f"G4: launch counts {launches} != {want}")
+    return launches
+
+
+def phase_protocol(dev, smi):
+    """Phase G; returns {path: launch counts} of G2 and G4."""
+    with tempfile.TemporaryDirectory() as root:
+        phase_readers(root)
+        d, flagship = phase_protocol_flagship(dev, root, smi)
+        phase_restore_captured(dev, d, root)
+        cifar = phase_protocol_cifar(dev, root, smi)
+    return {"protocol_flagship": flagship, "protocol_cifar10_pallas": cifar}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1860,15 +2311,18 @@ def main() -> int:
         phase_desom(dev, smi)
         phase_bench(dev, smi)
         phase_profiles(smi)
+        protocol_paths = phase_protocol(dev, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
-    # launches: this slice's main path (phase E1's vit_som_tiny-imagenet
-    # pallas run) and, by path, every train run that launches the kernel
+    # launches: this slice's main path (phase G4's protocol run of
+    # vit_som_cifar-10 from its pickles, pallas) and, by path, every train
+    # run that launches the kernel
     paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
-             "cifar10_clustering_pallas": cifar, **cls_paths, **family_paths}
-    main_path = family_paths["tiny_imagenet_pallas"]
+             "cifar10_clustering_pallas": cifar, **cls_paths, **family_paths,
+             **protocol_paths}
+    main_path = protocol_paths["protocol_cifar10_pallas"]
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items() if counts[name]}

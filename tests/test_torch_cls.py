@@ -452,8 +452,10 @@ def test_trainer_fits_validates_and_tests_on_cpu(cfg_path):
         assert not any("decoder" in n for n, _ in tr.model.named_parameters())
 
 
-def test_trainer_cli_cls_on_cpu(capsys):
+def test_trainer_cli_cls_on_cpu(capsys, tmp_path):
     results = ttrainer.main([
+        "--override", f"train.checkpoint_dir={tmp_path / 'states'}",
+        "--override", f"train.log_dir={tmp_path / 'logs'}",
         "--config", CIFAR, "--synthetic", "--runs", "1", "--max-steps", "2", "--device", "cpu",
         "--batch-size", "8", "--override", "data.synthetic_size=40",
         "--override", "som.map_size=[2, 2]", "--override", "vit.depth=1",

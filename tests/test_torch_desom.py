@@ -391,8 +391,10 @@ def test_trainer_fits_and_evaluates_desom_mnist_on_cpu(bn):
         assert not torch.equal(tr.model.autoencoder.encoder.bn_0.running_var, torch.ones(32))
 
 
-def test_trainer_cli_desom_on_cpu(capsys):
+def test_trainer_cli_desom_on_cpu(capsys, tmp_path):
     results = ttrainer.main([
+        "--override", f"train.checkpoint_dir={tmp_path / 'states'}",
+        "--override", f"train.log_dir={tmp_path / 'logs'}",
         "--config", MNIST, "--synthetic", "--runs", "1", "--epochs", "1", "--device", "cpu",
         "--batch-size", "16", "--override", "data.synthetic_size=64",
         "--override", "ae.encoder_dims=[32, 10]",

@@ -2,9 +2,11 @@
 
 Importing ``vitsom_tpu_torch`` (every submodule) and ``chip_smoke`` in a
 fresh interpreter must load no ``jax``, ``flax``, ``optax`` or
-``vitsom_tpu`` module, and no ``PIL`` or ``torchvision`` (the card's
-machine has neither); and an entry point called without a device on a
-machine without CUDA raises instead of running on the CPU.
+``vitsom_tpu`` module, and no ``PIL``, ``h5py`` or ``torchvision`` (the
+card's machine has none of them; the dataset readers import ``PIL``,
+``h5py`` and ``scipy`` inside the functions that need them); and an entry
+point called without a device on a machine without CUDA raises instead of
+running on the CPU.
 """
 
 import os
@@ -25,12 +27,13 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vitsom_tpu", "PIL",
-                                    "torchvision"))
+                                    "h5py", "torchvision"))
 print(len(names), all(m in names for m in (
     "vitsom_tpu_torch.ops.attention_fused", "vitsom_tpu_torch.ops.block_fused",
     "vitsom_tpu_torch.data.augment", "vitsom_tpu_torch.data.device_augment",
     "vitsom_tpu_torch.data.pipeline", "vitsom_tpu_torch.models.ae",
-    "vitsom_tpu_torch.models.desom")))
+    "vitsom_tpu_torch.models.desom", "vitsom_tpu_torch.data.datasets",
+    "vitsom_tpu_torch.utils.tb_writer", "vitsom_tpu_torch.utils.logging")))
 print("BAD", bad)
 """
 
@@ -44,7 +47,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, bad = out.stdout.strip().splitlines()[-2:]
     n_modules, has_kernel_modules = counts.split()
-    assert int(n_modules) >= 27 and has_kernel_modules == "True"
+    assert int(n_modules) >= 30 and has_kernel_modules == "True"
     assert bad == "BAD []", bad
 
 
@@ -108,6 +111,19 @@ def test_desom_entry_points_refuse_cpu_without_cuda(monkeypatch):
                      lambda: build_datamodule(cfg)):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
+
+
+def test_protocol_main_refuses_cpu_without_device_flag(monkeypatch, tmp_path):
+    """The N-run protocol defaults to the card: without ``--device cpu`` on
+    a machine without CUDA it raises before it reads data or clears a
+    state directory."""
+    from vitsom_tpu_torch.train import trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer.main(["--config", "configs/vit_som/vit_som_mnist.yaml", "--synthetic",
+                      "--override", f"train.checkpoint_dir={tmp_path / 'states'}"])
+    assert not (tmp_path / "states").exists()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -410,8 +410,10 @@ def test_trainer_fits_and_evaluates_on_cpu():
     assert 0.0 <= res["purity"] <= 1.0 and 0.0 <= res["nmi"] <= 1.0
 
 
-def test_trainer_cli_on_cpu(capsys):
+def test_trainer_cli_on_cpu(capsys, tmp_path):
     results = ttrainer.main([
+        "--override", f"train.checkpoint_dir={tmp_path / 'states'}",
+        "--override", f"train.log_dir={tmp_path / 'logs'}",
         "--config", "configs/vit_som/vit_som_mnist.yaml", "--synthetic", "--runs", "1",
         "--max-steps", "2", "--device", "cpu", "--batch-size", "8",
         "--override", "data.synthetic_size=64", "--override", "som.map_size=[4, 4]",

@@ -131,11 +131,17 @@ def center_crop_resize(images: torch.Tensor, out_size: int, crop_pct: float) -> 
     return _pil_pass(x, cy, 1)
 
 
+def to_unit_range(images: torch.Tensor) -> torch.Tensor:
+    """The mnist family's eval transform (ToTensor): uint8 divided by 255,
+    any other dtype (usps, stored in [0, 1]) as it is, as float32."""
+    return images.float() / 255.0 if images.dtype == torch.uint8 else images.float()
+
+
 def make_eval_transform(data_cfg: DataConfig) -> Callable[[torch.Tensor], torch.Tensor]:
     """``fn(uint8 images [B, H, W, C]) -> float32 [B, S, S, C]`` on the
     images' device: the eval transform (module docstring)."""
     if data_cfg.dataset in MNIST_FAMILY:
-        return lambda images: images.float() / 255.0
+        return to_unit_range
     size = data_cfg.input_size
     mean, std = norm_stats(data_cfg.dataset, data_cfg.num_channels)
     crop_pct = 0.875 if size <= 224 else 1.0

@@ -28,23 +28,29 @@ Counterpart of the classification branch of ``vitsom_tpu/data/pipeline.py``
   gather of the shuffled rows into the epoch buffer, as the clustering
   module's, and no augmentation graph is built;
 - val and test are eval-transformed on the device once, when first asked
-  for, and cached there (``eval_arrays``) until ``release``.
+  for, and cached there (``eval_arrays``) until ``release``;
+- a source of variable-size images (an object array from a jpg dir:
+  flowers-17/102, tiny-imagenet's paths) stays on the host, and each image
+  is moved to the device and eval-transformed one at a time into one
+  fixed-size tensor (``transform_objects``); only the static path takes
+  it (``desom_flowers17.yaml``).
 
-The host augmentation path (``data.device_augment: false`` with a random
-train transform) is not ported (ROADMAP Queue 1 item 4).
+The host augmentation path (``data.device_augment: false``, or a source of
+variable-size images, with a random train transform) is not ported (the
+head of ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from vitsom_tpu_torch.config import Config
 from vitsom_tpu_torch.data import augment as aug_lib
+from vitsom_tpu_torch.data.datasets import load_image, load_raw
 from vitsom_tpu_torch.data.device_augment import make_device_train_augment
-from vitsom_tpu_torch.data.synthetic import load_raw
 from vitsom_tpu_torch.utils.device import resolve_device
 
 # images eval-transformed in one call: at most EVAL_TRANSFORM_CHUNK, and at
@@ -52,6 +58,10 @@ from vitsom_tpu_torch.utils.device import resolve_device
 # float64: about four such tensors are live at once)
 EVAL_TRANSFORM_CHUNK = 2048
 EVAL_TRANSFORM_BYTES = 1 << 30
+
+# an image split: a uint8 tensor on the device, or an object array of
+# variable-size images or paths on the host
+Images = Union[torch.Tensor, np.ndarray]
 
 
 def classification_split(n: int, dataset: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -71,18 +81,33 @@ def eval_transform_chunks(transform, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([transform(part) for part in x.split(chunk)])
 
 
+def transform_objects(transform, x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``transform`` of an object array of variable-size HWC uint8 images
+    (or paths, decoded by ``datasets.load_image``), one image at a time on
+    ``device``, into one [N, S, S, C] tensor."""
+    def image(item):
+        img = load_image(item) if isinstance(item, str) else item
+        return torch.tensor(np.asarray(img), device=device)[None]
+
+    return torch.cat([transform(image(item)) for item in x])
+
+
 class ClassificationDataModule:
     """Train (raw uint8, or eval-transformed float32 on the static path),
     val and test (uint8, eval-transformed on demand) splits on one device;
-    labels int64 class indices."""
+    labels int64 class indices on the device. An image split may instead
+    be an object array of variable-size images or paths, on the host
+    (module docstring)."""
 
-    def __init__(self, cfg: Config, train: Tuple[torch.Tensor, torch.Tensor],
-                 val: Tuple[torch.Tensor, torch.Tensor], test: Tuple[torch.Tensor, torch.Tensor]):
+    def __init__(self, cfg: Config, train: Tuple[Images, torch.Tensor],
+                 val: Tuple[Images, torch.Tensor], test: Tuple[Images, torch.Tensor]):
         self.static = aug_lib.is_static_transform(cfg.data)
-        if not self.static and not cfg.data.device_augment:
+        objects = isinstance(train[0], np.ndarray)
+        if not self.static and (objects or not cfg.data.device_augment):
             raise NotImplementedError(
-                "the host augmentation path (data.device_augment: false with a random "
-                "train transform) is not ported yet (ROADMAP Queue 1 item 4)"
+                "the host augmentation path (a random train transform with "
+                "data.device_augment: false or a source of variable-size images, e.g. "
+                "a jpg dir) is not ported yet (the head of ROADMAP Queue 1 item 4)"
             )
         self.cfg = cfg
         self.train_x, self.train_y = train
@@ -93,7 +118,7 @@ class ClassificationDataModule:
         self.train_images: Optional[torch.Tensor] = None
         self.augment = None
         if self.static:
-            self.train_images = eval_transform_chunks(self.eval_transform, self.train_x)
+            self.train_images = self._transform(self.train_x)
         else:
             self.augment = make_device_train_augment(cfg.data)
         self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -107,11 +132,17 @@ class ClassificationDataModule:
 
     @property
     def device(self) -> torch.device:
-        return self.train_x.device
+        return self.train_y.device
 
     @property
     def n_train(self) -> int:
-        return self.train_x.shape[0]
+        return self.train_y.shape[0]
+
+    def _transform(self, x: Images) -> torch.Tensor:
+        """The eval transform of a whole split, on the device."""
+        if isinstance(x, np.ndarray):
+            return transform_objects(self.eval_transform, x, self.device)
+        return eval_transform_chunks(self.eval_transform, x)
 
     @property
     def steps_per_epoch(self) -> int:
@@ -212,7 +243,7 @@ class ClassificationDataModule:
         transformed on the device the first time and cached."""
         if split not in self._cache:
             x, y = self.raw[split]
-            self._cache[split] = (eval_transform_chunks(self.eval_transform, x), y)
+            self._cache[split] = (self._transform(x), y)
         return self._cache[split]
 
     def release(self, split: str) -> None:
@@ -231,8 +262,10 @@ class ClassificationDataModule:
 
 
 def build_classification_datamodule(cfg: Config, device="cuda") -> ClassificationDataModule:
-    """Load (or synthesise) the dataset, split it (``classification_split``)
-    and move the three splits to ``device`` (default: the card) as uint8."""
+    """Read the dataset's files (``datasets.load_raw``, or the synthetic
+    stand-in), split them (``classification_split``) and move the three
+    splits to ``device`` (default: the card) as uint8; an object array of
+    variable-size images stays on the host (module docstring)."""
     dev = resolve_device(device)
     raw = load_raw(cfg.data)
     train_idx, val_idx = classification_split(len(raw.train_y), cfg.data.dataset)
@@ -240,8 +273,10 @@ def build_classification_datamodule(cfg: Config, device="cuda") -> Classificatio
     def put(x: np.ndarray, y: np.ndarray, idx: Optional[np.ndarray] = None):
         if idx is not None:
             x, y = x[idx], y[idx]
-        return (torch.from_numpy(np.ascontiguousarray(x)).to(dev),
-                torch.from_numpy(y.astype(np.int64)).to(dev))
+        labels = torch.from_numpy(y.astype(np.int64)).to(dev)
+        if x.dtype == object:
+            return x, labels
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev), labels
 
     return ClassificationDataModule(
         cfg, put(raw.train_x, raw.train_y, train_idx), put(raw.train_x, raw.train_y, val_idx),

@@ -1,105 +1,45 @@
-"""Synthetic stand-in data and the clustering data module.
-
-``make_synthetic`` is the port's own copy of the part of
-``vitsom_tpu/data/datasets.make_synthetic`` that the shipped configs use
-(``synthetic_overlap == 0``: class templates + uniform noise, at each
-dataset's stored resolution): the same seed (``zlib.crc32(dataset)``), the
-same draws in the same order, the same uint8 arrays. The overlap
-generators and reading the raw dataset files are later slices of the port.
+"""The clustering data module.
 
 ``DataModule`` keeps the clustering split (train + test concatenated, as
 the reference trains and evaluates clustering on it) on the device as
-float32 in [0, 1] (the mnist family's transform), and draws each epoch's
+float32: uint8 images scaled to [0, 1] (the mnist family's ToTensor),
+float images (usps, stored in [0, 1]) as they are, as the JAX eval
+transform treats them. It draws each epoch's
 shuffled drop-last batches from a ``torch.Generator``: one batch at a time
 (``train_batches``), or all of an epoch's at once into a fixed buffer
 (``fill_epoch``), the counterpart of the JAX trainer's one bulk gather an
 epoch (``vitsom_tpu/train/trainer.py:464-469``), from which a captured
 train step reads its batch with a device index (``epoch_batch``).
-``build_datamodule`` returns it for clustering configs and the
-classification module of ``data/pipeline.py`` (train/val/test split,
-augmentation on the device) for ``num_classes > 0``.
+``build_datamodule`` reads the dataset's files (``datasets.load_raw``)
+and returns this module for clustering configs and the classification
+module of ``data/pipeline.py`` (train/val/test split, augmentation on the
+device) for ``num_classes > 0``.
+
+``make_synthetic``, ``_NATIVE_HW`` and ``load_raw`` live in
+``data/datasets.py`` and are importable from here as well.
 """
 
 from __future__ import annotations
 
-import zlib
-from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
-from vitsom_tpu_torch.config import Config, DataConfig
+from vitsom_tpu_torch.config import Config
+from vitsom_tpu_torch.data.augment import to_unit_range
+from vitsom_tpu_torch.data.datasets import _NATIVE_HW, load_raw, make_synthetic  # noqa: F401
 from vitsom_tpu_torch.utils.device import resolve_device
 
-# stored resolution of each dataset's source files; the synthetic stand-in
-# is generated at this size, not at data.input_size
-_NATIVE_HW = {
-    "mnist": 28, "fmnist": 28, "usps": 16, "medmnist": 28,
-    "cifar-10": 32, "cifar-100": 32, "svhn": 32, "tiny-imagenet": 64,
-}
-
-
-# the datasets whose transform (ToTensor: x / 255) is ported
+# the datasets whose transform (ToTensor) is ported for clustering
 MNIST_FAMILY = ("mnist", "fmnist", "usps", "synthetic")
-
-
-@dataclass
-class ArraySplits:
-    """Raw arrays; images NHWC uint8."""
-
-    train_x: np.ndarray
-    train_y: np.ndarray
-    test_x: np.ndarray
-    test_y: np.ndarray
-
-
-def make_synthetic(cfg: DataConfig, num_classes_hint: int = 10) -> ArraySplits:
-    """Deterministic class-conditional blobs shaped like the real dataset:
-    per-class templates in [0, 0.6*255] plus uniform noise in [0, 0.4*255]."""
-    if cfg.synthetic_overlap > 0.0 or cfg.synthetic_object_array:
-        raise NotImplementedError(
-            "synthetic_overlap / synthetic_object_array generators are not ported yet"
-        )
-    k = max(cfg.num_classes, num_classes_hint)
-    n_train = cfg.synthetic_size
-    n_test = max(cfg.synthetic_size // 5, 64)
-    rng = np.random.default_rng(zlib.crc32(cfg.dataset.encode()))
-    h = w = _NATIVE_HW.get(cfg.dataset, cfg.input_size)
-    c = cfg.num_channels
-
-    # templates are drawn once and shared by both splits, so train and test
-    # come from the same class-conditional distribution
-    templates = rng.random(size=(k, h, w, c), dtype=np.float32)
-    templates = templates * (0.6 * 255.0)
-
-    def gen(n):
-        y = rng.integers(0, k, size=n)
-        noise = rng.random(size=(n, h, w, c), dtype=np.float32)
-        noise *= 0.4 * 255.0
-        x = templates[y]
-        x += noise
-        return x.astype(np.uint8), y.astype(np.int64)
-
-    tx, ty = gen(n_train)
-    vx, vy = gen(n_test)
-    return ArraySplits(tx, ty, vx, vy)
-
-
-def load_raw(cfg: DataConfig) -> ArraySplits:
-    if cfg.dataset == "synthetic" or cfg.allow_synthetic:
-        return make_synthetic(cfg)
-    raise NotImplementedError(
-        f"reading the {cfg.dataset} files is not ported yet; "
-        "set data.allow_synthetic (--synthetic) for the synthetic stand-in"
-    )
 
 
 class DataModule:
     """Clustering data resident on one device.
 
-    ``images`` [N, H, W, C] float32 in [0, 1] (the mnist-family ToTensor
-    transform) and ``labels`` [N] int64 hold concat(train, test)."""
+    ``images`` [N, H, W, C] float32 (``augment.to_unit_range``) and ``labels`` [N]
+    int64 hold concat(train, test)."""
 
     def __init__(self, cfg: Config, images: torch.Tensor, labels: torch.Tensor):
         self.cfg = cfg
@@ -159,7 +99,7 @@ class DataModule:
 
 def raw_synthetic_datamodule(cfg: Config, device="cuda") -> DataModule:
     """The config's synthetic stand-in (``make_synthetic``), train and test
-    concatenated and scaled to [0, 1] as the mnist family is, with no
+    concatenated and scaled as the mnist family is, with no
     transform and no augmentation, for any dataset. ``build_datamodule``
     takes clustering on the mnist family and classification on any
     dataset (``data/pipeline.py``); the clustering of the other datasets,
@@ -170,11 +110,13 @@ def raw_synthetic_datamodule(cfg: Config, device="cuda") -> DataModule:
     raw = make_synthetic(cfg.data)
     x = np.concatenate([raw.train_x, raw.test_x])
     y = np.concatenate([raw.train_y, raw.test_y])
-    return DataModule(cfg, torch.from_numpy(x).to(dev).float() / 255.0, torch.from_numpy(y).to(dev))
+    return DataModule(cfg, to_unit_range(torch.from_numpy(x).to(dev)), torch.from_numpy(y).to(dev))
 
 
 def build_datamodule(cfg: Config, device="cuda"):
-    """Load (or synthesise) the dataset and move it to ``device`` (default:
+    """Read the dataset's files (``datasets.load_raw``: the synthetic
+    stand-in where they are missing and ``data.allow_synthetic`` is set,
+    or for ``dataset: synthetic``) and move it to ``device`` (default:
     the card): the clustering split as a ``DataModule``, or for
     ``num_classes > 0`` the classification split as a
     ``pipeline.ClassificationDataModule``."""
@@ -191,5 +133,4 @@ def build_datamodule(cfg: Config, device="cuda"):
     raw = load_raw(cfg.data)
     x = np.concatenate([raw.train_x, raw.test_x])
     y = np.concatenate([raw.train_y, raw.test_y])
-    images = torch.from_numpy(x).to(dev).float() / 255.0
-    return DataModule(cfg, images, torch.from_numpy(y).to(dev))
+    return DataModule(cfg, to_unit_range(torch.from_numpy(x).to(dev)), torch.from_numpy(y).to(dev))

@@ -6,12 +6,14 @@ Same definitions as ``vitsom_tpu/eval/metrics.py``:
   the fraction of points whose adopted label matches their true one;
 - ``nmi``: normalised mutual information with arithmetic-mean
   normalisation (sklearn's default);
-- ``classification_metrics``: accuracy and macro precision, recall and F1.
+- ``classification_metrics``: accuracy and macro precision, recall and F1;
+- ``aggregate_runs``: the mean and std of each metric over the N-run
+  protocol's runs.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -89,3 +91,13 @@ def classification_metrics(y_true: np.ndarray, y_pred: np.ndarray) -> Dict[str, 
         "recall": float(np.nanmean(recalls)),
         "f1": float(np.nanmean(f1s)),
     }
+
+
+def aggregate_runs(per_run: Dict[str, list]) -> Dict[str, Tuple[float, float]]:
+    """(mean, std) of each non-empty list of per-run scores (the
+    reference's ``train_vit_som.py:120-130``)."""
+    out = {}
+    for k, scores in per_run.items():
+        if scores:
+            out[k] = (float(np.mean(scores)), float(np.std(scores)))
+    return out

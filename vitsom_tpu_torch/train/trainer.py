@@ -8,13 +8,31 @@ evaluates purity and NMI there; classification (``data.num_classes > 0``)
 trains on the 80/20 split (augmented on the device, or transformed once
 where the train transform is static), validates after each epoch
 (``best_val_accuracy``) and evaluates accuracy, precision, recall and F1
-on the test split from the last state. DESOM's BatchNorm running averages
-are buffers of the model, moved in place by the train step and read by the
-eval step. Checkpoints (and so the save of the best validation state),
-TensorBoard (and so DESOM's image grids, ``train.log_images_every_n_epochs``)
-and the multi-run harness's aggregation files are later slices of the port;
-their config keys are read and ignored, as are the TPU dispatch keys
-(``train.epochs_per_dispatch``, ``scan_splits``, ...).
+on the test split from the last state, saving the ``best`` checkpoint
+whenever ``val/accuracy`` improves. DESOM's BatchNorm running averages are
+buffers of the model, moved in place by the train step and read by the
+eval step. The TPU dispatch keys (``train.epochs_per_dispatch``,
+``scan_splits``, ...) are read and ignored.
+
+Each finished epoch logs the mean of each step metric and
+``perf/images_per_sec_per_chip`` at the epoch's last step to a TensorBoard
+event file under ``<log_dir>/<model_arch>/<dataset>/run_<id>``, with the
+JAX trainer's tags; validation logs ``val/*`` at the same step, and DESOM
+logs its input, reconstruction and decoded-prototype grids every
+``train.log_images_every_n_epochs`` epochs.
+
+Checkpoints (``save_checkpoint`` / ``restore_checkpoint``, at
+``<checkpoint_dir>/<model_arch>/<dataset>_run<id>_<tag>``) hold the
+parameters and buffers (DESOM's BatchNorm statistics), AdamW's moments,
+step counts and lr tensors, the device step, the epoch's start, its
+metrics rows and the data generators' states at the epoch's start
+(``torch.save``; read with ``weights_only=True``), beside the config as
+``vitsom_config.yaml``. A restore copies into the tensors the trainer
+already holds, never rebinding one: a captured step reads its tensors at
+fixed addresses, and would go on reading the old ones. The next ``fit``
+refills the restored epoch from the saved generator states and continues
+it from the restored step, so a restored run steps as the uninterrupted
+one did, whether or not its step was already captured.
 
 The JAX trainer compiles a whole epoch into one program (``_build_epoch_fn``:
 one permutation and bulk gather of the epoch's batches, a ``lax.scan`` of
@@ -42,7 +60,20 @@ dispatch). A failed capture raises; nothing falls back to the eager loop.
 reference the graphed run is held against), and on the CPU ``fit`` is
 always eager.
 
-Run on the card (the default device):
+``main`` is the N-run protocol of ``experiments/benchmarking/train.py``:
+for each run the state directory is cleared, the data module built and
+the model trained inside the run's timed duration; a clustering run then
+saves ``last``, restores it and evaluates purity and NMI from the restored
+state, a classification run evaluates the in-memory model on the test
+split; the end prints each metric's "Mean (Std)" over the runs
+(``aggregate_runs``) and ``--json-out`` writes the harness's per-run
+lists. Run on the card (the default device), from files:
+
+    python -m vitsom_tpu_torch.train.trainer \\
+        --config configs/vit_som/vit_som_mnist.yaml \\
+        --override data.data_dir=/path/to/datasets --runs 5 --json-out runs.json
+
+or on the synthetic stand-in:
 
     python -m vitsom_tpu_torch.train.trainer \\
         --config configs/vit_som/vit_som_mnist.yaml --synthetic --max-steps 30
@@ -56,24 +87,86 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from vitsom_tpu_torch.config import Config, load_config
+from vitsom_tpu_torch.config import Config, config_from_dict, load_config
 from vitsom_tpu_torch.data.synthetic import build_datamodule
 from vitsom_tpu_torch.eval import evaluate as eval_lib
+from vitsom_tpu_torch.eval.metrics import aggregate_runs
 from vitsom_tpu_torch.models.vit_som import build_model
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import optim, schedules
 from vitsom_tpu_torch.train import steps as steps_lib
 from vitsom_tpu_torch.utils.device import resolve_device
+from vitsom_tpu_torch.utils.logging import MetricLogger
 
 # eager steps before the capture: the first creates AdamW's moments, the
 # second runs with every lazily created buffer and workspace in place
 WARMUP_STEPS = 2
+
+# ---------------------------------------------------------------------------
+# checkpoints: the embedded config (the reference's save_hyperparameters)
+# ---------------------------------------------------------------------------
+
+CKPT_CONFIG_FILE = "vitsom_config.yaml"
+CKPT_STATE_FILE = "state.pt"
+
+# fields that define the parameter structure: a mismatch is fatal
+_STRUCTURAL_KEYS = ("model_arch", "som", "vit", "ae", "swin", "distillation")
+_STRUCTURAL_DATA_KEYS = ("num_classes", "num_channels", "input_size")
+
+
+def save_checkpoint_config(ckpt_path: str, cfg: Config) -> None:
+    """Write the full config into the checkpoint directory, as the JAX
+    package's ``save_checkpoint_config`` writes it."""
+    import yaml
+
+    with open(os.path.join(ckpt_path, CKPT_CONFIG_FILE), "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f)
+
+
+def load_checkpoint_config(ckpt_path: str) -> Optional[Config]:
+    """The config embedded in a checkpoint (None when it has none)."""
+    import yaml
+
+    path = os.path.join(ckpt_path, CKPT_CONFIG_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return config_from_dict(yaml.safe_load(f))
+
+
+def check_checkpoint_config(ckpt_path: str, cfg: Config) -> None:
+    """Raise when the checkpoint's embedded config differs from ``cfg`` on
+    a field that defines the parameter structure; warn when it differs on
+    the schedules' fields (``total_epochs``, ``batch_size``, ``gamma``,
+    ``optimizer``), which change the run but not the structure."""
+    saved = load_checkpoint_config(ckpt_path)
+    if saved is None:
+        return
+    a, b = saved.to_dict(), cfg.to_dict()
+    hard = [k for k in _STRUCTURAL_KEYS if a[k] != b[k]] + [
+        f"data.{k}" for k in _STRUCTURAL_DATA_KEYS if a["data"][k] != b["data"][k]
+    ]
+    if hard:
+        raise ValueError(
+            f"checkpoint at {ckpt_path} was saved with a different model config "
+            f"(mismatched: {', '.join(hard)}); refusing to restore"
+        )
+    soft = [k for k in ("total_epochs", "batch_size", "gamma", "optimizer") if a[k] != b[k]]
+    if soft:
+        warnings.warn(
+            f"checkpoint config differs on non-structural fields ({', '.join(soft)}): "
+            f"schedules (lr/temperature/gamma) derived from the current config will "
+            f"not match the training run"
+        )
 
 
 class Trainer:
@@ -139,12 +232,24 @@ class Trainer:
         self._augment = torch.Generator(device=self.device).manual_seed(seed)
         self._epoch_pos = self.dm.steps_per_epoch  # steps run from the epoch buffer
         self.epochs_done = 0
+        self.run_id = run_id
+        self.logger = MetricLogger(os.path.join(
+            cfg.train.log_dir, cfg.model_arch, cfg.data.dataset, f"run_{run_id}"))
+        # the data generators' states at the current epoch's fill (what a
+        # checkpoint keeps), the host time of that fill, and the states of a
+        # restored checkpoint, from which the next fit refills its epoch
+        self._epoch_rng = self._rng_states()
+        self._epoch_t0 = time.perf_counter()
+        self._resume = None
 
     def current_temperature(self) -> float:
         return som.temperature_schedule(
             self.step, self.statics.total_iterations_float,
             self.cfg.som.t_max, self.cfg.som.t_min,
         )
+
+    def _rng_states(self):
+        return self._shuffle.get_state(), self._augment.get_state()
 
     def _buffered_step(self):
         """The step body on the epoch buffer's batch ``step - epoch_start``:
@@ -193,7 +298,12 @@ class Trainer:
         between the ends of consecutive steps (CUDA events, no per-step
         synchronisation); on the CPU, the host time of the step. The epoch
         fills (gather, augmentation) and validation fall outside them;
-        ``self.fill_ms`` gets each fill's time on the same clock."""
+        ``self.fill_ms`` gets each fill's time on the same clock.
+
+        After ``restore_checkpoint`` the call first refills the restored
+        epoch from the saved generator states (outside the timings) and
+        continues it from the restored step. Each finished epoch logs its
+        metrics (module docstring)."""
         cfg = self.cfg
         self.model.train()
         cuda = self.device.type == "cuda"
@@ -203,6 +313,9 @@ class Trainer:
         keys = self.state.keys
         log_every = max(1, cfg.train.log_every_n_steps)
         fills = 0
+        if self._resume is not None:
+            fills = self._refill_restored_epoch()
+            new_epoch = False
         while True:
             fill = new_epoch or self._epoch_pos >= spe
             n = spe if fill else spe - self._epoch_pos
@@ -213,6 +326,8 @@ class Trainer:
             new_epoch = False
             marks = [_mark(cuda)]
             if fill:
+                self._epoch_rng = self._rng_states()
+                self._epoch_t0 = time.perf_counter()
                 self.dm.fill_epoch(self._shuffle, self.epoch_images, self._augment)
                 self.state.epoch_start.fill_(self.step)
                 self._epoch_pos = 0
@@ -240,10 +355,15 @@ class Trainer:
                     print(f"step {first + i}: {shown}", flush=True)
             if self._epoch_pos == spe:
                 self.epochs_done += 1
+                epoch_all = (epoch_rows if first_row == 0
+                             else self.state.metrics[:spe].to("cpu", copy=True).numpy())
+                self._log_epoch(epoch_all)
+                self._maybe_log_images(self.epochs_done - 1)
                 if cfg.classification:
                     self.validate(self.epochs_done - 1)
         if cuda:
             torch.cuda.synchronize(self.device)
+        self.logger.flush()
         for a, b in fill_marks:
             self.fill_ms.append(_elapsed_ms(a, b, cuda))
         for marks in step_marks:
@@ -256,8 +376,9 @@ class Trainer:
         val split at the current temperature; updates
         ``best_val_accuracy`` and appends to ``val_history`` (with the
         host seconds it took; the first call includes the val split's
-        transform). The save of
-        the best state waits for checkpoints in the port."""
+        transform); logs the ``val/*`` scalars at the current step and, when
+        ``val/accuracy`` beats every earlier validation, saves the state as
+        the ``best`` checkpoint, as the JAX trainer's ``_maybe_validate``."""
         if (epoch + 1) % self.cfg.train.eval_every_n_epochs != 0:
             return None
         self.model.eval()
@@ -267,7 +388,10 @@ class Trainer:
         )
         seconds = time.perf_counter() - t0  # the metrics' host copy waits for the device
         self.model.train()
-        self.best_val_accuracy = max(self.best_val_accuracy, scalars["val/accuracy"])
+        self.logger.log_scalars(scalars, step=self.step)
+        if scalars["val/accuracy"] > self.best_val_accuracy:
+            self.best_val_accuracy = scalars["val/accuracy"]
+            self.save_checkpoint(tag="best")
         self.val_history.append({"epoch": epoch, "step": self.step, "seconds": seconds,
                                  **scalars})
         print(f"validation epoch {epoch}: " + ", ".join(
@@ -295,6 +419,153 @@ class Trainer:
         finally:
             self.model.train()
 
+    # -- logging ---------------------------------------------------------------
+
+    def _log_epoch(self, rows: np.ndarray) -> None:
+        """The epoch's mean of each step metric and its images a second
+        (the epoch's images over the host time from its fill to its
+        metrics' read), at the epoch's last step, as the JAX trainer logs a
+        dispatch of one epoch."""
+        seconds = time.perf_counter() - self._epoch_t0
+        means = rows.astype(np.float64).mean(axis=0)
+        scalars = {k: float(v) for k, v in zip(self.state.keys, means)}
+        scalars["perf/images_per_sec_per_chip"] = (
+            self.dm.steps_per_epoch * self.cfg.batch_size / seconds)
+        self.logger.log_scalars(scalars, step=self.step)
+
+    def _maybe_log_images(self, epoch: int) -> None:
+        """DESOM's input, reconstruction and decoded-prototype grids (the
+        first 16 train images, unshuffled) every
+        ``train.log_images_every_n_epochs`` epochs, as the JAX trainer's
+        ``_maybe_log_images``."""
+        cfg = self.cfg
+        every = cfg.train.log_images_every_n_epochs
+        if cfg.model_arch != "desom" or every <= 0 or (epoch + 1) % every != 0:
+            return
+        s, c = cfg.data.input_size, cfg.data.num_channels
+        images = self.dm.train_images if cfg.classification else self.dm.images
+        n_show = min(16, images.shape[0])
+        x = images[:n_show].reshape(n_show, -1)
+        with torch.no_grad():
+            decoded = self.model.forward_with_recon(x)[4].cpu().numpy()
+            protos = self.model.decode(self.model.prototypes).cpu().numpy()
+
+        def grid(flat, rows, cols):
+            imgs = np.clip(flat.reshape(-1, s, s, c), 0.0, 1.0)[: rows * cols]
+            canvas = np.zeros((rows * s, cols * s, c), np.float32)
+            for i in range(min(len(imgs), rows * cols)):
+                r, cl = divmod(i, cols)
+                canvas[r * s:(r + 1) * s, cl * s:(cl + 1) * s] = imgs[i]
+            return canvas
+
+        self.logger.log_image("images/input", grid(x.cpu().numpy(), 4, 4), self.step)
+        self.logger.log_image("images/reconstruction", grid(decoded, 4, 4), self.step)
+        rows, cols = cfg.som.map_size
+        self.logger.log_image("images/decoded_prototypes", grid(protos, rows, cols), self.step)
+
+    # -- checkpoints -----------------------------------------------------------
+
+    def checkpoint_dir(self, tag: str) -> str:
+        return os.path.abspath(os.path.join(
+            self.cfg.train.checkpoint_dir, self.cfg.model_arch,
+            f"{self.cfg.data.dataset}_run{self.run_id}_{tag}"))
+
+    def save_checkpoint(self, tag: str = "last", params=None, batch_stats=None) -> str:
+        """Write the trainer's state (module docstring) and the config to
+        ``checkpoint_dir(tag)``; returns the directory. ``params`` /
+        ``batch_stats`` ({name: tensor} of the parameters / buffers)
+        replace the model's own, as in the JAX trainer; the optimizer state
+        and the step always come from the trainer."""
+        path = self.checkpoint_dir(tag)
+        os.makedirs(path, exist_ok=True)
+        model = dict(self.model.state_dict())
+        model.update(params or {})
+        model.update(batch_stats or {})
+        shuffle, augment = self._epoch_rng
+        payload = {
+            "model": model,
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.state.step,
+            "epoch_start": self.state.epoch_start,
+            "metrics": self.state.metrics,
+            "shuffle_rng": shuffle,
+            "augment_rng": augment,
+        }
+        # a whole file or none: written beside, then renamed
+        tmp = os.path.join(path, f"{CKPT_STATE_FILE}.{os.getpid()}.tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, CKPT_STATE_FILE))
+        save_checkpoint_config(path, self.cfg)
+        return path
+
+    def restore_checkpoint(self, tag: str = "last", path: Optional[str] = None) -> None:
+        """Copy a checkpoint (``path``, or ``checkpoint_dir(tag)``) into the
+        trainer's own tensors: parameters and buffers, AdamW's moments,
+        step counts and lr tensors (created here when the optimizer has not
+        stepped yet), the device step, epoch start and metrics rows; sets
+        the host step. Raises on a structural config mismatch
+        (``check_checkpoint_config``)."""
+        path = path or self.checkpoint_dir(tag)
+        check_checkpoint_config(path, self.cfg)
+        ck = torch.load(os.path.join(path, CKPT_STATE_FILE), map_location=self.device,
+                        weights_only=True)
+        with torch.no_grad():
+            own = self.model.state_dict()
+            if set(own) != set(ck["model"]):
+                raise ValueError(f"checkpoint at {path} holds other tensors than the model")
+            for name, t in own.items():
+                t.copy_(ck["model"][name])
+            self._restore_optimizer(ck["optimizer"])
+            for name in ("step", "epoch_start", "metrics"):
+                getattr(self.state, name).copy_(ck[name])
+        self.step = int(ck["step"])
+        self.epochs_done = self.step // self.dm.steps_per_epoch
+        self._resume = (ck["shuffle_rng"].cpu(), ck["augment_rng"].cpu(),
+                        int(ck["epoch_start"]))
+
+    def _restore_optimizer(self, saved: Dict) -> None:
+        """AdamW's state copied into its existing tensors, parameter by
+        parameter in group order; a parameter without state yet gets copies
+        of the saved tensors, on the devices AdamW keeps them on (the step
+        count on the card only when capturable)."""
+        groups = self.optimizer.param_groups
+        if len(groups) != len(saved["param_groups"]):
+            raise ValueError("checkpoint has other optimizer groups than the trainer")
+        for group, sg in zip(groups, saved["param_groups"]):
+            if len(group["params"]) != len(sg["params"]):
+                raise ValueError("checkpoint has other optimizer groups than the trainer")
+            group["lr"].copy_(sg["lr"])
+            for p, idx in zip(group["params"], sg["params"]):
+                own = self.optimizer.state[p]
+                if idx not in saved["state"]:
+                    # saved before its first step: zero moments and count
+                    # are what AdamW would create
+                    for value in own.values():
+                        value.zero_()
+                    continue
+                for key, value in saved["state"][idx].items():
+                    if key in own:
+                        own[key].copy_(value)
+                    elif key == "step":
+                        own[key] = value.to(p.device if group["capturable"] else "cpu",
+                                            torch.float32, copy=True)
+                    else:
+                        own[key] = value.to(p.device, copy=True)
+
+    def _refill_restored_epoch(self) -> int:
+        """Refill the restored checkpoint's epoch into the epoch buffer from
+        its saved generator states and place the next step at its restored
+        row; returns the epochs begun, the restored one included."""
+        shuffle, augment, epoch_start = self._resume
+        self._resume = None
+        self._shuffle.set_state(shuffle)
+        self._augment.set_state(augment)
+        self._epoch_rng = self._rng_states()
+        self._epoch_t0 = time.perf_counter()
+        self.dm.fill_epoch(self._shuffle, self.epoch_images, self._augment)
+        self._epoch_pos = self.step - epoch_start
+        return epoch_start // self.dm.steps_per_epoch + 1
+
 
 def _mark(cuda: bool):
     if cuda:
@@ -308,16 +579,29 @@ def _elapsed_ms(a, b, cuda: bool) -> float:
     return a.elapsed_time(b) if cuda else (b - a) * 1e3
 
 
+def clear_directory(directory: str) -> None:
+    """Remove ``directory`` with everything in it and create it empty."""
+    if os.path.exists(directory):
+        shutil.rmtree(directory)
+    os.makedirs(directory, exist_ok=True)
+
+
+PROTOCOL_KEYS = ("accuracy", "precision", "recall", "f1", "purity", "nmi", "run_duration",
+                 "inference_time", "images_per_sec_per_chip", "peak_memory_gb")
+
+
 def main(argv=None):
+    """The N-run protocol (module docstring). Prints one JSON line a run
+    and the aggregate; returns the runs' JSON dicts."""
     parser = argparse.ArgumentParser(
         description="vitsom-tpu PyTorch trainer (ViT-SOM and DESOM clustering and "
-                    "classification, ViT)")
+                    "classification, ViT): the N-run train/eval protocol")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--runs", type=int, default=None, help="override train.n_runs")
     parser.add_argument("--epochs", type=int, default=None, help="override total_epochs")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--synthetic", action="store_true",
-                        help="use the synthetic stand-in dataset")
+                        help="use the synthetic stand-in where the dataset files are missing")
     parser.add_argument("--override", action="append", default=[],
                         help="dotted config override key=value (yaml-parsed)")
     parser.add_argument("--max-steps", type=int, default=None,
@@ -325,6 +609,8 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: a card on a multi-card host (cuda:1), "
                              "or cpu for a cut-down run")
+    parser.add_argument("--json-out", type=str, default=None,
+                        help="write each protocol metric's per-run values here")
     args = parser.parse_args(argv)
 
     import yaml
@@ -343,14 +629,43 @@ def main(argv=None):
         overrides[k] = yaml.safe_load(v)
     cfg = load_config(args.config, overrides=overrides)
     device = resolve_device(args.device)
-    dm = build_datamodule(cfg, device)
+    cuda = device.type == "cuda"
+    n_runs, dataset = cfg.train.n_runs, cfg.data.dataset
+    print(f"model={cfg.model_arch} dataset={dataset} epochs={cfg.total_epochs} "
+          f"batch={cfg.batch_size} runs={n_runs} cls={cfg.classification}", flush=True)
 
+    all_metrics = {k: [] for k in PROTOCOL_KEYS}
+    states_dir = os.path.join(cfg.train.checkpoint_dir, cfg.model_arch)
     results = []
-    for run_id in range(cfg.train.n_runs):
-        t0 = time.perf_counter()
+    for run_id in range(n_runs):
+        print(f"Starting run {run_id + 1} for {dataset}...", flush=True)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        start = time.perf_counter()
+        clear_directory(states_dir)
+        dm = build_datamodule(cfg, device)
         trainer = Trainer(cfg, device=device, dm=dm, run_id=run_id)
-        hist = trainer.fit(max_steps=args.max_steps)
-        res = trainer.evaluate()
+        t_fit = time.perf_counter()
+        hist = trainer.fit(max_steps=args.max_steps)  # ends in a synchronize on the card
+        fit_seconds = time.perf_counter() - t_fit
+        run_duration = time.perf_counter() - start
+        print(f"Run {run_id + 1} duration: {run_duration:.2f} seconds", flush=True)
+        if cfg.classification:
+            res = trainer.evaluate()
+        else:
+            # the reference's clustering protocol: save last, reload, evaluate
+            trainer.save_checkpoint(tag="last")
+            trainer.restore_checkpoint(tag="last")
+            res = trainer.evaluate()
+        trainer.logger.close()
+        for k in ("accuracy", "precision", "recall", "f1", "purity", "nmi", "inference_time"):
+            if k in res:
+                all_metrics[k].append(res[k])
+        all_metrics["run_duration"].append(run_duration)
+        all_metrics["images_per_sec_per_chip"].append(
+            trainer.step * cfg.batch_size / fit_seconds)
+        if cuda:  # the CPU has no peak counter: the key is left out
+            all_metrics["peak_memory_gb"].append(torch.cuda.max_memory_allocated(device) / 1e9)
         step_ms = float(np.median(trainer.step_ms)) if trainer.step_ms else float("nan")
         loss = "train/cls_loss" if cfg.classification else "train/recon_loss"
         res.update({
@@ -362,16 +677,26 @@ def main(argv=None):
             "fill_ms_per_epoch": trainer.fill_ms,
             "best_val_accuracy": trainer.best_val_accuracy,
             "images_per_sec": cfg.batch_size / step_ms * 1e3,
-            "run_seconds": time.perf_counter() - t0,
-            "device": str(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
+            "run_seconds": run_duration,
+            "device": str(torch.cuda.get_device_name(device) if cuda else "cpu"),
         })
         print(json.dumps(res), flush=True)
         results.append(res)
-    summary = {
-        k: (float(np.mean([r[k] for r in results])), float(np.std([r[k] for r in results])))
-        for k in (("accuracy", "f1") if cfg.classification else ("purity", "nmi"))
-    }
+        del trainer, dm  # the next run's peak memory counts its own tensors only
+
+    agg = aggregate_runs(all_metrics)
+    if n_runs > 1:
+        print(f"\n--- Aggregated Results Across {n_runs} Runs for {dataset} ---")
+    for key, (mean, std) in agg.items():
+        if key in ("run_duration", "inference_time"):
+            print(f"Avg {key.capitalize()} (Std): {mean:.2f}s ({std:.2f}s)")
+        else:
+            print(f"{key.capitalize()} Mean (Std): {mean:.4f} ({std:.4f})")
+    summary = {k: agg[k] for k in (("accuracy", "f1") if cfg.classification else ("purity", "nmi"))}
     print(json.dumps({"runs": len(results), "mean_std": summary}), flush=True)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump({k: list(map(float, v)) for k, v in all_metrics.items() if v}, f, indent=2)
     return results
 
 
