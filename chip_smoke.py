@@ -160,7 +160,7 @@ B. ``bench.py``'s configuration: the flagship yaml with the overrides of
    finite, parameters float32, purity and NMI printed;
 C. the kernels under replay: ``vitsom_tpu_torch.train.profile_step`` (a
    process of its own each: one profiler session a process) profiles R =
-   20 eager steps and R replays of the flagship with ``xla`` and with
+   10 eager steps and R replays of the flagship with ``xla`` and with
    ``pallas`` and of phase B's configuration; each hand-written kernel's
    count in the profiler's records (CUPTI records a graph's kernels) must
    be R times its count a step in both modes: the SOM's two launches once
@@ -188,7 +188,7 @@ D. classification as shipped: ``configs/vit_som/vit_som_cifar-10.yaml``
    1]; the augmented epoch buffer finite, each channel's mean within 1 of
    0 and its std in (0.3, 2); the wrappers' launch counts equal the
    formula below; and ``profile_step`` on the ``pallas`` configuration (R
-   = 20 replays, as phase C) counts R times a step's kernels. Prints ms a
+   = 10 replays, as phase C) counts R times a step's kernels. Prints ms a
    step and images/s graphed and eager, the augmentation's ms an epoch,
    validation and test ms and the test metrics beside the card's name and
    power limit.
@@ -206,8 +206,8 @@ E. the family at its shipped shapes (``phase_family``), every run graphed
    ``vit_som_flowers-102.yaml`` (224x224, patch 16, N 197, B 128; the
    augmentation in chunks of 16 images, captured as one graph and held
    against its eager calls) and E3 ``vit_som_svhn.yaml`` (emb 16: the row
-   kernels at N 257; a 40x40 map), each one epoch of 20 steps (3200 +
-   640 images), validation and the test eval; E4 ``vit_tiny-imagenet.yaml``
+   kernels at N 257; a 40x40 map), each one epoch of 8 steps (1280 +
+   256 images), validation and the test eval; E4 ``vit_tiny-imagenet.yaml``
    on E1's data, one epoch and the test eval; E5 every other yaml of the
    family (``vit_som`` cifar-100, medmnist, flowers-17, fmnist, usps;
    ``vit`` cifar-100, svhn, medmnist, flowers-17, flowers-102): 3 steps
@@ -263,6 +263,40 @@ G. the dataset readers, checkpoints, TensorBoard and the N-run protocol
    counts equal the formula below (this slice's main path). Prints the
    read, write, save and restore times, the checkpoint bytes, the epoch's
    images/s and the peak memory beside the card's name and power limit.
+H. the Swin and DeiT baselines (``phase_baselines``) as shipped on
+   synthetic data, every run graphed with its dropout or drop-path masks
+   drawn inside the captured step from the trainer's CUDA generator
+   (registered with the graph). No kernel is on their path (the attention
+   kernels take no bias and no dropout on the probabilities, as in the
+   JAX package): every H run must launch 0 SOM, attention and block
+   kernels. A ``MaskProbe`` wraps the port's one mask function so that
+   each draw also adds its kept count to a device counter and copies its
+   first 128 entries into a device row of its step: ops of the step, which
+   the graph replays. H1 ``configs/swin/swin_cifar-10.yaml`` (embed 96,
+   depths 2-2-6-2, heads 3-6-12-24, patch 2: 256 tokens, window 4, every
+   block on the dense-masked path; B 128; 50000 + 10000 images, 312 steps
+   an epoch): epoch 0 graphed (lr 0: every parameter bitwise as built),
+   validation, a ``save_checkpoint``, then 40 steps of epoch 1 (lr
+   base_lr / 20) held against a fresh trainer restored from that
+   checkpoint and run eagerly (losses, parameters and the recorded masks
+   within GRAPH_RTOL, bitwise in practice), the rest of epoch 1,
+   validation and the test eval; no two steps' recorded masks equal, and
+   each site's kept share over all 624 steps within 5 binomial sigmas of
+   its keep rate (printed by drop-path rate). H2 ``swin_medmnist.yaml``
+   (B 512, 28/4 = 7x7 tokens padded to 8x8 on the windowed path, then 4x4
+   dense; 1536 train rows: 3 steps an epoch, so steps 3-9 train at
+   base_lr e / 25) 10 graphed steps against 10 eager ones, then the test
+   eval. H3 ``deit_cifar-10.yaml`` (emb 192, depth 12, 3 heads of 64,
+   dropout 0.1 at 49 sites a step) with a ``resnet50.pth`` the phase
+   writes from the seed in torchvision's names into a temporary
+   ``data_dir``: the teacher's 265 mapped tensors equal what was written;
+   40 graphed steps against 40 eager ones (and their masks), the rest of
+   the epoch, validation and the test eval; the CE and the distillation
+   term printed. H4 the other seven yamls (``swin_cifar-100``, ``_svhn``,
+   ``_tiny-imagenet`` at B 512, ``_flowers-17`` at 224; ``deit_cifar-100``,
+   ``_svhn``, ``_flowers-17``; ``swin_medmnist`` is H2) through
+   ``cls_run``: 3 graphed steps and one ragged validation batch each.
+   ``profile_step`` on H1 and H3 (wall, busy, idle share, kernels a step).
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
@@ -295,17 +329,19 @@ each of the two blocks it backpropagates through (6 + 2 = 8), and the
 backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON (the SOM and attention kernels'
-``launches``: phase G4's protocol run, this slice's main path, with every
-path's count under ``launches_by_path``; the SOM row's timings at (512,
+``launches``: phase G4's protocol run, the last path these kernels are on,
+with every path's count under ``launches_by_path``, the phase-H paths at
+0; the SOM row's timings at (512,
 49152, 196) and the attention rows' at (512, 257, 3, 64), phase E1's
 shapes), the nvidia-smi line and the result. The whole script takes about
 9 minutes on an H100, the builds included (block.cu, the longest, about
-28 s).
+28 s); ``PhaseClock`` prints each group of phases' seconds.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import gzip
 import importlib.util
 import json
@@ -328,6 +364,7 @@ from vitsom_tpu_torch.config import DataConfig, load_config
 from vitsom_tpu_torch.convert import block_weights
 from vitsom_tpu_torch.data import datasets
 from vitsom_tpu_torch.data.synthetic import build_datamodule, raw_synthetic_datamodule
+from vitsom_tpu_torch.models import stochastic
 from vitsom_tpu_torch.models.vit import Block
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
 from vitsom_tpu_torch.ops import _build, attention_fused, block_fused, som_fused
@@ -362,14 +399,17 @@ E5_CONFIGS = [os.path.join(FAMILY, f"vit_som_{n}.yaml")
               for n in ("cifar-100", "medmnist", "flowers-17", "fmnist", "usps")] + [
     os.path.join(VIT_FAMILY, f"vit_{n}.yaml")
     for n in ("cifar-100", "svhn", "medmnist", "flowers-17", "flowers-102")]
-E_STEPS = 20  # E2, E3: one epoch of 20 steps (synthetic_size 3200 at B 128)
+# E2, E3: one epoch of 8 steps (synthetic_size 1280 at B 128: 1024 train
+# rows), as short as PROFILE_STEPS, to keep the smoke near half its time
+# limit
+E_STEPS = 8
 E5_STEPS = 3
 DESOM = os.path.join(ROOT, "configs", "desom")
 DESOM_MNIST = os.path.join(DESOM, "desom_mnist.yaml")
 DESOM_FLOWERS = os.path.join(DESOM, "desom_flowers17.yaml")
 DESOM_BN_STEPS = 10
 CIFAR_STEPS = 20
-PROFILE_STEPS = 20  # R: the graph replays (and eager steps) profile_step profiles
+PROFILE_STEPS = 10  # R: the graph replays (and eager steps) profile_step profiles
 # bench.py:38-59's overrides of the flagship yaml, the configuration behind
 # the repo's BENCH_*.json; the smoke cuts its data (70000 synthetic images)
 # to SYNTHETIC_SIZE and its 500 epochs to TRAIN_STEPS steps
@@ -731,6 +771,14 @@ def expected_launches(cfg, impl, steps, eval_batches):
 
 def describe(cfg) -> str:
     """The model's widths as a run's first line prints them."""
+    if cfg.model_arch == "swin":
+        w = cfg.swin
+        return (f"model=swin embed={w.embed_dim} depths={list(w.depths)} "
+                f"heads={list(w.num_heads)} patch={w.patch_size} window={w.window_size}")
+    if cfg.model_arch == "deit":
+        return (f"model=deit emb={cfg.vit.emb_dim} depth={cfg.vit.depth} heads={cfg.vit.heads} "
+                f"head_dim=64 patch={cfg.vit.patch_size} dropout={cfg.vit.proj_drop} "
+                f"emb_dropout={cfg.vit.attn_drop} distill={cfg.distillation}")
     if cfg.model_arch == "desom":
         d = cfg.data
         return (f"model=desom ae={[d.num_channels * d.input_size ** 2, *cfg.ae.encoder_dims]} "
@@ -1116,10 +1164,13 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
           f"Python), eval batches {eval_batches}]", flush=True)
     for k in losses:
         check(all(math.isfinite(v) for v in hist[k]), f"{label}: non-finite {k}")
-    # the ViT heads start near 0 (std 0.02), so their first CE is near ln K;
-    # DESOM's classifier starts at torch's Linear init on an O(1) latent
-    check(cfg.model_arch == "desom" or abs(first_cls - math.log(cfg.data.num_classes)) <= 0.3,
-          f"{label}: step-0 cls_loss {first_cls} is not within 0.3 of "
+    # the ViT and Swin heads start near 0 (std 0.02), so their first CE is
+    # near ln K; DESOM's classifier starts at torch's Linear init on an O(1)
+    # latent; DeiT's lecun-normal head gives logits of std ~1 on its
+    # normalised token, ~0.5 above ln K
+    near = {"desom": None, "deit": 1.0}.get(cfg.model_arch, 0.3)
+    check(near is None or abs(first_cls - math.log(cfg.data.num_classes)) <= near,
+          f"{label}: step-0 cls_loss {first_cls} is not within {near} of "
           f"ln {cfg.data.num_classes}")
     check(launches == want, f"{label}: launch counts {launches} != {want}")
 
@@ -1249,10 +1300,10 @@ def phase_family(dev, smi):
     rtol 1e-5). E4: ``vit_tiny-imagenet.yaml`` on the same data, one
     graphed epoch (7 steps) and the test eval. E2: ``vit_som_flowers-
     102.yaml`` (224x224, patch 16: N 197, B 128, 102 classes; the
-    augmentation in 16-image chunks) on 3200 + 640 images: one graphed
-    epoch of 20 steps, validation and the test eval, and the captured 224
+    augmentation in 16-image chunks) on 1280 + 256 images: one graphed
+    epoch of 8 steps, validation and the test eval, and the captured 224
     augmentation against its eager calls. E3: ``vit_som_svhn.yaml`` (emb
-    16, patch 2: the row kernels at N 257; a 40x40 map) likewise, 20 steps.
+    16, patch 2: the row kernels at N 257; a 40x40 map) likewise, 8 steps.
     E5: every other yaml of the family, ``family_quick_run``. Every
     trainer, graph and data module is released before the next run."""
     paths = {}
@@ -1284,7 +1335,8 @@ def phase_family(dev, smi):
     del tr, dm
     torch.cuda.empty_cache()
     for label, config in (("flowers102_pallas", FLOWERS_CONFIG), ("svhn_pallas", SVHN_CONFIG)):
-        _, dm, tr, _, paths[label], _ = cls_run(dev, label, config, "pallas", None, size=3200)
+        _, dm, tr, _, paths[label], _ = cls_run(dev, label, config, "pallas", None,
+                                                size=E_STEPS * 160)
         check(dm.steps_per_epoch == E_STEPS, f"{label}: {dm.steps_per_epoch} steps an epoch")
         if config == FLOWERS_CONFIG:
             hold_augmentation(dm, tr)
@@ -2279,6 +2331,409 @@ def phase_protocol(dev, smi):
     return {"protocol_flagship": flagship, "protocol_cifar10_pallas": cifar}
 
 
+# ---------------------------------------------------------------------------
+# phase H: the Swin and DeiT baselines (drop-path and dropout inside the
+# captured step, the ResNet-50 teacher), no kernel on their path
+# ---------------------------------------------------------------------------
+
+BASELINES = os.path.join(ROOT, "configs")
+SWIN_CIFAR = os.path.join(BASELINES, "swin", "swin_cifar-10.yaml")
+SWIN_MEDMNIST = os.path.join(BASELINES, "swin", "swin_medmnist.yaml")
+DEIT_CIFAR = os.path.join(BASELINES, "deit", "deit_cifar-10.yaml")
+# H4: the other eight yamls, 3 graphed steps and one eval batch each
+H4_CONFIGS = [os.path.join(BASELINES, "swin", f"swin_{n}.yaml")
+              for n in ("cifar-100", "svhn", "tiny-imagenet", "flowers-17")] + [
+    os.path.join(BASELINES, "deit", f"deit_{n}.yaml")
+    for n in ("cifar-100", "svhn", "flowers-17")]
+H_HOLD_STEPS = 40  # H1, H3: graphed against eager
+H2_STEPS = 10
+MASK_RECORD = 128  # the first entries of each mask kept a step (a Swin drop-path mask whole)
+MASK_SIGMAS = 5.0
+RESNET_WIDTHS = (64, 128, 256, 512)
+RESNET_SIZES = (3, 4, 6, 3)
+
+
+class MaskProbe:
+    """Records what a trainer's dropout / drop-path masks were, from inside
+    its steps, captured ones included: ``stochastic.bernoulli_mask`` is
+    wrapped so that each call (site k of the step) also adds the mask's
+    kept count to a device counter and copies its first MASK_RECORD
+    entries into row ``step - epoch_start`` of a device buffer. The copies
+    are ops of the step, so a captured graph replays them with its masks.
+    One probe is active at a time (``activate``); the graph of a trainer
+    keeps writing into the buffers of the probe it was captured with."""
+
+    active = None
+    _original = None
+
+    def __init__(self, tr, label):
+        self.tr, self.label = tr, label
+        self.sites = []  # (keep, numel) a site, in call order
+        self.k = 0
+        self.kept = None
+        self.rows = None
+        step = tr.train_step
+
+        @functools.wraps(step)  # keeps the step's attributes (DeiT's teacher)
+        def probed(batch):
+            self.k = 0
+            return step(batch)
+
+        tr.train_step = probed
+
+    @classmethod
+    def install(cls):
+        if cls._original is None:
+            cls._original = stochastic.bernoulli_mask
+
+            def recorded(keep, shape, generator, device):
+                m = cls._original(keep, shape, generator, device)
+                if cls.active is not None:
+                    cls.active.record(m, keep)
+                return m
+
+            stochastic.bernoulli_mask = recorded
+
+    @classmethod
+    def uninstall(cls):
+        if cls._original is not None:
+            stochastic.bernoulli_mask = cls._original
+            cls._original, cls.active = None, None
+
+    def activate(self):
+        MaskProbe.active = self
+
+    def record(self, m, keep):
+        k, n = self.k, m.numel()
+        self.k += 1
+        if len(self.sites) <= k:
+            self.sites.append((float(keep), n))
+        if self.kept is None or k >= self.kept.shape[0]:
+            grow = max(64, 2 * k + 2)
+            kept = torch.zeros(grow, dtype=torch.int64, device=m.device)
+            rows = torch.zeros((grow, self.tr.dm.steps_per_epoch, MASK_RECORD), dtype=torch.bool,
+                               device=m.device)
+            if self.kept is not None:
+                kept[: self.kept.shape[0]] = self.kept
+                rows[: self.rows.shape[0]] = self.rows
+            self.kept, self.rows = kept, rows
+        self.kept[k].add_(m.sum())
+        first = m.reshape(-1)[:MASK_RECORD]
+        self.rows[k, :, : first.numel()].index_copy_(0, self.tr.state.row().reshape(1),
+                                                     first.reshape(1, -1))
+
+    def check(self, steps, rows):
+        """The kept share of each site over ``steps`` steps within
+        MASK_SIGMAS binomial sigmas of its keep rate (printed per rate), and
+        the recorded masks of consecutive rows in ``rows`` different."""
+        kept = self.kept[: len(self.sites)].cpu().numpy()
+        by_rate, worst = {}, 0.0
+        for (keep, n), c in zip(self.sites, kept):
+            draws = n * steps
+            z = (c / draws - keep) / math.sqrt(keep * (1 - keep) / draws)
+            worst = max(worst, abs(z))
+            r = by_rate.setdefault(round(1 - keep, 6), [0, 0, 0.0])
+            r[0] += int(c)
+            r[1] += draws
+            r[2] = max(r[2], abs(z))
+        recorded = self.rows[: len(self.sites), :rows].cpu()
+        same = [int(torch.equal(recorded[:, i], recorded[:, i + 1])) for i in range(rows - 1)]
+        print(f"{self.label} masks: {len(self.sites)} sites a step over {steps} steps; by rate "
+              + "; ".join(f"p={p:.6f} kept={c}/{d} share={c / d:.6f} max|z|={z:.2f}"
+                          for p, (c, d, z) in sorted(by_rate.items()))
+              + f"; consecutive replays with equal masks {sum(same)}/{rows - 1}", flush=True)
+        check(worst <= MASK_SIGMAS, f"{self.label}: a site's kept share is {worst:.2f} sigma off")
+        check(sum(same) == 0, f"{self.label}: masks repeat between steps")
+        return recorded
+
+
+def write_torchvision_resnet50(path, seed):
+    """A state_dict with torchvision resnet50's names and shapes, drawn from
+    ``seed``, saved at ``path``; returns it."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def add_bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.running_mean"] = torch.randn(c, generator=g)
+        sd[f"{name}.running_var"] = torch.rand(c, generator=g) + 0.5
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    def conv(*shape):
+        fan_in = shape[1] * shape[2] * shape[3]
+        return torch.randn(*shape, generator=g) * math.sqrt(2.0 / fan_in)
+
+    sd["conv1.weight"] = conv(64, 3, 7, 7)
+    add_bn("bn1", 64)
+    c_in = 64
+    for s, (w, n) in enumerate(zip(RESNET_WIDTHS, RESNET_SIZES), start=1):
+        for i in range(n):
+            pre = f"layer{s}.{i}"
+            sd[f"{pre}.conv1.weight"] = conv(w, c_in, 1, 1)
+            add_bn(f"{pre}.bn1", w)
+            sd[f"{pre}.conv2.weight"] = conv(w, w, 3, 3)
+            add_bn(f"{pre}.bn2", w)
+            sd[f"{pre}.conv3.weight"] = conv(4 * w, w, 1, 1)
+            add_bn(f"{pre}.bn3", 4 * w)
+            if i == 0:
+                sd[f"{pre}.downsample.0.weight"] = conv(4 * w, c_in, 1, 1)
+                add_bn(f"{pre}.downsample.1", 4 * w)
+            c_in = 4 * w
+    sd["fc.weight"] = 0.01 * torch.randn(1000, 2048, generator=g)
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def baseline_cfg(config, root, extra=None):
+    """``config`` as shipped on its synthetic stand-in (50000 + 10000
+    images unless ``extra`` says otherwise), checkpoints and events under
+    ``root``."""
+    return load_config(config, {"data.allow_synthetic": True,
+                                "data.synthetic_size": CLS_SYNTHETIC_SIZE,
+                                "train.checkpoint_dir": os.path.join(root, "states"),
+                                "train.log_dir": os.path.join(root, "logs"), **(extra or {})})
+
+
+def baseline_trainer(label, config, cfg, dev, dm=None, probe=True):
+    """A trainer of ``cfg`` (from the yaml ``config``; a new data module
+    unless ``dm``), with a MaskProbe; prints the run's first line."""
+    aug = cfg.data.augment
+    print(f"{label}: config {os.path.basename(config)} {describe(cfg)} "
+          f"batch={cfg.batch_size} num_classes={cfg.data.num_classes} "
+          f"input={cfg.data.input_size}x{cfg.data.input_size}x{cfg.data.num_channels} "
+          f"smoothing={cfg.optimizer.smoothing} lr={cfg.optimizer.lr} "
+          f"warmup_epochs={cfg.optimizer.warmup_epochs} attn_impl={model_attn_impl(cfg)} "
+          f"augment=(randaug_n={aug.randaug_n} autoaugment={aug.autoaugment} "
+          f"reprob={aug.reprob})", flush=True)
+    if dm is None:
+        t0 = time.perf_counter()
+        dm = build_datamodule(cfg, dev)
+        print(f"{label}: data train={dm.n_train} val={dm.split_len('val')} "
+              f"test={dm.split_len('test')} steps_per_epoch={dm.steps_per_epoch} built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    tr = Trainer(cfg, device=dev, dm=dm)
+    return tr, (MaskProbe(tr, label) if probe else None)
+
+
+def zero_launches(label, launches):
+    print(f"{label} launches: {launches} (expected all 0: no kernel is on the path)", flush=True)
+    check(sum(launches.values()) == 0, f"{label}: a kernel ran: {launches}")
+
+
+def hold_masks(label, probe_g, probe_e, rows):
+    """The graphed run's recorded masks equal the eager run's, row by row."""
+    g = probe_g.rows[: len(probe_g.sites), :rows].cpu()
+    e = probe_e.rows[: len(probe_e.sites), :rows].cpu()
+    same = probe_g.sites == probe_e.sites and torch.equal(g, e)
+    print(f"{label}: the replays' recorded masks equal the eager steps' ({rows} steps x "
+          f"{len(probe_g.sites)} sites x {MASK_RECORD} entries): {same}", flush=True)
+    check(same, f"{label}: the graphed run drew other masks than the eager run")
+
+
+def print_test(label, res):
+    print(f"{label} test: accuracy={res['accuracy']:.6f} precision={res['precision']:.6f} "
+          f"recall={res['recall']:.6f} f1={res['f1']:.6f} ms={res['inference_time'] * 1e3:.1f}",
+          flush=True)
+    check(0.0 <= res["accuracy"] <= 1.0, f"{label}: test accuracy {res['accuracy']}")
+
+
+def print_epochs(label, tr, smi):
+    for v in tr.val_history:
+        print(f"{label} validation epoch {v['epoch']} (step {v['step']}): "
+              + " ".join(f"{k}={v[k]:.6f}" for k in sorted(v) if k.startswith("val/"))
+              + f" ms={v['seconds'] * 1e3:.1f}", flush=True)
+        check(all(math.isfinite(v[k]) for k in v if k.startswith("val/")),
+              f"{label}: non-finite validation numbers")
+    ms = steady_ms(tr.step_ms)
+    print(f"{label}: median_step_ms={ms:.4f} images_per_s={tr.cfg.batch_size / ms * 1e3:.1f} "
+          f"({steady_steps(tr.step)}, CUDA events between step ends, mask probe on) "
+          f"augmentation_ms_per_epoch=" + ",".join(f"{v:.1f}" for v in tr.fill_ms)
+          + f" card: {smi}", flush=True)
+
+
+def phase_swin_cifar(dev, root, smi):
+    """H1 (module docstring). Returns the launch counts of the whole run."""
+    cfg = baseline_cfg(SWIN_CIFAR, root)
+    tr, probe = baseline_trainer("h1_swin_cifar10", SWIN_CIFAR, cfg, dev)
+    spe = tr.dm.steps_per_epoch
+    blocks = tr.model.blocks
+    print(f"h1_swin_cifar10: params={sum(p.numel() for p in tr.model.parameters())} "
+          f"blocks dense={[b.dense for b in blocks]} tokens="
+          f"{[b.resolution[0] * b.resolution[1] for b in blocks]} drop_path="
+          f"{[round(b.drop_path.rate, 6) for b in blocks]}", flush=True)
+    check(all(b.dense for b in blocks), "H1: the dense-masked path did not run everywhere")
+    start = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    probe.activate()
+    reset_launches()
+    t0 = time.perf_counter()
+    h0 = tr.fit(max_steps=spe)
+    epoch0_s = time.perf_counter() - t0
+    same = all(torch.equal(p, start[n]) for n, p in tr.model.named_parameters())
+    print(f"h1_swin_cifar10 epoch 0: {spe} graphed steps at lr {set(h0['hp/lr'].tolist())} in "
+          f"{epoch0_s:.3f} s (fill, steps, validation); parameters bitwise unchanged={same}; "
+          f"cls_loss first={h0['train/cls_loss'][0]:.6f} last={h0['train/cls_loss'][-1]:.6f}",
+          flush=True)
+    check(same and np.all(h0["hp/lr"] == 0.0), "H1: epoch 0 moved the parameters")
+    tr.save_checkpoint("epoch0")
+    h1 = tr.fit(max_steps=spe + H_HOLD_STEPS)
+    lr1 = float(np.float32(cfg.optimizer.lr) * np.float32(1.0 / cfg.optimizer.warmup_epochs))
+    # the eager hold: a fresh trainer restored at the end of epoch 0
+    tr_e, probe_e = baseline_trainer("h1_swin_cifar10_eager", SWIN_CIFAR, cfg, dev, dm=tr.dm)
+    tr_e.restore_checkpoint("epoch0")
+    probe_e.activate()
+    h1e = tr_e.fit(max_steps=spe + H_HOLD_STEPS, eager=True)
+    probe.activate()
+    compare_runs("h1_swin_cifar10", cfg, tr, h1, tr_e, h1e, ("train/cls_loss",), smi)
+    hold_masks("h1_swin_cifar10", probe, probe_e, H_HOLD_STEPS)
+    del tr_e, probe_e
+    torch.cuda.empty_cache()
+    h1b = tr.fit(max_steps=2 * spe, new_epoch=False)
+    lrs = np.concatenate([h1["hp/lr"], h1b["hp/lr"]])
+    print(f"h1_swin_cifar10 epoch 1: lr {sorted(set(lrs.tolist()))} (base_lr / "
+          f"{cfg.optimizer.warmup_epochs} = {lr1:.9g}); cls_loss first={h1['train/cls_loss'][0]:.6f} "
+          f"last={h1b['train/cls_loss'][-1]:.6f}", flush=True)
+    check(np.allclose(lrs, lr1, rtol=1e-6, atol=0), "H1: epoch 1 does not train at base_lr / 20")
+    check(np.all(np.isfinite(np.concatenate([h0["train/cls_loss"], h1["train/cls_loss"],
+                                             h1b["train/cls_loss"]]))), "H1: non-finite loss")
+    probe.check(tr.step, spe)
+    res = tr.evaluate()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print_epochs("h1_swin_cifar10", tr, smi)
+    print_test("h1_swin_cifar10", res)
+    check(len(tr.val_history) == 2, "H1: not two validations")
+    zero_launches("h1_swin_cifar10", launches)
+    return launches
+
+
+def phase_swin_medmnist(dev, root, smi):
+    """H2: ``swin_medmnist.yaml`` (B 512, the windowed path padded 7 -> 8)
+    graphed against eager for H2_STEPS steps (3 an epoch: epochs 1-3 train
+    at base_lr * e / 25), then the test eval."""
+    size = 15 * 512 // 4  # 1536 train rows: 3 steps an epoch; one ragged val batch
+    over = {"data.synthetic_size": size}
+    cfg = baseline_cfg(SWIN_MEDMNIST, root, over)
+    tr, _ = baseline_trainer("h2_swin_medmnist", SWIN_MEDMNIST, cfg, dev, probe=False)
+    blocks = tr.model.blocks
+    check([b.dense for b in blocks] == [False, False, True, True],
+          "H2: the first stage did not take the windowed path")
+    reset_launches()
+    hg = tr.fit(max_steps=H2_STEPS)
+    res = tr.evaluate()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    tr_e, _ = baseline_trainer("h2_swin_medmnist_eager", SWIN_MEDMNIST, cfg, dev, dm=tr.dm,
+                               probe=False)
+    he = tr_e.fit(max_steps=H2_STEPS, eager=True)
+    print(f"h2_swin_medmnist: blocks dense={[b.dense for b in blocks]} pad="
+          f"{[getattr(b, 'pad', None) for b in blocks]} lr={hg['hp/lr'].tolist()}", flush=True)
+    check(hg["hp/lr"].max() > 0, "H2: no step trained")
+    compare_runs("h2_swin_medmnist", cfg, tr, hg, tr_e, he, ("train/cls_loss",), smi)
+    print_test("h2_swin_medmnist", res)
+    zero_launches("h2_swin_medmnist", launches)
+    return launches
+
+
+def phase_deit_cifar(dev, root, smi):
+    """H3 (module docstring). Returns the launch counts of the epoch run."""
+    d = os.path.join(root, "h3_data")
+    os.makedirs(d)
+    written = write_torchvision_resnet50(os.path.join(d, "resnet50.pth"), seed=13)
+    cfg = baseline_cfg(DEIT_CIFAR, root, {"data.data_dir": d})
+    tr, probe = baseline_trainer("h3_deit_cifar10", DEIT_CIFAR, cfg, dev)
+    own = tr.train_step.teacher.state_dict()
+    mapped = [k for k in written if not k.startswith("fc.")
+              and not k.endswith("num_batches_tracked")]
+    equal = all(torch.equal(own[k], written[k].to(dev)) for k in mapped)
+    print(f"h3_deit_cifar10: teacher ResNet-50 from {os.path.basename(d)}/resnet50.pth: "
+          f"{len(mapped)} tensors mapped, each equal to what was written={equal}; fc random; "
+          f"student params={sum(p.numel() for p in tr.model.parameters())}", flush=True)
+    check(equal and len(mapped) == 265, "H3: the teacher is not the written resnet50.pth")
+    probe.activate()
+    reset_launches()
+    hg = tr.fit(max_steps=H_HOLD_STEPS)
+    tr_e, probe_e = baseline_trainer("h3_deit_cifar10_eager", DEIT_CIFAR, cfg, dev, dm=tr.dm)
+    probe_e.activate()
+    he = tr_e.fit(max_steps=H_HOLD_STEPS, eager=True)
+    probe.activate()
+    compare_runs("h3_deit_cifar10", cfg, tr, hg, tr_e, he,
+                 ("train/distill_loss", "train/cls_loss"), smi)
+    hold_masks("h3_deit_cifar10", probe, probe_e, H_HOLD_STEPS)
+    del tr_e, probe_e
+    torch.cuda.empty_cache()
+    spe = tr.dm.steps_per_epoch
+    h = tr.fit(max_steps=spe, new_epoch=False)
+    res = tr.evaluate()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    a = cfg.distillation.alpha
+    total = np.concatenate([hg["train/distill_loss"], h["train/distill_loss"]])
+    ce = np.concatenate([hg["train/cls_loss"], h["train/cls_loss"]])
+    distill = (total - (1 - a) * ce) / a
+    print(f"h3_deit_cifar10: CE first={ce[0]:.6f} last={ce[-1]:.6f}; distill (T^2 KL, "
+          f"T={cfg.distillation.temperature}) first={distill[0]:.6f} last={distill[-1]:.6f}; "
+          f"loss first={total[0]:.6f} last={total[-1]:.6f}", flush=True)
+    check(np.all(np.isfinite(total)) and np.all(distill >= -1e-5), "H3: bad losses")
+    probe.check(tr.step, H_HOLD_STEPS)
+    print_epochs("h3_deit_cifar10", tr, smi)
+    print_test("h3_deit_cifar10", res)
+    zero_launches("h3_deit_cifar10", launches)
+    return launches
+
+
+def quick_size(cfg):
+    """A synthetic_size whose split gives E5_STEPS steps an epoch and a val
+    split smaller than a batch (one ragged batch)."""
+    check(E5_STEPS == 3, "quick_size is for 3 steps")
+    b = cfg.batch_size
+    # 90/10 split: 4 B rows give 3.6 B train rows; 80/20: 15 B / 4 give 3 B
+    return 4 * b if cfg.data.dataset == "tiny-imagenet" else 15 * b // 4
+
+
+def phase_baselines(dev, smi):
+    """Phase H; returns {path: launch counts}."""
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        for label, run in (("h1_swin_cifar10", phase_swin_cifar),
+                           ("h2_swin_medmnist", phase_swin_medmnist),
+                           ("h3_deit_cifar10", phase_deit_cifar)):
+            MaskProbe.install()
+            try:
+                paths[label] = run(dev, root, smi)
+            finally:
+                MaskProbe.uninstall()
+            torch.cuda.empty_cache()
+        for config in H4_CONFIGS:
+            label = "h4_" + os.path.basename(config)[:-5]
+            cfg = load_config(config, {"data.allow_synthetic": True})
+            _, dm, tr, _, launches, _ = cls_run(dev, label, config, None, E5_STEPS,
+                                                evaluate=False, size=quick_size(cfg))
+            check(dm.steps_per_epoch == E5_STEPS and len(tr.val_history) == 1
+                  and dm.split_len("val") < cfg.batch_size,
+                  f"{label}: expected {E5_STEPS} steps and one ragged validation batch")
+            zero_launches(label, launches)
+            paths[label] = launches
+            del tr, dm
+            torch.cuda.empty_cache()
+    for label, config in (("h1_swin_cifar10", SWIN_CIFAR), ("h3_deit_cifar10", DEIT_CIFAR)):
+        profile_check(label, config, {}, smi)
+    return paths
+
+
+class PhaseClock:
+    """Prints each group of phases' host seconds and the total so far."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.last:.1f} s (total {now - self.t0:.1f} s)", flush=True)
+        self.last = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2290,11 +2745,14 @@ def main() -> int:
               f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
         print(f"nvidia-smi: {smi}", flush=True)
 
+        clock = PhaseClock()
         phase_build()
+        clock("build")
         max_err = phase_kernel_vs_plain(dev)
         xla_first, flagship = phase_train(dev)
         phase_graphed_vs_eager(dev, "graph_xla", None, flagship, smi)
         timing = phase_timings(dev)
+        clock("3-5, A")
         attn_err = phase_attention_vs_plain(dev)
         run = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
         flagship_pallas = run[4]
@@ -2302,30 +2760,43 @@ def main() -> int:
         del run
         phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
         attn_timing = phase_attention_timings(dev)
+        clock("6-9")
         block_err = phase_block_vs_plain(dev)
         block_launches = phase_block_flagship(dev, flagship[2], flagship[1])
         block_timing = phase_block_timings(dev)
+        clock("10-12")
         cifar = phase_train_cifar(dev)
+        clock("13")
         cls_paths = phase_classification(dev, smi)
+        clock("D")
         family_paths = phase_family(dev, smi)
+        clock("E")
         phase_desom(dev, smi)
+        clock("F")
         phase_bench(dev, smi)
         phase_profiles(smi)
+        clock("B, C")
         protocol_paths = phase_protocol(dev, smi)
+        clock("G")
+        baseline_paths = phase_baselines(dev, smi)
+        clock("H")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
-    # launches: this slice's main path (phase G4's protocol run of
-    # vit_som_cifar-10 from its pickles, pallas) and, by path, every train
-    # run that launches the kernel
+    # launches: phase G4's protocol run of vit_som_cifar-10 from its
+    # pickles (pallas), the last path with these kernels on it and, by path,
+    # every train run that launches the kernel and every phase-H run (Swin
+    # and DeiT: no kernel is on their path, their counts are 0)
     paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
              "cifar10_clustering_pallas": cifar, **cls_paths, **family_paths,
              **protocol_paths}
     main_path = protocol_paths["protocol_cifar10_pallas"]
 
     def by_path(name):
-        return {path: counts[name] for path, counts in paths.items() if counts[name]}
+        out = {path: counts[name] for path, counts in paths.items() if counts[name]}
+        out.update({path: counts[name] for path, counts in baseline_paths.items()})
+        return out
 
     kernels = [{
         "name": "som_fused",
@@ -2357,6 +2828,7 @@ def main() -> int:
             "source": "vitsom_tpu_torch/ops/csrc/block.cu",
             "replaces": replaces,
             "launches": block_launches[name],
+            "launches_by_path": by_path(name),
             "max_abs_err": block_err[name],
             **block_timing[(BLOCK_TIMED[0], name)],
         })

@@ -252,3 +252,172 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.n
         else:
             raise KeyError(f"unknown parameter {key}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the baselines: Swin, the DeiT student and the ResNet teacher
+# ---------------------------------------------------------------------------
+
+# (Flax module path, torch module path) templates; {k} is an index
+_SWIN_MODULES = [
+    ("Conv_0", "patch_embed"), ("LayerNorm_0", "patch_norm"), ("LayerNorm_1", "norm"),
+    ("Dense_0", "head"),
+    ("SwinBlock_{k}/LayerNorm_0", "blocks.{k}.norm1"),
+    ("SwinBlock_{k}/LayerNorm_1", "blocks.{k}.norm2"),
+    ("SwinBlock_{k}/WindowAttention_0/Dense_0", "blocks.{k}.attn.qkv"),
+    ("SwinBlock_{k}/WindowAttention_0/Dense_1", "blocks.{k}.attn.proj"),
+    ("SwinBlock_{k}/WindowAttention_0", "blocks.{k}.attn"),
+    ("SwinBlock_{k}/Dense_0", "blocks.{k}.mlp.fc1"),
+    ("SwinBlock_{k}/Dense_1", "blocks.{k}.mlp.fc2"),
+    ("PatchMerging_{k}/LayerNorm_0", "merges.{k}.norm"),
+    ("PatchMerging_{k}/Dense_0", "merges.{k}.reduction"),
+]
+_DEIT_MODULES = [
+    (name, name) for name in ("", "patch_norm_pre", "patch_proj", "patch_norm_post",
+                              "mlp_head", "distill_norm", "distill_head")
+] + [(f"transformer/{nm}_{{k}}", f"transformer.layers.{{k}}.{nm}")
+     for nm in ("query", "key", "value")]
+# in each layer of the DeiT transformer Flax numbers two LayerNorms and
+# three Dense layers across the loop; the final LayerNorm comes last
+_DEIT_NORMS = ("norm1", "norm2")
+_DEIT_DENSES = ("proj", "fc1", "fc2")
+
+
+def _template_map(templates, path: str, forward: bool) -> Optional[str]:
+    """Map ``path`` through the first matching (flax, torch) template."""
+    for flax_t, torch_t in templates:
+        src, dst = (flax_t, torch_t) if forward else (torch_t, flax_t)
+        m = re.fullmatch(re.escape(src).replace(r"\{k\}", r"(?P<k>\d+)"), path)
+        if m:
+            return dst.format(**m.groupdict())
+    return None
+
+
+def _deit_module(path: str, depth: int, forward: bool) -> str:
+    hit = _template_map(_DEIT_MODULES, path, forward)
+    if hit is not None:
+        return hit
+    if forward:
+        m = re.fullmatch(r"transformer/(LayerNorm|Dense)_(\d+)", path)
+        if m:
+            kind, j = m.group(1), int(m.group(2))
+            if kind == "LayerNorm" and j == 2 * depth:
+                return "transformer.norm"
+            n = 2 if kind == "LayerNorm" else 3
+            names = _DEIT_NORMS if kind == "LayerNorm" else _DEIT_DENSES
+            return f"transformer.layers.{j // n}.{names[j % n]}"
+    else:
+        if path == "transformer.norm":
+            return f"transformer/LayerNorm_{2 * depth}"
+        m = re.fullmatch(r"transformer\.layers\.(\d+)\.(\w+)", path)
+        if m and m.group(2) in _DEIT_NORMS + _DEIT_DENSES:
+            i, name = int(m.group(1)), m.group(2)
+            if name in _DEIT_NORMS:
+                return f"transformer/LayerNorm_{2 * i + _DEIT_NORMS.index(name)}"
+            return f"transformer/Dense_{3 * i + _DEIT_DENSES.index(name)}"
+    raise KeyError(f"unknown deit module {path!r}")
+
+
+def _resnet_layout(keys):
+    """(stage_sizes, block) of a ResNet from its Flax paths (blocks
+    numbered across stages; a stage's first block has the downsample conv,
+    ``Conv_3`` in a Bottleneck, ``Conv_2`` in a BasicBlock) or from its
+    torch names (``layer{s}.{i}``; a Bottleneck has ``conv3``)."""
+    keys = list(keys)
+    flax_blocks = {}
+    for k in keys:
+        m = re.match(r"(Bottleneck|BasicBlock)_(\d+)/(\w+)/", k)
+        if m:
+            flax_blocks.setdefault((m.group(1), int(m.group(2))), set()).add(m.group(3))
+    if flax_blocks:
+        block = next(iter(flax_blocks))[0]
+        down = "Conv_3" if block == "Bottleneck" else "Conv_2"
+        starts = [i for (_, i), mods in sorted(flax_blocks.items()) if down in mods]
+        sizes = [b - a for a, b in zip(starts, starts[1:] + [len(flax_blocks)])]
+        return tuple(sizes), block.lower()
+    counts = {}
+    for k in keys:
+        m = re.match(r"layer(\d+)\.(\d+)\.", k)
+        if m:
+            counts[int(m.group(1))] = max(counts.get(int(m.group(1)), 0), int(m.group(2)) + 1)
+    block = "bottleneck" if any(".conv3." in k for k in keys) else "basic"
+    return tuple(counts[s] for s in sorted(counts)), block
+
+
+def _resnet_modules(keys) -> Dict[str, str]:
+    """Flax module path -> torch module path of a ResNet (the teacher)."""
+    from vitsom_tpu_torch.models.resnet import torchvision_name_map
+
+    out = {f: t for t, f in torchvision_name_map(*_resnet_layout(keys)).items()}
+    out["Dense_0"] = "fc"
+    return out
+
+
+def _baseline_modules(arch: str, keys):
+    """A function (module path, forward) -> module path for ``arch``, for a
+    model whose parameters have the names ``keys`` (Flax or torch)."""
+    if arch == "swin":
+        def swin(path, forward):
+            hit = _template_map(_SWIN_MODULES, path, forward)
+            if hit is None:
+                raise KeyError(f"unknown swin module {path!r}")
+            return hit
+        return swin
+    if arch == "deit":
+        depth = sum(1 for k in keys if re.search(r"(^|[/.])query(_\d+)?[/.]", k))
+        return lambda path, forward: _deit_module(path, depth, forward)
+    if arch == "resnet":
+        table = _resnet_modules(keys)
+        inverse = {t: f for f, t in table.items()}
+        return lambda path, forward: (table if forward else inverse)[path]
+    raise ValueError(f"no baseline converter for {arch!r}")
+
+
+def baseline_to_state_dict(arch: str, params: Mapping, batch_stats: Optional[Mapping] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Flax parameters (and the teacher's ``batch_stats``) of ``arch``
+    (``swin``, ``deit`` or ``resnet``) -> the port's ``state_dict``: Dense
+    kernels transposed, conv kernels HWIO -> OIHW, LayerNorm / BatchNorm
+    ``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+    ``running_var``, every other leaf (``rel_bias_table``, the DeiT tokens
+    and ``pos_embedding``) as it is."""
+    flat = {k: np.asarray(v) for k, v in flatten(params).items()}
+    module = _baseline_modules(arch, flat)
+    out = {}
+    for key, arr in flat.items():
+        mod, _, leaf = key.rpartition("/")
+        tmod = module(mod, True)
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+        out[f"{tmod}.{name}" if tmod else name] = torch.from_numpy(
+            np.ascontiguousarray(arr).copy())
+    for key, arr in flatten(batch_stats or {}).items():
+        mod, _, leaf = key.rpartition("/")
+        out[f"{module(mod, True)}.{_BATCH_STATS[leaf]}"] = (
+            torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return out
+
+
+def state_dict_to_baseline(arch: str, state_dict: Mapping[str, torch.Tensor]):
+    """The inverse of ``baseline_to_state_dict``: (flat ``/``-keyed Flax
+    parameters, flat ``batch_stats``) as numpy arrays. A 1-D ``weight`` is
+    a norm's ``scale``, a 2-D or 4-D one a kernel."""
+    module = _baseline_modules(arch, state_dict)
+    inv_stats = {v: k for k, v in _BATCH_STATS.items()}
+    params, stats = {}, {}
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().numpy()
+        mod, _, leaf = key.rpartition(".")
+        fmod = module(mod, False)
+        if leaf in inv_stats:
+            stats[f"{fmod}/{inv_stats[leaf]}"] = arr.copy()
+            continue
+        if leaf == "weight":
+            if arr.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        params[f"{fmod}/{leaf}" if fmod else leaf] = np.ascontiguousarray(arr).copy()
+    return params, stats

@@ -52,17 +52,26 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    @staticmethod
+    def batch_statistics(x: torch.Tensor, dims=(0,)):
+        """(mean, biased variance mean(x^2) - mean^2 clamped at 0) over ``dims``."""
+        mean = x.mean(dim=dims)
+        return mean, torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+
+    def normalize(self, x, mean, var, weight, bias) -> torch.Tensor:
+        """Flax's ``_normalize``: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+        return (x - mean) * (torch.rsqrt(var + self.eps) * weight) + bias
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            mean = x.mean(dim=0)
-            var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
+            mean, var = self.batch_statistics(x)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return self.normalize(x, mean, var, self.weight, self.bias)
 
 
 class MLPStack(nn.Module):

@@ -18,15 +18,23 @@ import torch
 from torch import nn
 
 from vitsom_tpu_torch.config import Config
+from vitsom_tpu_torch.models.deit import DeiT
 from vitsom_tpu_torch.models.desom import DESOM
+from vitsom_tpu_torch.models.swin import build_swin
 from vitsom_tpu_torch.models.vit import ClsHead, build_vit_autoencoder, unpatchify
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.utils.device import resolve_device
 
 
 def model_attn_impl(cfg: Config) -> str:
-    """``train.attn_impl``, or the impl ``use_pallas_attention`` implies."""
-    return cfg.train.attn_impl or ("pallas" if cfg.train.use_pallas_attention else "xla")
+    """``train.attn_impl``, or the impl ``use_pallas_attention`` implies;
+    ``pallas`` and ``hybrid`` become ``xla`` for Swin (its attention has a
+    bias) and DeiT (dropout on the probabilities), whose attention the
+    kernels cannot compute, as in the JAX package."""
+    impl = cfg.train.attn_impl or ("pallas" if cfg.train.use_pallas_attention else "xla")
+    if cfg.model_arch in ("swin", "deit") and impl in ("pallas", "hybrid"):
+        return "xla"
+    return impl
 
 
 class ViTSOM(nn.Module):
@@ -114,23 +122,37 @@ class ViTClassifier(nn.Module):
         return self.cls_head(self.vit.forward_features(x))
 
 
-_MODELS = {"vit_som": ViTSOM, "vit": ViTClassifier, "desom": DESOM}
+# model_arch -> a builder of the model from the config
+_MODELS = {
+    "vit_som": lambda cfg: ViTSOM(cfg, attn_impl=model_attn_impl(cfg)),
+    "vit": lambda cfg: ViTClassifier(cfg, attn_impl=model_attn_impl(cfg)),
+    "desom": DESOM,
+    "swin": lambda cfg: build_swin(cfg, attn_impl=model_attn_impl(cfg)),
+    "deit": DeiT,
+}
 
 
 def build_model(cfg: Config, device="cuda", seed: int = 0) -> nn.Module:
     """A freshly initialised ``ViTSOM`` (``model_arch: vit_som``),
-    ``ViTClassifier`` (``vit``) or ``DESOM`` (``desom``, in
-    ``models/desom.py``; it takes flattened images) on ``device`` (default:
-    the card).
+    ``ViTClassifier`` (``vit``), ``DESOM`` (``desom``, in
+    ``models/desom.py``; it takes flattened images), ``SwinTransformer``
+    (``swin``, ``models/swin.py``) or ``DeiT`` (``deit``, the student,
+    ``models/deit.py``) on ``device`` (default: the card). Swin and DeiT
+    with ``train.compute_dtype: bfloat16``, and DeiT with the bf16 score
+    recipes (``xla_bf16``, ``xla_bf16s``), raise (ROADMAP Queue 1 item 6).
 
     The weights are drawn on the CPU from ``torch.Generator().manual_seed(
     seed)`` and then moved, so a seed gives the same model on any device."""
     if cfg.model_arch not in _MODELS:
         raise NotImplementedError(f"model_arch {cfg.model_arch} is not ported yet")
     dev = resolve_device(device)
-    if cfg.model_arch == "desom":
-        model = DESOM(cfg)
-    else:
-        model = _MODELS[cfg.model_arch](cfg, attn_impl=model_attn_impl(cfg))
+    bf16 = cfg.train.compute_dtype != "float32" or (
+        cfg.model_arch == "deit" and model_attn_impl(cfg) != "xla")
+    if cfg.model_arch in ("swin", "deit") and bf16:
+        raise NotImplementedError(
+            f"{cfg.model_arch} with train.compute_dtype {cfg.train.compute_dtype} and "
+            f"attn_impl {model_attn_impl(cfg)} is not ported yet (ROADMAP Queue 1 item 6, the "
+            f"bf16 leftovers); no shipped yaml sets them")
+    model = _MODELS[cfg.model_arch](cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev)

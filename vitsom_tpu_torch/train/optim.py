@@ -11,6 +11,9 @@ Counterpart of ``vitsom_tpu/train/optim.py``:
 - DESOM (``desom``): no decoupled decay on any parameter, with the
   config's ``adam`` or ``adamw``, at the raw ``optimizer.lr`` (no ``x B /
   256``); its yamls keep the default ``constant`` scheduler.
+- The baselines (``swin``, ``deit``): one flat group with
+  ``optimizer.weight_decay`` on every tensor, norms and biases included, at
+  the raw ``optimizer.lr``, no layer decay.
 
 ``torch.optim.AdamW`` with one parameter group per distinct (decay, lr
 scale) pair is the same update as optax's ``scale_by_adam ->
@@ -50,13 +53,15 @@ def vit_layer_id(name: str, num_layers: int) -> int:
 
 def build_weight_decay_map(model: torch.nn.Module, cfg: Config) -> Dict[str, float]:
     """Per-parameter decoupled weight-decay coefficients."""
-    if cfg.model_arch not in ("vit_som", "vit", "desom"):
+    if cfg.model_arch not in ("vit_som", "vit", "desom", "swin", "deit"):
         raise NotImplementedError(f"the {cfg.model_arch} optimizer groups are not ported yet")
     opt = cfg.optimizer
     out = {}
     for name, p in model.named_parameters():
         if cfg.model_arch == "desom":
             out[name] = 0.0
+        elif cfg.model_arch in ("swin", "deit"):
+            out[name] = opt.weight_decay
         elif name.startswith("vit."):
             out[name] = 0.0 if p.ndim == 1 else opt.weight_decay
         else:

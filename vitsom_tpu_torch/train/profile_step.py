@@ -1,5 +1,5 @@
-"""Where the time of the port's train step (ViT-SOM, DESOM, ViT) goes, on
-one card.
+"""Where the time of the port's train step (ViT-SOM, DESOM, ViT, Swin,
+DeiT) goes, on one card.
 
     python -m vitsom_tpu_torch.train.profile_step [--config PATH] [--steps 20] \
         [--override train.attn_impl=pallas] [--trace out/trace.json]

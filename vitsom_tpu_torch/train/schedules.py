@@ -14,6 +14,9 @@ here has two versions with the same float32 arithmetic:
 - ``warmup_cosine_epoch_factor``: the reference LambdaLR lambda, stepped
   per epoch; ``min_lr`` is a multiplicative floor on the factor, not an
   absolute learning rate (a quirk of the reference, kept).
+- ``swin_warmup_cosine_factor``: the Swin baseline's lambda, a linear
+  warm-up ``epoch / warmup_epochs`` (so epoch 0 trains at lr 0) then a
+  cosine decay to the ratio ``min_lr / base_lr``;
 - ``cosine_annealing_lr``: torch CosineAnnealingLR in closed form.
 - ``gamma_ramp``: linear 0 -> gamma over the first half of the steps.
 """
@@ -36,6 +39,20 @@ def warmup_cosine_epoch_factor(
     warm = (e + _f32(1.0)) / _f32(warmup_epochs + 1e-8)
     cos = _f32(0.5) * (np.cos(e / _f32(total_epochs) * _f32(math.pi)) + _f32(1.0))
     return float(np.maximum(_f32(min_lr_factor), np.minimum(warm, cos)))
+
+
+def swin_warmup_cosine_factor(
+    epoch: int, warmup_epochs: int, total_epochs: int, min_lr: float, base_lr: float
+) -> float:
+    """e / warmup before ``warmup_epochs``, then (1 - r) * 0.5 (1 + cos(pi *
+    (e - warmup) / (total - warmup))) + r with r = min_lr / base_lr."""
+    e = _f32(epoch)
+    if e < warmup_epochs:
+        return float(e / _f32(max(1, warmup_epochs)))
+    progress = (e - _f32(warmup_epochs)) / _f32(max(1, total_epochs - warmup_epochs))
+    cosine_decay = _f32(0.5) * (_f32(1.0) + np.cos(_f32(math.pi) * progress))
+    r = _f32(min_lr / base_lr)
+    return float((_f32(1.0) - r) * cosine_decay + r)
 
 
 def cosine_annealing_lr(
@@ -71,6 +88,18 @@ def make_lr_schedule(opt_cfg, total_epochs: int, steps_per_epoch: int, base_lr: 
         if sched == "cosine_simple":
             return cosine_annealing_lr(epoch, base_lr, total_epochs)
         return float(_f32(base_lr))
+
+    return schedule
+
+
+def make_swin_lr_schedule(opt_cfg, total_epochs: int, steps_per_epoch: int, base_lr: float):
+    """Step -> lr of the Swin baseline: ``base_lr *
+    swin_warmup_cosine_factor(step // steps_per_epoch)``."""
+
+    def schedule(step: int) -> float:
+        factor = swin_warmup_cosine_factor(int(step) // steps_per_epoch, opt_cfg.warmup_epochs,
+                                           total_epochs, opt_cfg.min_lr, base_lr)
+        return float(_f32(base_lr) * _f32(factor))
 
     return schedule
 
@@ -123,5 +152,30 @@ def make_lr_schedule_tensor(opt_cfg, total_epochs: int, steps_per_epoch: int, ba
         if sched == "cosine_simple":
             return cosine_annealing_lr_tensor(epoch, base_lr, total_epochs)
         return torch.full((), lr0, dtype=torch.float32, device=step.device)
+
+    return schedule
+
+
+def swin_warmup_cosine_factor_tensor(
+    epoch: torch.Tensor, warmup_epochs: int, total_epochs: int, min_lr: float, base_lr: float
+) -> torch.Tensor:
+    """``swin_warmup_cosine_factor`` of an integer epoch tensor."""
+    e = epoch.to(torch.float32)
+    warm = e / float(_f32(max(1, warmup_epochs)))
+    progress = (e - float(_f32(warmup_epochs))) / float(_f32(max(1, total_epochs - warmup_epochs)))
+    cosine_decay = 0.5 * (1.0 + torch.cos(float(_f32(math.pi)) * progress))
+    r = float(_f32(min_lr / base_lr))
+    return torch.where(e < warmup_epochs, warm, float(_f32(1.0 - _f32(r))) * cosine_decay + r)
+
+
+def make_swin_lr_schedule_tensor(opt_cfg, total_epochs: int, steps_per_epoch: int,
+                                 base_lr: float):
+    """``make_swin_lr_schedule`` for an integer step tensor."""
+    lr0 = float(_f32(base_lr))
+
+    def schedule(step: torch.Tensor) -> torch.Tensor:
+        epoch = torch.div(step, steps_per_epoch, rounding_mode="floor")
+        return lr0 * swin_warmup_cosine_factor_tensor(
+            epoch, opt_cfg.warmup_epochs, total_epochs, opt_cfg.min_lr, base_lr)
 
     return schedule

@@ -1,7 +1,8 @@
-"""ViT-SOM, DESOM and ViT-classifier train and eval steps in PyTorch.
+"""ViT-SOM, DESOM and classifier (ViT, Swin, DeiT) train and eval steps in
+PyTorch.
 
-Counterpart of the ViT-SOM, DESOM and plain-classifier parts of
-``vitsom_tpu/train/steps.py``. The JAX
+Counterpart of ``vitsom_tpu/train/steps.py`` (the DeiT train step is in
+``models/deit.py``, as in the JAX package). The JAX
 step is one pure jitted function over a TrainState whose ``step`` lives on
 the device, and the trainer scans it over an epoch. Here the model and the
 optimizer hold the parameters and moments, and a ``DeviceState`` holds the
@@ -30,8 +31,11 @@ Loss recipes, as the JAX package's:
   recon_loss). The neighbourhood weights are held constant; BatchNorm, if
   on, normalises with the batch's statistics and moves its running
   averages in place (``models/ae.py``);
-- ViT classifier (``model_arch: vit``): CE with the smoothing the caller
-  passes (the JAX trainer passes 0 for ``vit``).
+- ViT and Swin classifiers: CE with the smoothing the caller passes (the
+  JAX trainer passes 0 for ``vit``, ``optimizer.smoothing`` for Swin);
+  Swin's drop-path draws its masks from the generator the step is given;
+- DeiT: CE * (1 - alpha) + alpha * distillation against the frozen
+  teacher, dropout from the step's generator (``models/deit.py``).
 
 With ``train.use_pallas_som`` (every shipped ViT-SOM config) the SOM loss
 comes from the fused SOM op: the CUDA kernel on the card, its plain version
@@ -41,7 +45,7 @@ on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -106,6 +110,8 @@ METRIC_KEYS = (
 )
 CLS_METRIC_KEYS = ("train/cls_loss",) + METRIC_KEYS[1:]
 CLASSIFIER_METRIC_KEYS = ("train/cls_loss", "hp/lr")
+# DeiT (``models/deit.py``): the whole distillation loss, the CE, the lr
+DEIT_METRIC_KEYS = ("train/distill_loss", "train/cls_loss", "hp/lr")
 # DESOM clustering; classification adds the CE in front
 DESOM_METRIC_KEYS = ("train/recon_loss", "train/som_loss", "train/total_loss",
                      "hp/temperature", "hp/lr")
@@ -113,8 +119,10 @@ DESOM_METRIC_KEYS = ("train/recon_loss", "train/som_loss", "train/total_loss",
 
 def metric_keys(cfg: Config) -> tuple:
     """The metrics-buffer columns of ``cfg``'s train step."""
-    if cfg.model_arch == "vit":
+    if cfg.model_arch in ("vit", "swin"):
         return CLASSIFIER_METRIC_KEYS
+    if cfg.model_arch == "deit":
+        return DEIT_METRIC_KEYS
     if cfg.model_arch == "desom":
         return (("train/cls_loss",) if cfg.classification else ()) + DESOM_METRIC_KEYS
     return CLS_METRIC_KEYS if cfg.classification else METRIC_KEYS
@@ -146,7 +154,7 @@ class DeviceState:
         self.step.add_(1)
 
 
-def _model_device(model) -> torch.device:
+def model_device(model) -> torch.device:
     return next(model.parameters()).device
 
 
@@ -154,7 +162,7 @@ def _grid_table(cfg: Config, model) -> torch.Tensor:
     """The static [P, P] squared grid distances on the model's device."""
     return torch.from_numpy(
         som.grid_sq_distances(cfg.som.map_size, cfg.som.topology)
-    ).to(_model_device(model))
+    ).to(model_device(model))
 
 
 def _zero_missing_grads(model) -> None:
@@ -365,21 +373,26 @@ def make_classifier_train_step(
     lr_schedule: Callable[[torch.Tensor], torch.Tensor],
     smoothing: float,
     state: DeviceState,
+    generator: Optional[torch.Generator] = None,
 ):
-    """Returns ``train_step(batch) -> metrics row`` for the ViT classifier:
-    CE(logits, label, ``smoothing``), backward and AdamW at the step
-    ``state.step`` holds; writes ``CLASSIFIER_METRIC_KEYS`` (the loss and
-    the lr) into the metrics buffer, as ``make_vit_som_train_step`` does.
-    ``vit`` draws no random numbers in its forward (its blocks ignore
-    ``drop_path``), so the step has no RNG."""
-    if cfg.model_arch != "vit":
+    """Returns ``train_step(batch) -> metrics row`` for the ViT and Swin
+    classifiers: CE(logits, label, ``smoothing``), backward and AdamW at
+    the step ``state.step`` holds; writes ``CLASSIFIER_METRIC_KEYS`` (the
+    loss and the lr) into the metrics buffer, as ``make_vit_som_train_step``
+    does. ``vit`` draws no random numbers in its forward (its blocks ignore
+    ``drop_path``); Swin's drop-path draws its masks from ``generator``
+    (``models/stochastic.py``), which a Swin step requires."""
+    if cfg.model_arch not in ("vit", "swin"):
         raise NotImplementedError(f"the {cfg.model_arch} classifier step is not ported yet")
+    if cfg.model_arch == "swin" and generator is None:
+        raise ValueError("the Swin train step draws drop-path masks: pass a generator")
+    kwargs = {"generator": generator} if cfg.model_arch == "swin" else {}
 
     def train_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         lr = lr_schedule(state.step)
         optim.set_learning_rate(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
-        loss = cross_entropy(model(batch["image"]), batch["label"], smoothing)
+        loss = cross_entropy(model(batch["image"], **kwargs), batch["label"], smoothing)
         loss.backward()
         optimizer.step()
         values = torch.stack([loss.detach(), lr])
@@ -391,10 +404,12 @@ def make_classifier_train_step(
 
 def make_classifier_eval_step(cfg: Config, model):
     """Returns ``eval_step(batch, temperature=None) -> dict`` with
-    ``logits``, ``bmu`` (zeros) and ``cls_loss``; ``vit`` validates with
-    plain CE, as the JAX package's ``make_classifier_eval_step`` does."""
-    if cfg.model_arch != "vit":
+    ``logits``, ``bmu`` (zeros) and ``cls_loss``, the model deterministic.
+    The smoothing is the JAX package's rule: Swin validates with its
+    smoothed train CE, ``vit`` and ``deit`` with plain CE."""
+    if cfg.model_arch not in ("vit", "swin", "deit"):
         raise NotImplementedError(f"the {cfg.model_arch} classifier eval is not ported yet")
+    smoothing = cfg.optimizer.smoothing if cfg.model_arch == "swin" else 0.0
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], temperature=None) -> Dict[str, torch.Tensor]:
@@ -402,7 +417,7 @@ def make_classifier_eval_step(cfg: Config, model):
         return {
             "logits": logits,
             "bmu": torch.zeros(logits.shape[0], dtype=torch.int64, device=logits.device),
-            "cls_loss": cross_entropy(logits, batch["label"]),
+            "cls_loss": cross_entropy(logits, batch["label"], smoothing),
         }
 
     return eval_step

@@ -1,9 +1,9 @@
-"""ViT-SOM, DESOM (clustering and classification) and ViT-classifier
+"""ViT-SOM, DESOM (clustering and classification), ViT, Swin and DeiT
 trainer in PyTorch, and its command line.
 
 Counterpart of ``vitsom_tpu/train/trainer.py`` and
 ``experiments/benchmarking/train.py`` for ``model_arch`` ``vit_som``,
-``desom`` and ``vit``. Clustering trains on the train + test concat and
+``desom``, ``vit``, ``swin`` and ``deit``. Clustering trains on the train + test concat and
 evaluates purity and NMI there; classification (``data.num_classes > 0``)
 trains on the 80/20 split (augmented on the device, or transformed once
 where the train transform is static), validates after each epoch
@@ -21,12 +21,24 @@ JAX trainer's tags; validation logs ``val/*`` at the same step, and DESOM
 logs its input, reconstruction and decoded-prototype grids every
 ``train.log_images_every_n_epochs`` epochs.
 
+Swin's drop-path and DeiT's dropout draw their masks inside the train step
+from a CUDA generator the trainer owns (``_dropout``, seeded ``seed +
+7919``; ``models/stochastic.py``). The trainer registers it with the
+captured step (``CUDAGraph.register_generator_state``): each replay reads
+the generator's seed and offset at its start and advances the offset by
+what one step draws, so the replays draw the same masks as eager steps
+from the same state, and no mask is drawn outside the graph. Swin trains
+with its own lr schedule (``schedules.make_swin_lr_schedule_tensor``,
+which is 0 for the first epoch); DeiT builds its frozen teacher in its
+train step (``models/deit.py``).
+
 Checkpoints (``save_checkpoint`` / ``restore_checkpoint``, at
 ``<checkpoint_dir>/<model_arch>/<dataset>_run<id>_<tag>``) hold the
 parameters and buffers (DESOM's BatchNorm statistics), AdamW's moments,
 step counts and lr tensors, the device step, the epoch's start, its
-metrics rows and the data generators' states at the epoch's start
-(``torch.save``; read with ``weights_only=True``), beside the config as
+metrics rows, the data generators' states at the epoch's start and the
+dropout generator's state at the save (``torch.save``; read with
+``weights_only=True``), beside the config as
 ``vitsom_config.yaml``. A restore copies into the tensors the trainer
 already holds, never rebinding one: a captured step reads its tensors at
 fixed addresses, and would go on reading the old ones. The next ``fit``
@@ -81,6 +93,11 @@ or on the synthetic stand-in:
         --config configs/vit_som/vit_som_cifar-10.yaml --synthetic --max-steps 30
     python -m vitsom_tpu_torch.train.trainer \\
         --config configs/desom/desom_mnist.yaml --synthetic --epochs 3
+    python -m vitsom_tpu_torch.train.trainer \\
+        --config configs/swin/swin_cifar-10.yaml --synthetic --epochs 2
+    python -m vitsom_tpu_torch.train.trainer \\
+        --config configs/deit/deit_cifar-10.yaml --synthetic --max-steps 30 \\
+        --override data.data_dir=/path/with/resnet50.pth
 """
 
 from __future__ import annotations
@@ -100,6 +117,7 @@ from vitsom_tpu_torch.config import Config, config_from_dict, load_config
 from vitsom_tpu_torch.data.synthetic import build_datamodule
 from vitsom_tpu_torch.eval import evaluate as eval_lib
 from vitsom_tpu_torch.eval.metrics import aggregate_runs
+from vitsom_tpu_torch.models.deit import make_deit_train_step
 from vitsom_tpu_torch.models.vit_som import build_model
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import optim, schedules
@@ -110,6 +128,10 @@ from vitsom_tpu_torch.utils.logging import MetricLogger
 # eager steps before the capture: the first creates AdamW's moments, the
 # second runs with every lazily created buffer and workspace in place
 WARMUP_STEPS = 2
+ARCHS = ("vit_som", "vit", "desom", "swin", "deit")
+# the models whose train step draws dropout or drop-path masks
+STOCHASTIC = ("swin", "deit")
+DROPOUT_SEED_OFFSET = 7919  # the JAX package's dropout_base_key(train.seed + 7919)
 
 # ---------------------------------------------------------------------------
 # checkpoints: the embedded config (the reference's save_hyperparameters)
@@ -170,19 +192,20 @@ def check_checkpoint_config(ckpt_path: str, cfg: Config) -> None:
 
 
 class Trainer:
-    """Trains one ViT-SOM, DESOM or ViT-classifier run on one device
+    """Trains one ViT-SOM, DESOM, ViT, Swin or DeiT run on one device
     (default: the card).
 
     The weights come from ``train.seed + run_id`` through a
     ``torch.Generator``; the epoch permutations from a second generator with
-    the same seed, and the augmentation's draws from a third, on the
-    device, with the same seed."""
+    the same seed, the augmentation's draws from a third, on the device,
+    with the same seed, and the dropout masks from a fourth, on the device,
+    seeded ``seed + 7919``."""
 
     def __init__(self, cfg: Config, device="cuda", dm=None, run_id: int = 0):
-        if cfg.model_arch not in ("vit_som", "vit", "desom"):
+        if cfg.model_arch not in ARCHS:
             raise NotImplementedError(
-                f"the port trains vit_som, desom and vit (later slices: the other "
-                f"baselines), not {cfg.model_arch}"
+                f"the port trains {', '.join(ARCHS)}, not {cfg.model_arch} (mobile_vit: "
+                f"the next slice, ROADMAP Queue 1 item 5)"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -196,19 +219,29 @@ class Trainer:
         self.statics = steps_lib.StepStatics(
             self.dm.steps_per_epoch, cfg.total_epochs, self.dm.n_train, cfg.batch_size
         )
-        self.lr_schedule = schedules.make_lr_schedule_tensor(
+        make_schedule = (schedules.make_swin_lr_schedule_tensor if cfg.model_arch == "swin"
+                         else schedules.make_lr_schedule_tensor)
+        self.lr_schedule = make_schedule(
             cfg.optimizer, cfg.total_epochs, self.dm.steps_per_epoch,
             optim.base_learning_rate(cfg),
         )
+        self._dropout = torch.Generator(device=self.device).manual_seed(
+            seed + DROPOUT_SEED_OFFSET)
         self.optimizer = optim.make_optimizer(cfg, self.model)
         self.state = steps_lib.DeviceState(
             self.device, self.dm.steps_per_epoch, steps_lib.metric_keys(cfg)
         )
-        if cfg.model_arch == "vit":
+        if cfg.model_arch in ("vit", "swin"):
             # the JAX trainer trains vit without label smoothing
+            smoothing = cfg.optimizer.smoothing if cfg.model_arch == "swin" else 0.0
             self.train_step = steps_lib.make_classifier_train_step(
-                cfg, self.model, self.optimizer, self.lr_schedule, 0.0, self.state
+                cfg, self.model, self.optimizer, self.lr_schedule, smoothing, self.state,
+                self._dropout if cfg.model_arch == "swin" else None,
             )
+            self.eval_step = steps_lib.make_classifier_eval_step(cfg, self.model)
+        elif cfg.model_arch == "deit":
+            self.train_step = make_deit_train_step(
+                cfg, self.model, self.optimizer, self.lr_schedule, self.state, self._dropout)
             self.eval_step = steps_lib.make_classifier_eval_step(cfg, self.model)
         elif cfg.model_arch == "desom":
             self.train_step = steps_lib.make_desom_train_step(
@@ -269,6 +302,9 @@ class Trainer:
         be captured raises here."""
         self.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
+        if self.cfg.model_arch in STOCHASTIC:
+            # each replay draws from the generator's state at its start
+            graph.register_generator_state(self._dropout)
         with torch.cuda.graph(graph):
             self._buffered_step()
         self.graph = graph
@@ -490,6 +526,8 @@ class Trainer:
             "metrics": self.state.metrics,
             "shuffle_rng": shuffle,
             "augment_rng": augment,
+            # consumed a step, so kept as it is now, not at the epoch's fill
+            "dropout_rng": self._dropout.get_state(),
         }
         # a whole file or none: written beside, then renamed
         tmp = os.path.join(path, f"{CKPT_STATE_FILE}.{os.getpid()}.tmp")
@@ -518,6 +556,8 @@ class Trainer:
             self._restore_optimizer(ck["optimizer"])
             for name in ("step", "epoch_start", "metrics"):
                 getattr(self.state, name).copy_(ck[name])
+        # set in place: a captured step holds this generator's state
+        self._dropout.set_state(ck["dropout_rng"].cpu())
         self.step = int(ck["step"])
         self.epochs_done = self.step // self.dm.steps_per_epoch
         self._resume = (ck["shuffle_rng"].cpu(), ck["augment_rng"].cpu(),
@@ -595,7 +635,7 @@ def main(argv=None):
     and the aggregate; returns the runs' JSON dicts."""
     parser = argparse.ArgumentParser(
         description="vitsom-tpu PyTorch trainer (ViT-SOM and DESOM clustering and "
-                    "classification, ViT): the N-run train/eval protocol")
+                    "classification, ViT, Swin, DeiT): the N-run train/eval protocol")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--runs", type=int, default=None, help="override train.n_runs")
     parser.add_argument("--epochs", type=int, default=None, help="override total_epochs")

@@ -51,3 +51,24 @@ def torch_default_bias_(bias: torch.Tensor, fan_in: int, generator=None):
     """torch Linear's default bias init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     return _uniform_(bias, bound, generator)
+
+
+# jax.nn.initializers.variance_scaling's truncated normal: a standard normal
+# cut at +-2, rescaled by the std of that truncated distribution
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator=None):
+    """Flax's default kernel init (``nn.Dense`` / ``nn.Conv``):
+    variance_scaling(1, fan_in, truncated_normal), fan_in = in (* kh * kw)
+    of a Linear [out, in] or conv [out, in, kh, kw] weight; std =
+    sqrt(1 / fan_in) / 0.87962566 over a standard normal cut at +-2, drawn
+    by the inverse CDF as ``jax.random.truncated_normal`` draws it."""
+    fan_in = weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
+        u = torch.rand(weight.shape, generator=generator, dtype=torch.float64)
+        z = math.sqrt(2.0) * torch.erfinv(lo + u * (hi - lo))
+        weight.copy_((z.clamp(-2.0, 2.0) * std).to(weight.dtype))
+    return weight
