@@ -297,6 +297,41 @@ H. the Swin and DeiT baselines (``phase_baselines``) as shipped on
    ``_svhn``, ``_flowers-17``; ``swin_medmnist`` is H2) through
    ``cls_run``: 3 graphed steps and one ragged validation batch each.
    ``profile_step`` on H1 and H3 (wall, busy, idle share, kernels a step).
+I. MobileViT-S and the host augmentation path (``phase_mobile_vit``). No
+   kernel is on MobileViT's path (its attention is Flax's
+   ``MultiHeadDotProductAttention``, plain products, as in the JAX
+   package): every MobileViT run must launch 0 SOM, attention and block
+   kernels. I1, the slice's main path: ``mobile_vit_cifar-10.yaml`` as
+   shipped (224x224, B 128, Flax BatchNorm moved in place inside the
+   captured step) on 50000 + 10000 synthetic images, the epoch streamed
+   (312 steps; its 24 GB buffer passes ``pipeline.STREAM_BYTES``: each
+   batch's captured augmentation replays into a one-batch buffer just
+   before its step): 2 warm-up steps, the capture and 20 replays; the last
+   streamed batch against eager calls at its draws; a checkpoint, then 10
+   more replays held bitwise against a fresh trainer restored from it and
+   run eagerly (losses, parameters, running statistics, AdamW, device
+   state); ``profile_step`` (R = 10) with the augmentation off (the static
+   path's resident rows), which times the step alone. I5 the same yaml
+   with ``train.remat_blocks`` on against off, 3 replays each on
+   I1's data (2 warm-up steps, the capture, 3 replays): equal within
+   GRAPH_RTOL, running statistics included, the replays' ms printed. I2
+   one epoch of the yaml on 1280 + 256 images (8 steps, a whole-epoch
+   fill), validation and the test eval on the running statistics. I3
+   ``mobile_vit_svhn.yaml`` (73257 + 14651 images: 457 steps an epoch,
+   35 GB unstreamed) and ``_cifar-100``, 3 graphed steps each, with the
+   peak memory. I4 the host path: a flowers-17 jpg dir in its published
+   layout (``jpg/image_0001.jpg`` on, 80 images a class of 240-500 px,
+   cut to 6 classes: 384 train rows, 3 steps an epoch) written from the
+   seed into a temporary directory; ``mobile_vit_flowers-17.yaml`` and
+   ``vit_som_flowers-17.yaml`` (the fused SOM kernel on the host path, its
+   launches counted) each train 2 graphed epochs with validation and the
+   test eval, every batch the step read equal to the host batch
+   ``train_batches`` makes again; the host ms between batches, the
+   trainer's waits and the worker count are printed beside
+   ``os.cpu_count()``; ``profile_step`` (R = 10) on ``vit_som_cifar-10``
+   with ``data.device_augment: false`` (the 32x32 images through the host
+   path): the device's idle share while the steps wait for the host, and
+   the SOM kernel's count under replay.
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
@@ -329,13 +364,15 @@ each of the two blocks it backpropagates through (6 + 2 = 8), and the
 backward kernel once for each of those (2).
 
 The last lines are the ``kernels`` JSON (the SOM and attention kernels'
-``launches``: phase G4's protocol run, the last path these kernels are on,
-with every path's count under ``launches_by_path``, the phase-H paths at
-0; the SOM row's timings at (512,
+``launches``: phase G4's protocol run, the last path all these kernels are on,
+with every path's count under ``launches_by_path``, the phase-H paths and
+phase I's MobileViT paths at 0, I4's ViT-SOM host run with its SOM
+launches; the SOM row's timings at (512,
 49152, 196) and the attention rows' at (512, 257, 3, 64), phase E1's
 shapes), the nvidia-smi line and the result. The whole script takes about
-9 minutes on an H100, the builds included (block.cu, the longest, about
-28 s); ``PhaseClock`` prints each group of phases' seconds.
+13 minutes on an H100 (phase I about 4, its 224x224 augmentation ~0.9 s a
+batch), the builds included (block.cu, the longest, about 28 s);
+``PhaseClock`` prints each group of phases' seconds.
 """
 
 from __future__ import annotations
@@ -779,6 +816,9 @@ def describe(cfg) -> str:
         return (f"model=deit emb={cfg.vit.emb_dim} depth={cfg.vit.depth} heads={cfg.vit.heads} "
                 f"head_dim=64 patch={cfg.vit.patch_size} dropout={cfg.vit.proj_drop} "
                 f"emb_dropout={cfg.vit.attn_drop} distill={cfg.distillation}")
+    if cfg.model_arch == "mobile_vit":
+        return ("model=mobile_vit (MobileViT-S: stem 16, mv2 32-160, transformer dims "
+                "144/192/240, depths 2/4/3, 4 heads, head conv 640)")
     if cfg.model_arch == "desom":
         d = cfg.data
         return (f"model=desom ae={[d.num_channels * d.input_size ** 2, *cfg.ae.encoder_dims]} "
@@ -1168,7 +1208,7 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
     # near ln K; DESOM's classifier starts at torch's Linear init on an O(1)
     # latent; DeiT's lecun-normal head gives logits of std ~1 on its
     # normalised token, ~0.5 above ln K
-    near = {"desom": None, "deit": 1.0}.get(cfg.model_arch, 0.3)
+    near = {"desom": None, "deit": 1.0, "mobile_vit": 1.0}.get(cfg.model_arch, 0.3)
     check(near is None or abs(first_cls - math.log(cfg.data.num_classes)) <= near,
           f"{label}: step-0 cls_loss {first_cls} is not within {near} of "
           f"ln {cfg.data.num_classes}")
@@ -2539,7 +2579,7 @@ def print_test(label, res):
     check(0.0 <= res["accuracy"] <= 1.0, f"{label}: test accuracy {res['accuracy']}")
 
 
-def print_epochs(label, tr, smi):
+def print_epochs(label, tr, smi, probe=True):
     for v in tr.val_history:
         print(f"{label} validation epoch {v['epoch']} (step {v['step']}): "
               + " ".join(f"{k}={v[k]:.6f}" for k in sorted(v) if k.startswith("val/"))
@@ -2548,8 +2588,9 @@ def print_epochs(label, tr, smi):
               f"{label}: non-finite validation numbers")
     ms = steady_ms(tr.step_ms)
     print(f"{label}: median_step_ms={ms:.4f} images_per_s={tr.cfg.batch_size / ms * 1e3:.1f} "
-          f"({steady_steps(tr.step)}, CUDA events between step ends, mask probe on) "
-          f"augmentation_ms_per_epoch=" + ",".join(f"{v:.1f}" for v in tr.fill_ms)
+          f"({steady_steps(tr.step)}, CUDA events between step ends"
+          + (", mask probe on) " if probe else ") ")
+          + "augmentation_ms_per_epoch=" + ",".join(f"{v:.1f}" for v in tr.fill_ms)
           + f" card: {smi}", flush=True)
 
 
@@ -2722,6 +2763,282 @@ def phase_baselines(dev, smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase I: MobileViT-S and the host augmentation path
+# ---------------------------------------------------------------------------
+
+MOBILE_VIT = os.path.join(ROOT, "configs", "mobile_vit")
+MV_CIFAR = os.path.join(MOBILE_VIT, "mobile_vit_cifar-10.yaml")
+MV_FLOWERS = os.path.join(MOBILE_VIT, "mobile_vit_flowers-17.yaml")
+VIT_SOM_FLOWERS = os.path.join(FAMILY, "vit_som_flowers-17.yaml")
+# I3: the full splits' synthetic sizes (svhn's 73257 train images: 58606
+# train rows after the 80/20 split, 457 steps an epoch)
+I3_CONFIGS = ((os.path.join(MOBILE_VIT, "mobile_vit_svhn.yaml"), 73257),
+              (os.path.join(MOBILE_VIT, "mobile_vit_cifar-100.yaml"), CLS_SYNTHETIC_SIZE))
+I1_GRAPHED = 20  # replays after the warm-up steps and the capture
+I1_HOLD = 10  # steps from the restored checkpoint, graphed and eager
+I2_SIZE = 1280  # 1024 train rows (8 steps), 256 val, 256 test
+I3_STEPS = 3
+I4_CLASSES = 6  # flowers-17's 80 images a class: 480 images, 3 steps of 128 an epoch
+I4_EPOCHS = 2
+I5_STEPS = WARMUP_STEPS + 1 + 3  # 3 replays after the capture
+# the augmentation off, so that profile_step times the step alone (at 224
+# the augmentation is 5x the step): the static path's resident train rows
+STATIC_AUGMENT = {"data.augment.randaug_n": 0, "data.augment.resize_scale": [1.0, 1.0],
+                  "data.augment.resize_ratio": [1.0, 1.0], "data.augment.reprob": 0,
+                  "data.augment.horizontal_flip": 0, "data.augment.autoaugment": False}
+
+
+def mobile_vit_cfg(config, root, extra=None):
+    cfg = baseline_cfg(config, root, extra)
+    print(f"config {os.path.basename(config)} {describe(cfg)} batch={cfg.batch_size} "
+          f"num_classes={cfg.data.num_classes} input={cfg.data.input_size} "
+          f"compute={cfg.train.compute_dtype} remat={cfg.train.remat_blocks} "
+          f"smoothing={cfg.optimizer.smoothing} lr={cfg.optimizer.lr} "
+          f"scheduler={cfg.optimizer.scheduler}", flush=True)
+    return cfg
+
+
+def check_first_ce(label, hist, cfg):
+    first = float(hist["train/cls_loss"][0])
+    check(all(math.isfinite(v) for v in hist["train/cls_loss"]), f"{label}: non-finite loss")
+    # a lecun-normal head on the pooled 640 features: logits of std ~1
+    check(abs(first - math.log(cfg.data.num_classes)) <= 1.0,
+          f"{label}: step-0 cls_loss {first} is not within 1 of ln {cfg.data.num_classes}")
+
+
+def phase_mobile_vit_main(dev, root, smi):
+    """I1 (module docstring). Returns (launch counts of the 23-step run,
+    its data module)."""
+    label = "i1_mobile_vit_cifar10"
+    cfg = mobile_vit_cfg(MV_CIFAR, root)
+    t0 = time.perf_counter()
+    dm = build_datamodule(cfg, dev)
+    print(f"{label}: data train={dm.n_train} val={dm.split_len('val')} "
+          f"test={dm.split_len('test')} steps_per_epoch={dm.steps_per_epoch} "
+          f"streams={dm.streams} built in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(dm.streams and dm.steps_per_epoch == 312, f"{label}: not the streamed 312-step epoch")
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, device=dev, dm=dm)
+    steps = WARMUP_STEPS + 1 + I1_GRAPHED
+    reset_launches()
+    hist = tr.fit(max_steps=steps)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(tr.graph is not None and tr.step == steps, f"{label}: no graphed run")
+    check_first_ce(label, hist, cfg)
+    ms = steady_ms(tr.step_ms)
+    aug = statistics.median(tr.stream_ms)
+    print(f"{label}: steps={steps} cls_loss first={hist['train/cls_loss'][0]:.6f} "
+          f"last={hist['train/cls_loss'][-1]:.6f} median_step_ms={ms:.4f} "
+          f"images_per_s={cfg.batch_size / ms * 1e3:.1f} ({steady_steps(steps)}, CUDA events "
+          f"from the batch in place to the step's end) augmentation_ms_per_batch={aug:.2f} "
+          f"(median of {len(tr.stream_ms)} streamed replays; the epoch's draws "
+          f"{tr.fill_ms[0] - sum(tr.stream_ms):.1f} ms) peak_memory_gb={peak:.3f} card: {smi}",
+          flush=True)
+    last = dm.augment_batch_eagerly(steps - 1)
+    grey = 1.0 / (255.0 * min(dm.augment.std))
+    diff = (tr.epoch_images["image"] - last).abs()
+    print(f"{label}: the streamed batch {steps - 1} against eager calls at its draws: "
+          f"max_abs_diff={float(diff.max()):.3e} differing_share="
+          f"{float((diff > 0).float().mean()):.3e} (one grey level {grey:.3e})", flush=True)
+    check(float(diff.max()) <= grey * 1.001 and float((diff > 0).float().mean()) <= 1e-3,
+          f"{label}: the streamed augmentation differs from its eager calls")
+    zero_launches(label, launches)
+    tr.save_checkpoint("mid")
+    hist_g = tr.fit(max_steps=steps + I1_HOLD, new_epoch=False)
+    state_g = snapshot(tr)
+    del tr
+    torch.cuda.empty_cache()
+    tr_e = Trainer(cfg, device=dev, dm=dm)
+    tr_e.restore_checkpoint("mid")
+    hist_e = tr_e.fit(max_steps=steps + I1_HOLD, eager=True)
+    same = all(np.array_equal(hist_g[k], hist_e[k]) for k in hist_g)
+    print(f"{label}: {I1_HOLD} graphed steps against {I1_HOLD} eager steps from the checkpoint "
+          f"at step {steps}: losses bitwise_equal={same} eager median_step_ms="
+          f"{statistics.median(tr_e.step_ms):.4f}", flush=True)
+    check(same, f"{label}: the graphed losses differ from the eager ones")
+    same_state(label, state_g, snapshot(tr_e))
+    del tr_e
+    torch.cuda.empty_cache()
+    profile_check(label, MV_CIFAR, STATIC_AUGMENT, smi)
+    return launches, dm
+
+
+def write_flowers17(root, classes, seed):
+    """flowers-17's published layout: ``jpg/image_0001.jpg`` on, 80 images a
+    class in name order, of sizes 240-500 px."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "jpg")
+    os.makedirs(d)
+    tints = rng.integers(0, 256, size=(classes, 3))
+    for i in range(classes * 80):
+        h, w = (int(v) for v in rng.integers(240, 500, size=2))
+        img = np.clip(tints[i // 80] + rng.normal(0, 40, size=(h, w, 3)), 0, 255)
+        Image.fromarray(img.astype(np.uint8)).save(os.path.join(d, f"image_{i + 1:04d}.jpg"),
+                                                   quality=90)
+
+
+def host_run(dev, label, config, data_dir, root, smi):
+    """I4: ``config`` from the jpg dir for I4_EPOCHS epochs, graphed, with
+    validation and the test eval; every batch the step read equals the
+    host batch ``train_batches`` makes again, to the bit. Returns the
+    launch counts."""
+    cfg = mobile_vit_cfg(config, root, {"data.data_dir": data_dir,
+                                        "data.allow_synthetic": False,
+                                        "total_epochs": I4_EPOCHS})
+    t0 = time.perf_counter()
+    dm = build_datamodule(cfg, dev)
+    print(f"{label}: data from {data_dir} train={dm.n_train} val={dm.split_len('val')} "
+          f"test={dm.split_len('test')} steps_per_epoch={dm.steps_per_epoch} host={dm.host} "
+          f"sizes={len({x.shape for x in dm.train_x})} built in "
+          f"{time.perf_counter() - t0:.2f} s workers={dm._workers()} "
+          f"os.cpu_count={os.cpu_count()}", flush=True)
+    check(dm.host and dm.train_x.dtype == object and dm.steps_per_epoch == 3,
+          f"{label}: not the host path's 3 steps an epoch")
+    tr = Trainer(cfg, device=dev, dm=dm)
+    consumed = []
+    stream = dm.stream_batch
+
+    def recording(index, out):
+        stream(index, out)
+        consumed.append(out["image"].cpu())
+
+    dm.stream_batch = recording
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.fit()
+    seconds = time.perf_counter() - t0
+    res = tr.evaluate()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(tr.graph is not None and tr.epochs_done == I4_EPOCHS, f"{label}: no graphed epochs")
+    check_first_ce(label, hist, cfg)
+    host = [b["image"] for e in range(I4_EPOCHS) for b in dm.train_batches(e, tr.host_seed)]
+    same = len(host) == len(consumed) and all(
+        torch.equal(c, torch.from_numpy(h)) for c, h in zip(consumed, host))
+    bs = cfg.batch_size
+    eval_batches = (len(tr.val_history) * eval_batch_count(dm.split_len("val"), bs)
+                    + eval_batch_count(dm.split_len("test"), bs) + 1)
+    want = expected_launches(cfg, model_attn_impl(cfg), issued_steps(tr.step, False),
+                             eval_batches)
+    print(f"{label}: {tr.step} steps in {seconds:.2f} s (fit, validation included); "
+          f"the device batches equal the host arrays bitwise={same} ({len(consumed)} batches); "
+          f"host_ms_between_batches=" + ",".join(f"{v:.1f}" for v in dm.host_batch_ms)
+          + " trainer_wait_ms=" + ",".join(f"{v:.1f}" for v in tr.host_wait_ms)
+          + f" step_ms=" + ",".join(f"{v:.2f}" for v in tr.step_ms)
+          + f" device_wait_ms=" + ",".join(f"{v:.1f}" for v in tr.stream_ms)
+          + f" card: {smi}", flush=True)
+    print_epochs(label, tr, smi, probe=False)
+    print_test(label, res)
+    print(f"{label} launches: " + " ".join(f"{k}={v} (expected {want[k]})"
+                                           for k, v in launches.items())
+          + f" [train steps {tr.step} ({issued_steps(tr.step, False)} issued), eval batches "
+          f"{eval_batches}]", flush=True)
+    check(same, f"{label}: a device batch differs from its host array")
+    check(launches == want, f"{label}: launch counts {launches} != {want}")
+    dm.close()
+    return launches
+
+
+def phase_mobile_vit(dev, smi):
+    """Phase I; returns {path: launch counts}."""
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        paths["i1_mobile_vit_cifar10"], dm = phase_mobile_vit_main(dev, root, smi)
+        # I5: remat on against off, 3 replays each on I1's data
+        runs = {}
+        for remat in (False, True):
+            label = f"i5_mobile_vit_cifar10_remat_{str(remat).lower()}"
+            cfg = mobile_vit_cfg(MV_CIFAR, root, {"train.remat_blocks": remat})
+            tr = Trainer(cfg, device=dev, dm=dm)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            hist = tr.fit(max_steps=I5_STEPS)
+            torch.cuda.synchronize()
+            paths[label] = read_launches()
+            zero_launches(label, paths[label])
+            check(tr.graph is not None and tr.model.remat == remat, f"{label}: not graphed")
+            runs[remat] = (hist, snapshot(tr))
+            print(f"{label}: step_ms=" + ",".join(f"{v:.3f}" for v in tr.step_ms)
+                  + f" (the replays' median {statistics.median(tr.step_ms[-3:]):.3f}) "
+                  f"peak_memory_gb={torch.cuda.max_memory_allocated(dev) / 1e9:.3f} "
+                  f"card: {smi}", flush=True)
+            del tr
+            torch.cuda.empty_cache()
+        (h0, s0), (h1, s1) = runs[False], runs[True]
+        loss_err = max(float(np.max(np.abs(h1[k] - h0[k]) / np.maximum(np.abs(h0[k]), 1e-30)))
+                       for k in h0)
+        worst = max(float(((s1[k].double() - s0[k].double()).abs()
+                           / (1e-30 + s0[k].double().abs())).max()) for k in s0
+                    if s0[k].is_floating_point())
+        print(f"i5: remat against no remat after {I5_STEPS} steps (3 replays): losses rel "
+              f"{loss_err:.3e}, parameters, running statistics and AdamW moments largest rel "
+              f"{worst:.3e} (bound {GRAPH_RTOL})", flush=True)
+        check(loss_err <= GRAPH_RTOL and all(
+            torch.allclose(s1[k], s0[k], rtol=GRAPH_RTOL, atol=0) for k in s0),
+            "i5: remat changes the step")
+        dm.close()
+        del dm
+        torch.cuda.empty_cache()
+        # I2: one epoch of the cut split, validation and the test eval
+        _, dm, tr, _, paths["i2_mobile_vit_cifar10_epoch"], res = cls_run(
+            dev, "i2_mobile_vit_cifar10_epoch", MV_CIFAR, None, None, size=I2_SIZE)
+        check(dm.steps_per_epoch == 8 and len(tr.val_history) == 1 and not dm.streams,
+              "i2: expected one whole-epoch fill of 8 steps and its validation")
+        bn = tr.model.blocks[0].expand.bn
+        check(not torch.equal(bn.running_var, torch.ones_like(bn.running_var)),
+              "i2: the running statistics did not move")
+        zero_launches("i2_mobile_vit_cifar10_epoch", paths["i2_mobile_vit_cifar10_epoch"])
+        del tr, dm
+        torch.cuda.empty_cache()
+        # I3: the other full splits, 3 steps each, the peak memory
+        for config, size in I3_CONFIGS:
+            label = "i3_" + os.path.basename(config)[:-5]
+            cfg = mobile_vit_cfg(config, root, {"data.synthetic_size": size})
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            dm = build_datamodule(cfg, dev)
+            tr = Trainer(cfg, device=dev, dm=dm)
+            reset_launches()
+            hist = tr.fit(max_steps=I3_STEPS)
+            torch.cuda.synchronize()
+            paths[label] = read_launches()
+            check(dm.streams and tr.graph is not None, f"{label}: not streamed and graphed")
+            check_first_ce(label, hist, cfg)
+            print(f"{label}: train={dm.n_train} steps_per_epoch={dm.steps_per_epoch} "
+                  f"streams={dm.streams} step_ms=" + ",".join(f"{v:.3f}" for v in tr.step_ms)
+                  + f" augmentation_ms_per_batch=" + ",".join(f"{v:.1f}" for v in tr.stream_ms)
+                  + f" peak_memory_gb={torch.cuda.max_memory_allocated(dev) / 1e9:.3f} "
+                  f"(an unstreamed epoch buffer: "
+                  f"{dm.steps_per_epoch * cfg.batch_size * 224 * 224 * 3 * 4 / 1e9:.1f} GB) "
+                  f"seconds={time.perf_counter() - t0:.1f} card: {smi}", flush=True)
+            zero_launches(label, paths[label])
+            dm.close()
+            del tr, dm
+            torch.cuda.empty_cache()
+        # I4: the host path from a jpg dir
+        data = os.path.join(root, "flowers17")
+        t0 = time.perf_counter()
+        write_flowers17(data, I4_CLASSES, seed=17)
+        print(f"i4: wrote {I4_CLASSES * 80} jpgs in flowers-17's layout in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        paths["i4_mobile_vit_flowers17_host"] = host_run(
+            dev, "i4_mobile_vit_flowers17_host", MV_FLOWERS, data, root, smi)
+        zero_launches("i4_mobile_vit_flowers17_host", paths["i4_mobile_vit_flowers17_host"])
+        paths["i4_vit_som_flowers17_host"] = host_run(
+            dev, "i4_vit_som_flowers17_host", VIT_SOM_FLOWERS, data, root, smi)
+        check(paths["i4_vit_som_flowers17_host"]["som_fused"] > 0,
+              "i4: the SOM kernel did not run on the host path")
+    # the host path's steps under the profiler: cifar-10's 32x32 images
+    # through the host transform (data.device_augment false)
+    profile_check("i4_vit_som_cifar10_host", CIFAR_CONFIG, {"data.device_augment": False}, smi)
+    return paths
+
+
 class PhaseClock:
     """Prints each group of phases' host seconds and the total so far."""
 
@@ -2780,6 +3097,8 @@ def main() -> int:
         clock("G")
         baseline_paths = phase_baselines(dev, smi)
         clock("H")
+        mobile_paths = phase_mobile_vit(dev, smi)
+        clock("I")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2796,6 +3115,7 @@ def main() -> int:
     def by_path(name):
         out = {path: counts[name] for path, counts in paths.items() if counts[name]}
         out.update({path: counts[name] for path, counts in baseline_paths.items()})
+        out.update({path: counts[name] for path, counts in mobile_paths.items()})
         return out
 
     kernels = [{

@@ -352,9 +352,10 @@ def test_classification_split_matches_jax():
 
 def test_epoch_buffer_holds_augmented_train_batches():
     """fill_epoch: the labels are the permuted train labels; the epoch's
-    draws are made at once from the augmentation generator, and each image
-    batch is the augmentation of the raw rows the permutation picked at
-    those draws (``augment_batch_eagerly``, and the same draws made again);
+    draws are made at once from the augmentation generator (the erasing
+    fills as one seed a batch, expanded per batch), and each image batch
+    is the augmentation of the raw rows the permutation picked at those
+    draws (``augment_batch_eagerly``, and the same draws made again);
     epoch_batch reads a batch of both buffers."""
     over = {"data.allow_synthetic": True, "data.synthetic_size": 40, **SMALL}
     tdm = build_datamodule(tconfig.load_config(CIFAR, over), device="cpu")
@@ -365,12 +366,17 @@ def test_epoch_buffer_holds_augmented_train_batches():
     tdm.fill_epoch(torch.Generator().manual_seed(1), buf, torch.Generator().manual_seed(2))
     perm = torch.randperm(tdm.n_train, generator=torch.Generator().manual_seed(1))[:rows]
     assert torch.equal(buf["label"], tdm.train_y[perm])
-    params = tdm.augment.sample(torch.Generator().manual_seed(2), rows, 32, 32, "cpu")
+    g = torch.Generator().manual_seed(2)
+    params = tdm.augment.sample(g, rows, 32, 32, "cpu", erase_fill=False)
+    seeds = torch.randint(0, 2**62, (tdm.steps_per_epoch,), generator=g).tolist()
+    assert tdm.augment.erase_keys() == ["erase0.fill"]
     for k in (0, tdm.steps_per_epoch - 1):
         batch = slice(k * B, (k + 1) * B)
         assert torch.equal(buf["image"][batch], tdm.augment_batch_eagerly(k))
+        fill = torch.randn((B, 32, 32, 3), generator=torch.Generator().manual_seed(seeds[k]))
         again = tdm.augment.apply(tdm.train_x[perm[batch]],
-                                  {name: v[batch] for name, v in params.items()})
+                                  {**{name: v[batch] for name, v in params.items()},
+                                   "erase0.fill": fill})
         assert torch.equal(buf["image"][batch], again)
     b3 = tdm.epoch_batch(buf, torch.tensor(3))
     assert torch.equal(b3["image"], buf["image"][3 * B:4 * B])

@@ -319,10 +319,20 @@ def test_flowers17_static_path_on_jpgs_matches_jax(tmp_path):
 
 
 def test_object_array_on_augmented_path_raises(tmp_path):
-    """A jpg source on an augmented config needs the host augmentation
-    path, which is not ported: the module says so."""
+    """A jpg source on an augmented config takes the host augmentation
+    path, and a failure there raises: an unreadable image stops the epoch
+    with the reader's error, nothing falls back."""
     write_format("flowers17_classdirs", str(tmp_path))
     cfg = load_config("configs/vit_som/vit_som_flowers-17.yaml",
-                      {"data.data_dir": str(tmp_path), "batch_size": 2})
-    with pytest.raises(NotImplementedError, match="host augmentation path"):
-        build_datamodule(cfg, device="cpu")
+                      {"data.data_dir": str(tmp_path), "batch_size": 2,
+                       "data.input_size": 32, "data.num_workers": 0})
+    dm = build_datamodule(cfg, device="cpu")
+    assert dm.host and dm.train_x.dtype == object and dm.steps_per_epoch == 2
+    assert next(dm.train_batches(0))["image"].shape == (2, 32, 32, 3)
+    dm.train_x[:] = str(tmp_path / "missing.jpg")
+    with pytest.raises(FileNotFoundError):
+        next(dm.train_batches(0))
+    dm.start_host_epoch(0, 0)
+    with pytest.raises(RuntimeError, match="host augmentation failed"):
+        dm.stream_batch(0, dm.epoch_buffer())
+    dm.close()

@@ -206,12 +206,14 @@ def test_static_classification_arrays_match_jax():
     t_test, _ = tdm.eval_arrays("test")
     np.testing.assert_allclose(t_test[:8].numpy(), np.asarray(j_test)[:8], atol=1e-5, rtol=0)
     # a random train transform with data.device_augment off is the host
-    # path, which the port refuses
-    cfg = tconfig.load_config("configs/vit_som/vit_som_flowers-17.yaml",
-                              {"data.allow_synthetic": True, "data.synthetic_size": 4,
-                               "data.device_augment": False})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build_datamodule(cfg, device="cpu")
+    # path, as in the JAX package: the train rows stay on the host
+    over = {"data.allow_synthetic": True, "data.synthetic_size": 4,
+            "data.device_augment": False}
+    cfg = tconfig.load_config("configs/vit_som/vit_som_flowers-17.yaml", over)
+    dm = build_datamodule(cfg, device="cpu")
+    jdm = jpipeline.build_datamodule(jload_config("configs/vit_som/vit_som_flowers-17.yaml", over))
+    assert dm.host and dm.streams and dm.augment is None and not jdm.use_device_augment
+    assert isinstance(dm.train_x, np.ndarray) and dm.train_x.dtype == np.uint8
 
 
 def test_cross_entropy_out_of_range_labels_match_jax():

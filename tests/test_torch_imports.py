@@ -35,7 +35,8 @@ print(len(names), all(m in names for m in (
     "vitsom_tpu_torch.models.desom", "vitsom_tpu_torch.data.datasets",
     "vitsom_tpu_torch.utils.tb_writer", "vitsom_tpu_torch.utils.logging",
     "vitsom_tpu_torch.models.swin", "vitsom_tpu_torch.models.deit",
-    "vitsom_tpu_torch.models.resnet", "vitsom_tpu_torch.models.stochastic")))
+    "vitsom_tpu_torch.models.resnet", "vitsom_tpu_torch.models.stochastic",
+    "vitsom_tpu_torch.models.mobile_vit", "vitsom_tpu_torch.data.host_augment")))
 print("BAD", bad)
 """
 
@@ -49,7 +50,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, bad = out.stdout.strip().splitlines()[-2:]
     n_modules, has_kernel_modules = counts.split()
-    assert int(n_modules) >= 34 and has_kernel_modules == "True"
+    assert int(n_modules) >= 36 and has_kernel_modules == "True"
     assert bad == "BAD []", bad
 
 
@@ -116,26 +117,27 @@ def test_desom_entry_points_refuse_cpu_without_cuda(monkeypatch):
 
 
 def test_baseline_entry_points_refuse_cpu_without_cuda(monkeypatch):
-    """Swin's and DeiT's entry points default to the card too: the model,
-    the data module and the trainer (whose DeiT step builds the teacher on
-    the model's device); MobileViT still raises, naming the next slice."""
+    """Swin's, DeiT's and MobileViT's entry points default to the card
+    too: the model, the data module (MobileViT's at 224 streams its epoch;
+    the jpg-shaped stand-in takes the host path) and the trainer (whose
+    DeiT step builds the teacher on the model's device)."""
     from vitsom_tpu_torch.config import load_config
     from vitsom_tpu_torch.data.synthetic import build_datamodule
     from vitsom_tpu_torch.models.vit_som import build_model
     from vitsom_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for path in ("configs/swin/swin_cifar-10.yaml", "configs/deit/deit_cifar-10.yaml"):
+    for path, extra in (("configs/swin/swin_cifar-10.yaml", {}),
+                        ("configs/deit/deit_cifar-10.yaml", {}),
+                        ("configs/mobile_vit/mobile_vit_cifar-10.yaml", {}),
+                        ("configs/mobile_vit/mobile_vit_flowers-17.yaml",
+                         {"data.synthetic_object_array": True})):
         cfg = load_config(os.path.join(ROOT, path),
-                          {"data.allow_synthetic": True, "data.synthetic_size": 8})
+                          {"data.allow_synthetic": True, "data.synthetic_size": 8, **extra})
         for call in (lambda: Trainer(cfg), lambda: build_model(cfg),
                      lambda: build_datamodule(cfg)):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 call()
-    cfg = load_config(os.path.join(ROOT, "configs/mobile_vit/mobile_vit_cifar-10.yaml"),
-                      {"data.allow_synthetic": True, "data.synthetic_size": 8})
-    with pytest.raises(NotImplementedError, match="mobile_vit: the next slice"):
-        Trainer(cfg, device="cpu")
 
 
 def test_protocol_main_refuses_cpu_without_device_flag(monkeypatch, tmp_path):

@@ -27,6 +27,15 @@ in ``Attention_0``, ``Dense_0`` is the fused qkv and ``Dense_1`` the output
 projection below dim 128, while at dim >= 128 the named ``query/key/value``
 projections come first and ``Dense_0`` is the output projection.
 
+The baselines (Swin, the DeiT student, its ResNet teacher and MobileViT-S)
+go through ``baseline_to_state_dict`` / ``state_dict_to_baseline``. In
+MobileViT, conv kernels go HWIO -> OIHW (a depthwise [k, k, 1, C] to
+[C, 1, k, k]) and Flax's attention projections, query / key / value
+kernels [dim, heads, head_dim] with biases [heads, head_dim] and the out
+kernel [heads, head_dim, dim], become ``nn.Linear`` weights [heads *
+head_dim, dim] and [dim, heads * head_dim]; its ``batch_stats`` are the
+BatchNorm buffers.
+
 ``block_weights_from_flax`` and ``block_weights`` map one transformer block,
 Flax or the port's, onto the weight dict of the fused block op
 (``ops/block_fused.py``).
@@ -353,6 +362,38 @@ def _resnet_modules(keys) -> Dict[str, str]:
     return out
 
 
+def _mobile_vit_modules() -> Dict[str, str]:
+    """Flax module path -> torch module path of MobileViT-S (Flax numbers
+    ``MV2Block_i`` and ``MobileViTBlock_j`` in call order, the port indexes
+    ``blocks`` along ``STAGES``)."""
+    from vitsom_tpu_torch.models.mobile_vit import STAGES
+
+    def cbs(f, t):
+        return [(f"{f}/Conv_0", f"{t}.conv"), (f"{f}/BatchNorm_0", f"{t}.bn")]
+
+    pairs = cbs("ConvBnSiLU_0", "stem") + cbs("ConvBnSiLU_1", "head_conv") + [("Dense_0", "head")]
+    seen = {"mv2": 0, "mvit": 0}
+    for i, (kind, _, depth) in enumerate(STAGES):
+        t = f"blocks.{i}"
+        if kind == "mv2":
+            f = f"MV2Block_{seen[kind]}"
+            pairs += (cbs(f"{f}/ConvBnSiLU_0", f"{t}.expand") + cbs(f"{f}/ConvBnSiLU_1", f"{t}.dw")
+                      + [(f"{f}/Conv_0", f"{t}.project"), (f"{f}/BatchNorm_0", f"{t}.project_bn")])
+        else:
+            f = f"MobileViTBlock_{seen[kind]}"
+            pairs += (cbs(f"{f}/ConvBnSiLU_0", f"{t}.local") + cbs(f"{f}/ConvBnSiLU_1", f"{t}.proj")
+                      + cbs(f"{f}/ConvBnSiLU_2", f"{t}.fuse")
+                      + [(f"{f}/Conv_0", f"{t}.local_proj"), (f"{f}/LayerNorm_0", f"{t}.norm")])
+            for k in range(depth):
+                fb, tb = f"{f}/TransformerBlock_{k}", f"{t}.transformer.{k}"
+                pairs += [(f"{fb}/LayerNorm_0", f"{tb}.norm1"), (f"{fb}/LayerNorm_1", f"{tb}.norm2"),
+                          (f"{fb}/Dense_0", f"{tb}.fc1"), (f"{fb}/Dense_1", f"{tb}.fc2")]
+                pairs += [(f"{fb}/MultiHeadDotProductAttention_0/{proj}", f"{tb}.attn.{proj}")
+                          for proj in ("query", "key", "value", "out")]
+        seen[kind] += 1
+    return dict(pairs)
+
+
 def _baseline_modules(arch: str, keys):
     """A function (module path, forward) -> module path for ``arch``, for a
     model whose parameters have the names ``keys`` (Flax or torch)."""
@@ -366,8 +407,8 @@ def _baseline_modules(arch: str, keys):
     if arch == "deit":
         depth = sum(1 for k in keys if re.search(r"(^|[/.])query(_\d+)?[/.]", k))
         return lambda path, forward: _deit_module(path, depth, forward)
-    if arch == "resnet":
-        table = _resnet_modules(keys)
+    if arch in ("resnet", "mobile_vit"):
+        table = _resnet_modules(keys) if arch == "resnet" else _mobile_vit_modules()
         inverse = {t: f for f, t in table.items()}
         return lambda path, forward: (table if forward else inverse)[path]
     raise ValueError(f"no baseline converter for {arch!r}")
@@ -380,13 +421,20 @@ def baseline_to_state_dict(arch: str, params: Mapping, batch_stats: Optional[Map
     kernels transposed, conv kernels HWIO -> OIHW, LayerNorm / BatchNorm
     ``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
     ``running_var``, every other leaf (``rel_bias_table``, the DeiT tokens
-    and ``pos_embedding``) as it is."""
+    and ``pos_embedding``) as it is; MobileViT's attention projections
+    flattened over their heads (module docstring)."""
     flat = {k: np.asarray(v) for k, v in flatten(params).items()}
     module = _baseline_modules(arch, flat)
     out = {}
     for key, arr in flat.items():
         mod, _, leaf = key.rpartition("/")
         tmod = module(mod, True)
+        if arch == "mobile_vit" and "/MultiHeadDotProductAttention_0/" in key:
+            # kernels [dim, H, hd] and out [H, hd, dim], biases [H, hd]
+            if mod.endswith("/out"):
+                arr = arr.reshape(-1, arr.shape[-1]) if leaf == "kernel" else arr
+            else:
+                arr = arr.reshape(*arr.shape[:-2], -1)
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
@@ -402,7 +450,8 @@ def baseline_to_state_dict(arch: str, params: Mapping, batch_stats: Optional[Map
 def state_dict_to_baseline(arch: str, state_dict: Mapping[str, torch.Tensor]):
     """The inverse of ``baseline_to_state_dict``: (flat ``/``-keyed Flax
     parameters, flat ``batch_stats``) as numpy arrays. A 1-D ``weight`` is
-    a norm's ``scale``, a 2-D or 4-D one a kernel."""
+    a norm's ``scale``, a 2-D or 4-D one a kernel; MobileViT's attention
+    projections regain their head axes."""
     module = _baseline_modules(arch, state_dict)
     inv_stats = {v: k for k, v in _BATCH_STATS.items()}
     params, stats = {}, {}
@@ -419,5 +468,13 @@ def state_dict_to_baseline(arch: str, state_dict: Mapping[str, torch.Tensor]):
             else:
                 leaf = "kernel"
                 arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        proj = re.search(r"\.attn\.(query|key|value|out)$", mod) if arch == "mobile_vit" else None
+        if proj:
+            from vitsom_tpu_torch.models.mobile_vit import NUM_HEADS
+
+            if proj.group(1) == "out":
+                arr = arr.reshape(NUM_HEADS, -1, arr.shape[-1]) if leaf == "kernel" else arr
+            else:
+                arr = arr.reshape(*arr.shape[:-1], NUM_HEADS, -1)
         params[f"{fmod}/{leaf}" if fmod else leaf] = np.ascontiguousarray(arr).copy()
     return params, stats

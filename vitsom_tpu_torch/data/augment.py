@@ -1,10 +1,9 @@
 """Normalisation statistics and the eval transform, as batched torch ops.
 
-Counterpart of the deterministic part of ``vitsom_tpu/data/augment.py``:
+Counterpart of the deterministic part of ``vitsom_tpu/data/augment.py``
+(``norm_stats`` and ``is_static_transform``, whether the train transform
+draws no random numbers, are ``data/host_augment.py``'s):
 
-- ``norm_stats``: the per-dataset mean and std;
-- ``is_static_transform``: whether the train transform draws no random
-  numbers (then a split can be transformed once);
 - ``make_eval_transform``: the eval transform of every dataset. The
   mnist family scales uint8 to [0, 1]; the others resize the shorter side
   to ``int(input_size / 0.875)`` (crop_pct 1.0 above 224) with PIL's
@@ -15,51 +14,23 @@ Counterpart of the deterministic part of ``vitsom_tpu/data/augment.py``:
   and clipped to uint8, then a vertical pass, so the grey levels are
   PIL's.
 
-The random train augmentation is ``device_augment.make_device_train_augment``.
-The host (PIL) augmentation path is not ported: no port module imports PIL.
+The random train augmentation is ``device_augment.make_device_train_augment``
+on the device, or ``host_augment.make_train_transform`` (PIL, per image,
+in worker processes) on the host path.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable
 
 import numpy as np
 import torch
 
 from vitsom_tpu_torch.config import DataConfig
-
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
-CIFAR_STD = (0.2023, 0.1994, 0.2010)
-MNIST_FAMILY = ("mnist", "fmnist", "usps")
-
-
-def norm_stats(dataset: str, num_channels: int) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
-    """Normalisation (mean, std) per dataset."""
-    if num_channels == 1:
-        return (0.5,), (0.5,)
-    if dataset in ("cifar-10", "cifar-100"):
-        return CIFAR_MEAN, CIFAR_STD
-    if dataset == "medmnist":
-        return (0.5, 0.5, 0.5), (0.5, 0.5, 0.5)
-    return IMAGENET_MEAN, IMAGENET_STD
-
-
-def is_static_transform(data_cfg: DataConfig) -> bool:
-    """True when the train transform is deterministic (no random augs)."""
-    if data_cfg.dataset in MNIST_FAMILY + ("reuters-10k",):
-        return True
-    a = data_cfg.augment
-    return (
-        a.randaug_n == 0
-        and tuple(a.resize_scale) == (1.0, 1.0)
-        and tuple(a.resize_ratio) == (1.0, 1.0)
-        and a.reprob == 0
-        and a.horizontal_flip == 0
-        and not a.autoaugment
-    )
-
+from vitsom_tpu_torch.data.host_augment import (  # noqa: F401 (re-exported)
+    CIFAR_MEAN, CIFAR_STD, IMAGENET_MEAN, IMAGENET_STD, MNIST_FAMILY, is_static_transform,
+    norm_stats,
+)
 
 # PIL's fixed-point resampling: coefficients carry PRECISION_BITS fraction
 # bits (Resample.c, 32 - 8 - 2 for 8-bit images)

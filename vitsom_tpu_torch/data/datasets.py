@@ -377,12 +377,9 @@ def make_synthetic(cfg: DataConfig, num_classes_hint: int = 10) -> ArraySplits:
     (u_i orthonormal class directions: white noise with ``synthetic_gen:
     g2``, low-frequency fields orthonormalised by QR with ``g4``) and
     per-pixel noise of std 0.1, delta solved so that the pairwise Bayes
-    error is the overlap; purity cannot reach 1."""
-    if cfg.synthetic_object_array:
-        raise NotImplementedError(
-            "the synthetic_object_array generator goes with the host augmentation "
-            "path, which is not ported yet (ROADMAP Queue 1 item 4)"
-        )
+    error is the overlap; purity cannot reach 1.
+    ``synthetic_object_array``: the images then re-rendered at random
+    sizes into object arrays, as the JAX package's."""
     k = max(cfg.num_classes, num_classes_hint)
     n_train = cfg.synthetic_size
     n_test = max(cfg.synthetic_size // 5, 64)
@@ -433,6 +430,22 @@ def make_synthetic(cfg: DataConfig, num_classes_hint: int = 10) -> ArraySplits:
 
     tx, ty = gen(n_train)
     vx, vy = gen(n_test)
+    if cfg.synthetic_object_array:
+        # the stand-in of a jpg dir: each image re-rendered at a random
+        # resolution (PIL's bilinear resize), so the split is an object
+        # array of variable-size images and takes the host path
+        def to_object(x):
+            from PIL import Image
+
+            out = np.empty(len(x), dtype=object)
+            for i, img in enumerate(x):
+                hh = int(rng.integers(400, 700))
+                ww = int(rng.integers(400, 700))
+                arr = img if img.shape[-1] != 1 else np.repeat(img, 3, -1)
+                out[i] = np.asarray(Image.fromarray(arr).resize((ww, hh), Image.BILINEAR))
+            return out
+
+        return ArraySplits(to_object(tx), ty, to_object(vx), vy)
     return ArraySplits(tx, ty, vx, vy)
 
 

@@ -496,11 +496,13 @@ def apply_ra_layer(x, params, names, size: int, fill: torch.Tensor) -> torch.Ten
 
 
 def sample_erase(generator, shape, prob: float, mode: str, count: int,
-                 scale=(0.02, 1 / 3), ratio=(0.3, 3.3), device=None) -> Dict[str, object]:
+                 scale=(0.02, 1 / 3), ratio=(0.3, 3.3), device=None,
+                 fill: bool = True) -> Dict[str, object]:
     """timm RandomErasing's draws for a batch of ``shape`` [B, H, W, C]:
     whether each image is erased, and for each of the ``count`` erasures
     the first of 10 attempts that fits (its height, width, top and left)
-    and, in pixel mode, the standard-normal fill."""
+    and, with ``fill``, the fill (standard normal in pixel mode, else 0:
+    ``erase_fill``)."""
     b, h, w, _ = shape
     do = torch.rand(b, generator=generator, device=device) < prob
     area = float(h * w)
@@ -519,10 +521,18 @@ def sample_erase(generator, shape, prob: float, mode: str, count: int,
         zeros = torch.zeros(b, dtype=torch.int64, device=device)
         top = randint(generator, zeros, h - eh_s)
         left = randint(generator, zeros, w - ew_s)
-        fill = (torch.randn(shape, generator=generator, device=device) if mode == "pixel"
-                else torch.zeros(shape, device=device))
-        rects.append({"ok": ok, "top": top, "left": left, "eh": eh_s, "ew": ew_s, "fill": fill})
+        rects.append({"ok": ok, "top": top, "left": left, "eh": eh_s, "ew": ew_s})
+        if fill:
+            rects[-1]["fill"] = erase_fill(generator, shape, mode, device)
     return {"rects": rects}
+
+
+def erase_fill(generator, shape, mode: str, device=None, out=None) -> torch.Tensor:
+    """RandomErasing's fill of ``shape``: standard normal in pixel mode,
+    else zeros (into ``out`` when given)."""
+    if mode == "pixel":
+        return torch.randn(shape, generator=generator, device=device, out=out)
+    return torch.zeros(shape, device=device, out=out)
 
 
 def apply_erase(x, params) -> torch.Tensor:
@@ -588,7 +598,10 @@ class DeviceTrainAugment:
                 for i in range(2 if self.aug.autoaugment else 0)]
         return tv, timm
 
-    def sample(self, generator, n: int, height: int, width: int, device) -> Dict[str, torch.Tensor]:
+    def sample(self, generator, n: int, height: int, width: int, device,
+               erase_fill: bool = True) -> Dict[str, torch.Tensor]:
+        """Every draw for ``n`` images; without ``erase_fill`` the erasing
+        fills (``erase_keys``), [n, S, S, C] each, are left to the caller."""
         aug, size = self.aug, self.size
         c = len(self.mean)
         p = {"rrc1": sample_tf_rrc(generator, n, height, width, tuple(aug.resize_scale),
@@ -608,11 +621,17 @@ class DeviceTrainAugment:
                 p[f"{key}.{k}"] = v
         if aug.reprob > 0:
             erase = sample_erase(generator, (n, size, size, c), aug.reprob, aug.remode,
-                                 aug.recount, device=device)
+                                 aug.recount, device=device, fill=erase_fill)
             for j, rect in enumerate(erase["rects"]):
                 for k, v in rect.items():
                     p[f"erase{j}.{k}"] = v
         return p
+
+    def erase_keys(self) -> List[str]:
+        """The parameter keys of the erasing fills."""
+        if self.aug.reprob <= 0:
+            return []
+        return [f"erase{j}.fill" for j in range(max(1, self.aug.recount))]
 
     def _constants(self, device) -> Dict[str, torch.Tensor]:
         """The mean, std and fills on ``device``, copied there once (a graph

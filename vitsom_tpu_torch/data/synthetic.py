@@ -41,10 +41,17 @@ class DataModule:
     ``images`` [N, H, W, C] float32 (``augment.to_unit_range``) and ``labels`` [N]
     int64 hold concat(train, test)."""
 
+    # the whole epoch is gathered at its fill, on the device
+    streams = False
+    host = False
+
     def __init__(self, cfg: Config, images: torch.Tensor, labels: torch.Tensor):
         self.cfg = cfg
         self.images = images
         self.labels = labels
+
+    def close(self) -> None:
+        """Nothing to release: no worker pool, no stream."""
 
     @property
     def n_train(self) -> int:

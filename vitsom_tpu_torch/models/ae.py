@@ -18,11 +18,19 @@ averages as ``r = 0.99 r + 0.01 batch`` with that same biased variance,
 where ``torch.nn.BatchNorm1d`` would store the unbiased variance and read
 its momentum the other way round. The update is in place, so a captured
 CUDA graph replays it. As in Flax, the caller says which statistics to use
-(``train``); the module's ``training`` flag is not read.
+(``train``); the module's ``training`` flag is not read. The statistics
+reduce over ``dims`` (N of [B, F] here; N, H and W of an NCHW map in
+``models/resnet.py`` and ``models/mobile_vit.py``, with their momentum)
+and run in float32 whatever the input's dtype, as Flax computes them; the
+output has the input's dtype (float64 stays float64). ``track=False`` (the DeiT teacher) never
+writes the running averages, and inside ``frozen_statistics()`` no
+BatchNorm writes them: a block recomputed by ``torch.utils.checkpoint`` in
+the backward must not move them a second time.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -33,13 +41,30 @@ from vitsom_tpu_torch.config import Config
 from vitsom_tpu_torch.utils import initializers
 
 
-class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm`` over the last axis of [B, F] (module docstring)."""
+_FROZEN = [0]  # > 0 inside frozen_statistics()
 
-    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
+
+@contextlib.contextmanager
+def frozen_statistics():
+    """No BatchNorm moves its running averages inside this context (the
+    recomputation of a checkpointed block)."""
+    _FROZEN[0] += 1
+    try:
+        yield
+    finally:
+        _FROZEN[0] -= 1
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm`` over ``dims`` (module docstring)."""
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5,
+                 dims: Sequence[int] = (0,), track: bool = True):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dims = tuple(dims)
+        self.track = track
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -64,14 +89,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            mean, var = self.batch_statistics(x)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            mean, var = self.batch_statistics(
+                x.to(torch.promote_types(x.dtype, torch.float32)), self.dims)
+            if self.track and not _FROZEN[0]:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return self.normalize(x, mean, var, self.weight, self.bias)
+        # the per-feature vectors broadcast along the one dim not reduced
+        shape = [1 if d in self.dims else -1 for d in range(x.ndim)]
+        y = self.normalize(x, mean.reshape(shape), var.reshape(shape),
+                           self.weight.reshape(shape), self.bias.reshape(shape))
+        return y.to(x.dtype)
 
 
 class MLPStack(nn.Module):

@@ -35,14 +35,8 @@ class BatchNorm2d(BatchNorm):
     """Flax ``nn.BatchNorm`` over N, H, W of an NCHW tensor; ``train=True``
     uses the batch's statistics and never updates the running averages."""
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            mean, var = self.batch_statistics(x, dims=(0, 2, 3))
-        else:
-            mean, var = self.running_mean, self.running_var
-        shape = (-1, 1, 1)
-        return self.normalize(x, mean.reshape(shape), var.reshape(shape),
-                              self.weight.reshape(shape), self.bias.reshape(shape))
+    def __init__(self, features: int):
+        super().__init__(features, dims=(0, 2, 3), track=False)
 
 
 def _conv(c_in: int, c_out: int, k: int, stride: int = 1) -> nn.Conv2d:

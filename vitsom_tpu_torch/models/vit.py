@@ -55,15 +55,17 @@ class Dense(nn.Linear):
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm whose statistics and arithmetic run in float32 whatever the
-    input's dtype, with the output cast to ``out_dtype``: Flax's
-    ``LayerNorm(dtype=...)`` (float32 in and out: a plain ``nn.LayerNorm``)."""
+    input's dtype (float64 stays float64), with the output cast to
+    ``out_dtype``: Flax's ``LayerNorm(dtype=...)`` (float32 in and out: a
+    plain ``nn.LayerNorm``)."""
 
     def __init__(self, dim, eps=LN_EPS, out_dtype=torch.float32):
         super().__init__(dim, eps=eps)
         self.out_dtype = out_dtype
 
     def forward(self, x):
-        return super().forward(x.float()).to(self.out_dtype)
+        return super().forward(x.to(torch.promote_types(x.dtype, torch.float32))).to(
+            self.out_dtype)
 
 
 def patchify(imgs: torch.Tensor, patch_size: int) -> torch.Tensor:

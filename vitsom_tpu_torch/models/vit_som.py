@@ -7,7 +7,8 @@ CLS token; the prototypes are a trainable [P, latent] parameter; with
 ``data.num_classes > 0`` a linear head (``ClsHead``) maps the CLS token to
 logits. ``ViTClassifier`` is the baseline of ``model_arch: vit``: the same
 encoder and head, no decoder and no SOM. ``build_model`` also builds
-``models/desom.DESOM``.
+``models/desom.DESOM`` and the baselines (``models/swin.py``,
+``models/deit.py``, ``models/mobile_vit.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 from vitsom_tpu_torch.config import Config
 from vitsom_tpu_torch.models.deit import DeiT
 from vitsom_tpu_torch.models.desom import DESOM
+from vitsom_tpu_torch.models.mobile_vit import build_mobilevit_s
 from vitsom_tpu_torch.models.swin import build_swin
 from vitsom_tpu_torch.models.vit import ClsHead, build_vit_autoencoder, unpatchify
 from vitsom_tpu_torch.som import layer as som
@@ -129,6 +131,7 @@ _MODELS = {
     "desom": DESOM,
     "swin": lambda cfg: build_swin(cfg, attn_impl=model_attn_impl(cfg)),
     "deit": DeiT,
+    "mobile_vit": build_mobilevit_s,
 }
 
 
@@ -136,8 +139,9 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> nn.Module:
     """A freshly initialised ``ViTSOM`` (``model_arch: vit_som``),
     ``ViTClassifier`` (``vit``), ``DESOM`` (``desom``, in
     ``models/desom.py``; it takes flattened images), ``SwinTransformer``
-    (``swin``, ``models/swin.py``) or ``DeiT`` (``deit``, the student,
-    ``models/deit.py``) on ``device`` (default: the card). Swin and DeiT
+    (``swin``, ``models/swin.py``), ``DeiT`` (``deit``, the student,
+    ``models/deit.py``) or ``MobileViTS`` (``mobile_vit``,
+    ``models/mobile_vit.py``) on ``device`` (default: the card). Swin and DeiT
     with ``train.compute_dtype: bfloat16``, and DeiT with the bf16 score
     recipes (``xla_bf16``, ``xla_bf16s``), raise (ROADMAP Queue 1 item 6).
 

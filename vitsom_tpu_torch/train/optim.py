@@ -11,7 +11,7 @@ Counterpart of ``vitsom_tpu/train/optim.py``:
 - DESOM (``desom``): no decoupled decay on any parameter, with the
   config's ``adam`` or ``adamw``, at the raw ``optimizer.lr`` (no ``x B /
   256``); its yamls keep the default ``constant`` scheduler.
-- The baselines (``swin``, ``deit``): one flat group with
+- The baselines (``swin``, ``deit``, ``mobile_vit``): one flat group with
   ``optimizer.weight_decay`` on every tensor, norms and biases included, at
   the raw ``optimizer.lr``, no layer decay.
 
@@ -53,14 +53,12 @@ def vit_layer_id(name: str, num_layers: int) -> int:
 
 def build_weight_decay_map(model: torch.nn.Module, cfg: Config) -> Dict[str, float]:
     """Per-parameter decoupled weight-decay coefficients."""
-    if cfg.model_arch not in ("vit_som", "vit", "desom", "swin", "deit"):
-        raise NotImplementedError(f"the {cfg.model_arch} optimizer groups are not ported yet")
     opt = cfg.optimizer
     out = {}
     for name, p in model.named_parameters():
         if cfg.model_arch == "desom":
             out[name] = 0.0
-        elif cfg.model_arch in ("swin", "deit"):
+        elif cfg.model_arch in ("swin", "deit", "mobile_vit"):
             out[name] = opt.weight_decay
         elif name.startswith("vit."):
             out[name] = 0.0 if p.ndim == 1 else opt.weight_decay

@@ -1,5 +1,5 @@
-"""ViT-SOM, DESOM and classifier (ViT, Swin, DeiT) train and eval steps in
-PyTorch.
+"""ViT-SOM, DESOM and classifier (ViT, Swin, DeiT, MobileViT) train and
+eval steps in PyTorch.
 
 Counterpart of ``vitsom_tpu/train/steps.py`` (the DeiT train step is in
 ``models/deit.py``, as in the JAX package). The JAX
@@ -31,9 +31,12 @@ Loss recipes, as the JAX package's:
   recon_loss). The neighbourhood weights are held constant; BatchNorm, if
   on, normalises with the batch's statistics and moves its running
   averages in place (``models/ae.py``);
-- ViT and Swin classifiers: CE with the smoothing the caller passes (the
-  JAX trainer passes 0 for ``vit``, ``optimizer.smoothing`` for Swin);
-  Swin's drop-path draws its masks from the generator the step is given;
+- ViT, Swin and MobileViT classifiers: CE with the smoothing the caller
+  passes (the JAX trainer passes 0 for ``vit``, ``optimizer.smoothing``
+  for the others); Swin's drop-path draws its masks from the generator the
+  step is given; MobileViT's BatchNorm normalises with the batch's
+  statistics and moves its running averages in place (``models/ae.py``),
+  as the JAX step threads ``batch_stats``;
 - DeiT: CE * (1 - alpha) + alpha * distillation against the frozen
   teacher, dropout from the step's generator (``models/deit.py``).
 
@@ -119,7 +122,7 @@ DESOM_METRIC_KEYS = ("train/recon_loss", "train/som_loss", "train/total_loss",
 
 def metric_keys(cfg: Config) -> tuple:
     """The metrics-buffer columns of ``cfg``'s train step."""
-    if cfg.model_arch in ("vit", "swin"):
+    if cfg.model_arch in ("vit", "swin", "mobile_vit"):
         return CLASSIFIER_METRIC_KEYS
     if cfg.model_arch == "deit":
         return DEIT_METRIC_KEYS
@@ -375,18 +378,21 @@ def make_classifier_train_step(
     state: DeviceState,
     generator: Optional[torch.Generator] = None,
 ):
-    """Returns ``train_step(batch) -> metrics row`` for the ViT and Swin
-    classifiers: CE(logits, label, ``smoothing``), backward and AdamW at
-    the step ``state.step`` holds; writes ``CLASSIFIER_METRIC_KEYS`` (the
-    loss and the lr) into the metrics buffer, as ``make_vit_som_train_step``
-    does. ``vit`` draws no random numbers in its forward (its blocks ignore
-    ``drop_path``); Swin's drop-path draws its masks from ``generator``
-    (``models/stochastic.py``), which a Swin step requires."""
-    if cfg.model_arch not in ("vit", "swin"):
+    """Returns ``train_step(batch) -> metrics row`` for the ViT, Swin and
+    MobileViT classifiers: CE(logits, label, ``smoothing``), backward and
+    AdamW at the step ``state.step`` holds; writes
+    ``CLASSIFIER_METRIC_KEYS`` (the loss and the lr) into the metrics
+    buffer, as ``make_vit_som_train_step`` does. ``vit`` draws no random
+    numbers in its forward (its blocks ignore ``drop_path``); Swin's
+    drop-path draws its masks from ``generator`` (``models/stochastic.py``),
+    which a Swin step requires; MobileViT draws nothing and runs its
+    BatchNorm on the batch's statistics (``train=True``)."""
+    if cfg.model_arch not in ("vit", "swin", "mobile_vit"):
         raise NotImplementedError(f"the {cfg.model_arch} classifier step is not ported yet")
     if cfg.model_arch == "swin" and generator is None:
         raise ValueError("the Swin train step draws drop-path masks: pass a generator")
-    kwargs = {"generator": generator} if cfg.model_arch == "swin" else {}
+    kwargs = ({"generator": generator} if cfg.model_arch == "swin"
+              else {"train": True} if cfg.model_arch == "mobile_vit" else {})
 
     def train_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         lr = lr_schedule(state.step)
@@ -404,12 +410,13 @@ def make_classifier_train_step(
 
 def make_classifier_eval_step(cfg: Config, model):
     """Returns ``eval_step(batch, temperature=None) -> dict`` with
-    ``logits``, ``bmu`` (zeros) and ``cls_loss``, the model deterministic.
-    The smoothing is the JAX package's rule: Swin validates with its
-    smoothed train CE, ``vit`` and ``deit`` with plain CE."""
-    if cfg.model_arch not in ("vit", "swin", "deit"):
+    ``logits``, ``bmu`` (zeros) and ``cls_loss``, the model deterministic
+    (MobileViT's BatchNorm on its running averages). The smoothing is the
+    JAX package's rule: Swin and MobileViT validate with their smoothed
+    train CE, ``vit`` and ``deit`` with plain CE."""
+    if cfg.model_arch not in ("vit", "swin", "deit", "mobile_vit"):
         raise NotImplementedError(f"the {cfg.model_arch} classifier eval is not ported yet")
-    smoothing = cfg.optimizer.smoothing if cfg.model_arch == "swin" else 0.0
+    smoothing = cfg.optimizer.smoothing if cfg.model_arch in ("swin", "mobile_vit") else 0.0
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], temperature=None) -> Dict[str, torch.Tensor]:

@@ -1,17 +1,17 @@
-"""ViT-SOM, DESOM (clustering and classification), ViT, Swin and DeiT
-trainer in PyTorch, and its command line.
+"""ViT-SOM, DESOM (clustering and classification), ViT, Swin, DeiT and
+MobileViT trainer in PyTorch, and its command line.
 
 Counterpart of ``vitsom_tpu/train/trainer.py`` and
-``experiments/benchmarking/train.py`` for ``model_arch`` ``vit_som``,
-``desom``, ``vit``, ``swin`` and ``deit``. Clustering trains on the train + test concat and
+``experiments/benchmarking/train.py`` for every ``model_arch``: ``vit_som``,
+``desom``, ``vit``, ``swin``, ``deit`` and ``mobile_vit``. Clustering trains on the train + test concat and
 evaluates purity and NMI there; classification (``data.num_classes > 0``)
 trains on the 80/20 split (augmented on the device, or transformed once
 where the train transform is static), validates after each epoch
 (``best_val_accuracy``) and evaluates accuracy, precision, recall and F1
 on the test split from the last state, saving the ``best`` checkpoint
-whenever ``val/accuracy`` improves. DESOM's BatchNorm running averages are
-buffers of the model, moved in place by the train step and read by the
-eval step. The TPU dispatch keys (``train.epochs_per_dispatch``,
+whenever ``val/accuracy`` improves. DESOM's and MobileViT's BatchNorm
+running averages are buffers of the model, moved in place by the train
+step and read by the eval step. The TPU dispatch keys (``train.epochs_per_dispatch``,
 ``scan_splits``, ...) are read and ignored.
 
 Each finished epoch logs the mean of each step metric and
@@ -55,7 +55,13 @@ graph of one train step:
    gathered into a fixed buffer (``DataModule.fill_epoch``; for
    classification each batch is augmented there, eagerly, with draws from
    a generator on the device, and its labels fill a second buffer) and the
-   device state's ``epoch_start`` is set to the global step;
+   device state's ``epoch_start`` is set to the global step. Where the
+   data module streams (``dm.streams``: a device-augmented epoch past
+   ``pipeline.STREAM_BYTES``, or the host augmentation path), the fill
+   only draws, and each batch reaches a one-batch buffer just before its
+   step (``dm.stream_batch``): a replay of the captured augmentation, or
+   the host path's next batch (seeded ``train.seed + 1000 * run_id``, as
+   the JAX trainer's ``train_batches``) copied from pinned memory;
 2. the first ``WARMUP_STEPS`` steps run eagerly on a side stream, which
    creates AdamW's moments and the cuBLAS workspaces (they are real steps,
    kept in the history);
@@ -128,7 +134,6 @@ from vitsom_tpu_torch.utils.logging import MetricLogger
 # eager steps before the capture: the first creates AdamW's moments, the
 # second runs with every lazily created buffer and workspace in place
 WARMUP_STEPS = 2
-ARCHS = ("vit_som", "vit", "desom", "swin", "deit")
 # the models whose train step draws dropout or drop-path masks
 STOCHASTIC = ("swin", "deit")
 DROPOUT_SEED_OFFSET = 7919  # the JAX package's dropout_base_key(train.seed + 7919)
@@ -202,11 +207,6 @@ class Trainer:
     seeded ``seed + 7919``."""
 
     def __init__(self, cfg: Config, device="cuda", dm=None, run_id: int = 0):
-        if cfg.model_arch not in ARCHS:
-            raise NotImplementedError(
-                f"the port trains {', '.join(ARCHS)}, not {cfg.model_arch} (mobile_vit: "
-                f"the next slice, ROADMAP Queue 1 item 5)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dm = dm if dm is not None else build_datamodule(cfg, self.device)
@@ -231,9 +231,9 @@ class Trainer:
         self.state = steps_lib.DeviceState(
             self.device, self.dm.steps_per_epoch, steps_lib.metric_keys(cfg)
         )
-        if cfg.model_arch in ("vit", "swin"):
+        if cfg.model_arch in ("vit", "swin", "mobile_vit"):
             # the JAX trainer trains vit without label smoothing
-            smoothing = cfg.optimizer.smoothing if cfg.model_arch == "swin" else 0.0
+            smoothing = cfg.optimizer.smoothing if cfg.model_arch != "vit" else 0.0
             self.train_step = steps_lib.make_classifier_train_step(
                 cfg, self.model, self.optimizer, self.lr_schedule, smoothing, self.state,
                 self._dropout if cfg.model_arch == "swin" else None,
@@ -255,7 +255,14 @@ class Trainer:
             self.eval_step = steps_lib.make_vit_som_eval_step(cfg, self.model)
         self.step = 0  # the host's count of the steps issued; state.step's value
         self.step_ms: List[float] = []
-        self.fill_ms: List[float] = []  # each epoch's fill_epoch (gather + augmentation)
+        # each epoch's fill_epoch (gather + augmentation); a streamed
+        # epoch's draws and its batches' augmentation (stream_ms) summed
+        self.fill_ms: List[float] = []
+        # a streamed step's time before it: the augmentation replay, or the
+        # device's wait for the host batch and its copy; and on the host
+        # path the host ms the trainer waited for each batch
+        self.stream_ms: List[float] = []
+        self.host_wait_ms: List[float] = []
         self.val_history: List[Dict[str, float]] = []
         self.best_val_accuracy = -1.0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -266,6 +273,9 @@ class Trainer:
         self._epoch_pos = self.dm.steps_per_epoch  # steps run from the epoch buffer
         self.epochs_done = 0
         self.run_id = run_id
+        # the host path's batches are a function of (seed, epoch, batch)
+        self.host_seed = cfg.train.seed + 1000 * run_id
+        self._epoch_index = -1  # the current epoch's number, counted at its fill
         self.logger = MetricLogger(os.path.join(
             cfg.train.log_dir, cfg.model_arch, cfg.data.dataset, f"run_{run_id}"))
         # the data generators' states at the current epoch's fill (what a
@@ -283,6 +293,14 @@ class Trainer:
 
     def _rng_states(self):
         return self._shuffle.get_state(), self._augment.get_state()
+
+    def _fill(self, start: int = 0) -> None:
+        """The current epoch's fill (module docstring), the host path's
+        stream starting at batch ``start``."""
+        if self.dm.host:
+            self.dm.start_host_epoch(self._epoch_index, self.host_seed, start)
+        else:
+            self.dm.fill_epoch(self._shuffle, self.epoch_images, self._augment)
 
     def _buffered_step(self):
         """The step body on the epoch buffer's batch ``step - epoch_start``:
@@ -334,7 +352,10 @@ class Trainer:
         between the ends of consecutive steps (CUDA events, no per-step
         synchronisation); on the CPU, the host time of the step. The epoch
         fills (gather, augmentation) and validation fall outside them;
-        ``self.fill_ms`` gets each fill's time on the same clock.
+        ``self.fill_ms`` gets each fill's time on the same clock. Where the
+        epoch streams, a step's time starts when its batch is in place,
+        ``self.stream_ms`` gets the time before it, and the epoch's
+        ``fill_ms`` entry adds them up.
 
         After ``restore_checkpoint`` the call first refills the restored
         epoch from the saved generator states (outside the timings) and
@@ -345,7 +366,8 @@ class Trainer:
         cuda = self.device.type == "cuda"
         graphed = cuda and not eager
         spe = self.dm.steps_per_epoch
-        rows, step_marks, fill_marks = [], [], []
+        streams = self.dm.streams
+        rows, step_marks = [], []
         keys = self.state.keys
         log_every = max(1, cfg.train.log_every_n_steps)
         fills = 0
@@ -361,17 +383,26 @@ class Trainer:
                 break
             new_epoch = False
             marks = [_mark(cuda)]
+            fill_mark = None
             if fill:
                 self._epoch_rng = self._rng_states()
                 self._epoch_t0 = time.perf_counter()
-                self.dm.fill_epoch(self._shuffle, self.epoch_images, self._augment)
+                self._epoch_index += 1
+                self._fill()
                 self.state.epoch_start.fill_(self.step)
                 self._epoch_pos = 0
                 fills += 1
-                marks.append(_mark(cuda))
-                fill_marks.append(marks[:])
+                fill_mark = marks[0]
+                marks = [_mark(cuda)]
             first, first_row = self.step, self._epoch_pos
-            for _ in range(n):
+            ready = []  # where streamed, each step's batch in place
+            for i in range(n):
+                if streams:
+                    t0 = time.perf_counter()
+                    self.dm.stream_batch(first_row + i, self.epoch_images)
+                    if self.dm.host:
+                        self.host_wait_ms.append((time.perf_counter() - t0) * 1e3)
+                    ready.append(_mark(cuda))
                 if graphed:
                     self._graphed_step()
                 else:
@@ -379,7 +410,7 @@ class Trainer:
                 marks.append(_mark(cuda))
                 self.step += 1
             self._epoch_pos += n
-            step_marks.append(marks[-n - 1:])
+            step_marks.append((fill_mark, marks, ready))
             # one device-to-host read a call and epoch (a copy: on the CPU
             # the next epoch overwrites the buffer)
             epoch_rows = self.state.metrics[first_row:first_row + n].to("cpu", copy=True).numpy()
@@ -400,10 +431,18 @@ class Trainer:
         if cuda:
             torch.cuda.synchronize(self.device)
         self.logger.flush()
-        for a, b in fill_marks:
-            self.fill_ms.append(_elapsed_ms(a, b, cuda))
-        for marks in step_marks:
-            self.step_ms += [_elapsed_ms(a, b, cuda) for a, b in zip(marks, marks[1:])]
+        for fill_mark, marks, ready in step_marks:
+            if fill_mark is not None:
+                self.fill_ms.append(_elapsed_ms(fill_mark, marks[0], cuda))
+            if ready:
+                waits = [_elapsed_ms(a, b, cuda) for a, b in zip(marks, ready)]
+                self.stream_ms += waits
+                if not self.fill_ms:  # an epoch restored from a checkpoint
+                    self.fill_ms.append(0.0)
+                self.fill_ms[-1] += sum(waits)
+                self.step_ms += [_elapsed_ms(a, b, cuda) for a, b in zip(ready, marks[1:])]
+            else:
+                self.step_ms += [_elapsed_ms(a, b, cuda) for a, b in zip(marks, marks[1:])]
         return steps_lib.stack_metrics(rows, keys)
 
     def validate(self, epoch: int) -> Optional[Dict[str, float]]:
@@ -526,6 +565,7 @@ class Trainer:
             "metrics": self.state.metrics,
             "shuffle_rng": shuffle,
             "augment_rng": augment,
+            "epoch_index": self._epoch_index,
             # consumed a step, so kept as it is now, not at the epoch's fill
             "dropout_rng": self._dropout.get_state(),
         }
@@ -560,8 +600,9 @@ class Trainer:
         self._dropout.set_state(ck["dropout_rng"].cpu())
         self.step = int(ck["step"])
         self.epochs_done = self.step // self.dm.steps_per_epoch
-        self._resume = (ck["shuffle_rng"].cpu(), ck["augment_rng"].cpu(),
-                        int(ck["epoch_start"]))
+        epoch_start = int(ck["epoch_start"])
+        self._resume = (ck["shuffle_rng"].cpu(), ck["augment_rng"].cpu(), epoch_start,
+                        int(ck.get("epoch_index", epoch_start // self.dm.steps_per_epoch)))
 
     def _restore_optimizer(self, saved: Dict) -> None:
         """AdamW's state copied into its existing tensors, parameter by
@@ -594,16 +635,17 @@ class Trainer:
 
     def _refill_restored_epoch(self) -> int:
         """Refill the restored checkpoint's epoch into the epoch buffer from
-        its saved generator states and place the next step at its restored
-        row; returns the epochs begun, the restored one included."""
-        shuffle, augment, epoch_start = self._resume
+        its saved generator states (on the host path: restart its stream at
+        the restored batch) and place the next step at its restored row;
+        returns the epochs begun, the restored one included."""
+        shuffle, augment, epoch_start, self._epoch_index = self._resume
         self._resume = None
         self._shuffle.set_state(shuffle)
         self._augment.set_state(augment)
         self._epoch_rng = self._rng_states()
         self._epoch_t0 = time.perf_counter()
-        self.dm.fill_epoch(self._shuffle, self.epoch_images, self._augment)
         self._epoch_pos = self.step - epoch_start
+        self._fill(start=self._epoch_pos)
         return epoch_start // self.dm.steps_per_epoch + 1
 
 
@@ -722,6 +764,7 @@ def main(argv=None):
         })
         print(json.dumps(res), flush=True)
         results.append(res)
+        dm.close()
         del trainer, dm  # the next run's peak memory counts its own tensors only
 
     agg = aggregate_runs(all_metrics)

@@ -17,7 +17,10 @@ def resolve_device(device="cuda") -> torch.device:
     both TF32 switches are turned off here, at every entry point. bf16
     products (``compute_dtype: bfloat16``) accumulate in float32 in the JAX
     package (``preferred_element_type``); cuBLAS may otherwise reduce
-    split-K partials in bf16, so that is turned off too.
+    split-K partials in bf16, so that is turned off too. cuDNN may pick a
+    convolution backward that accumulates with atomic adds, whose sums
+    differ from run to run; a graphed step is held bitwise against an
+    eager one, so only deterministic cuDNN algorithms are allowed.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -26,5 +29,6 @@ def resolve_device(device="cuda") -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
