@@ -332,6 +332,34 @@ I. MobileViT-S and the host augmentation path (``phase_mobile_vit``). No
    with ``data.device_augment: false`` (the 32x32 images through the host
    path): the device's idle share while the steps wait for the host, and
    the SOM kernel's count under replay.
+J. checkpoint evaluation (``phase_eval``, inside phase G's temporary
+   directory, after G4), through ``eval_checkpoint.main`` as a user calls
+   it, its trainer kept by ``EvalProbe``. J1 G2's last run's ``last``
+   checkpoint (``vit_som_mnist.yaml`` as shipped, ``xla``, the 60000 +
+   10000 IDX images) with ``--figures-dir``: purity and NMI equal to G2's
+   restored eval; the SOM kernel's launches 547 + 546 + 64 (the clustering
+   eval with its warm-up batch, the BMU pass, the distance pass over 8192
+   rows); the kernel's distances against the plain ``compute_distances``
+   of the same latents at 1e-5 (QE at rtol 1e-5, each TE term equal but on
+   near ties within 1e-5, counted); the blocked kNN of the 4096 projection
+   latents against a float64 kNN (sets equal but at a 15th/16th near tie,
+   distances at 1e-5) and its ms; the UMAP graph, the layout and
+   ``umap_embed`` timed, two layouts from one seed bitwise; the 1600
+   decoded prototypes [1600, 28, 28, 1] against the plain decode of a
+   host copy at 1e-5, each one's error against a float64 decode printed;
+   the figures' paths and bytes, or the line that matplotlib is missing.
+   J2 the same prototypes decoded with ``train.attn_impl: pallas`` (2
+   forward launches), each launch's o held against the plain version on
+   its own q, k, v at 1e-5 and against float64 (F64_FACTOR, F64_SLACK);
+   the decode's distance to J1's and to the float64 decode printed; the
+   forward kernel at (1600, 197, 2, 2) against its plain version at 1e-5,
+   timed with its plain version and SDPA against its bound (phase 9's).
+   J3 G4's state saved as ``last`` after G4's test eval: the same test
+   metrics, bitwise; launches SOM 79 and attention forward 79 x 14. J4
+   ``desom_mnist.yaml`` as shipped, one graphed epoch on G2's files, saved,
+   then ``eval_checkpoint`` with k-means (every count 0); the k-means twice
+   from one seed bitwise; its labels (but near ties) and inertia (rtol
+   1e-5) against a float64 plain Lloyd from the same k-means++ seeds.
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
@@ -366,12 +394,13 @@ backward kernel once for each of those (2).
 The last lines are the ``kernels`` JSON (the SOM and attention kernels'
 ``launches``: phase G4's protocol run, the last path all these kernels are on,
 with every path's count under ``launches_by_path``, the phase-H paths and
-phase I's MobileViT paths at 0, I4's ViT-SOM host run with its SOM
-launches; the SOM row's timings at (512,
+phase I's MobileViT paths and J4 at 0, I4's ViT-SOM host run with its SOM
+launches, J1-J3's; the SOM row's timings at (512,
 49152, 196) and the attention rows' at (512, 257, 3, 64), phase E1's
 shapes), the nvidia-smi line and the result. The whole script takes about
-13 minutes on an H100 (phase I about 4, its 224x224 augmentation ~0.9 s a
-batch), the builds included (block.cu, the longest, about 28 s);
+15 minutes on an H100 (phase I about 4.5, its 224x224 augmentation ~0.9 s
+a batch; phase J about 20 s), the builds included (block.cu, the longest,
+about 28 s);
 ``PhaseClock`` prints each group of phases' seconds.
 """
 
@@ -379,6 +408,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import gc
 import gzip
 import importlib.util
 import json
@@ -401,6 +431,8 @@ from vitsom_tpu_torch.config import DataConfig, load_config
 from vitsom_tpu_torch.convert import block_weights
 from vitsom_tpu_torch.data import datasets
 from vitsom_tpu_torch.data.synthetic import build_datamodule, raw_synthetic_datamodule
+from vitsom_tpu_torch.eval import eval_checkpoint, metrics, umap, viz
+from vitsom_tpu_torch.eval.kmeans import KMeans
 from vitsom_tpu_torch.models import stochastic
 from vitsom_tpu_torch.models.vit import Block
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
@@ -2270,7 +2302,7 @@ def phase_protocol_flagship(dev, root, smi):
           + f" [{G2_RUNS} runs x (3 issued steps + 2 clustering evals of {evals} batches: the "
           f"hold's, just before the save, and the protocol's, after the restore)]", flush=True)
     check(launches == want, f"G2: launch counts {launches} != {want}")
-    return d, launches
+    return d, launches, probes[-1], results[-1]
 
 
 def phase_restore_captured(dev, d, root):
@@ -2358,17 +2390,428 @@ def phase_protocol_cifar(dev, root, smi):
           + f" [3 issued steps, eval batches {evals}: two validations, the test eval and its "
           f"warm-up batch]", flush=True)
     check(launches == want, f"G4: launch counts {launches} != {want}")
+    return launches, tr, res
+
+
+def phase_protocol(dev, smi, clock):
+    """Phases G and J (J restores G's checkpoints, in G's temporary
+    directory); returns {path: launch counts} of G2, G4 and J1-J4."""
+    with tempfile.TemporaryDirectory() as root:
+        phase_readers(root)
+        d, flagship, g2_trainer, g2_res = phase_protocol_flagship(dev, root, smi)
+        phase_restore_captured(dev, d, root)
+        cifar, g4_trainer, g4_res = phase_protocol_cifar(dev, root, smi)
+        clock("G")
+        j_paths = phase_eval(dev, root, d, g2_trainer, g2_res, g4_trainer, g4_res, smi)
+        del g2_trainer, g4_trainer
+        release_trainers(dev)
+        clock("J")
+    return {"protocol_flagship": flagship, "protocol_cifar10_pallas": cifar, **j_paths}
+
+
+def release_trainers(dev):
+    """Drops the trainers the probes keep (G4's, J's last), collects them
+    and returns their cached blocks to the card, so the later phases'
+    captures find the memory an earlier smoke left them; prints what was
+    held before and after."""
+    before = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    ProtocolProbe.instances, EvalProbe.last = [], None
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    print(f"after G and J: allocated {before[0] / 1e9:.3f} GB, reserved {before[1] / 1e9:.3f} GB; "
+          f"with the probes' trainers released: allocated {after[0] / 1e9:.3f} GB, reserved "
+          f"{after[1] / 1e9:.3f} GB", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase J: checkpoint evaluation (eval_checkpoint: QE / TE, k-means, the
+# figures) on phase G's checkpoints
+# ---------------------------------------------------------------------------
+
+J_TIE = 1e-5  # the kernel's distances' tolerance: the margin of a near tie
+J_DECODE_SHAPE = (1600, 197, 2, 2)  # the decoder's attention over 1600 prototypes
+
+
+class EvalProbe(Trainer):
+    """The trainer ``eval_checkpoint.main`` builds, kept for the holds."""
+
+    last = None
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        EvalProbe.last = self
+
+
+def run_eval(label, argv):
+    """``eval_checkpoint.main(argv)`` with its trainer kept; returns (the
+    results, the trainer, the launch counts, the host seconds)."""
+    print(f"{label}: python -m vitsom_tpu_torch.eval.eval_checkpoint " + " ".join(argv),
+          flush=True)
+    eval_checkpoint.Trainer = EvalProbe
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eval_checkpoint.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        eval_checkpoint.Trainer = Trainer
+    print(f"{label}: {seconds:.3f} s, results " + json.dumps(res), flush=True)
+    return res, EvalProbe.last, launches, seconds
+
+
+def check_launches(label, launches, want, why):
+    print(f"{label} launches: " + " ".join(f"{k}={v} (expected {want[k]})"
+                                           for k, v in launches.items()) + f" [{why}]", flush=True)
+    check(launches == want, f"{label}: launch counts {launches} != {want}")
+
+
+def cuda_ms(fn):
+    """(fn's result, the host ms it took, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def top3_gaps(dist):
+    """Per row, the smallest gap among its three smallest distances."""
+    top3 = torch.topk(dist, 3, dim=1, largest=False).values
+    return torch.minimum(top3[:, 1] - top3[:, 0], top3[:, 2] - top3[:, 1])
+
+
+def hold_qe_te(label, tr, res):
+    """QE from the kernel's distances against the plain distances of the
+    same latents; TE row by row, differing only on near ties."""
+    cfg = tr.cfg
+    n = min(eval_checkpoint.kept_rows(tr), eval_checkpoint.DISTANCE_SAMPLES)
+    t = tr.current_temperature()
+    kernel = eval_checkpoint.distances(tr, n, t)
+    with torch.no_grad():
+        z = eval_checkpoint.latents(tr, n)
+        plain = som.compute_distances(z, tr.model.prototypes, cfg.som.distance_fcn)
+    err, ok = allclose_err(kernel, plain, TOL, TOL)
+    qe_plain = metrics.quantization_error(plain)
+    pos = torch.from_numpy(som.grid_positions(tuple(cfg.som.map_size), cfg.som.topology)).to(
+        kernel.device)
+    thresh = 2.0 + 1e-6 if cfg.som.topology == "square" else 1.0 + 1e-6
+
+    def far(d):
+        o = torch.topk(d, 2, dim=1, largest=False).indices
+        return ((pos[o[:, 0]] - pos[o[:, 1]]) ** 2).sum(dim=1) > thresh
+
+    differ = far(kernel) != far(plain)
+    ties = top3_gaps(plain) <= J_TIE
+    te_plain = metrics.topographic_error(plain, cfg.som.map_size, cfg.som.topology)
+    print(f"{label}: distances of {n} rows, kernel vs plain max|diff|={err:.3e} (atol/rtol "
+          f"{TOL}) ok={ok}; QE kernel={res['quantization_error']:.8f} plain={qe_plain:.8f}; "
+          f"TE kernel={res['topographic_error']:.6f} plain={te_plain:.6f}; rows whose TE term "
+          f"differs {int(differ.sum())}, all near ties (three smallest within {J_TIE}): "
+          f"{bool((~differ | ties).all())} (near-tie rows {int(ties.sum())})", flush=True)
+    check(ok, f"{label}: the kernel's distances differ from the plain ones")
+    check(abs(res["quantization_error"] - qe_plain) <= TOL * abs(qe_plain),
+          f"{label}: QE {res['quantization_error']} != plain {qe_plain}")
+    check(bool((~differ | ties).all()), f"{label}: a TE term differs outside a near tie")
+    check(abs(res["topographic_error"] - te_plain) <= int(differ.sum()) / n + 1e-12,
+          f"{label}: TE {res['topographic_error']} != plain {te_plain}")
+
+
+def hold_knn_umap(label, tr):
+    """The blocked kNN of the projection's latents against a float64 kNN;
+    two UMAP layouts from one seed bitwise; the kNN and layout ms."""
+    n = min(eval_checkpoint.kept_rows(tr), eval_checkpoint.LATENT_SAMPLES)
+    lat = eval_checkpoint.latents(tr, n)
+    k = 15
+    (idx, dist), knn_ms = cuda_ms(lambda: umap._knn_cosine(lat, k))
+    x = lat.double()
+    xn = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    full = 1.0 - xn @ xn.T
+    full.fill_diagonal_(math.inf)
+    ref = torch.topk(full, k + 1, dim=1, largest=False)
+    ref_idx, ref_d = ref.indices[:, :k].cpu().numpy(), ref.values.cpu().numpy()
+    boundary = (ref_d[:, k] - ref_d[:, k - 1]) <= J_TIE
+    same = np.array([set(a) == set(b) for a, b in zip(idx, ref_idx)])
+    d_err = float(np.abs(np.sort(dist, 1) - ref_d[:, :k]).max())
+    print(f"{label}: kNN of {n} latents (D {lat.shape[1]}, k {k}) in {knn_ms:.3f} ms; "
+          f"neighbour sets equal to float64's on {int(same.sum())} rows, the rest "
+          f"{int((~same).sum())} all near ties at the 15th/16th ({bool((same | boundary).all())}); "
+          f"distances max|diff| {d_err:.3e}", flush=True)
+    check(bool((same | boundary).all()), f"{label}: kNN sets differ outside a near tie")
+    check(d_err <= J_TIE, f"{label}: kNN distances off by {d_err}")
+    inputs, prep_ms = cuda_ms(lambda: umap.layout_inputs(lat, seed=0))
+    a, layout_ms = cuda_ms(lambda: umap._optimize_layout(**inputs))
+    b, embed_ms = cuda_ms(lambda: umap.umap_embed(lat, seed=0))
+    same_layout = np.array_equal(a, b)
+    print(f"{label}: UMAP of {n} latents: graph + PCA {prep_ms:.1f} ms, layout "
+          f"({inputs['n_epochs']} epochs, {len(inputs['heads'])} edges) {layout_ms:.1f} ms, "
+          f"umap_embed {embed_ms:.1f} ms; two layouts from seed 0 bitwise_equal={same_layout}, "
+          f"finite={bool(np.isfinite(a).all())}", flush=True)
+    check(same_layout and np.isfinite(a).all(), f"{label}: the UMAP layout is not deterministic")
+
+
+def print_figures(label, figdir):
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"{label}: matplotlib is not installed on this machine: no figure was drawn "
+              f"(eval_checkpoint said which; their numbers are held above)", flush=True)
+        return
+    files = sorted(os.listdir(figdir))
+    print(f"{label}: figures " + ", ".join(
+        f"{f} {os.path.getsize(os.path.join(figdir, f))} bytes" for f in files), flush=True)
+    check(len(files) == 3 and all(os.path.getsize(os.path.join(figdir, f)) > 1000
+                                  for f in files), f"{label}: figures {files}")
+
+
+def float64_decode(model):
+    """The prototypes decoded by a float64 copy of ``model`` (every compute
+    dtype float64; the output rounded to float32 as the decoder returns
+    it), on its device, as float64."""
+    m = copy.deepcopy(model).double()
+    for mod in m.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    with torch.no_grad():
+        return m.decode_prototypes(m.prototypes).double()
+
+
+def decode_err(decoded, exact):
+    """(max |decoded - exact|, max |exact|)."""
+    return float((decoded.double() - exact).abs().max()), float(exact.abs().max())
+
+
+def phase_eval_flagship(dev, root, g2_trainer, g2_res, smi):
+    """J1: ``eval_checkpoint`` on G2's last run's ``last`` checkpoint
+    (``vit_som_mnist.yaml`` as shipped, ``xla``, 60000 + 10000 IDX images).
+    Its SOM kernel launches: the clustering eval's warm-up batch and its
+    546 batches, the BMU pass's 546 and the distance pass's 64 (8192 rows).
+    Returns (the trainer, its xla decode, the float64 decode, the launch
+    counts)."""
+    figdir = os.path.join(root, "j1_figures")
+    res, tr, launches, _ = run_eval("J1", ["--checkpoint", g2_trainer.checkpoint_dir("last"),
+                                           "--figures-dir", figdir])
+    cfg, bs = tr.cfg, tr.cfg.batch_size
+    n_keep = eval_checkpoint.kept_rows(tr)
+    evals = eval_batch_count(tr.dm.n_train, bs) + 1
+    passes = n_keep // bs + math.ceil(min(n_keep, eval_checkpoint.DISTANCE_SAMPLES) / bs)
+    want = expected_launches(cfg, model_attn_impl(cfg), 0, evals + passes)
+    check_launches("J1", launches, want, f"{evals} eval batches (1 warm-up) + "
+                   f"{n_keep // bs} BMU batches + {passes - n_keep // bs} distance batches")
+    same = all(res[k] == g2_res[k] for k in ("purity", "nmi"))
+    print(f"J1: purity={res['purity']:.6f} nmi={res['nmi']:.6f}, G2's restored eval "
+          f"purity={g2_res['purity']:.6f} nmi={g2_res['nmi']:.6f} equal={same} {smi}", flush=True)
+    check(same, "J1: the checkpoint evaluates otherwise than G2's restored state")
+    hold_qe_te("J1", tr, res)
+    hold_knn_umap("J1", tr)
+    decoded, decode_ms = cuda_ms(lambda: viz.decoded_prototypes(tr.model, cfg))
+    cpu_model = copy.deepcopy(tr.model).cpu()
+    with torch.no_grad():
+        on_host = cpu_model.decode_prototypes(cpu_model.prototypes)
+    err, ok = allclose_err(decoded.cpu(), on_host, TOL, TOL)
+    exact = float64_decode(tr.model)
+    xerr, scale = decode_err(decoded, exact)
+    herr, _ = decode_err(on_host.to(dev), exact)
+    print(f"J1: decoded prototypes {tuple(decoded.shape)} in one call, {decode_ms:.3f} ms; "
+          f"against the plain decode on the host max|diff|={err:.3e} (atol/rtol {TOL}) ok={ok}; "
+          f"max|value| {scale:.4f}, float64 errors: card {xerr:.3e}, host {herr:.3e}",
+          flush=True)
+    check(tuple(decoded.shape) == (1600, 28, 28, 1) and ok, "J1: the decoded prototypes differ")
+    print_figures("J1", figdir)
+    return tr, decoded, exact, launches
+
+
+def phase_eval_decode_pallas(dev, tr, decoded_xla, exact):
+    """J2: the decoder's attention kernel at the prototype batch: the 1600
+    prototypes decoded with ``train.attn_impl: pallas`` (2 forward launches,
+    one a decoder block): each launch's o against the plain version on
+    the same q, k, v at 1e-5 and against float64 within F64_FACTOR of the
+    plain version's error plus F64_SLACK; the decode's distance to J1's
+    ``xla`` decode and to the float64 decode printed (J1's own float32
+    decode is 4e-5 from float64 there, so 1e-5 between two float32 decodes
+    cannot hold); the kernel against its plain version at (1600, 197, 2,
+    2) on random strided inputs, timed. Returns (the launch
+    counts, the timing row, the kernel's error)."""
+    from vitsom_tpu_torch.config import apply_overrides
+    from vitsom_tpu_torch.models.vit_som import build_model
+
+    cfg = apply_overrides(tr.cfg, {"train.attn_impl": "pallas"}).validate()
+    model = build_model(cfg, dev)
+    model.load_state_dict(tr.model.state_dict())
+    kernel_forward, seen = attention_fused._kernel_forward, []
+
+    def recording(q, k, v, heads):
+        out = kernel_forward(q, k, v, heads)
+        seen.append((q.clone(), k.clone(), v.clone(), heads, out[0].clone()))
+        return out
+
+    attention_fused._kernel_forward = recording
+    try:
+        reset_launches()
+        decoded = viz.decoded_prototypes(model, cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        attention_fused._kernel_forward = kernel_forward
+    want = {"som_fused": 0, "attention_fwd": cfg.vit.dec_depth, "attention_bwd": 0,
+            "block_fwd": 0, "block_bwd": 0}
+    check_launches("J2", launches, want, f"one decode call, {cfg.vit.dec_depth} decoder blocks")
+    diff = float((decoded - decoded_xla).abs().max())
+    perr, scale = decode_err(decoded, exact)
+    xerr, _ = decode_err(decoded_xla, exact)
+    print(f"J2: pallas decode against J1's xla decode max|diff|={diff:.3e} (max|value| "
+          f"{scale:.4f}); against the float64 decode: pallas {perr:.3e}, xla {xerr:.3e} (the "
+          f"decode turns last-bit differences inside into ~1e-4 at the pixels: the kernel is "
+          f"held below on each call's own inputs)", flush=True)
+    check(decoded.shape == decoded_xla.shape and bool(torch.isfinite(decoded).all()),
+          "J2: the pallas decode is not finite")
+    for i, (q, k, v, heads, o) in enumerate(seen):
+        o_p, _ = attention_fused.fused_attention_reference(q, k, v, heads)
+        o_64, _ = attention_fused.fused_attention_reference(q.double(), k.double(), v.double(),
+                                                            heads)
+        err, close = allclose_err(o, o_p, TOL, TOL)
+        kerr, perr, f64_ok = float64_err(o, o_p, o_64)
+        print(f"J2: decoder block {i}'s attention at {tuple(q.shape)} (the decode's own q, k, v): "
+              f"kernel vs plain max|diff| {err:.3e} ok={close}; against float64 kernel {kerr:.3e} "
+              f"plain {perr:.3e} (within {F64_FACTOR} x plain + {F64_SLACK}: {f64_ok})",
+              flush=True)
+        check(close and f64_ok, f"J2: decoder block {i}'s attention kernel is off")
+    b, n, h, hd = J_DECODE_SHAPE
+    d = h * hd
+    q, k, v, _ = attn_inputs(J_DECODE_SHAPE, 7100, dev, "strided")
+    o, lse = attention_fused._kernel_forward(q, k, v, h)
+    o_p, lse_p = attention_fused.fused_attention_reference(q, k, v, h)
+    kerr, kok = allclose_err(o, o_p, TOL, TOL)
+    lerr, lok = allclose_err(lse, lse_p, TOL, TOL)
+    heads_first = [x.reshape(b, n, h, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
+    l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    t = {key: time_call(fn, l2_flush)[0] for key, fn in (
+        ("kernel", lambda: attention_fused._kernel_forward(q, k, v, h)),
+        ("plain", lambda: attention_fused.fused_attention_reference(q, k, v, h)),
+        ("library", lambda: F.scaled_dot_product_attention(*heads_first)))}
+    flops, nbytes, n_exp = 4 * b * h * n * n * hd, 16 * b * n * d + 4 * b * h * n, b * h * n * n
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_exp = n_exp / (sms * SFU_EXP_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_exp, t_bytes)
+    bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
+    print(f"J2: attention_fwd (B,N,H,hd)={J_DECODE_SHAPE} (strided): o max|diff| {kerr:.3e} "
+          f"ok={kok}, lse {lerr:.3e} ok={lok}; L2 flushed kernel_ms={t['kernel']:.5f} "
+          f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} (sdpa backend "
+          f"{sdpa_backend(*heads_first)}) bound_ms={bound_ms:.5f} ({bound_by}: fp32 {t_ops:.5f} "
+          f"ms, exponentials {t_exp:.5f} ms, {nbytes / 1e6:.3f} MB {t_bytes:.5f} ms) "
+          f"kernel_share_of_bound={bound_ms / t['kernel']:.4f}", flush=True)
+    check(kok and lok, "J2: the attention kernel differs from its plain version")
     return launches
 
 
-def phase_protocol(dev, smi):
-    """Phase G; returns {path: launch counts} of G2 and G4."""
-    with tempfile.TemporaryDirectory() as root:
-        phase_readers(root)
-        d, flagship = phase_protocol_flagship(dev, root, smi)
-        phase_restore_captured(dev, d, root)
-        cifar = phase_protocol_cifar(dev, root, smi)
-    return {"protocol_flagship": flagship, "protocol_cifar10_pallas": cifar}
+def phase_eval_cifar(dev, g4_trainer, g4_res):
+    """J3: ``eval_checkpoint`` on G4's state (``vit_som_cifar-10.yaml``,
+    ``pallas``) saved as ``last`` right after G4's own test eval of it: the
+    same test metrics; the test eval's 78 batches + 1 warm-up launch the SOM
+    kernel once and the attention forward 14 times (encoder 12 + decoder 2)
+    each."""
+    path = g4_trainer.save_checkpoint("last")
+    res, tr, launches, _ = run_eval("J3", ["--checkpoint", path])
+    cfg = tr.cfg
+    evals = eval_batch_count(tr.dm.split_len("test"), cfg.batch_size) + 1
+    want = expected_launches(cfg, model_attn_impl(cfg), 0, evals)
+    check_launches("J3", launches, want, f"{evals} test batches (1 warm-up)")
+    keys = ("accuracy", "precision", "recall", "f1")
+    same = all(res[k] == g4_res[k] for k in keys)
+    print("J3: " + " ".join(f"{k}={res[k]:.6f} (G4 {g4_res[k]:.6f})" for k in keys)
+          + f" equal={same}", flush=True)
+    check(same and set(res) == set(keys) | {"inference_time"}, "J3: other test metrics than G4's")
+    return launches
+
+
+def plain_lloyd64(x, centers, max_iter=300, tol=1e-4):
+    """Lloyd's algorithm in float64, written plainly: sklearn's stopping
+    rule (labels repeat, or the summed squared centre shift within tol x
+    the mean per-feature variance), then a last assignment."""
+    x, c = x.double(), centers.double()
+    limit = float(x.var(dim=0, unbiased=False).mean()) * tol
+    prev, strict = None, False
+    for _ in range(max_iter):
+        lab = torch.cdist(x, c).argmin(dim=1)
+        new = torch.stack([x[lab == j].mean(dim=0) if bool((lab == j).any()) else c[j]
+                           for j in range(c.shape[0])])
+        shift = float(((new - c) ** 2).sum())
+        c = new
+        if prev is not None and torch.equal(lab, prev):
+            strict = True
+            break
+        if shift <= limit:
+            break
+        prev = lab
+    if not strict:
+        lab = torch.cdist(x, c).argmin(dim=1)
+    return lab, float(((x - c[lab]) ** 2).sum()), c
+
+
+def phase_eval_desom(dev, root, d, smi):
+    """J4: ``desom_mnist.yaml`` as shipped trained one graphed epoch on G2's
+    IDX files, saved, then ``eval_checkpoint`` with k-means (no kernel: the
+    launch counts stay 0). The k-means twice from one seed, bitwise; its
+    labels and inertia against a float64 plain Lloyd from the same
+    k-means++ centres."""
+    cfg = load_config(DESOM_MNIST, {"data.data_dir": d,
+                                    "train.checkpoint_dir": os.path.join(root, "j4_states"),
+                                    "train.log_dir": os.path.join(root, "j4_logs")})
+    trainer = Trainer(cfg, device=dev)
+    trainer.fit(max_steps=trainer.dm.steps_per_epoch)
+    check(trainer.graph is not None, "J4: the epoch was not graphed")
+    path = trainer.save_checkpoint("last")
+    res, tr, launches, seconds = run_eval("J4", ["--checkpoint", path])
+    check_launches("J4", launches, {k: 0 for k in launches}, "DESOM: no kernel on its path")
+    keys = {"purity", "nmi", "inference_time", "quantization_error", "topographic_error",
+            "kmeans_purity", "kmeans_nmi"}
+    check(set(res) == keys and all(math.isfinite(v) for v in res.values()),
+          f"J4: results {sorted(res)}")
+    batches = list(tr.dm.eval_batches())
+    x = torch.cat([tr.eval_step(b)["latent"] for b in batches])
+    y = torch.cat([b["label"] for b in batches]).cpu().numpy()
+    k = len(np.unique(y))
+    fits = []
+    for _ in range(2):
+        km, ms = cuda_ms(lambda: KMeans(n_clusters=k, random_state=0, n_init=10).fit(x))
+        fits.append((km, ms))
+    (a, a_ms), (b, b_ms) = fits
+    same = (torch.equal(a.labels_, b.labels_) and torch.equal(a.cluster_centers_,
+                                                            b.cluster_centers_)
+            and a.inertia_ == b.inertia_)
+    labels = a.labels_.cpu().numpy()
+    lab64, inertia64, c64 = plain_lloyd64(x, a.init_centers_)
+    d64 = torch.cdist(x.double(), c64)
+    top2 = torch.topk(d64 ** 2, 2, dim=1, largest=False).values
+    ties = (top2[:, 1] - top2[:, 0]) <= J_TIE * top2[:, 0].clamp_min(1.0)
+    differ = lab64 != a.labels_
+    print(f"J4: k-means (k {k}, {x.shape[0]} latents of {x.shape[1]}) purity="
+          f"{metrics.purity(y, labels):.6f} nmi={metrics.nmi(y, labels):.6f} "
+          f"inertia={a.inertia_:.6f} iterations={a.n_iter_} fit_ms={a_ms:.1f},{b_ms:.1f}; "
+          f"two fits from seed 0 bitwise_equal={same}; eval_checkpoint kmeans_purity="
+          f"{res['kmeans_purity']:.6f} kmeans_nmi={res['kmeans_nmi']:.6f}; float64 plain Lloyd "
+          f"from the same seeds: inertia {inertia64:.6f} (rel diff "
+          f"{abs(a.inertia_ - inertia64) / inertia64:.3e}), labels differing on "
+          f"{int(differ.sum())} rows, all near ties: {bool((~differ | ties).all())}; "
+          f"eval_checkpoint {seconds:.3f} s {smi}", flush=True)
+    check(same, "J4: k-means is not deterministic")
+    check(res["kmeans_purity"] == metrics.purity(y, labels), "J4: k-means purity differs")
+    check(bool((~differ | ties).all()), "J4: k-means labels differ outside a near tie")
+    check(abs(a.inertia_ - inertia64) <= 1e-5 * inertia64, "J4: k-means inertia off")
+    return launches
+
+
+def phase_eval(dev, root, d, g2_trainer, g2_res, g4_trainer, g4_res, smi):
+    """Phase J; returns {path: launch counts} of J1-J4."""
+    tr, decoded, exact, j1 = phase_eval_flagship(dev, root, g2_trainer, g2_res, smi)
+    j2 = phase_eval_decode_pallas(dev, tr, decoded, exact)
+    del tr, decoded, exact
+    j3 = phase_eval_cifar(dev, g4_trainer, g4_res)
+    j4 = phase_eval_desom(dev, root, d, smi)
+    return {"eval_flagship": j1, "eval_prototype_decode_pallas": j2,
+            "eval_cifar10_pallas": j3, "eval_desom_kmeans": j4}
 
 
 # ---------------------------------------------------------------------------
@@ -3093,8 +3536,7 @@ def main() -> int:
         phase_bench(dev, smi)
         phase_profiles(smi)
         clock("B, C")
-        protocol_paths = phase_protocol(dev, smi)
-        clock("G")
+        protocol_paths = phase_protocol(dev, smi, clock)
         baseline_paths = phase_baselines(dev, smi)
         clock("H")
         mobile_paths = phase_mobile_vit(dev, smi)
@@ -3112,10 +3554,13 @@ def main() -> int:
              **protocol_paths}
     main_path = protocol_paths["protocol_cifar10_pallas"]
 
+    # paths with no kernel on them, listed with their zeros
+    kernel_free = {**baseline_paths, **mobile_paths,
+                   "eval_desom_kmeans": protocol_paths["eval_desom_kmeans"]}
+
     def by_path(name):
         out = {path: counts[name] for path, counts in paths.items() if counts[name]}
-        out.update({path: counts[name] for path, counts in baseline_paths.items()})
-        out.update({path: counts[name] for path, counts in mobile_paths.items()})
+        out.update({path: counts[name] for path, counts in kernel_free.items()})
         return out
 
     kernels = [{

@@ -2,11 +2,14 @@
 
 Importing ``vitsom_tpu_torch`` (every submodule) and ``chip_smoke`` in a
 fresh interpreter must load no ``jax``, ``flax``, ``optax`` or
-``vitsom_tpu`` module, and no ``PIL``, ``h5py`` or ``torchvision`` (the
-card's machine has none of them; the dataset readers import ``PIL``,
-``h5py`` and ``scipy`` inside the functions that need them); and an entry
-point called without a device on a machine without CUDA raises instead of
-running on the CPU.
+``vitsom_tpu`` module, no ``sklearn`` or ``umap`` (the port has its own
+k-means, PCA and UMAP), and no ``PIL``, ``h5py``, ``matplotlib`` or
+``torchvision`` (the dataset readers import ``PIL``, ``h5py`` and ``scipy``
+inside the functions that need them, the figures ``matplotlib`` inside the
+drawing code: the card's machine had no h5py in the runs so far, and may
+lack matplotlib; it has PIL, which the host augmentation path ran there);
+and an entry point called without a device on a machine without CUDA
+raises instead of running on the CPU.
 """
 
 import os
@@ -27,7 +30,7 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vitsom_tpu", "PIL",
-                                    "h5py", "torchvision"))
+                                    "h5py", "torchvision", "sklearn", "matplotlib", "umap"))
 print(len(names), all(m in names for m in (
     "vitsom_tpu_torch.ops.attention_fused", "vitsom_tpu_torch.ops.block_fused",
     "vitsom_tpu_torch.data.augment", "vitsom_tpu_torch.data.device_augment",
@@ -36,7 +39,9 @@ print(len(names), all(m in names for m in (
     "vitsom_tpu_torch.utils.tb_writer", "vitsom_tpu_torch.utils.logging",
     "vitsom_tpu_torch.models.swin", "vitsom_tpu_torch.models.deit",
     "vitsom_tpu_torch.models.resnet", "vitsom_tpu_torch.models.stochastic",
-    "vitsom_tpu_torch.models.mobile_vit", "vitsom_tpu_torch.data.host_augment")))
+    "vitsom_tpu_torch.models.mobile_vit", "vitsom_tpu_torch.data.host_augment",
+    "vitsom_tpu_torch.eval.umap", "vitsom_tpu_torch.eval.viz", "vitsom_tpu_torch.eval.kmeans",
+    "vitsom_tpu_torch.eval.eval_checkpoint", "vitsom_tpu_torch.ops.resize")))
 print("BAD", bad)
 """
 
@@ -50,7 +55,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     counts, bad = out.stdout.strip().splitlines()[-2:]
     n_modules, has_kernel_modules = counts.split()
-    assert int(n_modules) >= 36 and has_kernel_modules == "True"
+    assert int(n_modules) >= 47 and has_kernel_modules == "True"
     assert bad == "BAD []", bad
 
 
@@ -151,6 +156,16 @@ def test_protocol_main_refuses_cpu_without_device_flag(monkeypatch, tmp_path):
         trainer.main(["--config", "configs/vit_som/vit_som_mnist.yaml", "--synthetic",
                       "--override", f"train.checkpoint_dir={tmp_path / 'states'}"])
     assert not (tmp_path / "states").exists()
+
+
+def test_eval_checkpoint_refuses_cpu_without_cuda_flag(monkeypatch, tmp_path):
+    """Checkpoint evaluation defaults to the card: without ``--cpu`` on a
+    machine without CUDA it raises before it reads a config or data."""
+    from vitsom_tpu_torch.eval import eval_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_checkpoint.main(["--checkpoint", str(tmp_path / "missing")])
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -11,7 +11,10 @@ Counterpart of ``vitsom_tpu/eval/evaluate.py``:
   after one warm-up batch;
 - ``validation_metrics``: the per-epoch validation pass, ``val/accuracy``
   and the mean of each per-batch ``*_loss`` of the eval step as
-  ``val/<name>`` (DESOM's eval step reports none).
+  ``val/<name>`` (DESOM's eval step reports none);
+- ``evaluate_kmeans``: k-means (``eval/kmeans.py``, sklearn's algorithm on
+  the data's device) on the eval step's ``latent`` over the clustering
+  split -> purity and NMI, timed after one warm-up batch.
 
 The classification splits are the device-resident, eval-transformed
 arrays of ``data/pipeline.ClassificationDataModule``; a split smaller than
@@ -22,11 +25,13 @@ package.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vitsom_tpu_torch.eval import metrics
+from vitsom_tpu_torch.eval.kmeans import KMeans
 
 
 def _synchronize(batch) -> None:
@@ -56,6 +61,32 @@ def evaluate_clustering(
     p = metrics.purity(y_true, y_pred)
     n = metrics.nmi(y_true, y_pred)
     print(f"Purity: {p:.3f}, NMI: {n:.3f}, Inference Time: {dt:.3f}")
+    return p, n, dt
+
+
+def evaluate_kmeans(eval_step: Callable, dm, n_clusters: Optional[int] = None,
+                    temperature=None) -> Tuple[float, float, float]:
+    """(purity, nmi, seconds) of ``KMeans(k, random_state=0, n_init=10)``
+    on the eval step's ``latent`` over the clustering split's drop-last
+    batches (a split smaller than one batch whole), k = ``n_clusters`` or
+    the number of distinct labels. One batch runs first, outside the clock;
+    the time covers the forward passes and the fit, as in the JAX package
+    (``vitsom_tpu/eval/evaluate.py:391``; its multi-host branch is not
+    ported)."""
+    batches = list(dm.eval_batches(drop_last=dm.n_train >= dm.cfg.batch_size))
+    if not batches:
+        raise ValueError(f"a split of {dm.n_train} samples gave no batch")
+    eval_step(batches[0], temperature)
+    _synchronize(batches[0])
+    start = time.perf_counter()
+    x = torch.cat([eval_step(b, temperature)["latent"] for b in batches])
+    y_true = torch.cat([b["label"] for b in batches]).cpu().numpy()
+    k = n_clusters or len(np.unique(y_true))
+    y_pred = KMeans(n_clusters=k, random_state=0, n_init=10).fit_predict(x).cpu().numpy()
+    p = metrics.purity(y_true, y_pred)
+    n = metrics.nmi(y_true, y_pred)
+    dt = time.perf_counter() - start
+    print(f"Purity (KMeans): {p:.3f}, NMI (KMeans): {n:.3f}, Inference Time: {dt:.3f}")
     return p, n, dt
 
 

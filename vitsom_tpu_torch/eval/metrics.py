@@ -8,7 +8,10 @@ Same definitions as ``vitsom_tpu/eval/metrics.py``:
   normalisation (sklearn's default);
 - ``classification_metrics``: accuracy and macro precision, recall and F1;
 - ``aggregate_runs``: the mean and std of each metric over the N-run
-  protocol's runs.
+  protocol's runs;
+- ``quantization_error`` and ``topographic_error``: the SOM's quality
+  metrics on a [B, P] distance matrix, a numpy array or a tensor (on the
+  card the reductions run there and only the scalar comes back).
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from vitsom_tpu_torch.som.layer import grid_positions
 
 
 def contingency(y_true: np.ndarray, y_pred: np.ndarray) -> np.ndarray:
@@ -91,6 +97,29 @@ def classification_metrics(y_true: np.ndarray, y_pred: np.ndarray) -> Dict[str, 
         "recall": float(np.nanmean(recalls)),
         "f1": float(np.nanmean(f1s)),
     }
+
+
+def quantization_error(distances) -> float:
+    """Mean distance from each sample to its BMU: mean_b min_p d(x_b, w_p)."""
+    if isinstance(distances, torch.Tensor):
+        return float(distances.min(dim=1).values.double().mean())
+    return float(np.asarray(distances).min(axis=1).mean())
+
+
+def topographic_error(distances, map_size: Tuple[int, int], topology: str = "square") -> float:
+    """Fraction of samples whose best and second-best matching units are not
+    adjacent on the map grid: squared grid distance above 2 + 1e-6 for
+    square (the 8-neighbourhood), above 1 + 1e-6 for hexa (the 6).
+    A tensor's two smallest distances are found by ``topk`` on its device."""
+    pos = grid_positions(tuple(map_size), topology)
+    if isinstance(distances, torch.Tensor):
+        order = torch.topk(distances, 2, dim=1, largest=False).indices.cpu().numpy()
+    else:
+        order = np.argsort(np.asarray(distances), axis=1)[:, :2]
+    diff = pos[order[:, 0]] - pos[order[:, 1]]
+    d2 = np.sum(diff * diff, axis=1)
+    thresh = 2.0 + 1e-6 if topology == "square" else 1.0 + 1e-6
+    return float(np.mean(d2 > thresh))
 
 
 def aggregate_runs(per_run: Dict[str, list]) -> Dict[str, Tuple[float, float]]:

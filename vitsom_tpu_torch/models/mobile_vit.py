@@ -48,7 +48,6 @@ import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -57,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from vitsom_tpu_torch.config import Config
 from vitsom_tpu_torch.models.ae import BatchNorm, frozen_statistics
 from vitsom_tpu_torch.models.vit import LayerNorm
+from vitsom_tpu_torch.ops.resize import resize_weights
 from vitsom_tpu_torch.utils import initializers as init
 
 BN_MOMENTUM = 0.9
@@ -204,26 +204,6 @@ def _fold(x: torch.Tensor, p: int, hw: Tuple[int, int]) -> torch.Tensor:
     b, d = x.shape[0], x.shape[-1]
     x = x.reshape(b, p, p, h // p, w // p, d).permute(0, 5, 3, 1, 4, 2)
     return x.reshape(b, d, h, w)
-
-
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[out_size, in_size] float32 weights of ``jax.image.resize``'s
-    bilinear resize of one axis (``scale_and_translate``'s
-    ``compute_weight_mat``, antialiased, in its float32 arithmetic): the
-    triangle kernel at the sample points (i + 0.5) / scale - 0.5, its width
-    multiplied by 1 / scale when downsampling, each output's weights
-    divided by their sum, zero where the sample point lies outside the
-    input."""
-    f = np.float32
-    inv = 1.0 / (out_size / in_size)  # a Python float there, as here
-    sample = (np.arange(out_size, dtype=f) + f(0.5)) * f(inv) - f(0.0) - f(0.5)
-    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f)[:, None]) / f(max(inv, 1.0))
-    w = np.maximum(f(0.0), f(1.0) - x)  # [in, out]
-    total = w.sum(axis=0, keepdims=True, dtype=f)
-    w = np.where(np.abs(total) > f(1000.0 * float(np.finfo(np.float32).eps)),
-                 w / np.where(total != 0, total, f(1.0)), f(0.0))
-    inside = (sample >= f(-0.5)) & (sample <= f(in_size - 0.5))
-    return np.where(inside[None, :], w, f(0.0)).T.copy()
 
 
 # resize weights by (in, out, dtype, device); made in an eager step, before

@@ -91,6 +91,13 @@ class ViTSOM(nn.Module):
         cls_token = tokens[:, 0]
         return self.logits(cls_token), self.som_input(cls_token, tokens[:, 1:])
 
+    def get_latent_representation(self, x):
+        """[B, N*D] SOM input (or the CLS token) from the encoder alone: the
+        latent of the UMAP figure. The JAX model runs the whole autoencoder
+        and XLA drops the unused decoder; here it is never run."""
+        tokens = self.vit.encode_tokens(x)
+        return self.som_input(tokens[:, 0], tokens[:, 1:])
+
     def decode_prototypes(self, prototypes):
         """[P, N*D] -> [P, H, W, C] images through one decoder call (a zero
         CLS token is prepended)."""

@@ -3,12 +3,16 @@
 The port's own copy of the fixed positional table of
 ``vitsom_tpu/ops/pos_embed.py``: half the channels encode the grid height,
 half the width; each half is [sin | cos] over a 10000^-k frequency ladder;
-an all-zero row is prepended for the CLS token.
+an all-zero row is prepended for the CLS token. ``interpolate_pos_embed``
+resizes a table to another grid as ``jax.image.resize``'s bicubic does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from vitsom_tpu_torch.ops.resize import resize_weights
 
 
 def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
@@ -39,3 +43,27 @@ def get_2d_sincos_pos_embed(
     if cls_token:
         pos = np.concatenate([np.zeros([1, embed_dim]), pos], axis=0)
     return pos.astype(np.float32)
+
+
+def interpolate_pos_embed(
+    pos_embed: np.ndarray, new_grid_size: int, cls_token: bool = True
+) -> np.ndarray:
+    """A [(1+)G*G, D] positional table resized to a new grid size by
+    ``jax.image.resize(..., "bicubic")``'s arithmetic (Keys' cubic, a =
+    -0.5, antialiased when the grid shrinks; ``ops/resize.py``), applied
+    as one product an axis (the reference's ``tools/utils.py:186-207``:
+    checkpoint transfer between image resolutions; no shipped flow calls
+    it). A table already at ``new_grid_size`` comes back as float32."""
+    n_extra = 1 if cls_token else 0
+    extra = pos_embed[:n_extra]
+    patch_pos = pos_embed[n_extra:]
+    dim = patch_pos.shape[1]
+    old = int(round(patch_pos.shape[0] ** 0.5))
+    if old == new_grid_size:
+        return pos_embed.astype(np.float32)
+    w = torch.from_numpy(resize_weights(old, new_grid_size, "cubic"))
+    grid = torch.from_numpy(np.asarray(patch_pos, np.float32)).reshape(old, old, dim)
+    resized = torch.einsum("ih,hwd->iwd", w, grid)
+    resized = torch.einsum("jw,iwd->ijd", w, resized)
+    resized = resized.reshape(new_grid_size * new_grid_size, dim).numpy()
+    return np.concatenate([extra, resized], axis=0).astype(np.float32)
