@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (HGMMA), of the two hd >= 32 attention kernels, which fail without a
    TF32 mma (HMMA or HGMMA), and of every instantiation of the fused block's
    ``block_fwd_kernel`` and ``block_bwd_kernel``, which fail without a TF32
-   mma (HMMA); fails without ``cuobjdump``;
+   mma (HMMA), and of the two hd >= 32 bf16 attention kernels, which fail
+   without a bf16 mma (HMMA ... BF16); fails without ``cuobjdump``;
 3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
    on the card at every shipped ViT-SOM SOM shape (``SOM_SHAPES``: B, D =
    patch tokens x emb, P) and one ragged shape (B 13, D 1000, P 132), x the
@@ -160,7 +161,8 @@ B. ``bench.py``'s configuration: the flagship yaml with the overrides of
    finite, parameters float32, purity and NMI printed;
 C. the kernels under replay: ``vitsom_tpu_torch.train.profile_step`` (a
    process of its own each: one profiler session a process) profiles R =
-   10 eager steps and R replays of the flagship with ``xla`` and with
+   PROFILE_STEPS (5) eager steps and R replays of the flagship with
+   ``xla`` and with
    ``pallas`` and of phase B's configuration; each hand-written kernel's
    count in the profiler's records (CUPTI records a graph's kernels) must
    be R times its count a step in both modes: the SOM's two launches once
@@ -206,8 +208,8 @@ E. the family at its shipped shapes (``phase_family``), every run graphed
    ``vit_som_flowers-102.yaml`` (224x224, patch 16, N 197, B 128; the
    augmentation in chunks of 16 images, captured as one graph and held
    against its eager calls) and E3 ``vit_som_svhn.yaml`` (emb 16: the row
-   kernels at N 257; a 40x40 map), each one epoch of 8 steps (1280 +
-   256 images), validation and the test eval; E4 ``vit_tiny-imagenet.yaml``
+   kernels at N 257; a 40x40 map), each one epoch of E_STEPS (4) steps
+   (640 + 128 images), validation and the test eval; E4 ``vit_tiny-imagenet.yaml``
    on E1's data, one epoch and the test eval; E5 every other yaml of the
    family (``vit_som`` cifar-100, medmnist, flowers-17, fmnist, usps;
    ``vit`` cifar-100, svhn, medmnist, flowers-17, flowers-102): 3 steps
@@ -274,20 +276,21 @@ H. the Swin and DeiT baselines (``phase_baselines``) as shipped on
    first 128 entries into a device row of its step: ops of the step, which
    the graph replays. H1 ``configs/swin/swin_cifar-10.yaml`` (embed 96,
    depths 2-2-6-2, heads 3-6-12-24, patch 2: 256 tokens, window 4, every
-   block on the dense-masked path; B 128; 50000 + 10000 images, 312 steps
-   an epoch): epoch 0 graphed (lr 0: every parameter bitwise as built),
+   block on the dense-masked path; B 128; H_SIZE = 12800 + 2560 images,
+   80 steps an epoch): epoch 0 graphed (lr 0: every parameter bitwise as
+   built),
    validation, a ``save_checkpoint``, then 40 steps of epoch 1 (lr
    base_lr / 20) held against a fresh trainer restored from that
    checkpoint and run eagerly (losses, parameters and the recorded masks
    within GRAPH_RTOL, bitwise in practice), the rest of epoch 1,
    validation and the test eval; no two steps' recorded masks equal, and
-   each site's kept share over all 624 steps within 5 binomial sigmas of
+   each site's kept share over all 160 steps within 5 binomial sigmas of
    its keep rate (printed by drop-path rate). H2 ``swin_medmnist.yaml``
    (B 512, 28/4 = 7x7 tokens padded to 8x8 on the windowed path, then 4x4
    dense; 1536 train rows: 3 steps an epoch, so steps 3-9 train at
    base_lr e / 25) 10 graphed steps against 10 eager ones, then the test
    eval. H3 ``deit_cifar-10.yaml`` (emb 192, depth 12, 3 heads of 64,
-   dropout 0.1 at 49 sites a step) with a ``resnet50.pth`` the phase
+   dropout 0.1 at 49 sites a step; H_SIZE images) with a ``resnet50.pth`` the phase
    writes from the seed in torchvision's names into a temporary
    ``data_dir``: the teacher's 265 mapped tensors equal what was written;
    40 graphed steps against 40 eager ones (and their masks), the rest of
@@ -306,17 +309,19 @@ I. MobileViT-S and the host augmentation path (``phase_mobile_vit``). No
    captured step) on 50000 + 10000 synthetic images, the epoch streamed
    (312 steps; its 24 GB buffer passes ``pipeline.STREAM_BYTES``: each
    batch's captured augmentation replays into a one-batch buffer just
-   before its step): 2 warm-up steps, the capture and 20 replays; the last
-   streamed batch against eager calls at its draws; a checkpoint, then 10
-   more replays held bitwise against a fresh trainer restored from it and
+   before its step): 2 warm-up steps, the capture and I1_GRAPHED (5)
+   replays; the last streamed batch against eager calls at its draws; a
+   checkpoint, then I1_HOLD (4) more replays held bitwise against a fresh
+   trainer restored from it and
    run eagerly (losses, parameters, running statistics, AdamW, device
-   state); ``profile_step`` (R = 10) with the augmentation off (the static
+   state); ``profile_step`` (R = PROFILE_STEPS) with the augmentation off
+   (the static
    path's resident rows), which times the step alone. I5 the same yaml
    with ``train.remat_blocks`` on against off, 3 replays each on
    I1's data (2 warm-up steps, the capture, 3 replays): equal within
    GRAPH_RTOL, running statistics included, the replays' ms printed. I2
-   one epoch of the yaml on 1280 + 256 images (8 steps, a whole-epoch
-   fill), validation and the test eval on the running statistics. I3
+   one epoch of the yaml on I2_SIZE = 640 + 128 images (4 steps, a
+   whole-epoch fill), validation and the test eval on the running statistics. I3
    ``mobile_vit_svhn.yaml`` (73257 + 14651 images: 457 steps an epoch,
    35 GB unstreamed) and ``_cifar-100``, 3 graphed steps each, with the
    peak memory. I4 the host path: a flowers-17 jpg dir in its published
@@ -328,7 +333,7 @@ I. MobileViT-S and the host augmentation path (``phase_mobile_vit``). No
    test eval, every batch the step read equal to the host batch
    ``train_batches`` makes again; the host ms between batches, the
    trainer's waits and the worker count are printed beside
-   ``os.cpu_count()``; ``profile_step`` (R = 10) on ``vit_som_cifar-10``
+   ``os.cpu_count()``; ``profile_step`` (R = PROFILE_STEPS) on ``vit_som_cifar-10``
    with ``data.device_augment: false`` (the 32x32 images through the host
    path): the device's idle share while the steps wait for the host, and
    the SOM kernel's count under replay.
@@ -360,6 +365,31 @@ J. checkpoint evaluation (``phase_eval``, inside phase G's temporary
    then ``eval_checkpoint`` with k-means (every count 0); the k-means twice
    from one seed bitwise; its labels (but near ties) and inertia (rtol
    1e-5) against a float64 plain Lloyd from the same k-means++ seeds.
+K. bf16 inputs to the attention kernels, the bf16 models and optimizer
+   state, after phase I (no trainer of an earlier phase held). K1
+   (``phase_attention_bf16``): the bf16 kernels (``csrc/attention_bf16.cu``)
+   against their plain versions at (128, 197, 2, 8), (128, 197, 2, 2),
+   (128, 65, 3, 64) contiguous, (128, 65, 3, 32) strided and (512, 257, 3,
+   64), forward and backward, the backward on a bf16 o and do (``pallas``)
+   and on a float32 o and do (``hybrid``): within 1 bf16 ulp on all but 0.1
+   % of the elements and atol/rtol 1e-2 everywhere, lse within 1e-5, each
+   output's error against float64 on the same bf16 inputs at most
+   F64_FACTOR times the plain version's plus F64_SLACK; two runs bitwise
+   equal; each timed with L2 flushed beside its plain version and SDPA on
+   the same bf16 tensors (backend named), against the bound (bytes at 3.35
+   TB/s, bf16 tensor-core operations at 989 TFLOP/s or the exponentials,
+   the longest). K2 ``vit_som_mnist.yaml`` + bf16 + ``pallas`` (the bf16 row
+   kernels at hd 8 and 2): TRAIN_STEPS graphed steps held against eager,
+   launches equal to the formula below, ``profile_step``. K3
+   ``vit_som_tiny-imagenet.yaml`` + bf16 + ``pallas`` (B 512, the bf16
+   tensor-core kernels at hd 64): K3_STEPS graphed steps, launches equal to
+   the formula, the step ms beside E1's float32 one. K4 ``swin_cifar-10``
+   and ``deit_cifar-10`` with the JAX scoreboard's overrides (bf16,
+   ``xla_bf16``; ``experiments/run_family_bench.py``): K4_STEPS graphed
+   steps against eager, masks held as in H, float32 parameters and logits,
+   no kernel. K5 ``bench.py``'s configuration + ``train.adam_mu_dtype:
+   bfloat16``: TRAIN_STEPS steps, every first moment bf16, held against
+   eager, the step ms beside B's.
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
@@ -389,24 +419,27 @@ baseline (no decoder, no SOM) the forward 12 S + 12 E times, the backward
 12 S times and the SOM kernel never. Phase 11
 launches the block forward kernel once per flagship block plus once for
 each of the two blocks it backpropagates through (6 + 2 = 8), and the
-backward kernel once for each of those (2).
+backward kernel once for each of those (2). Under ``compute_dtype:
+bfloat16`` (K2, K3) the same counts go to the bf16 kernels, and the
+float32 kernels' are 0.
 
-The last lines are the ``kernels`` JSON (the SOM and attention kernels'
-``launches``: phase G4's protocol run, the last path all these kernels are on,
-with every path's count under ``launches_by_path``, the phase-H paths and
-phase I's MobileViT paths and J4 at 0, I4's ViT-SOM host run with its SOM
-launches, J1-J3's; the SOM row's timings at (512,
-49152, 196) and the attention rows' at (512, 257, 3, 64), phase E1's
-shapes), the nvidia-smi line and the result. The whole script takes about
-15 minutes on an H100 (phase I about 4.5, its 224x224 augmentation ~0.9 s
-a batch; phase J about 20 s), the builds included (block.cu, the longest,
-about 28 s);
-``PhaseClock`` prints each group of phases' seconds.
+The last lines are the ``kernels`` JSON (the SOM and float32 attention
+kernels' ``launches``: phase G4's protocol run, the last path all these
+kernels are on; the bf16 attention kernels' K3's; with every path's count
+under ``launches_by_path``, the phase-H, K4 paths and phase I's MobileViT
+paths and J4 at 0, I4's ViT-SOM host run with its SOM launches, J1-J3's;
+the SOM row's timings at (512, 49152, 196) and the attention rows' at
+(512, 257, 3, 64), phase E1's and K3's shapes), the nvidia-smi line and
+the result. The whole script takes about 14 minutes on an H100, the builds
+included; ``PhaseClock`` prints each group of phases' seconds and the
+card's memory. Any failure prints ``FAIL in phase <group>: <error>`` and
+its traceback on standard output and standard error, and exits 1.
 """
 
 from __future__ import annotations
 
 import copy
+import faulthandler
 import functools
 import gc
 import gzip
@@ -415,12 +448,14 @@ import json
 import math
 import os
 import pickle
+import signal
 import statistics
 import struct
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -439,6 +474,7 @@ from vitsom_tpu_torch.models.vit_som import model_attn_impl
 from vitsom_tpu_torch.ops import _build, attention_fused, block_fused, som_fused
 from vitsom_tpu_torch.ops.attention import xla_attention
 from vitsom_tpu_torch.som import layer as som
+from vitsom_tpu_torch.train import optim as optim_lib
 from vitsom_tpu_torch.train import steps as steps_lib
 from vitsom_tpu_torch.train import trainer as trainer_mod
 from vitsom_tpu_torch.train.trainer import WARMUP_STEPS, Trainer
@@ -468,17 +504,17 @@ E5_CONFIGS = [os.path.join(FAMILY, f"vit_som_{n}.yaml")
               for n in ("cifar-100", "medmnist", "flowers-17", "fmnist", "usps")] + [
     os.path.join(VIT_FAMILY, f"vit_{n}.yaml")
     for n in ("cifar-100", "svhn", "medmnist", "flowers-17", "flowers-102")]
-# E2, E3: one epoch of 8 steps (synthetic_size 1280 at B 128: 1024 train
-# rows), as short as PROFILE_STEPS, to keep the smoke near half its time
-# limit
-E_STEPS = 8
+# E2, E3: one epoch of 4 steps (synthetic_size 640 at B 128: 512 train
+# rows), to keep the smoke within its time budget
+E_STEPS = 4
 E5_STEPS = 3
 DESOM = os.path.join(ROOT, "configs", "desom")
 DESOM_MNIST = os.path.join(DESOM, "desom_mnist.yaml")
 DESOM_FLOWERS = os.path.join(DESOM, "desom_flowers17.yaml")
 DESOM_BN_STEPS = 10
 CIFAR_STEPS = 20
-PROFILE_STEPS = 10  # R: the graph replays (and eager steps) profile_step profiles
+# R: the graph replays (and eager steps) profile_step profiles
+PROFILE_STEPS = 5
 # bench.py:38-59's overrides of the flagship yaml, the configuration behind
 # the repo's BENCH_*.json; the smoke cuts its data (70000 synthetic images)
 # to SYNTHETIC_SIZE and its 500 epochs to TRAIN_STEPS steps
@@ -490,7 +526,7 @@ BENCH_OVERRIDES = {
 # a graphed run's per-step losses and final parameters against the eager
 # run's (the same step body and kernels: bitwise equality is expected)
 GRAPH_RTOL = 1e-5
-KERNEL_SOURCES = ("som_fused", "attention", "block")
+KERNEL_SOURCES = ("som_fused", "attention", "attention_bf16", "block")
 # (B, N, H, hd): every encoder and decoder attention shape of a shipped ViT
 # config (B, N from the yaml; heads 2 and 3)
 ATTN_SHAPES = [
@@ -801,6 +837,8 @@ def reset_launches():
     som_fused.LAUNCHES = 0
     attention_fused.LAUNCHES_FWD = 0
     attention_fused.LAUNCHES_BWD = 0
+    attention_fused.LAUNCHES_FWD_BF16 = 0
+    attention_fused.LAUNCHES_BWD_BF16 = 0
     block_fused.LAUNCHES_FWD = 0
     block_fused.LAUNCHES_BWD = 0
 
@@ -808,6 +846,8 @@ def reset_launches():
 def read_launches():
     return {"som_fused": som_fused.LAUNCHES, "attention_fwd": attention_fused.LAUNCHES_FWD,
             "attention_bwd": attention_fused.LAUNCHES_BWD,
+            "attention_fwd_bf16": attention_fused.LAUNCHES_FWD_BF16,
+            "attention_bwd_bf16": attention_fused.LAUNCHES_BWD_BF16,
             "block_fwd": block_fused.LAUNCHES_FWD, "block_bwd": block_fused.LAUNCHES_BWD}
 
 
@@ -823,16 +863,21 @@ def expected_launches(cfg, impl, steps, eval_batches):
     block; with remat each block's forward runs again in the backward; the
     eval runs the forward only, under no_grad. A classification train step
     runs the encoder only, the ViT-SOM eval step the decoder too; the ViT
-    baseline has no decoder and no SOM."""
+    baseline has no decoder and no SOM. Under ``compute_dtype: bfloat16``
+    the attention launches are the bf16 kernels'."""
     som_model = cfg.model_arch == "vit_som"
     eval_blocks = cfg.vit.depth + (cfg.vit.dec_depth if som_model else 0)
     train_blocks = cfg.vit.depth if cfg.classification else eval_blocks
     passes = 2 if cfg.train.remat_blocks else 1
+    fwd = steps * passes * train_blocks + eval_batches * eval_blocks if impl == "pallas" else 0
+    bwd = steps * train_blocks if impl in ("pallas", "hybrid") else 0
+    bf16 = cfg.train.compute_dtype == "bfloat16"
     return {
         "som_fused": steps + eval_batches if som_model else 0,
-        "attention_fwd": (steps * passes * train_blocks + eval_batches * eval_blocks
-                          if impl == "pallas" else 0),
-        "attention_bwd": steps * train_blocks if impl in ("pallas", "hybrid") else 0,
+        "attention_fwd": 0 if bf16 else fwd,
+        "attention_bwd": 0 if bf16 else bwd,
+        "attention_fwd_bf16": fwd if bf16 else 0,
+        "attention_bwd_bf16": bwd if bf16 else 0,
         "block_fwd": 0,
         "block_bwd": 0,
     }
@@ -1048,7 +1093,7 @@ def compare_runs(label, cfg, tr_g, hist_g, tr_e, hist_e, losses, smi):
 def phase_bench(dev, smi):
     """Phase B: bench.py's configuration (BENCH_OVERRIDES), graphed with the
     clustering eval, then held against its eager run as phase A holds the
-    flagship."""
+    flagship. Returns the graphed run's median step ms."""
     run = train_run(dev, "bench", None, TRAIN_STEPS, evaluate=True, extra=BENCH_OVERRIDES)
     cfg, _, trainer, _, _ = run
     check(cfg.train.compute_dtype == "bfloat16" and model_attn_impl(cfg) == "xla_bf16"
@@ -1056,22 +1101,55 @@ def phase_bench(dev, smi):
           "phase B did not build bench.py's configuration")
     check(next(trainer.model.parameters()).dtype == torch.float32, "bf16 parameters")
     phase_graphed_vs_eager(dev, "bench", None, run, smi, extra=BENCH_OVERRIDES)
+    return steady_ms(trainer.step_ms)
+
+
+# each profile runs in a fresh interpreter (profile_process), started one
+# profile ahead so its imports overlap the phases before it
+_NEXT_PROFILE = None
+
+
+def profile_process():
+    """A fresh interpreter, in a session of its own so that whatever it
+    starts (a host path's fork server and workers) ends with it, that
+    imports ``profile_step`` (no CUDA) and then runs ``profile_step.main``
+    on the argument list it reads from its standard input (a JSON line)."""
+    code = ("import json, sys\n"
+            "from vitsom_tpu_torch.train import profile_step\n"
+            "sys.exit(profile_step.main(json.loads(sys.stdin.readline())))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def end_session(proc):
+    """Kills what is left of ``proc``'s session and reaps ``proc``."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
 
 
 def profile_run(label, overrides, config=CONFIG):
     """``profile_step`` on ``config`` (the flagship yaml) with ``overrides``,
     in a process of its own (one profiler session a process); returns its
     JSON line."""
-    cmd = [sys.executable, "-m", "vitsom_tpu_torch.train.profile_step", "--config", config,
-           "--steps", str(PROFILE_STEPS)]
+    global _NEXT_PROFILE
+    argv = ["--config", config, "--steps", str(PROFILE_STEPS)]
     for k, v in overrides.items():
-        cmd += ["--override", f"{k}={json.dumps(v)}"]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    lines = out.stdout.strip().splitlines()
+        argv += ["--override", f"{k}={json.dumps(v)}"]
+    proc, _NEXT_PROFILE = _NEXT_PROFILE or profile_process(), None
+    try:
+        stdout, stderr = proc.communicate(json.dumps(argv) + "\n", timeout=600)
+    finally:
+        end_session(proc)
+    _NEXT_PROFILE = profile_process()
+    lines = stdout.strip().splitlines()
     for line in lines[:-1]:
         print(f"profile_step[{label}]: {line}", flush=True)
-    check(out.returncode == 0 and lines,
-          f"profile_step[{label}] failed ({out.returncode}): {out.stderr[-2000:]}")
+    check(proc.returncode == 0 and lines,
+          f"profile_step[{label}] failed ({proc.returncode}): {stderr[-2000:]}")
     return json.loads(lines[-1])
 
 
@@ -1085,11 +1163,13 @@ def profile_check(label, config, over, smi):
     cfg = load_config(config, {"data.allow_synthetic": True, **over})
     per = expected_launches(cfg, model_attn_impl(cfg), PROFILE_STEPS, 0)
     mma = cfg.vit.emb_dim // cfg.vit.heads >= 32
-    want = {"som_partial_kernel": per["som_fused"], "som_finalize_kernel": per["som_fused"],
-            "attn_fwd_kernel": 0 if mma else per["attention_fwd"],
-            "attn_fwd_mma_kernel": per["attention_fwd"] if mma else 0,
-            "attn_bwd_kernel": 0 if mma else per["attention_bwd"],
-            "attn_bwd_mma_kernel": per["attention_bwd"] if mma else 0}
+    want = {"som_partial_kernel": per["som_fused"], "som_finalize_kernel": per["som_fused"]}
+    for side in ("fwd", "bwd"):
+        n, n16 = per[f"attention_{side}"], per[f"attention_{side}_bf16"]
+        want.update({f"attn_{side}_kernel": 0 if mma else n,
+                     f"attn_{side}_mma_kernel": n if mma else 0,
+                     f"attn_{side}_row_bf16": 0 if mma else n16,
+                     f"attn_{side}_mma_bf16": n16 if mma else 0})
     for mode in ("eager", "graphed"):
         r = res[mode]
         print(f"profile {label} {mode}: wall_ms_per_step={r['wall_ms_per_step']:.4f} "
@@ -1155,16 +1235,17 @@ def phase_train_cifar(dev):
 
 
 def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True,
-            size=CLS_SYNTHETIC_SIZE):
+            size=CLS_SYNTHETIC_SIZE, extra=None):
     """Trains ``config`` as shipped (classification, augmentation on the
     device, or the static path's train rows transformed once) with
     attention ``impl`` (None: as shipped) on ``size`` synthetic images
     (``dm``, or a new classification data module) for ``steps`` steps
     (None: one epoch), graphed or ``eager``; a finished epoch validates,
     and ``evaluate`` runs the test eval (one warm-up batch, then every
-    batch). Prints and checks what phase D checks of every run. Returns
-    (cfg, dm, trainer, hist, launches, test metrics or None)."""
-    over = {"data.allow_synthetic": True, "data.synthetic_size": size}
+    batch). ``extra``: more overrides. Prints and checks what phase D
+    checks of every run. Returns (cfg, dm, trainer, hist, launches, test
+    metrics or None)."""
+    over = {"data.allow_synthetic": True, "data.synthetic_size": size, **(extra or {})}
     if impl is not None:
         over["train.attn_impl"] = impl
     cfg = load_config(config, over)
@@ -1174,7 +1255,7 @@ def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True
         f"num_classes={cfg.data.num_classes} input={cfg.data.input_size}x"
         f"{cfg.data.input_size}x{cfg.data.num_channels} "
         f"smoothing={cfg.optimizer.smoothing} use_pallas_som={cfg.train.use_pallas_som} "
-        f"attn_impl={model_attn_impl(cfg)} augment=(randaug_n={aug.randaug_n} "
+        f"compute={cfg.train.compute_dtype} attn_impl={model_attn_impl(cfg)} augment=(randaug_n={aug.randaug_n} "
         f"autoaugment={aug.autoaugment} reprob={aug.reprob} flip={aug.horizontal_flip}) "
         f"mode={'eager' if eager else 'graphed'}",
         flush=True,
@@ -1372,10 +1453,10 @@ def phase_family(dev, smi):
     rtol 1e-5). E4: ``vit_tiny-imagenet.yaml`` on the same data, one
     graphed epoch (7 steps) and the test eval. E2: ``vit_som_flowers-
     102.yaml`` (224x224, patch 16: N 197, B 128, 102 classes; the
-    augmentation in 16-image chunks) on 1280 + 256 images: one graphed
-    epoch of 8 steps, validation and the test eval, and the captured 224
+    augmentation in 16-image chunks) on 640 + 128 images: one graphed
+    epoch of E_STEPS steps, validation and the test eval, and the captured 224
     augmentation against its eager calls. E3: ``vit_som_svhn.yaml`` (emb
-    16, patch 2: the row kernels at N 257; a 40x40 map) likewise, 8 steps.
+    16, patch 2: the row kernels at N 257; a 40x40 map) likewise.
     E5: every other yaml of the family, ``family_quick_run``. Every
     trainer, graph and data module is released before the next run."""
     paths = {}
@@ -1867,8 +1948,8 @@ def phase_block_flagship(dev, trainer, dm):
         for k, (e, ok) in errs.items():
             check(ok, f"fused block {idx} gradient {k} disagrees with autograd: {e}")
     launches = read_launches()
-    want = {"som_fused": 0, "attention_fwd": 0, "attention_bwd": 0,
-            "block_fwd": len(blocks) + 2, "block_bwd": 2}
+    want = {"som_fused": 0, "attention_fwd": 0, "attention_bwd": 0, "attention_fwd_bf16": 0,
+            "attention_bwd_bf16": 0, "block_fwd": len(blocks) + 2, "block_bwd": 2}
     print("block_flagship launches: "
           + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items()), flush=True)
     check(launches == want, f"block launch counts {launches} != {want}")
@@ -1967,13 +2048,16 @@ def phase_build():
                 print(f"build[{name}]: {line.strip()}", flush=True)
     # the SOM kernel's, the hd >= 32 attention kernels' and every block
     # kernel instantiation's products must run on the tensor cores in TF32
-    # (wgmma: HGMMA; mma.sync: HMMA in SASS)
+    # (wgmma: HGMMA; mma.sync: HMMA in SASS), the bf16 attention kernels'
+    # in bf16
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
-    for name, kernels, kinds in (
-            ("som_fused", ("som_partial_kernel",), ("HGMMA",)),
-            ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA")),
-            ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",))):
+    for name, kernels, kinds, dtype in (
+            ("som_fused", ("som_partial_kernel",), ("HGMMA",), "TF32"),
+            ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA"),
+             "TF32"),
+            ("attention_bf16", ("attn_fwd_mma_bf16", "attn_bwd_mma_bf16"), ("HMMA",), "BF16"),
+            ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",), "TF32")):
         sass = subprocess.run([cuobjdump, "-sass", infos[name]["path"]], capture_output=True,
                               text=True, check=True).stdout
         ops, function = {}, None  # {function: {instruction: count}}
@@ -1989,8 +2073,8 @@ def phase_build():
             check(found, f"{name}.cu: no {kernel} in the SASS")
             for function, counts in found.items():
                 print(f"build[{name}]: tensor-core instructions of {function}: {counts}", flush=True)
-                check(any(op.startswith(kinds) and "TF32" in op for op in counts),
-                      f"{function} has no TF32 {'/'.join(kinds)} in its SASS")
+                check(any(op.startswith(kinds) and dtype in op for op in counts),
+                      f"{function} has no {dtype} {'/'.join(kinds)} in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -2401,11 +2485,10 @@ def phase_protocol(dev, smi, clock):
         d, flagship, g2_trainer, g2_res = phase_protocol_flagship(dev, root, smi)
         phase_restore_captured(dev, d, root)
         cifar, g4_trainer, g4_res = phase_protocol_cifar(dev, root, smi)
-        clock("G")
+        clock("J")
         j_paths = phase_eval(dev, root, d, g2_trainer, g2_res, g4_trainer, g4_res, smi)
         del g2_trainer, g4_trainer
         release_trainers(dev)
-        clock("J")
     return {"protocol_flagship": flagship, "protocol_cifar10_pallas": cifar, **j_paths}
 
 
@@ -2654,7 +2737,7 @@ def phase_eval_decode_pallas(dev, tr, decoded_xla, exact):
     finally:
         attention_fused._kernel_forward = kernel_forward
     want = {"som_fused": 0, "attention_fwd": cfg.vit.dec_depth, "attention_bwd": 0,
-            "block_fwd": 0, "block_bwd": 0}
+            "attention_fwd_bf16": 0, "attention_bwd_bf16": 0, "block_fwd": 0, "block_bwd": 0}
     check_launches("J2", launches, want, f"one decode call, {cfg.vit.dec_depth} decoder blocks")
     diff = float((decoded - decoded_xla).abs().max())
     perr, scale = decode_err(decoded, exact)
@@ -2829,6 +2912,7 @@ H4_CONFIGS = [os.path.join(BASELINES, "swin", f"swin_{n}.yaml")
     os.path.join(BASELINES, "deit", f"deit_{n}.yaml")
     for n in ("cifar-100", "svhn", "flowers-17")]
 H_HOLD_STEPS = 40  # H1, H3: graphed against eager
+H_SIZE = 12800  # H1, H3: 10240 train rows (80 steps an epoch)
 H2_STEPS = 10
 MASK_RECORD = 128  # the first entries of each mask kept a step (a Swin drop-path mask whole)
 MASK_SIGMAS = 5.0
@@ -3039,7 +3123,7 @@ def print_epochs(label, tr, smi, probe=True):
 
 def phase_swin_cifar(dev, root, smi):
     """H1 (module docstring). Returns the launch counts of the whole run."""
-    cfg = baseline_cfg(SWIN_CIFAR, root)
+    cfg = baseline_cfg(SWIN_CIFAR, root, {"data.synthetic_size": H_SIZE})
     tr, probe = baseline_trainer("h1_swin_cifar10", SWIN_CIFAR, cfg, dev)
     spe = tr.dm.steps_per_epoch
     blocks = tr.model.blocks
@@ -3125,7 +3209,7 @@ def phase_deit_cifar(dev, root, smi):
     d = os.path.join(root, "h3_data")
     os.makedirs(d)
     written = write_torchvision_resnet50(os.path.join(d, "resnet50.pth"), seed=13)
-    cfg = baseline_cfg(DEIT_CIFAR, root, {"data.data_dir": d})
+    cfg = baseline_cfg(DEIT_CIFAR, root, {"data.data_dir": d, "data.synthetic_size": H_SIZE})
     tr, probe = baseline_trainer("h3_deit_cifar10", DEIT_CIFAR, cfg, dev)
     own = tr.train_step.teacher.state_dict()
     mapped = [k for k in written if not k.startswith("fc.")
@@ -3218,9 +3302,10 @@ VIT_SOM_FLOWERS = os.path.join(FAMILY, "vit_som_flowers-17.yaml")
 # train rows after the 80/20 split, 457 steps an epoch)
 I3_CONFIGS = ((os.path.join(MOBILE_VIT, "mobile_vit_svhn.yaml"), 73257),
               (os.path.join(MOBILE_VIT, "mobile_vit_cifar-100.yaml"), CLS_SYNTHETIC_SIZE))
-I1_GRAPHED = 20  # replays after the warm-up steps and the capture
-I1_HOLD = 10  # steps from the restored checkpoint, graphed and eager
-I2_SIZE = 1280  # 1024 train rows (8 steps), 256 val, 256 test
+# I1, I2: short, as the 224 augmentation costs 0.91 s a batch
+I1_GRAPHED = 5  # replays after the warm-up steps and the capture
+I1_HOLD = 4  # steps from the restored checkpoint, graphed and eager
+I2_SIZE = 640  # 512 train rows (4 steps), 128 val, 128 test
 I3_STEPS = 3
 I4_CLASSES = 6  # flowers-17's 80 images a class: 480 images, 3 steps of 128 an epoch
 I4_EPOCHS = 2
@@ -3335,6 +3420,14 @@ def host_run(dev, label, config, data_dir, root, smi):
                                         "total_epochs": I4_EPOCHS})
     t0 = time.perf_counter()
     dm = build_datamodule(cfg, dev)
+    try:
+        return _host_run(dev, label, cfg, dm, data_dir, t0, smi)
+    finally:
+        dm.close()  # the worker pool ends with the run, also on a failure
+
+
+def _host_run(dev, label, cfg, dm, data_dir, t0, smi):
+    """``host_run``'s run and checks on the host-path data module ``dm``."""
     print(f"{label}: data from {data_dir} train={dm.n_train} val={dm.split_len('val')} "
           f"test={dm.split_len('test')} steps_per_epoch={dm.steps_per_epoch} host={dm.host} "
           f"sizes={len({x.shape for x in dm.train_x})} built in "
@@ -3383,7 +3476,6 @@ def host_run(dev, label, config, data_dir, root, smi):
           f"{eval_batches}]", flush=True)
     check(same, f"{label}: a device batch differs from its host array")
     check(launches == want, f"{label}: launch counts {launches} != {want}")
-    dm.close()
     return launches
 
 
@@ -3409,7 +3501,8 @@ def phase_mobile_vit(dev, smi):
             print(f"{label}: step_ms=" + ",".join(f"{v:.3f}" for v in tr.step_ms)
                   + f" (the replays' median {statistics.median(tr.step_ms[-3:]):.3f}) "
                   f"peak_memory_gb={torch.cuda.max_memory_allocated(dev) / 1e9:.3f} "
-                  f"card: {smi}", flush=True)
+                  f"memory at the capture (after the trainer returned the cached blocks): "
+                  f"{tr.capture_memory} card: {smi}", flush=True)
             del tr
             torch.cuda.empty_cache()
         (h0, s0), (h1, s1) = runs[False], runs[True]
@@ -3430,8 +3523,8 @@ def phase_mobile_vit(dev, smi):
         # I2: one epoch of the cut split, validation and the test eval
         _, dm, tr, _, paths["i2_mobile_vit_cifar10_epoch"], res = cls_run(
             dev, "i2_mobile_vit_cifar10_epoch", MV_CIFAR, None, None, size=I2_SIZE)
-        check(dm.steps_per_epoch == 8 and len(tr.val_history) == 1 and not dm.streams,
-              "i2: expected one whole-epoch fill of 8 steps and its validation")
+        check(dm.steps_per_epoch == 4 and len(tr.val_history) == 1 and not dm.streams,
+              "i2: expected one whole-epoch fill of 4 steps and its validation")
         bn = tr.model.blocks[0].expand.bn
         check(not torch.equal(bn.running_var, torch.ones_like(bn.running_var)),
               "i2: the running statistics did not move")
@@ -3482,80 +3575,404 @@ def phase_mobile_vit(dev, smi):
     return paths
 
 
-class PhaseClock:
-    """Prints each group of phases' host seconds and the total so far."""
+# ---------------------------------------------------------------------------
+# phase K: bf16 inputs to the attention kernels, the flagship and
+# tiny-imagenet under bf16 with them, Swin and DeiT under bf16, the bf16
+# first moment
+# ---------------------------------------------------------------------------
 
-    def __init__(self):
+# the bf16 kernels' shapes: the flagship's encoder and decoder (hd 8, 2),
+# cifar-10's (hd 64, 32) and tiny-imagenet's (hd 64, B 512)
+K1_SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 3, 64), (128, 65, 3, 32),
+             (512, 257, 3, 64)]
+K1_MAIN = (512, 257, 3, 64)  # K3's encoder shape: the kernels JSON line's bf16 rows
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16 = {"train.compute_dtype": "bfloat16"}
+# the JAX scoreboard's Swin and DeiT rows (experiments/run_family_bench.py)
+K4_OVERRIDES = {**BF16, "train.attn_impl": "xla_bf16"}
+K3_STEPS = WARMUP_STEPS + 1 + 3  # 3 replays after the capture
+K4_STEPS = 20  # graphed against eager
+
+
+def bf16_ulp(x):
+    """The bf16 spacing at each element of ``x`` (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0**-126))) - 7)
+
+
+def bf16_close(a, b):
+    """(max |a - b|, share of elements more than 1 bf16 ulp of ``b`` apart,
+    whether within atol/rtol 1e-2 everywhere and 1 ulp on all but 0.1 %):
+    ``tests/test_torch_attention_bf16.py``'s bound."""
+    a, b = a.double(), b.double()
+    d = (a - b).abs()
+    share = float((d > bf16_ulp(b)).double().mean())
+    ok = bool((d <= 1e-2 + 1e-2 * b.abs()).all()) and share <= 1e-3
+    return float(d.max()), share, ok
+
+
+def k1_inputs(shape, seed, dev):
+    """bf16 q, k, v (strided views of one [B, N, 3, D] buffer below D 128,
+    as the model hands them over; else contiguous), a bf16 cotangent (of
+    ``pallas``'s bf16 o) and a float32 one (of ``hybrid``'s float32 o)."""
+    b, n, h, hd = shape
+    d = h * hd
+    q, k, v, do = attn_inputs(shape, seed, dev, "strided" if d < 128 else "contiguous")
+    if d < 128:
+        buf = torch.stack((q, k, v), dim=2).to(torch.bfloat16)
+        q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+    else:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    return q, k, v, do.to(torch.bfloat16), do
+
+
+def phase_attention_bf16(dev):
+    """K1: each bf16 kernel against its plain bf16 version on the card,
+    forward (o, lse) and backward (dq, dk, dv) on a bf16 o and do
+    (``pallas``) and on a float32 o and do (``hybrid``), at K1_SHAPES: the CPU tests' bound
+    (``bf16_close``; lse within 1e-5) and the float64 rule (each output's
+    error against a float64 evaluation on the same bf16 inputs at most
+    F64_FACTOR times the plain version's plus F64_SLACK; the backwards take
+    the float64 forward's o and lse, rounded); two runs bitwise equal. Then each timed with L2 flushed
+    beside its plain version and SDPA on bf16 (backend named), against the
+    bound: bytes at 3.35 TB/s, bf16 tensor-core operations at 989 TFLOP/s
+    (4 B H N^2 hd forward, 10 B H N^2 hd backward) or the B H N^2
+    exponentials at 16 a clock an SM, whichever is longest. Returns
+    ({(shape, name): row}, {name: largest error against plain})."""
+    rows, worst = {}, {"attention_fwd_bf16": 0.0, "attention_bwd_bf16": 0.0}
+    l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_per_s = sms * SFU_EXP_PER_CLOCK * SM_CLOCK_HZ
+    for shape in K1_SHAPES:
+        b, n, h, hd = shape
+        d = h * hd
+        q, k, v, do, do32 = k1_inputs(shape, 6000 + n + hd, dev)
+        o, lse = attention_fused._kernel_forward(q, k, v, h)
+        o2, lse2 = attention_fused._kernel_forward(q, k, v, h)
+        ho, hlse = attention_fused.fused_attention_reference(q, k, v, h)
+        po, plse = ho.to(torch.bfloat16), hlse
+        q64, k64, v64 = (x.double() for x in (q, k, v))
+        eo, else64 = attention_fused.fused_attention_reference(q64, k64, v64, h)
+        exact = {kind: attention_fused.fused_attention_bwd_reference(
+            q64, k64, v64, eo, else64, g.double(), h) for kind, g in (("pallas", do),
+                                                                     ("hybrid", do32))}
+        errs = {"o": bf16_close(o, po)}
+        e_lse = float((lse - plse).abs().max())
+        errs["lse"] = (e_lse, 0.0, e_lse <= TOL + TOL * float(plse.abs().max()))
+        f64 = {}
+        for name, a, r, e in (("o", o, po, eo), ("lse", lse, plse, else64)):
+            f64[name] = (float((a.double() - e).abs().max()), float((r.double() - e).abs().max()))
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        for kind, (ro, rlse, g) in (("pallas", (po, plse, do)), ("hybrid", (ho, hlse, do32))):
+            grads = attention_fused._kernel_backward(q, k, v, ro, rlse, g, h)
+            again = attention_fused._kernel_backward(q, k, v, ro, rlse, g, h)
+            pgrads = attention_fused.fused_attention_bwd_reference(q, k, v, ro, rlse, g, h)
+            same = same and all(torch.equal(x, y) for x, y in zip(grads, again))
+            res = (eo.to(ro.dtype), else64.float())
+            kgrads = attention_fused._kernel_backward(q, k, v, *res, g, h)
+            rgrads = attention_fused.fused_attention_bwd_reference(q, k, v, *res, g, h)
+            for name, a, r, kg, rg, e in zip(("dq", "dk", "dv"), grads, pgrads, kgrads, rgrads,
+                                             exact[kind]):
+                errs[f"{kind}_{name}"] = bf16_close(a, r)
+                f64[f"{kind}_{name}"] = (float((kg.double() - e).abs().max()),
+                                         float((rg.double() - e).abs().max()))
+        torch.cuda.synchronize()
+        print(f"k1 attention_bf16_vs_plain (B,N,H,hd)={shape}: "
+              + " ".join(f"{key}_max_abs_err={e:.3e} beyond_1ulp={sh:.2e}"
+                         for key, (e, sh, _) in errs.items())
+              + f" deterministic={same}", flush=True)
+        print(f"k1 attention_bf16_vs_float64 (B,N,H,hd)={shape}: "
+              + " ".join(f"{key}: kernel={ke:.3e} plain={pe:.3e}"
+                         for key, (ke, pe) in f64.items()), flush=True)
+        for key, (e, sh, ok) in errs.items():
+            check(ok, f"k1: bf16 attention {key} disagrees with plain at {shape}: {e} ({sh})")
+            side = "attention_fwd_bf16" if key in ("o", "lse") else "attention_bwd_bf16"
+            worst[side] = max(worst[side], e)
+        for key, (ke, pe) in f64.items():
+            check(ke <= F64_FACTOR * pe + F64_SLACK,
+                  f"k1: bf16 attention {key} further from float64 than {F64_FACTOR} x the plain "
+                  f"version's + {F64_SLACK} at {shape}: {ke} vs {pe}")
+        check(same, f"k1: two bf16 attention kernel runs differ at {shape}")
+        del q64, k64, v64, eo, else64, exact
+
+        heads_first = [x.reshape(b, n, h, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
+        leaves = [x.clone().requires_grad_() for x in heads_first]
+        do_t = do.reshape(b, n, h, hd).transpose(1, 2).contiguous()
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+        cases = {
+            "attention_fwd_bf16": (
+                {"kernel": lambda: attention_fused._kernel_forward(q, k, v, h),
+                 "plain": lambda: attention_fused.fused_attention_reference(q, k, v, h),
+                 "library": lambda: F.scaled_dot_product_attention(*heads_first)},
+                4 * b * h * n * n * hd, 8 * b * n * d + 4 * b * h * n),
+            "attention_bwd_bf16": (
+                {"kernel": lambda: attention_fused._kernel_backward(q, k, v, po, plse, do, h),
+                 "plain": lambda: attention_fused.fused_attention_bwd_reference(
+                     q, k, v, po, plse, do, h),
+                 "library": lambda: torch.autograd.grad(
+                     sdpa_out, leaves, do_t, retain_graph=True)},
+                10 * b * h * n * n * hd, 16 * b * n * d + 4 * b * h * n),
+        }
+        backend = sdpa_backend(*heads_first)
+        for name, (fns, flops, nbytes) in cases.items():
+            t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}
+            t_ops = flops / BF16_FLOPS * 1e3
+            t_exp = b * h * n * n / exp_per_s * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(t_ops, t_exp, t_bytes)
+            bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
+            detail = ("bytes" if bound_by == "bytes" else
+                      "exponentials" if t_exp > t_ops else "bf16 tensor-core operations")
+            print(f"k1 timing {name} (B,N,H,hd)={shape} (L2 flushed): "
+                  f"kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
+                  f"library_ms={t['library']:.5f} (sdpa bf16, backend {backend}) "
+                  f"bound_ms={bound_ms:.5f} ({detail}: {flops / 1e6:.1f} MFLOP at bf16 "
+                  f"{t_ops:.5f} ms, {nbytes / 1e6:.3f} MB {t_bytes:.5f} ms, "
+                  f"{b * h * n * n / 1e6:.3f} M exp {t_exp:.5f} ms) "
+                  f"kernel_share_of_bound={bound_ms / t['kernel']:.4f} "
+                  f"kernel_vs_library={t['kernel'] / t['library']:.3f}", flush=True)
+            rows[(shape, name)] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                                       library_ms=t["library"], bound_ms=bound_ms,
+                                       bound_by=bound_by)
+        del q, k, v, do, do32, o, lse, po, plse, ho, hlse, heads_first, leaves, do_t, sdpa_out
+    return rows, worst
+
+
+def phase_flagship_bf16(dev, smi):
+    """K2: ``vit_som_mnist.yaml`` + ``compute_dtype: bfloat16`` +
+    ``pallas`` (the bf16 row kernels at hd 8 and 2): TRAIN_STEPS graphed
+    steps with the clustering eval, launches equal to the formula, held
+    against its eager run as phase A holds the flagship, and
+    ``profile_step`` on it. Returns the graphed run's launch counts."""
+    run = train_run(dev, "k2_flagship_bf16_pallas", "pallas", TRAIN_STEPS, True, extra=BF16)
+    check(run[0].train.compute_dtype == "bfloat16" and run[4]["attention_fwd_bf16"] > 0,
+          "K2: the bf16 kernels did not run")
+    phase_graphed_vs_eager(dev, "k2_flagship_bf16_pallas", "pallas", run, smi, extra=BF16)
+    profile_check("k2_flagship_bf16_pallas", CONFIG, {"train.attn_impl": "pallas", **BF16}, smi)
+    return run[4]
+
+
+def phase_tiny_bf16(dev, smi):
+    """K3: ``vit_som_tiny-imagenet.yaml`` (B 512, emb 192, 3 heads of 64:
+    the bf16 tensor-core kernels at (512, 257, 3, 64)) + ``compute_dtype:
+    bfloat16`` + ``pallas`` on SYNTHETIC_SIZE images: K3_STEPS graphed
+    steps (2 warm-up steps, the capture, 3 replays) without the eval; the
+    launches equal to the formula (12 bf16 forward and 12 bf16 backward
+    launches a step the counters see) and the median step ms printed beside
+    the card's line, for E1's float32 step in the same run. Returns the
+    launch counts: the kernels JSON line's bf16 rows."""
+    cfg, dm, tr, _, launches, _ = cls_run(dev, "k3_tiny_imagenet_bf16_pallas", TINY_CONFIG,
+                                          "pallas", K3_STEPS, evaluate=False,
+                                          size=SYNTHETIC_SIZE, extra=BF16)
+    check(cfg.train.compute_dtype == "bfloat16" and launches["attention_fwd_bf16"] > 0
+          and launches["attention_bwd_bf16"] > 0, "K3: the bf16 kernels did not run")
+    print(f"k3_tiny_imagenet_bf16_pallas: graphed median_step_ms={steady_ms(tr.step_ms):.4f} "
+          f"(bf16, pallas; E1 above: float32) card: {smi}", flush=True)
+    del tr, dm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_baselines_bf16(dev, smi):
+    """K4: ``swin_cifar-10`` and ``deit_cifar-10`` with the JAX
+    scoreboard's overrides (bf16, ``xla_bf16``) on H_SIZE synthetic
+    images: K4_STEPS graphed steps against K4_STEPS eager ones (losses,
+    parameters and the recorded masks, as H holds them; Swin's first epoch
+    trains at lr 0, DeiT's at its cosine), float32 parameters and logits;
+    no kernel on the path. The graphed median step ms stands beside H1's
+    and H3's float32 ones. Returns {path: launch counts}."""
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        for label, config, losses in (
+                ("k4_swin_cifar10_bf16", SWIN_CIFAR, ("train/cls_loss",)),
+                ("k4_deit_cifar10_bf16", DEIT_CIFAR, ("train/distill_loss", "train/cls_loss"))):
+            MaskProbe.install()
+            try:
+                cfg = baseline_cfg(config, root, {**K4_OVERRIDES, "data.synthetic_size": H_SIZE})
+                tr, probe = baseline_trainer(label, config, cfg, dev)
+                check(next(tr.model.parameters()).dtype == torch.float32, f"{label}: bf16 params")
+                probe.activate()
+                reset_launches()
+                hg = tr.fit(max_steps=K4_STEPS)
+                torch.cuda.synchronize()
+                paths[label] = read_launches()
+                tr_e, probe_e = baseline_trainer(label + "_eager", config, cfg, dev, dm=tr.dm)
+                probe_e.activate()
+                he = tr_e.fit(max_steps=K4_STEPS, eager=True)
+                probe.activate()
+                compare_runs(label, cfg, tr, hg, tr_e, he, losses, smi)
+                hold_masks(label, probe, probe_e, K4_STEPS)
+                with torch.no_grad():
+                    logits = tr.model(tr.dm.epoch_batch(tr.epoch_images,
+                                                        torch.zeros((), dtype=torch.int64,
+                                                                    device=dev))["image"])
+                print(f"{label}: {describe(cfg)} compute={cfg.train.compute_dtype} attn_impl="
+                      f"{model_attn_impl(cfg)} cls_loss first={hg['train/cls_loss'][0]:.6f} "
+                      f"last={hg['train/cls_loss'][-1]:.6f} logits dtype={logits.dtype}",
+                      flush=True)
+                check(logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+                      f"{label}: the logits are not finite float32")
+                zero_launches(label, paths[label])
+                del tr, tr_e, probe, probe_e
+            finally:
+                MaskProbe.uninstall()
+            torch.cuda.empty_cache()
+    return paths
+
+
+def phase_bench_bf16_mu(dev, smi, bench_ms):
+    """K5: ``bench.py``'s configuration + ``train.adam_mu_dtype: bfloat16``
+    (the port's ``AdamWBf16Mu``): TRAIN_STEPS graphed steps with the
+    clustering eval, every first moment bf16 and second moment float32,
+    held against its eager run; the step ms beside phase B's."""
+    extra = {**BENCH_OVERRIDES, "train.adam_mu_dtype": "bfloat16"}
+    run = train_run(dev, "k5_bench_bf16_mu", None, TRAIN_STEPS, True, extra=extra)
+    tr = run[2]
+    st = [tr.optimizer.state[p] for g in tr.optimizer.param_groups for p in g["params"]]
+    dtypes = {(s["exp_avg"].dtype, s["exp_avg_sq"].dtype) for s in st}
+    print(f"k5_bench_bf16_mu: optimizer {type(tr.optimizer).__name__}, {len(st)} parameters, "
+          f"moment dtypes {sorted(str(d) for d in dtypes)}; graphed median_step_ms="
+          f"{steady_ms(tr.step_ms):.4f} beside phase B's {bench_ms:.4f} (float32 first moment) "
+          f"card: {smi}", flush=True)
+    check(isinstance(tr.optimizer, optim_lib.AdamWBf16Mu)
+          and dtypes == {(torch.bfloat16, torch.float32)}, "K5: the first moment is not bf16")
+    phase_graphed_vs_eager(dev, "k5_bench_bf16_mu", None, run, smi, extra=extra)
+    return run[4]
+
+
+class PhaseClock:
+    """Times groups of phases: ``clock(name)`` ends the group running,
+    printing its host seconds, the total so far and the card's memory
+    (allocated and reserved by the caching allocator, free on the card),
+    and begins the group ``name``, which a failure names."""
+
+    def __init__(self, name):
         self.t0 = self.last = time.perf_counter()
+        self.name = name
 
     def __call__(self, name):
         now = time.perf_counter()
-        print(f"phase {name}: {now - self.last:.1f} s (total {now - self.t0:.1f} s)", flush=True)
+        memory = ""
+        if torch.cuda.is_initialized():
+            free, _ = torch.cuda.mem_get_info()
+            memory = (f"; memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+                      f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB, "
+                      f"free {free / 1e9:.2f} GB")
+        print(f"phase {self.name}: {now - self.last:.1f} s (total {now - self.t0:.1f} s)"
+              + memory, flush=True)
         self.last = now
+        self.name = name
+
+
+def stop_processes():
+    """Ends every process the smoke started that is still there: the
+    interpreter waiting for a next profile, a host pool's workers left by
+    a failed phase, then the fork server they came from and the resource
+    tracker, which would otherwise end only after this process has."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver, resource_tracker
+
+    global _NEXT_PROFILE
+    if _NEXT_PROFILE is not None:
+        end_session(_NEXT_PROFILE)
+        _NEXT_PROFILE = None
+
+    for proc in mp.active_children():
+        proc.terminate()
+        proc.join(10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    # a SIGTERM (a time limit) prints every thread's stack before it ends
+    faulthandler.enable()
+    faulthandler.register(signal.SIGTERM, chain=True)
+    clock = PhaseClock("device")
     try:
-        dev = resolve_device("cuda")
-        smi = nvidia_smi_line()
-        print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
-              f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
-        print(f"nvidia-smi: {smi}", flush=True)
-
-        clock = PhaseClock()
-        phase_build()
-        clock("build")
-        max_err = phase_kernel_vs_plain(dev)
-        xla_first, flagship = phase_train(dev)
-        phase_graphed_vs_eager(dev, "graph_xla", None, flagship, smi)
-        timing = phase_timings(dev)
-        clock("3-5, A")
-        attn_err = phase_attention_vs_plain(dev)
-        run = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
-        flagship_pallas = run[4]
-        phase_graphed_vs_eager(dev, "graph_pallas", "pallas", run, smi)
-        del run
-        phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
-        attn_timing = phase_attention_timings(dev)
-        clock("6-9")
-        block_err = phase_block_vs_plain(dev)
-        block_launches = phase_block_flagship(dev, flagship[2], flagship[1])
-        block_timing = phase_block_timings(dev)
-        clock("10-12")
-        cifar = phase_train_cifar(dev)
-        clock("13")
-        cls_paths = phase_classification(dev, smi)
-        clock("D")
-        family_paths = phase_family(dev, smi)
-        clock("E")
-        phase_desom(dev, smi)
-        clock("F")
-        phase_bench(dev, smi)
-        phase_profiles(smi)
-        clock("B, C")
-        protocol_paths = phase_protocol(dev, smi, clock)
-        baseline_paths = phase_baselines(dev, smi)
-        clock("H")
-        mobile_paths = phase_mobile_vit(dev, smi)
-        clock("I")
-    except SmokeFailure as e:
-        print(f"FAIL: {e}", file=sys.stderr)
+        return run_smoke(clock)
+    except Exception as e:  # noqa: BLE001 - named, printed, exit 1
+        msg = f"FAIL in phase {clock.name}: {type(e).__name__}: {e}\n{traceback.format_exc()}"
+        print(msg, flush=True)
+        print(msg, file=sys.stderr, flush=True)
         return 1
+    finally:
+        stop_processes()
+
+
+def run_smoke(clock) -> int:
+    dev = resolve_device("cuda")
+    smi = nvidia_smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
+          f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
+    print(f"nvidia-smi: {smi}", flush=True)
+
+    clock("build")
+    phase_build()
+    clock("3-5, A")
+    max_err = phase_kernel_vs_plain(dev)
+    xla_first, flagship = phase_train(dev)
+    phase_graphed_vs_eager(dev, "graph_xla", None, flagship, smi)
+    timing = phase_timings(dev)
+    clock("6-9")
+    attn_err = phase_attention_vs_plain(dev)
+    run = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
+    flagship_pallas = run[4]
+    phase_graphed_vs_eager(dev, "graph_pallas", "pallas", run, smi)
+    del run
+    phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
+    attn_timing = phase_attention_timings(dev)
+    clock("10-12")
+    block_err = phase_block_vs_plain(dev)
+    block_launches = phase_block_flagship(dev, flagship[2], flagship[1])
+    block_timing = phase_block_timings(dev)
+    clock("13")
+    cifar = phase_train_cifar(dev)
+    clock("D")
+    cls_paths = phase_classification(dev, smi)
+    clock("E")
+    family_paths = phase_family(dev, smi)
+    clock("F")
+    phase_desom(dev, smi)
+    clock("B, C")
+    bench_ms = phase_bench(dev, smi)
+    phase_profiles(smi)
+    clock("G")
+    protocol_paths = phase_protocol(dev, smi, clock)
+    clock("H")
+    baseline_paths = phase_baselines(dev, smi)
+    clock("I")
+    mobile_paths = phase_mobile_vit(dev, smi)
+    clock("K1")
+    k1_timing, k1_err = phase_attention_bf16(dev)
+    clock("K2")
+    k_paths = {"k2_flagship_bf16_pallas": phase_flagship_bf16(dev, smi)}
+    clock("K3")
+    k_paths["k3_tiny_imagenet_bf16_pallas"] = phase_tiny_bf16(dev, smi)
+    clock("K4")
+    k4_paths = phase_baselines_bf16(dev, smi)
+    clock("K5")
+    k_paths["k5_bench_bf16_mu"] = phase_bench_bf16_mu(dev, smi, bench_ms)
+    clock("kernels")
 
     # launches: phase G4's protocol run of vit_som_cifar-10 from its
     # pickles (pallas), the last path with these kernels on it and, by path,
     # every train run that launches the kernel and every phase-H run (Swin
-    # and DeiT: no kernel is on their path, their counts are 0)
+    # and DeiT: no kernel is on their path, their counts are 0); the bf16
+    # attention kernels' main path is K3, tiny-imagenet under bf16
     paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
              "cifar10_clustering_pallas": cifar, **cls_paths, **family_paths,
-             **protocol_paths}
+             **protocol_paths, **k_paths}
     main_path = protocol_paths["protocol_cifar10_pallas"]
+    main_bf16 = k_paths["k3_tiny_imagenet_bf16_pallas"]
 
     # paths with no kernel on them, listed with their zeros
-    kernel_free = {**baseline_paths, **mobile_paths,
+    kernel_free = {**baseline_paths, **mobile_paths, **k4_paths,
                    "eval_desom_kmeans": protocol_paths["eval_desom_kmeans"]}
 
     def by_path(name):
@@ -3597,6 +4014,19 @@ def main() -> int:
             "max_abs_err": block_err[name],
             **block_timing[(BLOCK_TIMED[0], name)],
         })
+    for name, replaces in (("attention_fwd_bf16", "vitsom_tpu/ops/attention_pallas.py:100"),
+                           ("attention_bwd_bf16", "vitsom_tpu/ops/attention_pallas.py:163")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vitsom_tpu_torch/ops/csrc/attention_bf16.cu",
+            "replaces": replaces,
+            "launches": main_bf16[name],
+            "launches_by_path": by_path(name),
+            "max_abs_err": k1_err[name],
+            **k1_timing[(K1_MAIN, name)],
+        })
+    clock("result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

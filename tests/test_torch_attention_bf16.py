@@ -1,0 +1,216 @@
+"""The plain versions of the bf16 attention kernels against the JAX package's
+Pallas kernels on bf16 inputs, on the CPU.
+
+The JAX side runs ``fused_attention`` and its VJP in interpret mode, as
+``tests/test_pallas_kernels.py`` does; the port runs the plain PyTorch
+versions that its wrappers take for CPU tensors. Both round at the same
+points (bf16 attn before the product with v, bf16 p and ds before theirs,
+bf16 outputs), so they differ only where a different float32 summation
+order flips a bf16 rounding. The bound: within 1 bf16 ulp of the JAX
+element on all but 0.1 % of the elements, and atol 1e-2 / rtol 1e-2
+everywhere (hybrid's float32 output too); lse, float32 in both, within
+1e-5. Observed at the shapes below
+(numpy seed 0): at most 0.13 % of an output's elements differ at all, and
+none by more than 1 ulp.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vitsom_tpu.ops import attention as jattn
+from vitsom_tpu.ops import attention_pallas as jpallas
+from vitsom_tpu_torch.ops import attention as tattn
+from vitsom_tpu_torch.ops import attention_fused as tfused
+
+SHAPES = [(2, 197, 2, 8), (2, 197, 2, 2), (2, 65, 3, 64), (2, 33, 2, 32)]
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Two intra-op threads: the suite runs several workers on the same
+    cores, and torch's default of one thread a core oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
+def _inputs(shape, seed, n=4):
+    """bf16 arrays of numpy normals, as JAX arrays and as torch tensors."""
+    rng = np.random.default_rng(seed)
+    jx = [jnp.asarray(rng.normal(size=shape).astype(np.float32), jnp.bfloat16)
+          for _ in range(n)]
+    return jx, [_t(x) for x in jx]
+
+
+def _t(x, grad=False):
+    t = torch.from_numpy(np.array(jnp.asarray(x).astype(jnp.float32)))
+    return t.to(torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32).requires_grad_(grad)
+
+
+def _ulp(ref: np.ndarray) -> np.ndarray:
+    """The bf16 spacing at each element (8 significant bits)."""
+    mag = np.maximum(np.abs(ref), np.float32(2.0**-126))
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+def _assert_bf16_close(got: torch.Tensor, want, name):
+    got = got.detach().float().numpy().reshape(-1)
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32)).reshape(-1)
+    np.testing.assert_allclose(got, want, atol=1e-2, rtol=1e-2, err_msg=name)
+    beyond = np.abs(got - want) > _ulp(want)
+    assert beyond.mean() <= 1e-3, (name, beyond.mean())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_forward_reference_matches_jax(shape):
+    b, n, h, hd = shape
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(shape, 0)
+    jout, (_, _, _, _, jlse) = jpallas._fused_attention_fwd_impl(jq, jk, jv)
+    assert jout.dtype == jnp.bfloat16
+    to, tlse = tfused.attention_forward(*(x.reshape(b, n, h * hd) for x in (tq, tk, tv)), h)
+    assert to.dtype == torch.bfloat16 and tlse.dtype == torch.float32
+    _assert_bf16_close(to, jout.reshape(b, n, h * hd), "o")
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_backward_reference_matches_jax_vjp(shape):
+    """dq, dk, dv of the autograd op (the plain backward on the CPU) against
+    the VJP of JAX's ``fused_attention`` with the same bf16 cotangent."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, 1)
+    _, vjp = jax.vjp(jpallas.fused_attention, jq, jk, jv)
+    jgrads = vjp(jg)
+    tq, tk, tv = (x.requires_grad_(True) for x in (tq, tk, tv))
+    out = tfused.fused_attention(tq, tk, tv)
+    assert out.dtype == torch.bfloat16
+    out.backward(tg)
+    for name, a, b_ in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), jgrads):
+        assert a.dtype == torch.bfloat16 and b_.dtype == jnp.bfloat16
+        _assert_bf16_close(a, b_, name)
+
+
+@pytest.mark.parametrize("shape", [(2, 197, 2, 8), (2, 65, 3, 64)])
+def test_bf16_hybrid_matches_jax(shape):
+    """``hybrid`` on bf16 inputs: ``_hybrid_fwd``'s float32 output, and the
+    backward kernel's plain version fed that float32 o. The cotangent holds
+    bf16 values, as in the models (they cast the output to bf16 next)."""
+    (jq, jk, jv, jg), (tq, tk, tv, _) = _inputs(shape, 2)
+    jg = jg.astype(jnp.float32)
+    jout, vjp = jax.vjp(jattn.hybrid_attention, jq, jk, jv)
+    assert jout.dtype == jnp.float32
+    jgrads = vjp(jg)
+    tq, tk, tv = (x.requires_grad_(True) for x in (tq, tk, tv))
+    out = tattn.hybrid_attention(tq, tk, tv)
+    assert out.dtype == torch.float32
+    # float32 sums of bf16 attn times v: a flipped rounding of one attn
+    # moves a whole output row by a bf16 ulp of attn times v, which stays
+    # under a bf16 ulp of the row's elements
+    _assert_bf16_close(out, jout, "out")
+    out.backward(_t(jg))
+    for name, a, b_ in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), jgrads):
+        _assert_bf16_close(a, b_, name)
+
+
+def test_bf16_hybrid_takes_a_float32_cotangent():
+    """hybrid's float32 output takes a float32 cotangent that bf16 cannot
+    hold: the backward uses it unrounded, as JAX's ``_hybrid_bwd`` passes
+    its float32 g to the kernel, and its gradients differ from those of
+    the bf16-rounded cotangent."""
+    shape = (2, 65, 3, 64)
+    b, n, h, hd = shape
+    (jq, jk, jv, _), (tq, tk, tv, _) = _inputs(shape, 5)
+    jg = jnp.asarray(np.random.default_rng(6).normal(size=shape).astype(np.float32))
+    assert not bool(jnp.all(jg.astype(jnp.bfloat16).astype(jnp.float32) == jg))
+    _, vjp = jax.vjp(jattn.hybrid_attention, jq, jk, jv)
+    jgrads = vjp(jg)
+    leaves = [x.requires_grad_(True) for x in (tq, tk, tv)]
+    tattn.hybrid_attention(*leaves).backward(_t(jg))
+    for name, a, b_ in zip(("dq", "dk", "dv"), (x.grad for x in leaves), jgrads):
+        _assert_bf16_close(a, b_, name)
+    qr, kr, vr = (x.detach().reshape(b, n, h * hd) for x in leaves)
+    o, lse = tfused.fused_attention_reference(qr, kr, vr, h)
+    g = _t(jg).reshape(b, n, h * hd)
+    grads = tfused.attention_backward(qr, kr, vr, o, lse, g, h)
+    rounded = tfused.attention_backward(qr, kr, vr, o, lse, g.to(torch.bfloat16).float(), h)
+    assert all(torch.equal(x.grad.reshape(b, n, h * hd), y) for x, y in zip(leaves, grads))
+    assert any(not torch.equal(x, y) for x, y in zip(grads, rounded))
+
+
+def test_bf16_backward_takes_a_float32_o():
+    """The plain backward's delta is taken over the stored o whatever its
+    dtype: hybrid's float32 o gives the JAX kernel's gradients on the same
+    residuals, which differ from those over the bf16-rounded o."""
+    shape = (2, 33, 2, 32)
+    b, n, h, hd = shape
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _inputs(shape, 3)
+    _, res = jattn._hybrid_fwd(jq, jk, jv)
+    jgrads = jpallas._fused_attention_bwd_impl(res, jg)
+    qr, kr, vr, o, lse = (_t(x) for x in res)
+    assert o.dtype == torch.float32
+    grads = tfused.attention_backward(qr, kr, vr, o, lse, tg.reshape(b, n, h * hd), h)
+    for name, a, b_ in zip(("dq", "dk", "dv"), grads, jgrads):
+        _assert_bf16_close(a, b_.reshape(b, n, h * hd), name)
+    rounded = tfused.attention_backward(qr, kr, vr, o.to(torch.bfloat16), lse,
+                                        tg.reshape(b, n, h * hd), h)
+    assert any(not torch.equal(x, y) for x, y in zip(grads, rounded))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "hybrid"])
+def test_multi_head_attention_takes_bf16_to_the_plain_bf16_versions(impl):
+    """bf16 CPU tensors given to ``pallas`` or ``hybrid`` reach the plain
+    version: bf16 o from ``pallas`` (its accumulated o rounded), hybrid's
+    float32 output (the accumulated o), equal to it bit for bit."""
+    shape = (2, 17, 2, 8)
+    b, n, h, hd = shape
+    _, (tq, tk, tv, _) = _inputs(shape, 4)
+    out, attn = tattn.multi_head_attention(tq, tk, tv, impl=impl)
+    assert attn is None
+    flat = [x.reshape(b, n, h * hd) for x in (tq, tk, tv)]
+    want, _ = tfused.fused_attention_reference(*flat, h)
+    assert want.dtype == torch.float32
+    if impl == "pallas":
+        want = want.to(torch.bfloat16)
+    assert out.dtype == want.dtype
+    assert torch.equal(out.reshape(b, n, h * hd), want)
+
+
+def test_row_copy_width_of_bf16_views():
+    """bf16 views copy 16, 8, 4 or 2 bytes: the flagship encoder's q, k, v
+    (rows 48 elements, heads 8 apart) 16, its decoder's (heads 2 apart) 4,
+    rows 2 bytes off a 4-byte boundary 2; a float32 o beside bf16 views
+    (hybrid's) does not narrow the copies."""
+    buf = torch.zeros(2, 9, 48, dtype=torch.bfloat16)
+    views = [buf[:, :, 16 * i:16 * (i + 1)] for i in range(3)]
+    assert tfused.row_copy_width(views, 8) == 16
+    assert tfused.row_copy_width(views, 2) == 4
+    odd = torch.zeros(2, 9, 49, dtype=torch.bfloat16)
+    assert tfused.row_copy_width([odd[:, :, 1:17]], 8) == 2
+    o32 = torch.zeros(2, 9, 16)[:, :, :16]
+    assert tfused.row_copy_width(views + [o32[:, :, :]], 8) == 16
+
+
+def test_bf16_kernel_shapes_fit_shared_memory():
+    """The bf16 shapes of the shipped configs (N 65, 197, 257 at hd 2, 8,
+    32, 64: every ViT-SOM and ViT yaml's encoder and decoder) and the JAX
+    tests' hd 48 fit in a CTA's shared memory, and N 4096 at hd 8 does not;
+    the bf16 row kernels' constant is the source's."""
+    src = (Path(tfused.__file__).parent / "csrc" / "attention_bf16.cu").read_text()
+    assert f"constexpr int kRowThreads = {tfused.BF16_ROW_THREADS};" in src
+    assert f"constexpr int kPad = {tfused.BF16_PAD};" in src
+    shipped = [(n, hd) for n in (65, 197, 257) for hd in (2, 8, 32, 64)]
+    for n, hd in shipped + [(33, 48)]:
+        for backward, f32_do in ((False, False), (True, False), (True, True)):
+            tfused.check_shape(n, hd, backward, torch.bfloat16, f32_do)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused.check_shape(4096, 8, False, torch.bfloat16)
+    # the forward stages all of k and v at hd 64: 78 KB at N 257
+    assert tfused.bf16_smem_bytes(257, 64, False) == 2 * 2 * 272 * 72
+    # a float32 do (hybrid) adds its two lower bf16 parts' 16-row tiles
+    assert (tfused.bf16_smem_bytes(257, 64, True, True)
+            - tfused.bf16_smem_bytes(257, 64, True)) == 2 * 2 * 16 * 72

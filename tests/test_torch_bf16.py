@@ -19,13 +19,16 @@ torch's fused bf16 kernels round once, so the two agree to bf16 noise, not
 to float32 rounding; each tolerance below says what it holds.
 """
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
+from flax import traverse_util
 
 from vitsom_tpu.config import load_config as jload
 from vitsom_tpu.models.vit_som import ViTSOM as JViTSOM
@@ -40,7 +43,7 @@ from vitsom_tpu_torch.ops import attention as tattn
 from vitsom_tpu_torch.train import optim as toptim
 from vitsom_tpu_torch.train import schedules as tsched
 from vitsom_tpu_torch.train import steps as tsteps
-from test_torch_train import _capture_grads
+from test_torch_train import _capture_grads, _init_params, _slice_cfg, _torch_model
 
 FLAGSHIP = "configs/vit_som/vit_som_mnist.yaml"
 
@@ -180,7 +183,7 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("impl", ["xla_bf16", "xla_bf16s", "xla"])
+@pytest.mark.parametrize("impl", ["xla_bf16", "xla_bf16s", "xla", "pallas"])
 def test_bf16_vit_som_forward_matches_jax(impl):
     """The bf16 forward (recon, the SOM latent z, the distances, the BMUs)
     from converted weights against the JAX package's. z and the distances
@@ -192,7 +195,9 @@ def test_bf16_vit_som_forward_matches_jax(impl):
     more than 5e-2 on ~0.5 % of the values. So the recon holds at 5e-2 on
     99 % of the values, at a relative L2 error of 5e-2, and no farther
     from JAX's float32 recon than JAX's bf16 recon is (relative L2, x1.5).
-    Parameters stay float32; z, the distances and the recon are float32."""
+    Parameters stay float32; z, the distances and the recon are float32.
+    ``pallas`` runs the attention kernels' plain bf16 versions here, JAX's
+    Pallas kernels in interpret mode."""
     jcfg, tcfg, jmodel, params, tmodel = _pair(impl)
     x = np.random.default_rng(0).uniform(size=(16, 28, 28, 1)).astype(np.float32)
     assert all(p.dtype == torch.float32 for p in tmodel.parameters())
@@ -218,6 +223,19 @@ def test_bf16_vit_som_forward_matches_jax(impl):
 def test_bf16_train_steps_match_jax():
     """Three bf16 train steps of ``bench.py``'s configuration (xla_bf16, no
     remat, the fused SOM) from shared weights and batches against
+    ``make_vit_som_train_step`` (``_check_train_steps``)."""
+    _check_train_steps("xla_bf16")
+
+
+def test_bf16_pallas_train_steps_match_jax():
+    """The same three bf16 steps with ``attn_impl: pallas``: the attention
+    kernels' plain bf16 versions (forward and backward) here, the JAX
+    package's Pallas kernels in interpret mode, at the same bounds."""
+    _check_train_steps("pallas")
+
+
+def _check_train_steps(impl):
+    """Three bf16 train steps at ``impl`` from shared weights and batches against
     ``make_vit_som_train_step``. Every step's losses hold at rtol 2e-3
     (bf16 noise reaches 4.2e-4 after one update) and its schedule values at
     rtol 1e-6. The first step's gradients hold elementwise at the JAX
@@ -227,8 +245,8 @@ def test_bf16_train_steps_match_jax():
     Adam turns bf16 gradient noise into steps of up to lr, so the
     three-step updates hold at 6 * lr (``tests/test_torch_train.py``'s
     bound for gradients that are noise)."""
-    jcfg, tcfg, _, params, _ = _pair("xla_bf16")
-    tmodel = TViTSOM(tcfg, attn_impl="xla_bf16")  # trained here: not the cached one
+    jcfg, tcfg, _, params, _ = _pair(impl)
+    tmodel = TViTSOM(tcfg, attn_impl=impl)  # trained here: not the cached one
     tmodel.load_state_dict(convert.flax_to_state_dict(params), strict=True)
     xs = np.random.default_rng(1).uniform(size=(3, 16, 28, 28, 1)).astype(np.float32)
     statics = jsteps.StepStatics(3, 2, 48, 16)
@@ -243,7 +261,7 @@ def test_bf16_train_steps_match_jax():
                                   opt_state=tx.init(params))
         return step, state
 
-    jstep, state = jax_run(jcfg, "xla_bf16")
+    jstep, state = jax_run(jcfg, impl)
     opt = toptim.make_optimizer(tcfg, tmodel)
     dstate = tsteps.DeviceState("cpu", 3)
     tstep = tsteps.make_vit_som_train_step(
@@ -364,3 +382,96 @@ def test_bf16_bmu_assignments_mostly_agree():
         with torch.no_grad():
             bmus[dtype] = m(x)[4].numpy()
     assert (bmus["float32"] == bmus["bfloat16"]).mean() > 0.85
+
+
+# ---------------------------------------------------------------------------
+# train.adam_mu_dtype: bfloat16
+# ---------------------------------------------------------------------------
+
+
+def _mu_cfg(opt_type, apply_layer_decay):
+    """``tests/test_torch_train.py``'s slice config with a bf16 first moment."""
+    jcfg = _slice_cfg(type=opt_type, apply_layer_decay=apply_layer_decay)
+    return dataclasses.replace(jcfg, train=dataclasses.replace(jcfg.train,
+                                                               adam_mu_dtype="bfloat16"))
+
+
+@pytest.mark.parametrize(
+    "opt_type,apply_layer_decay", [("adamw", False), ("adamw", True), ("adam", False)]
+)
+def test_bf16_mu_adamw_matches_optax(opt_type, apply_layer_decay):
+    """``AdamWBf16Mu`` against the JAX ``make_optimizer`` with
+    ``adam_mu_dtype: bfloat16`` (optax's ``scale_by_adam(mu_dtype=
+    bfloat16)``), fed the same four gradients (log-uniform magnitudes over
+    [1e-9, 1e-1], ``tests/test_torch_train.py``'s draw): after every step
+    the bf16 first moment equals JAX's bit for bit and the float32 second
+    moment holds within 1 float32 ulp; the parameters hold at that file's
+    update bound, atol 1e-4 * lr."""
+    jcfg = _mu_cfg(opt_type, apply_layer_decay)
+    params = _init_params()
+    tcfg, model = _torch_model(jcfg, params)
+    lr = 1e-2
+    tx = joptim.make_optimizer(jcfg, params, lambda count: lr)
+    jparams, jstate = params, tx.init(params)
+    opt = toptim.make_optimizer(tcfg, model)
+    assert isinstance(opt, toptim.AdamWBf16Mu)
+    named = dict(model.named_parameters())
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        flat = {}
+        for k, v in traverse_util.flatten_dict(params, sep="/").items():
+            mag = 10.0 ** rng.uniform(-9, -1, size=v.shape)
+            flat[k] = (rng.choice([-1.0, 1.0], size=v.shape) * mag).astype(np.float32)
+        grads = traverse_util.unflatten_dict(flat, sep="/")
+        updates, jstate = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        toptim.set_learning_rate(opt, torch.tensor(lr))
+        for name, g in convert.flax_to_state_dict(grads).items():
+            named[name].grad = g
+        opt.step()
+        adam = jstate[0]
+        mu = convert.flax_to_state_dict(jax.tree_util.tree_map(
+            lambda x: np.asarray(x.astype(jnp.float32)), adam.mu))
+        nu = convert.flax_to_state_dict(jax.device_get(adam.nu))
+        for name, p in named.items():
+            st = opt.state[p]
+            assert st["exp_avg"].dtype == torch.bfloat16 and st["exp_avg_sq"].dtype == torch.float32
+            assert torch.equal(st["exp_avg"].float(), mu[name]), name
+            np.testing.assert_array_max_ulp(st["exp_avg_sq"].numpy(), nu[name].numpy(), maxulp=1)
+    final = convert.flax_to_state_dict(jax.device_get(jparams))
+    for name, p in model.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), final[name].numpy(), atol=1e-4 * lr, rtol=0,
+                                   err_msg=name)
+
+
+def test_bf16_mu_adamw_checkpoint_round_trip(tmp_path):
+    """The optimizer's state through ``torch.save`` / ``torch.load`` and
+    ``load_state_dict`` into a fresh optimizer keeps the first moment bf16
+    and its bits, and the two optimizers' next steps agree bit for bit."""
+    jcfg = _mu_cfg("adamw", False)
+    models = [_torch_model(jcfg, _init_params())[1] for _ in range(2)]
+    tcfg = tconfig.config_from_dict(jcfg.to_dict())
+    assert tcfg.train.adam_mu_dtype == "bfloat16"
+    opts = [toptim.make_optimizer(tcfg, m) for m in models]
+    gen = torch.Generator().manual_seed(0)
+    grads = [[torch.randn(p.shape, generator=gen) * 1e-2 for p in models[0].parameters()]
+             for _ in range(2)]
+
+    def step(model, opt, gs):
+        toptim.set_learning_rate(opt, torch.tensor(1e-3))
+        for p, g in zip(model.parameters(), gs):
+            p.grad = g.clone()
+        opt.step()
+
+    step(models[0], opts[0], grads[0])
+    torch.save(opts[0].state_dict(), tmp_path / "opt.pt")
+    models[1].load_state_dict(models[0].state_dict())
+    opts[1].load_state_dict(torch.load(tmp_path / "opt.pt"))
+    for p0, p1 in zip(models[0].parameters(), models[1].parameters()):
+        m0, m1 = opts[0].state[p0]["exp_avg"], opts[1].state[p1]["exp_avg"]
+        assert m1.dtype == torch.bfloat16 and torch.equal(m0, m1)
+    for model, opt in zip(models, opts):
+        step(model, opt, grads[1])
+    for p0, p1 in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(p0, p1)
+        assert torch.equal(opts[0].state[p0]["exp_avg"], opts[1].state[p1]["exp_avg"])

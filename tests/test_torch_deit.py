@@ -51,7 +51,7 @@ from vitsom_tpu_torch.train import schedules as tsched
 from vitsom_tpu_torch.train import steps as tsteps
 from vitsom_tpu_torch.train import trainer as ttrainer
 
-from test_torch_swin import SharedMasks, capture_grads, check_three_steps
+from test_torch_swin import SharedMasks, capture_grads, check_three_steps, check_three_steps_bf16
 
 DEIT = "configs/deit/deit_cifar-10.yaml"
 SMALL = {"vit.depth": 2, "vit.emb_dim": 32, "vit.heads": 2}
@@ -328,6 +328,69 @@ def test_train_steps_match_with_dropout(hard, monkeypatch):
     layer = [((B, 2, n + 1, n + 1), 0.9), ((B, n + 1, 32), 0.9), ((B, n + 1, 128), 0.9),
              ((B, n + 1, 32), 0.9)]
     assert masks.calls["jax"] == [((B, n, 32), 0.9)] + layer * 2
+    assert masks.calls["port"] == masks.calls["jax"] * 3
+
+
+@pytest.mark.parametrize("dtype,impl", [("bfloat16", "xla"), ("bfloat16", "xla_bf16"),
+                                         ("bfloat16", "xla_bf16s"), ("float32", "xla_bf16")])
+def test_bf16_forward_matches_jax(dtype, impl):
+    """``compute_dtype: bfloat16`` and the bf16 score recipes: the eval and
+    train logits from converted weights at atol/rtol 5e-2
+    (``tests/test_torch_bf16.py``'s bound), float32 out of float32 heads;
+    the transformer's stream is bf16 under bf16 compute."""
+    jcfg, tcfg, jm, params, tm = _student({"train.compute_dtype": dtype,
+                                           "train.attn_impl": impl})
+    assert tm.transformer.layers[0].attn_impl == impl
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    seen = []
+    tm.transformer.layers[0].register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    x = _x(1)
+    with torch.no_grad():
+        t_eval = tm(torch.from_numpy(x))
+        t_cls, t_dist = tm.train_forward(torch.from_numpy(x))
+    assert seen == [getattr(torch, dtype)] * 2
+    j_eval = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
+    j_cls, j_dist = jax.jit(lambda p, v: jm.apply({"params": p}, v, deterministic=True,
+                                                  method="train_forward"))(params, jnp.asarray(x))
+    for t, j in ((t_eval, j_eval), (t_cls, j_cls), (t_dist, j_dist)):
+        assert t.dtype == torch.float32 and j.dtype == jnp.float32
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("impl", ["xla_bf16", "xla_bf16s"])
+def test_bf16_train_steps_match_with_dropout(impl, monkeypatch):
+    """Three bf16 DeiT steps with the JAX scoreboard's overrides
+    (``experiments/run_family_bench.py``: bfloat16, ``xla_bf16``) and with
+    ``xla_bf16s``, dropout 0.1 at all 9 sites from shared masks, soft
+    distillation against the one-block teacher, at the bf16 bounds."""
+    over = {**SMALL, "batch_size": B, "total_epochs": 3, "train.compute_dtype": "bfloat16",
+            "train.attn_impl": impl}
+    jcfg, tcfg, jm, params, tmodel = _student(over, seed=5)
+    monkeypatch.setattr(jdeit, "resnet50", _small_teacher)
+    t_vars = _small_teacher(10).init(jax.random.key(jcfg.train.seed + 13),
+                                     jnp.zeros((2, 32, 32, 3)), train=True)
+    teacher = tresnet.ResNet((1,), "basic", 10)
+    teacher.load_state_dict(convert.baseline_to_state_dict(
+        "resnet", t_vars["params"], t_vars["batch_stats"]), strict=True)
+    teacher.requires_grad_(False)
+    base = joptim.base_learning_rate(jcfg)
+    jsch = jsched.make_lr_schedule(jcfg.optimizer, 3, 1, base)
+    tx = capture_grads(joptim.make_optimizer(jcfg, params, jsch))
+    state = jsteps.TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                              opt_state=tx.init(params))
+    masks = SharedMasks(13)
+    masks.install(monkeypatch)
+    jstep = jdeit.make_deit_train_step(jcfg, jm, tx, jsch)
+    opt = toptim.make_optimizer(tcfg, tmodel)
+    tsch = tsched.make_lr_schedule_tensor(tcfg.optimizer, 3, 1, base)
+    dstate = tsteps.DeviceState("cpu", 3, tsteps.metric_keys(tcfg))
+    tstep = tdeit.make_deit_train_step(tcfg, tmodel, opt, tsch, dstate, torch.Generator(),
+                                       teacher=teacher)
+    rng = np.random.default_rng(6)
+    batches = [(_x(30 + i), rng.integers(0, 10, size=B)) for i in range(3)]
+    lr_max = max(float(tsch(torch.tensor(s))) for s in range(3))
+    check_three_steps_bf16(tmodel, (state, jstep), tstep, batches, lr_max, dstate.keys,
+                           lambda p: convert.baseline_to_state_dict("deit", p), masks)
     assert masks.calls["port"] == masks.calls["jax"] * 3
 
 

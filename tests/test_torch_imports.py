@@ -145,6 +145,34 @@ def test_baseline_entry_points_refuse_cpu_without_cuda(monkeypatch):
                 call()
 
 
+def test_bf16_entry_points_refuse_cpu_without_cuda(monkeypatch):
+    """The bf16 paths default to the card: ViT-SOM under bf16 with the
+    attention kernels and a bf16 first moment, Swin and DeiT under bf16.
+    The kernel wrappers refuse a CPU tensor (bf16 included): on the CPU
+    only the plain versions run, reached through ``attention_forward``."""
+    from vitsom_tpu_torch.config import load_config
+    from vitsom_tpu_torch.data.synthetic import build_datamodule
+    from vitsom_tpu_torch.models.vit_som import build_model
+    from vitsom_tpu_torch.ops import attention_fused
+    from vitsom_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bf16 = {"train.compute_dtype": "bfloat16"}
+    for path, extra in (("configs/vit_som/vit_som_mnist.yaml",
+                         {**bf16, "train.attn_impl": "pallas", "train.adam_mu_dtype": "bfloat16"}),
+                        ("configs/swin/swin_cifar-10.yaml", {**bf16, "train.attn_impl": "xla_bf16"}),
+                        ("configs/deit/deit_cifar-10.yaml", {**bf16, "train.attn_impl": "xla_bf16s"})):
+        cfg = load_config(os.path.join(ROOT, path),
+                          {"data.allow_synthetic": True, "data.synthetic_size": 8, **extra})
+        for call in (lambda: Trainer(cfg), lambda: build_model(cfg),
+                     lambda: build_datamodule(cfg)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+    x = torch.zeros(1, 9, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_fused._kernel_forward(x, x, x, 2)
+
+
 def test_protocol_main_refuses_cpu_without_device_flag(monkeypatch, tmp_path):
     """The N-run protocol defaults to the card: without ``--device cpu`` on
     a machine without CUDA it raises before it reads data or clears a
@@ -179,7 +207,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(os.path, "isfile", lambda path: False)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    for name in ("som_fused", "attention", "block"):
+    for name in ("som_fused", "attention", "attention_bf16", "block"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
     assert list(tmp_path.iterdir()) == []

@@ -99,17 +99,18 @@ def test_xla_attention_matches(shape):
 def test_unported_attention_impls_raise(impl):
     """The bf16 impls run (``tests/test_torch_bf16.py`` holds them against
     the JAX package) and fall back to the float32 path with
-    ``return_attn``; what is not ported, bf16 inputs to the float32-only
-    attention kernels, raises."""
+    ``return_attn``. Nothing of them is left unported: bf16 inputs to the
+    attention kernels (``pallas``, ``hybrid``) reach the kernels' plain bf16
+    versions on the CPU (``tests/test_torch_attention_bf16.py``)."""
     x = torch.zeros(1, 3, 1, 4)
     out, attn = tattn.multi_head_attention(x, x, x, impl=impl)
     assert attn is None and out.shape == x.shape and out.dtype == torch.float32
     out, attn = tattn.multi_head_attention(x, x, x, impl=impl, return_attn=True)
     assert attn.shape == (1, 1, 3, 3) and attn.dtype == torch.float32
     xb = x.to(torch.bfloat16)
-    for kernel_impl in ("pallas", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.multi_head_attention(xb, xb, xb, impl=kernel_impl)
+    for kernel_impl, dtype in (("pallas", torch.bfloat16), ("hybrid", torch.float32)):
+        out, attn = tattn.multi_head_attention(xb, xb, xb, impl=kernel_impl)
+        assert attn is None and out.shape == x.shape and out.dtype == dtype
 
 
 def test_convert_roundtrip_exact():

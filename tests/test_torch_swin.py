@@ -397,10 +397,108 @@ def test_built_swin_has_jax_init_distributions():
                                np.linspace(0, 0.1, 12), rtol=0, atol=0)
 
 
-def test_compute_dtype_bfloat16_raises():
-    cfg = load_config(CIFAR, {**SMALL, "train.compute_dtype": "bfloat16"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build_model(cfg, "cpu")
+# ---------------------------------------------------------------------------
+# compute_dtype bfloat16
+# ---------------------------------------------------------------------------
+
+
+def check_three_steps_bf16(tmodel, jstep_fn, tstep_fn, batches, lr_max, keys, to_state_dict,
+                           masks):
+    """Both packages' bf16 steps on ``batches``, held at
+    ``tests/test_torch_bf16.py``'s bf16 bounds: losses rtol 2e-3, lr rtol
+    1e-6, the first step's gradients elementwise at atol 2e-1 / rtol 1e-1
+    and within 1e-1 in relative L2 over all parameters, the three-step
+    updates at 6 * lr (Adam turns bf16 gradient noise into steps of up to
+    lr). Parameters stay float32 in both."""
+    state, jstep = jstep_fn[0], jax.jit(jstep_fn[1])
+    named = dict(tmodel.named_parameters())
+    assert all(p.dtype == torch.float32 for p in named.values())
+    start = {n: p.detach().clone() for n, p in named.items()}
+    losses = [k for k in keys if k.endswith("_loss")]
+    for i, (x, y) in enumerate(batches):
+        masks.next_step(i)
+        state, jm = jstep(state, {"image": jnp.asarray(x), "label": jnp.asarray(y, jnp.int32)})
+        row = tstep_fn({"image": torch.from_numpy(x), "label": torch.from_numpy(y)})
+        tm = tsteps.metrics_dict(row, keys)
+        for k in losses:
+            np.testing.assert_allclose(tm[k], float(jm[k]), rtol=2e-3, err_msg=k)
+        np.testing.assert_allclose(tm["hp/lr"], float(jm["hp/lr"]), rtol=1e-6)
+        if i == 0:
+            grads = to_state_dict(jax.device_get(state.opt_state[1]))
+            assert set(grads) == set(named)
+            num = den = 0.0
+            for name, g in grads.items():
+                tg = named[name].grad
+                np.testing.assert_allclose(tg.numpy(), g.numpy(), atol=2e-1, rtol=1e-1,
+                                           err_msg=name)
+                num += float(((tg - g) ** 2).sum())
+                den += float((g ** 2).sum())
+            assert (num / den) ** 0.5 <= 1e-1
+    final = to_state_dict(jax.device_get(state.params))
+    for name, p in named.items():
+        np.testing.assert_allclose((p.detach() - start[name]).numpy(),
+                                   (final[name] - start[name]).numpy(), atol=6 * lr_max, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("path,impl", [("dense", "xla"), ("windowed", "xla"),
+                                       ("dense", "xla_bf16"), ("dense", "xla_bf16s")])
+def test_bf16_forward_matches_jax(path, impl):
+    """``compute_dtype: bfloat16`` (the JAX scoreboard's Swin row sets it
+    with ``xla_bf16``): logits from converted weights at atol/rtol 5e-2
+    (``tests/test_torch_bf16.py``'s bound), float32 logits from float32
+    parameters, and the bf16 stream inside."""
+    size, patch = SHAPES[path]
+    kw = dict(KW, img_size=size, patch_size=patch, attn_impl=impl)
+    jm = jswin.SwinTransformer(**kw, dtype=jnp.bfloat16)
+    params = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((2, size, size, 3)))["params"]
+    tm = tswin.SwinTransformer(**kw, dtype=torch.bfloat16)
+    tm.load_state_dict(convert.baseline_to_state_dict("swin", params), strict=True)
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    seen = []
+    tm.blocks[0].register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    x = _images(1, size)
+    with torch.no_grad():
+        t = tm(torch.from_numpy(x))
+    j = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
+    assert t.dtype == torch.float32 and j.dtype == np.float32 and seen == [torch.bfloat16]
+    np.testing.assert_allclose(t.numpy(), j, atol=5e-2, rtol=5e-2)
+
+
+def test_bf16_train_steps_match_jax(monkeypatch):
+    """Three bf16 Swin steps with the scoreboard's overrides
+    (``experiments/run_family_bench.py``: bfloat16, ``xla_bf16``) on the
+    dense path, drop-path live with shared masks, at the bf16 bounds."""
+    size, patch = SHAPES["dense"]
+    over = {**SMALL, "batch_size": B, "total_epochs": 4, "optimizer.warmup_epochs": 1,
+            "optimizer.lr": 0.01, "data.input_size": size, "swin.patch_size": patch,
+            "train.compute_dtype": "bfloat16", "train.attn_impl": "xla_bf16"}
+    jcfg = jload_config(CIFAR, over)
+    tcfg = load_config(CIFAR, over)
+    jm = jswin.build_swin(jcfg)
+    params = jax.jit(jm.init)(jax.random.key(4), jnp.zeros((2, size, size, 3)))["params"]
+    tmodel = build_model(tcfg, "cpu")
+    assert tmodel.dtype == torch.bfloat16 and tmodel.blocks[0].attn.attn_impl == "xla_bf16"
+    tmodel.load_state_dict(convert.baseline_to_state_dict("swin", params), strict=True)
+    base = joptim.base_learning_rate(jcfg)
+    jsch = jsched.make_swin_lr_schedule(jcfg.optimizer, 4, 1, base)
+    tx = capture_grads(joptim.make_optimizer(jcfg, params, jsch))
+    state = jsteps.TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                              opt_state=tx.init(params))
+    masks = SharedMasks(11)
+    masks.install(monkeypatch)
+    jstep = jsteps.make_classifier_train_step(jcfg, jm, tx, jsch, jcfg.optimizer.smoothing)
+    opt = toptim.make_optimizer(tcfg, tmodel)
+    tsch = tsched.make_swin_lr_schedule_tensor(tcfg.optimizer, 4, 1, base)
+    dstate = tsteps.DeviceState("cpu", 3, tsteps.metric_keys(tcfg))
+    tstep = tsteps.make_classifier_train_step(tcfg, tmodel, opt, tsch, tcfg.optimizer.smoothing,
+                                              dstate, torch.Generator())
+    rng = np.random.default_rng(5)
+    batches = [(_images(20 + i, size), rng.integers(0, 10, size=B)) for i in range(3)]
+    lr_max = max(float(tsch(torch.tensor(s))) for s in range(3))
+    check_three_steps_bf16(tmodel, (state, jstep), tstep, batches, lr_max, dstate.keys,
+                           lambda p: convert.baseline_to_state_dict("swin", p), masks)
+    assert masks.calls["port"] == masks.calls["jax"] * 3
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,16 @@ drawn from Flax's initialisers with the seed ``train.seed + 13``.
 
 Dropout masks come from ``models/stochastic.bernoulli_mask`` when the
 forward is given a generator.
+
+``train.compute_dtype: bfloat16`` runs the embeddings and the transformer
+in bf16 as the JAX package does: bf16 dense layers, LayerNorms with float32
+statistics and a bf16 output, float32 scores; parameters, the final
+LayerNorm and the heads stay float32. ``train.attn_impl`` picks the score
+recipe: ``xla`` a float32 softmax, ``xla_bf16`` a bf16 softmax of the bf16
+scores, ``xla_bf16s`` float32 softmax arithmetic with bf16 probabilities
+(``ops/attention.SoftmaxF32MathBf16Store``); ``models/vit_som.build_model``
+turns ``pallas`` and ``hybrid`` into ``xla`` (dropout on the probabilities:
+the kernels do not apply).
 """
 
 from __future__ import annotations
@@ -35,7 +45,8 @@ from torch import nn
 from vitsom_tpu_torch.config import Config
 from vitsom_tpu_torch.models.resnet import load_torch_resnet50, resnet50
 from vitsom_tpu_torch.models.stochastic import Dropout
-from vitsom_tpu_torch.models.vit import LayerNorm, patchify
+from vitsom_tpu_torch.models.vit import _DTYPES, Dense, LayerNorm, patchify
+from vitsom_tpu_torch.ops.attention import SoftmaxF32MathBf16Store
 from vitsom_tpu_torch.train import optim
 from vitsom_tpu_torch.train import steps as steps_lib
 from vitsom_tpu_torch.utils import initializers as init
@@ -48,19 +59,22 @@ TEACHER_SEED_OFFSET = 13  # the JAX step draws its random teacher at train.seed 
 class PreNormLayer(nn.Module):
     """One layer of vit-pytorch's transformer (module docstring)."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int, mlp_dim: int, dropout: float):
+    def __init__(self, dim: int, heads: int, head_dim: int, mlp_dim: int, dropout: float,
+                 dtype=torch.float32, attn_impl: str = "xla"):
         super().__init__()
         inner = heads * head_dim
         self.heads = heads
         self.head_dim = head_dim
-        self.norm1 = LayerNorm(dim, eps=LN_EPS)
-        self.query = nn.Linear(dim, inner, bias=False)
-        self.key = nn.Linear(dim, inner, bias=False)
-        self.value = nn.Linear(dim, inner, bias=False)
-        self.proj = nn.Linear(inner, dim)
-        self.norm2 = LayerNorm(dim, eps=LN_EPS)
-        self.fc1 = nn.Linear(dim, mlp_dim)
-        self.fc2 = nn.Linear(mlp_dim, dim)
+        self.dtype = dtype
+        self.attn_impl = attn_impl
+        self.norm1 = LayerNorm(dim, eps=LN_EPS, out_dtype=dtype)
+        self.query = Dense(dim, inner, bias=False, compute_dtype=dtype)
+        self.key = Dense(dim, inner, bias=False, compute_dtype=dtype)
+        self.value = Dense(dim, inner, bias=False, compute_dtype=dtype)
+        self.proj = Dense(inner, dim, compute_dtype=dtype)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS, out_dtype=dtype)
+        self.fc1 = Dense(dim, mlp_dim, compute_dtype=dtype)
+        self.fc2 = Dense(mlp_dim, dim, compute_dtype=dtype)
         self.dropout = Dropout(dropout)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -68,23 +82,33 @@ class PreNormLayer(nn.Module):
         y = self.norm1(x)
         q, k, v = (lin(y).reshape(b, n, self.heads, self.head_dim)
                    for lin in (self.query, self.key, self.value))
-        scores = torch.einsum("bnhd,bmhd->bhnm", q, k) * self.head_dim**-0.5
-        attn = self.dropout(torch.softmax(scores, dim=-1), generator)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, -1)
-        x = x + self.dropout(self.proj(out), generator)
+        up = torch.promote_types(q.dtype, torch.float32)  # float32 scores
+        scores = torch.einsum("bnhd,bmhd->bhnm", q.to(up), k.to(up)) * self.head_dim**-0.5
+        if self.attn_impl == "xla_bf16":
+            attn = torch.softmax(scores.to(torch.bfloat16), dim=-1)
+        elif self.attn_impl == "xla_bf16s":
+            attn = SoftmaxF32MathBf16Store.apply(scores.to(torch.bfloat16))
+        else:
+            attn = torch.softmax(scores, dim=-1)
+        attn = self.dropout(attn, generator)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v.to(attn.dtype)).reshape(b, n, -1)
+        x = x + self.dropout(self.proj(out.to(self.dtype)), generator)
         y = self.dropout(F.gelu(self.fc1(self.norm2(x)), approximate="none"), generator)
         return x + self.dropout(self.fc2(y), generator)
 
 
 class PreNormTransformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, head_dim: int, mlp_dim: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype=torch.float32, attn_impl: str = "xla"):
         super().__init__()
-        self.layers = nn.ModuleList(PreNormLayer(dim, heads, head_dim, mlp_dim, dropout)
-                                    for _ in range(depth))
-        self.norm = LayerNorm(dim, eps=LN_EPS)
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            PreNormLayer(dim, heads, head_dim, mlp_dim, dropout, dtype, attn_impl)
+            for _ in range(depth))
+        self.norm = LayerNorm(dim, eps=LN_EPS)  # float32 out: feeds the heads
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = x.to(self.dtype)
         for layer in self.layers:
             x = layer(x, generator)
         return self.norm(x)
@@ -94,7 +118,7 @@ class DeiT(nn.Module):
     """The student (module docstring). ``forward`` gives the class logits
     (the eval path), ``train_forward`` also the distill-token logits."""
 
-    def __init__(self, cfg: Config, head_dim: int = HEAD_DIM):
+    def __init__(self, cfg: Config, head_dim: int = HEAD_DIM, attn_impl: str = "xla"):
         super().__init__()
         c = cfg
         dim = c.vit.emb_dim
@@ -102,15 +126,17 @@ class DeiT(nn.Module):
         self.patch_size = c.vit.patch_size
         num_patches = (c.data.input_size // c.vit.patch_size) ** 2
         patch_dim = c.data.num_channels * c.vit.patch_size ** 2
-        self.patch_norm_pre = LayerNorm(patch_dim, eps=LN_EPS)
-        self.patch_proj = nn.Linear(patch_dim, dim)
-        self.patch_norm_post = LayerNorm(dim, eps=LN_EPS)
+        dtype = _DTYPES[c.train.compute_dtype]
+        self.patch_norm_pre = LayerNorm(patch_dim, eps=LN_EPS, out_dtype=dtype)
+        self.patch_proj = Dense(patch_dim, dim, compute_dtype=dtype)
+        self.patch_norm_post = LayerNorm(dim, eps=LN_EPS, out_dtype=dtype)
         self.pos_embedding = nn.Parameter(torch.zeros(1, num_patches + 1, dim))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.distill_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.emb_dropout = Dropout(c.vit.attn_drop)  # the reference maps attn_drop here
         self.transformer = PreNormTransformer(dim, c.vit.depth, c.vit.heads, head_dim,
-                                              int(dim * c.vit.mlp_ratio), c.vit.proj_drop)
+                                              int(dim * c.vit.mlp_ratio), c.vit.proj_drop,
+                                              dtype, attn_impl)
         self.mlp_head = nn.Linear(dim, c.data.num_classes)
         self.distill_norm = LayerNorm(dim, eps=LN_EPS)
         self.distill_head = nn.Linear(dim, c.data.num_classes)
@@ -139,16 +165,18 @@ class DeiT(nn.Module):
     def _embed(self, x, generator):
         x = self.patch_norm_post(self.patch_proj(self.patch_norm_pre(
             patchify(x, self.patch_size))))
-        cls = self.cls_token.expand(x.shape[0], 1, x.shape[-1])
+        # the float32 tokens and positions cast to the compute dtype where used
+        cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embedding[:, : x.shape[1]]
+        x = x + self.pos_embedding[:, : x.shape[1]].to(x.dtype)
         return self.emb_dropout(x, generator)
 
     def train_forward(self, x, generator: Optional[torch.Generator] = None):
         """(class logits, distill logits) with the distill token appended
         last; dropout is live when ``generator`` is given."""
         x = self._embed(x, generator)
-        x = torch.cat([x, self.distill_token.expand(x.shape[0], 1, x.shape[-1])], dim=1)
+        x = torch.cat([x, self.distill_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])],
+                      dim=1)
         x = self.transformer(x, generator)
         return self.mlp_head(x[:, 0]), self.distill_head(self.distill_norm(x[:, -1]))
 

@@ -35,6 +35,13 @@ buffers built once, so a captured step reads them at fixed addresses.
 Drop-path masks come from ``models/stochastic.bernoulli_mask`` when the
 forward is given a generator (training); without one the model is
 deterministic.
+
+``train.compute_dtype: bfloat16`` follows the JAX package's casts: the patch
+embedding, every dense layer and the residual stream compute in bf16, the
+LayerNorms take their statistics in float32 and output bf16, the scores
+accumulate in float32 and the softmax runs in float32 (its probabilities
+cast to bf16 before the product with v), and the final LayerNorm, pool and
+head run in float32. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from torch import nn
 
 from vitsom_tpu_torch.config import Config
 from vitsom_tpu_torch.models.stochastic import DropPath
-from vitsom_tpu_torch.models.vit import LayerNorm, Mlp, patchify
+from vitsom_tpu_torch.models.vit import _DTYPES, Dense, LayerNorm, Mlp, patchify
 from vitsom_tpu_torch.ops import attention as attention_ops
 from vitsom_tpu_torch.utils import initializers as init
 
@@ -142,19 +149,26 @@ def one_hot_rows(index: np.ndarray, size: int) -> torch.Tensor:
     return torch.from_numpy(out)
 
 
+def _upcast(x: torch.Tensor) -> torch.Tensor:
+    """bf16 to float32 (exact); float32 and float64 as they are."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class WindowAttention(nn.Module):
     """(Shifted-)window attention: ``qkv`` -> ``rel_bias_table`` ->
     ``proj``, one parameter set for both paths (module docstring)."""
 
-    def __init__(self, dim: int, window: int, num_heads: int, attn_impl: str = "xla"):
+    def __init__(self, dim: int, window: int, num_heads: int, attn_impl: str = "xla",
+                 dtype=torch.float32):
         super().__init__()
         self.dim = dim
         self.window = window
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.dtype = dtype
+        self.qkv = Dense(dim, 3 * dim, compute_dtype=dtype)
         self.rel_bias_table = nn.Parameter(torch.zeros((2 * window - 1) ** 2, num_heads))
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Dense(dim, dim, compute_dtype=dtype)
 
     def relative_bias(self, one_hot: torch.Tensor, n: int) -> torch.Tensor:
         """[H, n, n]: the table gathered by the one-hot rows [n*n, T]."""
@@ -167,7 +181,7 @@ class WindowAttention(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         bias = self.relative_bias(one_hot, n) + mask[None]
         out, _ = attention_ops.multi_head_attention(q, k, v, impl=self.attn_impl, bias=bias)
-        return self.proj(out.reshape(b, n, c))
+        return self.proj(out.reshape(b, n, c).to(self.dtype))
 
     def forward_windowed(self, x, one_hot: torch.Tensor, mask: Optional[torch.Tensor] = None):
         """x [B*nW, w*w, C], one-hot [(w*w)^2, T], shift mask [nW, w*w, w*w]."""
@@ -175,21 +189,22 @@ class WindowAttention(nn.Module):
         hd = c // self.num_heads
         qkv = self.qkv(x).reshape(bnw, n, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # [bnw, H, n, hd]
-        attn = torch.einsum("bhnd,bhmd->bhnm", q, k) * hd**-0.5
+        # float32 scores and softmax whatever the compute dtype
+        attn = torch.einsum("bhnd,bhmd->bhnm", _upcast(q), _upcast(k)) * hd**-0.5
         attn = attn + self.relative_bias(one_hot, n)[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = attn.reshape(bnw // nw, nw, self.num_heads, n, n) + mask[None, :, None]
             attn = attn.reshape(bnw, self.num_heads, n, n)
-        attn = torch.softmax(attn, dim=-1)
-        out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
+        attn = torch.softmax(attn, dim=-1).to(self.dtype)
+        out = torch.einsum("bhnm,bhmd->bhnd", _upcast(attn), _upcast(v)).to(self.dtype)
         return self.proj(out.permute(0, 2, 1, 3).reshape(bnw, n, c))
 
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window: int, shift: int, mlp_ratio: float = 4.0, drop_path: float = 0.0,
-                 attn_impl: str = "xla", force_windowed: bool = False):
+                 attn_impl: str = "xla", force_windowed: bool = False, dtype=torch.float32):
         super().__init__()
         h, w_dim = input_resolution
         self.resolution = (h, w_dim)
@@ -197,11 +212,11 @@ class SwinBlock(nn.Module):
         self.shift = shift = 0 if window >= min(h, w_dim) else shift
         self.dense = (h % window == 0 and w_dim % window == 0 and not force_windowed
                       and h * w_dim <= DENSE_MAX_TOKENS)
-        self.norm1 = LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, window, num_heads, attn_impl)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS, out_dtype=dtype)
+        self.attn = WindowAttention(dim, window, num_heads, attn_impl, dtype)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS, out_dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype)
         table = (2 * window - 1) ** 2
         if self.dense:
             mask, bias_idx = dense_attn_constants(h, w_dim, window, shift)
@@ -253,11 +268,11 @@ class SwinBlock(nn.Module):
 
 
 class PatchMerging(nn.Module):
-    def __init__(self, dim: int, input_resolution: Tuple[int, int]):
+    def __init__(self, dim: int, input_resolution: Tuple[int, int], dtype=torch.float32):
         super().__init__()
         self.resolution = input_resolution
-        self.norm = LayerNorm(4 * dim, eps=LN_EPS)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(4 * dim, eps=LN_EPS, out_dtype=dtype)
+        self.reduction = Dense(4 * dim, 2 * dim, bias=False, compute_dtype=dtype)
 
     def forward(self, x):
         h, w_dim = self.resolution
@@ -272,19 +287,21 @@ class PatchMerging(nn.Module):
 
 class SwinTransformer(nn.Module):
     """Blocks are numbered across stages (``blocks.k``, the JAX tree's
-    ``SwinBlock_k``); ``merges.s`` follows stage s."""
+    ``SwinBlock_k``); ``merges.s`` follows stage s. ``dtype`` is the compute
+    dtype of the patch embedding and the blocks (module docstring)."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 4, in_chans: int = 3,
                  num_classes: int = 1000, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  window: int = 7, mlp_ratio: float = 4.0, drop_path_rate: float = 0.1,
-                 attn_impl: str = "xla", force_windowed: bool = False):
+                 attn_impl: str = "xla", force_windowed: bool = False, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.patch_size = patch_size
         self.in_chans = in_chans
         self.embed_dim = embed_dim
         self.patch_embed = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
-        self.patch_norm = LayerNorm(embed_dim, eps=LN_EPS)
+        self.patch_norm = LayerNorm(embed_dim, eps=LN_EPS, out_dtype=dtype)
         dpr = np.linspace(0, drop_path_rate, sum(depths))
         res = (img_size // patch_size,) * 2
         dim = embed_dim
@@ -293,9 +310,10 @@ class SwinTransformer(nn.Module):
             for i in range(depth):
                 blocks.append(SwinBlock(dim, res, heads, window,
                                         0 if i % 2 == 0 else window // 2, mlp_ratio,
-                                        float(dpr[len(blocks)]), attn_impl, force_windowed))
+                                        float(dpr[len(blocks)]), attn_impl, force_windowed,
+                                        dtype))
             if stage < len(depths) - 1:
-                merges.append(PatchMerging(dim, res))
+                merges.append(PatchMerging(dim, res, dtype))
                 res = ((res[0] + 1) // 2, (res[1] + 1) // 2)
                 dim *= 2
         self.depths = tuple(depths)
@@ -322,8 +340,10 @@ class SwinTransformer(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """[B, H, W, C] -> logits [B, num_classes]; drop-path is live when
         ``generator`` is given."""
+        dt = self.dtype
         w = self.patch_embed.weight.permute(0, 2, 3, 1).reshape(self.embed_dim, -1)
-        x = self.patch_norm(F.linear(patchify(x, self.patch_size), w, self.patch_embed.bias))
+        x = self.patch_norm(F.linear(patchify(x, self.patch_size).to(dt), w.to(dt),
+                                     self.patch_embed.bias.to(dt)))
         k = 0
         for stage, depth in enumerate(self.depths):
             for _ in range(depth):
@@ -331,18 +351,21 @@ class SwinTransformer(nn.Module):
                 k += 1
             if stage < len(self.merges):
                 x = self.merges[stage](x)
+        # the final LayerNorm (float32 out), pool and head in float32
         return self.head(self.norm(x).mean(dim=1))
 
 
 def build_swin(cfg: Config, attn_impl: str = "xla", force_windowed: bool = False
                ) -> SwinTransformer:
-    """The config's Swin. A biased attention takes the eager path whatever
-    ``attn_impl`` says (``ops/attention.multi_head_attention``): the
-    attention kernels take no bias, as in the JAX package."""
+    """The config's Swin at ``train.compute_dtype``. A biased attention
+    takes the eager path whatever ``attn_impl`` says
+    (``ops/attention.multi_head_attention``): the attention kernels take no
+    bias, as in the JAX package."""
     s = cfg.swin
     return SwinTransformer(
         img_size=cfg.data.input_size, patch_size=s.patch_size, in_chans=cfg.data.num_channels,
         num_classes=cfg.data.num_classes, embed_dim=s.embed_dim, depths=tuple(s.depths),
         num_heads=tuple(s.num_heads), window=s.window_size, mlp_ratio=float(s.mlp_ratio),
         attn_impl=attn_impl, force_windowed=force_windowed,
+        dtype=_DTYPES[cfg.train.compute_dtype],
     )

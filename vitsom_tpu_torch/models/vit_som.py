@@ -137,7 +137,7 @@ _MODELS = {
     "vit": lambda cfg: ViTClassifier(cfg, attn_impl=model_attn_impl(cfg)),
     "desom": DESOM,
     "swin": lambda cfg: build_swin(cfg, attn_impl=model_attn_impl(cfg)),
-    "deit": DeiT,
+    "deit": lambda cfg: DeiT(cfg, attn_impl=model_attn_impl(cfg)),
     "mobile_vit": build_mobilevit_s,
 }
 
@@ -148,22 +148,13 @@ def build_model(cfg: Config, device="cuda", seed: int = 0) -> nn.Module:
     ``models/desom.py``; it takes flattened images), ``SwinTransformer``
     (``swin``, ``models/swin.py``), ``DeiT`` (``deit``, the student,
     ``models/deit.py``) or ``MobileViTS`` (``mobile_vit``,
-    ``models/mobile_vit.py``) on ``device`` (default: the card). Swin and DeiT
-    with ``train.compute_dtype: bfloat16``, and DeiT with the bf16 score
-    recipes (``xla_bf16``, ``xla_bf16s``), raise (ROADMAP Queue 1 item 6).
+    ``models/mobile_vit.py``) on ``device`` (default: the card).
 
     The weights are drawn on the CPU from ``torch.Generator().manual_seed(
     seed)`` and then moved, so a seed gives the same model on any device."""
     if cfg.model_arch not in _MODELS:
         raise NotImplementedError(f"model_arch {cfg.model_arch} is not ported yet")
     dev = resolve_device(device)
-    bf16 = cfg.train.compute_dtype != "float32" or (
-        cfg.model_arch == "deit" and model_attn_impl(cfg) != "xla")
-    if cfg.model_arch in ("swin", "deit") and bf16:
-        raise NotImplementedError(
-            f"{cfg.model_arch} with train.compute_dtype {cfg.train.compute_dtype} and "
-            f"attn_impl {model_attn_impl(cfg)} is not ported yet (ROADMAP Queue 1 item 6, the "
-            f"bf16 leftovers); no shipped yaml sets them")
     model = _MODELS[cfg.model_arch](cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev)

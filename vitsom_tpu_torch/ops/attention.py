@@ -5,12 +5,12 @@ eager attention with float32 scores: two batched products and a softmax,
 which the JAX package leaves to XLA outside any Pallas kernel.
 ``"pallas"`` runs the hand-written CUDA forward and backward kernels
 (``attention_fused``); ``"hybrid"`` pairs the eager forward with the
-backward kernel. The bf16 impls are XLA ops in the JAX package, so they
-are torch ops here, not kernels: ``"xla_bf16"`` (bf16 scores and a bf16
-softmax) and ``"xla_bf16s"`` (bf16 scores and probs, float32 softmax
-arithmetic, a custom backward that keeps only the bf16 probs). The CUDA
-kernels take float32 only: ``pallas``/``hybrid`` refuse bf16 inputs
-(ROADMAP Queue 1, bf16 inputs to the attention kernels).
+backward kernel. Both take float32 or bf16 q, k, v (``compute_dtype:
+bfloat16``), the bf16 kernels at the JAX kernels' rounding points. The bf16
+impls are XLA ops in the JAX package, so they are torch ops here, not
+kernels: ``"xla_bf16"`` (bf16 scores and a bf16 softmax) and
+``"xla_bf16s"`` (bf16 scores and probs, float32 softmax arithmetic, a
+custom backward that keeps only the bf16 probs).
 """
 
 from __future__ import annotations
@@ -21,12 +21,6 @@ import torch
 
 from vitsom_tpu_torch.ops.attention_fused import (
     FusedAttention, fused_attention, fused_attention_reference,
-)
-
-_BF16_KERNELS_LATER = (
-    "the attention kernels take float32 only; bf16 inputs to attn_impl={impl!r} are "
-    "queued (ROADMAP Queue 1, bf16 inputs to the pallas/hybrid attention kernels): "
-    "use xla, xla_bf16 or xla_bf16s with compute_dtype bfloat16"
 )
 
 
@@ -118,7 +112,9 @@ class HybridAttention(FusedAttention):
     plain version, run eagerly on any device. Inside an autograd.Function
     it records no graph, so only the [B, N, D]-sized residuals (q, k, v, o)
     and lse [B, H, N] are kept; the backward (inherited) launches the
-    backward kernel on the card."""
+    backward kernel on the card. bf16 inputs give ``_hybrid_fwd``'s float32
+    output (bf16 attn times bf16 v, accumulated in float32), which is also
+    the o the bf16 backward kernel receives, with its float32 cotangent."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads):
@@ -147,11 +143,8 @@ def multi_head_attention(
 
     ``return_attn=True`` takes the float32 :func:`xla_attention` path
     whatever ``impl`` says (offline visualisation only), and so does a
-    ``bias`` with ``pallas``/``hybrid``, whose kernels take none. Those
-    kernels take float32 only and refuse bf16 inputs."""
+    ``bias`` with ``pallas``/``hybrid``, whose kernels take none."""
     if impl in ("pallas", "hybrid") and not return_attn and bias is None:
-        if q.dtype != torch.float32:
-            raise NotImplementedError(_BF16_KERNELS_LATER.format(impl=impl))
         if impl == "pallas":
             return fused_attention(q, k, v), None
         return hybrid_attention(q, k, v), None

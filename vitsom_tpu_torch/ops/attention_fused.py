@@ -1,9 +1,11 @@
 """Fused multi-head attention: hand-written CUDA forward and backward kernels.
 
 Counterpart of ``vitsom_tpu/ops/attention_pallas.py``. The kernels in
-``csrc/attention.cu`` replace its TPU kernels ``_attn_fwd_kernel`` and
-``_attn_bwd_kernel``; the source's header gives their design and their bound
-on the H100. Tensors stay in the model's [B, N, D] layout (D = H * hd, heads
+``csrc/attention.cu`` (float32) and ``csrc/attention_bf16.cu`` (bf16 inputs
+and outputs, float32 accumulation and lse) replace its TPU kernels
+``_attn_fwd_kernel`` and ``_attn_bwd_kernel``; the sources' headers give
+their design and their bound on the H100. The wrappers dispatch on the
+inputs' dtype. Tensors stay in the model's [B, N, D] layout (D = H * hd, heads
 are column slices), as in the JAX package:
 
 - forward: q, k, v -> o [B, N, D] and the row log-sum-exp lse [B, H, N];
@@ -18,7 +20,11 @@ them out of its fused qkv buffer) as long as their column stride is 1; at
 head dims from 32 up (the tensor-core kernels) their rows must also start
 on 16-byte boundaries, as the model's views do. Below (the row kernels)
 any such view is taken: the wrapper passes the widest row copy, 16, 8 or
-4 bytes, that the views' pointers and strides allow (``row_copy_width``).
+4 bytes (bf16: 16, 8, 4 or 2), that the views' pointers and strides allow
+(``row_copy_width``). The bf16 tensor-core kernels read 4-byte pairs: their
+views' pointers and strides must be even in elements. The bf16 backward
+also takes a float32 o with its float32 cotangent (``hybrid``'s output),
+read a float at a time.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from vitsom_tpu_torch.ops._build import SMEM_LIMIT_BYTES
 # them before a main-path run and reads them after).
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FWD_BF16 = 0
+LAUNCHES_BWD_BF16 = 0
 
 # head dims the kernels are built for (csrc/attention.cu, ATTN_HEAD_DIMS);
 # from 32 up they run the tensor-core kernels
@@ -46,8 +54,13 @@ ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = 16, 8, 4, 4
 # the row kernels' (hd <= 16): threads of a CTA at most (kRowThreads),
 # lanes of a row group (kRowLanes) and rows a group (kRowRows)
 ROW_THREADS, ROW_LANES, ROW_ROWS = 128, 2, 2
+# the bf16 kernels' (csrc/attention_bf16.cu: kRowThreads, kRowTile,
+# kMaxWarps, kPad): rows of a row-kernel CTA, the mma tiles' rows and warps
+# (as above), and the bf16 pad after each staged row
+BF16_ROW_THREADS, BF16_PAD = 128, 8
 
 _LIB = None
+_LIB_BF16 = None
 
 
 def _lib():
@@ -75,6 +88,30 @@ def _lib():
             )
         _LIB = lib
     return _LIB
+
+
+def _lib_bf16():
+    global _LIB_BF16
+    if _LIB_BF16 is None:
+        lib = _build.load("attention_bf16")
+        view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+        dims = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.attention_bf16_forward.argtypes = view * 3 + [ctypes.c_void_p] * 2 + dims
+        lib.attention_bf16_forward.restype = ctypes.c_int
+        lib.attention_bf16_backward.argtypes = (
+            view * 4 + [ctypes.c_int, ctypes.c_void_p] + view + [ctypes.c_void_p] * 4 + dims
+        )
+        lib.attention_bf16_backward.restype = ctypes.c_int
+        tiles = (ctypes.c_int * 4)()
+        lib.attention_bf16_tiles(tiles)
+        want = (BF16_ROW_THREADS, ROW_TILE, MAX_WARPS, BF16_PAD)
+        if tuple(tiles) != want:
+            raise RuntimeError(
+                "attention_bf16.cu constants (kRowThreads, kRowTile, kMaxWarps, kPad) = "
+                f"{tuple(tiles)} differ from the wrapper's {want}"
+            )
+        _LIB_BF16 = lib
+    return _LIB_BF16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -105,18 +142,23 @@ def row_plan(n: int, head_dim: int, backward: bool) -> Tuple[int, ...]:
 
 
 def row_copy_width(views, head_dim: int) -> int:
-    """Bytes (16, 8 or 4) of the widest copy the row kernels can make of
-    every head's row in ``views``: each view's pointer and batch and row
-    strides, and the head offsets (``head_dim`` floats), must be multiples
-    of it. The flagship encoder's q, k, v views (rows 48 floats, heads 8
-    floats apart) take 16; its decoder's (heads 2 floats apart) 8."""
-    for width in (16, 8):
-        f = width // 4
+    """Bytes of the widest copy the row kernels can make of every head's row
+    in ``views``: 16, 8 or 4 for float32 views, 16, 8, 4 or 2 for bf16 (the
+    views' dtype; the float32 o and do that the bf16 backward takes from
+    hybrid are read a float at a time and are left out). Each view's pointer and batch
+    and row strides, and the head offsets (``head_dim`` elements), must be
+    multiples of it. The flagship encoder's q, k, v views (rows 48
+    elements, heads 8 apart) take 16 in either dtype; its decoder's (heads
+    2 apart) 8 in float32, 4 in bf16."""
+    size = 2 if views[0].dtype == torch.bfloat16 else 4
+    views = [x for x in views if x.element_size() == size]
+    for width in (16, 8, 4):
+        f = width // size
         if head_dim % f == 0 and all(
                 x.data_ptr() % width == 0 and x.stride(0) % f == 0 and x.stride(1) % f == 0
                 for x in views):
             return width
-    return 4
+    return size
 
 
 def row_launch(b: int, n: int, heads: int, head_dim: int, backward: bool,
@@ -150,12 +192,32 @@ def smem_bytes(n: int, head_dim: int, backward: bool) -> int:
     return 4 * ((2 * keys + 4 * ROW_TILE) * ld + 2 * nq + ROW_TILE * lds)
 
 
-def check_shape(n: int, head_dim: int, backward: bool) -> None:
+def bf16_smem_bytes(n: int, head_dim: int, backward: bool, f32_do: bool = False) -> int:
+    """Dynamic shared memory of one CTA of the bf16 kernels
+    (``csrc/attention_bf16.cu``). hd <= 16: as the float32 row kernels.
+    hd >= 32: rows of hd + BF16_PAD bf16; the forward all of k and v, N
+    rounded up to 16; the backward lse and delta (float32), its chunk's k
+    and v, a 16-row q and do tile (three do tiles for a float32 do, its
+    bf16 parts) and the [16, keys] ds tile."""
+    if head_dim not in MMA_HEAD_DIMS:
+        return smem_bytes(n, head_dim, backward)
+    nq = _cdiv(n, ROW_TILE) * ROW_TILE
+    ld = head_dim + BF16_PAD
+    if not backward:
+        return 2 * 2 * nq * ld
+    keys = mma_plan(n)[1] * ROW_TILE
+    tiles = 4 if f32_do else 2
+    return 4 * 2 * nq + 2 * ((2 * keys + tiles * ROW_TILE) * ld + ROW_TILE * (keys + BF16_PAD))
+
+
+def check_shape(n: int, head_dim: int, backward: bool, dtype=torch.float32,
+                f32_do: bool = False) -> None:
     """Raises ValueError unless the kernels take sequence length ``n`` at
     ``head_dim`` (built, and its CTA's working set fits in shared memory)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} is not built; the kernels cover {HEAD_DIMS}")
-    need = smem_bytes(n, head_dim, backward)
+    need = (bf16_smem_bytes(n, head_dim, backward, f32_do) if dtype == torch.bfloat16
+            else smem_bytes(n, head_dim, backward))
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"N={n} at head_dim {head_dim} needs {need} bytes of shared memory per block, "
@@ -173,36 +235,67 @@ def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in its accumulation dtype: float32, or float64 for float64 x."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _exp(x: torch.Tensor, rounded: bool) -> torch.Tensor:
+    """exp of x. Where a bf16 rounding follows (``rounded``: bf16 inputs),
+    float32 x takes exp in float64, rounded once to float32: torch's float32
+    exp on the CPU gives the last bit by the path an element takes
+    (vectorised or not, which the threads' split of the tensor decides),
+    and the bf16 roundings of p after it turn one such bit into whole bf16
+    ulps of the outputs, so the plain version would differ from run to
+    run."""
+    if rounded and x.dtype == torch.float32:
+        return torch.exp(x.double()).float()
+    return torch.exp(x)
+
+
 def fused_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel: [B, N, D] q, k, v ->
-    (o [B, N, D], lse [B, H, N]), the outputs of ``_fused_attention_fwd_impl``
-    in the JAX package (and the numerics of its ``_hybrid_fwd``)."""
+    """Plain PyTorch version of the forward kernel at the JAX kernel's
+    steps: [B, N, D] q, k, v -> (o [B, N, D], lse [B, H, N]). Scores are
+    accumulated in float32 (float64 for float64 inputs) and scaled, then
+    ``m``, ``p = exp(s - m)`` (``_exp``), ``l``, ``attn = (p / l)`` rounded to v's
+    dtype (a no-op unless bf16) and ``attn v`` accumulated as the scores
+    are. Returns that accumulated o, which is ``_hybrid_fwd``'s output; the
+    kernel (and :func:`attention_forward`) stores it in the inputs' dtype."""
     b, n, d = q.shape
     scale = (d // heads) ** -0.5
-    scores = torch.einsum("bnhd,bmhd->bhnm", _split(q, heads), _split(k, heads)) * scale
+    qh, kh, vh = (_acc(_split(x, heads)) for x in (q, k, v))
+    scores = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale
     m = torch.amax(scores, dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
+    p = _exp(scores - m, v.dtype == torch.bfloat16)
     denom = torch.sum(p, dim=-1, keepdim=True)
-    o = torch.einsum("bhnm,bmhd->bnhd", p / denom, _split(v, heads))
+    attn = (p / denom).to(v.dtype).to(p.dtype)
+    o = torch.einsum("bhnm,bmhd->bnhd", attn, vh)
     return o.reshape(b, n, d), (m + torch.log(denom))[..., 0]
 
 
 def fused_attention_bwd_reference(q, k, v, o, lse, do, heads: int):
     """Plain PyTorch version of the backward kernel: (dq, dk, dv), each
-    [B, N, D], as ``_fused_attention_bwd_impl`` computes them."""
+    [B, N, D] in q's dtype, as ``_fused_attention_bwd_impl`` computes them.
+    o and do are in q's dtype, or float32 beside bf16 q, k, v (hybrid's
+    output and its cotangent). At the JAX kernel's steps, products
+    accumulated as in :func:`fused_attention_reference`:
+    p = exp(s - lse), dv = bf16(p)^T do, dp = do v^T,
+    delta = rowsum(do o), ds = bf16(p (dp - delta) scale), dq = ds k,
+    dk = ds^T q; each bf16 rounding a no-op unless the inputs are bf16."""
     b, n, d = q.shape
     scale = (d // heads) ** -0.5
-    qh, kh, vh, oh, doh = (_split(x, heads) for x in (q, k, v, o, do))
-    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale - lse[..., None])
-    dv = torch.einsum("bhnm,bnhd->bmhd", p, doh)
+    qh, kh, vh, oh, doh = (_acc(_split(x, heads)) for x in (q, k, v, o, do))
+    p = _exp(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale - lse[..., None],
+             v.dtype == torch.bfloat16)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(v.dtype).to(p.dtype), doh)
     dp = torch.einsum("bnhd,bmhd->bhnm", doh, vh)
     delta = torch.sum(doh * oh, dim=-1).transpose(1, 2)[..., None]  # [B, H, N, 1]
-    ds = p * (dp - delta) * scale
+    ds = (p * (dp - delta) * scale).to(q.dtype).to(p.dtype)
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, kh)
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, qh)
-    return tuple(x.reshape(b, n, d) for x in (dq, dk, dv))
+    return tuple(x.reshape(b, n, d).to(q.dtype) for x in (dq, dk, dv))
 
 
 # ---------------------------------------------------------------------------
@@ -211,16 +304,22 @@ def fused_attention_bwd_reference(q, k, v, o, lse, do, heads: int):
 
 
 def _check(tensors, heads: int, backward: bool):
-    """(B, N, hd) after checking what the kernels take; raises otherwise."""
+    """(B, N, hd) after checking what the kernels take; raises otherwise.
+    All are float32, or all bf16 (the bf16 kernels); a bf16 backward's o
+    and do (``tensors[3:]``) may instead both be float32 (hybrid)."""
     ref = tensors[0]
     if ref.ndim != 3:
         raise ValueError(f"attention kernels take [B, N, D] tensors, got {tuple(ref.shape)}")
     b, n, d = ref.shape
-    for x in tensors:
+    if ref.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernels take float32 or bfloat16, got {ref.dtype}")
+    for i, x in enumerate(tensors):
         if not x.is_cuda or x.device != ref.device:
             raise ValueError("attention kernel inputs must be on the same CUDA device")
-        if x.dtype != torch.float32:
-            raise TypeError(f"attention kernels take float32, got {x.dtype}")
+        want = tensors[3].dtype if backward and i == 4 else ref.dtype
+        f32_o = backward and i == 3 and ref.dtype == torch.bfloat16
+        if x.dtype != want and not (f32_o and x.dtype == torch.float32):
+            raise TypeError(f"attention kernel inputs mix {want} and {x.dtype}")
         if tuple(x.shape) != (b, n, d):
             raise ValueError(f"shape {tuple(x.shape)} differs from {(b, n, d)}")
         if x.stride(2) != 1:
@@ -228,14 +327,17 @@ def _check(tensors, heads: int, backward: bool):
     if b < 1 or n < 1 or heads < 1 or d % heads:
         raise ValueError(f"bad attention shape B={b} N={n} D={d} heads={heads}")
     hd = d // heads
-    check_shape(n, hd, backward)
+    check_shape(n, hd, backward, ref.dtype, backward and tensors[4].dtype != ref.dtype)
     if hd in MMA_HEAD_DIMS:
-        # the tensor-core kernels copy rows in 16-byte pieces
+        # float32: rows copied in 16-byte pieces; bf16: read in 4-byte pairs
+        width = 4 if ref.dtype == torch.bfloat16 else 16
+        f = width // ref.element_size()
         for x in tensors:
-            if x.data_ptr() % 16 or x.stride(0) % 4 or x.stride(1) % 4:
+            if x.dtype == ref.dtype and (x.data_ptr() % width or x.stride(0) % f
+                                         or x.stride(1) % f):
                 raise ValueError(
-                    f"head_dim {hd} copies rows in 16-byte pieces: pointer and row/batch "
-                    f"strides {x.stride()[:2]} must be 16-byte aligned"
+                    f"head_dim {hd} reads rows in {width}-byte pieces: pointer and row/batch "
+                    f"strides {x.stride()[:2]} must be {width}-byte aligned"
                 )
     return b, n, hd
 
@@ -249,44 +351,63 @@ def _stream(dev):
 
 
 def _kernel_forward(q, k, v, heads: int):
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_FWD_BF16
     b, n, hd = _check((q, k, v), heads, backward=False)
-    o = torch.empty((b, n, heads * hd), device=q.device, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    o = torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, heads, n), device=q.device, dtype=torch.float32)
-    lib = _lib()
+    lib = _lib_bf16() if bf16 else _lib()
+    launch = lib.attention_bf16_forward if bf16 else lib.attention_forward
     with torch.cuda.device(q.device):
-        rc = lib.attention_forward(
+        rc = launch(
             *_view(q), *_view(k), *_view(v), o.data_ptr(), lse.data_ptr(),
             b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v), hd), _stream(q.device),
         )
     if rc != 0:
-        raise RuntimeError(f"attention_forward launch failed with code {rc}")
-    LAUNCHES_FWD += 1
+        raise RuntimeError(f"attention forward ({q.dtype}) launch failed with code {rc}")
+    if bf16:
+        LAUNCHES_FWD_BF16 += 1
+    else:
+        LAUNCHES_FWD += 1
     return o, lse
 
 
 def _kernel_backward(q, k, v, o, lse, do, heads: int):
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, LAUNCHES_BWD_BF16
     b, n, hd = _check((q, k, v, o, do), heads, backward=True)
     if (lse.device != q.device or lse.dtype != torch.float32
             or tuple(lse.shape) != (b, heads, n) or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous float32 [B, H, N] tensor beside q")
-    dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
                   for _ in range(3))
     chunks = mma_plan(n)[0] if hd in MMA_HEAD_DIMS else 1
     # the key chunks' dq partials, summed in chunk order by a second launch
     part = (torch.empty((chunks, b, n, heads * hd), device=q.device, dtype=torch.float32)
             if chunks > 1 else None)
-    lib = _lib()
+    width = row_copy_width((q, k, v, o, do), hd)
+    lib = _lib_bf16() if bf16 else _lib()
     with torch.cuda.device(q.device):
-        rc = lib.attention_backward(
-            *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(), *_view(do),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
-            b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v, o, do), hd), _stream(q.device),
-        )
+        if bf16:
+            rc = lib.attention_bf16_backward(
+                *_view(q), *_view(k), *_view(v), *_view(o), int(o.dtype == torch.float32),
+                lse.data_ptr(), *_view(do), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                None if part is None else part.data_ptr(),
+                b, n, heads, hd, hd**-0.5, width, _stream(q.device),
+            )
+        else:
+            rc = lib.attention_backward(
+                *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(), *_view(do),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                None if part is None else part.data_ptr(),
+                b, n, heads, hd, hd**-0.5, width, _stream(q.device),
+            )
     if rc != 0:
-        raise RuntimeError(f"attention_backward launch failed with code {rc}")
-    LAUNCHES_BWD += 1
+        raise RuntimeError(f"attention backward ({q.dtype}) launch failed with code {rc}")
+    if bf16:
+        LAUNCHES_BWD_BF16 += 1
+    else:
+        LAUNCHES_BWD += 1
     return dq, dk, dv
 
 
@@ -297,7 +418,8 @@ def attention_forward(q, k, v, heads: int):
         return _kernel_forward(q, k, v, heads)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
-    return fused_attention_reference(q, k, v, heads)
+    o, lse = fused_attention_reference(q, k, v, heads)
+    return o.to(q.dtype), lse
 
 
 def attention_backward(q, k, v, o, lse, do, heads: int):

@@ -28,6 +28,12 @@ bias corrections are computed there, in float32, as optax computes them;
 the eager run on the card uses the same optimizer, so an eager and a
 captured run differ only by the capture. On the CPU (the tests) torch
 takes no capturable optimizer; the tensor lr is read on the host there.
+
+``train.adam_mu_dtype: bfloat16`` stores the first moment in bf16, as
+optax's ``scale_by_adam(mu_dtype=bfloat16)`` does in the JAX package.
+``torch.optim.AdamW`` keeps its moments in the parameters' dtype, so that
+case takes the port's own update, ``AdamWBf16Mu``, with the same groups and
+lr tensors; the float32 case keeps ``torch.optim.AdamW``.
 """
 
 from __future__ import annotations
@@ -97,14 +103,91 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: torch.Tensor) -> Non
         group["lr"].copy_(lr * group["lr_scale"])
 
 
-def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
+class AdamWBf16Mu(torch.optim.Optimizer):
+    """AdamW with a bf16 first moment: optax's ``scale_by_adam(mu_dtype=
+    bfloat16) -> add_decayed_weights -> scale_by_learning_rate`` at its
+    roundings. Per parameter, with g the float32 gradient and m the stored
+    bf16 moment:
+
+    - ``m' = (1 - b1) g + bf16(bf16(b1) m)`` in float32 (JAX multiplies the
+      bf16 moment by its weakly typed b1 in bf16), ``v' = (1 - b2) g^2 +
+      b2 v`` in float32;
+    - ``u = (m' / (1 - b1^t)) / (sqrt(v' / (1 - b2^t)) + eps)`` from the
+      float32 m', then ``p -= lr (u + wd p)``, lr the group's tensor (the
+      layer-decay scale folded in, as in ``set_learning_rate``);
+    - ``m = bf16(m')`` stored (round to nearest even).
+
+    Every operation is a tensor operation on the parameters' device (the
+    step count included), so the update is capturable in a CUDA graph. Each
+    step of the formula is one ``torch._foreach_*`` op over a group's
+    parameters, as torch's capturable foreach AdamW does."""
+
+    def __init__(self, params, lr, betas, eps, weight_decay=0.0):
+        super().__init__(params, {"lr": lr, "betas": betas, "eps": eps,
+                                  "weight_decay": weight_decay, "capturable": True})
+
+    def load_state_dict(self, state_dict):
+        """torch casts loaded moments to the parameters' dtype; the first
+        moment goes back to bf16, exactly (it was bf16 before)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+            grads = [p.grad for p in params]
+            ms, vs, steps = ([self.state[p][key] for p in params]
+                             for key in ("exp_avg", "exp_avg_sq", "step"))
+            torch._foreach_add_(steps, 1)
+            # bf16(b1) m is exact in float32, then rounded to bf16 in place
+            torch._foreach_mul_(ms, b1_bf16)
+            decayed = [torch.empty_like(g) for g in grads]
+            torch._foreach_copy_(decayed, ms)
+            mu = torch._foreach_mul(grads, 1 - b1)
+            torch._foreach_add_(mu, decayed)
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1 - b2)
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, g2)
+            torch._foreach_copy_(ms, mu)
+            # 1 - b^t, per parameter
+            bc1, bc2 = torch._foreach_pow(b1, steps), torch._foreach_pow(b2, steps)
+            for bc in (bc1, bc2):
+                torch._foreach_sub_(bc, 1)
+                torch._foreach_neg_(bc)
+            den = torch._foreach_div(vs, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(mu, bc1)
+            torch._foreach_div_(mu, den)
+            if wd:
+                torch._foreach_add_(mu, torch._foreach_mul(params, wd))
+            torch._foreach_mul_(mu, lr)
+            torch._foreach_sub_(params, mu)
+        return None
+
+
+def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Optimizer:
     """AdamW (or Adam as AdamW without decay) with one group per distinct
     (weight decay, lr scale); each group records its ``lr_scale`` and holds
     its own lr tensor, and the train step calls ``set_learning_rate(opt,
-    schedule(step))`` before each update. ``capturable`` on the card."""
+    schedule(step))`` before each update. ``capturable`` on the card.
+    ``train.adam_mu_dtype: bfloat16`` gives ``AdamWBf16Mu``."""
     opt = cfg.optimizer
-    if cfg.train.adam_mu_dtype != "float32":
-        raise NotImplementedError("train.adam_mu_dtype=bfloat16 is not ported yet")
     wd = build_weight_decay_map(model, cfg)
     scale = build_lr_scale_map(model, cfg)
     groups: Dict[tuple, List[torch.nn.Parameter]] = {}
@@ -118,6 +201,8 @@ def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
          "lr": torch.full((), lr * s, dtype=torch.float32, device=dev)}
         for (d, s), ps in groups.items()
     ]
+    if cfg.train.adam_mu_dtype == "bfloat16":
+        return AdamWBf16Mu(param_groups, lr=lr, betas=(opt.beta_1, opt.beta_2), eps=opt.eps)
     return torch.optim.AdamW(
         param_groups,
         lr=lr,

@@ -69,7 +69,8 @@ FLAGSHIP = os.path.join(ROOT, "configs", "vit_som", "vit_som_mnist.yaml")
 WARMUP_STEPS = 10
 # the hand-written kernels of the train path, found by name
 KERNELS = ("som_partial_kernel", "som_finalize_kernel", "attn_fwd_kernel",
-           "attn_fwd_mma_kernel", "attn_bwd_kernel", "attn_bwd_mma_kernel")
+           "attn_fwd_mma_kernel", "attn_bwd_kernel", "attn_bwd_mma_kernel",
+           "attn_fwd_row_bf16", "attn_fwd_mma_bf16", "attn_bwd_row_bf16", "attn_bwd_mma_bf16")
 MODES = ("eager", "graphed")
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, run between the modes
 
@@ -131,6 +132,16 @@ def profile(config: str, overrides: dict, n: int, trace=None) -> dict:
         cfg = load_config(config, {**over, "data.synthetic_size": rows})
     ported = cfg.data.dataset in MNIST_FAMILY or cfg.classification
     dm = (build_datamodule if ported else raw_synthetic_datamodule)(cfg, "cuda")
+    try:
+        return _measure(config, overrides, cfg, dm, n, trace)
+    finally:
+        # the host path's worker pool ends with the profile: left to the
+        # interpreter's exit, its workers would hold the caller's pipes
+        dm.close()
+
+
+def _measure(config: str, overrides: dict, cfg, dm, n: int, trace=None) -> dict:
+    """``profile``'s measurement of both modes on the data module ``dm``."""
     tr = Trainer(cfg, device="cuda", dm=dm)
     print(f"device: {torch.cuda.get_device_name(0)} torch={torch.__version__} "
           f"config={os.path.basename(config)} map={cfg.som.map_size} batch={cfg.batch_size} "

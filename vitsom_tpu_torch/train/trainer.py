@@ -109,6 +109,7 @@ or on the synthetic stand-in:
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -196,6 +197,18 @@ def check_checkpoint_config(ckpt_path: str, cfg: Config) -> None:
         )
 
 
+def memory_state(device) -> Dict[str, int]:
+    """The caching allocator's counters that bear on a capture (allocation
+    retries, device frees where the build counts them, bytes reserved and
+    allocated) and the card's free and total bytes."""
+    stats = torch.cuda.memory_stats(device)
+    free, total = torch.cuda.mem_get_info(device)
+    keys = ("num_alloc_retries", "num_device_alloc", "num_device_free", "num_ooms",
+            "reserved_bytes.all.current", "allocated_bytes.all.current")
+    return {**{k: int(stats[k]) for k in keys if k in stats}, "free_bytes": int(free),
+            "total_bytes": int(total)}
+
+
 class Trainer:
     """Trains one ViT-SOM, DESOM, ViT, Swin or DeiT run on one device
     (default: the card).
@@ -266,6 +279,7 @@ class Trainer:
         self.val_history: List[Dict[str, float]] = []
         self.best_val_accuracy = -1.0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture_memory: Optional[Dict[str, int]] = None  # memory_state() at the capture
         self._warm = 0
         self.epoch_images = self.dm.epoch_buffer()
         self._shuffle = torch.Generator().manual_seed(seed)
@@ -317,14 +331,31 @@ class Trainer:
 
     def _capture(self) -> None:
         """Captures one step; the capture runs nothing. A step that cannot
-        be captured raises here."""
+        be captured raises here, with the card's memory state before and
+        after the capture in its message.
+
+        Before it: dead Python cycles are collected, so no CUDA object they
+        hold is freed by the collector inside the capture (torch's graph
+        context no longer collects by default), and the card is synchronised
+        and the allocator's free cached blocks returned, as the graph
+        context does too; ``capture_memory`` then records what the capture
+        starts from."""
         self.optimizer.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        self.capture_memory = memory_state(self.device)
         graph = torch.cuda.CUDAGraph()
         if self.cfg.model_arch in STOCHASTIC:
             # each replay draws from the generator's state at its start
             graph.register_generator_state(self._dropout)
-        with torch.cuda.graph(graph):
-            self._buffered_step()
+        try:
+            with torch.cuda.graph(graph):
+                self._buffered_step()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing the {self.cfg.model_arch} step failed; memory before the capture: "
+                f"{self.capture_memory}, after: {memory_state(self.device)}") from e
         self.graph = graph
 
     def _graphed_step(self) -> None:
