@@ -15,7 +15,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    TF32 mma (HMMA or HGMMA), and of every instantiation of the fused block's
    ``block_fwd_kernel`` and ``block_bwd_kernel``, which fail without a TF32
    mma (HMMA), and of the two hd >= 32 bf16 attention kernels, which fail
-   without a bf16 mma (HMMA ... BF16); fails without ``cuobjdump``;
+   without a bf16 wgmma (HGMMA ... BF16); fails without ``cuobjdump``;
 3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
    on the card at every shipped ViT-SOM SOM shape (``SOM_SHAPES``: B, D =
    patch tokens x emb, P) and one ragged shape (B 13, D 1000, P 132), x the
@@ -369,8 +369,9 @@ K. bf16 inputs to the attention kernels, the bf16 models and optimizer
    state, after phase I (no trainer of an earlier phase held). K1
    (``phase_attention_bf16``): the bf16 kernels (``csrc/attention_bf16.cu``)
    against their plain versions at (128, 197, 2, 8), (128, 197, 2, 2),
-   (128, 65, 3, 64) contiguous, (128, 65, 3, 32) strided and (512, 257, 3,
-   64), forward and backward, the backward on a bf16 o and do (``pallas``)
+   (128, 65, 3, 64) contiguous, (128, 65, 3, 32) strided, (512, 257, 3, 64)
+   contiguous and (512, 257, 3, 32) strided, forward and backward, the
+   backward on a bf16 o and do (``pallas``)
    and on a float32 o and do (``hybrid``): within 1 bf16 ulp on all but 0.1
    % of the elements and atol/rtol 1e-2 everywhere, lse within 1e-5, each
    output's error against float64 on the same bf16 inputs at most
@@ -378,7 +379,8 @@ K. bf16 inputs to the attention kernels, the bf16 models and optimizer
    equal; each timed with L2 flushed beside its plain version and SDPA on
    the same bf16 tensors (backend named), against the bound (bytes at 3.35
    TB/s, bf16 tensor-core operations at 989 TFLOP/s or the exponentials,
-   the longest). K2 ``vit_som_mnist.yaml`` + bf16 + ``pallas`` (the bf16 row
+   the longest), and at (512, 257, 3, 64) the backward on the float32 o
+   and do too. K2 ``vit_som_mnist.yaml`` + bf16 + ``pallas`` (the bf16 row
    kernels at hd 8 and 2): TRAIN_STEPS graphed steps held against eager,
    launches equal to the formula below, ``profile_step``. K3
    ``vit_som_tiny-imagenet.yaml`` + bf16 + ``pallas`` (B 512, the bf16
@@ -2049,14 +2051,14 @@ def phase_build():
     # the SOM kernel's, the hd >= 32 attention kernels' and every block
     # kernel instantiation's products must run on the tensor cores in TF32
     # (wgmma: HGMMA; mma.sync: HMMA in SASS), the bf16 attention kernels'
-    # in bf16
+    # in bf16 on wgmma
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
     for name, kernels, kinds, dtype in (
             ("som_fused", ("som_partial_kernel",), ("HGMMA",), "TF32"),
             ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA"),
              "TF32"),
-            ("attention_bf16", ("attn_fwd_mma_bf16", "attn_bwd_mma_bf16"), ("HMMA",), "BF16"),
+            ("attention_bf16", ("attn_fwd_mma_bf16", "attn_bwd_mma_bf16"), ("HGMMA",), "BF16"),
             ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",), "TF32")):
         sass = subprocess.run([cuobjdump, "-sass", infos[name]["path"]], capture_output=True,
                               text=True, check=True).stdout
@@ -3582,9 +3584,10 @@ def phase_mobile_vit(dev, smi):
 # ---------------------------------------------------------------------------
 
 # the bf16 kernels' shapes: the flagship's encoder and decoder (hd 8, 2),
-# cifar-10's (hd 64, 32) and tiny-imagenet's (hd 64, B 512)
+# cifar-10's (hd 64, 32) and tiny-imagenet's encoder and decoder (hd 64,
+# 32, B 512)
 K1_SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 3, 64), (128, 65, 3, 32),
-             (512, 257, 3, 64)]
+             (512, 257, 3, 64), (512, 257, 3, 32)]
 K1_MAIN = (512, 257, 3, 64)  # K3's encoder shape: the kernels JSON line's bf16 rows
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
 BF16 = {"train.compute_dtype": "bfloat16"}
@@ -3636,8 +3639,10 @@ def phase_attention_bf16(dev):
     beside its plain version and SDPA on bf16 (backend named), against the
     bound: bytes at 3.35 TB/s, bf16 tensor-core operations at 989 TFLOP/s
     (4 B H N^2 hd forward, 10 B H N^2 hd backward) or the B H N^2
-    exponentials at 16 a clock an SM, whichever is longest. Returns
-    ({(shape, name): row}, {name: largest error against plain})."""
+    exponentials at 16 a clock an SM, whichever is longest; at K1_MAIN the
+    backward on hybrid's float32 o and do too (``attention_bwd_bf16_hybrid``,
+    printed only). Returns ({(shape, name): row}, {name: largest error
+    against plain})."""
     rows, worst = {}, {"attention_fwd_bf16": 0.0, "attention_bwd_bf16": 0.0}
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3712,6 +3717,14 @@ def phase_attention_bf16(dev):
                      sdpa_out, leaves, do_t, retain_graph=True)},
                 10 * b * h * n * n * hd, 16 * b * n * d + 4 * b * h * n),
         }
+        if shape == K1_MAIN:
+            # hybrid: float32 o and do (4 bytes an element each)
+            cases["attention_bwd_bf16_hybrid"] = (
+                {"kernel": lambda: attention_fused._kernel_backward(q, k, v, ho, hlse, do32, h),
+                 "plain": lambda: attention_fused.fused_attention_bwd_reference(
+                     q, k, v, ho, hlse, do32, h),
+                 "library": cases["attention_bwd_bf16"][0]["library"]},
+                10 * b * h * n * n * hd, 20 * b * n * d + 4 * b * h * n)
         backend = sdpa_backend(*heads_first)
         for name, (fns, flops, nbytes) in cases.items():
             t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}

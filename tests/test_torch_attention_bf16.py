@@ -199,18 +199,100 @@ def test_bf16_kernel_shapes_fit_shared_memory():
     """The bf16 shapes of the shipped configs (N 65, 197, 257 at hd 2, 8,
     32, 64: every ViT-SOM and ViT yaml's encoder and decoder) and the JAX
     tests' hd 48 fit in a CTA's shared memory, and N 4096 at hd 8 does not;
-    the bf16 row kernels' constant is the source's."""
+    the bf16 kernels' constants are the source's."""
     src = (Path(tfused.__file__).parent / "csrc" / "attention_bf16.cu").read_text()
     assert f"constexpr int kRowThreads = {tfused.BF16_ROW_THREADS};" in src
-    assert f"constexpr int kPad = {tfused.BF16_PAD};" in src
+    assert f"constexpr int kTile = {tfused.BF16_TILE};" in src
+    assert f"constexpr int kHdp = {tfused.BF16_HDP};" in src
+    assert f"constexpr int kMaxKeyBlocks = {tfused.BF16_MAX_KEY_BLOCKS};" in src
+    assert f"constexpr int kSmemAlign = {tfused.BF16_SMEM_ALIGN};" in src
     shipped = [(n, hd) for n in (65, 197, 257) for hd in (2, 8, 32, 64)]
     for n, hd in shipped + [(33, 48)]:
         for backward, f32_do in ((False, False), (True, False), (True, True)):
             tfused.check_shape(n, hd, backward, torch.bfloat16, f32_do)
     with pytest.raises(ValueError, match="shared memory"):
         tfused.check_shape(4096, 8, False, torch.bfloat16)
-    # the forward stages all of k and v at hd 64: 78 KB at N 257
-    assert tfused.bf16_smem_bytes(257, 64, False) == 2 * 2 * 272 * 72
-    # a float32 do (hybrid) adds its two lower bf16 parts' 16-row tiles
+    # the forward holds all of k and v at hd 64: five [64][64] bf16 tiles
+    # of each at N 257, two q tiles and the o tile, 1 KB of alignment slack,
+    # 128 bytes for its mbarriers
+    assert tfused.bf16_smem_bytes(257, 64, False) == 1024 + (2 * 5 + 3) * 64 * 64 * 2 + 128
+    # a float32 do (hybrid) adds its two lower bf16 parts to both ring stages
     assert (tfused.bf16_smem_bytes(257, 64, True, True)
-            - tfused.bf16_smem_bytes(257, 64, True)) == 2 * 2 * 16 * 72
+            - tfused.bf16_smem_bytes(257, 64, True)) == 2 * 2 * 64 * 64 * 2
+
+
+@pytest.mark.parametrize("n, hd", [(n, hd) for n in (65, 197, 257) for hd in (32, 64)]
+                         + [(33, 48)])
+def test_bf16_tensor_core_launch_plan(n, hd):
+    """The wgmma kernels' grid and shared memory at every shipped hd >= 32
+    shape and the JAX tests' (33, 48): one forward CTA a (b, h) holding
+    ceil(N / 64) key blocks (its scores in registers), a key-role and a
+    query-role backward CTA a 64-row tile; the layout is the same at every
+    hd (padded to 64), the forward's grows with N, the backward's does not.
+    An H100 SM (228 KB, 1 KB reserved a CTA) holds two forward CTAs, three
+    bf16 backward CTAs (its launch bounds' count) and two of hybrid's."""
+    tiles = -(-n // 64)
+    assert tfused.bf16_mma_plan(n) == (1, tiles, 2 * tiles)
+    tile = 64 * 64 * 2
+    fwd = tfused.bf16_smem_bytes(n, hd, False)
+    assert fwd == 1024 + (2 * tiles + 3) * tile + 128
+    assert fwd == tfused.bf16_smem_bytes(n, 64, False)
+    bwd = tfused.bf16_smem_bytes(n, hd, True)
+    hybrid = tfused.bf16_smem_bytes(n, hd, True, f32_do=True)
+    assert bwd == 1024 + 6 * tile + 2 * 2 * 64 * 4 + 3 * 8
+    assert hybrid == 1024 + 10 * tile + 2 * 2 * 64 * 4 + 3 * 8
+    sm = 228 * 1024
+    assert 2 * (fwd + 1024) <= sm
+    assert 3 * (bwd + 1024) <= sm
+    assert 2 * (hybrid + 1024) <= sm
+
+
+def test_bf16_forward_refuses_more_keys_than_its_registers_hold():
+    """The forward keeps 5 * 64 keys' scores in registers: N 320 is taken,
+    N 321 is refused at every hd >= 32; the backward streams its tiles and
+    takes any N."""
+    for hd in tfused.MMA_HEAD_DIMS:
+        tfused.check_shape(320, hd, False, torch.bfloat16)
+        tfused.check_shape(1024, hd, True, torch.bfloat16)
+        with pytest.raises(ValueError, match="registers"):
+            tfused.check_shape(321, hd, False, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [96, 144, 192])
+def test_16_byte_rows_take_the_model_views(d):
+    """q, k and v sliced out of the model's [B, N, 3, D] qkv buffer (D 96,
+    144, 192: hd 32, 48, 64 at 3 heads) start their rows on 16-byte
+    boundaries in bf16 and float32, and so do contiguous tensors; a view
+    one element off, or with an odd row stride, is refused."""
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.zeros(2, 9, 3, d, dtype=dtype)
+        tfused.check_16_byte_rows([buf[:, :, i] for i in range(3)])
+        tfused.check_16_byte_rows([torch.zeros(2, 9, d, dtype=dtype)])
+        flat = torch.zeros(2, 9, 3 * d + 1, dtype=dtype)
+        with pytest.raises(ValueError, match="16 bytes"):
+            tfused.check_16_byte_rows([flat[:, :, 1:d + 1]])
+        with pytest.raises(ValueError, match="16 bytes"):
+            tfused.check_16_byte_rows([flat[:, :, :d]])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bf16_delta_reference_matches_float64(dtype):
+    """The backward pre-pass's plain version, delta = rowsum(do o) [B, H,
+    N], against the same sum in float64 of the same stored values: bf16 o
+    and do (``pallas``) or hybrid's float32 ones, within float32 rounding of
+    a 64-term sum."""
+    b, n, h, hd = 2, 65, 3, 64
+    rng = np.random.default_rng(7)
+    o, do = (torch.from_numpy(rng.normal(size=(b, n, h * hd)).astype(np.float32)).to(dtype)
+             for _ in range(2))
+    got = tfused.attention_delta_reference(o, do, h)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, n)
+    want = (o.double() * do.double()).reshape(b, n, h, hd).sum(-1).transpose(1, 2)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0, atol=2e-5)
+    # the plain backward takes its delta from it
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, h * hd)).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(3))
+    o_ref, lse = tfused.fused_attention_reference(q, k, v, h)
+    o_ref = o_ref.to(dtype)
+    grads = tfused.fused_attention_bwd_reference(q, k, v, o_ref, lse, do, h)
+    assert all(x.dtype == torch.bfloat16 for x in grads)

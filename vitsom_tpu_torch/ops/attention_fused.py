@@ -18,13 +18,11 @@ tensor it runs the plain PyTorch version beside it. There is no fallback
 from one to the other. q, k and v may be strided views (the model slices
 them out of its fused qkv buffer) as long as their column stride is 1; at
 head dims from 32 up (the tensor-core kernels) their rows must also start
-on 16-byte boundaries, as the model's views do. Below (the row kernels)
-any such view is taken: the wrapper passes the widest row copy, 16, 8 or
-4 bytes (bf16: 16, 8, 4 or 2), that the views' pointers and strides allow
-(``row_copy_width``). The bf16 tensor-core kernels read 4-byte pairs: their
-views' pointers and strides must be even in elements. The bf16 backward
-also takes a float32 o with its float32 cotangent (``hybrid``'s output),
-read a float at a time.
+on 16-byte boundaries, as the model's views do (``check_16_byte_rows``).
+Below (the row kernels) any such view is taken: the wrapper passes the
+widest row copy, 16, 8 or 4 bytes (bf16: 16, 8, 4 or 2), that the views'
+pointers and strides allow (``row_copy_width``). The bf16 backward also
+takes a float32 o with its float32 cotangent (``hybrid``'s output).
 """
 
 from __future__ import annotations
@@ -54,10 +52,13 @@ ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = 16, 8, 4, 4
 # the row kernels' (hd <= 16): threads of a CTA at most (kRowThreads),
 # lanes of a row group (kRowLanes) and rows a group (kRowRows)
 ROW_THREADS, ROW_LANES, ROW_ROWS = 128, 2, 2
-# the bf16 kernels' (csrc/attention_bf16.cu: kRowThreads, kRowTile,
-# kMaxWarps, kPad): rows of a row-kernel CTA, the mma tiles' rows and warps
-# (as above), and the bf16 pad after each staged row
-BF16_ROW_THREADS, BF16_PAD = 128, 8
+# the bf16 kernels' (csrc/attention_bf16.cu: kRowThreads, kTile, kHdp,
+# kMaxKeyBlocks): rows of a row-kernel CTA; from hd 32 up the 64-row wgmma
+# tiles, their head dim padded to 64 (128-byte rows), and the forward's key
+# blocks at most (its scores stay in registers: N <= 320)
+BF16_ROW_THREADS, BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS = 128, 64, 64, 5
+BF16_TILE_BYTES = BF16_TILE * BF16_HDP * 2
+BF16_SMEM_ALIGN = 1024  # the tiles' 128-byte swizzle repeats every 8 rows
 
 _LIB = None
 _LIB_BF16 = None
@@ -98,16 +99,17 @@ def _lib_bf16():
         dims = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.attention_bf16_forward.argtypes = view * 3 + [ctypes.c_void_p] * 2 + dims
         lib.attention_bf16_forward.restype = ctypes.c_int
+        # ..., dq, dk, dv, delta, do_split, dims
         lib.attention_bf16_backward.argtypes = (
-            view * 4 + [ctypes.c_int, ctypes.c_void_p] + view + [ctypes.c_void_p] * 4 + dims
+            view * 4 + [ctypes.c_int, ctypes.c_void_p] + view + [ctypes.c_void_p] * 5 + dims
         )
         lib.attention_bf16_backward.restype = ctypes.c_int
         tiles = (ctypes.c_int * 4)()
         lib.attention_bf16_tiles(tiles)
-        want = (BF16_ROW_THREADS, ROW_TILE, MAX_WARPS, BF16_PAD)
+        want = (BF16_ROW_THREADS, BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS)
         if tuple(tiles) != want:
             raise RuntimeError(
-                "attention_bf16.cu constants (kRowThreads, kRowTile, kMaxWarps, kPad) = "
+                "attention_bf16.cu constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks) = "
                 f"{tuple(tiles)} differ from the wrapper's {want}"
             )
         _LIB_BF16 = lib
@@ -192,22 +194,32 @@ def smem_bytes(n: int, head_dim: int, backward: bool) -> int:
     return 4 * ((2 * keys + 4 * ROW_TILE) * ld + 2 * nq + ROW_TILE * lds)
 
 
+def bf16_mma_plan(n: int) -> Tuple[int, int, int]:
+    """The bf16 tensor-core kernels' grid a (b, h) at sequence length ``n``
+    (hd >= 32), CTAs of one warpgroup (128 threads): (forward CTAs, the
+    forward's 64-key blocks, which are also its 64-row query tiles,
+    backward CTAs: a key-role and a query-role CTA a 64-row tile)."""
+    tiles = _cdiv(n, BF16_TILE)
+    return 1, tiles, 2 * tiles
+
+
 def bf16_smem_bytes(n: int, head_dim: int, backward: bool, f32_do: bool = False) -> int:
     """Dynamic shared memory of one CTA of the bf16 kernels
     (``csrc/attention_bf16.cu``). hd <= 16: as the float32 row kernels.
-    hd >= 32: rows of hd + BF16_PAD bf16; the forward all of k and v, N
-    rounded up to 16; the backward lse and delta (float32), its chunk's k
-    and v, a 16-row q and do tile (three do tiles for a float32 do, its
-    bf16 parts) and the [16, keys] ds tile."""
+    hd >= 32: [64][64] bf16 tiles (BF16_TILE_BYTES, hd padded to 64) after
+    BF16_SMEM_ALIGN bytes of slack for their 1024-byte alignment; the
+    forward every key block of k and of v, two q tiles, 128 bytes for four
+    8-byte mbarriers and the o tile that stages its stores; the backward
+    its larger role, the key role's k and v tiles and a two-stage ring of a
+    q tile and do's parts (one bf16 do, or the three bf16 parts of a
+    float32 do) with 64 lse and 64 delta floats a stage, and an mbarrier
+    for k and v and one a stage."""
     if head_dim not in MMA_HEAD_DIMS:
         return smem_bytes(n, head_dim, backward)
-    nq = _cdiv(n, ROW_TILE) * ROW_TILE
-    ld = head_dim + BF16_PAD
     if not backward:
-        return 2 * 2 * nq * ld
-    keys = mma_plan(n)[1] * ROW_TILE
-    tiles = 4 if f32_do else 2
-    return 4 * 2 * nq + 2 * ((2 * keys + tiles * ROW_TILE) * ld + ROW_TILE * (keys + BF16_PAD))
+        return BF16_SMEM_ALIGN + (2 * bf16_mma_plan(n)[1] + 3) * BF16_TILE_BYTES + 128
+    parts = 3 if f32_do else 1
+    return BF16_SMEM_ALIGN + (4 + 2 * parts) * BF16_TILE_BYTES + 2 * 2 * BF16_TILE * 4 + 3 * 8
 
 
 def check_shape(n: int, head_dim: int, backward: bool, dtype=torch.float32,
@@ -216,6 +228,12 @@ def check_shape(n: int, head_dim: int, backward: bool, dtype=torch.float32,
     ``head_dim`` (built, and its CTA's working set fits in shared memory)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} is not built; the kernels cover {HEAD_DIMS}")
+    keys = BF16_TILE * BF16_MAX_KEY_BLOCKS
+    if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS and not backward and n > keys:
+        raise ValueError(
+            f"N={n} at head_dim {head_dim}: the bf16 forward holds a row's scores in registers, "
+            f"{keys} keys at most"
+        )
     need = (bf16_smem_bytes(n, head_dim, backward, f32_do) if dtype == torch.bfloat16
             else smem_bytes(n, head_dim, backward))
     if need > SMEM_LIMIT_BYTES:
@@ -223,6 +241,21 @@ def check_shape(n: int, head_dim: int, backward: bool, dtype=torch.float32,
             f"N={n} at head_dim {head_dim} needs {need} bytes of shared memory per block, "
             f"more than {SMEM_LIMIT_BYTES}"
         )
+
+
+def check_16_byte_rows(views) -> None:
+    """Raises ValueError unless every view's pointer and batch and row
+    strides are multiples of 16 bytes: the tensor-core kernels (hd >= 32)
+    copy rows in 16-byte pieces. The model's q, k and v, column slices of
+    its [B, N, 3, D] qkv buffer, pass at every shipped width (D 192: rows
+    1152 bytes apart, heads 128 bytes apart)."""
+    for x in views:
+        size = x.element_size()
+        if x.data_ptr() % 16 or (x.stride(0) * size) % 16 or (x.stride(1) * size) % 16:
+            raise ValueError(
+                "head dims from 32 up read rows in 16-byte pieces: pointer and row/batch "
+                f"strides {x.stride()[:2]} ({x.dtype}) must be multiples of 16 bytes"
+            )
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -275,6 +308,15 @@ def fused_attention_reference(
     return o.reshape(b, n, d), (m + torch.log(denom))[..., 0]
 
 
+def attention_delta_reference(o: torch.Tensor, do: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain version of the bf16 tensor-core backward's pre-pass
+    (``attn_delta_bf16``): delta = rowsum(do o) over each head's columns,
+    [B, H, N], in float32 (float64 for float64 inputs), from o and do as
+    they are stored (bf16, or hybrid's float32)."""
+    oh, doh = (_acc(_split(x, heads)) for x in (o, do))
+    return torch.sum(doh * oh, dim=-1).transpose(1, 2)
+
+
 def fused_attention_bwd_reference(q, k, v, o, lse, do, heads: int):
     """Plain PyTorch version of the backward kernel: (dq, dk, dv), each
     [B, N, D] in q's dtype, as ``_fused_attention_bwd_impl`` computes them.
@@ -286,12 +328,12 @@ def fused_attention_bwd_reference(q, k, v, o, lse, do, heads: int):
     dk = ds^T q; each bf16 rounding a no-op unless the inputs are bf16."""
     b, n, d = q.shape
     scale = (d // heads) ** -0.5
-    qh, kh, vh, oh, doh = (_acc(_split(x, heads)) for x in (q, k, v, o, do))
+    qh, kh, vh, doh = (_acc(_split(x, heads)) for x in (q, k, v, do))
     p = _exp(torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale - lse[..., None],
              v.dtype == torch.bfloat16)
     dv = torch.einsum("bhnm,bnhd->bmhd", p.to(v.dtype).to(p.dtype), doh)
     dp = torch.einsum("bnhd,bmhd->bhnm", doh, vh)
-    delta = torch.sum(doh * oh, dim=-1).transpose(1, 2)[..., None]  # [B, H, N, 1]
+    delta = attention_delta_reference(o, do, heads)[..., None]  # [B, H, N, 1]
     ds = (p * (dp - delta) * scale).to(q.dtype).to(p.dtype)
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, kh)
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, qh)
@@ -306,7 +348,9 @@ def fused_attention_bwd_reference(q, k, v, o, lse, do, heads: int):
 def _check(tensors, heads: int, backward: bool):
     """(B, N, hd) after checking what the kernels take; raises otherwise.
     All are float32, or all bf16 (the bf16 kernels); a bf16 backward's o
-    and do (``tensors[3:]``) may instead both be float32 (hybrid)."""
+    and do (``tensors[3:]``) may instead both be float32 (hybrid). From hd
+    32 up every view's rows start on 16-byte boundaries
+    (``check_16_byte_rows``)."""
     ref = tensors[0]
     if ref.ndim != 3:
         raise ValueError(f"attention kernels take [B, N, D] tensors, got {tuple(ref.shape)}")
@@ -329,16 +373,7 @@ def _check(tensors, heads: int, backward: bool):
     hd = d // heads
     check_shape(n, hd, backward, ref.dtype, backward and tensors[4].dtype != ref.dtype)
     if hd in MMA_HEAD_DIMS:
-        # float32: rows copied in 16-byte pieces; bf16: read in 4-byte pairs
-        width = 4 if ref.dtype == torch.bfloat16 else 16
-        f = width // ref.element_size()
-        for x in tensors:
-            if x.dtype == ref.dtype and (x.data_ptr() % width or x.stride(0) % f
-                                         or x.stride(1) % f):
-                raise ValueError(
-                    f"head_dim {hd} reads rows in {width}-byte pieces: pointer and row/batch "
-                    f"strides {x.stride()[:2]} must be {width}-byte aligned"
-                )
+        check_16_byte_rows(tensors)
     return b, n, hd
 
 
@@ -379,23 +414,31 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
             or tuple(lse.shape) != (b, heads, n) or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous float32 [B, H, N] tensor beside q")
     bf16 = q.dtype == torch.bfloat16
+    mma = hd in MMA_HEAD_DIMS
     dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
                   for _ in range(3))
-    chunks = mma_plan(n)[0] if hd in MMA_HEAD_DIMS else 1
-    # the key chunks' dq partials, summed in chunk order by a second launch
-    part = (torch.empty((chunks, b, n, heads * hd), device=q.device, dtype=torch.float32)
-            if chunks > 1 else None)
     width = row_copy_width((q, k, v, o, do), hd)
     lib = _lib_bf16() if bf16 else _lib()
     with torch.cuda.device(q.device):
         if bf16:
+            # the tensor-core backward's workspaces: delta = rowsum(do o) of
+            # the pre-pass, and a float32 do's three bf16 parts
+            delta = (torch.empty((b, heads, n), device=q.device, dtype=torch.float32)
+                     if mma else None)
+            split = (torch.empty((3, b, n, heads * hd), device=q.device, dtype=torch.bfloat16)
+                     if mma and o.dtype == torch.float32 else None)
             rc = lib.attention_bf16_backward(
                 *_view(q), *_view(k), *_view(v), *_view(o), int(o.dtype == torch.float32),
                 lse.data_ptr(), *_view(do), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                None if part is None else part.data_ptr(),
+                None if delta is None else delta.data_ptr(),
+                None if split is None else split.data_ptr(),
                 b, n, heads, hd, hd**-0.5, width, _stream(q.device),
             )
         else:
+            chunks = mma_plan(n)[0] if mma else 1
+            # the key chunks' dq partials, summed in chunk order by a second launch
+            part = (torch.empty((chunks, b, n, heads * hd), device=q.device,
+                                dtype=torch.float32) if chunks > 1 else None)
             rc = lib.attention_backward(
                 *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(), *_view(do),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -16,9 +16,9 @@
 //             output), or both float32 (hybrid_attention's eager forward
 //             and its cotangent), which the products take unrounded.
 // An online softmax rescales o after the product with v, so it cannot
-// round attn where JAX does: the forward kernels make three passes over the
-// keys, the max, the sum, then attn v. There are no atomics and every sum
-// has a fixed order, so two runs give bitwise-equal outputs.
+// round attn where JAX does: the forward kernels find a row's max and sum
+// before they form attn. There are no atomics and every sum has a fixed
+// order, so two runs give bitwise-equal outputs.
 //
 // Two designs, chosen by head dim, as in attention.cu:
 //
@@ -27,48 +27,87 @@
 //    chunk of at most kRowThreads rows of one (b, h) (attention_fused.py:
 //    bf16_row_plan) and stages the other side's rows as float32 in shared
 //    memory, where every thread of a warp reads the same row (a broadcast).
-//    A float32 o or do is read a float at a time.
+//    A float32 o or do is read a float at a time. The forward makes three
+//    passes over the keys (the max, the sum, then attn v).
 //    The backward is one launch of pass-A CTAs (key rows: dk, dv) and
 //    pass-B CTAs (query rows: dq); both form p, delta and ds with the same
 //    expressions in the same order, so they agree bit for bit. Rows are
 //    copied 16, 8, 4 or 2 bytes at a time, the widest that every bf16
 //    view's pointer and strides allow (attention_fused.py:row_copy_width).
 //
-// 2. hd >= 32 (the emb-192 configs' 64 and 32): attn_fwd_mma_bf16 and
-//    attn_bwd_mma_bf16 with mma.sync m16n8k16 bf16 products and float32
-//    accumulators. A score tile's accumulator fragment (rows g, g + 8,
-//    columns 2t, 2t + 1 of lane 4g + t) is the A fragment of the next
-//    product for two adjacent 8-column tiles, so bf16(attn), bf16(p) and
-//    bf16(ds) are packed straight from registers: JAX's rounding points
-//    come for free. Operands are staged as rows of hd + 8 bf16 (a stride
-//    of 8 mod 16 spreads a warp's 32-bit pair reads and ldmatrix's rows
-//    over 32 banks), each thread issuing 8 loads before it stores; a B
-//    operand whose summed index is the rows' (v in the forward; do, q and
-//    k in the backward) is read with ldmatrix's transposing load.
-//    - Forward: C chunks of W warps per (b, h) (attention_fused.py:
-//      mma_plan), warp w owning 16 query rows. A CTA stages all of its
-//      (b, h)'s k and v, zero past N.
-//    - Backward: the same plan over key tiles, warp w owning 16 keys. The
-//      CTA stages its keys' k and v rows; query tiles of 16 rows (q and do)
-//      are staged in turn; every warp forms p and ds of its keys, dk and dv
-//      accumulate in registers, ds goes to a [16, keys] tile in shared
-//      memory and the warps form dq of the tile over the CTA's keys, one
-//      16-column tile each. With C > 1 the chunks write float32 dq
-//      partials that dq_sum_bf16 adds in chunk order and rounds once. The
-//      warp reads its k and v A fragments from the staged rows at each
-//      query tile: held in registers through the loop they took 170 a
-//      thread at hd 64, one CTA an SM, and the backward at (512, 257, 3,
-//      64) took 2.83 ms against 1.66 (in turns, one call, NVIDIA H100 80GB
-//      HBM3, 700.00 W; chip_smoke.py K1 times the kernels).
-//      A float32 do is staged as three bf16 tiles, hi = bf16(do),
-//      mid = bf16(do - hi), lo = bf16(do - hi - mid), whose sum is do
-//      exactly (both residuals are exact in float32, and the second has at
-//      most 8 significant bits, which lo holds), and dp and dv take a product
-//      with each: the bf16 products are exact in float32, as JAX's float32
-//      products with the unrounded do are.
-//
-// This is the first, simple design: no cp.async ring, no wgmma, no TMA. The
-// times and bounds are in PERF.md (chip_smoke.py phase K1).
+// 2. hd >= 32 (the emb-192 configs' 64 and 32, the JAX tests' 48):
+//    attn_fwd_mma_bf16 (replaces _attn_fwd_kernel's bf16 branch,
+//    attention_pallas.py:100) and attn_bwd_mma_bf16 with its pre-pass
+//    attn_delta_bf16 (replace _attn_bwd_kernel's, :163), on Hopper's
+//    warpgroup products (wgmma: bf16 in, float32 accumulators; a CTA is one
+//    warpgroup). Every operand is a [64][64] bf16 tile in shared memory,
+//    hd padded to 64 with zeros so a row is 128 bytes, under the 128-byte
+//    swizzle wgmma's descriptors name (chunk c of row r at c ^ (r mod 8)),
+//    read K-major (hd contiguous) or MN-major (hd as the output's columns).
+//    Tiles come in by cp.async, 16 bytes a copy, zero past N and past hd,
+//    each group behind an mbarrier that its copies arrive on; a proxy fence
+//    then hands them to wgmma. The views' rows start on 16-byte boundaries
+//    (attention_fused.py:check_16_byte_rows; the model's q, k, v slices of
+//    its qkv buffer do). An accumulator's fragment is the A fragment of the
+//    next product (its rows, 16 columns a k-step), so bf16(attn), bf16(p)
+//    and bf16(ds) are packed straight from registers into register-A
+//    products: JAX's rounding points come for free.
+//    - Forward: one CTA a (b, h) reads its k and v once (NKB key blocks of
+//      64, the copies behind the first q tile so they overlap its
+//      products); 64-row q tiles follow through a two-stage ring. A tile's
+//      scores against every key stay in registers (s = q k^T, wgmma from
+//      shared memory; the last block 8, 16, 32 or 64 keys wide, as N
+//      needs: 8 at N 65, 197, 257), so each is formed and exponentiated
+//      once (ex2.approx): the exact row max, l = sum exp(s - m), then attn
+//      = exp(s - m) / l, the quotient rounded once (p times 1 / l,
+//      corrected by its residual), packed to bf16 block by block and
+//      multiplied into o = attn v as each block is ready. Warps whose rows
+//      all lie past N skip the softmax; o is stored through shared memory
+//      in 16-byte pieces. N is at most kMaxKeyBlocks * 64 = 320 (every
+//      shipped N is 65, 197 or 257). Two passes over the key blocks (the
+//      max and a rescaled l, then the scores again and attn v) measured
+//      0.25787 ms against 0.17128 at (512, 257, 3, 64) and 0.01616
+//      against 0.01381 at (128, 65, 3, 64) (one call, L2 flushed), so the
+//      scores stay in registers.
+//    - Backward: a pre-pass forms delta = rowsum(do o) once, in a fixed
+//      order, into a float32 [B, H, N] buffer, from o and do as stored (a
+//      float32 do is also split into three bf16 arrays, hi = bf16(do), mid
+//      = bf16(do - hi), lo = bf16(do - hi - mid), whose sum is do exactly:
+//      both residuals are exact in float32 and the second has at most 8
+//      significant bits; dp and dv take a product with each, exact in
+//      float32 as JAX's float32 products with the unrounded do are). Then
+//      one launch of 2 ceil(N / 64) CTAs a (b, h): key-role CTAs (64 keys:
+//      k and v as A tiles, s^T = k q^T, dp^T = v do^T, dv += bf16(p^T) do,
+//      dk += ds^T q, dk and dv in registers) and query-role CTAs (64
+//      queries: q and do as A tiles, s = q k^T, dp = do v^T, dq += ds k);
+//      each recomputes p and ds from lse and delta, so dq needs no float32
+//      partials, no second launch and no atomics. The streamed tiles pass
+//      through a two-stage ring (a tile's copies land while the tile before
+//      it is worked on); a last tile of at most 8 rows runs 8 wide.
+//      Elements are computed without a branch of their own (a ragged tile
+//      masks by selects): a branch per element serialised the exponentials'
+//      chains. Launch bounds of three CTAs an SM (168 registers).
+//    What bounds them on the H100: at (512, 257, 3, 64) the work's bound is
+//    its bytes (0.06080 / 0.12114 ms at 3.35 TB/s); the kernels reach 35 %
+//    / 19 % of it. A 64-row tile pads N 257 to 320 rows and N 65 to 128; one
+//    warpgroup a CTA and two (forward) or three (backward) CTAs an SM leave
+//    the FP32 work (exponentials, the quotient, ds) and each product's
+//    latency exposed. At (128, N, 3, 64) N 65's second tile (one row of 64)
+//    costs 11 % in the forward (0.01382 ms against 0.01245 at N 64) and 35 %
+//    in the backward (0.03840 against 0.02845).
+//    Measured (one call, L2 flushed, NVIDIA H100 80GB HBM3, 700.00 W; the
+//    mma.sync design these kernels replaced (three passes over the keys,
+//    float32 dq partials) and SDPA on the same bf16 tensors in brackets):
+//    forward 0.17211 ms at (512, 257, 3, 64) (0.69600; 0.17573), 0.16850 at (512,
+//    257, 3, 32) (0.33864; 0.17517), 0.01382 at (128, 65, 3, 64) (0.02123;
+//    0.01606), 0.01242 at (128, 65, 3, 32) (0.01734; 0.01552); backward
+//    0.64917 (1.67715; 0.51307), 0.56707 (1.45989; 0.43149), 0.03840
+//    (0.04173; 0.04043), 0.03184 (0.03384; 0.03550). The hybrid backward
+//    (float32 o and do) takes 2.06896 at (512, 257, 3, 64) (2.11254) but
+//    0.08741 at (128, 65, 3, 64) (0.04763): the split pass and three
+//    products a part weigh most at small shapes. ptxas: the forward 214
+//    registers at N 257 (5 key blocks, the last 8 wide), the backward 168,
+//    no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,9 +123,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int kBadHeadDim = -1;
 constexpr int kBadCopyWidth = -2;
 constexpr int kRowThreads = 128;  // rows (threads) of a row-kernel CTA at most
-constexpr int kRowTile = 16;      // rows of a warp's tile: the mma's M
-constexpr int kMaxWarps = 8;      // warp tiles of a tensor-core CTA
-constexpr int kPad = 8;           // bf16 after each staged row
 
 // A [B, N, *] view with unit column stride: row r of batch b starts at
 // ptr + b * sb + r * sr (strides in elements).
@@ -343,25 +379,200 @@ attn_bwd_row_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
 }
 
 // ---------------------------------------------------------------------------
-// hd >= 32: bf16 products on the tensor cores
+// hd >= 32: bf16 products on the tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 
-// c += a b, a 16 x 16 (rows), b 16 x 8 (columns), bf16 in, float32 out
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+constexpr int kWg = 128;           // threads of a tensor-core CTA: one warpgroup
+constexpr int kTile = 64;          // rows of a tile: wgmma's M, and the keys of a block
+constexpr int kHdp = 64;           // head dims padded to 64 bf16: rows of 128 bytes
+constexpr int kMaxKeyBlocks = 5;   // the forward holds the scores of 5 * 64 keys at most
+constexpr int kTileBytes = kTile * kHdp * 2;
+constexpr int kSmemAlign = 1024;   // the 128-byte swizzle's period (8 rows)
+constexpr int kBadLength = -3;
+constexpr unsigned long long kWaitNs = 4000000000ull;  // a copy that never lands traps
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// shared memory from the first 1024-byte boundary of the dynamic window
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + (kSmemAlign - smem_u32(raw) % kSmemAlign) % kSmemAlign;
+}
+
+// byte offset of 16-byte chunk c of row r in a [64][64] bf16 tile under the
+// 128-byte swizzle (chunk c of row r at c ^ (r mod 8)): the layout wgmma's
+// descriptors below name, K-major (hd contiguous) or MN-major alike
+__device__ __forceinline__ uint32_t swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// the wgmma descriptor of a swizzled tile at shared address a: 128-byte
+// swizzle, 1024 bytes between groups of 8 rows, leading offset unused
+__device__ __forceinline__ uint64_t desc(uint32_t a) {
+  return static_cast<uint64_t>((a & 0x3ffff) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
+// wait for the phase of `parity` to complete; trap after kWaitNs
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(a, parity))
+    if (global_ns() - t0 > kWaitNs) __trap();
+}
+
+// 16 bytes from global to shared memory, zero past src_bytes (0 or 16)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// the barrier's phase completes once every thread's earlier copies have
+// landed (it counts kWg arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// what the copies wrote (generic proxy) becomes visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keeps the compiler from moving accesses of wgmma's registers (the first
+// M of d) across it
+template <int M = 32, int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// an A fragment complete before the wgmma.fence that precedes its product
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+#define WG_D32                                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_OUT32(d)                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),            \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= a b, 64 x 64 x 16: a [64][16] and b [64][16] K-major tiles in
+// shared memory (a's rows are d's rows, b's rows d's columns)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= a b, 64 x 64 x 16: a from registers (the accumulator layout of a
+// 64 x 16 slice, packed), b a [16][64] MN-major tile (rows are the summed
+// index)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (+)= a b, 64 x W x 16 (W = 8, 16 or 32: d's first W / 2 values), as
+// wgmma_ss: the forward's narrow last key block
+template <int W>
+__device__ __forceinline__ void wgmma_ss_narrow(float (&d)[32], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  static_assert(W == 8 || W == 16 || W == 32, "narrow widths");
+  if constexpr (W == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, "
+        "0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else if constexpr (W == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+}
+
+// d (+)= a b, 64 x W x 16, W = 8, 16, 32 or 64 (d's first W / 2 values)
+template <int W>
+__device__ __forceinline__ void wgmma_ss_w(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (W == 64) wgmma_ss(d, a, b, accumulate);
+  else wgmma_ss_narrow<W>(d, a, b, accumulate);
+}
+
+#undef WG_D32
+#undef WG_OUT32
+
+// accumulator columns 16 kk .. 16 kk + 15 (chunks 2 kk, 2 kk + 1) as the A
+// fragment of the next product, each value rounded to bf16; chunks from
+// `chunks` on (past a narrow block) as zeros
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[32], int kk,
+                                       int chunks = 8) {
+  const int c0 = 8 * kk, c1 = 8 * kk + 4;
+  a[0] = pack_bf16(d[c0], d[c0 + 1]);
+  a[1] = pack_bf16(d[c0 + 2], d[c0 + 3]);
+  a[2] = 2 * kk + 1 < chunks ? pack_bf16(d[c1], d[c1 + 1]) : 0u;
+  a[3] = 2 * kk + 1 < chunks ? pack_bf16(d[c1 + 2], d[c1 + 3]) : 0u;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -374,359 +585,557 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// the A fragments of a 16-row tile of a bf16 view (rows r0.., clamped to
-// N - 1) over HD columns, 16 at a k-step, straight from device memory
-template <int HD>
-__device__ __forceinline__ void load_a(uint32_t (&f)[HD / 16][4], const View<bf16>& x, int b,
-                                       int r0, int col0, int N) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const bf16* ra = row_ptr(x, b, min(r0 + g, N - 1), col0 + 2 * t);
-  const bf16* rb = row_ptr(x, b, min(r0 + g + 8, N - 1), col0 + 2 * t);
+// a 64-row accumulator tile (rows r0 ..) as bf16 rows of out (row i at out
+// + i * D, the first hd columns, rows below N), through shared memory:
+// each warp writes its 16 rows to its part of the swizzled tile at `tile`,
+// then stores them 16 bytes a lane, a row's 8 lanes side by side
+__device__ __forceinline__ void store_rows(uint8_t* tile, const float (&acc)[32], bf16* out,
+                                           long long D, int r0, int N, int hd) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  uint8_t* ow = tile + warp * 16 * 128;
+  __syncwarp();
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    f[kk][0] = ldg32(ra + 16 * kk);
-    f[kk][1] = ldg32(rb + 16 * kk);
-    f[kk][2] = ldg32(ra + 16 * kk + 8);
-    f[kk][3] = ldg32(rb + 16 * kk + 8);
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<uint32_t*>(ow + swz(g + 8 * r, c) + 4 * t4) =
+          pack_bf16(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = lane + 32 * u, r = e >> 3, c = e & 7, i = r0 + 16 * warp + r;
+    if (i < N && 8 * c < hd)
+      *reinterpret_cast<uint4*>(out + i * D + 8 * c) = *reinterpret_cast<const uint4*>(ow + swz(r, c));
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the B fragments of two adjacent 8-column tiles (columns n0.., n0 + 8..)
-// of a 16-row product step from 16 staged rows (row i at rows + i * LD):
-// ldmatrix's transposing load; r[0], r[1] for the first tile, r[2], r[3]
-// for the second
-template <int LD>
-__device__ __forceinline__ void ldsm_b(uint32_t (&r)[4], const bf16* rows, int n0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* p = rows + (lane & 15) * LD + n0 + 8 * (lane >> 4);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// rows [r0, r0 + rows) of one head's HD columns of a bf16 view -> shared
-// memory rows of HD + kPad elements, zero past row N; each thread issues
-// kStageLoads 4-byte loads before it stores any of them
-constexpr int kStageLoads = 8;
-
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const View<bf16>& x, int b, int col0, int r0,
-                                           int rows, int N) {
-  constexpr int LD = HD + kPad, kPairs = HD / 2;
-  const int total = rows * kPairs;
-  for (int e0 = threadIdx.x; e0 < total; e0 += kStageLoads * blockDim.x) {
-    uint32_t w[kStageLoads];
+// rows [r0, r0 + 64) of one head's hd columns of a bf16 view -> a swizzled
+// tile at shared address dst, zero past row N and past column hd; 16 bytes
+// a copy, 4 a thread, 8 threads a row
+__device__ __forceinline__ void load_tile(uint32_t dst, const View<bf16>& x, int b, int col0,
+                                          int r0, int N, int hd) {
 #pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int e = e0 + u * blockDim.x;
-      const int r = e / kPairs, c = 2 * (e - r * kPairs);
-      w[u] = e < total && r0 + r < N ? ldg32(row_ptr(x, b, r0 + r, col0 + c)) : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kStageLoads; ++u) {
-      const int e = e0 + u * blockDim.x;
-      const int r = e / kPairs, c = 2 * (e - r * kPairs);
-      if (e < total) *reinterpret_cast<uint32_t*>(dst + r * LD + c) = w[u];
-    }
+  for (int u = 0; u < kTile * 8 / kWg; ++u) {
+    const int e = threadIdx.x + kWg * u, r = e >> 3, c = e & 7;
+    const bool in = r0 + r < N && 8 * c < hd;
+    cp_async16(dst + swz(r, c), in ? row_ptr(x, b, r0 + r, col0 + 8 * c) : x.ptr, in ? 16 : 0);
   }
 }
 
-// rows [r0, r0 + rows) of one head's HD columns of a float32 view -> three
-// bf16 tiles of rows of HD + kPad elements, dst[0] = hi, dst[1] = mid,
-// dst[2] = lo (hi + mid + lo = x), zero past row N; a float at a time
-template <int HD>
-__device__ __forceinline__ void stage_split(bf16* dst, const View<float>& x, int b, int col0,
-                                            int r0, int rows, int N) {
-  constexpr int LD = HD + kPad;
-  for (int e = threadIdx.x; e < rows * HD; e += blockDim.x) {
-    const int r = e / HD, c = e - r * HD;
-    const float a = r0 + r < N ? __ldg(row_ptr(x, b, r0 + r, col0 + c)) : 0.f;
-    const bf16 hi = __float2bfloat16_rn(a);
-    const float rest = a - __bfloat162float(hi);
-    const bf16 mid = __float2bfloat16_rn(rest);
-    dst[r * LD + c] = hi;
-    dst[(kRowTile + r) * LD + c] = mid;
-    dst[(2 * kRowTile + r) * LD + c] = __float2bfloat16_rn(rest - __bfloat162float(mid));
-  }
-}
-
-// scores of 8 keys (a tile: staged rows n0..n0 + 7 of ks) for a warp's 16
-// query rows: s[e] at row g + 8 (e / 2), key n0 + 2t + (e & 1)
-template <int HD>
-__device__ __forceinline__ void score_tile(float (&s)[4], const uint32_t (&qf)[HD / 16][4],
-                                           const bf16* ks, int n0) {
-  constexpr int LD = HD + kPad;
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  s[0] = s[1] = s[2] = s[3] = 0.f;
-  const bf16* kr = ks + (n0 + g) * LD + 2 * t;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) mma_bf16(s, qf[kk], ld32(kr + 16 * kk), ld32(kr + 16 * kk + 8));
-}
-
-// C query chunks of W warps per (b, h); warp w of chunk c owns query rows
-// 16 (c W + w) .. + 16. blockIdx.x = (b H + h) C + c. Shared memory: k and v
-// as rows [NK][HD + kPad], NK = N rounded up to 16.
-template <int HD>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+// o (bf16) and lse of one (b, h): a CTA of one warpgroup. k and v of every
+// key come in once (cp.async into swizzled tiles, one mbarrier each) behind
+// the first query tile; query tiles of 64 rows follow through a two-stage
+// ring. A tile's scores against all keys stay in registers (wgmma: s =
+// q k^T; NKB blocks, the last TW keys wide), so each is formed and
+// exponentiated once: the exact row max, l = sum exp(s - m), attn =
+// bf16(exp(s - m) / l) packed straight into the A fragments of o = attn v
+// (wgmma, v MN-major).
+template <int NKB, int TW>
+__global__ void __launch_bounds__(kWg)
 attn_fwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
-                  float* __restrict__ lse, int N, int H, int chunks, float scale) {
-  constexpr int LD = HD + kPad;
-  extern __shared__ __align__(16) bf16 smem_h[];
-  const int NK = (N + 15) / 16 * 16;
-  bf16* ks = smem_h;
-  bf16* vs = ks + NK * LD;
-  const int bh = blockIdx.x / chunks, c = blockIdx.x % chunks;
-  const int b = bh / H, h = bh % H, col0 = h * HD;
-  stage_rows<HD>(ks, k, b, col0, 0, NK, N);
-  stage_rows<HD>(vs, v, b, col0, 0, NK, N);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int i0 = (c * (blockDim.x / 32) + warp) * kRowTile;
-  uint32_t qf[HD / 16][4];
-  load_a<HD>(qf, q, b, i0, col0, N);
+                  float* __restrict__ lse, int N, int H, int hd, float scale) {
+  constexpr int kLastChunks = TW / 8;  // 8-key chunks of the last block
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const uint32_t ks = smem_u32(sm), vs = ks + NKB * kTileBytes, qs = vs + NKB * kTileBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + (2 * NKB + 2) * kTileBytes);  // k, v, q0, q1
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, col0 = h * hd;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mbar_init(bars + i, kWg);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  if (i0 >= N) return;
+  load_tile(qs, q, b, col0, 0, N, hd);
+  cp_async_arrive(bars + 2);
+#pragma unroll
+  for (int j = 0; j < NKB; ++j) load_tile(ks + j * kTileBytes, k, b, col0, kTile * j, N, hd);
+  cp_async_arrive(bars);
+#pragma unroll
+  for (int j = 0; j < NKB; ++j) load_tile(vs + j * kTileBytes, v, b, col0, kTile * j, N, hd);
+  cp_async_arrive(bars + 1);
+  if (NKB > 1) {
+    load_tile(qs + kTileBytes, q, b, col0, kTile, N, hd);
+    cp_async_arrive(bars + 3);
+  }
 
-  const int n_tiles = (N + 7) / 8;
-  float m[2] = {-INFINITY, -INFINITY};
-  for (int nt = 0; nt < n_tiles; ++nt) {
-    float s[4];
-    score_tile<HD>(s, qf, ks, 8 * nt);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const long long D = (long long)H * hd;
+  for (int t = 0; t < NKB; ++t) {  // query tiles: as many as key blocks
+    const int st = t & 1;
+    const uint32_t qt = qs + st * kTileBytes;
+    mbar_wait(bars + 2 + st, (t >> 1) & 1);
+    if (t == 0) mbar_wait(bars, 0);
+    fence_async_smem();
+    float s[NKB][32];  // the last block's first TW / 2 values
+    wg_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (8 * nt + 2 * t + (e & 1) < N) m[e / 2] = fmaxf(m[e / 2], s[e] * scale);
-  }
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-  float l[2] = {0.f, 0.f};
-  for (int nt = 0; nt < n_tiles; ++nt) {
-    float s[4];
-    score_tile<HD>(s, qf, ks, 8 * nt);
+    for (int j = 0; j < NKB; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (8 * nt + 2 * t + (e & 1) < N) l[e / 2] += expf(s[e] * scale - m[e / 2]);
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
+      for (int kk = 0; kk < kHdp / 16; ++kk) {
+        const uint64_t a = desc(qt + 32 * kk), bk = desc(ks + j * kTileBytes + 32 * kk);
+        if (j < NKB - 1) wgmma_ss(s[j], a, bk, kk);
+        else wgmma_ss_w<TW>(s[j], a, bk, kk);
+      }
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int j = 0; j < NKB - 1; ++j) fence_regs(s[j]);
+    fence_regs<TW / 2>(s[NKB - 1]);
+    __syncthreads();  // every warp's products are done with the q tile
+    if (t + 2 < NKB) {
+      load_tile(qt, q, b, col0, kTile * (t + 2), N, hd);
+      cp_async_arrive(bars + 2 + st);
+    }
 
-  float acc[HD / 8][4];
+    // s[j][4c + e]: row g + 8 (e / 2) of this warp's 16, key 64 j + 8 c +
+    // 2 t4 + (e & 1). Only the last block has keys past N: it alone is
+    // masked, by selects, so no element sits behind a branch of its own
+    // (which would serialise each exponential's chain). Four partial
+    // maxima and sums a row shorten the dependent chains. A warp whose rows
+    // all lie past N (the last tile) skips the softmax: its rows are not
+    // stored.
+    const bool live = kTile * t + 16 * warp < N;  // warp-uniform
+    float m[2] = {0.f, 0.f}, l[2] = {1.f, 1.f};
+    if (live) {
+      float mp[2][4], lp[2][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int kt = 0; kt < NK / 16; ++kt) {
-    // attn of keys 16 kt.. as the A fragment of attn v: columns 2t, 2t + 1
-    // from the first 8-key tile, 2t + 8, 2t + 9 from the second
-    float a[2][4];
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n0 = 16 * kt + 8 * half;
-      score_tile<HD>(a[half], qf, ks, n0);
+        for (int u = 0; u < 4; ++u) mp[r][u] = -INFINITY, lp[r][u] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        a[half][e] = n0 + 2 * t + (e & 1) < N ? expf(a[half][e] * scale - m[e / 2]) / l[e / 2]
-                                              : 0.f;
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if (j == NKB - 1 && c >= kLastChunks) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = __fmul_rn(s[j][4 * c + e], scale);
+            s[j][4 * c + e] = x;
+            if (j == NKB - 1 && kTile * j + 8 * c + 2 * t4 + (e & 1) >= N) x = -INFINITY;
+            mp[e / 2][c & 3] = fmaxf(mp[e / 2][c & 3], x);
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        m[r] = quad_max(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3])));
+#pragma unroll
+      for (int j = 0; j < NKB; ++j)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if (j == NKB - 1 && c >= kLastChunks) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = __expf(s[j][4 * c + e] - m[e / 2]);
+            if (j == NKB - 1 && kTile * j + 8 * c + 2 * t4 + (e & 1) >= N) p = 0.f;
+            s[j][4 * c + e] = p;
+            lp[e / 2][c & 3] += p;
+          }
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = quad_sum((lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]));
     }
-    const uint32_t af[4] = {pack_bf16(a[0][0], a[0][1]), pack_bf16(a[0][2], a[0][3]),
-                            pack_bf16(a[1][0], a[1][1]), pack_bf16(a[1][2], a[1][3])};
-#pragma unroll
-    for (int n = 0; n < HD / 8; n += 2) {
-      uint32_t bv[4];
-      ldsm_b<LD>(bv, vs + 16 * kt * LD, 8 * n);
-      mma_bf16(acc[n], af, bv[0], bv[1]);
-      mma_bf16(acc[n + 1], af, bv[2], bv[3]);
+
+    // attn = p / l rounded once (q0 = p (1 / l), corrected by its
+    // residual), packed to bf16 as the A fragments of o = attn v; each
+    // block's products are issued as soon as it is packed, so the next
+    // block's division overlaps them
+    const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+    if (t == 0) {
+      mbar_wait(bars + 1, 0);
+      fence_async_smem();
     }
-  }
-  const long long D = (long long)H * HD;
+    float acc[32];
+    uint32_t af[NKB][4][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = i0 + g + 8 * r;
-    if (i < N) {
-      bf16* orow = o + ((long long)b * N + i) * D + col0 + 2 * t;
+    for (int j = 0; j < NKB; ++j) {
+      const int chunks = j < NKB - 1 ? 8 : kLastChunks, steps = (chunks + 1) / 2;
+      if (live) {
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + 8 * n) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-      if (t == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
+        for (int c = 0; c < 8; ++c) {
+          if (c >= chunks) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = s[j][4 * c + e], q0 = p * rl[e / 2];
+            s[j][4 * c + e] = fmaf(fmaf(-q0, l[e / 2], p), rl[e / 2], q0);
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk >= steps) continue;
+        pack_a(af[j][kk], s[j], kk, chunks);
+        fence_regs(af[j][kk]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < steps && kTile * j + 16 * kk < N)
+          wgmma_rs(acc, af[j][kk], desc(vs + j * kTileBytes + 2048 * kk), j + kk);
+    }
+    wg_commit();
+    wg_wait();
+    fence_regs(acc);
+
+    store_rows(sm + (2 * NKB + 2) * kTileBytes + 128, acc, o + (long long)b * N * D + col0, D,
+               kTile * t, N, hd);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = kTile * t + 16 * warp + g + 8 * r;
+      if (i < N && t4 == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
     }
   }
 }
 
-// C key chunks of W warps per (b, h); warp w of chunk c owns keys
-// 16 (c W + w) .. + 16. blockIdx.x = (b H + h) C + c. With C > 1, dq goes
-// to dq_part[c] ([C, B, N, D] float32) for dq_sum_bf16.
-template <int HD, typename TO>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-attn_bwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
-                  const float* __restrict__ lse, View<TO> dout, bf16* __restrict__ dq,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_part,
-                  int N, int H, int chunks, float scale) {
-  constexpr int LD = HD + kPad;       // staged rows: the chunk's keys, a q and a do tile
-  constexpr int DL = (HD + 31) / 32;  // elements of a row a lane holds in the delta prologue
-  constexpr int DP = std::is_same<TO, float>::value ? 3 : 1;  // bf16 parts of do
-  extern __shared__ __align__(16) float smem_f[];
-  const int warps = blockDim.x / 32;
-  const int NQ = (N + kRowTile - 1) / kRowTile * kRowTile;
-  const int KC = warps * kRowTile;  // keys of a CTA
-  const int LDK = KC + kPad;        // the ds tile's row stride
-  float* lse_s = smem_f;
-  float* delta_s = lse_s + NQ;
-  bf16* ks = reinterpret_cast<bf16*>(delta_s + NQ);  // [KC][LD]
-  bf16* vsm = ks + KC * LD;                          // [KC][LD]
-  bf16* qs = vsm + KC * LD;                          // [16][LD]
-  bf16* dos = qs + kRowTile * LD;                    // [DP][16][LD]
-  bf16* dsb = dos + DP * kRowTile * LD;              // [16][LDK]
-
-  const int bh = blockIdx.x / chunks, c = blockIdx.x % chunks;
-  const int b = bh / H, h = bh % H, col0 = h * HD;
-  const int key0 = c * KC;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  stage_rows<HD>(ks, k, b, col0, key0, KC, N);
-  stage_rows<HD>(vsm, v, b, col0, key0, KC, N);
-  // padded query rows get lse = inf, hence p = 0
-  for (int i = threadIdx.x; i < NQ; i += blockDim.x)
-    lse_s[i] = i < N ? lse[(long long)bh * N + i] : INFINITY;
-  // delta_i = rowsum(do_i * o_i), a warp per row in a fixed order
-  for (int r = warp; r < NQ; r += warps) {
-    float x = 0.f;
+// delta = rowsum(do * o) of each (b, i, h), a thread each, summed over the
+// head's columns in order (16-byte loads). A float32 do (hybrid) is also
+// split into three bf16 parts, hi = bf16(do), mid = bf16(do - hi),
+// lo = bf16(do - hi - mid), whose sum is do exactly (both residuals are
+// exact in float32, the second has at most 8 significant bits): split[p]
+// is a contiguous [B, N, H * hd] bf16 array.
+template <typename TO>
+__global__ void attn_delta_bf16(View<TO> o, View<TO> dout, float* __restrict__ delta,
+                                bf16* __restrict__ split, int B, int N, int H, int hd) {
+  constexpr int VW = 16 / sizeof(TO);
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= (long long)B * N * H) return;
+  const int h = (int)(e % H);
+  const long long bi = e / H;
+  const int i = (int)(bi % N), b = (int)(bi / N), col0 = h * hd;
+  const long long D = (long long)H * hd, n_all = (long long)B * N * D;
+  float x = 0.f;
+  for (int d0 = 0; d0 < hd; d0 += VW) {
+    float a[VW], c[VW];
+    if constexpr (std::is_same<TO, float>::value) {
+      const float4 oa = __ldg(reinterpret_cast<const float4*>(row_ptr(o, b, i, col0 + d0)));
+      const float4 ca = __ldg(reinterpret_cast<const float4*>(row_ptr(dout, b, i, col0 + d0)));
+      a[0] = oa.x; a[1] = oa.y; a[2] = oa.z; a[3] = oa.w;
+      c[0] = ca.x; c[1] = ca.y; c[2] = ca.z; c[3] = ca.w;
+      uint32_t w[3][2];
 #pragma unroll
-    for (int u = 0; u < DL; ++u) {
-      const int d = lane + 32 * u;
-      if (r < N && d < HD)
-        x = fmaf(static_cast<float>(*row_ptr(dout, b, r, col0 + d)),
-                 static_cast<float>(*row_ptr(o, b, r, col0 + d)), x);
-    }
+      for (int u = 0; u < VW; u += 2) {
+        float hi[2], mid[2], lo[2];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (lane == 0) delta_s[r] = x;
-  }
-
-  const int kw = key0 + warp * kRowTile;  // this warp's first key
-  const bf16* kra = ks + (warp * kRowTile + g) * LD + 2 * t;
-  const bf16* vra = vsm + (warp * kRowTile + g) * LD + 2 * t;
-  float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  const long long D = (long long)H * HD;
-  const int B = gridDim.x / chunks / H;
-  for (int i0 = 0; i0 < NQ; i0 += kRowTile) {
-    __syncthreads();  // every warp is done with the last tile's q, do and ds
-    stage_rows<HD>(qs, q, b, col0, i0, kRowTile, N);
-    if constexpr (DP == 1) stage_rows<HD>(dos, dout, b, col0, i0, kRowTile, N);
-    else stage_split<HD>(dos, dout, b, col0, i0, kRowTile, N);
-    __syncthreads();
-    // s^T = k q^T and dp^T = v do^T: rows are this warp's keys, columns the
-    // tile's queries, two 8-query tiles
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      const bf16* qr = qs + (8 * n + g) * LD + 2 * t;
-      const bf16* dr = dos + (8 * n + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t kf[4] = {ld32(kra + 16 * kk), ld32(kra + 8 * LD + 16 * kk),
-                                ld32(kra + 16 * kk + 8), ld32(kra + 8 * LD + 16 * kk + 8)};
-        const uint32_t vf[4] = {ld32(vra + 16 * kk), ld32(vra + 8 * LD + 16 * kk),
-                                ld32(vra + 16 * kk + 8), ld32(vra + 8 * LD + 16 * kk + 8)};
-        mma_bf16(s[n], kf, ld32(qr + 16 * kk), ld32(qr + 16 * kk + 8));
-#pragma unroll
-        for (int part = 0; part < DP; ++part) {
-          const bf16* dpr = dr + part * kRowTile * LD;
-          mma_bf16(dp[n], vf, ld32(dpr + 16 * kk), ld32(dpr + 16 * kk + 8));
+        for (int z = 0; z < 2; ++z) {
+          hi[z] = round_bf16(c[u + z]);
+          const float rest = c[u + z] - hi[z];
+          mid[z] = round_bf16(rest);
+          lo[z] = round_bf16(rest - mid[z]);
         }
+        w[0][u / 2] = pack_bf16(hi[0], hi[1]);
+        w[1][u / 2] = pack_bf16(mid[0], mid[1]);
+        w[2][u / 2] = pack_bf16(lo[0], lo[1]);
       }
+      const long long off = bi * D + col0 + d0;
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(split + p * n_all + off) = make_uint2(w[p][0], w[p][1]);
+    } else {
+      ldg_bf16<8>(row_ptr(o, b, i, col0 + d0), a);
+      ldg_bf16<8>(row_ptr(dout, b, i, col0 + d0), c);
     }
-    // p and ds; bf16(p) in s, bf16(ds) in dp, ds also to the shared tile
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * n + 2 * t + (e & 1);  // query within the tile
-        const int key = g + 8 * (e / 2);         // key within the warp's tile
-        const float p = kw + key < N ? expf(s[n][e] * scale - lse_s[i0 + qi]) : 0.f;
-        const float ds = round_bf16(p * (dp[n][e] - delta_s[i0 + qi]) * scale);
-        s[n][e] = p;
-        dp[n][e] = ds;
-        dsb[qi * LDK + warp * kRowTile + key] = __float2bfloat16_rn(ds);
-      }
-    // dv += bf16(p)^T do, dk += ds^T q over the tile's 16 queries
-    const uint32_t pf[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-    const uint32_t sf[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
-                            pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
-#pragma unroll
-    for (int n = 0; n < HD / 8; n += 2) {
-      uint32_t bd[4], bq[4];
-#pragma unroll
-      for (int part = 0; part < DP; ++part) {
-        ldsm_b<LD>(bd, dos + part * kRowTile * LD, 8 * n);
-        mma_bf16(dva[n], pf, bd[0], bd[1]);
-        mma_bf16(dva[n + 1], pf, bd[2], bd[3]);
-      }
-      ldsm_b<LD>(bq, qs, 8 * n);
-      mma_bf16(dka[n], sf, bq[0], bq[1]);
-      mma_bf16(dka[n + 1], sf, bq[2], bq[3]);
-    }
-    __syncthreads();
-    // dq of the tile's rows over this CTA's keys: ds [16, KC] k [KC, HD];
-    // warp w owns the 16-column tiles w, w + W, ...
-    for (int n = 2 * warp; n < HD / 8; n += 2 * warps) {
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      for (int k0 = 0; k0 < KC; k0 += 16) {
-        const uint32_t af[4] = {ld32(dsb + g * LDK + k0 + 2 * t),
-                                ld32(dsb + (g + 8) * LDK + k0 + 2 * t),
-                                ld32(dsb + g * LDK + k0 + 2 * t + 8),
-                                ld32(dsb + (g + 8) * LDK + k0 + 2 * t + 8)};
-        uint32_t bk[4];
-        ldsm_b<LD>(bk, ks + k0 * LD, 8 * n);
-        mma_bf16(acc[0], af, bk[0], bk[1]);
-        mma_bf16(acc[1], af, bk[2], bk[3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = i0 + g + 8 * r;
-          if (i >= N) continue;
-          const long long off = ((long long)b * N + i) * D + col0 + 8 * (n + j) + 2 * t;
-          if (chunks == 1)
-            *reinterpret_cast<uint32_t*>(dq + off) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
-          else
-            *reinterpret_cast<float2*>(dq_part + (long long)c * B * N * D + off) =
-                make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
-        }
-    }
+    for (int u = 0; u < VW; ++u) x = fmaf(c[u], a[u], x);
   }
+  delta[((long long)b * H + h) * N + i] = x;
+}
 
+// The key role's p^T = exp(s^T scale - lse) and ds^T = p^T (dp^T - delta)
+// scale in place of s^T and dp^T: s[4c + e] is key `key` + 8 (e / 2),
+// query q0 + 8 c + 2 t4 + (e & 1) (tile column 8 c + 2 t4 + (e & 1) of the
+// staged lse and delta), c below W / 8 (a tile of W queries). With kMask
+// (a ragged tile) keys and queries past N give 0, by selects: no element
+// sits behind a branch of its own.
+template <bool kMask, int W>
+__device__ __forceinline__ void key_elems(float (&s)[32], float (&dp)[32], const float* lse_t,
+                                          const float* del_t, int key, int q0, int N,
+                                          float scale) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c)
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      const int col = 8 * c + 2 * t4 + z;
+      const float ls = lse_t[col], dl = del_t[col];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int e = 2 * r + z;
+        const float p = __expf(__fmul_rn(s[4 * c + e], scale) - ls);
+        const float ds = p * (dp[4 * c + e] - dl) * scale;
+        const bool in = !kMask || (key + 8 * r < N && q0 + col < N);
+        s[4 * c + e] = in ? p : 0.f;
+        dp[4 * c + e] = in ? ds : 0.f;
+      }
+    }
+}
+
+// The query role's ds = p (dp - delta) scale in place of dp: s[4c + e] is
+// query `row` + 8 (e / 2) (lse_r, del_r), key k0 + 8 c + 2 t4 + (e & 1),
+// c below W / 8; masked as key_elems.
+template <bool kMask, int W>
+__device__ __forceinline__ void query_elems(const float (&s)[32], float (&dp)[32],
+                                            const float (&lse_r)[2], const float (&del_r)[2],
+                                            int row, int k0, int N, float scale) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e / 2;
+      const float p = __expf(__fmul_rn(s[4 * c + e], scale) - lse_r[r]);
+      const float ds = p * (dp[4 * c + e] - del_r[r]) * scale;
+      const bool in = !kMask || (row + 8 * r < N && k0 + 8 * c + 2 * t4 + (e & 1) < N);
+      dp[4 * c + e] = in ? ds : 0.f;
+    }
+}
+
+// do as DP bf16 views: do itself (DP = 1), or its three parts (DP = 3)
+struct DoParts {
+  View<bf16> p[3];
+};
+
+// Backward, key role: dk and dv of keys 64 kt .. 64 kt + 63 of (b, h). k
+// and v are wgmma A tiles; the query tiles (q, do's parts, lse and delta)
+// stream through a two-stage ring. s^T = k q^T and dp^T = v do^T (SS),
+// p^T = exp(s^T scale - lse), ds^T = bf16(p^T (dp^T - delta) scale); then
+// dv += bf16(p^T) do and dk += ds^T q with A from registers (RS, do and q
+// MN-major).
+template <int DP>
+__device__ __forceinline__ void bwd_keys(uint8_t* sm, const View<bf16>& q, const View<bf16>& k,
+                                         const View<bf16>& v, const DoParts& dout,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, int b, int h, int kt, int N,
+                                         int H, int hd, float scale) {
+  constexpr int kStage = 1 + DP;  // tiles of a ring stage: q, do's parts
+  constexpr int kTiles = 2 + 2 * kStage;
+  const uint32_t s0 = smem_u32(sm);
+  float* ring_f = reinterpret_cast<float*>(sm + kTiles * kTileBytes);  // [2][lse 64, delta 64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_f + 2 * 2 * kTile);  // k and v, 2 stages
+  const int bh = b * H + h, col0 = h * hd, nt = (N + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i, kWg);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto fill = [&](int st, int it) {
+    const uint32_t base = s0 + (2 + st * kStage) * kTileBytes;
+    load_tile(base, q, b, col0, kTile * it, N, hd);
+#pragma unroll
+    for (int p = 0; p < DP; ++p) load_tile(base + (1 + p) * kTileBytes, dout.p[p], b, col0, kTile * it, N, hd);
+    const int i = kTile * it + threadIdx.x % kTile;
+    const float* src = (threadIdx.x < kTile ? lse : delta) + (long long)bh * N + min(i, N - 1);
+    cp_async4(smem_u32(ring_f + st * 2 * kTile + threadIdx.x), src, i < N ? 4 : 0);
+    cp_async_arrive(bars + 1 + st);
+  };
+  load_tile(s0, k, b, col0, kTile * kt, N, hd);
+  load_tile(s0 + kTileBytes, v, b, col0, kTile * kt, N, hd);
+  cp_async_arrive(bars);
+  fill(0, 0);
+  if (nt > 1) fill(1, 1);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int kw = kTile * kt + 16 * warp;  // this warp's first key
+  float dka[32], dva[32];
+  // one query tile, W queries wide: 64, or 8 for a last tile of at most 8
+  // queries (N 65, 197, 257), whose products and elements shrink to match
+  auto step = [&](auto width, int it) {
+    constexpr int W = decltype(width)::value, kSteps = (W / 8 + 1) / 2;
+    const int st = it & 1;
+    const uint32_t qt = s0 + (2 + st * kStage) * kTileBytes;
+    mbar_wait(bars + 1 + st, (it >> 1) & 1);
+    if (it == 0) mbar_wait(bars, 0);
+    fence_async_smem();
+    float s[32], dp[32];  // the first W / 2 of each
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHdp / 16; ++kk) wgmma_ss_w<W>(s, desc(s0 + 32 * kk), desc(qt + 32 * kk), kk);
+#pragma unroll
+    for (int p = 0; p < DP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < kHdp / 16; ++kk)
+        wgmma_ss_w<W>(dp, desc(s0 + kTileBytes + 32 * kk), desc(qt + (1 + p) * kTileBytes + 32 * kk), p + kk);
+    wg_commit();
+    wg_wait();
+    fence_regs<W / 2>(s);
+    fence_regs<W / 2>(dp);
+
+    // a warp whose keys all lie past N skips: row j of dk and dv takes row
+    // j of p^T and ds^T alone, and those rows are not stored
+    const float* lse_t = ring_f + st * 2 * kTile;
+    if (kw < N) {
+      if (kTile * (kt + 1) <= N && kTile * it + W <= N)  // CTA-uniform
+        key_elems<false, W>(s, dp, lse_t, lse_t + kTile, kw + g, kTile * it, N, scale);
+      else
+        key_elems<true, W>(s, dp, lse_t, lse_t + kTile, kw + g, kTile * it, N, scale);
+    }
+    uint32_t pf[4][4], sf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      pack_a(pf[kk], s, kk, W / 8);
+      pack_a(sf[kk], dp, kk, W / 8);
+      fence_regs(pf[kk]);
+      fence_regs(sf[kk]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int p = 0; p < DP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk)
+        if (kTile * it + 16 * kk < N)
+          wgmma_rs(dva, pf[kk], desc(qt + (1 + p) * kTileBytes + 2048 * kk), it + p + kk);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      if (kTile * it + 16 * kk < N) wgmma_rs(dka, sf[kk], desc(qt + 2048 * kk), it + kk);
+    wg_commit();
+    wg_wait();
+    fence_regs(dka);
+    fence_regs(dva);
+    __syncthreads();  // every warp's products are done with the stage
+    if (it + 2 < nt) fill(st, it + 2);
+  };
+  for (int it = 0; it < nt - 1; ++it) step(std::integral_constant<int, kTile>(), it);
+  if (N - kTile * (nt - 1) <= 8) step(std::integral_constant<int, 8>(), nt - 1);
+  else step(std::integral_constant<int, kTile>(), nt - 1);
+
+  const long long D = (long long)H * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int j = kw + g + 8 * r;
     if (j >= N) continue;
-    const long long off = ((long long)b * N + j) * D + col0 + 2 * t;
+    const long long off = ((long long)b * N + j) * D + col0 + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * n) = pack_bf16(dka[n][2 * r], dka[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * n) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
+    for (int c = 0; c < 8; ++c)
+      if (8 * c < hd) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * c) = pack_bf16(dka[4 * c + 2 * r], dka[4 * c + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * c) = pack_bf16(dva[4 * c + 2 * r], dva[4 * c + 2 * r + 1]);
+      }
   }
 }
 
-// dq = bf16(sum over c of dq_part[c]), in chunk order; n elements a chunk
-__global__ void dq_sum_bf16(const float* __restrict__ part, bf16* __restrict__ dq, long long n,
-                            int chunks) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    float a = part[e];
-    for (int c = 1; c < chunks; ++c) a += part[c * n + e];
-    dq[e] = __float2bfloat16_rn(a);
+// Backward, query role: dq of queries 64 qt .. 64 qt + 63 of (b, h). q and
+// do's parts are wgmma A tiles; the key tiles (k, v) stream through a
+// two-stage ring. s = q k^T, dp = do v^T (SS), p and ds as the key role
+// forms them (from the query's side), dq += ds k (RS, k MN-major).
+template <int DP>
+__device__ __forceinline__ void bwd_queries(uint8_t* sm, const View<bf16>& q, const View<bf16>& k,
+                                            const View<bf16>& v, const DoParts& dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            bf16* __restrict__ dq, int b, int h, int qt, int N,
+                                            int H, int hd, float scale) {
+  constexpr int kOwn = 1 + DP;  // q and do's parts; then the ring's k, v tiles
+  const uint32_t s0 = smem_u32(sm);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + (kOwn + 4) * kTileBytes);
+  const int bh = b * H + h, col0 = h * hd, nt = (N + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i, kWg);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  auto fill = [&](int st, int jt) {
+    const uint32_t base = s0 + (kOwn + 2 * st) * kTileBytes;
+    load_tile(base, k, b, col0, kTile * jt, N, hd);
+    load_tile(base + kTileBytes, v, b, col0, kTile * jt, N, hd);
+    cp_async_arrive(bars + 1 + st);
+  };
+  load_tile(s0, q, b, col0, kTile * qt, N, hd);
+#pragma unroll
+  for (int p = 0; p < DP; ++p) load_tile(s0 + (1 + p) * kTileBytes, dout.p[p], b, col0, kTile * qt, N, hd);
+  cp_async_arrive(bars);
+  fill(0, 0);
+  if (nt > 1) fill(1, 1);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int qw = kTile * qt + 16 * warp;  // this warp's first query
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = min(qw + g + 8 * r, N - 1);
+    lse_r[r] = lse[(long long)bh * N + i];
+    del_r[r] = delta[(long long)bh * N + i];
+  }
+  float dqa[32];
+  // one key tile, W keys wide (as the key role's step)
+  auto step = [&](auto width, int jt) {
+    constexpr int W = decltype(width)::value, kSteps = (W / 8 + 1) / 2;
+    const int st = jt & 1;
+    const uint32_t kt_s = s0 + (kOwn + 2 * st) * kTileBytes, vt_s = kt_s + kTileBytes;
+    mbar_wait(bars + 1 + st, (jt >> 1) & 1);
+    if (jt == 0) mbar_wait(bars, 0);
+    fence_async_smem();
+    float s[32], dp[32];  // the first W / 2 of each
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHdp / 16; ++kk) wgmma_ss_w<W>(s, desc(s0 + 32 * kk), desc(kt_s + 32 * kk), kk);
+#pragma unroll
+    for (int p = 0; p < DP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < kHdp / 16; ++kk)
+        wgmma_ss_w<W>(dp, desc(s0 + (1 + p) * kTileBytes + 32 * kk), desc(vt_s + 32 * kk), p + kk);
+    wg_commit();
+    wg_wait();
+    fence_regs<W / 2>(s);
+    fence_regs<W / 2>(dp);
+
+    if (qw < N) {  // else as the key role's skip: its rows are not stored
+      if (kTile * (qt + 1) <= N && kTile * jt + W <= N)  // CTA-uniform
+        query_elems<false, W>(s, dp, lse_r, del_r, qw + g, kTile * jt, N, scale);
+      else
+        query_elems<true, W>(s, dp, lse_r, del_r, qw + g, kTile * jt, N, scale);
+    }
+    uint32_t sf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      pack_a(sf[kk], dp, kk, W / 8);
+      fence_regs(sf[kk]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      if (kTile * jt + 16 * kk < N) wgmma_rs(dqa, sf[kk], desc(kt_s + 2048 * kk), jt + kk);
+    wg_commit();
+    wg_wait();
+    fence_regs(dqa);
+    __syncthreads();  // every warp's products are done with the stage
+    if (jt + 2 < nt) fill(st, jt + 2);
+  };
+  for (int jt = 0; jt < nt - 1; ++jt) step(std::integral_constant<int, kTile>(), jt);
+  if (N - kTile * (nt - 1) <= 8) step(std::integral_constant<int, 8>(), nt - 1);
+  else step(std::integral_constant<int, kTile>(), nt - 1);
+
+  const long long D = (long long)H * hd;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = qw + g + 8 * r;
+    if (i >= N) continue;
+    bf16* row = dq + ((long long)b * N + i) * D + col0 + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (8 * c < hd)
+        *reinterpret_cast<uint32_t*>(row + 8 * c) = pack_bf16(dqa[4 * c + 2 * r], dqa[4 * c + 2 * r + 1]);
+  }
+}
+
+// 2 ceil(N / 64) CTAs a (b, h): blockIdx.x = (b H + h) 2 T + r, the key
+// role for r < T (key tile r), the query role after (query tile r - T)
+template <int DP>
+__global__ void __launch_bounds__(kWg, 3)
+attn_bwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, DoParts dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int N,
+                  int H, int hd, float scale) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const int nt = (N + kTile - 1) / kTile;
+  const int bh = blockIdx.x / (2 * nt), r = blockIdx.x - bh * 2 * nt;
+  const int b = bh / H, h = bh - b * H;
+  if (r < nt)
+    bwd_keys<DP>(sm, q, k, v, dout, lse, delta, dk, dv, b, h, r, N, H, hd, scale);
+  else
+    bwd_queries<DP>(sm, q, k, v, dout, lse, delta, dq, b, h, r - nt, N, H, hd, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -746,23 +1155,19 @@ size_t row_smem(int N, int HD, bool backward) {
   return sizeof(float) * (2 * (size_t)N * HD + (backward ? 2 * (size_t)N : 0));
 }
 
-// chunks C and warps W of a (b, h) (attention_fused.py:mma_plan)
-void mma_plan(int N, int* chunks, int* warps) {
-  const int tiles = (N + kRowTile - 1) / kRowTile;
-  *chunks = (tiles + kMaxWarps - 1) / kMaxWarps;
-  *warps = (tiles + *chunks - 1) / *chunks;
+// the tensor-core kernels' dynamic shared memory (attention_fused.py:
+// bf16_smem_bytes): the alignment slack, then the forward's k and v blocks,
+// its two q tiles and four mbarriers; the backward's larger role (the key
+// role: k, v and a two-stage ring of q and do's parts, lse and delta) and
+// three mbarriers
+size_t fwd_mma_smem(int N) {
+  const size_t blocks = (N + kTile - 1) / kTile;
+  return kSmemAlign + (2 * blocks + 3) * kTileBytes + 128;
 }
 
-size_t fwd_mma_smem(int N, int HD) {
-  const size_t nk = (N + 15) / 16 * 16;
-  return sizeof(bf16) * 2 * nk * (HD + kPad);
-}
-
-// do_parts: 1 for a bf16 do, 3 for a float32 do (its bf16 parts)
-size_t bwd_mma_smem(int N, int HD, int warps, int do_parts) {
-  const size_t nq = (N + kRowTile - 1) / kRowTile * kRowTile, kc = warps * kRowTile;
-  return sizeof(float) * 2 * nq + sizeof(bf16) * ((2 * kc + (1 + do_parts) * kRowTile) *
-                                                      (HD + kPad) + kRowTile * (kc + kPad));
+size_t bwd_mma_smem(int do_parts) {
+  return kSmemAlign + (4 + 2 * (size_t)do_parts) * kTileBytes + 2 * 2 * kTile * sizeof(float) +
+         3 * sizeof(uint64_t);
 }
 
 // whether a bf16 view's pointer and strides take VW-element copies
@@ -828,19 +1233,75 @@ constexpr int elems(int width) {
              : 0;
 }
 
+template <int NKB, int TW>
+int fwd_mma_blocks(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N,
+                   int H, int hd, float scale, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  const size_t smem = fwd_mma_smem(N);
+  cudaError_t err = allow_smem(attn_fwd_mma_bf16<NKB, TW>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_mma_bf16<NKB, TW><<<B * H, kWg, smem, s>>>(q, k, v, o, lse, N, H, hd, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// NKB key blocks, the last one's width (keys past 64 (NKB - 1)) rounded up
+// to 8, 16, 32 or 64
+template <int NKB>
+int fwd_mma_tail(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N,
+                 int H, int hd, float scale, cudaStream_t s) {
+  const int rest = N - kTile * (NKB - 1);
+  if (rest <= 8) return fwd_mma_blocks<NKB, 8>(q, k, v, o, lse, B, N, H, hd, scale, s);
+  if (rest <= 16) return fwd_mma_blocks<NKB, 16>(q, k, v, o, lse, B, N, H, hd, scale, s);
+  if (rest <= 32) return fwd_mma_blocks<NKB, 32>(q, k, v, o, lse, B, N, H, hd, scale, s);
+  return fwd_mma_blocks<NKB, 64>(q, k, v, o, lse, B, N, H, hd, scale, s);
+}
+
+int fwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
+            int hd, float scale, cudaStream_t s) {
+  switch ((N + kTile - 1) / kTile) {
+    case 1: return fwd_mma_tail<1>(q, k, v, o, lse, B, N, H, hd, scale, s);
+    case 2: return fwd_mma_tail<2>(q, k, v, o, lse, B, N, H, hd, scale, s);
+    case 3: return fwd_mma_tail<3>(q, k, v, o, lse, B, N, H, hd, scale, s);
+    case 4: return fwd_mma_tail<4>(q, k, v, o, lse, B, N, H, hd, scale, s);
+    case 5: return fwd_mma_tail<5>(q, k, v, o, lse, B, N, H, hd, scale, s);
+    default: return kBadLength;
+  }
+}
+
+// the delta pre-pass (and, for a float32 do, its split), then one launch
+// of both roles
+template <typename TO>
+int bwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
+            View<TO> dout, bf16* dq, bf16* dk, bf16* dv, float* delta, bf16* split, int B, int N,
+            int H, int hd, float scale, cudaStream_t s) {
+  constexpr int DP = std::is_same<TO, float>::value ? 3 : 1;
+  static size_t allowed = 48 * 1024;
+  const long long rows = (long long)B * N * H;
+  attn_delta_bf16<TO><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(o, dout, delta, split, B, N,
+                                                                      H, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  DoParts parts;
+  const long long D = (long long)H * hd;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    if constexpr (DP == 3) parts.p[p] = View<bf16>{split + p * (long long)B * N * D, N * D, D};
+    else parts.p[p] = dout;
+  }
+  const size_t smem = bwd_mma_smem(DP);
+  err = allow_smem(attn_bwd_mma_bf16<DP>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = (N + kTile - 1) / kTile;
+  attn_bwd_mma_bf16<DP><<<2 * B * H * nt, kWg, smem, s>>>(q, k, v, parts, lse, delta, dq, dk, dv,
+                                                         N, H, hd, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 int launch_fwd(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
                float scale, int width, cudaStream_t s) {
   if constexpr (HD >= 32) {
-    static size_t allowed = 48 * 1024;
-    int chunks, warps;
-    mma_plan(N, &chunks, &warps);
-    const size_t smem = fwd_mma_smem(N, HD);
-    cudaError_t err = allow_smem(attn_fwd_mma_bf16<HD>, smem, &allowed);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_mma_bf16<HD><<<B * H * chunks, 32 * warps, smem, s>>>(q, k, v, o, lse, N, H, chunks,
-                                                                   scale);
-    return static_cast<int>(cudaGetLastError());
+    return fwd_mma(q, k, v, o, lse, B, N, H, HD, scale, s);
   } else {
     switch (elems<HD>(width)) {
       case 8:
@@ -861,23 +1322,10 @@ int launch_fwd(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, in
 
 template <int HD, typename TO>
 int launch_bwd(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
-               View<TO> dout, bf16* dq, bf16* dk, bf16* dv, float* dq_part, int B, int N, int H,
-               float scale, int width, cudaStream_t s) {
+               View<TO> dout, bf16* dq, bf16* dk, bf16* dv, float* delta, bf16* split, int B,
+               int N, int H, float scale, int width, cudaStream_t s) {
   if constexpr (HD >= 32) {
-    static size_t allowed = 48 * 1024;
-    int chunks, warps;
-    mma_plan(N, &chunks, &warps);
-    const size_t smem = bwd_mma_smem(N, HD, warps, std::is_same<TO, float>::value ? 3 : 1);
-    cudaError_t err = allow_smem(attn_bwd_mma_bf16<HD, TO>, smem, &allowed);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_bwd_mma_bf16<HD, TO><<<B * H * chunks, 32 * warps, smem, s>>>(
-        q, k, v, o, lse, dout, dq, dk, dv, dq_part, N, H, chunks, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
-    const long long n = (long long)B * N * H * HD;
-    const int blocks = (int)((n + 255) / 256 < 1056 ? (n + 255) / 256 : 1056);
-    dq_sum_bf16<<<blocks, 256, 0, s>>>(dq_part, dq, n, chunks);
-    return static_cast<int>(cudaGetLastError());
+    return bwd_mma<TO>(q, k, v, o, lse, dout, dq, dk, dv, delta, split, B, N, H, HD, scale, s);
   } else {
     switch (elems<HD>(width)) {
       case 8:
@@ -905,28 +1353,30 @@ int launch_bwd(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float
 // tensor-core kernels.
 #define ATTN_BF16_HEAD_DIMS(X) X(2) X(8) X(16) X(32) X(48) X(64)
 
-// The kernels' constants (kRowThreads, kRowTile, kMaxWarps, kPad):
-// ops/attention_fused.py plans grids, shared memory and the dq workspace
-// with them and refuses a library whose constants differ.
+// The kernels' constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks):
+// ops/attention_fused.py plans grids and shared memory with them and
+// refuses a library whose constants differ.
 extern "C" void attention_bf16_tiles(int* out) {
   out[0] = kRowThreads;
-  out[1] = kRowTile;
-  out[2] = kMaxWarps;
-  out[3] = kPad;
+  out[1] = kTile;
+  out[2] = kHdp;
+  out[3] = kMaxKeyBlocks;
 }
 
 // Both entry points launch on `stream`, allocate nothing and return
 // cudaGetLastError() as an int (0 on success), -1 for a head dim that is
-// not built, or -2 for a row copy width that a view contradicts. q, k, v
-// and do are bf16 [B, N, H*hd] views with unit column stride, batch stride
-// *_sb and row stride *_sr in elements; at hd >= 32 their pointers and
-// strides are 4-byte aligned. At hd <= 16 the row kernels copy rows
-// row_copy_bytes (16, 8, 4 or 2) at a time, which every bf16 view's pointer
-// and strides, and hd * 2, must be multiples of. o and do are bf16, or both
-// float32 when o_do_f32 is set (hybrid_attention's eager forward and its
-// cotangent), read a float at a time. The outputs o, lse
-// [B, H, N] (float32), dq, dk, dv are contiguous. dq_part is the
-// backward's float32 [C, B, N, D] workspace, read only where C > 1.
+// not built, -2 for a row copy width that a view contradicts, or -3 for a
+// forward past 64 kMaxKeyBlocks keys at hd >= 32. q, k, v and do are
+// [B, N, H*hd] views with unit column stride, batch stride *_sb and row
+// stride *_sr in elements; at hd >= 32 their pointers and strides are
+// multiples of 16 bytes. At hd <= 16 the row kernels copy rows
+// row_copy_bytes (16, 8, 4 or 2) at a time, which every bf16 view's
+// pointer and strides, and hd * 2, must be multiples of. o and do are
+// bf16, or both float32 when o_do_f32 is set (hybrid_attention's eager
+// forward and its cotangent). The outputs o, lse [B, H, N] (float32), dq,
+// dk, dv are contiguous. At hd >= 32 the backward writes delta, a float32
+// [B, H, N] workspace, and for a float32 do its three bf16 parts to
+// do_split, a contiguous [3, B, N, H*hd] bf16 workspace (unused otherwise).
 extern "C" int attention_bf16_forward(const void* q, long long q_sb, long long q_sr,
                                       const void* k, long long k_sb, long long k_sr,
                                       const void* v, long long v_sb, long long v_sr, void* o,
@@ -952,8 +1402,8 @@ extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long 
                                        const void* o, long long o_sb, long long o_sr, int o_do_f32,
                                        const float* lse, const void* dout, long long do_sb,
                                        long long do_sr, void* dq, void* dk, void* dv,
-                                       float* dq_part, int B, int N, int H, int hd, float scale,
-                                       int row_copy_bytes, void* stream) {
+                                       float* delta, void* do_split, int B, int N, int H, int hd,
+                                       float scale, int row_copy_bytes, void* stream) {
   const View<bf16> qv{static_cast<const bf16*>(q), q_sb, q_sr},
       kv{static_cast<const bf16*>(k), k_sb, k_sr}, vv{static_cast<const bf16*>(v), v_sb, v_sr};
   const View<bf16> ob{static_cast<const bf16*>(o), o_sb, o_sr},
@@ -961,17 +1411,19 @@ extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long 
   const View<float> of{static_cast<const float*>(o), o_sb, o_sr},
       dof{static_cast<const float*>(dout), do_sb, do_sr};
   bf16 *dqb = static_cast<bf16*>(dq), *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
+  bf16* split = static_cast<bf16*>(do_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-#define ATTN_BWD_CASE(HD)                                                                    \
-  case HD:                                                                                   \
-    return o_do_f32 ? launch_bwd<HD, float>(qv, kv, vv, of, lse, dof, dqb, dkb, dvb, dq_part, \
-                                            B, N, H, scale, row_copy_bytes, s)               \
-                    : launch_bwd<HD, bf16>(qv, kv, vv, ob, lse, dob, dqb, dkb, dvb, dq_part,  \
-                                           B, N, H, scale, row_copy_bytes, s);
+#define ATTN_BWD_CASE(HD)                                                                      \
+  case HD:                                                                                     \
+    return o_do_f32 ? launch_bwd<HD, float>(qv, kv, vv, of, lse, dof, dqb, dkb, dvb, delta,     \
+                                            split, B, N, H, scale, row_copy_bytes, s)          \
+                    : launch_bwd<HD, bf16>(qv, kv, vv, ob, lse, dob, dqb, dkb, dvb, delta,      \
+                                           split, B, N, H, scale, row_copy_bytes, s);
     ATTN_BF16_HEAD_DIMS(ATTN_BWD_CASE)
 #undef ATTN_BWD_CASE
     default:
       return kBadHeadDim;
   }
 }
+
