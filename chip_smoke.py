@@ -14,8 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    (HGMMA), of the two hd >= 32 attention kernels, which fail without a
    TF32 mma (HMMA or HGMMA), and of every instantiation of the fused block's
    ``block_fwd_kernel`` and ``block_bwd_kernel``, which fail without a TF32
-   mma (HMMA), and of the two hd >= 32 bf16 attention kernels, which fail
-   without a bf16 wgmma (HGMMA ... BF16); fails without ``cuobjdump``;
+   mma (HMMA), of the two hd >= 32 bf16 attention kernels, which fail
+   without a bf16 wgmma (HGMMA ... BF16), and of the two hd <= 16 bf16 ones
+   (every instantiation), which fail without a bf16 mma.sync (HMMA ...
+   BF16); fails without ``cuobjdump``;
 3. kernel vs plain: the fused SOM kernel against its plain PyTorch version
    on the card at every shipped ViT-SOM SOM shape (``SOM_SHAPES``: B, D =
    patch tokens x emb, P) and one ragged shape (B 13, D 1000, P 132), x the
@@ -370,7 +372,15 @@ K. bf16 inputs to the attention kernels, the bf16 models and optimizer
    (``phase_attention_bf16``): the bf16 kernels (``csrc/attention_bf16.cu``)
    against their plain versions at (128, 197, 2, 8), (128, 197, 2, 2),
    (128, 65, 3, 64) contiguous, (128, 65, 3, 32) strided, (512, 257, 3, 64)
-   contiguous and (512, 257, 3, 32) strided, forward and backward, the
+   contiguous, (512, 257, 3, 32) strided, (128, 65, 2, 8), (128, 65, 2, 2)
+   and the JAX tests' (2, 33, 2, 16) and (1, 9, 1, 8) (strided below D 128;
+   each row shape's kernel, ``bf16_row_kernel``, printed: the tensor-core
+   row kernels below hd 32 up to N 320), (128, 400, 2, 8) (the FP32-core
+   bf16 row kernels), and, untimed, ``K1_VARIANTS``: (128, 197, 2, 2) and
+   (128, 197, 2, 8) with q, k, v rows 2 bytes off a 4-byte boundary (the
+   tensor-core row kernels' 2-byte loads), (128, 197, 2, 8) and (128, 400,
+   2, 8) with a quarter of the keys far from every query (some p in
+   float32's subnormal range), forward and backward, the
    backward on a bf16 o and do (``pallas``)
    and on a float32 o and do (``hybrid``): within 1 bf16 ulp on all but 0.1
    % of the elements and atol/rtol 1e-2 everywhere, lse within 1e-5, each
@@ -379,10 +389,12 @@ K. bf16 inputs to the attention kernels, the bf16 models and optimizer
    equal; each timed with L2 flushed beside its plain version and SDPA on
    the same bf16 tensors (backend named), against the bound (bytes at 3.35
    TB/s, bf16 tensor-core operations at 989 TFLOP/s or the exponentials,
-   the longest), and at (512, 257, 3, 64) the backward on the float32 o
-   and do too. K2 ``vit_som_mnist.yaml`` + bf16 + ``pallas`` (the bf16 row
-   kernels at hd 8 and 2): TRAIN_STEPS graphed steps held against eager,
-   launches equal to the formula below, ``profile_step``. K3
+   the longest), and at (512, 257, 3, 64) and (128, 197, 2, 8) the
+   backward on the float32 o and do too. K2 ``vit_som_mnist.yaml`` + bf16
+   + ``pallas`` (the bf16 tensor-core row kernels at hd 8 and 2):
+   TRAIN_STEPS graphed steps held against eager, launches equal to the
+   formula below, ``profile_step`` (each block's launches counted under
+   the kernel its head dim takes). K3
    ``vit_som_tiny-imagenet.yaml`` + bf16 + ``pallas`` (B 512, the bf16
    tensor-core kernels at hd 64): K3_STEPS graphed steps, launches equal to
    the formula, the step ms beside E1's float32 one. K4 ``swin_cifar-10``
@@ -860,16 +872,19 @@ def issued_steps(steps, eager):
     return steps if eager or steps <= WARMUP_STEPS else WARMUP_STEPS + 1
 
 
-def expected_launches(cfg, impl, steps, eval_batches):
+def expected_launches(cfg, impl, steps, eval_batches, part="all"):
     """What the code implies (module docstring): one attention call per
     block; with remat each block's forward runs again in the backward; the
     eval runs the forward only, under no_grad. A classification train step
     runs the encoder only, the ViT-SOM eval step the decoder too; the ViT
     baseline has no decoder and no SOM. Under ``compute_dtype: bfloat16``
-    the attention launches are the bf16 kernels'."""
+    the attention launches are the bf16 kernels'. ``part`` "encoder" or
+    "decoder" counts the attention launches of those blocks alone."""
     som_model = cfg.model_arch == "vit_som"
-    eval_blocks = cfg.vit.depth + (cfg.vit.dec_depth if som_model else 0)
-    train_blocks = cfg.vit.depth if cfg.classification else eval_blocks
+    enc = 0 if part == "decoder" else cfg.vit.depth
+    dec = cfg.vit.dec_depth if som_model and part != "encoder" else 0
+    eval_blocks = enc + dec
+    train_blocks = enc if cfg.classification else eval_blocks
     passes = 2 if cfg.train.remat_blocks else 1
     fwd = steps * passes * train_blocks + eval_batches * eval_blocks if impl == "pallas" else 0
     bwd = steps * train_blocks if impl in ("pallas", "hybrid") else 0
@@ -1160,7 +1175,8 @@ def profile_check(label, config, over, smi):
     numbers printed beside the card's name and power limit, and each
     hand-written kernel's count under R = PROFILE_STEPS steps held to R
     times its count a step, in both modes (the hd <= 16 configurations run
-    the row kernels, hd >= 32 the tensor-core kernels). Returns the JSON."""
+    the row kernels, under bf16 each block's the one ``model_row_kernel``
+    names; hd >= 32 the tensor-core kernels). Returns the JSON."""
     res = profile_run(label, over, config)
     cfg = load_config(config, {"data.allow_synthetic": True, **over})
     per = expected_launches(cfg, model_attn_impl(cfg), PROFILE_STEPS, 0)
@@ -1170,8 +1186,13 @@ def profile_check(label, config, over, smi):
         n, n16 = per[f"attention_{side}"], per[f"attention_{side}_bf16"]
         want.update({f"attn_{side}_kernel": 0 if mma else n,
                      f"attn_{side}_mma_kernel": n if mma else 0,
-                     f"attn_{side}_row_bf16": 0 if mma else n16,
+                     f"attn_{side}_row_bf16": 0, f"attn_{side}_hmma_bf16": 0,
                      f"attn_{side}_mma_bf16": n16 if mma else 0})
+        if not mma:  # below hd 32 each block's bf16 launches go to its row kernel
+            for part, hd in model_head_dims(cfg):
+                kernel = model_row_kernel(cfg, hd)
+                want[f"attn_{side}_{kernel}_bf16"] += expected_launches(
+                    cfg, model_attn_impl(cfg), PROFILE_STEPS, 0, part)[f"attention_{side}_bf16"]
     for mode in ("eager", "graphed"):
         r = res[mode]
         print(f"profile {label} {mode}: wall_ms_per_step={r['wall_ms_per_step']:.4f} "
@@ -1186,6 +1207,23 @@ def profile_check(label, config, over, smi):
         check(r["kernel_counts"] == want,
               f"profile {label} {mode}: kernel counts {r['kernel_counts']} != {want}")
     return res
+
+
+def model_head_dims(cfg):
+    """[(part, head dim)] of a ViT model's attention blocks: the encoder's,
+    and a ViT-SOM's decoder's (the same heads over dec_emb_dim)."""
+    parts = [("encoder", cfg.vit.emb_dim // cfg.vit.heads)]
+    if cfg.model_arch == "vit_som":
+        parts.append(("decoder", cfg.vit.dec_emb_dim // cfg.vit.heads))
+    return parts
+
+
+def model_row_kernel(cfg, hd):
+    """The bf16 row kernel (``bf16_row_kernel``: "hmma" or "row") a model's
+    block at head dim ``hd`` < 32 runs, forward and backward (``pallas``:
+    bf16 o and do), over the patches and the CLS token."""
+    n = (cfg.data.input_size // cfg.vit.patch_size) ** 2 + 1
+    return attention_fused.bf16_row_kernel(n, hd)
 
 
 def phase_profiles(smi):
@@ -2051,25 +2089,30 @@ def phase_build():
     # the SOM kernel's, the hd >= 32 attention kernels' and every block
     # kernel instantiation's products must run on the tensor cores in TF32
     # (wgmma: HGMMA; mma.sync: HMMA in SASS), the bf16 attention kernels'
-    # in bf16 on wgmma
+    # in bf16, on wgmma from hd 32 up and on mma.sync below
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
+    tensor_ops = {}  # {source: {function: {instruction: count}}}
     for name, kernels, kinds, dtype in (
             ("som_fused", ("som_partial_kernel",), ("HGMMA",), "TF32"),
             ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA"),
              "TF32"),
             ("attention_bf16", ("attn_fwd_mma_bf16", "attn_bwd_mma_bf16"), ("HGMMA",), "BF16"),
+            ("attention_bf16", ("attn_fwd_hmma_bf16", "attn_bwd_hmma_bf16"), ("HMMA",), "BF16"),
             ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",), "TF32")):
-        sass = subprocess.run([cuobjdump, "-sass", infos[name]["path"]], capture_output=True,
-                              text=True, check=True).stdout
-        ops, function = {}, None  # {function: {instruction: count}}
-        for line in sass.splitlines():
-            if "Function :" in line:
-                function = line.split("Function :", 1)[1].strip()
-                ops[function] = {}
-            for word in line.replace(";", " ").split():
-                if function and word.startswith(("HGMMA", "HMMA")):
-                    ops[function][word] = ops[function].get(word, 0) + 1
+        if name not in tensor_ops:  # one cuobjdump a source (~7 s for attention_bf16's)
+            sass = subprocess.run([cuobjdump, "-sass", infos[name]["path"]],
+                                  capture_output=True, text=True, check=True).stdout
+            ops, function = {}, None  # {function: {instruction: count}}
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    function = line.split("Function :", 1)[1].strip()
+                    ops[function] = {}
+                for word in line.replace(";", " ").split():
+                    if function and word.startswith(("HGMMA", "HMMA")):
+                        ops[function][word] = ops[function].get(word, 0) + 1
+            tensor_ops[name] = ops
+        ops = tensor_ops[name]
         for kernel in kernels:
             found = {f: c for f, c in ops.items() if kernel in f}
             check(found, f"{name}.cu: no {kernel} in the SASS")
@@ -3584,11 +3627,24 @@ def phase_mobile_vit(dev, smi):
 # ---------------------------------------------------------------------------
 
 # the bf16 kernels' shapes: the flagship's encoder and decoder (hd 8, 2),
-# cifar-10's (hd 64, 32) and tiny-imagenet's encoder and decoder (hd 64,
-# 32, B 512)
+# cifar-10's (hd 64, 32), tiny-imagenet's encoder and decoder (hd 64, 32,
+# B 512), USPS's encoder and decoder (hd 8, 2) and the JAX tests' row
+# shapes (hd 16, and N 9)
 K1_SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 3, 64), (128, 65, 3, 32),
-             (512, 257, 3, 64), (512, 257, 3, 32)]
+             (512, 257, 3, 64), (512, 257, 3, 32), (128, 65, 2, 8), (128, 65, 2, 2)]
+K1_SHAPES += ATTN_TEST_SHAPES
+# N past the tensor-core row kernels' 320: the FP32-core bf16 row forward
+# and its backward on bf16 o and do
+K1_SHAPES += [(128, 400, 2, 8)]
+# (shape, layout) beside K1_SHAPES' model layout, held but not timed:
+# "odd", q, k, v rows 2 bytes off a 4-byte boundary (row stride 3 D + 1:
+# the tensor-core row kernels' 2-byte loads); "far", a quarter of the keys
+# far from every query (k1_inputs), so that their p = exp(s - m) run from
+# normal floats through float32's subnormals (below 2^-126) to 0
+K1_VARIANTS = [((128, 197, 2, 2), "odd"), ((128, 197, 2, 8), "odd"),
+               ((128, 197, 2, 8), "far"), ((128, 400, 2, 8), "far")]
 K1_MAIN = (512, 257, 3, 64)  # K3's encoder shape: the kernels JSON line's bf16 rows
+K1_FLAGSHIP = (128, 197, 2, 8)  # K2's encoder shape: hybrid's backward timed here too
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
 BF16 = {"train.compute_dtype": "bfloat16"}
 # the JAX scoreboard's Swin and DeiT rows (experiments/run_family_bench.py)
@@ -3613,14 +3669,27 @@ def bf16_close(a, b):
     return float(d.max()), share, ok
 
 
-def k1_inputs(shape, seed, dev):
+def k1_inputs(shape, seed, dev, layout="model"):
     """bf16 q, k, v (strided views of one [B, N, 3, D] buffer below D 128,
-    as the model hands them over; else contiguous), a bf16 cotangent (of
-    ``pallas``'s bf16 o) and a float32 one (of ``hybrid``'s float32 o)."""
+    as the model hands them over; else contiguous; K1_VARIANTS' "odd" and
+    "far" layouts below D 128), a bf16 cotangent (of ``pallas``'s bf16 o)
+    and a float32 one (of ``hybrid``'s float32 o). "far": in each head's
+    first column q is 16 and k 0, but -14, -14.5, ... -19.5 at every fourth
+    key: those keys' scaled scores (hd 8) lie about 79 to 110 below the
+    rest, which score on the other columns as usual."""
     b, n, h, hd = shape
     d = h * hd
     q, k, v, do = attn_inputs(shape, seed, dev, "strided" if d < 128 else "contiguous")
-    if d < 128:
+    if layout == "far":
+        q, k = q.clone(), k.clone()
+        cols = torch.arange(h, device=dev) * hd
+        j = torch.arange(n, device=dev)
+        q[:, :, cols] = 16.0
+        k[:, :, cols] = torch.where(j % 4 == 3, -14.0 - 0.5 * (j // 4 % 12), 0.0)[None, :, None]
+    if layout == "odd":
+        buf = torch.cat((q[..., :1], q, k, v), dim=2).to(torch.bfloat16)
+        q, k, v = (buf[:, :, 1 + i * d:1 + (i + 1) * d] for i in range(3))
+    elif d < 128:
         buf = torch.stack((q, k, v), dim=2).to(torch.bfloat16)
         q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
     else:
@@ -3631,26 +3700,30 @@ def k1_inputs(shape, seed, dev):
 def phase_attention_bf16(dev):
     """K1: each bf16 kernel against its plain bf16 version on the card,
     forward (o, lse) and backward (dq, dk, dv) on a bf16 o and do
-    (``pallas``) and on a float32 o and do (``hybrid``), at K1_SHAPES: the CPU tests' bound
+    (``pallas``) and on a float32 o and do (``hybrid``), at K1_SHAPES and
+    K1_VARIANTS (the "far" ones also check that some p lie in float32's
+    subnormal range): the CPU tests' bound
     (``bf16_close``; lse within 1e-5) and the float64 rule (each output's
     error against a float64 evaluation on the same bf16 inputs at most
     F64_FACTOR times the plain version's plus F64_SLACK; the backwards take
-    the float64 forward's o and lse, rounded); two runs bitwise equal. Then each timed with L2 flushed
+    the float64 forward's o and lse, rounded); two runs bitwise equal. Then
+    each of K1_SHAPES timed with L2 flushed
     beside its plain version and SDPA on bf16 (backend named), against the
     bound: bytes at 3.35 TB/s, bf16 tensor-core operations at 989 TFLOP/s
     (4 B H N^2 hd forward, 10 B H N^2 hd backward) or the B H N^2
-    exponentials at 16 a clock an SM, whichever is longest; at K1_MAIN the
-    backward on hybrid's float32 o and do too (``attention_bwd_bf16_hybrid``,
+    exponentials at 16 a clock an SM, whichever is longest; at K1_MAIN and
+    K1_FLAGSHIP the backward on hybrid's float32 o and do too (``attention_bwd_bf16_hybrid``,
     printed only). Returns ({(shape, name): row}, {name: largest error
     against plain})."""
     rows, worst = {}, {"attention_fwd_bf16": 0.0, "attention_bwd_bf16": 0.0}
     l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     exp_per_s = sms * SFU_EXP_PER_CLOCK * SM_CLOCK_HZ
-    for shape in K1_SHAPES:
+    for shape, layout in [(s, "model") for s in K1_SHAPES] + K1_VARIANTS:
         b, n, h, hd = shape
         d = h * hd
-        q, k, v, do, do32 = k1_inputs(shape, 6000 + n + hd, dev)
+        q, k, v, do, do32 = k1_inputs(shape, 6000 + n + hd, dev, layout)
+        label = f"{shape}" + ("" if layout == "model" else f" {layout}")
         o, lse = attention_fused._kernel_forward(q, k, v, h)
         o2, lse2 = attention_fused._kernel_forward(q, k, v, h)
         ho, hlse = attention_fused.fused_attention_reference(q, k, v, h)
@@ -3680,24 +3753,49 @@ def phase_attention_bf16(dev):
                 errs[f"{kind}_{name}"] = bf16_close(a, r)
                 f64[f"{kind}_{name}"] = (float((kg.double() - e).abs().max()),
                                          float((rg.double() - e).abs().max()))
+        if layout == "far":
+            # the share of p = exp(s - lse) in float32's subnormal range
+            # [2^-149, 2^-126), in float64
+            p64 = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q64.reshape(b, n, h, hd),
+                                         k64.reshape(b, n, h, hd)) * hd**-0.5
+                            - else64[..., None])
+            sub = float(((p64 < 2.0**-126) & (p64 >= 2.0**-149)).double().mean())
+            del p64
+            print(f"k1 far (B,N,H,hd)={shape}: share of p in [2^-149, 2^-126) {sub:.4e}",
+                  flush=True)
+            check(sub > 0, f"k1: no p in float32's subnormal range at {label}")
         torch.cuda.synchronize()
-        print(f"k1 attention_bf16_vs_plain (B,N,H,hd)={shape}: "
+        print(f"k1 attention_bf16_vs_plain (B,N,H,hd)={label}: "
               + " ".join(f"{key}_max_abs_err={e:.3e} beyond_1ulp={sh:.2e}"
                          for key, (e, sh, _) in errs.items())
               + f" deterministic={same}", flush=True)
-        print(f"k1 attention_bf16_vs_float64 (B,N,H,hd)={shape}: "
+        print(f"k1 attention_bf16_vs_float64 (B,N,H,hd)={label}: "
               + " ".join(f"{key}: kernel={ke:.3e} plain={pe:.3e}"
                          for key, (ke, pe) in f64.items()), flush=True)
         for key, (e, sh, ok) in errs.items():
-            check(ok, f"k1: bf16 attention {key} disagrees with plain at {shape}: {e} ({sh})")
+            check(ok, f"k1: bf16 attention {key} disagrees with plain at {label}: {e} ({sh})")
             side = "attention_fwd_bf16" if key in ("o", "lse") else "attention_bwd_bf16"
             worst[side] = max(worst[side], e)
         for key, (ke, pe) in f64.items():
             check(ke <= F64_FACTOR * pe + F64_SLACK,
                   f"k1: bf16 attention {key} further from float64 than {F64_FACTOR} x the plain "
-                  f"version's + {F64_SLACK} at {shape}: {ke} vs {pe}")
-        check(same, f"k1: two bf16 attention kernel runs differ at {shape}")
+                  f"version's + {F64_SLACK} at {label}: {ke} vs {pe}")
+        check(same, f"k1: two bf16 attention kernel runs differ at {label}")
         del q64, k64, v64, eo, else64, exact
+        if hd < 32:
+            width = attention_fused.row_copy_width((q, k, v, po, do), hd)
+            route = attention_fused.bf16_row_kernel(n, hd)
+            print(f"k1 row kernels (B,N,H,hd)={label}: row_copy_bytes={width} forward={route} "
+                  f"backward={route} hybrid_backward="
+                  f"{attention_fused.bf16_row_kernel(n, hd, f32_do=True)} "
+                  + (f"hmma_plan(chunks, warps)={attention_fused.bf16_hmma_plan(n)} "
+                     f"score_tiles={attention_fused.bf16_hmma_score_tiles(n)} "
+                     if route == "hmma" else "")
+                  + f"smem_bytes fwd/bwd={attention_fused.bf16_smem_bytes(n, hd, False)}"
+                  f"/{attention_fused.bf16_smem_bytes(n, hd, True)}", flush=True)
+        if layout != "model":
+            del q, k, v, do, do32, o, lse, po, plse, ho, hlse
+            continue
 
         heads_first = [x.reshape(b, n, h, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
         leaves = [x.clone().requires_grad_() for x in heads_first]
@@ -3717,7 +3815,7 @@ def phase_attention_bf16(dev):
                      sdpa_out, leaves, do_t, retain_graph=True)},
                 10 * b * h * n * n * hd, 16 * b * n * d + 4 * b * h * n),
         }
-        if shape == K1_MAIN:
+        if shape in (K1_MAIN, K1_FLAGSHIP):
             # hybrid: float32 o and do (4 bytes an element each)
             cases["attention_bwd_bf16_hybrid"] = (
                 {"kernel": lambda: attention_fused._kernel_backward(q, k, v, ho, hlse, do32, h),
@@ -3752,9 +3850,10 @@ def phase_attention_bf16(dev):
 
 def phase_flagship_bf16(dev, smi):
     """K2: ``vit_som_mnist.yaml`` + ``compute_dtype: bfloat16`` +
-    ``pallas`` (the bf16 row kernels at hd 8 and 2): TRAIN_STEPS graphed
-    steps with the clustering eval, launches equal to the formula, held
-    against its eager run as phase A holds the flagship, and
+    ``pallas`` (the bf16 tensor-core row kernels at hd 8 and 2):
+    TRAIN_STEPS graphed steps with the clustering eval, launches equal to
+    the formula, held against its eager run as phase A holds the flagship,
+    and
     ``profile_step`` on it. Returns the graphed run's launch counts."""
     run = train_run(dev, "k2_flagship_bf16_pallas", "pallas", TRAIN_STEPS, True, extra=BF16)
     check(run[0].train.compute_dtype == "bfloat16" and run[4]["attention_fwd_bf16"] > 0,

@@ -14,6 +14,7 @@ everywhere (hybrid's float32 output too); lse, float32 in both, within
 none by more than 1 ulp.
 """
 
+import contextlib
 from pathlib import Path
 
 import jax
@@ -27,7 +28,8 @@ from vitsom_tpu.ops import attention_pallas as jpallas
 from vitsom_tpu_torch.ops import attention as tattn
 from vitsom_tpu_torch.ops import attention_fused as tfused
 
-SHAPES = [(2, 197, 2, 8), (2, 197, 2, 2), (2, 65, 3, 64), (2, 33, 2, 32)]
+SHAPES = [(2, 197, 2, 8), (2, 197, 2, 2), (2, 65, 3, 64), (2, 33, 2, 32), (2, 65, 2, 8),
+          (2, 33, 2, 16), (1, 9, 1, 8)]
 
 
 @pytest.fixture(autouse=True)
@@ -296,3 +298,143 @@ def test_bf16_delta_reference_matches_float64(dtype):
     o_ref = o_ref.to(dtype)
     grads = tfused.fused_attention_bwd_reference(q, k, v, o_ref, lse, do, h)
     assert all(x.dtype == torch.bfloat16 for x in grads)
+
+
+@pytest.mark.parametrize("n", [9, 33, 65, 197])
+@pytest.mark.parametrize("hd", [2, 8, 16])
+def test_bf16_row_plan(n, hd):
+    """The bf16 row plan at N 9 / 33 / 65 / 197 and hd 2 / 8 / 16: the
+    tensor-core row kernels, a 16-row tile a warp, at most 8 warps a CTA,
+    the tiles spread evenly (every chunk holds a tile, none more than one
+    more than another); a row's scores are 4 floats a lane for each 8-key
+    tile of the forward's register tier; the shared memory is two [NP][hd]
+    bf16 tiles (NP = N rounded up to 16, hd 2 padded to 8) and the
+    backward's lse and delta rows. hybrid's float32 o and do keep the
+    FP32-core backward and its plan."""
+    tiles = -(-n // 16)
+    chunks, warps = tfused.bf16_hmma_plan(n)
+    assert warps <= tfused.BF16_HMMA_WARPS and chunks * warps >= tiles
+    per_chunk = [len(range(c, tiles, chunks)) for c in range(chunks)]
+    assert min(per_chunk) >= 1 and max(per_chunk) - min(per_chunk) <= 1
+    assert max(per_chunk) == warps
+    assert chunks == {9: 1, 33: 1, 65: 1, 197: 2}[n]
+    # each of these N has a tier of its own: 2, 5, 9, 25 tiles, 8 to 100
+    # score registers a lane
+    assert tfused.bf16_hmma_score_tiles(n) == -(-n // 8)
+    rows = 16 * tiles
+    assert tfused.bf16_row_kernel(n, hd) == "hmma"
+    for backward in (False, True):
+        smem = tfused.bf16_smem_bytes(n, hd, backward)
+        assert smem == 2 * rows * max(hd, 8) * 2 + (8 * rows if backward else 0)
+    assert tfused.bf16_row_kernel(n, hd, f32_do=True) == "row"
+    assert tfused.bf16_smem_bytes(n, hd, True, f32_do=True) == tfused.smem_bytes(n, hd, True)
+
+
+def test_bf16_row_shapes_stay_accepted():
+    """Every (N, hd) the FP32-core row plan took before the tensor-core
+    row kernels (its shared memory, N up to the largest it took at each hd,
+    forward and backward) is still taken, and served: up to N 320 by the
+    tensor-core kernels (their shared memory well inside a CTA's, a
+    register tier for every N), longer sequences and hybrid's float32 o
+    and do by the FP32-core kernels; N one past the old limit is refused
+    as before."""
+    limit = tfused.SMEM_LIMIT_BYTES
+    for hd in (2, 8, 16):
+        for backward in (False, True):
+            last = max(n for n in range(1, 20000) if tfused.smem_bytes(n, hd, backward) <= limit)
+            for n in list(range(1, 400)) + list(range(400, last + 1, 97)) + [last]:
+                tfused.check_shape(n, hd, backward, torch.bfloat16)
+                tfused.check_shape(n, hd, backward, torch.bfloat16, f32_do=backward)
+                got = tfused.bf16_row_kernel(n, hd)
+                assert got == ("hmma" if n <= 320 else "row"), (n, hd)
+                assert tfused.bf16_smem_bytes(n, hd, backward) <= limit
+                if got == "hmma":
+                    assert 8 * tfused.bf16_hmma_score_tiles(n) >= n
+                if backward:
+                    assert tfused.bf16_row_kernel(n, hd, f32_do=True) == "row"
+            with pytest.raises(ValueError, match="shared memory"):
+                tfused.check_shape(last + 1, hd, backward, torch.bfloat16)
+
+
+def test_bf16_row_kernel_of_the_model_views():
+    """The flagship's q, k, v (slices of the [B, N, 3, D] qkv buffer: the
+    encoder's hd 8, the decoder's hd 2), USPS's and the JAX tests' row
+    shapes' views take the tensor-core row kernels' 16-byte copies (hd 2:
+    its whole 4-byte row); a view 2 bytes off a 4-byte boundary takes the
+    same kernels, by 2-byte loads."""
+    for (n, h, hd) in ((197, 2, 8), (197, 2, 2), (65, 2, 8), (65, 2, 2), (33, 2, 16),
+                       (9, 1, 8)):
+        d = h * hd
+        buf = torch.zeros(2, n, 3, d, dtype=torch.bfloat16)
+        views = [buf[:, :, i] for i in range(3)]
+        width = tfused.row_copy_width(views + [torch.zeros(2, n, d, dtype=torch.bfloat16)], hd)
+        assert width == 2 * min(hd, 8)
+        assert tfused.bf16_row_kernel(n, hd) == "hmma"
+    odd = torch.zeros(2, 9, 49, dtype=torch.bfloat16)
+    assert tfused.row_copy_width([odd[:, :, 1:17]], 8) == 2
+    assert tfused.bf16_row_kernel(9, 8) == "hmma"
+
+
+class _Recorder:
+    """A stand-in for the built library: records each entry point's
+    arguments and returns 0."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("n, hd", [(197, 8), (65, 2), (33, 16), (9, 8), (320, 8), (321, 8),
+                                   (400, 2)])
+def test_bf16_wrappers_pass_the_row_plan(monkeypatch, n, hd):
+    """The kernel wrappers pass the route and plan that ``bf16_row_kernel``,
+    ``bf16_hmma_plan`` and ``bf16_hmma_score_tiles`` give (the library
+    launches what it is passed): at N <= 320 the forward's register tier,
+    chunks and warps and the backward's chunks and warps; zeros (the
+    FP32-core row kernels) past N 320 and for hybrid's float32 o and do,
+    beside the row copy width."""
+    lib = _Recorder()
+    monkeypatch.setattr(tfused, "_lib_bf16", lambda: lib)
+    monkeypatch.setattr(tfused, "_check", lambda t, heads, backward: (2, n, hd))
+    monkeypatch.setattr(tfused, "_stream", lambda dev: None)
+    monkeypatch.setattr(tfused.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    h = 2
+    x = [torch.zeros(2, n, h * hd, dtype=torch.bfloat16) for _ in range(5)]
+    lse = torch.zeros(2, h, n)
+    hmma = n <= 320
+    plan = tfused.bf16_hmma_plan(n) if hmma else (0, 0)
+    tiers = tfused.bf16_hmma_score_tiles(n) if hmma else 0
+    width = tfused.row_copy_width(x[:3], hd)
+    tfused._kernel_forward(x[0], x[1], x[2], h)
+    assert lib.calls["attention_bf16_forward"][-5:] == (width, tiers, *plan, None)
+    tfused._kernel_backward(x[0], x[1], x[2], x[3], lse, x[4], h)
+    assert lib.calls["attention_bf16_backward"][-4:] == (width, *plan, None)
+    tfused._kernel_backward(x[0], x[1], x[2], x[3].float(), lse, x[4].float(), h)
+    assert lib.calls["attention_bf16_backward"][-4:] == (width, 0, 0, None)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_bf16_kernel_wrapper_refuses_cpu_tensors(backward):
+    """The kernel wrappers raise on tensors that are not on a CUDA device:
+    only the public entry points take the plain version, and only for CPU
+    tensors; a tensor on another device is refused too."""
+    b, n, h, hd = 2, 33, 2, 8
+    x = [torch.zeros(b, n, h * hd, dtype=torch.bfloat16) for _ in range(5)]
+    lse = torch.zeros(b, h, n)
+    with pytest.raises(ValueError, match="CUDA"):
+        if backward:
+            tfused._kernel_backward(x[0], x[1], x[2], x[3], lse, x[4], h)
+        else:
+            tfused._kernel_forward(x[0], x[1], x[2], h)
+    meta = [t.to("meta") for t in x]
+    with pytest.raises(ValueError, match="unsupported device"):
+        if backward:
+            tfused.attention_backward(meta[0], meta[1], meta[2], meta[3], lse.to("meta"),
+                                      meta[4], h)
+        else:
+            tfused.attention_forward(meta[0], meta[1], meta[2], h)

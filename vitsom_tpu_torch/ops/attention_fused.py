@@ -22,7 +22,10 @@ on 16-byte boundaries, as the model's views do (``check_16_byte_rows``).
 Below (the row kernels) any such view is taken: the wrapper passes the
 widest row copy, 16, 8 or 4 bytes (bf16: 16, 8, 4 or 2), that the views'
 pointers and strides allow (``row_copy_width``). The bf16 backward also
-takes a float32 o with its float32 cotangent (``hybrid``'s output).
+takes a float32 o with its float32 cotangent (``hybrid``'s output). bf16
+below hd 32 runs the tensor-core row kernels up to N 320 on bf16 o and do,
+with the plan the wrapper passes (``bf16_row_kernel``, ``bf16_hmma_plan``,
+``bf16_hmma_score_tiles``), else the FP32-core row kernels.
 """
 
 from __future__ import annotations
@@ -59,6 +62,14 @@ ROW_THREADS, ROW_LANES, ROW_ROWS = 128, 2, 2
 BF16_ROW_THREADS, BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS = 128, 64, 64, 5
 BF16_TILE_BYTES = BF16_TILE * BF16_HDP * 2
 BF16_SMEM_ALIGN = 1024  # the tiles' 128-byte swizzle repeats every 8 rows
+# the bf16 tensor-core row kernels at hd <= 16 (mma.sync; kHmmaWarps,
+# kHmmaMaxKeys): warps of a CTA at most, a 16-row tile each, and N at
+# most (the forward keeps a row's scores in registers)
+BF16_HMMA_WARPS, BF16_HMMA_MAX_KEYS = 8, 320
+# the forward's register tiers (HMMA_SCORE_TILES, checked against the
+# library): a warp's scores are 4 floats a lane for each 8-key tile of the
+# smallest tier that holds ceil(N / 8) tiles
+BF16_HMMA_SCORE_TILES = (2, 5, 9, 17, 25, 33, 40)
 
 _LIB = None
 _LIB_BF16 = None
@@ -96,21 +107,26 @@ def _lib_bf16():
     if _LIB_BF16 is None:
         lib = _build.load("attention_bf16")
         view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-        dims = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        # B, N, H, hd, scale, the row copy width in bytes, the tensor-core
+        # row plan (the forward's register tier, chunks, warps), stream
+        dims = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.attention_bf16_forward.argtypes = view * 3 + [ctypes.c_void_p] * 2 + dims
         lib.attention_bf16_forward.restype = ctypes.c_int
-        # ..., dq, dk, dv, delta, do_split, dims
+        # ..., dq, dk, dv, delta, do_split, dims without the tier
         lib.attention_bf16_backward.argtypes = (
-            view * 4 + [ctypes.c_int, ctypes.c_void_p] + view + [ctypes.c_void_p] * 5 + dims
+            view * 4 + [ctypes.c_int, ctypes.c_void_p] + view + [ctypes.c_void_p] * 5
+            + dims[:6] + dims[7:]
         )
         lib.attention_bf16_backward.restype = ctypes.c_int
-        tiles = (ctypes.c_int * 4)()
+        tiles = (ctypes.c_int * (6 + len(BF16_HMMA_SCORE_TILES)))()
         lib.attention_bf16_tiles(tiles)
-        want = (BF16_ROW_THREADS, BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS)
+        want = (BF16_ROW_THREADS, BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS, BF16_HMMA_WARPS,
+                BF16_HMMA_MAX_KEYS, *BF16_HMMA_SCORE_TILES)
         if tuple(tiles) != want:
             raise RuntimeError(
-                "attention_bf16.cu constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks) = "
-                f"{tuple(tiles)} differ from the wrapper's {want}"
+                "attention_bf16.cu constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks, "
+                f"kHmmaWarps, kHmmaMaxKeys, HMMA_SCORE_TILES) = {tuple(tiles)} differ from the "
+                f"wrapper's {want}"
             )
         _LIB_BF16 = lib
     return _LIB_BF16
@@ -203,9 +219,50 @@ def bf16_mma_plan(n: int) -> Tuple[int, int, int]:
     return 1, tiles, 2 * tiles
 
 
+def bf16_row_kernel(n: int, head_dim: int, f32_do: bool = False) -> str:
+    """Which bf16 kernel serves a call below hd 32, the route the wrapper
+    passes to ``csrc/attention_bf16.cu``: ``"hmma"``, the tensor-core row
+    kernels, at N up to BF16_HMMA_MAX_KEYS (the forward keeps a row's
+    scores in registers) on bf16 o and do, whatever the views' alignment
+    (16-byte copies where every view takes them, hd 2 its whole 4-byte
+    row, else 2-byte loads); ``"row"``, the FP32-core row kernels, for
+    longer sequences and hybrid's float32 o and do (``f32_do``). Every
+    shape the row kernels took before the tensor-core ones existed is still
+    taken."""
+    if head_dim not in HEAD_DIMS or head_dim in MMA_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} has no bf16 row kernel")
+    return "hmma" if n <= BF16_HMMA_MAX_KEYS and not f32_do else "row"
+
+
+def bf16_hmma_plan(n: int) -> Tuple[int, int]:
+    """The tensor-core row kernels' grid a (b, h) at sequence length ``n``:
+    (chunks C, warps W). The ceil(N / 16) 16-row tiles (query tiles in the
+    forward; key tiles and query tiles in the backward's two roles) are
+    spread over C chunks of at most BF16_HMMA_WARPS, a tile a warp, tile c
+    + C w in warp w of chunk c. The forward launches C CTAs a (b, h), the
+    backward 2 C (a key-role and a query-role CTA a chunk), of 32 W
+    threads."""
+    tiles = _cdiv(n, 16)
+    chunks = _cdiv(tiles, BF16_HMMA_WARPS)
+    return chunks, _cdiv(tiles, chunks)
+
+
+def bf16_hmma_score_tiles(n: int) -> int:
+    """The tensor-core row forward's register tier at sequence length
+    ``n`` <= BF16_HMMA_MAX_KEYS: the 8-key tiles of scores it holds, 4
+    floats a lane each (the shipped N 65, 197, 257 and the JAX tests' 9, 33
+    exactly)."""
+    return min(t for t in BF16_HMMA_SCORE_TILES if 8 * t >= n)
+
+
 def bf16_smem_bytes(n: int, head_dim: int, backward: bool, f32_do: bool = False) -> int:
     """Dynamic shared memory of one CTA of the bf16 kernels
-    (``csrc/attention_bf16.cu``). hd <= 16: as the float32 row kernels.
+    (``csrc/attention_bf16.cu``). hd <= 16: the kernel ``bf16_row_kernel``
+    names; the tensor-core row kernels stage two [NP][hd] bf16 tiles (hd 2
+    padded to 8), N padded to NP = 16 ceil(N / 16) rows (k and v; the
+    backward's key role q and do) and, in the backward, the key role's NP
+    lse and NP delta floats; the FP32-core row kernels take what the
+    float32 ones take.
     hd >= 32: [64][64] bf16 tiles (BF16_TILE_BYTES, hd padded to 64) after
     BF16_SMEM_ALIGN bytes of slack for their 1024-byte alignment; the
     forward every key block of k and of v, two q tiles, 128 bytes for four
@@ -215,6 +272,9 @@ def bf16_smem_bytes(n: int, head_dim: int, backward: bool, f32_do: bool = False)
     float32 do) with 64 lse and 64 delta floats a stage, and an mbarrier
     for k and v and one a stage."""
     if head_dim not in MMA_HEAD_DIMS:
+        if bf16_row_kernel(n, head_dim, f32_do) == "hmma":
+            rows = 16 * _cdiv(n, 16)
+            return 2 * rows * max(head_dim, 8) * 2 + (2 * rows * 4 if backward else 0)
         return smem_bytes(n, head_dim, backward)
     if not backward:
         return BF16_SMEM_ALIGN + (2 * bf16_mma_plan(n)[1] + 3) * BF16_TILE_BYTES + 128
@@ -385,19 +445,29 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _hmma_plan(n: int, hd: int, f32_do: bool = False) -> Tuple[int, int]:
+    """(chunks, warps) of the bf16 tensor-core row kernels where they serve
+    the call (``bf16_row_kernel``), else (0, 0)."""
+    if hd in MMA_HEAD_DIMS or bf16_row_kernel(n, hd, f32_do) != "hmma":
+        return 0, 0
+    return bf16_hmma_plan(n)
+
+
 def _kernel_forward(q, k, v, heads: int):
     global LAUNCHES_FWD, LAUNCHES_FWD_BF16
     b, n, hd = _check((q, k, v), heads, backward=False)
     bf16 = q.dtype == torch.bfloat16
     o = torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, heads, n), device=q.device, dtype=torch.float32)
+    args = [*_view(q), *_view(k), *_view(v), o.data_ptr(), lse.data_ptr(),
+            b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v), hd)]
+    if bf16:
+        plan = _hmma_plan(n, hd)
+        args += [bf16_hmma_score_tiles(n) if plan[0] else 0, *plan]
     lib = _lib_bf16() if bf16 else _lib()
     launch = lib.attention_bf16_forward if bf16 else lib.attention_forward
     with torch.cuda.device(q.device):
-        rc = launch(
-            *_view(q), *_view(k), *_view(v), o.data_ptr(), lse.data_ptr(),
-            b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v), hd), _stream(q.device),
-        )
+        rc = launch(*args, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"attention forward ({q.dtype}) launch failed with code {rc}")
     if bf16:
@@ -432,7 +502,8 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
                 lse.data_ptr(), *_view(do), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 None if delta is None else delta.data_ptr(),
                 None if split is None else split.data_ptr(),
-                b, n, heads, hd, hd**-0.5, width, _stream(q.device),
+                b, n, heads, hd, hd**-0.5, width, *_hmma_plan(n, hd, o.dtype == torch.float32),
+                _stream(q.device),
             )
         else:
             chunks = mma_plan(n)[0] if mma else 1

@@ -20,22 +20,96 @@
 // before they form attn. There are no atomics and every sum has a fixed
 // order, so two runs give bitwise-equal outputs.
 //
-// Two designs, chosen by head dim, as in attention.cu:
+// Three designs, chosen by head dim, N and the dtype of o and do (below hd
+// 32 the caller chooses: attention_fused.py:bf16_row_kernel, and passes
+// the tensor-core row kernels' plan):
 //
-// 1. hd <= 16 (the flagship's 8 and 2): attn_fwd_row_bf16 and
-//    attn_bwd_row_bf16 on the FP32 cores, one thread a row. A CTA takes a
-//    chunk of at most kRowThreads rows of one (b, h) (attention_fused.py:
-//    bf16_row_plan) and stages the other side's rows as float32 in shared
-//    memory, where every thread of a warp reads the same row (a broadcast).
-//    A float32 o or do is read a float at a time. The forward makes three
-//    passes over the keys (the max, the sum, then attn v).
-//    The backward is one launch of pass-A CTAs (key rows: dk, dv) and
-//    pass-B CTAs (query rows: dq); both form p, delta and ds with the same
-//    expressions in the same order, so they agree bit for bit. Rows are
-//    copied 16, 8, 4 or 2 bytes at a time, the widest that every bf16
-//    view's pointer and strides allow (attention_fused.py:row_copy_width).
+// 1. hd 2, 8 and 16 (every ViT-SOM encoder and decoder below emb 192,
+//    the JAX tests' 16) at N <= kHmmaMaxKeys = 320 and, in the backward,
+//    on bf16 o and do: attn_fwd_hmma_bf16 and attn_bwd_hmma_bf16, the
+//    bf16 products on the tensor cores with mma.sync (m16n8k8 at hd 2 and
+//    8, m16n8k16 at hd 16 for the products over hd, m16n8k16 for those
+//    over keys or queries; float32 accumulators; exact, as bf16 products
+//    are in float32). hd 2 is padded to 8 with zeros in the staged rows
+//    and the A fragments. A warp takes a 16-row tile, a CTA at most
+//    kHmmaWarps = 8 of a (b, h)'s tiles, spread evenly (attention_fused.py:
+//    bf16_hmma_plan). The CTA stages the other side's rows of the (b, h)
+//    as bf16 in shared memory by cp.async, 16 bytes a copy (hd 2: 4), all
+//    in flight at once, where every view takes such copies (the model's
+//    q, k, v slices of its qkv buffer do), else by 2-byte loads (kernels
+//    instantiated for such views, the forward at its largest tier); a warp
+//    reads them as B fragments, 32-bit loads along hd and ldmatrix.trans
+//    for the products over rows. An accumulator tile is the A fragment of
+//    the next product, so bf16(attn), bf16(p) and bf16(ds) pack straight
+//    from registers.
+//    - Forward: a tile's scores against every key stay in registers, 4
+//      floats a lane for each 8-key tile (s = q k^T, one mma a tile; tiers
+//      of 2, 5, 9, 17, 25, 33, 40 tiles, which N 9, 33, 65, 197, 257 fill
+//      exactly; keys past N score -inf), so each is formed and
+//      exponentiated once: the exact row max, l = sum exp(s - m) (four
+//      partial maxima and sums a row in a fixed order, then the quad's),
+//      attn = bf16(exp(s - m) / l), the quotient rounded once, packed into
+//      o += attn v 16 keys at a time. 127 registers at N 197, two CTAs an
+//      SM (launch bounds); 160 at N 257, one.
+//    - Backward: key-role warps (their keys' k and v as A fragments; q,
+//      do, lse and delta = rowsum(do o), formed once a row, staged) and
+//      query-role warps (q and do as A fragments, their rows' lse and
+//      delta; k and v staged) in one launch, as in design 3, over 16 x 16
+//      blocks: s^T = k q^T, dp^T = v do^T, dv += bf16(p^T) do, dk += ds^T
+//      q; s = q k^T, dp = do v^T, dq += ds k. Both roles form delta, p and
+//      ds with the same expressions in the same order. No atomics, no
+//      float32 partials.
+//    Exponentials are ex2.approx of x log2(e) (fast_exp, __expf's
+//    arithmetic), subnormal results kept. ex2.approx.ftz was 11 % faster
+//    (forward 0.02155 against 0.02410 ms, backward 0.02403 against 0.02678
+//    at (128, 197, 2, 8); ops/attention_bf16_turns.py, one call) and
+//    bitwise equal at the model-layout K1 inputs, but flushes p below
+//    2^-126 to zero, where the plain version keeps them: with a quarter of
+//    the keys 79-110 below the rest in scaled score (chip_smoke.py K1's
+//    "far" keys; 11 % of p in float32's subnormals) it put 7.9 % of dq's
+//    elements, 6.2 % of dk's and 6.1 % of dv's past 1 bf16 ulp of plain
+//    (those that sum such p alone), the non-flushing form 1.4e-04,
+//    2.1e-04, 1.9e-04.
+//    What bounds them on the H100: the exponentials (16 a clock an SM:
+//    0.00238 ms at (128, 197, 2, 8)) and the FP32 work beside each (about
+//    8 instructions: the scale, max, subtraction, sum and the corrected
+//    quotient), then the latency of each 16-row tile's serial phases at 16
+//    warps an SM. A clock64 profile of the first version (staged by plain
+//    loads, 149 registers, 4 warps a CTA) read staging 28 %, scores 3 %,
+//    max 16 %, exponentials and sum 37 %, attn v 13 % of a warp's cycles;
+//    cp.async staging, 8 warps a CTA at two CTAs an SM, the mask applied
+//    once and ex2.ftz took the forward from 0.03136 to 0.02162 ms. Not
+//    kept: two warps a tile, each with half the keys (half the registers,
+//    a shared-memory exchange of m, l and o): 0.02312 ms against 0.02189;
+//    two accumulators for attn v: no gain. Measured (ops/
+//    attention_bf16_turns.py, one call, L2 flushed, NVIDIA H100 80GB
+//    HBM3, 700.00 W; the FP32-core row kernels of design 2, which served
+//    these shapes before, and SDPA on the same bf16 tensors in brackets):
+//    forward 0.02401 ms at (128, 197, 2, 8) (0.05870; 0.02293), 0.00918 at
+//    (128, 65, 2, 8) (0.01807; 0.01346), 0.03721 at (128, 257, 2, 8)
+//    (0.08953; 0.03765), 0.02408 at (128, 197, 2, 2) (0.03693; 0.04423),
+//    0.00890 at (128, 65, 2, 2) (0.01354; 0.03016); backward 0.02623
+//    (0.07100; 0.05159), 0.00966 (0.01691; 0.02586), 0.03845 (0.09978;
+//    0.07802), 0.02668 (0.03526; 0.08354), 0.00953 (0.01064; 0.05250).
 //
-// 2. hd >= 32 (the emb-192 configs' 64 and 32, the JAX tests' 48):
+// 2. The rest below hd 32 (N past 320, hybrid's float32 o and do):
+//    attn_fwd_row_bf16 and attn_bwd_row_bf16 on the FP32 cores, one thread
+//    a row. A CTA takes a chunk of at most kRowThreads rows of one (b, h)
+//    (row_plan) and stages the other side's rows as float32 in shared
+//    memory, where every thread of a warp reads the same row (a
+//    broadcast). A float32 o or do is read a float at a
+//    time. The forward makes three passes over the keys (the max, the sum,
+//    then attn v). The backward is one launch of pass-A CTAs (key rows:
+//    dk, dv) and pass-B CTAs (query rows: dq); both form p, delta and ds
+//    with the same expressions in the same order, so they agree bit for
+//    bit. Rows are copied 16, 8, 4 or 2 bytes at a time, the widest that
+//    every bf16 view's pointer and strides allow
+//    (attention_fused.py:row_copy_width). hybrid's backward at (128, 197,
+//    2, 8) takes 0.07610 ms (the call above; SDPA on a bf16 do 0.05159);
+//    at (128, 400, 2, 8) the forward 0.20076, the backward 0.24018 (SDPA
+//    0.05786 / 0.12476).
+//
+// 3. hd >= 32 (the emb-192 configs' 64 and 32, the JAX tests' 48):
 //    attn_fwd_mma_bf16 (replaces _attn_fwd_kernel's bf16 branch,
 //    attention_pallas.py:100) and attn_bwd_mma_bf16 with its pre-pass
 //    attn_delta_bf16 (replace _attn_bwd_kernel's, :163), on Hopper's
@@ -114,6 +188,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -153,7 +228,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// hd <= 16: one thread a row, on the FP32 cores
+// hd <= 16, the rest: one thread a row, on the FP32 cores
 // ---------------------------------------------------------------------------
 
 // VW consecutive bf16 (8, 4, 2 or 1: 16, 8, 4 or 2 bytes) -> floats
@@ -1139,6 +1214,511 @@ attn_bwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, DoParts dout,
 }
 
 // ---------------------------------------------------------------------------
+// hd <= 16: bf16 products on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+
+constexpr int kHmmaWarps = 8;      // warps of an hd <= 16 tensor-core CTA at most
+constexpr int kHmmaMaxKeys = 320;  // N at most: the forward's scores of a row stay in registers
+constexpr int kBadPlan = -4;
+
+// the forward's register tiers: 8-key tiles of scores a warp holds, 4
+// floats a lane each (attention_fused.py: BF16_HMMA_SCORE_TILES, which
+// the wrapper checks against attention_bf16_tiles)
+#define HMMA_SCORE_TILES(X) X(2) X(5) X(9) X(17) X(25) X(33) X(40)
+static_assert(kHmmaMaxKeys == 8 * 40, "the largest tier holds kHmmaMaxKeys keys");
+
+// the products' depth and a staged row's bf16 width: hd, hd 2 padded to 8
+// with zeros
+__host__ __device__ constexpr int hd_pad(int hd) { return hd < 8 ? 8 : hd; }
+
+// d += a b, 16 x 8 x HD (HD 8: m16n8k8, 16: m16n8k16), bf16 in, float32
+// accumulators: a a [16][HD] A fragment (HD / 4 registers), b an [HD][8]
+// B fragment (HD / 8)
+template <int HD>
+__device__ __forceinline__ void hmma(float (&d)[4], const uint32_t (&a)[HD / 4],
+                                     const uint32_t (&b)[HD / 8]) {
+  static_assert(HD == 8 || HD == 16, "mma.sync depths");
+  if constexpr (HD == 8) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b[0]));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+// a bf16 element's bits, by a 2-byte load: the copies of a view whose rows
+// are not 16-byte aligned (WIDE false in the kernels below)
+__device__ __forceinline__ uint32_t ldg_u16(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+// rows r0 .. r0 + 15 of one head's HD columns of a bf16 view, each clamped
+// to row N - 1, as the A fragment of a 16 x 8 x hd_pad(HD) product (zero
+// past column HD): a 4-byte load a pair of columns, or two 2-byte loads
+// unless `wide`
+template <int HD>
+__device__ __forceinline__ void ldg_a(uint32_t (&a)[hd_pad(HD) / 4], const View<bf16>& x, int b,
+                                      int r0, int col0, int N, bool wide) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int u = 0; u < hd_pad(HD) / 4; ++u) {
+    const int col = 2 * t4 + 8 * (u >> 1);
+    const bf16* p = row_ptr(x, b, min(r0 + g + 8 * (u & 1), N - 1), col0 + col);
+    a[u] = col >= HD ? 0u
+           : wide    ? __ldg(reinterpret_cast<const unsigned int*>(p))
+                     : ldg_u16(p) | ldg_u16(p + 1) << 16;
+  }
+}
+
+// row r of a dense [NP][HD] bf16 tile in shared memory (as 32-bit words)
+// as the B fragment of a 16 x 8 x HD product: the tile's rows are the
+// product's columns
+template <int HD>
+__device__ __forceinline__ void lds_b(uint32_t (&bf)[HD / 8], const uint32_t* tile, int r) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int u = 0; u < HD / 8; ++u) bf[u] = tile[r * (HD / 2) + t4 + 4 * u];
+}
+
+// rows r0 .. r0 + 15 of a dense [NP][HD] bf16 tile at shared address
+// `tile` as the B fragments of a 16-deep product over those rows (ldmatrix,
+// transposed): b[2n], b[2n + 1] give the product's columns 8n .. 8n + 7
+template <int HD>
+__device__ __forceinline__ void ldsm_rows(uint32_t (&b)[HD / 4], uint32_t tile, int r0) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (HD == 8) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(b[0]), "=r"(b[1])
+                 : "r"(tile + (r0 + (lane & 15)) * 16)
+                 : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+                 : "r"(tile + (r0 + (lane & 15)) * 32 + 16 * (lane >> 4))
+                 : "memory");
+  }
+}
+
+// d += a b over 16 rows of a staged tile: a [16][16] A fragment (packed
+// from accumulators), b from ldsm_rows, d one accumulator per 8 columns
+template <int HD>
+__device__ __forceinline__ void hmma_rows(float (&d)[HD / 8][4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[HD / 4]) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const uint32_t bn[2] = {b[2 * n], b[2 * n + 1]};
+    hmma<16>(d[n], a, bn);
+  }
+}
+
+// rows [0, NP) of one head's HD columns of a bf16 view -> a dense
+// [NP][hd_pad(HD)] bf16 tile in shared memory by cp.async, 16 bytes a copy
+// (hd 2: 4, the rest of the padded row zero), zero past row N (a zero row
+// times a zero weight adds nothing; garbage could be NaN). The copies are
+// all in flight at once: wait_copies() then a CTA barrier before the tile
+// is read. Unless `wide` (rows not 16-byte aligned; hd 2: 4-byte), 2-byte
+// loads and stores, an element at a time.
+template <int HD>
+__device__ __forceinline__ void stage_tile(uint4* dst, const View<bf16>& x, int b, int col0, int N,
+                                           int NP, bool wide) {
+  const uint32_t base = smem_u32(dst);
+  if (!wide) {
+    constexpr int HP = hd_pad(HD);
+    unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+    for (int e = threadIdx.x; e < NP * HP; e += blockDim.x) {
+      const int r = e / HP, c = e - r * HP;
+      d16[e] = r < N && c < HD ? ldg_u16(row_ptr(x, b, r, col0 + c)) : 0;
+    }
+  } else if constexpr (HD >= 8) {
+    constexpr int kPer = HD / 8;
+    for (int e = threadIdx.x; e < NP * kPer; e += blockDim.x) {
+      const int r = e / kPer, c = e - r * kPer;
+      const bool in = r < N;
+      cp_async16(base + 16 * e, in ? row_ptr(x, b, r, col0 + 8 * c) : x.ptr, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < NP * 4; e += blockDim.x) {  // 4-byte words, 4 a row
+      const int r = e / 4, w = e % 4;
+      const bool in = r < N && 2 * w < HD;
+      cp_async4(base + 4 * e, in ? row_ptr(x, b, r, col0 + 2 * w) : x.ptr, in ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// exp(x) as __expf forms it: ex2.approx of x log2(e), the product rounded
+// to float32. Results below 2^-126 stay subnormal, as the plain version's
+// do: ex2.approx.ftz, 10 % faster, flushes them to zero, which moves every
+// output whose terms are all such p (the header's design 1)
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
+  return y;
+}
+
+// delta = rowsum(do * o) of row i, in column order: both backward roles
+// form it with this expression, so they agree bit for bit
+template <int HD>
+__device__ __forceinline__ float row_delta(const View<bf16>& o, const View<bf16>& dout, int b,
+                                           int i, int col0, bool wide) {
+  constexpr int VW = HD < 8 ? HD : 8;
+  float x = 0.f;
+  if (!wide) {  // an element a copy, the same order
+#pragma unroll
+    for (int c = 0; c < HD; ++c)
+      x = fmaf(__bfloat162float(*row_ptr(dout, b, i, col0 + c)),
+               __bfloat162float(*row_ptr(o, b, i, col0 + c)), x);
+    return x;
+  }
+#pragma unroll
+  for (int c = 0; c < HD / VW; ++c) {
+    float a[VW], d[VW];
+    ldg_bf16<VW>(row_ptr(o, b, i, col0 + VW * c), a);
+    ldg_bf16<VW>(row_ptr(dout, b, i, col0 + VW * c), d);
+#pragma unroll
+    for (int u = 0; u < VW; ++u) x = fmaf(d[u], a[u], x);
+  }
+  return x;
+}
+
+// four 8-column accumulators' values (two 16 x 8 tiles side by side) as
+// the bf16 A fragment of the next 16-deep product
+__device__ __forceinline__ void pack_a16(uint32_t (&a)[4], const float (&x)[4],
+                                         const float (&y)[4]) {
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(y[0], y[1]);
+  a[3] = pack_bf16(y[2], y[3]);
+}
+
+// Forward, hd <= 16: `chunks` CTAs a (b, h), blockIdx.x = (b H + h)
+// chunks + c; warp w takes the 16 query rows of tile c + chunks w. The CTA
+// stages k and v once as bf16; a warp's scores against every key stay in
+// registers (s = q k^T, one mma a tile of 8 keys), so each is formed and
+// exponentiated once: the exact row max, l = sum exp(s - m), then attn =
+// bf16(exp(s - m) / l) packed straight from the accumulators into the A
+// fragments of o += attn v (m16n8k16, v read by ldmatrix). NT is the
+// register array's 8-key tiles, at least ceil(N / 8). WIDE: every view
+// takes 16-byte copies (hd 2: 4-byte), else 2-byte loads.
+template <int HD, int NT, bool WIDE>
+__global__ void __launch_bounds__(kHmmaWarps * 32, NT <= 25 ? 2 : 1)
+attn_fwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
+                   float* __restrict__ lse, int N, int H, int chunks, float scale) {
+  constexpr int HP = hd_pad(HD);
+  extern __shared__ __align__(16) uint4 smem_hm[];
+  const int tiles = (N + 15) / 16, nt = (N + 7) / 8, NP = 16 * tiles;
+  uint4* ks = smem_hm;
+  uint4* vs = smem_hm + NP * (HP / 8);
+  const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
+  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * (c + chunks * warp);
+  uint32_t qa[HP / 4];
+  ldg_a<HD>(qa, q, b, r0, col0, N, WIDE);
+  stage_tile<HD>(ks, k, b, col0, N, NP, WIDE);
+  stage_tile<HD>(vs, v, b, col0, N, NP, WIDE);
+  wait_copies();
+  __syncthreads();
+  if (r0 >= N) return;  // a tile past the last (the chunks' uneven split)
+
+  const uint32_t* k32 = reinterpret_cast<const uint32_t*>(ks);
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if (j < nt) {
+      uint32_t kb[HP / 8];
+      lds_b<HP>(kb, k32, 8 * j + g);
+      hmma<HP>(s[j], qa, kb);
+      // keys past N (the last tile) score -inf, by selects: their
+      // exponentials are 0
+      const bool last = j == nt - 1;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = last && 8 * j + 2 * t4 + (e & 1) >= N ? -INFINITY : s[j][e];
+    }
+  }
+
+  // s[j][e]: row r0 + g + 8 (e / 2), key 8 j + 2 t4 + (e & 1); four
+  // partial maxima and sums a row, in a fixed order, then the quad's
+  float mp[2][4], lp[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mp[r][u] = -INFINITY, lp[r][u] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = __fmul_rn(s[j][e], scale);
+      s[j][e] = x;
+      mp[e / 2][j & 3] = fmaxf(mp[e / 2][j & 3], x);
+    }
+  }
+  float m[2], l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    m[r] = quad_max(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3])));
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp(s[j][e] - m[e / 2]);
+      s[j][e] = p;
+      lp[e / 2][j & 3] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum((lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]));
+
+  // attn = p / l rounded once (q0 = p (1 / l), corrected by its residual),
+  // packed to bf16 16 keys at a time as the A fragment of o += attn v
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  const uint32_t vt = smem_u32(vs);
+  float acc[HP / 8][4];
+#pragma unroll
+  for (int n = 0; n < HP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < (NT + 1) / 2; ++kk) {
+    if (2 * kk >= nt) continue;
+    float a[2][4];
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      const int j = min(2 * kk + z, NT - 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[j][e], q0 = p * rl[e / 2];
+        a[z][e] = 2 * kk + z < nt ? fmaf(fmaf(-q0, l[e / 2], p), rl[e / 2], q0) : 0.f;
+      }
+    }
+    uint32_t af[4], vb[HP / 4];
+    pack_a16(af, a[0], a[1]);
+    ldsm_rows<HP>(vb, vt, 16 * kk);
+    hmma_rows<HP>(acc, af, vb);
+  }
+
+  const long long D = (long long)H * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    if (i >= N) continue;
+    bf16* row = o + ((long long)b * N + i) * D + col0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < HP / 8; ++n)
+      if (8 * n + 2 * t4 < HD)
+        *reinterpret_cast<uint32_t*>(row + 8 * n) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    if (t4 == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
+  }
+}
+
+// The key role's p^T and ds^T in place of s^T and dp^T over one 16 x 16
+// block: s[nq][e] is key `key` + 8 (e / 2), query q0 + 8 nq + 2 t4 + (e & 1)
+// (the staged lse and delta's index). kMask (a ragged block): keys and
+// queries past N give 0, by selects.
+template <bool kMask>
+__device__ __forceinline__ void key_elems16(float (&s)[2][4], float (&dp)[2][4], const float* lse_s,
+                                            const float* del_s, int key, int q0, int N,
+                                            float scale) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int nq = 0; nq < 2; ++nq)
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      const int col = q0 + 8 * nq + 2 * t4 + z;
+      const float ls = lse_s[col], dl = del_s[col];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int e = 2 * r + z;
+        const float p = fast_exp(__fmul_rn(s[nq][e], scale) - ls);
+        const float ds = p * (dp[nq][e] - dl) * scale;
+        const bool in = !kMask || (key + 8 * r < N && col < N);
+        s[nq][e] = in ? p : 0.f;
+        dp[nq][e] = in ? ds : 0.f;
+      }
+    }
+}
+
+// The query role's ds in place of dp over one 16 x 16 block: s[nk][e] is
+// query `row` + 8 (e / 2) (lse_r, del_r), key k0 + 8 nk + 2 t4 + (e & 1);
+// masked as key_elems16, with the same expressions.
+template <bool kMask>
+__device__ __forceinline__ void query_elems16(const float (&s)[2][4], float (&dp)[2][4],
+                                              const float (&lse_r)[2], const float (&del_r)[2],
+                                              int row, int k0, int N, float scale) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int nk = 0; nk < 2; ++nk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e / 2;
+      const float p = fast_exp(__fmul_rn(s[nk][e], scale) - lse_r[r]);
+      const float ds = p * (dp[nk][e] - del_r[r]) * scale;
+      const bool in = !kMask || (row + 8 * r < N && k0 + 8 * nk + 2 * t4 + (e & 1) < N);
+      dp[nk][e] = in ? ds : 0.f;
+    }
+}
+
+// Backward, hd <= 16, bf16 o and do: one launch of 2 B H chunks CTAs,
+// the first B H chunks key-role CTAs (blockIdx.x = (b H + h) chunks + c),
+// the rest query-role ones; warp w takes the 16 rows of tile c + chunks w.
+// A key-role warp holds its keys' k and v as A fragments and walks the
+// query tiles staged in shared memory (q, do, lse, and delta formed once
+// a row): s^T = k q^T and dp^T = v do^T (m16n8k8 / k16), p^T and ds^T,
+// then dv += bf16(p^T) do and dk += ds^T q (m16n8k16, A from registers, B
+// by ldmatrix). A query-role warp holds its queries' q and do, forms its
+// rows' lse and delta, and walks the staged k and v: s = q k^T, dp = do
+// v^T, dq += ds k. No atomics, no float32 partials. WIDE as in the
+// forward, over q, k, v, o and do.
+template <int HD, bool WIDE>
+__global__ void __launch_bounds__(kHmmaWarps * 32)
+attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
+                   const float* __restrict__ lse, View<bf16> dout, bf16* __restrict__ dq,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, int chunks,
+                   float scale) {
+  constexpr int HP = hd_pad(HD);
+  extern __shared__ __align__(16) uint4 smem_hb[];
+  const int tiles = (N + 15) / 16, NP = 16 * tiles;
+  const int per_role = gridDim.x / 2;
+  const bool key_role = blockIdx.x < per_role;
+  const int idx = key_role ? blockIdx.x : blockIdx.x - per_role;
+  const int bh = idx / chunks, c = idx - bh * chunks;
+  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * (c + chunks * warp);  // this warp's first key (query) row
+  const float* lse_bh = lse + (long long)bh * N;
+  const long long D = (long long)H * HD;
+  uint4* t0 = smem_hb;                     // q (key role) or k (query role)
+  uint4* t1 = smem_hb + NP * (HP / 8);     // do or v
+  const uint32_t* w0 = reinterpret_cast<const uint32_t*>(t0);
+  const uint32_t* w1 = reinterpret_cast<const uint32_t*>(t1);
+
+  if (key_role) {
+    float* lse_s = reinterpret_cast<float*>(t1 + NP * (HP / 8));
+    float* del_s = lse_s + NP;
+    uint32_t ka[HP / 4], va[HP / 4];
+    ldg_a<HD>(ka, k, b, r0, col0, N, WIDE);
+    ldg_a<HD>(va, v, b, r0, col0, N, WIDE);
+    stage_tile<HD>(t0, q, b, col0, N, NP, WIDE);
+    stage_tile<HD>(t1, dout, b, col0, N, NP, WIDE);
+    for (int i = threadIdx.x; i < NP; i += blockDim.x) {
+      lse_s[i] = i < N ? lse_bh[i] : 0.f;
+      del_s[i] = i < N ? row_delta<HD>(o, dout, b, i, col0, WIDE) : 0.f;
+    }
+    wait_copies();
+    __syncthreads();
+    if (r0 >= N) return;
+    float dka[HP / 8][4], dva[HP / 8][4];
+#pragma unroll
+    for (int n = 0; n < HP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    const bool keys_full = r0 + 16 <= N;
+    for (int it = 0; it < tiles; ++it) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nq][e] = dp[nq][e] = 0.f;
+        uint32_t bq[HP / 8], bd[HP / 8];
+        lds_b<HP>(bq, w0, 16 * it + 8 * nq + g);
+        lds_b<HP>(bd, w1, 16 * it + 8 * nq + g);
+        hmma<HP>(s[nq], ka, bq);
+        hmma<HP>(dp[nq], va, bd);
+      }
+      if (keys_full && 16 * (it + 1) <= N)  // warp-uniform
+        key_elems16<false>(s, dp, lse_s, del_s, r0 + g, 16 * it, N, scale);
+      else
+        key_elems16<true>(s, dp, lse_s, del_s, r0 + g, 16 * it, N, scale);
+      uint32_t pf[4], sf[4], bo[HP / 4], bq[HP / 4];
+      pack_a16(pf, s[0], s[1]);
+      pack_a16(sf, dp[0], dp[1]);
+      ldsm_rows<HP>(bo, smem_u32(t1), 16 * it);
+      ldsm_rows<HP>(bq, smem_u32(t0), 16 * it);
+      hmma_rows<HP>(dva, pf, bo);
+      hmma_rows<HP>(dka, sf, bq);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = r0 + g + 8 * r;
+      if (j >= N) continue;
+      const long long off = ((long long)b * N + j) * D + col0 + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < HP / 8; ++n) {
+        if (8 * n + 2 * t4 >= HD) continue;
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
+            pack_bf16(dka[n][2 * r], dka[n][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
+            pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+      }
+    }
+  } else {
+    uint32_t qa[HP / 4], da[HP / 4];
+    ldg_a<HD>(qa, q, b, r0, col0, N, WIDE);
+    ldg_a<HD>(da, dout, b, r0, col0, N, WIDE);
+    float lse_r[2], del_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = min(r0 + g + 8 * r, N - 1);
+      lse_r[r] = lse_bh[i];
+      del_r[r] = row_delta<HD>(o, dout, b, i, col0, WIDE);
+    }
+    stage_tile<HD>(t0, k, b, col0, N, NP, WIDE);
+    stage_tile<HD>(t1, v, b, col0, N, NP, WIDE);
+    wait_copies();
+    __syncthreads();
+    if (r0 >= N) return;
+    float dqa[HP / 8][4];
+#pragma unroll
+    for (int n = 0; n < HP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+    const bool rows_full = r0 + 16 <= N;
+    for (int jt = 0; jt < tiles; ++jt) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nk = 0; nk < 2; ++nk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nk][e] = dp[nk][e] = 0.f;
+        uint32_t bk[HP / 8], bv[HP / 8];
+        lds_b<HP>(bk, w0, 16 * jt + 8 * nk + g);
+        lds_b<HP>(bv, w1, 16 * jt + 8 * nk + g);
+        hmma<HP>(s[nk], qa, bk);
+        hmma<HP>(dp[nk], da, bv);
+      }
+      if (rows_full && 16 * (jt + 1) <= N)  // warp-uniform
+        query_elems16<false>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
+      else
+        query_elems16<true>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
+      uint32_t sf[4], bk[HP / 4];
+      pack_a16(sf, dp[0], dp[1]);
+      ldsm_rows<HP>(bk, smem_u32(t0), 16 * jt);
+      hmma_rows<HP>(dqa, sf, bk);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + g + 8 * r;
+      if (i >= N) continue;
+      bf16* row = dq + ((long long)b * N + i) * D + col0 + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < HP / 8; ++n)
+        if (8 * n + 2 * t4 < HD)
+          *reinterpret_cast<uint32_t*>(row + 8 * n) = pack_bf16(dqa[n][2 * r], dqa[n][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1297,12 +1877,100 @@ int bwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* l
   return static_cast<int>(cudaGetLastError());
 }
 
+// the hd <= 16 tensor-core kernels' dynamic shared memory
+// (attention_fused.py: bf16_smem_bytes): two [NP][HD] bf16 tiles, N padded
+// to NP = 16 ceil(N / 16) rows (k, v; the backward's key role q, do), and
+// the key role's lse and delta rows
+size_t hmma_smem(int N, int HD, bool backward) {
+  const size_t np = 16 * (size_t)((N + 15) / 16);
+  return 2 * np * hd_pad(HD) * sizeof(bf16) + (backward ? 2 * np * sizeof(float) : 0);
+}
+
+// whether a plan of `chunks` CTAs a (b, h), `warps` 16-row tiles a CTA,
+// covers N (the caller's, attention_fused.py: bf16_hmma_plan)
+bool hmma_plan_ok(int N, int chunks, int warps) {
+  return N <= kHmmaMaxKeys && chunks >= 1 && warps >= 1 && warps <= kHmmaWarps &&
+         16 * chunks * warps >= N;
+}
+
+// whether every view takes the tensor-core row kernels' 16-byte copies
+// (hd 2: its whole 4-byte row)
+template <int HD>
+bool wide_views(std::initializer_list<View<bf16>> views) {
+  for (const View<bf16>& x : views)
+    if (!takes_width(x, HD < 8 ? HD : 8)) return false;
+  return true;
+}
+
+template <int HD, int NT, bool WIDE>
+int fwd_hmma_tiles(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N,
+                   int H, float scale, int chunks, int warps, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  const size_t smem = hmma_smem(N, HD, false);
+  cudaError_t err = allow_smem(attn_fwd_hmma_bf16<HD, NT, WIDE>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_hmma_bf16<HD, NT, WIDE><<<B * H * chunks, 32 * warps, smem, s>>>(q, k, v, o, lse, N, H,
+                                                                            chunks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `tiles`, the register tier (attention_fused.py: bf16_hmma_score_tiles),
+// one of HMMA_SCORE_TILES and at least ceil(N / 8); views that do not all
+// take 16-byte copies run the largest tier, built for them alone (off every
+// model's path: its q, k, v take them)
+template <int HD>
+int fwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
+             float scale, int tiles, int chunks, int warps, cudaStream_t s) {
+  if (!hmma_plan_ok(N, chunks, warps) || 8 * tiles < N) return kBadPlan;
+  if (!wide_views<HD>({q, k, v}))
+    return fwd_hmma_tiles<HD, kHmmaMaxKeys / 8, false>(q, k, v, o, lse, B, N, H, scale, chunks,
+                                                        warps, s);
+  switch (tiles) {
+#define HMMA_TIER_CASE(NT) \
+  case NT:                 \
+    return fwd_hmma_tiles<HD, NT, true>(q, k, v, o, lse, B, N, H, scale, chunks, warps, s);
+    HMMA_SCORE_TILES(HMMA_TIER_CASE)
+#undef HMMA_TIER_CASE
+    default:
+      return kBadPlan;
+  }
+}
+
+template <int HD, bool WIDE>
+int bwd_hmma_launch(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o, const float* lse,
+                    View<bf16> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H,
+                    float scale, int chunks, int warps, size_t smem, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  cudaError_t err = allow_smem(attn_bwd_hmma_bf16<HD, WIDE>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_hmma_bf16<HD, WIDE><<<2 * B * H * chunks, 32 * warps, smem, s>>>(
+      q, k, v, o, lse, dout, dq, dk, dv, N, H, chunks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int bwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o, const float* lse,
+             View<bf16> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H, float scale,
+             int chunks, int warps, cudaStream_t s) {
+  if (!hmma_plan_ok(N, chunks, warps)) return kBadPlan;
+  const size_t smem = hmma_smem(N, HD, true);
+  if (wide_views<HD>({q, k, v, o, dout}))
+    return bwd_hmma_launch<HD, true>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks,
+                                     warps, smem, s);
+  return bwd_hmma_launch<HD, false>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks,
+                                    warps, smem, s);
+}
+
+// hd 2, 8 and 16: the tensor-core row kernels where the caller passes
+// their plan (chunks > 0; attention_fused.py: bf16_row_kernel), else the
+// FP32-core row kernels
 template <int HD>
 int launch_fwd(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
-               float scale, int width, cudaStream_t s) {
+               float scale, int width, int tiles, int chunks, int warps, cudaStream_t s) {
   if constexpr (HD >= 32) {
     return fwd_mma(q, k, v, o, lse, B, N, H, HD, scale, s);
   } else {
+    if (chunks > 0) return fwd_hmma<HD>(q, k, v, o, lse, B, N, H, scale, tiles, chunks, warps, s);
     switch (elems<HD>(width)) {
       case 8:
         if constexpr (HD % 8 == 0) return fwd_rows<HD, 8>(q, k, v, o, lse, B, N, H, scale, s);
@@ -1323,10 +1991,15 @@ int launch_fwd(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, in
 template <int HD, typename TO>
 int launch_bwd(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
                View<TO> dout, bf16* dq, bf16* dk, bf16* dv, float* delta, bf16* split, int B,
-               int N, int H, float scale, int width, cudaStream_t s) {
+               int N, int H, float scale, int width, int chunks, int warps, cudaStream_t s) {
   if constexpr (HD >= 32) {
     return bwd_mma<TO>(q, k, v, o, lse, dout, dq, dk, dv, delta, split, B, N, H, HD, scale, s);
   } else {
+    if (chunks > 0) {
+      if constexpr (std::is_same<TO, bf16>::value)
+        return bwd_hmma<HD>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks, warps, s);
+      return kBadPlan;  // a float32 o and do take the FP32-core kernels
+    }
     switch (elems<HD>(width)) {
       case 8:
         if constexpr (HD % 8 == 0)
@@ -1353,7 +2026,8 @@ int launch_bwd(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float
 // tensor-core kernels.
 #define ATTN_BF16_HEAD_DIMS(X) X(2) X(8) X(16) X(32) X(48) X(64)
 
-// The kernels' constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks):
+// The kernels' constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks,
+// kHmmaWarps, kHmmaMaxKeys, then the 7 HMMA_SCORE_TILES):
 // ops/attention_fused.py plans grids and shared memory with them and
 // refuses a library whose constants differ.
 extern "C" void attention_bf16_tiles(int* out) {
@@ -1361,34 +2035,46 @@ extern "C" void attention_bf16_tiles(int* out) {
   out[1] = kTile;
   out[2] = kHdp;
   out[3] = kMaxKeyBlocks;
+  out[4] = kHmmaWarps;
+  out[5] = kHmmaMaxKeys;
+  int i = 6;
+#define HMMA_TIER_OUT(NT) out[i++] = NT;
+  HMMA_SCORE_TILES(HMMA_TIER_OUT)
+#undef HMMA_TIER_OUT
 }
 
 // Both entry points launch on `stream`, allocate nothing and return
 // cudaGetLastError() as an int (0 on success), -1 for a head dim that is
-// not built, -2 for a row copy width that a view contradicts, or -3 for a
-// forward past 64 kMaxKeyBlocks keys at hd >= 32. q, k, v and do are
+// not built, -2 for a row copy width that a view contradicts, -3 for a
+// forward past 64 kMaxKeyBlocks keys at hd >= 32, or -4 for a tensor-core
+// row plan that does not cover N or is not built. q, k, v and do are
 // [B, N, H*hd] views with unit column stride, batch stride *_sb and row
 // stride *_sr in elements; at hd >= 32 their pointers and strides are
-// multiples of 16 bytes. At hd <= 16 the row kernels copy rows
-// row_copy_bytes (16, 8, 4 or 2) at a time, which every bf16 view's
-// pointer and strides, and hd * 2, must be multiples of. o and do are
-// bf16, or both float32 when o_do_f32 is set (hybrid_attention's eager
-// forward and its cotangent). The outputs o, lse [B, H, N] (float32), dq,
-// dk, dv are contiguous. At hd >= 32 the backward writes delta, a float32
+// multiples of 16 bytes. At hd <= 16, hmma_chunks > 0 runs the tensor-core
+// row kernels with that plan (hmma_chunks CTAs a (b, h), hmma_warps warps
+// a CTA, the forward's register tier hmma_tiles; bf16 o and do), which
+// take any view; else the FP32-core row kernels copy rows row_copy_bytes
+// (16, 8, 4 or 2) at a time, which every bf16 view's pointer and strides,
+// and hd * 2, must be multiples of. o and do are bf16, or both float32
+// when o_do_f32 is set (hybrid_attention's eager forward and its
+// cotangent). The outputs o, lse [B, H, N] (float32), dq, dk, dv are
+// contiguous. At hd >= 32 the backward writes delta, a float32
 // [B, H, N] workspace, and for a float32 do its three bf16 parts to
 // do_split, a contiguous [3, B, N, H*hd] bf16 workspace (unused otherwise).
 extern "C" int attention_bf16_forward(const void* q, long long q_sb, long long q_sr,
                                       const void* k, long long k_sb, long long k_sr,
                                       const void* v, long long v_sb, long long v_sr, void* o,
                                       float* lse, int B, int N, int H, int hd, float scale,
-                                      int row_copy_bytes, void* stream) {
+                                      int row_copy_bytes, int hmma_tiles, int hmma_chunks,
+                                      int hmma_warps, void* stream) {
   const View<bf16> qv{static_cast<const bf16*>(q), q_sb, q_sr},
       kv{static_cast<const bf16*>(k), k_sb, k_sr}, vv{static_cast<const bf16*>(v), v_sb, v_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
 #define ATTN_FWD_CASE(HD) \
   case HD:                \
-    return launch_fwd<HD>(qv, kv, vv, static_cast<bf16*>(o), lse, B, N, H, scale, row_copy_bytes, s);
+    return launch_fwd<HD>(qv, kv, vv, static_cast<bf16*>(o), lse, B, N, H, scale, row_copy_bytes, \
+                          hmma_tiles, hmma_chunks, hmma_warps, s);
     ATTN_BF16_HEAD_DIMS(ATTN_FWD_CASE)
 #undef ATTN_FWD_CASE
     default:
@@ -1403,7 +2089,8 @@ extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long 
                                        const float* lse, const void* dout, long long do_sb,
                                        long long do_sr, void* dq, void* dk, void* dv,
                                        float* delta, void* do_split, int B, int N, int H, int hd,
-                                       float scale, int row_copy_bytes, void* stream) {
+                                       float scale, int row_copy_bytes, int hmma_chunks,
+                                       int hmma_warps, void* stream) {
   const View<bf16> qv{static_cast<const bf16*>(q), q_sb, q_sr},
       kv{static_cast<const bf16*>(k), k_sb, k_sr}, vv{static_cast<const bf16*>(v), v_sb, v_sr};
   const View<bf16> ob{static_cast<const bf16*>(o), o_sb, o_sr},
@@ -1417,9 +2104,11 @@ extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long 
 #define ATTN_BWD_CASE(HD)                                                                      \
   case HD:                                                                                     \
     return o_do_f32 ? launch_bwd<HD, float>(qv, kv, vv, of, lse, dof, dqb, dkb, dvb, delta,     \
-                                            split, B, N, H, scale, row_copy_bytes, s)          \
+                                            split, B, N, H, scale, row_copy_bytes,             \
+                                            hmma_chunks, hmma_warps, s)                        \
                     : launch_bwd<HD, bf16>(qv, kv, vv, ob, lse, dob, dqb, dkb, dvb, delta,      \
-                                           split, B, N, H, scale, row_copy_bytes, s);
+                                           split, B, N, H, scale, row_copy_bytes, hmma_chunks, \
+                                           hmma_warps, s);
     ATTN_BF16_HEAD_DIMS(ATTN_BWD_CASE)
 #undef ATTN_BWD_CASE
     default:
