@@ -147,13 +147,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    full widths and depth (emb 192, depth 12, 3 heads: hd 64; decoder emb 96,
    depth 2: hd 32; N 65; 4x4 map, SOM latent 64 x 192; batch 128, float32,
    no remat) on the clustering objective (``data.num_classes`` 0; phase D
-   runs the yaml as shipped, with its 10 classes) with un-augmented
-   synthetic 32x32x3 images (``raw_synthetic_datamodule``: the clustering of
-   an augmented dataset is not ported), 20 steps
-   and the clustering eval with ``xla`` attention, then with ``pallas``:
-   step-0 losses equal within rtol 1e-5, launch counts equal to the formula
-   below, recon loss falling, losses finite, reconstructions [128, 32, 32,
-   3]; median step ms and images/s of both are printed. Both runs graphed.
+   runs the yaml as shipped, with its 10 classes) on the clustering split of
+   an augmented dataset (``pipeline.ClusteringDataModule``: 10667 + 2133
+   synthetic 32x32x3 images, 12800 rows, the yaml's train transform on the
+   device, the captured augmentation held against eager calls), 20 steps
+   with ``xla`` attention, then with ``pallas``, and the clustering eval of
+   each on 4096 rows (3414 + 682 images) through the train transform on the
+   host (``default_rng(0)``, in order, as the JAX package evaluates a
+   train-mode split): step-0 losses equal within rtol 1e-5, launch counts
+   of the steps and of the eval equal to the formula below, recon loss
+   falling, losses finite, reconstructions [128, 32, 32, 3]; median step ms
+   and images/s of both are printed. Both runs graphed.
+M. data parallelism (``parallel/``). M1: phase 7's flagship ``pallas``
+   run again (40 graphed steps and the eval) inside a one-rank NCCL group
+   made in the smoke's own process, so the step takes the data-parallel
+   path (the fused SOM's loss, the gradients and the metrics' losses
+   all-reduced) with its all-reduces captured: its losses and every tensor
+   of its state bitwise equal to phase 7's; both graphed step times
+   printed. M2: two gloo ranks on the one card as child processes
+   (``m2_rank``: torchrun's environment, a group over ``tcp``), the
+   flagship with ``pallas`` for 8 eager steps (a gloo collective cannot be
+   captured) at a local batch of 64, the sharded eval, k-means and the
+   validation metrics: the ranks' parameters equal, and held against a
+   one-rank run of the same seed at atol 5e-5 / rtol 1e-4 (the JAX
+   data-parallel test's); purity, NMI, k-means and the validation metrics
+   equal on both ranks; each rank's launches equal to the formula. A rank
+   that fails prints its output and the phase fails.
 B. ``bench.py``'s configuration: the flagship yaml with the overrides of
    ``bench.py:38-59`` (``BENCH_OVERRIDES``: 24x24 map, ``compute_dtype:
    bfloat16``, ``attn_impl: xla_bf16``, no remat, the fused SOM), cut to
@@ -437,6 +456,9 @@ backward kernel once for each of those (2). Under ``compute_dtype:
 bfloat16`` (K2, K3) the same counts go to the bf16 kernels, and the
 float32 kernels' are 0.
 
+Phase M1 launches what phase 7 does; each M2 rank issues all 8 of its
+eager steps (S = 8) at B 64.
+
 The last lines are the ``kernels`` JSON (the SOM and float32 attention
 kernels' ``launches``: phase G4's protocol run, the last path all these
 kernels are on; the bf16 attention kernels' K3's; with every path's count
@@ -463,6 +485,7 @@ import math
 import os
 import pickle
 import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -479,14 +502,17 @@ import torch.nn.functional as F
 from vitsom_tpu_torch.config import DataConfig, load_config
 from vitsom_tpu_torch.convert import block_weights
 from vitsom_tpu_torch.data import datasets
-from vitsom_tpu_torch.data.synthetic import build_datamodule, raw_synthetic_datamodule
+from vitsom_tpu_torch.data.pipeline import ClusteringDataModule
+from vitsom_tpu_torch.data.synthetic import build_datamodule
 from vitsom_tpu_torch.eval import eval_checkpoint, metrics, umap, viz
+from vitsom_tpu_torch.eval import evaluate as eval_lib
 from vitsom_tpu_torch.eval.kmeans import KMeans
 from vitsom_tpu_torch.models import stochastic
 from vitsom_tpu_torch.models.vit import Block
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
 from vitsom_tpu_torch.ops import _build, attention_fused, block_fused, som_fused
 from vitsom_tpu_torch.ops.attention import xla_attention
+from vitsom_tpu_torch.parallel import distributed as dist_lib
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import optim as optim_lib
 from vitsom_tpu_torch.train import steps as steps_lib
@@ -527,6 +553,16 @@ DESOM_MNIST = os.path.join(DESOM, "desom_mnist.yaml")
 DESOM_FLOWERS = os.path.join(DESOM, "desom_flowers17.yaml")
 DESOM_BN_STEPS = 10
 CIFAR_STEPS = 20
+# phase 13: the clustering split of 10667 + 2133 synthetic cifar-10 images
+# (12800 rows, 100 steps an epoch) augmented on the device; the eval on
+# 3414 + 682 = 4096 rows through the host train transform
+C13_SIZE = 10667
+C13_EVAL_SIZE = 3414
+# phase M2: two gloo ranks on the one card, the flagship for 8 steps
+M2_STEPS = 8
+M2_WORLD = 2
+# the JAX data-parallel test's tolerance (tests/test_pallas_kernels.py:305)
+DP_ATOL, DP_RTOL = 5e-5, 1e-4
 # R: the graph replays (and eager steps) profile_step profiles
 PROFILE_STEPS = 5
 # bench.py:38-59's overrides of the flagship yaml, the configuration behind
@@ -1238,33 +1274,69 @@ def phase_profiles(smi):
 
 
 def phase_train_cifar(dev):
-    """Phase 13: the emb-192 ViT-SOM at full width; returns the pallas run's
-    launch counts.
+    """Phase 13: the emb-192 ViT-SOM at full width on the clustering of an
+    augmented dataset; returns the pallas run's launch counts (its train
+    steps and its eval).
 
     ``configs/vit_som/vit_som_cifar-10.yaml`` at its full widths and depth
     (emb 192, depth 12, 3 heads, decoder emb 96 and depth 2, 4x4 map, SOM
-    latent D = 64 x 192, batch 128, float32, no remat), trained on the
-    clustering objective (``data.num_classes`` 0; phase D trains the yaml's
-    classification as shipped) on un-augmented synthetic 32x32x3 images
-    (``raw_synthetic_datamodule``), once with
-    ``xla`` and once with ``pallas`` attention, CIFAR_STEPS steps and the
-    clustering eval each. The pallas run's step-0 losses equal the xla
-    run's within rtol 1e-5 and its launch counts the formula (module
-    docstring); its reconstructions of one eval batch are finite and
-    [128, 32, 32, 3]."""
-    data = "un-augmented synthetic 32x32x3 images (clustering objective)"
+    latent D = 64 x 192, batch 128, float32, no remat) on the clustering
+    objective (``data.num_classes`` 0; phase D trains the yaml's
+    classification as shipped): ``build_datamodule`` gives the clustering
+    module (``pipeline.ClusteringDataModule``: train and test concatenated,
+    C13_SIZE + its test images, the yaml's train transform on the device,
+    the captured augmentation held against eager calls), once with ``xla``
+    and once with ``pallas`` attention, CIFAR_STEPS steps each, graphed.
+    The eval runs on a module of 4096 rows (C13_EVAL_SIZE + its test
+    images) whose rows go through the train transform on the host, in
+    order, from ``default_rng(0)`` (the JAX package's evaluation of a
+    train-mode split), once for both runs. The pallas run's step-0 losses
+    equal the xla run's within rtol 1e-5 and its launch counts the formula
+    (module docstring); its reconstructions of one eval batch are finite
+    and [128, 32, 32, 3]."""
+    over = {"data.num_classes": 0, "data.synthetic_size": C13_SIZE}
+    eval_cfg = load_config(CIFAR_CONFIG, {"data.allow_synthetic": True, "data.num_classes": 0,
+                                          "data.synthetic_size": C13_EVAL_SIZE})
+    eval_dm = build_datamodule(eval_cfg, dev)
+    t0 = time.perf_counter()
+    rows = eval_dm.images.shape[0]
+    host_s = time.perf_counter() - t0
+    check(isinstance(eval_dm, ClusteringDataModule) and rows == 4096 and not eval_dm.static,
+          f"phase 13's eval module: {type(eval_dm).__name__} of {rows} rows")
+    print(f"cifar10 clustering eval: {rows} rows through the host train transform in "
+          f"{host_s:.3f} s (default_rng(0), in order)", flush=True)
+    data = "synthetic 32x32x3 images, clustering split augmented on the device"
     first, launches = None, None
     for impl in ("xla", "pallas"):
         label = f"cifar10_{impl}"
         cfg, dm, trainer, hist, launches = train_run(
-            dev, label, impl, CIFAR_STEPS, True, config=CIFAR_CONFIG,
-            make_dm=raw_synthetic_datamodule, data=data, extra={"data.num_classes": 0})
+            dev, label, impl, CIFAR_STEPS, False, config=CIFAR_CONFIG, data=data, extra=over)
+        check(isinstance(dm, ClusteringDataModule) and dm.augment is not None
+              and not dm.host and not dm.streams and dm.n_train == 12800,
+              f"{label}: not the device-augmented clustering module ({type(dm).__name__})")
         if first is None:
             first = {k: float(hist[k][0]) for k in FIRST_LOSSES}
         else:
             check_first_losses(label, hist, first)
+            hold_augmentation(dm, trainer)
+        eval_batches = eval_batch_count(rows, cfg.batch_size) + 1
+        reset_launches()
+        trainer.model.eval()
+        p, n, dt = eval_lib.evaluate_clustering(trainer.eval_step, eval_dm,
+                                                trainer.current_temperature())
+        trainer.model.train()
+        torch.cuda.synchronize()
+        eval_launches = read_launches()
+        want = expected_launches(cfg, model_attn_impl(cfg), 0, eval_batches)
+        print(f"{label} eval (host train transform): purity={p:.4f} nmi={n:.4f} "
+              f"batches={eval_batches} (one a warm-up) inference_s={dt:.4f} launches: "
+              + " ".join(f"{k}={v} (expected {want[k]})" for k, v in eval_launches.items()),
+              flush=True)
+        check(0.0 <= p <= 1.0 and 0.0 <= n <= 1.0, "bad purity/NMI")
+        check(eval_launches == want, f"{label} eval: launch counts {eval_launches} != {want}")
+        launches = {k: launches[k] + eval_launches[k] for k in launches}
         with torch.no_grad():
-            _, recon_img, _, dist, _ = trainer.model(next(dm.eval_batches())["image"])
+            _, recon_img, _, dist, _ = trainer.model(next(eval_dm.eval_batches())["image"])
         shape = (cfg.batch_size, cfg.data.input_size, cfg.data.input_size, cfg.data.num_channels)
         print(f"{label}: recon_shape={tuple(recon_img.shape)} dist_shape={tuple(dist.shape)}",
               flush=True)
@@ -1272,6 +1344,177 @@ def phase_train_cifar(dev):
         check(bool(torch.isfinite(recon_img).all()), "non-finite cifar-10 reconstruction")
         del trainer, dm
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase M: data parallelism (parallel/), a one-rank NCCL group here, two
+# gloo ranks on the one card as child processes
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp_nccl(dev, p7, smi):
+    """M1: the flagship ``pallas`` run of phase 7 again (TRAIN_STEPS steps
+    graphed, the clustering eval) inside a one-rank NCCL group made in
+    this process: the data-parallel path (the fused SOM's loss, the
+    gradients and the metrics' losses all-reduced), its all-reduces
+    captured with the step. Its losses and every tensor of its state
+    (parameters, AdamW moments, step counts, lr tensors, device step,
+    metrics rows) must equal phase 7's bitwise; its graphed step ms is
+    printed beside phase 7's. Returns its launch counts."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        check(dist_lib.initialized() and dist_lib.capturable() and dist_lib.process_count() == 1,
+              "M1: no one-rank NCCL group")
+        cfg, _, tr, hist, launches = train_run(dev, "m1_dp_nccl_pallas", "pallas", TRAIN_STEPS,
+                                               True)
+        check(tr.graph is not None and tr.world == 1, "M1: the data-parallel step was not captured")
+        for k in FIRST_LOSSES:
+            check(np.array_equal(hist[k], p7["hist"][k]),
+                  f"M1: {k} differs from phase 7's non-data-parallel run")
+        same_state("m1 dp (one-rank NCCL group) vs phase 7", snapshot(tr), p7["state"])
+        ms = steady_ms(tr.step_ms)
+        print(f"m1: graphed step with the all-reduces captured median_step_ms={ms:.4f} "
+              f"({steady_steps(tr.step)}) against phase 7's non-data-parallel "
+              f"{p7['step_ms']:.4f} card: {smi}", flush=True)
+        del tr
+        gc.collect()
+    finally:
+        dist.destroy_process_group()
+    check(not dist_lib.initialized(), "M1: the group outlived the phase")
+    return launches
+
+
+def m2_rank(spec_path: str) -> int:
+    """One rank of M2 (a child process: torchrun's environment, rank
+    ``RANK`` of M2_WORLD on ``cuda:0``): joins a gloo group, trains the
+    flagship with ``pallas`` for M2_STEPS steps (eagerly: a gloo collective
+    cannot be captured; the launches counted and held to the formula), runs
+    the sharded clustering eval, k-means on the SOM latents and
+    ``validation_metrics``, and writes its final parameters and numbers
+    into the spec's directory."""
+    import torch.distributed as dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = resolve_device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    cfg = load_config(CONFIG, spec["overrides"])
+    tr = Trainer(cfg, device=dev)
+    check(tr.world == M2_WORLD and not dist_lib.capturable() and tr.dm.batch == 64,
+          f"rank {rank}: world {tr.world}, local batch {tr.dm.batch}")
+    reset_launches()
+    hist = tr.fit(max_steps=M2_STEPS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = expected_launches(cfg, model_attn_impl(cfg), M2_STEPS, 0)
+    check(launches == want, f"rank {rank}: launch counts {launches} != {want}")
+    check(tr.graph is None, f"rank {rank}: a gloo step was captured")
+    res = tr.evaluate()
+    temp = tr.current_temperature()
+    tr.model.eval()
+
+    @torch.no_grad()
+    def latent_step(batch, temperature=None):
+        return {"latent": tr.model.get_latent_representation(batch["image"])}
+
+    km = eval_lib.evaluate_kmeans(latent_step, tr.dm, temperature=temp)
+    vm = eval_lib.validation_metrics(tr.eval_step, tr.dm, "train", temp)
+    torch.save({k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
+               os.path.join(spec["out"], f"rank{rank}.pt"))
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump({"purity": res["purity"], "nmi": res["nmi"], "kmeans": [km[0], km[1]],
+                   "val": vm, "launches": launches, "step_ms": tr.step_ms,
+                   "total_loss": hist["train/total_loss"].tolist(),
+                   "gloo_cuda": bool(next(tr.model.parameters()).is_cuda)}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"m2 rank {rank}: done", flush=True)
+    return 0
+
+
+def phase_dp_gloo(dev, smi):
+    """M2: two gloo ranks on the one card, child processes (m2_rank), the
+    flagship at full width with ``pallas`` for M2_STEPS steps and the
+    sharded eval; the collectives take the CUDA tensors as they are. The
+    two ranks' final parameters are equal to each other and held against
+    a one-rank run of the same seed and steps here (eager, no group) at the
+    JAX data-parallel test's tolerance (DP_ATOL, DP_RTOL); purity, NMI,
+    k-means and the validation metrics equal on both ranks. A rank that
+    fails prints its output and the phase fails. Returns rank 0's launch
+    counts."""
+    over = {"data.allow_synthetic": True, "data.synthetic_size": SYNTHETIC_SIZE,
+            "train.attn_impl": "pallas"}
+    _, _, ref, ref_hist, _ = train_run(dev, "m2_one_rank", "pallas", M2_STEPS, False,
+                                       eager=True, falls=False)
+    ref_state = {k: v.detach().cpu() for k, v in ref.model.state_dict().items()}
+    del ref
+    out = tempfile.mkdtemp(prefix="smoke_m2_")
+    spec = {"out": out, "overrides": {**over, "train.mesh_shape": [M2_WORLD],
+                                      "train.checkpoint_dir": os.path.join(out, "states"),
+                                      "train.log_dir": os.path.join(out, "logs")}}
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    code = "import sys, chip_smoke\nsys.exit(chip_smoke.m2_rank(sys.argv[1]))"
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(M2_WORLD):
+            env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(M2_WORLD),
+                   "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+            procs.append(subprocess.Popen([sys.executable, "-c", code, spec_path], cwd=ROOT,
+                                          env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True,
+                                          start_new_session=True))
+        logs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            end_session(proc)
+    wall = time.perf_counter() - t0
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            print(f"m2 rank {rank} output:\n{log[-8000:]}", flush=True)
+        check(proc.returncode == 0, f"M2: rank {rank} exited {proc.returncode}")
+    res = []
+    for rank in range(M2_WORLD):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            res.append(json.load(f))
+    states = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+              for r in range(M2_WORLD)]
+    check(all(torch.equal(states[0][k], states[1][k]) for k in states[0]),
+          "M2: the ranks' parameters differ")
+    worst, name = 0.0, ""
+    for k, v in ref_state.items():
+        d = (states[0][k] - v).abs()
+        excess = float((d - DP_ATOL - DP_RTOL * v.abs()).max())
+        if float(d.max()) >= worst:
+            worst, name = float(d.max()), k
+        check(excess <= 0.0, f"M2: {k} differs from the one-rank run by {float(d.max()):.3e}")
+    loss_diff = max(abs(a - b) for a, b in zip(res[0]["total_loss"], ref_hist["train/total_loss"]))
+    for key in ("purity", "nmi", "kmeans", "val"):
+        check(res[0][key] == res[1][key], f"M2: {key} differs between the ranks")
+    ms = statistics.median(res[0]["step_ms"])
+    print(f"m2: {M2_WORLD} gloo ranks on one card (collectives on CUDA tensors: "
+          f"{res[0]['gloo_cuda']}), {M2_STEPS} eager steps, local batch 64: final parameters "
+          f"against the one-rank run max_abs_diff={worst:.3e} ({name}) within atol {DP_ATOL} "
+          f"rtol {DP_RTOL}; total_loss max_abs_diff={loss_diff:.3e}; purity={res[0]['purity']:.4f} "
+          f"nmi={res[0]['nmi']:.4f} kmeans={res[0]['kmeans']} val={res[0]['val']} equal on both "
+          f"ranks; rank 0 median_step_ms={ms:.4f} (eager, gloo through the host) wall_s={wall:.1f} "
+          f"card: {smi}", flush=True)
+    return res[0]["launches"]
 
 
 def cls_run(dev, label, config, impl, steps, dm=None, eager=False, evaluate=True,
@@ -4035,6 +4278,7 @@ def run_smoke(clock) -> int:
     attn_err = phase_attention_vs_plain(dev)
     run = phase_train_attention(dev, "pallas", TRAIN_STEPS, True, xla_first)
     flagship_pallas = run[4]
+    p7 = {"state": snapshot(run[2]), "hist": run[3], "step_ms": steady_ms(run[2].step_ms)}
     phase_graphed_vs_eager(dev, "graph_pallas", "pallas", run, smi)
     del run
     phase_train_attention(dev, "hybrid", HYBRID_STEPS, False, xla_first)
@@ -4045,6 +4289,10 @@ def run_smoke(clock) -> int:
     block_timing = phase_block_timings(dev)
     clock("13")
     cifar = phase_train_cifar(dev)
+    clock("M")
+    m_paths = {"m1_flagship_dp_nccl_pallas": phase_dp_nccl(dev, p7, smi),
+               "m2_flagship_dp_gloo_pallas_rank0": phase_dp_gloo(dev, smi)}
+    del p7
     clock("D")
     cls_paths = phase_classification(dev, smi)
     clock("E")
@@ -4078,7 +4326,7 @@ def run_smoke(clock) -> int:
     # and DeiT: no kernel is on their path, their counts are 0); the bf16
     # attention kernels' main path is K3, tiny-imagenet under bf16
     paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
-             "cifar10_clustering_pallas": cifar, **cls_paths, **family_paths,
+             "cifar10_clustering_pallas": cifar, **m_paths, **cls_paths, **family_paths,
              **protocol_paths, **k_paths}
     main_path = protocol_paths["protocol_cifar10_pallas"]
     main_bf16 = k_paths["k3_tiny_imagenet_bf16_pallas"]

@@ -318,18 +318,19 @@ def test_fit_history_over_epochs_is_the_host_schedule():
 
 
 def test_raw_synthetic_datamodule_takes_cifar():
-    """The un-augmented stand-in ``profile_step`` and ``chip_smoke.py`` use
-    where ``build_datamodule`` refuses the dataset: the JAX package's
-    synthetic arrays, concatenated and scaled to [0, 1]."""
+    """The un-augmented stand-in for clustering on any dataset: the JAX
+    package's synthetic arrays, concatenated and scaled to [0, 1]; where
+    the dataset's train transform augments, ``build_datamodule`` applies
+    it instead (``pipeline.ClusteringDataModule``)."""
     from vitsom_tpu.config import load_config as jload
     from vitsom_tpu.data.datasets import make_synthetic as jmake_synthetic
+    from vitsom_tpu_torch.data.pipeline import ClusteringDataModule
     from vitsom_tpu_torch.data.synthetic import build_datamodule, raw_synthetic_datamodule
 
     path = "configs/vit_som/vit_som_cifar-10.yaml"
     over = {"data.allow_synthetic": True, "data.synthetic_size": 96, "data.num_classes": 0}
     cfg = tconfig.load_config(path, over)
-    with pytest.raises(NotImplementedError):
-        build_datamodule(cfg, device="cpu")
+    assert isinstance(build_datamodule(cfg, device="cpu"), ClusteringDataModule)
     dm = raw_synthetic_datamodule(cfg, device="cpu")
     raw = jmake_synthetic(jload(path, over).data)
     x = np.concatenate([raw.train_x, raw.test_x]).astype(np.float32) / 255.0

@@ -211,3 +211,22 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
     assert list(tmp_path.iterdir()) == []
+
+
+def test_parallel_clustering_and_figure_modules_import_no_jax():
+    """The data-parallel modules, the clustering data module's and the
+    paper-figure script load no ``jax`` and nothing of ``vitsom_tpu``, and
+    no matplotlib until a figure is drawn."""
+    probe = (
+        "import sys\n"
+        "import vitsom_tpu_torch.parallel.distributed, vitsom_tpu_torch.parallel.mesh\n"
+        "import vitsom_tpu_torch.eval.plot_paper_figure, vitsom_tpu_torch.data.pipeline\n"
+        "from vitsom_tpu_torch.data.pipeline import ClusteringDataModule\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'vitsom_tpu', 'matplotlib'))\n"
+        "print('BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"

@@ -1,5 +1,6 @@
-"""The classification split, with augmentation on the device or on the
-host, or a static train transform.
+"""The classification split, and the clustering split of a dataset outside
+the mnist family, with augmentation on the device or on the host, or a
+static train transform.
 
 Counterpart of the classification branch of ``vitsom_tpu/data/pipeline.py``
 (``build_datamodule``), of its device-augment path
@@ -64,7 +65,19 @@ Counterpart of the classification branch of ``vitsom_tpu/data/pipeline.py``
   (``HostBatchStream``, the counterpart of ``device_prefetch``) and
   ``stream_batch`` copies it, without blocking, into the fixed one-batch
   buffers the captured train step reads. A worker's failure raises in the
-  trainer; nothing falls back.
+  trainer; nothing falls back;
+- clustering on any dataset outside the mnist family
+  (``ClusteringDataModule``, the JAX ``build_datamodule``'s clustering
+  branch): train = concat(train, test), no val or test split, trained on
+  the paths above with the dataset's train transform, and evaluated on the
+  same rows through the train transform again, on the host, in order from
+  one ``default_rng(0)`` (the JAX package's evaluation of a train-mode
+  split);
+- under data parallelism (``parallel/mesh.DataSpan.shard``) every draw of
+  an epoch is the global batches', and a rank's buffers hold its rows of
+  each: the device path's permutation, parameters and erasing fills, and
+  the host path's indices, whose images each rank augments with its own
+  seeding, as each JAX process does (``train_batches``).
 """
 
 from __future__ import annotations
@@ -86,6 +99,8 @@ from vitsom_tpu_torch.config import Config, DataConfig
 from vitsom_tpu_torch.data import augment as aug_lib
 from vitsom_tpu_torch.data import device_augment, host_augment
 from vitsom_tpu_torch.data.datasets import load_image, load_raw
+from vitsom_tpu_torch.parallel import distributed as dist_lib
+from vitsom_tpu_torch.parallel.mesh import DataSpan
 from vitsom_tpu_torch.utils.device import resolve_device
 
 # images eval-transformed in one call: at most EVAL_TRANSFORM_CHUNK, and at
@@ -239,12 +254,14 @@ def transform_objects(transform, x: np.ndarray, device: torch.device) -> torch.T
     return torch.cat([transform(image(item)) for item in x])
 
 
-class ClassificationDataModule:
+class ClassificationDataModule(DataSpan):
     """Train (raw uint8, or eval-transformed float32 on the static path),
     val and test (uint8, eval-transformed on demand) splits on one device;
     labels int64 class indices on the device. An image split may instead
     be an object array of variable-size images or paths, or a train split a
-    host array of the host path, on the host (module docstring)."""
+    host array of the host path, on the host (module docstring). Under
+    data parallelism (``shard``) the epoch's draws are the global batches'
+    and each rank's buffers hold its rows of every one."""
 
     def __init__(self, cfg: Config, train: Tuple[Images, torch.Tensor],
                  val: Tuple[Images, torch.Tensor], test: Tuple[Images, torch.Tensor]):
@@ -268,12 +285,7 @@ class ClassificationDataModule:
             self._stream: Optional[HostBatchStream] = None
         else:
             self.augment = device_augment.make_device_train_augment(cfg.data)
-        # the epoch reaches the step one batch at a time: from the host, or
-        # from the device augmentation where a whole epoch would pass
-        # STREAM_BYTES
-        s, c = cfg.data.input_size, cfg.data.num_channels
-        epoch_bytes = self.steps_per_epoch * cfg.batch_size * s * s * c * 4
-        self.streams = self.host or (self.augment is not None and epoch_bytes > STREAM_BYTES)
+        self._set_streams()
         self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         # the epoch's permutation and draws, and the batch index, at fixed
         # addresses: what the captured augmentation reads
@@ -287,6 +299,18 @@ class ClassificationDataModule:
         self._index = torch.zeros((), dtype=torch.int64, device=self.device)
         self._batch_out: Optional[torch.Tensor] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def _set_streams(self) -> None:
+        """The epoch reaches the step one batch at a time: from the host, or
+        from the device augmentation where this rank's whole epoch would
+        pass STREAM_BYTES."""
+        s, c = self.cfg.data.input_size, self.cfg.data.num_channels
+        epoch_bytes = self.steps_per_epoch * self.batch * s * s * c * 4
+        self.streams = self.host or (self.augment is not None and epoch_bytes > STREAM_BYTES)
+
+    def shard(self, rank: int, world: int) -> None:
+        super().shard(rank, world)
+        self._set_streams()
 
     @property
     def device(self) -> torch.device:
@@ -308,10 +332,10 @@ class ClassificationDataModule:
 
     def epoch_buffer(self) -> Dict[str, torch.Tensor]:
         """Uninitialised [steps_per_epoch * B, S, S, C] float32 images and
-        [steps_per_epoch * B] int64 labels on the data's device; one batch
-        of images where the epoch streams, and one batch of labels on the
-        host path."""
-        bs = self.cfg.batch_size
+        [steps_per_epoch * B] int64 labels on the data's device (B: this
+        rank's ``batch``); one batch of images where the epoch streams, and
+        one batch of labels on the host path."""
+        bs = self.batch
         rows = self.steps_per_epoch * bs
         s, c = self.cfg.data.input_size, self.cfg.data.num_channels
         return {"image": torch.empty((bs if self.streams else rows, s, s, c),
@@ -328,19 +352,23 @@ class ClassificationDataModule:
         gathered and augmented (module docstring). On the static path the
         transformed rows are gathered in one ``index_select`` and
         ``augment`` is not read. A streamed epoch draws everything here and
-        augments each batch in ``stream_batch``."""
-        bs = self.cfg.batch_size
-        rows = out["label"].shape[0]
+        augments each batch in ``stream_batch``. Every draw is the global
+        batches'; this rank keeps its rows of each (``epoch_rows``)."""
+        bs = self.batch
+        steps = self.steps_per_epoch
+        rows = steps * self.cfg.batch_size
         perm = torch.randperm(self.n_train, generator=generator).to(self.device)[:rows]
+        perm = self.epoch_rows(perm)
         torch.index_select(self.train_y, 0, perm, out=out["label"])
         if self.static:
             torch.index_select(self.train_images, 0, perm, out=out["image"])
             return
         _, h, w, _ = self.train_x.shape
         params = self.augment.sample(augment, rows, h, w, self.device, erase_fill=False)
-        self._fill_seeds = torch.randint(0, 2**62, (rows // bs,), generator=augment,
+        params = {k: self.epoch_rows(v) for k, v in params.items()}
+        self._fill_seeds = torch.randint(0, 2**62, (steps,), generator=augment,
                                          device=self.device).tolist()
-        if self._perm is None or self._perm.shape[0] != rows:
+        if self._perm is None or self._perm.shape[0] != perm.shape[0]:
             self._perm = torch.empty_like(perm)
             self._params = {k: torch.empty_like(v) for k, v in params.items()}
             self._graph = None
@@ -351,23 +379,30 @@ class ClassificationDataModule:
             self._draw_fills(0)
             self._capture_augment()
         if not self.streams:
-            for s in range(rows // bs):
+            for s in range(steps):
                 self._replay(s)
                 out["image"][s * bs:(s + 1) * bs].copy_(self._batch_out)
 
     def _draw_fills(self, index: int, out: Optional[Dict[str, torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
         """Batch ``index``'s erasing fills, from its seed, into ``out``
-        (default: the fixed buffers the captured augmentation reads)."""
+        (default: the fixed buffers the captured augmentation reads): the
+        global batch's, of which this rank keeps its rows."""
         out = self._fills if out is None else out
         s, c = self.cfg.data.input_size, self.cfg.data.num_channels
         shape = (self.cfg.batch_size, s, s, c)
         self._noise.manual_seed(self._fill_seeds[index])
         for key in self.augment.erase_keys():
             if key not in out:
-                out[key] = torch.empty(shape, dtype=torch.float32, device=self.device)
-            device_augment.erase_fill(self._noise, shape, self.cfg.data.augment.remode,
-                                      self.device, out=out[key])
+                out[key] = torch.empty((self.batch, s, s, c), dtype=torch.float32,
+                                       device=self.device)
+            if self.world == 1:
+                device_augment.erase_fill(self._noise, shape, self.cfg.data.augment.remode,
+                                          self.device, out=out[key])
+            else:
+                fill = device_augment.erase_fill(self._noise, shape,
+                                                 self.cfg.data.augment.remode, self.device)
+                out[key].copy_(fill[dist_lib.local_span(shape[0], self.rank, self.world)])
         return out
 
     def _replay(self, index: int) -> None:
@@ -425,11 +460,17 @@ class ClassificationDataModule:
         package's ``DataModule.train_batches`` (module docstring), as
         {"image": float32 [B, S, S, C], "label": int64 [B]} host arrays.
         With one generator the batches before ``start`` are augmented and
-        dropped, as the generator's state needs them."""
+        dropped, as the generator's state needs them. Under data
+        parallelism this rank's rows of each batch only, seeded as the JAX
+        process of its index seeds them (its rows alone through the one
+        generator, or batch s from ``[seed, epoch, s]``): not the one-rank
+        run's images, as in the JAX package."""
         bs = self.cfg.batch_size
         perm = np.random.default_rng(np.random.SeedSequence([seed, epoch])).permutation(
             len(self._host_labels))
-        idx_batches = [perm[i * bs:(i + 1) * bs] for i in range(len(perm) // bs)]
+        idx_batches = [dist_lib.local_batch_indices(perm[i * bs:(i + 1) * bs], self.rank,
+                                                    self.world)
+                       for i in range(len(perm) // bs)]
         if self._workers() <= 1:
             rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, 7]))
             for s, idx in enumerate(idx_batches):
@@ -452,7 +493,7 @@ class ClassificationDataModule:
         self.close_stream()
         s, c = self.cfg.data.input_size, self.cfg.data.num_channels
         self._stream = HostBatchStream(self.train_batches(epoch, seed, start),
-                                       self.cfg.batch_size, (s, s, c), self.device)
+                                       self.batch, (s, s, c), self.device)
         self._stream_next = start
 
     @property
@@ -477,7 +518,7 @@ class ClassificationDataModule:
         """Batch ``self._index`` of the epoch, gathered and augmented at its
         drawn parameters into ``self._batch_out``; reads only device
         buffers, so a graph replays it for whatever batch the index holds."""
-        bs = self.cfg.batch_size
+        bs = self.batch
         i = self._index.reshape(1)
         idx = self._perm.view(-1, bs).index_select(0, i)[0]
         params = {k: v.view(-1, bs, *v.shape[1:]).index_select(0, i)[0]
@@ -504,7 +545,7 @@ class ClassificationDataModule:
         """Batch ``index`` of the last ``fill_epoch``, augmented again by
         eager calls of the same ops at the same draws: what the captured
         augmentation is held against."""
-        bs = self.cfg.batch_size
+        bs = self.batch
         rows = slice(index * bs, (index + 1) * bs)
         return self.augment.apply(self.train_x[self._perm[rows]],
                                   {**{k: v[rows] for k, v in self._params.items()},
@@ -515,7 +556,7 @@ class ClassificationDataModule:
         """Batch ``index`` (a 0-d int64 tensor on the device) of a filled
         epoch buffer, read with a device index, as the clustering module's;
         a one-batch buffer (a streamed epoch) is its batch."""
-        bs = self.cfg.batch_size
+        bs = self.batch
         i = index.reshape(1)
 
         def pick(t):
@@ -540,6 +581,18 @@ class ClassificationDataModule:
         bs = self.cfg.batch_size
         stop = (len(labels) // bs) * bs if drop_last else len(labels)
         for s in range(0, stop, bs):
+            yield {"image": images[s:s + bs], "label": labels[s:s + bs]}
+
+    def span_eval_batches(self, split: str) -> Iterator[Dict[str, torch.Tensor]]:
+        """This rank's span of ``split`` (``eval_span``) in batches of
+        ``batch_size``, the last one ragged: the sharded evaluation's. The
+        eval transform is the same function of each image, so the span of
+        the transformed split is the span transformed."""
+        images, labels = self.eval_arrays(split)
+        span = self.eval_span(len(labels))
+        images, labels = images[span], labels[span]
+        bs = self.cfg.batch_size
+        for s in range(0, len(labels), bs):
             yield {"image": images[s:s + bs], "label": labels[s:s + bs]}
 
     def split_len(self, split: str) -> int:
@@ -570,3 +623,102 @@ def build_classification_datamodule(cfg: Config, device="cuda") -> Classificatio
         cfg, put(raw.train_x, raw.train_y, train_idx, host),
         put(raw.train_x, raw.train_y, val_idx), put(raw.test_x, raw.test_y),
     )
+
+
+class ClusteringDataModule(ClassificationDataModule):
+    """The clustering split of a dataset outside the mnist family, as the
+    JAX ``build_datamodule`` makes it (``vitsom_tpu/data/pipeline.py:
+    435-446``): train = concat(train, test) (``concat_maybe_object``), no val
+    or test split, and the dataset's **train** transform. Training takes
+    the classification module's paths unchanged: the device augmentation of
+    a fixed-size uint8 source (the epoch's draws at once, the captured
+    ``DeviceTrainAugment.apply`` a batch, streaming past ``STREAM_BYTES``),
+    the host path for jpg and object-array sources and for
+    ``data.device_augment: false``, or the static path.
+
+    The evaluation is the JAX package's on a split with ``train_mode``
+    (``DataModule.eval_batches``, ``device_arrays``): the train transform
+    again, each row in order on the host (``host_augment``) from one
+    ``np.random.default_rng(0)``, then moved to the device and cached
+    (``images``; the static path's resident rows as they are). The sharded
+    evaluation transforms its span alone from a fresh ``default_rng(0)``,
+    as each JAX process transforms its span (``_local_eval_span``)."""
+
+    def __init__(self, cfg: Config, train: Tuple[Images, torch.Tensor]):
+        super().__init__(cfg, train, val=None, test=None)
+        self.host_train_transform = host_augment.make_train_transform(cfg.data)
+        self._images: Optional[torch.Tensor] = None
+
+    @property
+    def labels(self) -> torch.Tensor:
+        return self.train_y
+
+    def _host_transformed(self, rows: slice) -> torch.Tensor:
+        """``rows`` of the split through the host train transform, in order,
+        from one ``default_rng(0)``, on the device."""
+        x = self.train_x[rows]
+        if isinstance(x, torch.Tensor):
+            x = x.cpu().numpy()
+        images = host_augment.augment_batch(self.host_train_transform, x,
+                                            np.random.default_rng(0))
+        return torch.from_numpy(images).to(self.device)
+
+    @property
+    def images(self) -> torch.Tensor:
+        """Every row of the split as the evaluation sees it (class
+        docstring), transformed the first time and cached."""
+        if self.static:
+            return self.train_images
+        if self._images is None:
+            self._images = self._host_transformed(slice(None))
+        return self._images
+
+    def split_len(self, split: str = "train") -> int:
+        return self.n_train
+
+    def eval_batches(self, split: str = "train",
+                     drop_last: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
+        """The split (its one split, ``train``) as the evaluation sees it,
+        in drop-last batches (all of it with ``drop_last`` off)."""
+        images, bs, n = self.images, self.cfg.batch_size, self.n_train
+        stop = (n // bs) * bs if drop_last else n
+        for s in range(0, stop, bs):
+            yield {"image": images[s:s + bs], "label": self.train_y[s:s + bs]}
+
+    def span_eval_batches(self, split: str = "train") -> Iterator[Dict[str, torch.Tensor]]:
+        """This rank's span of the split (``eval_span``), its rows through
+        the train transform from a fresh ``default_rng(0)``, in batches of
+        ``batch_size``, the last one ragged."""
+        span = self.eval_span(self.n_train)
+        images = self.train_images[span] if self.static else self._host_transformed(span)
+        labels = self.train_y[span]
+        bs = self.cfg.batch_size
+        for s in range(0, len(labels), bs):
+            yield {"image": images[s:s + bs], "label": labels[s:s + bs]}
+
+
+def concat_maybe_object(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a`` and ``b`` concatenated; an object array where either is one
+    (variable-size images or paths)."""
+    if a.dtype == object or b.dtype == object:
+        out = np.empty(len(a) + len(b), dtype=object)
+        out[:len(a)] = list(a)
+        out[len(a):] = list(b)
+        return out
+    return np.concatenate([a, b])
+
+
+def build_clustering_datamodule(cfg: Config, device="cuda") -> ClusteringDataModule:
+    """Read the dataset's files (``datasets.load_raw``, or the synthetic
+    stand-in) and move the clustering split, train and test concatenated,
+    to ``device`` (default: the card) as uint8 with int64 labels; an object
+    array of variable-size images, and the rows of the host path, stay on
+    the host."""
+    dev = resolve_device(device)
+    raw = load_raw(cfg.data)
+    x = concat_maybe_object(raw.train_x, raw.test_x)
+    labels = torch.from_numpy(
+        np.concatenate([raw.train_y, raw.test_y]).astype(np.int64)).to(dev)
+    if x.dtype != object and not uses_host_path(cfg.data, x):
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return ClusteringDataModule(cfg, (x, labels))

@@ -25,7 +25,9 @@ and run in float32 whatever the input's dtype, as Flax computes them; the
 output has the input's dtype (float64 stays float64). ``track=False`` (the DeiT teacher) never
 writes the running averages, and inside ``frozen_statistics()`` no
 BatchNorm writes them: a block recomputed by ``torch.utils.checkpoint`` in
-the backward must not move them a second time.
+the backward must not move them a second time. Under data parallelism the
+statistics are the global batch's (``batch_statistics``), so every rank
+moves its running averages the same way.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vitsom_tpu_torch.config import Config
+from vitsom_tpu_torch.parallel import distributed as dist_lib
 from vitsom_tpu_torch.utils import initializers
 
 
@@ -79,9 +82,15 @@ class BatchNorm(nn.Module):
 
     @staticmethod
     def batch_statistics(x: torch.Tensor, dims=(0,)):
-        """(mean, biased variance mean(x^2) - mean^2 clamped at 0) over ``dims``."""
-        mean = x.mean(dim=dims)
-        return mean, torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        """(mean, biased variance mean(x^2) - mean^2 clamped at 0) over
+        ``dims``; under data parallelism over the global batch, as Flax
+        normalises under ``pjit``: the ranks' mean(x) and mean(x^2) averaged
+        (equal spans), the gradient through that mean
+        (``distributed.sync_mean``)."""
+        mean, mean_sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+        if dist_lib.initialized():
+            mean, mean_sq = dist_lib.sync_mean(torch.stack([mean, mean_sq])).unbind(0)
+        return mean, torch.clamp_min(mean_sq - mean * mean, 0.0)
 
     def normalize(self, x, mean, var, weight, bias) -> torch.Tensor:
         """Flax's ``_normalize``: (x - mean) * (rsqrt(var + eps) * scale) + bias."""

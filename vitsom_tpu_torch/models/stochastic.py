@@ -30,13 +30,19 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from vitsom_tpu_torch.parallel import distributed as dist_lib
+
 
 def bernoulli_mask(keep: float, shape: Sequence[int], generator: torch.Generator,
                    device) -> torch.Tensor:
     """A bool mask of ``shape``, each entry True with probability ``keep``,
     drawn from ``generator`` on ``device``: the one place the port draws a
-    dropout or drop-path mask."""
-    return torch.rand(tuple(shape), generator=generator, device=device) < keep
+    dropout or drop-path mask. Under data parallelism the mask is drawn
+    for the global batch (the first axis times the world size) and each
+    rank keeps its span, so that N ranks draw the one-rank run's masks."""
+    world = dist_lib.process_count()
+    mask = torch.rand((shape[0] * world, *shape[1:]), generator=generator, device=device) < keep
+    return mask[dist_lib.local_span(mask.shape[0], dist_lib.process_index(), world)]
 
 
 def drop(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:

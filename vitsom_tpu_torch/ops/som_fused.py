@@ -60,6 +60,7 @@ from typing import Tuple
 import torch
 
 from vitsom_tpu_torch.ops import _build
+from vitsom_tpu_torch.parallel import distributed as dist_lib
 from vitsom_tpu_torch.som.layer import two_t_squared_tensor
 
 _SQRT3_2 = 0.8660254037844386
@@ -343,3 +344,22 @@ def make_fused_som(map_size: Tuple[int, int], topology: str, distance_fcn: str):
         return FusedSOM.apply(x, prototypes, temperature, cols, topology, distance_fcn)
 
     return fused
+
+
+def make_fused_som_sharded(map_size: Tuple[int, int], topology: str, distance_fcn: str):
+    """The data-parallel fused SOM, the counterpart of the JAX
+    ``make_fused_som_sharded`` (``vitsom_tpu/ops/som_pallas.py:292``): the
+    same kernel on each rank's rows of the batch; the loss is the mean of
+    the ranks' means (the JAX ``pmean``; equal spans, so the global mean),
+    differentiated as the rank's own mean, whose gradients the trainer
+    averages over the ranks (the prototypes' are then the global batch's,
+    the JAX package's summed shard contributions); ``bmu`` and
+    ``distances`` stay the rank's. Without a process group it is
+    ``make_fused_som``."""
+    fused = make_fused_som(map_size, topology, distance_fcn)
+
+    def sharded(x, prototypes, temperature):
+        loss, bmu, dist = fused(x, prototypes, temperature)
+        return dist_lib.mean_value(loss), bmu, dist
+
+    return sharded

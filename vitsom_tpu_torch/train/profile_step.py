@@ -7,10 +7,10 @@ DeiT) goes, on one card.
 Builds ``--config`` (default ``configs/vit_som/vit_som_mnist.yaml``, the
 flagship, as shipped) with any ``--override key=value`` (yaml-parsed, as
 the trainer's command line takes them) on its synthetic stand-in data
-(``build_datamodule``: mnist-family clustering, and classification as
-shipped, the 80/20 split augmented on the device; the clustering of other
-datasets, e.g. ``--override data.num_classes=0`` on a cifar config:
-``raw_synthetic_datamodule``, un-augmented), and measures the trainer's
+(``build_datamodule``: mnist-family clustering, classification as
+shipped, the 80/20 split augmented on the device, and the clustering of
+other datasets, e.g. ``--override data.num_classes=0`` on a cifar config,
+with the dataset's train transform), and measures the trainer's
 step in both of its modes: ``eager`` (the step body
 called step by step, ``Trainer.fit(eager=True)``) and ``graphed`` (one
 captured step replayed, ``Trainer.fit``). For each mode it warms up, then
@@ -21,7 +21,7 @@ prints:
    epoch gather where an epoch ends inside the window; a synchronisation
    at the end), and the median of the trainer's own ``step_ms`` (CUDA
    events between step ends), with no profiler attached. An augmented
-   classification config's synthetic split is sized so that one epoch
+   config's synthetic split (classification or clustering) is sized so that one epoch
    holds every measured step: its epoch fill (gather + augmentation) runs
    once, in the first warm-up, and no validation falls inside a window. On
    the static classification path (``desom_flowers17.yaml``) an epoch fill
@@ -58,9 +58,7 @@ import torch
 
 from vitsom_tpu_torch.config import load_config
 from vitsom_tpu_torch.data.augment import is_static_transform
-from vitsom_tpu_torch.data.synthetic import (
-    MNIST_FAMILY, build_datamodule, raw_synthetic_datamodule,
-)
+from vitsom_tpu_torch.data.synthetic import build_datamodule
 from vitsom_tpu_torch.models.vit_som import model_attn_impl
 from vitsom_tpu_torch.train.trainer import Trainer
 
@@ -125,14 +123,13 @@ def profile(config: str, overrides: dict, n: int, trace=None) -> dict:
     cfg = load_config(config, over)
     if cfg.classification and is_static_transform(cfg.data):
         cfg = load_config(config, {**over, "train.eval_every_n_epochs": 10**9})
-    elif cfg.classification and "data.synthetic_size" not in overrides:
+    elif not is_static_transform(cfg.data) and "data.synthetic_size" not in overrides:
         # one epoch holds every step measured (with a margin for the val
         # share), so no epoch fill (augmentation) or validation falls in a
         # measured window
         rows = (2 * WARMUP_STEPS + 4 * n + 1) * cfg.batch_size * 2
         cfg = load_config(config, {**over, "data.synthetic_size": rows})
-    ported = cfg.data.dataset in MNIST_FAMILY or cfg.classification
-    dm = (build_datamodule if ported else raw_synthetic_datamodule)(cfg, "cuda")
+    dm = build_datamodule(cfg, "cuda")
     try:
         return _measure(config, overrides, cfg, dm, n, trace)
     finally:

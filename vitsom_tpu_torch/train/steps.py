@@ -43,6 +43,15 @@ Loss recipes, as the JAX package's:
 With ``train.use_pallas_som`` (every shipped ViT-SOM config) the SOM loss
 comes from the fused SOM op: the CUDA kernel on the card, its plain version
 on the CPU.
+
+Under data parallelism (a process group: ``parallel/distributed.py``)
+every rank runs the same step on its rows of the global batch: the fused
+SOM op on the rank's rows, its loss the mean over the ranks
+(``som_fused.make_fused_som_sharded``, the JAX ``pmean``), the gradients
+averaged over the ranks just before the optimizer's step (the trainer's
+step pre-hook), and the loss columns of the metrics row averaged over the
+ranks before it is written (``DeviceState.average_losses``), so that every
+rank writes the global batch's metrics.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import torch
 
 from vitsom_tpu_torch.config import Config
 from vitsom_tpu_torch.ops import som_fused
+from vitsom_tpu_torch.parallel import distributed as dist_lib
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import optim, schedules
 
@@ -146,6 +156,14 @@ class DeviceState:
         self.epoch_start = torch.zeros((), dtype=torch.int64, device=device)
         self.metrics = torch.zeros((capacity, len(self.keys)), dtype=torch.float32,
                                    device=device)
+        self._losses: Optional[torch.Tensor] = None
+
+    def average_losses(self) -> None:
+        """From now on ``write`` averages the row's loss columns over the
+        ranks (data parallelism); the schedules' columns are the same on
+        every rank and stay as they are."""
+        self._losses = torch.tensor(["loss" in k for k in self.keys],
+                                    device=self.metrics.device)
 
     def row(self) -> torch.Tensor:
         """The current step's row of ``metrics``, a 0-d int64 tensor."""
@@ -153,6 +171,8 @@ class DeviceState:
 
     def write(self, values: torch.Tensor) -> None:
         """Write a step's metrics into its row and advance the step."""
+        if self._losses is not None:
+            values = torch.where(self._losses, dist_lib.all_reduce_mean(values), values)
         self.metrics.index_copy_(0, self.row().reshape(1), values.reshape(1, -1))
         self.step.add_(1)
 
@@ -180,12 +200,13 @@ def _zero_missing_grads(model) -> None:
 
 def _som_loss_fn(cfg: Config, model):
     """``(z, temperature) -> (som_loss, bmu)``: the fused SOM op with
-    ``train.use_pallas_som`` (euclidean and cosine maps), else the plain
+    ``train.use_pallas_som`` (euclidean and cosine maps; under data
+    parallelism its loss averaged over the ranks), else the plain
     distances with the neighbourhood weights held constant."""
     if _uses_fused_som(cfg):
-        fused_som = som_fused.make_fused_som(
-            cfg.som.map_size, cfg.som.topology, cfg.som.distance_fcn
-        )
+        make = (som_fused.make_fused_som_sharded if dist_lib.initialized()
+                else som_fused.make_fused_som)
+        fused_som = make(cfg.som.map_size, cfg.som.topology, cfg.som.distance_fcn)
 
         def fused(z, temperature):
             loss, bmu_idx, _ = fused_som(z, model.prototypes, temperature)
@@ -258,10 +279,11 @@ def make_vit_som_train_step(
 
 def make_vit_som_eval_step(cfg: Config, model):
     """Returns ``eval_step(batch, temperature) -> dict`` with ``bmu``,
+    ``logits`` ([B, 1] zeros on the clustering objective, as the JAX step),
     ``som_loss``, ``recon_loss`` and ``total_loss`` (full, unramped gamma);
-    with ``num_classes > 0`` also ``logits`` and ``cls_loss`` (label
-    smoothing kept, as the JAX eval step keeps it), and ``total_loss`` is
-    ``cls_loss + gamma * som_loss``. The decoder runs: ``recon_loss`` is
+    with ``num_classes > 0`` the logits are the head's, ``cls_loss`` is
+    added (label smoothing kept, as the JAX eval step keeps it), and
+    ``total_loss`` is ``cls_loss + gamma * som_loss``. The decoder runs: ``recon_loss`` is
     reported in both modes.
 
     It takes (loss, bmu, distances) from the fused SOM forward under
@@ -296,7 +318,8 @@ def make_vit_som_eval_step(cfg: Config, model):
             cls_l = cross_entropy(logits, batch["label"], smoothing)
             out.update(logits=logits, cls_loss=cls_l, total_loss=cls_l + gamma * som_l)
         else:
-            out["total_loss"] = recon_l + gamma * som_l
+            out.update(logits=torch.zeros((x.shape[0], 1), dtype=z.dtype, device=z.device),
+                       total_loss=recon_l + gamma * som_l)
         return out
 
     return eval_step

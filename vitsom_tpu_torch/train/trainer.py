@@ -78,6 +78,26 @@ dispatch). A failed capture raises; nothing falls back to the eager loop.
 reference the graphed run is held against), and on the CPU ``fit`` is
 always eager.
 
+Data parallelism (the counterpart of the JAX trainer's ``data`` mesh,
+``parallel/``): launched by torchrun, or given a process group its caller
+made, the trainer runs on ``world`` ranks, each on its card
+(``cuda:LOCAL_RANK``) or the CPU. ``train.mesh_shape`` ``[n]`` must be the
+world size and ``batch_size`` must split over it, else the trainer raises.
+Every rank builds the same weights and draws the same permutations,
+augmentation parameters and dropout masks; each takes its rows of every
+global batch (``DataSpan``), averages the gradients over the ranks
+before the optimizer's step, and writes the global batch's losses
+(``train/steps.py``), so N ranks take the one-rank run's steps. On an
+NCCL group the collectives are captured with the step (the communicator
+created by one eager collective first); a gloo group trains eagerly. The
+evaluation scores each rank's span and gathers the outputs
+(``eval/evaluate.py``). Rank 0 alone writes checkpoints (between
+barriers), events and the protocol's JSON; images/s a chip divide by the
+world size:
+
+    torchrun --nproc_per_node 2 -m vitsom_tpu_torch.train.trainer \\
+        --config configs/vit_som/vit_som_mnist.yaml --synthetic --epochs 1
+
 ``main`` is the N-run protocol of ``experiments/benchmarking/train.py``:
 for each run the state directory is cleared, the data module built and
 the model trained inside the run's timed duration; a clustering run then
@@ -126,6 +146,8 @@ from vitsom_tpu_torch.eval import evaluate as eval_lib
 from vitsom_tpu_torch.eval.metrics import aggregate_runs
 from vitsom_tpu_torch.models.deit import make_deit_train_step
 from vitsom_tpu_torch.models.vit_som import build_model
+from vitsom_tpu_torch.parallel import distributed as dist_lib
+from vitsom_tpu_torch.parallel import mesh as mesh_lib
 from vitsom_tpu_torch.som import layer as som
 from vitsom_tpu_torch.train import optim, schedules
 from vitsom_tpu_torch.train import steps as steps_lib
@@ -211,7 +233,8 @@ def memory_state(device) -> Dict[str, int]:
 
 class Trainer:
     """Trains one ViT-SOM, DESOM, ViT, Swin or DeiT run on one device
-    (default: the card).
+    (default: the card), or its rank's part of it under data parallelism
+    (module docstring).
 
     The weights come from ``train.seed + run_id`` through a
     ``torch.Generator``; the epoch permutations from a second generator with
@@ -222,7 +245,14 @@ class Trainer:
     def __init__(self, cfg: Config, device="cuda", dm=None, run_id: int = 0):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # under torchrun: joins the process group (module docstring)
+        dist_lib.maybe_initialize(self.device)
+        self.device = dist_lib.local_device(self.device)
+        self.world = mesh_lib.data_parallel_size(cfg)
+        self.rank = dist_lib.process_index()
         self.dm = dm if dm is not None else build_datamodule(cfg, self.device)
+        if self.world > 1:
+            self.dm.shard(self.rank, self.world)
         if self.dm.steps_per_epoch < 1:
             raise ValueError(
                 f"{self.dm.n_train} samples give no batch of {cfg.batch_size}"
@@ -244,6 +274,9 @@ class Trainer:
         self.state = steps_lib.DeviceState(
             self.device, self.dm.steps_per_epoch, steps_lib.metric_keys(cfg)
         )
+        if dist_lib.initialized():
+            dist_lib.average_before_step(self.optimizer)
+            self.state.average_losses()
         if cfg.model_arch in ("vit", "swin", "mobile_vit"):
             # the JAX trainer trains vit without label smoothing
             smoothing = cfg.optimizer.smoothing if cfg.model_arch != "vit" else 0.0
@@ -290,8 +323,10 @@ class Trainer:
         # the host path's batches are a function of (seed, epoch, batch)
         self.host_seed = cfg.train.seed + 1000 * run_id
         self._epoch_index = -1  # the current epoch's number, counted at its fill
+        # rank 0 writes the events; the others keep the history only
         self.logger = MetricLogger(os.path.join(
-            cfg.train.log_dir, cfg.model_arch, cfg.data.dataset, f"run_{run_id}"))
+            cfg.train.log_dir, cfg.model_arch, cfg.data.dataset, f"run_{run_id}")
+            if dist_lib.is_primary() else None)
         # the data generators' states at the current epoch's fill (what a
         # checkpoint keeps), the host time of that fill, and the states of a
         # restored checkpoint, from which the next fit refills its epoch
@@ -341,6 +376,7 @@ class Trainer:
         context does too; ``capture_memory`` then records what the capture
         starts from."""
         self.optimizer.zero_grad(set_to_none=True)
+        dist_lib.warm_up(self.device)
         gc.collect()
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
@@ -395,7 +431,7 @@ class Trainer:
         cfg = self.cfg
         self.model.train()
         cuda = self.device.type == "cuda"
-        graphed = cuda and not eager
+        graphed = cuda and not eager and dist_lib.capturable()
         spe = self.dm.steps_per_epoch
         streams = self.dm.streams
         rows, step_marks = [], []
@@ -536,7 +572,7 @@ class Trainer:
         means = rows.astype(np.float64).mean(axis=0)
         scalars = {k: float(v) for k, v in zip(self.state.keys, means)}
         scalars["perf/images_per_sec_per_chip"] = (
-            self.dm.steps_per_epoch * self.cfg.batch_size / seconds)
+            self.dm.steps_per_epoch * self.cfg.batch_size / seconds / self.world)
         self.logger.log_scalars(scalars, step=self.step)
 
     def _maybe_log_images(self, epoch: int) -> None:
@@ -583,6 +619,14 @@ class Trainer:
         replace the model's own, as in the JAX trainer; the optimizer state
         and the step always come from the trainer."""
         path = self.checkpoint_dir(tag)
+        # rank 0 writes, between barriers: no rank reads a half-written one
+        dist_lib.barrier()
+        if dist_lib.is_primary():
+            self._write_checkpoint(path, params, batch_stats)
+        dist_lib.barrier()
+        return path
+
+    def _write_checkpoint(self, path: str, params, batch_stats) -> None:
         os.makedirs(path, exist_ok=True)
         model = dict(self.model.state_dict())
         model.update(params or {})
@@ -605,7 +649,6 @@ class Trainer:
         torch.save(payload, tmp)
         os.replace(tmp, os.path.join(path, CKPT_STATE_FILE))
         save_checkpoint_config(path, self.cfg)
-        return path
 
     def restore_checkpoint(self, tag: str = "last", path: Optional[str] = None) -> None:
         """Copy a checkpoint (``path``, or ``checkpoint_dir(tag)``) into the
@@ -742,6 +785,9 @@ def main(argv=None):
         overrides[k] = yaml.safe_load(v)
     cfg = load_config(args.config, overrides=overrides)
     device = resolve_device(args.device)
+    dist_lib.maybe_initialize(device)
+    device = dist_lib.local_device(device)
+    world = mesh_lib.data_parallel_size(cfg)
     cuda = device.type == "cuda"
     n_runs, dataset = cfg.train.n_runs, cfg.data.dataset
     print(f"model={cfg.model_arch} dataset={dataset} epochs={cfg.total_epochs} "
@@ -755,7 +801,10 @@ def main(argv=None):
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         start = time.perf_counter()
-        clear_directory(states_dir)
+        dist_lib.barrier()
+        if dist_lib.is_primary():
+            clear_directory(states_dir)
+        dist_lib.barrier()
         dm = build_datamodule(cfg, device)
         trainer = Trainer(cfg, device=device, dm=dm, run_id=run_id)
         t_fit = time.perf_counter()
@@ -776,7 +825,7 @@ def main(argv=None):
                 all_metrics[k].append(res[k])
         all_metrics["run_duration"].append(run_duration)
         all_metrics["images_per_sec_per_chip"].append(
-            trainer.step * cfg.batch_size / fit_seconds)
+            trainer.step * cfg.batch_size / fit_seconds / world)
         if cuda:  # the CPU has no peak counter: the key is left out
             all_metrics["peak_memory_gb"].append(torch.cuda.max_memory_allocated(device) / 1e9)
         step_ms = float(np.median(trainer.step_ms)) if trainer.step_ms else float("nan")
@@ -808,7 +857,7 @@ def main(argv=None):
             print(f"{key.capitalize()} Mean (Std): {mean:.4f} ({std:.4f})")
     summary = {k: agg[k] for k in (("accuracy", "f1") if cfg.classification else ("purity", "nmi"))}
     print(json.dumps({"runs": len(results), "mean_std": summary}), flush=True)
-    if args.json_out:
+    if args.json_out and dist_lib.is_primary():
         with open(args.json_out, "w") as f:
             json.dump({k: list(map(float, v)) for k, v in all_metrics.items() if v}, f, indent=2)
     return results
