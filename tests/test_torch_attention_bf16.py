@@ -30,6 +30,8 @@ from vitsom_tpu_torch.ops import attention_fused as tfused
 
 SHAPES = [(2, 197, 2, 8), (2, 197, 2, 2), (2, 65, 3, 64), (2, 33, 2, 32), (2, 65, 2, 8),
           (2, 33, 2, 16), (1, 9, 1, 8)]
+# past 320 keys: the two-pass forwards (mma.sync at hd 8, wgmma at hd 64)
+SHAPES += [(1, 401, 2, 8), (1, 401, 1, 64)]
 
 
 @pytest.fixture(autouse=True)
@@ -97,7 +99,7 @@ def test_bf16_backward_reference_matches_jax_vjp(shape):
         _assert_bf16_close(a, b_, name)
 
 
-@pytest.mark.parametrize("shape", [(2, 197, 2, 8), (2, 65, 3, 64)])
+@pytest.mark.parametrize("shape", [(2, 197, 2, 8), (2, 65, 3, 64), (2, 401, 2, 8)])
 def test_bf16_hybrid_matches_jax(shape):
     """``hybrid`` on bf16 inputs: ``_hybrid_fwd``'s float32 output, and the
     backward kernel's plain version fed that float32 o. The cotangent holds
@@ -182,28 +184,13 @@ def test_multi_head_attention_takes_bf16_to_the_plain_bf16_versions(impl):
     assert torch.equal(out.reshape(b, n, h * hd), want)
 
 
-def test_row_copy_width_of_bf16_views():
-    """bf16 views copy 16, 8, 4 or 2 bytes: the flagship encoder's q, k, v
-    (rows 48 elements, heads 8 apart) 16, its decoder's (heads 2 apart) 4,
-    rows 2 bytes off a 4-byte boundary 2; a float32 o beside bf16 views
-    (hybrid's) does not narrow the copies."""
-    buf = torch.zeros(2, 9, 48, dtype=torch.bfloat16)
-    views = [buf[:, :, 16 * i:16 * (i + 1)] for i in range(3)]
-    assert tfused.row_copy_width(views, 8) == 16
-    assert tfused.row_copy_width(views, 2) == 4
-    odd = torch.zeros(2, 9, 49, dtype=torch.bfloat16)
-    assert tfused.row_copy_width([odd[:, :, 1:17]], 8) == 2
-    o32 = torch.zeros(2, 9, 16)[:, :, :16]
-    assert tfused.row_copy_width(views + [o32[:, :, :]], 8) == 16
-
-
 def test_bf16_kernel_shapes_fit_shared_memory():
     """The bf16 shapes of the shipped configs (N 65, 197, 257 at hd 2, 8,
     32, 64: every ViT-SOM and ViT yaml's encoder and decoder) and the JAX
-    tests' hd 48 fit in a CTA's shared memory, and N 4096 at hd 8 does not;
+    tests' hd 48 fit in a CTA's shared memory, and N 8192 at hd 8 does not
+    (the forward stages k and v of every key: 256 KB);
     the bf16 kernels' constants are the source's."""
     src = (Path(tfused.__file__).parent / "csrc" / "attention_bf16.cu").read_text()
-    assert f"constexpr int kRowThreads = {tfused.BF16_ROW_THREADS};" in src
     assert f"constexpr int kTile = {tfused.BF16_TILE};" in src
     assert f"constexpr int kHdp = {tfused.BF16_HDP};" in src
     assert f"constexpr int kMaxKeyBlocks = {tfused.BF16_MAX_KEY_BLOCKS};" in src
@@ -213,7 +200,7 @@ def test_bf16_kernel_shapes_fit_shared_memory():
         for backward, f32_do in ((False, False), (True, False), (True, True)):
             tfused.check_shape(n, hd, backward, torch.bfloat16, f32_do)
     with pytest.raises(ValueError, match="shared memory"):
-        tfused.check_shape(4096, 8, False, torch.bfloat16)
+        tfused.check_shape(8192, 8, False, torch.bfloat16)
     # the forward holds all of k and v at hd 64: five [64][64] bf16 tiles
     # of each at N 257, two q tiles and the o tile, 1 KB of alignment slack,
     # 128 bytes for its mbarriers
@@ -221,6 +208,10 @@ def test_bf16_kernel_shapes_fit_shared_memory():
     # a float32 do (hybrid) adds its two lower bf16 parts to both ring stages
     assert (tfused.bf16_smem_bytes(257, 64, True, True)
             - tfused.bf16_smem_bytes(257, 64, True)) == 2 * 2 * 64 * 64 * 2
+    # past 320 keys the two-pass forward streams k and v: its q tile, two
+    # ring stages of k and v, the o tile, three mbarriers, at any N
+    for n in (321, 1025, 4096):
+        assert tfused.bf16_smem_bytes(n, 64, False) == 1024 + 6 * 64 * 64 * 2 + 3 * 8
 
 
 @pytest.mark.parametrize("n, hd", [(n, hd) for n in (65, 197, 257) for hd in (32, 64)]
@@ -250,14 +241,23 @@ def test_bf16_tensor_core_launch_plan(n, hd):
 
 
 def test_bf16_forward_refuses_more_keys_than_its_registers_hold():
-    """The forward keeps 5 * 64 keys' scores in registers: N 320 is taken,
-    N 321 is refused at every hd >= 32; the backward streams its tiles and
-    takes any N."""
-    for hd in tfused.MMA_HEAD_DIMS:
-        tfused.check_shape(320, hd, False, torch.bfloat16)
-        tfused.check_shape(1024, hd, True, torch.bfloat16)
-        with pytest.raises(ValueError, match="registers"):
-            tfused.check_shape(321, hd, False, torch.bfloat16)
+    """The one-pass forwards keep a row's scores in registers, 320 keys at
+    most at hd >= 32 (5 * 64), 72 below (9 8-key tiles: past them the
+    two-pass form is measured as fast or faster); past them the two-pass
+    forwards take the call, so every N from 321 to 1025 is taken forward,
+    backward and on hybrid's float32 o and do at every built hd, by the
+    kernels ``bf16_kernel`` names."""
+    for hd in tfused.HEAD_DIMS:
+        kind = "mma" if hd in tfused.MMA_HEAD_DIMS else "hmma"
+        one_pass = 320 if kind == "mma" else 72
+        assert tfused.bf16_kernel(one_pass, hd) == f"attn_fwd_{kind}_bf16"
+        assert tfused.bf16_kernel(one_pass + 1, hd) == f"attn_fwd_{kind}2_bf16"
+        for n in range(321, 1026):
+            for backward, f32_do in ((False, False), (True, False), (True, True)):
+                tfused.check_shape(n, hd, backward, torch.bfloat16, f32_do)
+            assert tfused.bf16_kernel(n, hd) == f"attn_fwd_{kind}2_bf16"
+            assert tfused.bf16_kernel(n, hd, backward=True) == f"attn_bwd_{kind}_bf16"
+        assert tfused.bf16_hmma_score_tiles(72) == 9 and tfused.bf16_hmma_score_tiles(73) == 0
 
 
 @pytest.mark.parametrize("d", [96, 144, 192])
@@ -306,11 +306,13 @@ def test_bf16_row_plan(n, hd):
     """The bf16 row plan at N 9 / 33 / 65 / 197 and hd 2 / 8 / 16: the
     tensor-core row kernels, a 16-row tile a warp, at most 8 warps a CTA,
     the tiles spread evenly (every chunk holds a tile, none more than one
-    more than another); a row's scores are 4 floats a lane for each 8-key
-    tile of the forward's register tier; the shared memory is two [NP][hd]
-    bf16 tiles (NP = N rounded up to 16, hd 2 padded to 8) and the
-    backward's lse and delta rows. hybrid's float32 o and do keep the
-    FP32-core backward and its plan."""
+    more than another); up to N 72 a row's scores are 4 floats a lane for
+    each 8-key tile of the forward's register tier (past it the two-pass
+    forward); the shared memory is two [NP][hd]
+    bf16 tiles (NP = N rounded up to 16) and the
+    backward's lse and delta rows. hybrid's float32 o and do take the same
+    backward and plan, do staged as its three bf16 parts beside the delta
+    row (lse then comes from global memory)."""
     tiles = -(-n // 16)
     chunks, warps = tfused.bf16_hmma_plan(n)
     assert warps <= tfused.BF16_HMMA_WARPS and chunks * warps >= tiles
@@ -318,61 +320,77 @@ def test_bf16_row_plan(n, hd):
     assert min(per_chunk) >= 1 and max(per_chunk) - min(per_chunk) <= 1
     assert max(per_chunk) == warps
     assert chunks == {9: 1, 33: 1, 65: 1, 197: 2}[n]
-    # each of these N has a tier of its own: 2, 5, 9, 25 tiles, 8 to 100
-    # score registers a lane
-    assert tfused.bf16_hmma_score_tiles(n) == -(-n // 8)
+    # each N up to 72 has a tier of its own: 2, 5, 9 tiles, 8 to 36 score
+    # registers a lane; N 197 takes the two-pass forward
+    assert tfused.bf16_hmma_score_tiles(n) == (-(-n // 8) if n <= 72 else 0)
     rows = 16 * tiles
-    assert tfused.bf16_row_kernel(n, hd) == "hmma"
+    assert tfused.bf16_kernel(n, hd) == ("attn_fwd_hmma_bf16" if n <= 72
+                                         else "attn_fwd_hmma2_bf16")
+    assert tfused.bf16_kernel(n, hd, backward=True) == "attn_bwd_hmma_bf16"
     for backward in (False, True):
         smem = tfused.bf16_smem_bytes(n, hd, backward)
-        assert smem == 2 * rows * max(hd, 8) * 2 + (8 * rows if backward else 0)
-    assert tfused.bf16_row_kernel(n, hd, f32_do=True) == "row"
-    assert tfused.bf16_smem_bytes(n, hd, True, f32_do=True) == tfused.smem_bytes(n, hd, True)
+        assert smem == 2 * rows * hd * 2 + (8 * rows if backward else 0)
+    tile = rows * hd * 2
+    assert tfused.bf16_smem_bytes(n, hd, True, f32_do=True) == 4 * tile + 4 * rows
 
 
-def test_bf16_row_shapes_stay_accepted():
-    """Every (N, hd) the FP32-core row plan took before the tensor-core
-    row kernels (its shared memory, N up to the largest it took at each hd,
-    forward and backward) is still taken, and served: up to N 320 by the
-    tensor-core kernels (their shared memory well inside a CTA's, a
-    register tier for every N), longer sequences and hybrid's float32 o
-    and do by the FP32-core kernels; N one past the old limit is refused
-    as before."""
+@pytest.mark.parametrize("hd", [2, 8, 16])
+def test_bf16_row_shapes_stay_accepted(hd):
+    """Every (N, hd) the float32 row kernels take (their shared memory, N
+    up to the largest they take at each hd, forward and backward) is taken
+    in bf16 too, forward, backward and on hybrid's float32 o and do, each N
+    by the kernel ``bf16_kernel`` names (the one-pass forward up to N 72,
+    with a register tier for every N, the two-pass past it). The bf16
+    kernels' own limit lies past it: NP = 16 ceil(N / 16) staged rows of 4
+    hd bytes (forward: k and v), 4 hd + 8 (backward: q, do, lse and delta)
+    or 8 hd + 4 (float32 do: q, do's three parts and delta) in the
+    227 KB a CTA may take; the next N is refused for shared memory."""
     limit = tfused.SMEM_LIMIT_BYTES
-    for hd in (2, 8, 16):
-        for backward in (False, True):
-            last = max(n for n in range(1, 20000) if tfused.smem_bytes(n, hd, backward) <= limit)
-            for n in list(range(1, 400)) + list(range(400, last + 1, 97)) + [last]:
-                tfused.check_shape(n, hd, backward, torch.bfloat16)
-                tfused.check_shape(n, hd, backward, torch.bfloat16, f32_do=backward)
-                got = tfused.bf16_row_kernel(n, hd)
-                assert got == ("hmma" if n <= 320 else "row"), (n, hd)
-                assert tfused.bf16_smem_bytes(n, hd, backward) <= limit
-                if got == "hmma":
-                    assert 8 * tfused.bf16_hmma_score_tiles(n) >= n
-                if backward:
-                    assert tfused.bf16_row_kernel(n, hd, f32_do=True) == "row"
-            with pytest.raises(ValueError, match="shared memory"):
-                tfused.check_shape(last + 1, hd, backward, torch.bfloat16)
+    for backward, f32_do in ((False, False), (True, False), (True, True)):
+        last = max(n for n in range(1, 20000) if tfused.smem_bytes(n, hd, backward) <= limit)
+        assert last >= 1025, (hd, backward, last)
+        for n in list(range(1, 400)) + list(range(400, last + 1, 97)) + [last]:
+            tfused.check_shape(n, hd, backward, torch.bfloat16, f32_do)
+            got = tfused.bf16_kernel(n, hd, backward)
+            want = ("attn_bwd_hmma_bf16" if backward else
+                    "attn_fwd_hmma_bf16" if n <= 72 else "attn_fwd_hmma2_bf16")
+            assert got == want, (n, hd, got)
+            if not backward and n <= 72:
+                assert 8 * tfused.bf16_hmma_score_tiles(n) >= n
+        row = 8 * hd + 4 if f32_do else 4 * hd + 8 if backward else 4 * hd
+        top = 16 * (limit // row // 16)
+        assert top >= last
+        tfused.check_shape(top, hd, backward, torch.bfloat16, f32_do)
+        with pytest.raises(ValueError, match="shared memory"):
+            tfused.check_shape(top + 1, hd, backward, torch.bfloat16, f32_do)
+
+
+def _takes_wide_copies(views, hd: int) -> bool:
+    """The tensor-core row kernels' test for 16-byte copies (hd 2: its whole
+    4-byte row; ``csrc/attention_bf16.cu``: wide_views): every view's
+    pointer and batch and row strides are multiples of min(hd, 8) bf16."""
+    f = min(hd, 8)
+    return all(x.data_ptr() % (2 * f) == 0 and x.stride(0) % f == 0 and x.stride(1) % f == 0
+               for x in views)
 
 
 def test_bf16_row_kernel_of_the_model_views():
     """The flagship's q, k, v (slices of the [B, N, 3, D] qkv buffer: the
     encoder's hd 8, the decoder's hd 2), USPS's and the JAX tests' row
     shapes' views take the tensor-core row kernels' 16-byte copies (hd 2:
-    its whole 4-byte row); a view 2 bytes off a 4-byte boundary takes the
-    same kernels, by 2-byte loads."""
+    its whole 4-byte row) beside a contiguous o and do; a view 2 bytes off a
+    4-byte boundary takes the same kernels, by 2-byte loads."""
     for (n, h, hd) in ((197, 2, 8), (197, 2, 2), (65, 2, 8), (65, 2, 2), (33, 2, 16),
                        (9, 1, 8)):
         d = h * hd
         buf = torch.zeros(2, n, 3, d, dtype=torch.bfloat16)
         views = [buf[:, :, i] for i in range(3)]
-        width = tfused.row_copy_width(views + [torch.zeros(2, n, d, dtype=torch.bfloat16)], hd)
-        assert width == 2 * min(hd, 8)
-        assert tfused.bf16_row_kernel(n, hd) == "hmma"
+        assert _takes_wide_copies(views + [torch.zeros(2, n, d, dtype=torch.bfloat16)], hd)
+        assert tfused.bf16_kernel(n, hd) == ("attn_fwd_hmma_bf16" if n <= 72
+                                             else "attn_fwd_hmma2_bf16")
     odd = torch.zeros(2, 9, 49, dtype=torch.bfloat16)
-    assert tfused.row_copy_width([odd[:, :, 1:17]], 8) == 2
-    assert tfused.bf16_row_kernel(9, 8) == "hmma"
+    assert not _takes_wide_copies([odd[:, :, 1:17]], 8)
+    assert tfused.bf16_kernel(9, 8) == "attn_fwd_hmma_bf16"
 
 
 class _Recorder:
@@ -390,14 +408,13 @@ class _Recorder:
 
 
 @pytest.mark.parametrize("n, hd", [(197, 8), (65, 2), (33, 16), (9, 8), (320, 8), (321, 8),
-                                   (400, 2)])
+                                   (400, 2), (72, 8), (73, 2)])
 def test_bf16_wrappers_pass_the_row_plan(monkeypatch, n, hd):
-    """The kernel wrappers pass the route and plan that ``bf16_row_kernel``,
-    ``bf16_hmma_plan`` and ``bf16_hmma_score_tiles`` give (the library
-    launches what it is passed): at N <= 320 the forward's register tier,
-    chunks and warps and the backward's chunks and warps; zeros (the
-    FP32-core row kernels) past N 320 and for hybrid's float32 o and do,
-    beside the row copy width."""
+    """The kernel wrappers pass the plan that ``bf16_hmma_plan`` and
+    ``bf16_hmma_score_tiles`` give (the library launches what it is
+    passed): the forward's register tier (0 past N 72: the two-pass
+    form), chunks and warps, and the backward's chunks and warps on bf16
+    and on hybrid's float32 o and do alike."""
     lib = _Recorder()
     monkeypatch.setattr(tfused, "_lib_bf16", lambda: lib)
     monkeypatch.setattr(tfused, "_check", lambda t, heads, backward: (2, n, hd))
@@ -406,16 +423,16 @@ def test_bf16_wrappers_pass_the_row_plan(monkeypatch, n, hd):
     h = 2
     x = [torch.zeros(2, n, h * hd, dtype=torch.bfloat16) for _ in range(5)]
     lse = torch.zeros(2, h, n)
-    hmma = n <= 320
-    plan = tfused.bf16_hmma_plan(n) if hmma else (0, 0)
-    tiers = tfused.bf16_hmma_score_tiles(n) if hmma else 0
-    width = tfused.row_copy_width(x[:3], hd)
+    plan = tfused.bf16_hmma_plan(n)
+    tiers = tfused.bf16_hmma_score_tiles(n)
+    assert (tiers == 0) == (n > 72)
     tfused._kernel_forward(x[0], x[1], x[2], h)
-    assert lib.calls["attention_bf16_forward"][-5:] == (width, tiers, *plan, None)
+    assert lib.calls["attention_bf16_forward"][-4:] == (tiers, *plan, None)
     tfused._kernel_backward(x[0], x[1], x[2], x[3], lse, x[4], h)
-    assert lib.calls["attention_bf16_backward"][-4:] == (width, *plan, None)
+    assert lib.calls["attention_bf16_backward"][-3:] == (*plan, None)
     tfused._kernel_backward(x[0], x[1], x[2], x[3].float(), lse, x[4].float(), h)
-    assert lib.calls["attention_bf16_backward"][-4:] == (width, 0, 0, None)
+    assert lib.calls["attention_bf16_backward"][-3:] == (*plan, None)
+    assert lib.calls["attention_bf16_backward"][12] == 1  # o_do_f32
 
 
 @pytest.mark.parametrize("backward", [False, True])

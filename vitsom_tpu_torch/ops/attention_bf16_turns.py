@@ -1,6 +1,6 @@
 """Times the bf16 attention kernels of source trees in turns on one card.
 
-    python3 -m vitsom_tpu_torch.ops.attention_bf16_turns [--k2] TREE [TREE ...]
+    python3 -m vitsom_tpu_torch.ops.attention_bf16_turns [--k2] [--shapes S] TREE [TREE ...]
 
 Each TREE is a checkout of the repository (``.`` for this one). The trees
 are timed in the order given, each in a fresh interpreter whose working
@@ -9,15 +9,18 @@ own ``vitsom_tpu_torch`` kernels while the inputs and the timing are this
 file's: compare two versions as A B B A in one run, on one card. Each turn
 prints one line ``TURN {json}``: the tree, the card's name and power limit
 (``nvidia-smi``), and at each of SHAPES the milliseconds of the bf16
-forward (``fwd``), the backward on bf16 o and do (``bwd``) and on float32
-o and do (``bwd_hybrid``), and SDPA's forward and backward on the same bf16
-tensors (``sdpa_fwd``, ``sdpa_bwd``): each the median of RUNS calls, with
+forward (``fwd``), below hd 32 up to N 320 the two-pass forward there too
+(``fwd_two_pass``: the register tier 0, which the wrapper passes only past
+N 320), the backward on bf16 o and do (``bwd``) and on float32 o and do
+(``bwd_hybrid``), and SDPA's forward and backward on the same bf16 tensors
+(``sdpa_fwd``, ``sdpa_bwd``): each the median of RUNS calls, with
 the L2 flushed before each, timed by CUDA events around calls issued in
 chunks behind a spin kernel (as ``chip_smoke.time_call``). With ``--k2``
 each turn also runs ``profile_step`` on the flagship under bf16 with
 ``pallas`` (``k2_graphed_step_ms``: its graphed median step ms). The inputs
 are q, k, v as the model hands them over: bf16 slices of one [B, N, 3, D]
-buffer, made on the card from a seed.
+buffer, made on the card from a seed. ``--shapes "B,N,H,hd;B,N,H,hd"``
+times those shapes in place of SHAPES.
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ import subprocess
 import sys
 
 # (B, N, H, hd): the flagship's encoder and decoder, USPS's, SVHN's
-# encoder, the JAX tests' row shapes and N past the tensor-core row
-# kernels' 320
+# encoder, the JAX tests' row shapes, the one-pass forward's largest N and N
+# past it (the two-pass form; the flagship at patch size 1: N 785)
 SHAPES = [(128, 197, 2, 8), (128, 197, 2, 2), (128, 65, 2, 8), (128, 65, 2, 2),
-          (128, 257, 2, 8), (2, 33, 2, 16), (1, 9, 1, 8), (128, 400, 2, 8)]
+          (128, 257, 2, 8), (2, 33, 2, 16), (1, 9, 1, 8), (128, 320, 2, 8), (128, 400, 2, 8),
+          (128, 785, 2, 8), (128, 785, 2, 2)]
 RUNS = 30
 L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
 
@@ -74,7 +78,18 @@ def time_ms(torch, fn, flush, runs=RUNS, chunk=5, warmup=5) -> float:
     return statistics.median(times[:runs])
 
 
-def turn(k2: bool) -> dict:
+def _two_pass(af, q, k, v, h):
+    """The bf16 forward with the register tier 0 (below hd 32: the two-pass
+    form at any N)."""
+    tiers = af.bf16_hmma_score_tiles
+    af.bf16_hmma_score_tiles = lambda n: 0
+    try:
+        return af._kernel_forward(q, k, v, h)
+    finally:
+        af.bf16_hmma_score_tiles = tiers
+
+
+def turn(k2: bool, shapes) -> dict:
     """One tree's times (the working directory's package)."""
     import torch
     import torch.nn.functional as F
@@ -84,7 +99,7 @@ def turn(k2: bool) -> dict:
     dev = torch.device("cuda")
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
     out = {"tree": os.getcwd(), "card": _smi(), "times": {}}
-    for shape in SHAPES:
+    for shape in shapes:
         b, n, h, hd = shape
         d = h * hd
         g = torch.Generator(device=dev).manual_seed(6000 + n + hd)
@@ -100,6 +115,8 @@ def turn(k2: bool) -> dict:
         so = F.scaled_dot_product_attention(*leaves)
         fns = {
             "fwd": lambda: af._kernel_forward(q, k, v, h),
+            **({"fwd_two_pass": lambda: _two_pass(af, q, k, v, h)} if hd < 32 and n <= 320
+               else {}),
             "bwd": lambda: af._kernel_backward(q, k, v, o, lse, do, h),
             "bwd_hybrid": lambda: af._kernel_backward(q, k, v, ho, hlse, do32, h),
             "sdpa_fwd": lambda: F.scaled_dot_product_attention(*heads_first),
@@ -123,18 +140,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", help="checkouts to time, in this order")
     ap.add_argument("--k2", action="store_true", help="also the flagship's bf16 graphed step")
+    ap.add_argument("--shapes", default=None,
+                    help='shapes to time in place of SHAPES: "B,N,H,hd;B,N,H,hd"')
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    shapes = (SHAPES if args.shapes is None else
+              [tuple(int(x) for x in s.split(",")) for s in args.shapes.split(";")])
     if args.turn:
         sys.path.insert(0, os.getcwd())  # the tree's package, not this file's
-        print("TURN " + json.dumps(turn(args.k2)), flush=True)
+        print("TURN " + json.dumps(turn(args.k2, shapes)), flush=True)
         return 0
     if not args.trees:
         ap.error("name at least one tree")
     for tree in args.trees:
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--turn"] + (["--k2"] if args.k2 else []),
+            [sys.executable, os.path.abspath(__file__), "--turn"] + (["--k2"] if args.k2 else [])
+            + ([] if args.shapes is None else ["--shapes", args.shapes]),
             cwd=tree, env=env, capture_output=True, text=True)
         lines = [x for x in proc.stdout.splitlines() if x.startswith("TURN ")]
         if proc.returncode != 0 or not lines:

@@ -19,13 +19,17 @@ from one to the other. q, k and v may be strided views (the model slices
 them out of its fused qkv buffer) as long as their column stride is 1; at
 head dims from 32 up (the tensor-core kernels) their rows must also start
 on 16-byte boundaries, as the model's views do (``check_16_byte_rows``).
-Below (the row kernels) any such view is taken: the wrapper passes the
-widest row copy, 16, 8 or 4 bytes (bf16: 16, 8, 4 or 2), that the views'
-pointers and strides allow (``row_copy_width``). The bf16 backward also
-takes a float32 o with its float32 cotangent (``hybrid``'s output). bf16
-below hd 32 runs the tensor-core row kernels up to N 320 on bf16 o and do,
-with the plan the wrapper passes (``bf16_row_kernel``, ``bf16_hmma_plan``,
-``bf16_hmma_score_tiles``), else the FP32-core row kernels.
+Below (the row kernels) any such view is taken: the float32 wrapper
+passes the widest row copy, 16, 8 or 4 bytes, that the views' pointers and
+strides allow (``row_copy_width``); the bf16 kernels take 16-byte copies
+where every view allows them and 2-byte loads elsewhere. The bf16 backward
+also takes a float32 o with its float32 cotangent (``hybrid``'s output).
+bf16 below hd 32 runs the tensor-core row kernels (mma.sync) with the plan
+the wrapper passes (``bf16_hmma_plan``, ``bf16_hmma_score_tiles``); from
+hd 32 up the wgmma kernels. The forwards hold a row's scores in registers
+up to N 72 (mma.sync; the split measured in csrc/attention_bf16.cu) or
+320 (wgmma) and walk the keys twice past it; ``bf16_kernel`` names the kernel
+a call runs.
 """
 
 from __future__ import annotations
@@ -55,21 +59,23 @@ ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = 16, 8, 4, 4
 # the row kernels' (hd <= 16): threads of a CTA at most (kRowThreads),
 # lanes of a row group (kRowLanes) and rows a group (kRowRows)
 ROW_THREADS, ROW_LANES, ROW_ROWS = 128, 2, 2
-# the bf16 kernels' (csrc/attention_bf16.cu: kRowThreads, kTile, kHdp,
-# kMaxKeyBlocks): rows of a row-kernel CTA; from hd 32 up the 64-row wgmma
-# tiles, their head dim padded to 64 (128-byte rows), and the forward's key
-# blocks at most (its scores stay in registers: N <= 320)
-BF16_ROW_THREADS, BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS = 128, 64, 64, 5
+# the bf16 kernels' (csrc/attention_bf16.cu: kTile, kHdp, kMaxKeyBlocks):
+# from hd 32 up the 64-row wgmma tiles, their head dim padded to 64
+# (128-byte rows), and the one-pass forward's key blocks at most (its scores
+# stay in registers: N <= 320; the two-pass forward takes longer sequences)
+BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS = 64, 64, 5
 BF16_TILE_BYTES = BF16_TILE * BF16_HDP * 2
 BF16_SMEM_ALIGN = 1024  # the tiles' 128-byte swizzle repeats every 8 rows
 # the bf16 tensor-core row kernels at hd <= 16 (mma.sync; kHmmaWarps,
-# kHmmaMaxKeys): warps of a CTA at most, a 16-row tile each, and N at
-# most (the forward keeps a row's scores in registers)
-BF16_HMMA_WARPS, BF16_HMMA_MAX_KEYS = 8, 320
+# kHmmaMaxKeys): warps of a CTA at most, a 16-row tile each, and the
+# one-pass forward's N at most (it keeps a row's scores in registers; the
+# two-pass forward takes longer sequences; csrc/attention_bf16.cu gives
+# the timings that set the split)
+BF16_HMMA_WARPS, BF16_HMMA_MAX_KEYS = 8, 72
 # the forward's register tiers (HMMA_SCORE_TILES, checked against the
 # library): a warp's scores are 4 floats a lane for each 8-key tile of the
 # smallest tier that holds ceil(N / 8) tiles
-BF16_HMMA_SCORE_TILES = (2, 5, 9, 17, 25, 33, 40)
+BF16_HMMA_SCORE_TILES = (2, 5, 9)
 
 _LIB = None
 _LIB_BF16 = None
@@ -107,26 +113,26 @@ def _lib_bf16():
     if _LIB_BF16 is None:
         lib = _build.load("attention_bf16")
         view = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-        # B, N, H, hd, scale, the row copy width in bytes, the tensor-core
-        # row plan (the forward's register tier, chunks, warps), stream
-        dims = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # B, N, H, hd, scale, the tensor-core row plan (the forward's
+        # register tier, chunks, warps), stream
+        dims = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.attention_bf16_forward.argtypes = view * 3 + [ctypes.c_void_p] * 2 + dims
         lib.attention_bf16_forward.restype = ctypes.c_int
         # ..., dq, dk, dv, delta, do_split, dims without the tier
         lib.attention_bf16_backward.argtypes = (
             view * 4 + [ctypes.c_int, ctypes.c_void_p] + view + [ctypes.c_void_p] * 5
-            + dims[:6] + dims[7:]
+            + dims[:5] + dims[6:]
         )
         lib.attention_bf16_backward.restype = ctypes.c_int
-        tiles = (ctypes.c_int * (6 + len(BF16_HMMA_SCORE_TILES)))()
+        tiles = (ctypes.c_int * (5 + len(BF16_HMMA_SCORE_TILES)))()
         lib.attention_bf16_tiles(tiles)
-        want = (BF16_ROW_THREADS, BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS, BF16_HMMA_WARPS,
-                BF16_HMMA_MAX_KEYS, *BF16_HMMA_SCORE_TILES)
+        want = (BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS, BF16_HMMA_WARPS, BF16_HMMA_MAX_KEYS,
+                *BF16_HMMA_SCORE_TILES)
         if tuple(tiles) != want:
             raise RuntimeError(
-                "attention_bf16.cu constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks, "
-                f"kHmmaWarps, kHmmaMaxKeys, HMMA_SCORE_TILES) = {tuple(tiles)} differ from the "
-                f"wrapper's {want}"
+                "attention_bf16.cu constants (kTile, kHdp, kMaxKeyBlocks, kHmmaWarps, "
+                f"kHmmaMaxKeys, HMMA_SCORE_TILES) = {tuple(tiles)} differ from the wrapper's "
+                f"{want}"
             )
         _LIB_BF16 = lib
     return _LIB_BF16
@@ -160,23 +166,18 @@ def row_plan(n: int, head_dim: int, backward: bool) -> Tuple[int, ...]:
 
 
 def row_copy_width(views, head_dim: int) -> int:
-    """Bytes of the widest copy the row kernels can make of every head's row
-    in ``views``: 16, 8 or 4 for float32 views, 16, 8, 4 or 2 for bf16 (the
-    views' dtype; the float32 o and do that the bf16 backward takes from
-    hybrid are read a float at a time and are left out). Each view's pointer and batch
-    and row strides, and the head offsets (``head_dim`` elements), must be
-    multiples of it. The flagship encoder's q, k, v views (rows 48
-    elements, heads 8 apart) take 16 in either dtype; its decoder's (heads
-    2 apart) 8 in float32, 4 in bf16."""
-    size = 2 if views[0].dtype == torch.bfloat16 else 4
-    views = [x for x in views if x.element_size() == size]
-    for width in (16, 8, 4):
-        f = width // size
+    """Bytes of the widest copy the float32 row kernels can make of every
+    head's row in the float32 ``views``: 16, 8 or 4. Each view's pointer and
+    batch and row strides, and the head offsets (``head_dim`` elements),
+    must be multiples of it. The flagship encoder's q, k, v views (rows 48
+    floats, heads 8 apart) take 16; its decoder's (heads 2 apart) 8."""
+    for width in (16, 8):
+        f = width // 4
         if head_dim % f == 0 and all(
                 x.data_ptr() % width == 0 and x.stride(0) % f == 0 and x.stride(1) % f == 0
                 for x in views):
             return width
-    return size
+    return 4
 
 
 def row_launch(b: int, n: int, heads: int, head_dim: int, backward: bool,
@@ -214,24 +215,29 @@ def bf16_mma_plan(n: int) -> Tuple[int, int, int]:
     """The bf16 tensor-core kernels' grid a (b, h) at sequence length ``n``
     (hd >= 32), CTAs of one warpgroup (128 threads): (forward CTAs, the
     forward's 64-key blocks, which are also its 64-row query tiles,
-    backward CTAs: a key-role and a query-role CTA a 64-row tile)."""
+    backward CTAs: a key-role and a query-role CTA a 64-row tile). The
+    one-pass forward (up to BF16_MAX_KEY_BLOCKS blocks) runs one CTA over
+    every query tile; the two-pass forward a CTA a query tile."""
     tiles = _cdiv(n, BF16_TILE)
-    return 1, tiles, 2 * tiles
+    return 1 if tiles <= BF16_MAX_KEY_BLOCKS else tiles, tiles, 2 * tiles
 
 
-def bf16_row_kernel(n: int, head_dim: int, f32_do: bool = False) -> str:
-    """Which bf16 kernel serves a call below hd 32, the route the wrapper
-    passes to ``csrc/attention_bf16.cu``: ``"hmma"``, the tensor-core row
-    kernels, at N up to BF16_HMMA_MAX_KEYS (the forward keeps a row's
-    scores in registers) on bf16 o and do, whatever the views' alignment
-    (16-byte copies where every view takes them, hd 2 its whole 4-byte
-    row, else 2-byte loads); ``"row"``, the FP32-core row kernels, for
-    longer sequences and hybrid's float32 o and do (``f32_do``). Every
-    shape the row kernels took before the tensor-core ones existed is still
-    taken."""
-    if head_dim not in HEAD_DIMS or head_dim in MMA_HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} has no bf16 row kernel")
-    return "hmma" if n <= BF16_HMMA_MAX_KEYS and not f32_do else "row"
+def bf16_kernel(n: int, head_dim: int, backward: bool = False) -> str:
+    """The bf16 kernel that serves a call at sequence length ``n`` and
+    ``head_dim`` (``csrc/attention_bf16.cu``; the name the profiler shows):
+    below hd 32 the tensor-core row kernels (mma.sync), from 32 up the
+    wgmma ones. A forward holds a row's scores in registers up to
+    BF16_HMMA_MAX_KEYS (``attn_fwd_hmma_bf16``) or 320 keys
+    (``attn_fwd_mma_bf16``) and walks the keys twice past it (``attn_fwd_hmma2_bf16``, ``attn_fwd_mma2_bf16``); the
+    backwards (``attn_bwd_hmma_bf16``, ``attn_bwd_mma_bf16``) take any N,
+    on bf16 or float32 o and do, whatever the views' alignment."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not built; the kernels cover {HEAD_DIMS}")
+    kind = "mma" if head_dim in MMA_HEAD_DIMS else "hmma"
+    if backward:
+        return f"attn_bwd_{kind}_bf16"
+    two_pass = n > BF16_TILE * BF16_MAX_KEY_BLOCKS if kind == "mma" else n > BF16_HMMA_MAX_KEYS
+    return f"attn_fwd_{kind}{'2' if two_pass else ''}_bf16"
 
 
 def bf16_hmma_plan(n: int) -> Tuple[int, int]:
@@ -249,36 +255,43 @@ def bf16_hmma_plan(n: int) -> Tuple[int, int]:
 
 def bf16_hmma_score_tiles(n: int) -> int:
     """The tensor-core row forward's register tier at sequence length
-    ``n`` <= BF16_HMMA_MAX_KEYS: the 8-key tiles of scores it holds, 4
-    floats a lane each (the shipped N 65, 197, 257 and the JAX tests' 9, 33
-    exactly)."""
+    ``n``: up to BF16_HMMA_MAX_KEYS the 8-key tiles of scores the one-pass
+    form holds, 4 floats a lane each (USPS's N 65 and the JAX tests' 9,
+    33 exactly); past it 0, the two-pass form."""
+    if n > BF16_HMMA_MAX_KEYS:
+        return 0
     return min(t for t in BF16_HMMA_SCORE_TILES if 8 * t >= n)
 
 
 def bf16_smem_bytes(n: int, head_dim: int, backward: bool, f32_do: bool = False) -> int:
     """Dynamic shared memory of one CTA of the bf16 kernels
-    (``csrc/attention_bf16.cu``). hd <= 16: the kernel ``bf16_row_kernel``
-    names; the tensor-core row kernels stage two [NP][hd] bf16 tiles (hd 2
-    padded to 8), N padded to NP = 16 ceil(N / 16) rows (k and v; the
-    backward's key role q and do) and, in the backward, the key role's NP
-    lse and NP delta floats; the FP32-core row kernels take what the
-    float32 ones take.
+    (``csrc/attention_bf16.cu``); ``f32_do``: hybrid's float32 do, split
+    into three bf16 parts.
+    hd <= 16 (the tensor-core row kernels, both forward forms alike):
+    [NP][hd] bf16 tiles, N padded to NP = 16 ceil(N / 16) rows: the
+    forward's k and v; the backward's key role q and do's parts (one, or
+    three), its NP delta floats and, beside a bf16 do, NP lse floats (on a
+    float32 do it reads lse from global memory). Every N the float32
+    kernels take at the same hd fits.
     hd >= 32: [64][64] bf16 tiles (BF16_TILE_BYTES, hd padded to 64) after
     BF16_SMEM_ALIGN bytes of slack for their 1024-byte alignment; the
-    forward every key block of k and of v, two q tiles, 128 bytes for four
-    8-byte mbarriers and the o tile that stages its stores; the backward
-    its larger role, the key role's k and v tiles and a two-stage ring of a
-    q tile and do's parts (one bf16 do, or the three bf16 parts of a
-    float32 do) with 64 lse and 64 delta floats a stage, and an mbarrier
-    for k and v and one a stage."""
-    if head_dim not in MMA_HEAD_DIMS:
-        if bf16_row_kernel(n, head_dim, f32_do) == "hmma":
-            rows = 16 * _cdiv(n, 16)
-            return 2 * rows * max(head_dim, 8) * 2 + (2 * rows * 4 if backward else 0)
-        return smem_bytes(n, head_dim, backward)
-    if not backward:
-        return BF16_SMEM_ALIGN + (2 * bf16_mma_plan(n)[1] + 3) * BF16_TILE_BYTES + 128
+    one-pass forward every key block of k and of v, two q tiles, 128 bytes
+    for four 8-byte mbarriers and the o tile that stages its stores; the
+    two-pass forward (past BF16_MAX_KEY_BLOCKS blocks) its q tile, a
+    two-stage ring of k and v tiles, the o tile and three mbarriers; the
+    backward its larger role, the key role's k and v tiles and a two-stage
+    ring of a q tile and do's parts with 64 lse and 64 delta floats a
+    stage, and an mbarrier for k and v and one a stage."""
     parts = 3 if f32_do else 1
+    if head_dim not in MMA_HEAD_DIMS:
+        rows = 16 * _cdiv(n, 16)
+        tile = rows * head_dim * 2
+        return (1 + parts) * tile + (1 if f32_do else 2) * rows * 4 if backward else 2 * tile
+    if not backward:
+        blocks = bf16_mma_plan(n)[1]
+        if blocks > BF16_MAX_KEY_BLOCKS:
+            return BF16_SMEM_ALIGN + 6 * BF16_TILE_BYTES + 3 * 8
+        return BF16_SMEM_ALIGN + (2 * blocks + 3) * BF16_TILE_BYTES + 128
     return BF16_SMEM_ALIGN + (4 + 2 * parts) * BF16_TILE_BYTES + 2 * 2 * BF16_TILE * 4 + 3 * 8
 
 
@@ -288,12 +301,6 @@ def check_shape(n: int, head_dim: int, backward: bool, dtype=torch.float32,
     ``head_dim`` (built, and its CTA's working set fits in shared memory)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} is not built; the kernels cover {HEAD_DIMS}")
-    keys = BF16_TILE * BF16_MAX_KEY_BLOCKS
-    if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS and not backward and n > keys:
-        raise ValueError(
-            f"N={n} at head_dim {head_dim}: the bf16 forward holds a row's scores in registers, "
-            f"{keys} keys at most"
-        )
     need = (bf16_smem_bytes(n, head_dim, backward, f32_do) if dtype == torch.bfloat16
             else smem_bytes(n, head_dim, backward))
     if need > SMEM_LIMIT_BYTES:
@@ -445,12 +452,10 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _hmma_plan(n: int, hd: int, f32_do: bool = False) -> Tuple[int, int]:
-    """(chunks, warps) of the bf16 tensor-core row kernels where they serve
-    the call (``bf16_row_kernel``), else (0, 0)."""
-    if hd in MMA_HEAD_DIMS or bf16_row_kernel(n, hd, f32_do) != "hmma":
-        return 0, 0
-    return bf16_hmma_plan(n)
+def _hmma_plan(n: int, hd: int) -> Tuple[int, int]:
+    """(chunks, warps) of the bf16 tensor-core row kernels (hd <= 16), else
+    (0, 0): the wgmma kernels plan their own grid."""
+    return (0, 0) if hd in MMA_HEAD_DIMS else bf16_hmma_plan(n)
 
 
 def _kernel_forward(q, k, v, heads: int):
@@ -460,10 +465,12 @@ def _kernel_forward(q, k, v, heads: int):
     o = torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, heads, n), device=q.device, dtype=torch.float32)
     args = [*_view(q), *_view(k), *_view(v), o.data_ptr(), lse.data_ptr(),
-            b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v), hd)]
+            b, n, heads, hd, hd**-0.5]
     if bf16:
         plan = _hmma_plan(n, hd)
         args += [bf16_hmma_score_tiles(n) if plan[0] else 0, *plan]
+    else:
+        args.append(row_copy_width((q, k, v), hd))
     lib = _lib_bf16() if bf16 else _lib()
     launch = lib.attention_bf16_forward if bf16 else lib.attention_forward
     with torch.cuda.device(q.device):
@@ -487,7 +494,6 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
     mma = hd in MMA_HEAD_DIMS
     dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
                   for _ in range(3))
-    width = row_copy_width((q, k, v, o, do), hd)
     lib = _lib_bf16() if bf16 else _lib()
     with torch.cuda.device(q.device):
         if bf16:
@@ -502,8 +508,7 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
                 lse.data_ptr(), *_view(do), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 None if delta is None else delta.data_ptr(),
                 None if split is None else split.data_ptr(),
-                b, n, heads, hd, hd**-0.5, width, *_hmma_plan(n, hd, o.dtype == torch.float32),
-                _stream(q.device),
+                b, n, heads, hd, hd**-0.5, *_hmma_plan(n, hd), _stream(q.device),
             )
         else:
             chunks = mma_plan(n)[0] if mma else 1
@@ -514,7 +519,8 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
                 *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(), *_view(do),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 None if part is None else part.data_ptr(),
-                b, n, heads, hd, hd**-0.5, width, _stream(q.device),
+                b, n, heads, hd, hd**-0.5, row_copy_width((q, k, v, o, do), hd),
+                _stream(q.device),
             )
     if rc != 0:
         raise RuntimeError(f"attention backward ({q.dtype}) launch failed with code {rc}")

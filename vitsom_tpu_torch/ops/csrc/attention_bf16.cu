@@ -14,51 +14,86 @@
 //             bf16(p * (dp - delta) * scale), dq = bf16(ds k),
 //             dk = bf16(ds^T q). o and do are bf16 (the forward kernel's
 //             output), or both float32 (hybrid_attention's eager forward
-//             and its cotangent), which the products take unrounded.
+//             and its cotangent), which the products take unrounded: a
+//             float32 do is split into three bf16 parts, hi = bf16(do),
+//             mid = bf16(do - hi), lo = bf16(do - hi - mid), whose sum is
+//             do exactly (both residuals are exact in float32, the second
+//             has at most 8 significant bits), and dp and dv take a product
+//             with each, exact in float32 as JAX's float32 products with
+//             the unrounded do are.
 // An online softmax rescales o after the product with v, so it cannot
 // round attn where JAX does: the forward kernels find a row's max and sum
-// before they form attn. There are no atomics and every sum has a fixed
-// order, so two runs give bitwise-equal outputs.
+// before they form attn, from scores held in registers up to N 72 (hd <=
+// 16) or 320 (hd >= 32) and by a first pass over the keys past it (two
+// passes: the max and l, rescaled as the max moves, then attn v). Only
+// shared memory bounds N. There are
+// no atomics and every sum has a fixed order, so two runs give
+// bitwise-equal outputs.
 //
-// Three designs, chosen by head dim, N and the dtype of o and do (below hd
-// 32 the caller chooses: attention_fused.py:bf16_row_kernel, and passes
-// the tensor-core row kernels' plan):
+// Two designs, by head dim (below hd 32 the caller passes the plan:
+// attention_fused.py: bf16_hmma_plan, bf16_hmma_score_tiles):
 //
 // 1. hd 2, 8 and 16 (every ViT-SOM encoder and decoder below emb 192,
-//    the JAX tests' 16) at N <= kHmmaMaxKeys = 320 and, in the backward,
-//    on bf16 o and do: attn_fwd_hmma_bf16 and attn_bwd_hmma_bf16, the
-//    bf16 products on the tensor cores with mma.sync (m16n8k8 at hd 2 and
+//    the JAX tests' 16), at any N that shared memory holds, on bf16 or
+//    float32 o and do: attn_fwd_hmma_bf16 (N <= kHmmaMaxKeys = 72),
+//    attn_fwd_hmma2_bf16 (past it) and attn_bwd_hmma_bf16, the bf16
+//    products on the tensor cores with mma.sync (m16n8k8 at hd 2 and
 //    8, m16n8k16 at hd 16 for the products over hd, m16n8k16 for those
 //    over keys or queries; float32 accumulators; exact, as bf16 products
-//    are in float32). hd 2 is padded to 8 with zeros in the staged rows
-//    and the A fragments. A warp takes a 16-row tile, a CTA at most
-//    kHmmaWarps = 8 of a (b, h)'s tiles, spread evenly (attention_fused.py:
-//    bf16_hmma_plan). The CTA stages the other side's rows of the (b, h)
-//    as bf16 in shared memory by cp.async, 16 bytes a copy (hd 2: 4), all
-//    in flight at once, where every view takes such copies (the model's
-//    q, k, v slices of its qkv buffer do), else by 2-byte loads (kernels
-//    instantiated for such views, the forward at its largest tier); a warp
-//    reads them as B fragments, 32-bit loads along hd and ldmatrix.trans
-//    for the products over rows. An accumulator tile is the A fragment of
-//    the next product, so bf16(attn), bf16(p) and bf16(ds) pack straight
-//    from registers.
-//    - Forward: a tile's scores against every key stay in registers, 4
-//      floats a lane for each 8-key tile (s = q k^T, one mma a tile; tiers
-//      of 2, 5, 9, 17, 25, 33, 40 tiles, which N 9, 33, 65, 197, 257 fill
-//      exactly; keys past N score -inf), so each is formed and
-//      exponentiated once: the exact row max, l = sum exp(s - m) (four
-//      partial maxima and sums a row in a fixed order, then the quad's),
-//      attn = bf16(exp(s - m) / l), the quotient rounded once, packed into
-//      o += attn v 16 keys at a time. 127 registers at N 197, two CTAs an
-//      SM (launch bounds); 160 at N 257, one.
+//    are in float32). hd 2 is padded to 8 with zeros in the A and B
+//    fragments; its staged rows are one 32-bit word. A warp takes a
+//    16-row tile, a CTA at most kHmmaWarps = 8 of a (b, h)'s tiles, spread
+//    evenly (attention_fused.py: bf16_hmma_plan). The CTA stages the other
+//    side's rows of the (b, h) as bf16 in shared memory by cp.async, 16
+//    bytes a copy (hd 2: 4), all in flight at once, where every view takes
+//    such copies (the model's q, k, v slices of its qkv buffer do), else by
+//    2-byte loads (kernels instantiated for such views, the one-pass
+//    forward at its largest tier); a warp reads them as B fragments, 32-bit
+//    loads along hd and ldmatrix.trans for the products over rows (hd 2:
+//    two 8-byte loads). An accumulator tile is the
+//    A fragment of the next product, so bf16(attn), bf16(p) and bf16(ds)
+//    pack straight from registers.
+//    - Forward up to N 72: a tile's scores against every key stay in
+//      registers, 4 floats a lane for each 8-key tile (s = q k^T, one mma
+//      a tile; tiers of 2, 5, 9 tiles, which N 9, 33, 65 fill exactly;
+//      keys past N score -inf), so each is formed and exponentiated once:
+//      the exact row max, l = sum exp(s - m) (four partial maxima and sums
+//      a row in a fixed order, then the quad's), attn = bf16(exp(s - m) /
+//      l), the quotient rounded once, packed into o += attn v 16 keys at a
+//      time.
+//    - Forward past N 72 (two passes): the same grid and staging; a warp
+//      walks the keys 64 at a time, first for the exact max and l (the
+//      lane's partial sums rescaled by exp(m_old - m) as the max moves),
+//      then forms the scores again for attn = bf16(exp(s - m) / l) and o +=
+//      attn v. The scores are formed and exponentiated twice; l's rescaled
+//      sums round differently from the one-pass form's, within the bf16
+//      bound of the plain version. The split at N 72 is measured
+//      (ops/attention_bf16_turns.py --shapes, both forms at N 33-197, hd 8
+//      and 2, one call, L2 flushed, NVIDIA H100 80GB HBM3, 700.00 W): the
+//      one-pass form is 5-9 % faster up to N 72; at N 81-136 the two are
+//      within 10 % either way (the one-pass 2-10 % faster at hd 8, 18 %
+//      slower at hd 2 from N 129); from N 161 the two-pass form is 12-17 %
+//      faster (0.02119 against 0.02403 ms at (128, 197, 2, 8), 0.03097
+//      against 0.03730 at N 257, 0.03842 against 0.07165 at N 320): the
+//      one-pass form's register tiers for 17-40 tiles (127-160 registers,
+//      one or two CTAs an SM) hid less latency than the two-pass form's 66
+//      registers at more CTAs an SM.
 //    - Backward: key-role warps (their keys' k and v as A fragments; q,
 //      do, lse and delta = rowsum(do o), formed once a row, staged) and
 //      query-role warps (q and do as A fragments, their rows' lse and
-//      delta; k and v staged) in one launch, as in design 3, over 16 x 16
+//      delta; k and v staged) in one launch, as in design 2, over 16 x 16
 //      blocks: s^T = k q^T, dp^T = v do^T, dv += bf16(p^T) do, dk += ds^T
 //      q; s = q k^T, dp = do v^T, dq += ds k. Both roles form delta, p and
 //      ds with the same expressions in the same order. No atomics, no
-//      float32 partials.
+//      float32 partials; no row of scores in registers, so any N. A float32
+//      o and do (hybrid) are read a float at a time and do is split in the
+//      kernel: three staged bf16 tiles in the key role, three A fragments
+//      in the query role, three products for dp and for dv; the key role
+//      then reads lse from global memory (L1) and stages only delta, so
+//      q, do's parts and delta fit at every N the float32 kernels take.
+//    Shared memory holds every N the float32 kernels (attention.cu) take
+//    at the same hd: NP = 16 ceil(N / 16) rows of 4 hd bytes (forward),
+//    4 hd + 8 (backward) or 8 hd + 4 (float32 do).
 //    Exponentials are ex2.approx of x log2(e) (fast_exp, __expf's
 //    arithmetic), subnormal results kept. ex2.approx.ftz was 11 % faster
 //    (forward 0.02155 against 0.02410 ms, backward 0.02403 against 0.02678
@@ -83,36 +118,37 @@
 //    a shared-memory exchange of m, l and o): 0.02312 ms against 0.02189;
 //    two accumulators for attn v: no gain. Measured (ops/
 //    attention_bf16_turns.py, one call, L2 flushed, NVIDIA H100 80GB
-//    HBM3, 700.00 W; the FP32-core row kernels of design 2, which served
-//    these shapes before, and SDPA on the same bf16 tensors in brackets):
-//    forward 0.02401 ms at (128, 197, 2, 8) (0.05870; 0.02293), 0.00918 at
-//    (128, 65, 2, 8) (0.01807; 0.01346), 0.03721 at (128, 257, 2, 8)
-//    (0.08953; 0.03765), 0.02408 at (128, 197, 2, 2) (0.03693; 0.04423),
-//    0.00890 at (128, 65, 2, 2) (0.01354; 0.03016); backward 0.02623
-//    (0.07100; 0.05159), 0.00966 (0.01691; 0.02586), 0.03845 (0.09978;
-//    0.07802), 0.02668 (0.03526; 0.08354), 0.00953 (0.01064; 0.05250).
+//    HBM3, 700.00 W; the FP32-core row kernels these replaced, one thread
+//    a row with three passes over the keys, and SDPA on the same bf16
+//    tensors in brackets): the one-pass forward (then the route up to N
+//    320) 0.02401 ms at (128, 197, 2, 8)
+//    (0.05870; 0.02293), 0.00918 at (128, 65, 2, 8) (0.01807; 0.01346),
+//    0.03721 at (128, 257, 2, 8) (0.08953; 0.03765), 0.02408 at (128, 197,
+//    2, 2) (0.03693; 0.04423), 0.00890 at (128, 65, 2, 2) (0.01354;
+//    0.03016); backward 0.02623 (0.07100; 0.05159), 0.00966 (0.01691;
+//    0.02586), 0.03845 (0.09978; 0.07802), 0.02668 (0.03526; 0.08354),
+//    0.00953 (0.01064; 0.05250).
+//    Past N 320 and on float32 o and do (chip_smoke.py K1, L2 flushed,
+//    NVIDIA H100 80GB HBM3, 700.00 W; the FP32-core row kernels these
+//    replaced, from ops/attention_bf16_turns.py against the parent tree in
+//    one call, and SDPA in brackets): the two-pass forward 0.05610 ms at
+//    (128, 400, 2, 8) (0.19986; 0.05781), 0.17440 at (128, 785, 2, 8)
+//    (0.68136; 0.14798), 0.18518 at (128, 785, 2, 2) (0.36630; 0.18050);
+//    the backward 0.06776 (0.23917; 0.12394), 0.22248 (0.80493; 0.33699),
+//    0.24310 (0.35910; 0.45870); on hybrid's float32 o and do 0.03370 at
+//    (128, 197, 2, 8) (0.07570), 0.03085 at (128, 197, 2, 2) (0.03534),
+//    0.31522 at (128, 785, 2, 8) (0.83566). dp on the FP32 cores from the
+//    float32 do (dv from the three parts), timed in the same turns: 0.05349
+//    against 0.03338 ms at (128, 197, 2, 8), 0.03075 against 0.03061 at
+//    hd 2: the three products kept. ptxas: the two-pass forward 61-66
+//    registers, the backward 55-80 (8 bytes spilled at hd 16 on a float32
+//    do), no other spills.
 //
-// 2. The rest below hd 32 (N past 320, hybrid's float32 o and do):
-//    attn_fwd_row_bf16 and attn_bwd_row_bf16 on the FP32 cores, one thread
-//    a row. A CTA takes a chunk of at most kRowThreads rows of one (b, h)
-//    (row_plan) and stages the other side's rows as float32 in shared
-//    memory, where every thread of a warp reads the same row (a
-//    broadcast). A float32 o or do is read a float at a
-//    time. The forward makes three passes over the keys (the max, the sum,
-//    then attn v). The backward is one launch of pass-A CTAs (key rows:
-//    dk, dv) and pass-B CTAs (query rows: dq); both form p, delta and ds
-//    with the same expressions in the same order, so they agree bit for
-//    bit. Rows are copied 16, 8, 4 or 2 bytes at a time, the widest that
-//    every bf16 view's pointer and strides allow
-//    (attention_fused.py:row_copy_width). hybrid's backward at (128, 197,
-//    2, 8) takes 0.07610 ms (the call above; SDPA on a bf16 do 0.05159);
-//    at (128, 400, 2, 8) the forward 0.20076, the backward 0.24018 (SDPA
-//    0.05786 / 0.12476).
-//
-// 3. hd >= 32 (the emb-192 configs' 64 and 32, the JAX tests' 48):
-//    attn_fwd_mma_bf16 (replaces _attn_fwd_kernel's bf16 branch,
-//    attention_pallas.py:100) and attn_bwd_mma_bf16 with its pre-pass
-//    attn_delta_bf16 (replace _attn_bwd_kernel's, :163), on Hopper's
+// 2. hd >= 32 (the emb-192 configs' 64 and 32, the JAX tests' 48):
+//    attn_fwd_mma_bf16 (N <= kMaxKeyBlocks * 64 = 320) and
+//    attn_fwd_mma2_bf16 (past it) replace _attn_fwd_kernel's bf16 branch
+//    (attention_pallas.py:100), attn_bwd_mma_bf16 with its pre-pass
+//    attn_delta_bf16 replaces _attn_bwd_kernel's (:163), on Hopper's
 //    warpgroup products (wgmma: bf16 in, float32 accumulators; a CTA is one
 //    warpgroup). Every operand is a [64][64] bf16 tile in shared memory,
 //    hd padded to 64 with zeros so a row is 128 bytes, under the 128-byte
@@ -126,41 +162,45 @@
 //    next product (its rows, 16 columns a k-step), so bf16(attn), bf16(p)
 //    and bf16(ds) are packed straight from registers into register-A
 //    products: JAX's rounding points come for free.
-//    - Forward: one CTA a (b, h) reads its k and v once (NKB key blocks of
-//      64, the copies behind the first q tile so they overlap its
-//      products); 64-row q tiles follow through a two-stage ring. A tile's
-//      scores against every key stay in registers (s = q k^T, wgmma from
-//      shared memory; the last block 8, 16, 32 or 64 keys wide, as N
-//      needs: 8 at N 65, 197, 257), so each is formed and exponentiated
-//      once (ex2.approx): the exact row max, l = sum exp(s - m), then attn
-//      = exp(s - m) / l, the quotient rounded once (p times 1 / l,
-//      corrected by its residual), packed to bf16 block by block and
-//      multiplied into o = attn v as each block is ready. Warps whose rows
-//      all lie past N skip the softmax; o is stored through shared memory
-//      in 16-byte pieces. N is at most kMaxKeyBlocks * 64 = 320 (every
-//      shipped N is 65, 197 or 257). Two passes over the key blocks (the
-//      max and a rescaled l, then the scores again and attn v) measured
-//      0.25787 ms against 0.17128 at (512, 257, 3, 64) and 0.01616
-//      against 0.01381 at (128, 65, 3, 64) (one call, L2 flushed), so the
-//      scores stay in registers.
+//    - Forward up to N 320: one CTA a (b, h) reads its k and v once (NKB
+//      key blocks of 64, the copies behind the first q tile so they
+//      overlap its products); 64-row q tiles follow through a two-stage
+//      ring. A tile's scores against every key stay in registers (s = q
+//      k^T, wgmma from shared memory; the last block 8, 16, 32 or 64 keys
+//      wide, as N needs: 8 at N 65, 197, 257), so each is formed and
+//      exponentiated once (ex2.approx.ftz): the exact row max, l = sum
+//      exp(s - m), then attn = exp(s - m) / l, the quotient rounded once
+//      (p times 1 / l, corrected by its residual), packed to bf16 block by
+//      block and multiplied into o = attn v as each block is ready. Warps
+//      whose rows all lie past N skip the softmax; o is stored through
+//      shared memory in 16-byte pieces. Two passes over the key blocks
+//      measured 0.25787 ms against 0.17128 at (512, 257, 3, 64) and
+//      0.01616 against 0.01381 at (128, 65, 3, 64) (one call, L2 flushed),
+//      so the scores stay in registers there.
+//    - Forward past N 320 (two passes): past 5 key blocks neither a tile's
+//      scores fit in registers nor k and v in shared memory (17 blocks of
+//      each at N 1025: 272 KB). A CTA takes one 64-row query tile (NB CTAs
+//      a (b, h)); its q tile comes in once and the key blocks stream
+//      through a two-stage ring, k alone in pass 1 (s = q k^T, the exact
+//      max, l rescaled as the max moves) and k and v in pass 2 (the scores
+//      again, attn packed into the A fragments of o += attn v); a last
+//      block of at most 8 keys runs 8 wide.
 //    - Backward: a pre-pass forms delta = rowsum(do o) once, in a fixed
 //      order, into a float32 [B, H, N] buffer, from o and do as stored (a
-//      float32 do is also split into three bf16 arrays, hi = bf16(do), mid
-//      = bf16(do - hi), lo = bf16(do - hi - mid), whose sum is do exactly:
-//      both residuals are exact in float32 and the second has at most 8
-//      significant bits; dp and dv take a product with each, exact in
-//      float32 as JAX's float32 products with the unrounded do are). Then
-//      one launch of 2 ceil(N / 64) CTAs a (b, h): key-role CTAs (64 keys:
-//      k and v as A tiles, s^T = k q^T, dp^T = v do^T, dv += bf16(p^T) do,
-//      dk += ds^T q, dk and dv in registers) and query-role CTAs (64
-//      queries: q and do as A tiles, s = q k^T, dp = do v^T, dq += ds k);
-//      each recomputes p and ds from lse and delta, so dq needs no float32
-//      partials, no second launch and no atomics. The streamed tiles pass
-//      through a two-stage ring (a tile's copies land while the tile before
-//      it is worked on); a last tile of at most 8 rows runs 8 wide.
-//      Elements are computed without a branch of their own (a ragged tile
-//      masks by selects): a branch per element serialised the exponentials'
-//      chains. Launch bounds of three CTAs an SM (168 registers).
+//      float32 do is also split into its three bf16 parts, three arrays).
+//      Then one launch of 2 ceil(N / 64) CTAs a (b, h): key-role CTAs (64
+//      keys: k and v as A tiles, s^T = k q^T, dp^T = v do^T, dv +=
+//      bf16(p^T) do, dk += ds^T q, dk and dv in registers) and query-role
+//      CTAs (64 queries: q and do as A tiles, s = q k^T, dp = do v^T, dq +=
+//      ds k); each recomputes p and ds from lse and delta, so dq needs no
+//      float32 partials, no second launch and no atomics, and any N. The
+//      streamed tiles pass through a two-stage ring (a tile's copies land
+//      while the tile before it is worked on); a last tile of at most 8
+//      rows runs 8 wide. Elements are computed without a branch of their
+//      own (a ragged tile masks by selects): a branch per element
+//      serialised the exponentials' chains. Its exponentials keep
+//      subnormal p (fast_exp), as design 1's do. Launch bounds of three
+//      CTAs an SM (168 registers).
 //    What bounds them on the H100: at (512, 257, 3, 64) the work's bound is
 //    its bytes (0.06080 / 0.12114 ms at 3.35 TB/s); the kernels reach 35 %
 //    / 19 % of it. A 64-row tile pads N 257 to 320 rows and N 65 to 128; one
@@ -168,7 +208,9 @@
 //    the FP32 work (exponentials, the quotient, ds) and each product's
 //    latency exposed. At (128, N, 3, 64) N 65's second tile (one row of 64)
 //    costs 11 % in the forward (0.01382 ms against 0.01245 at N 64) and 35 %
-//    in the backward (0.03840 against 0.02845).
+//    in the backward (0.03840 against 0.02845). At (512, 1025, 3, 64) the
+//    bound is the operations (0.418 ms at 989 TFLOP/s); the two passes'
+//    exponentials alone take 0.773 ms at 16 a clock an SM.
 //    Measured (one call, L2 flushed, NVIDIA H100 80GB HBM3, 700.00 W; the
 //    mma.sync design these kernels replaced (three passes over the keys,
 //    float32 dq partials) and SDPA on the same bf16 tensors in brackets):
@@ -182,6 +224,10 @@
 //    products a part weigh most at small shapes. ptxas: the forward 214
 //    registers at N 257 (5 key blocks, the last 8 wide), the backward 168,
 //    no spills.
+//    Past N 320 (the same K1 call): the two-pass forward 3.19387 ms at
+//    (512, 1025, 3, 64) (SDPA 1.31448; its bound 0.41772 ms, the
+//    operations), the backward 5.20715 (3.38722); ptxas: the two-pass
+//    forward 112 registers, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -196,8 +242,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kBadHeadDim = -1;
-constexpr int kBadCopyWidth = -2;
-constexpr int kRowThreads = 128;  // rows (threads) of a row-kernel CTA at most
 
 // A [B, N, *] view with unit column stride: row r of batch b starts at
 // ptr + b * sb + r * sr (strides in elements).
@@ -216,6 +260,16 @@ __device__ __forceinline__ const T* row_ptr(const View<T>& x, int b, int r, int 
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
+// exp(x) as __expf forms it: ex2.approx of x log2(e), the product rounded
+// to float32. Results below 2^-126 stay subnormal, as the plain version's
+// do: ex2.approx.ftz (__expf), 10 % faster, flushes them to zero, which
+// moves every output whose terms are all such p (the header's design 1)
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
+  return y;
+}
+
 // float32 rounded to the nearest bf16 (ties to even), as float32
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -226,10 +280,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&x);
 }
-
-// ---------------------------------------------------------------------------
-// hd <= 16, the rest: one thread a row, on the FP32 cores
-// ---------------------------------------------------------------------------
 
 // VW consecutive bf16 (8, 4, 2 or 1: 16, 8, 4 or 2 bytes) -> floats
 template <int VW>
@@ -257,201 +307,6 @@ __device__ __forceinline__ void ldg_bf16(const bf16* g, float* r) {
   }
 }
 
-// VW consecutive elements as floats: bf16 in one copy, float32 a float at
-// a time
-template <int VW, typename T>
-__device__ __forceinline__ void ldg_vec(const T* g, float* r) {
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int i = 0; i < VW; ++i) r[i] = __ldg(g + i);
-  } else {
-    ldg_bf16<VW>(g, r);
-  }
-}
-
-// one head's HD elements of row r of a view as floats
-template <int HD, int VW, typename T>
-__device__ __forceinline__ void ldg_row(const View<T>& x, int b, int r, int col0, float (&out)[HD]) {
-  const T* g = row_ptr(x, b, r, col0);
-#pragma unroll
-  for (int i = 0; i < HD / VW; ++i) ldg_vec<VW>(g + VW * i, out + VW * i);
-}
-
-template <int HD>
-__device__ __forceinline__ void lds_row(const float* s, float (&r)[HD]) {
-#pragma unroll
-  for (int i = 0; i < HD; ++i) r[i] = s[i];
-}
-
-template <int HD>
-__device__ __forceinline__ float dot(const float (&a)[HD], const float (&b)[HD]) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < HD; ++i) s = fmaf(a[i], b[i], s);
-  return s;
-}
-
-// rows [0, N) of one head's HD columns of two views -> dense float
-// [N][HD] tiles in shared memory
-template <int HD, int VW, typename TB>
-__device__ __forceinline__ void stage2(float* sa, float* sb, const View<bf16>& a,
-                                       const View<TB>& b, int bi, int col0, int N) {
-  constexpr int kPerRow = HD / VW;
-  for (int e = threadIdx.x; e < N * kPerRow; e += blockDim.x) {
-    const int r = e / kPerRow, c = VW * (e % kPerRow);
-    ldg_bf16<VW>(row_ptr(a, bi, r, col0 + c), sa + r * HD + c);
-    ldg_vec<VW>(row_ptr(b, bi, r, col0 + c), sb + r * HD + c);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_row(bf16* dst, const float (&x)[HD]) {
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dst[d] = __float2bfloat16_rn(x[d]);
-}
-
-// Forward. C chunks of `rows` query rows a (b, h), blockIdx.x = (b H + h) C
-// + c, a thread a row. Three passes over the keys staged in shared memory:
-// the max, the sum of exponentials, then bf16(p / l) v.
-template <int HD, int VW>
-__global__ void __launch_bounds__(kRowThreads)
-attn_fwd_row_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
-                  float* __restrict__ lse, int N, int H, int chunks, int rows, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = smem + N * HD;
-  const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
-  const int b = bh / H, h = bh - b * H, col0 = h * HD;
-  const int i = c * rows + threadIdx.x;
-  const bool active = threadIdx.x < rows && i < N;
-  float qi[HD];
-  ldg_row<HD, VW>(q, b, min(i, N - 1), col0, qi);
-  stage2<HD, VW>(ks, vs, k, v, b, col0, N);
-  __syncthreads();
-  if (!active) return;
-
-  float m = -INFINITY;
-  for (int j = 0; j < N; ++j) {
-    float kj[HD];
-    lds_row<HD>(ks + j * HD, kj);
-    m = fmaxf(m, dot<HD>(qi, kj) * scale);
-  }
-  // a compensated sum: bf16 products are exact, so a plain running sum's
-  // error, growing with N, would dominate lse's (N 197: 2.3x that of the
-  // plain version's pairwise sum against float64)
-  float l = 0.f, lc = 0.f;
-  for (int j = 0; j < N; ++j) {
-    float kj[HD];
-    lds_row<HD>(ks + j * HD, kj);
-    const float y = expf(dot<HD>(qi, kj) * scale - m) - lc;
-    const float t = l + y;
-    lc = (t - l) - y;
-    l = t;
-  }
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-  for (int j = 0; j < N; ++j) {
-    float kj[HD], vj[HD];
-    lds_row<HD>(ks + j * HD, kj);
-    lds_row<HD>(vs + j * HD, vj);
-    const float a = round_bf16(expf(dot<HD>(qi, kj) * scale - m) / l);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = fmaf(a, vj[d], acc[d]);
-  }
-  const long long D = (long long)H * HD;
-  store_row<HD>(o + ((long long)b * N + i) * D + col0, acc);
-  lse[(long long)bh * N + i] = m + logf(l);
-}
-
-// Backward, o and do of type TO, one launch of 2 B H C CTAs: the first B H
-// C are pass-A CTAs (key rows of chunk c: dk, dv), the rest pass-B CTAs
-// (query rows: dq). A pass-A CTA stages q, do, lse and every row's delta;
-// a pass-B CTA stages k and v and forms its own rows' deltas with the same
-// expression.
-template <int HD, int VW, typename TO>
-__global__ void __launch_bounds__(kRowThreads)
-attn_bwd_row_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
-                  const float* __restrict__ lse, View<TO> dout, bf16* __restrict__ dq,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, int chunks,
-                  int rows, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int per_pass = gridDim.x / 2;
-  const bool pass_a = blockIdx.x < per_pass;
-  const int idx = pass_a ? blockIdx.x : blockIdx.x - per_pass;
-  const int bh = idx / chunks, c = idx - bh * chunks;
-  const int b = bh / H, h = bh - b * H, col0 = h * HD;
-  const int r = c * rows + threadIdx.x;  // a key row in pass A, a query row in pass B
-  const bool active = threadIdx.x < rows && r < N;
-  const float* lse_bh = lse + (long long)bh * N;
-  const long long D = (long long)H * HD;
-
-  if (pass_a) {
-    float* qs = smem;  // [N][HD]
-    float* dos = smem + N * HD;
-    float* lse_s = smem + 2 * N * HD;
-    float* delta_s = lse_s + N;
-    float kr[HD], vr[HD];
-    ldg_row<HD, VW>(k, b, min(r, N - 1), col0, kr);
-    ldg_row<HD, VW>(v, b, min(r, N - 1), col0, vr);
-    stage2<HD, VW>(qs, dos, q, dout, b, col0, N);
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      float orow[HD], drow[HD];
-      ldg_row<HD, VW>(o, b, i, col0, orow);
-      ldg_row<HD, VW>(dout, b, i, col0, drow);
-      lse_s[i] = lse_bh[i];
-      delta_s[i] = dot<HD>(drow, orow);
-    }
-    __syncthreads();
-    if (!active) return;
-    float dkr[HD], dvr[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) dkr[d] = dvr[d] = 0.f;
-    for (int i = 0; i < N; ++i) {
-      float qi[HD], doi[HD];
-      lds_row<HD>(qs + i * HD, qi);
-      lds_row<HD>(dos + i * HD, doi);
-      const float p = expf(dot<HD>(qi, kr) * scale - lse_s[i]);
-      const float pc = round_bf16(p);
-      const float dp = dot<HD>(doi, vr);
-      const float ds = round_bf16(p * (dp - delta_s[i]) * scale);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        dvr[d] = fmaf(pc, doi[d], dvr[d]);
-        dkr[d] = fmaf(ds, qi[d], dkr[d]);
-      }
-    }
-    const long long out = ((long long)b * N + r) * D + col0;
-    store_row<HD>(dk + out, dkr);
-    store_row<HD>(dv + out, dvr);
-  } else {
-    float* ks = smem;  // [N][HD]
-    float* vs = smem + N * HD;
-    const int i = min(r, N - 1);
-    float qi[HD], doi[HD], oi[HD];
-    ldg_row<HD, VW>(q, b, i, col0, qi);
-    ldg_row<HD, VW>(dout, b, i, col0, doi);
-    ldg_row<HD, VW>(o, b, i, col0, oi);
-    const float lse_i = lse_bh[i], delta_i = dot<HD>(doi, oi);
-    stage2<HD, VW>(ks, vs, k, v, b, col0, N);
-    __syncthreads();
-    if (!active) return;
-    float dqr[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) dqr[d] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      float kj[HD], vj[HD];
-      lds_row<HD>(ks + j * HD, kj);
-      lds_row<HD>(vs + j * HD, vj);
-      const float p = expf(dot<HD>(qi, kj) * scale - lse_i);
-      const float dp = dot<HD>(doi, vj);
-      const float ds = round_bf16(p * (dp - delta_i) * scale);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dqr[d] = fmaf(ds, kj[d], dqr[d]);
-    }
-    store_row<HD>(dq + ((long long)b * N + r) * D + col0, dqr);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // hd >= 32: bf16 products on the tensor cores (wgmma)
@@ -460,10 +315,9 @@ attn_bwd_row_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
 constexpr int kWg = 128;           // threads of a tensor-core CTA: one warpgroup
 constexpr int kTile = 64;          // rows of a tile: wgmma's M, and the keys of a block
 constexpr int kHdp = 64;           // head dims padded to 64 bf16: rows of 128 bytes
-constexpr int kMaxKeyBlocks = 5;   // the forward holds the scores of 5 * 64 keys at most
+constexpr int kMaxKeyBlocks = 5;   // the one-pass forward holds the scores of 5 * 64 keys at most
 constexpr int kTileBytes = kTile * kHdp * 2;
 constexpr int kSmemAlign = 1024;   // the 128-byte swizzle's period (8 rows)
-constexpr int kBadLength = -3;
 constexpr unsigned long long kWaitNs = 4000000000ull;  // a copy that never lands traps
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -862,6 +716,190 @@ attn_fwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o
   }
 }
 
+// The two-pass forward's row statistics over one key block of W keys
+// (keys k0 ..): s scaled in place, the running row max m (exact, as the
+// one-pass form's) and the lane's partial l, rescaled by exp(m_old - m) as
+// the max moves, plus the block's exp(s - m) in four partial sums a row.
+// kMask (the block holds keys past N): those score -inf.
+template <bool kMask, int W>
+__device__ __forceinline__ void block_stats(float (&s)[32], float (&m)[2], float (&l)[2], int k0,
+                                            int N, float scale) {
+  const int t4 = threadIdx.x % 4;
+  float mp[2][4], lp[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mp[r][u] = -INFINITY, lp[r][u] = 0.f;
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = __fmul_rn(s[4 * c + e], scale);
+      if (kMask && k0 + 8 * c + 2 * t4 + (e & 1) >= N) x = -INFINITY;
+      s[4 * c + e] = x;
+      mp[e / 2][c & 3] = fmaxf(mp[e / 2][c & 3], x);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn =
+        fmaxf(m[r], quad_max(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3]))));
+    alpha[r] = __expf(m[r] - mn);  // 0 at the first block (m -inf)
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lp[e / 2][c & 3] += __expf(s[4 * c + e] - m[e / 2]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = fmaf(l[r], alpha[r], (lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]));
+}
+
+// The two-pass forward's attn = exp(s scale - m) / l over one key block,
+// in place of s, the quotient rounded once as the one-pass form rounds it;
+// kMask: keys past N give 0, by selects
+template <bool kMask, int W>
+__device__ __forceinline__ void block_attn(float (&s)[32], const float (&m)[2], const float (&l)[2],
+                                           const float (&rl)[2], int k0, int N, float scale) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = __expf(__fmul_rn(s[4 * c + e], scale) - m[e / 2]);
+      if (kMask && k0 + 8 * c + 2 * t4 + (e & 1) >= N) p = 0.f;
+      const float q0 = p * rl[e / 2];
+      s[4 * c + e] = fmaf(fmaf(-q0, l[e / 2], p), rl[e / 2], q0);
+    }
+}
+
+// o (bf16) and lse past kMaxKeyBlocks * 64 keys, where a tile's scores
+// against every key no longer fit in registers (nor k and v in shared
+// memory): a CTA of one warpgroup a 64-row query tile, blockIdx.x = (b H +
+// h) NB + t (NB = ceil(N / 64)). The q tile comes in once; the key blocks
+// stream through a two-stage ring, k alone in pass 1, k and v in pass 2.
+// Pass 1 forms s = q k^T block by block (wgmma from shared memory), the
+// exact row max m and l = sum exp(s - m), rescaled as the max moves. Pass
+// 2 forms the scores again, attn = bf16(exp(s - m) / l) packed straight
+// into the A fragments of o += attn v (wgmma, v MN-major), so attn is
+// rounded where JAX rounds it: a one-pass online softmax would round
+// exp(s - m_running) and rescale the sum of products afterwards. The last
+// block runs 8 keys wide where N leaves at most 8 in it.
+__global__ void __launch_bounds__(kWg, 4)
+attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
+                   float* __restrict__ lse, int N, int H, int hd, float scale) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  // q, the ring's two stages of (k, v), the o tile, then three mbarriers
+  const uint32_t qs = smem_u32(sm), ring = qs + kTileBytes;
+  uint8_t* ot = sm + 5 * kTileBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + 6 * kTileBytes);  // q, stage 0, stage 1
+  const int nb = (N + kTile - 1) / kTile;
+  const int bh = blockIdx.x / nb, t = blockIdx.x - bh * nb;
+  const int b = bh / H, h = bh - b * H, col0 = h * hd;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i, kWg);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // ring item u: key block u of pass 1 (k), then block u - nb of pass 2 (k, v)
+  auto fill = [&](int u) {
+    const int st = u & 1, j = u < nb ? u : u - nb;
+    const uint32_t base = ring + 2 * st * kTileBytes;
+    load_tile(base, k, b, col0, kTile * j, N, hd);
+    if (u >= nb) load_tile(base + kTileBytes, v, b, col0, kTile * j, N, hd);
+    cp_async_arrive(bars + 1 + st);
+  };
+  load_tile(qs, q, b, col0, kTile * t, N, hd);
+  cp_async_arrive(bars);
+  fill(0);
+  fill(1);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  // a warp whose rows all lie past N (the last tile) skips the softmax:
+  // its rows are not stored
+  const bool live = kTile * t + 16 * warp < N;  // warp-uniform
+  // s = q k^T of ring item u, W keys wide (s's first W / 2 values)
+  auto scores = [&](auto width, int u, float(&s)[32]) {
+    constexpr int W = decltype(width)::value;
+    const int st = u & 1;
+    mbar_wait(bars + 1 + st, (u >> 1) & 1);
+    if (u == 0) mbar_wait(bars, 0);
+    fence_async_smem();
+    const uint32_t kt = ring + 2 * st * kTileBytes;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHdp / 16; ++kk)
+      wgmma_ss_w<W>(s, desc(qs + 32 * kk), desc(kt + 32 * kk), kk);
+    wg_commit();
+    wg_wait();
+    fence_regs<W / 2>(s);
+  };
+  // every warp's products are done with item u's stage: refill it
+  auto release = [&](int u) {
+    __syncthreads();
+    if (u + 2 < 2 * nb) fill(u + 2);
+  };
+  const bool narrow = N - kTile * (nb - 1) <= 8;
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  auto pass1 = [&](auto width, int j) {
+    constexpr int W = decltype(width)::value;
+    float s[32];
+    scores(width, j, s);
+    release(j);
+    if (!live) return;
+    if (kTile * (j + 1) <= N) block_stats<false, W>(s, m, l, kTile * j, N, scale);
+    else block_stats<true, W>(s, m, l, kTile * j, N, scale);
+  };
+  for (int j = 0; j < nb - 1; ++j) pass1(std::integral_constant<int, kTile>(), j);
+  if (narrow) pass1(std::integral_constant<int, 8>(), nb - 1);
+  else pass1(std::integral_constant<int, kTile>(), nb - 1);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = live ? quad_sum(l[r]) : 1.f;
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+
+  float acc[32];
+  auto pass2 = [&](auto width, int j) {
+    constexpr int W = decltype(width)::value, kSteps = (W / 8 + 1) / 2;
+    const int u = nb + j;
+    float s[32];
+    scores(width, u, s);
+    if (live) {
+      if (kTile * (j + 1) <= N) block_attn<false, W>(s, m, l, rl, kTile * j, N, scale);
+      else block_attn<true, W>(s, m, l, rl, kTile * j, N, scale);
+    }
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      pack_a(af[kk], s, kk, W / 8);
+      fence_regs(af[kk]);
+    }
+    const uint32_t vt = ring + (2 * (u & 1) + 1) * kTileBytes;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      if (kTile * j + 16 * kk < N) wgmma_rs(acc, af[kk], desc(vt + 2048 * kk), j + kk);
+    wg_commit();
+    wg_wait();
+    fence_regs(acc);
+    release(u);
+  };
+  for (int j = 0; j < nb - 1; ++j) pass2(std::integral_constant<int, kTile>(), j);
+  if (narrow) pass2(std::integral_constant<int, 8>(), nb - 1);
+  else pass2(std::integral_constant<int, kTile>(), nb - 1);
+
+  const long long D = (long long)H * hd;
+  store_rows(ot, acc, o + (long long)b * N * D + col0, D, kTile * t, N, hd);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = kTile * t + 16 * warp + g + 8 * r;
+    if (i < N && t4 == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
+  }
+}
+
 // delta = rowsum(do * o) of each (b, i, h), a thread each, summed over the
 // head's columns in order (16-byte loads). A float32 do (hybrid) is also
 // split into three bf16 parts, hi = bf16(do), mid = bf16(do - hi),
@@ -935,7 +973,7 @@ __device__ __forceinline__ void key_elems(float (&s)[32], float (&dp)[32], const
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int e = 2 * r + z;
-        const float p = __expf(__fmul_rn(s[4 * c + e], scale) - ls);
+        const float p = fast_exp(__fmul_rn(s[4 * c + e], scale) - ls);
         const float ds = p * (dp[4 * c + e] - dl) * scale;
         const bool in = !kMask || (key + 8 * r < N && q0 + col < N);
         s[4 * c + e] = in ? p : 0.f;
@@ -957,7 +995,7 @@ __device__ __forceinline__ void query_elems(const float (&s)[32], float (&dp)[32
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e / 2;
-      const float p = __expf(__fmul_rn(s[4 * c + e], scale) - lse_r[r]);
+      const float p = fast_exp(__fmul_rn(s[4 * c + e], scale) - lse_r[r]);
       const float ds = p * (dp[4 * c + e] - del_r[r]) * scale;
       const bool in = !kMask || (row + 8 * r < N && k0 + 8 * c + 2 * t4 + (e & 1) < N);
       dp[4 * c + e] = in ? ds : 0.f;
@@ -1218,17 +1256,17 @@ attn_bwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, DoParts dout,
 // ---------------------------------------------------------------------------
 
 constexpr int kHmmaWarps = 8;      // warps of an hd <= 16 tensor-core CTA at most
-constexpr int kHmmaMaxKeys = 320;  // N at most: the forward's scores of a row stay in registers
+constexpr int kHmmaMaxKeys = 72;  // the one-pass forward's N at most: a row's scores in registers
 constexpr int kBadPlan = -4;
 
 // the forward's register tiers: 8-key tiles of scores a warp holds, 4
 // floats a lane each (attention_fused.py: BF16_HMMA_SCORE_TILES, which
 // the wrapper checks against attention_bf16_tiles)
-#define HMMA_SCORE_TILES(X) X(2) X(5) X(9) X(17) X(25) X(33) X(40)
-static_assert(kHmmaMaxKeys == 8 * 40, "the largest tier holds kHmmaMaxKeys keys");
+#define HMMA_SCORE_TILES(X) X(2) X(5) X(9)
+static_assert(kHmmaMaxKeys == 8 * 9, "the largest tier holds kHmmaMaxKeys keys");
 
-// the products' depth and a staged row's bf16 width: hd, hd 2 padded to 8
-// with zeros
+// the products' depth: hd, hd 2 padded to 8 with zeros (a staged row is hd
+// bf16 wide, hd 2 one 32-bit word)
 __host__ __device__ constexpr int hd_pad(int hd) { return hd < 8 ? 8 : hd; }
 
 // d += a b, 16 x 8 x HD (HD 8: m16n8k8, 16: m16n8k16), bf16 in, float32
@@ -1276,22 +1314,42 @@ __device__ __forceinline__ void ldg_a(uint32_t (&a)[hd_pad(HD) / 4], const View<
 }
 
 // row r of a dense [NP][HD] bf16 tile in shared memory (as 32-bit words)
-// as the B fragment of a 16 x 8 x HD product: the tile's rows are the
-// product's columns
+// as the B fragment of a 16 x 8 x hd_pad(HD) product: the tile's rows are
+// the product's columns (hd 2: zero past the row's one word)
 template <int HD>
-__device__ __forceinline__ void lds_b(uint32_t (&bf)[HD / 8], const uint32_t* tile, int r) {
+__device__ __forceinline__ void lds_b(uint32_t (&bf)[hd_pad(HD) / 8], const uint32_t* tile, int r) {
   const int t4 = threadIdx.x % 4;
+  if constexpr (HD == 2) {
+    bf[0] = t4 == 0 ? tile[r] : 0u;
+  } else {
 #pragma unroll
-  for (int u = 0; u < HD / 8; ++u) bf[u] = tile[r * (HD / 2) + t4 + 4 * u];
+    for (int u = 0; u < HD / 8; ++u) bf[u] = tile[r * (HD / 2) + t4 + 4 * u];
+  }
 }
 
 // rows r0 .. r0 + 15 of a dense [NP][HD] bf16 tile at shared address
 // `tile` as the B fragments of a 16-deep product over those rows (ldmatrix,
-// transposed): b[2n], b[2n + 1] give the product's columns 8n .. 8n + 7
+// transposed): b[2n], b[2n + 1] give the product's columns 8n .. 8n + 7.
+// hd 2 (rows of one word): lane (g, t4) reads rows r0 + 2 t4, + 1 and + 8,
+// + 9 and takes column g & 1 of each; the product's columns from 2 on
+// repeat columns 0 and 1 and are never stored.
 template <int HD>
-__device__ __forceinline__ void ldsm_rows(uint32_t (&b)[HD / 4], uint32_t tile, int r0) {
+__device__ __forceinline__ void ldsm_rows(uint32_t (&b)[hd_pad(HD) / 4], uint32_t tile, int r0) {
   const int lane = threadIdx.x % 32;
-  if constexpr (HD == 8) {
+  if constexpr (HD == 2) {
+    uint32_t w[4];
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(w[0]), "=r"(w[1])
+                 : "r"(tile + 4 * (r0 + 2 * (lane % 4)))
+                 : "memory");
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(w[2]), "=r"(w[3])
+                 : "r"(tile + 4 * (r0 + 2 * (lane % 4) + 8))
+                 : "memory");
+    const unsigned sel = (lane / 4) & 1 ? 0x7632u : 0x5410u;
+    b[0] = __byte_perm(w[0], w[1], sel);
+    b[1] = __byte_perm(w[2], w[3], sel);
+  } else if constexpr (HD == 8) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                  : "=r"(b[0]), "=r"(b[1])
                  : "r"(tile + (r0 + (lane & 15)) * 16)
@@ -1317,22 +1375,21 @@ __device__ __forceinline__ void hmma_rows(float (&d)[HD / 8][4], const uint32_t 
 }
 
 // rows [0, NP) of one head's HD columns of a bf16 view -> a dense
-// [NP][hd_pad(HD)] bf16 tile in shared memory by cp.async, 16 bytes a copy
-// (hd 2: 4, the rest of the padded row zero), zero past row N (a zero row
-// times a zero weight adds nothing; garbage could be NaN). The copies are
-// all in flight at once: wait_copies() then a CTA barrier before the tile
-// is read. Unless `wide` (rows not 16-byte aligned; hd 2: 4-byte), 2-byte
-// loads and stores, an element at a time.
+// [NP][HD] bf16 tile in shared memory by cp.async, 16 bytes a copy (hd 2:
+// its 4-byte row), zero past row N (a zero row times a zero weight adds
+// nothing; garbage could be NaN). The copies are all in flight at once:
+// wait_copies() then a CTA barrier before the tile is read. Unless `wide`
+// (rows not 16-byte aligned; hd 2: 4-byte), 2-byte loads and stores, an
+// element at a time.
 template <int HD>
 __device__ __forceinline__ void stage_tile(uint4* dst, const View<bf16>& x, int b, int col0, int N,
                                            int NP, bool wide) {
   const uint32_t base = smem_u32(dst);
   if (!wide) {
-    constexpr int HP = hd_pad(HD);
     unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
-    for (int e = threadIdx.x; e < NP * HP; e += blockDim.x) {
-      const int r = e / HP, c = e - r * HP;
-      d16[e] = r < N && c < HD ? ldg_u16(row_ptr(x, b, r, col0 + c)) : 0;
+    for (int e = threadIdx.x; e < NP * HD; e += blockDim.x) {
+      const int r = e / HD, c = e - r * HD;
+      d16[e] = r < N ? ldg_u16(row_ptr(x, b, r, col0 + c)) : 0;
     }
   } else if constexpr (HD >= 8) {
     constexpr int kPer = HD / 8;
@@ -1342,49 +1399,94 @@ __device__ __forceinline__ void stage_tile(uint4* dst, const View<bf16>& x, int 
       cp_async16(base + 16 * e, in ? row_ptr(x, b, r, col0 + 8 * c) : x.ptr, in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < NP * 4; e += blockDim.x) {  // 4-byte words, 4 a row
-      const int r = e / 4, w = e % 4;
-      const bool in = r < N && 2 * w < HD;
-      cp_async4(base + 4 * e, in ? row_ptr(x, b, r, col0 + 2 * w) : x.ptr, in ? 4 : 0);
+    for (int r = threadIdx.x; r < NP; r += blockDim.x) {  // hd 2: a 4-byte word a row
+      const bool in = r < N;
+      cp_async4(base + 4 * r, in ? row_ptr(x, b, r, col0) : x.ptr, in ? 4 : 0);
     }
   }
 }
 
 __device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
-// exp(x) as __expf forms it: ex2.approx of x log2(e), the product rounded
-// to float32. Results below 2^-126 stay subnormal, as the plain version's
-// do: ex2.approx.ftz, 10 % faster, flushes them to zero, which moves every
-// output whose terms are all such p (the header's design 1)
-__device__ __forceinline__ float fast_exp(float x) {
-  float y;
-  asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
-  return y;
-}
-
 // delta = rowsum(do * o) of row i, in column order: both backward roles
-// form it with this expression, so they agree bit for bit
-template <int HD>
-__device__ __forceinline__ float row_delta(const View<bf16>& o, const View<bf16>& dout, int b,
-                                           int i, int col0, bool wide) {
+// form it with this expression, so they agree bit for bit. A float32 o and
+// do (hybrid) are read a float at a time.
+template <int HD, typename TO>
+__device__ __forceinline__ float row_delta(const View<TO>& o, const View<TO>& dout, int b, int i,
+                                           int col0, bool wide) {
   constexpr int VW = HD < 8 ? HD : 8;
   float x = 0.f;
-  if (!wide) {  // an element a copy, the same order
+  if constexpr (std::is_same<TO, float>::value) {
+#pragma unroll
+    for (int c = 0; c < HD; ++c)
+      x = fmaf(__ldg(row_ptr(dout, b, i, col0 + c)), __ldg(row_ptr(o, b, i, col0 + c)), x);
+  } else if (!wide) {  // an element a copy, the same order
 #pragma unroll
     for (int c = 0; c < HD; ++c)
       x = fmaf(__bfloat162float(*row_ptr(dout, b, i, col0 + c)),
                __bfloat162float(*row_ptr(o, b, i, col0 + c)), x);
-    return x;
-  }
+  } else {
 #pragma unroll
-  for (int c = 0; c < HD / VW; ++c) {
-    float a[VW], d[VW];
-    ldg_bf16<VW>(row_ptr(o, b, i, col0 + VW * c), a);
-    ldg_bf16<VW>(row_ptr(dout, b, i, col0 + VW * c), d);
+    for (int c = 0; c < HD / VW; ++c) {
+      float a[VW], d[VW];
+      ldg_bf16<VW>(row_ptr(o, b, i, col0 + VW * c), a);
+      ldg_bf16<VW>(row_ptr(dout, b, i, col0 + VW * c), d);
 #pragma unroll
-    for (int u = 0; u < VW; ++u) x = fmaf(d[u], a[u], x);
+      for (int u = 0; u < VW; ++u) x = fmaf(d[u], a[u], x);
+    }
   }
   return x;
+}
+
+// a float32 x as three bf16 parts whose sum is x exactly: hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid) (both residuals are exact in
+// float32, the second has at most 8 significant bits)
+__device__ __forceinline__ void split3(float x, float (&part)[3]) {
+  part[0] = round_bf16(x);
+  const float rest = x - part[0];
+  part[1] = round_bf16(rest);
+  part[2] = round_bf16(rest - part[1]);
+}
+
+// ldg_a of a float32 view (hybrid's do), each pair of columns read a float
+// at a time and split (split3) into the A fragments of its three parts
+template <int HD>
+__device__ __forceinline__ void ldg_a_split(uint32_t (&a)[3][hd_pad(HD) / 4], const View<float>& x,
+                                            int b, int r0, int col0, int N) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int u = 0; u < hd_pad(HD) / 4; ++u) {
+    const int col = 2 * t4 + 8 * (u >> 1);
+    float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
+    if (col < HD) {
+      const float* p = row_ptr(x, b, min(r0 + g + 8 * (u & 1), N - 1), col0 + col);
+      split3(__ldg(p), x0);
+      split3(__ldg(p + 1), x1);
+    }
+#pragma unroll
+    for (int z = 0; z < 3; ++z) a[z][u] = pack_bf16(x0[z], x1[z]);
+  }
+}
+
+// stage_tile of a float32 view (hybrid's do) as the three [NP][HD] bf16
+// tiles of its parts (split3), `words` 32-bit words apart; plain loads and
+// stores, a pair of columns a thread, zero past row N. The caller's CTA
+// barrier makes them visible.
+template <int HD>
+__device__ __forceinline__ void stage_split(uint32_t* dst, int words, const View<float>& x, int b,
+                                            int col0, int N, int NP) {
+  constexpr int kPairs = HD / 2;
+  for (int e = threadIdx.x; e < NP * kPairs; e += blockDim.x) {
+    const int r = e / kPairs, c = 2 * (e - r * kPairs);
+    float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
+    if (r < N) {
+      const float* p = row_ptr(x, b, r, col0 + c);
+      split3(__ldg(p), x0);
+      split3(__ldg(p + 1), x1);
+    }
+#pragma unroll
+    for (int z = 0; z < 3; ++z) dst[z * words + e] = pack_bf16(x0[z], x1[z]);
+  }
 }
 
 // four 8-column accumulators' values (two 16 x 8 tiles side by side) as
@@ -1407,14 +1509,14 @@ __device__ __forceinline__ void pack_a16(uint32_t (&a)[4], const float (&x)[4],
 // register array's 8-key tiles, at least ceil(N / 8). WIDE: every view
 // takes 16-byte copies (hd 2: 4-byte), else 2-byte loads.
 template <int HD, int NT, bool WIDE>
-__global__ void __launch_bounds__(kHmmaWarps * 32, NT <= 25 ? 2 : 1)
+__global__ void __launch_bounds__(kHmmaWarps * 32, 2)
 attn_fwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
                    float* __restrict__ lse, int N, int H, int chunks, float scale) {
   constexpr int HP = hd_pad(HD);
   extern __shared__ __align__(16) uint4 smem_hm[];
   const int tiles = (N + 15) / 16, nt = (N + 7) / 8, NP = 16 * tiles;
   uint4* ks = smem_hm;
-  uint4* vs = smem_hm + NP * (HP / 8);
+  uint4* vs = smem_hm + NP * HD / 8;
   const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
   const int b = bh / H, h = bh - b * H, col0 = h * HD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
@@ -1435,7 +1537,7 @@ attn_fwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     if (j < nt) {
       uint32_t kb[HP / 8];
-      lds_b<HP>(kb, k32, 8 * j + g);
+      lds_b<HD>(kb, k32, 8 * j + g);
       hmma<HP>(s[j], qa, kb);
       // keys past N (the last tile) score -inf, by selects: their
       // exponentials are 0
@@ -1504,8 +1606,165 @@ attn_fwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
     }
     uint32_t af[4], vb[HP / 4];
     pack_a16(af, a[0], a[1]);
-    ldsm_rows<HP>(vb, vt, 16 * kk);
+    ldsm_rows<HD>(vb, vt, 16 * kk);
     hmma_rows<HP>(acc, af, vb);
+  }
+
+  const long long D = (long long)H * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    if (i >= N) continue;
+    bf16* row = o + ((long long)b * N + i) * D + col0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < HP / 8; ++n)
+      if (8 * n + 2 * t4 < HD)
+        *reinterpret_cast<uint32_t*>(row + 8 * n) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    if (t4 == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
+  }
+}
+
+// The two-pass hd <= 16 forward's pass 1 over 64 keys (8-key tiles j0 ..
+// j0 + 7, nt of them in all): s = q k^T scaled, the running row max m
+// (exact) and the lane's partial l, rescaled by exp(m_old - m) as the max
+// moves, plus the chunk's exp(s - m) in four partial sums a row. kMask (the
+// chunk holds keys past N): those score -inf and tiles from nt on are not
+// read.
+template <int HD, bool kMask, int HP = hd_pad(HD)>
+__device__ __forceinline__ void hmma_stats(const uint32_t (&qa)[HP / 4], const uint32_t* k32,
+                                           int j0, int nt, int N, float scale, float (&m)[2],
+                                           float (&l)[2]) {
+  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  float s[8][4], mp[2][4], lp[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mp[r][u] = -INFINITY, lp[r][u] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = j0 + jj;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[jj][e] = 0.f;
+    if (!kMask || j < nt) {
+      uint32_t kb[HP / 8];
+      lds_b<HD>(kb, k32, 8 * j + g);
+      hmma<HP>(s[jj], qa, kb);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = __fmul_rn(s[jj][e], scale);
+      if (kMask && 8 * j + 2 * t4 + (e & 1) >= N) x = -INFINITY;
+      s[jj][e] = x;
+      mp[e / 2][jj & 3] = fmaxf(mp[e / 2][jj & 3], x);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn =
+        fmaxf(m[r], quad_max(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3]))));
+    alpha[r] = fast_exp(m[r] - mn);  // 0 at the first chunk (m -inf)
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lp[e / 2][jj & 3] += fast_exp(s[jj][e] - m[e / 2]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = fmaf(l[r], alpha[r], (lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]));
+}
+
+// The two-pass forward's pass 2 over 64 keys (16-key steps kk0 .. kk0 +
+// 3): the scores again, attn = bf16(exp(s - m) / l), the quotient rounded
+// once as the one-pass form rounds it, packed into the A fragment of o +=
+// attn v (v by ldmatrix from the tile at shared address vt). kMask: keys
+// past N give 0 and tiles from nt on are not read.
+template <int HD, bool kMask, int HP = hd_pad(HD)>
+__device__ __forceinline__ void hmma_attn_v(const uint32_t (&qa)[HP / 4], const uint32_t* k32,
+                                            uint32_t vt, int kk0, int nt, int N, float scale,
+                                            const float (&m)[2], const float (&l)[2],
+                                            const float (&rl)[2], float (&acc)[HP / 8][4]) {
+  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int z4 = 0; z4 < 4; ++z4) {
+    const int kk = kk0 + z4;
+    if (kMask && 2 * kk >= nt) continue;
+    float a[2][4];
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      const int j = 2 * kk + z;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      if (!kMask || j < nt) {
+        uint32_t kb[HP / 8];
+        lds_b<HD>(kb, k32, 8 * j + g);
+        hmma<HP>(s, qa, kb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = fast_exp(__fmul_rn(s[e], scale) - m[e / 2]);
+        if (kMask && 8 * j + 2 * t4 + (e & 1) >= N) p = 0.f;
+        const float q0 = p * rl[e / 2];
+        a[z][e] = fmaf(fmaf(-q0, l[e / 2], p), rl[e / 2], q0);
+      }
+    }
+    uint32_t af[4], vb[HP / 4];
+    pack_a16(af, a[0], a[1]);
+    ldsm_rows<HD>(vb, vt, 16 * kk);
+    hmma_rows<HP>(acc, af, vb);
+  }
+}
+
+// Forward, hd <= 16, past kHmmaMaxKeys keys, where a row's scores no longer
+// fit in registers: the one-pass form's grid and staging (k and v of the
+// (b, h) as bf16 in shared memory, a warp a 16-row query tile), but each
+// warp walks the keys twice, 64 at a time. Pass 1: s = q k^T (one mma an
+// 8-key tile), the exact row max m and l = sum exp(s - m), rescaled as
+// the max moves. Pass 2: the scores again, attn = bf16(exp(s - m) / l)
+// packed into the A fragments of o += attn v (m16n8k16, v by ldmatrix).
+// attn is rounded where JAX rounds it: a one-pass online softmax would
+// round exp(s - m_running) and rescale the sum of products afterwards.
+// WIDE as in the one-pass form.
+template <int HD, bool WIDE>
+__global__ void __launch_bounds__(kHmmaWarps * 32, 2)
+attn_fwd_hmma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int N, int H, int chunks, float scale) {
+  constexpr int HP = hd_pad(HD);
+  extern __shared__ __align__(16) uint4 smem_h2[];
+  const int tiles = (N + 15) / 16, nt = (N + 7) / 8, NP = 16 * tiles;
+  uint4* ks = smem_h2;
+  uint4* vs = smem_h2 + NP * HD / 8;
+  const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
+  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * (c + chunks * warp);
+  uint32_t qa[HP / 4];
+  ldg_a<HD>(qa, q, b, r0, col0, N, WIDE);
+  stage_tile<HD>(ks, k, b, col0, N, NP, WIDE);
+  stage_tile<HD>(vs, v, b, col0, N, NP, WIDE);
+  wait_copies();
+  __syncthreads();
+  if (r0 >= N) return;  // a tile past the last (the chunks' uneven split)
+
+  const uint32_t* k32 = reinterpret_cast<const uint32_t*>(ks);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int j0 = 0; j0 < nt; j0 += 8) {
+    if (8 * (j0 + 8) <= N) hmma_stats<HD, false>(qa, k32, j0, nt, N, scale, m, l);
+    else hmma_stats<HD, true>(qa, k32, j0, nt, N, scale, m, l);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+
+  const uint32_t vt = smem_u32(vs);
+  float acc[HP / 8][4];
+#pragma unroll
+  for (int n = 0; n < HP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int kk0 = 0; 2 * kk0 < nt; kk0 += 4) {
+    if (16 * (kk0 + 4) <= N) hmma_attn_v<HD, false>(qa, k32, vt, kk0, nt, N, scale, m, l, rl, acc);
+    else hmma_attn_v<HD, true>(qa, k32, vt, kk0, nt, N, scale, m, l, rl, acc);
   }
 
   const long long D = (long long)H * HD;
@@ -1524,8 +1783,9 @@ attn_fwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
 
 // The key role's p^T and ds^T in place of s^T and dp^T over one 16 x 16
 // block: s[nq][e] is key `key` + 8 (e / 2), query q0 + 8 nq + 2 t4 + (e & 1)
-// (the staged lse and delta's index). kMask (a ragged block): keys and
-// queries past N give 0, by selects.
+// (the index of lse, staged or global, and of the staged delta). kMask (a
+// ragged block): keys and queries past N give 0, by selects (lse read at
+// N - 1 for them).
 template <bool kMask>
 __device__ __forceinline__ void key_elems16(float (&s)[2][4], float (&dp)[2][4], const float* lse_s,
                                             const float* del_s, int key, int q0, int N,
@@ -1536,7 +1796,7 @@ __device__ __forceinline__ void key_elems16(float (&s)[2][4], float (&dp)[2][4],
 #pragma unroll
     for (int z = 0; z < 2; ++z) {
       const int col = q0 + 8 * nq + 2 * t4 + z;
-      const float ls = lse_s[col], dl = del_s[col];
+      const float ls = lse_s[kMask ? min(col, N - 1) : col], dl = del_s[col];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int e = 2 * r + z;
@@ -1569,26 +1829,34 @@ __device__ __forceinline__ void query_elems16(const float (&s)[2][4], float (&dp
     }
 }
 
-// Backward, hd <= 16, bf16 o and do: one launch of 2 B H chunks CTAs,
-// the first B H chunks key-role CTAs (blockIdx.x = (b H + h) chunks + c),
-// the rest query-role ones; warp w takes the 16 rows of tile c + chunks w.
-// A key-role warp holds its keys' k and v as A fragments and walks the
-// query tiles staged in shared memory (q, do, lse, and delta formed once
-// a row): s^T = k q^T and dp^T = v do^T (m16n8k8 / k16), p^T and ds^T,
-// then dv += bf16(p^T) do and dk += ds^T q (m16n8k16, A from registers, B
-// by ldmatrix). A query-role warp holds its queries' q and do, forms its
-// rows' lse and delta, and walks the staged k and v: s = q k^T, dp = do
-// v^T, dq += ds k. No atomics, no float32 partials. WIDE as in the
-// forward, over q, k, v, o and do.
-template <int HD, bool WIDE>
+// Backward, hd <= 16, at any N: one launch of 2 B H chunks CTAs, the
+// first B H chunks key-role CTAs (blockIdx.x = (b H + h) chunks + c), the
+// rest query-role ones; warp w takes the 16 rows of tile c + chunks w. A
+// key-role warp holds its keys' k and v as A fragments and walks the query
+// tiles staged in shared memory (q, do, lse, and delta formed once a row;
+// on a float32 do, lse is read from global memory, which leaves room for
+// do's three parts at every N the float32 kernels take):
+// s^T = k q^T and dp^T = v do^T (m16n8k8 / k16), p^T and ds^T, then dv +=
+// bf16(p^T) do and dk += ds^T q (m16n8k16, A from registers, B by
+// ldmatrix). A query-role warp holds its queries' q and do, forms its rows'
+// lse and delta, and walks the staged k and v: s = q k^T, dp = do v^T, dq
+// += ds k. No atomics, no float32 partials. o and do are bf16 (TO bf16:
+// DP = 1), or float32 (hybrid; TO float: DP = 3), do then split into its
+// three bf16 parts (split3: staged as three tiles by the key role, three A
+// fragments in the query role) and each product with do taken as the sum
+// of the parts' products, exact as JAX's float32 products with the
+// unrounded do are. WIDE as in the forward, over q, k, v (and a bf16 o and
+// do); a float32 o and do are read a float at a time.
+template <int HD, bool WIDE, typename TO>
 __global__ void __launch_bounds__(kHmmaWarps * 32)
-attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
-                   const float* __restrict__ lse, View<bf16> dout, bf16* __restrict__ dq,
+attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
+                   const float* __restrict__ lse, View<TO> dout, bf16* __restrict__ dq,
                    bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, int chunks,
                    float scale) {
   constexpr int HP = hd_pad(HD);
+  constexpr int DP = std::is_same<TO, float>::value ? 3 : 1;  // do's bf16 parts
   extern __shared__ __align__(16) uint4 smem_hb[];
-  const int tiles = (N + 15) / 16, NP = 16 * tiles;
+  const int tiles = (N + 15) / 16, NP = 16 * tiles, tile_u4 = NP * HD / 8;
   const int per_role = gridDim.x / 2;
   const bool key_role = blockIdx.x < per_role;
   const int idx = key_role ? blockIdx.x : blockIdx.x - per_role;
@@ -1598,21 +1866,25 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
   const int r0 = 16 * (c + chunks * warp);  // this warp's first key (query) row
   const float* lse_bh = lse + (long long)bh * N;
   const long long D = (long long)H * HD;
-  uint4* t0 = smem_hb;                     // q (key role) or k (query role)
-  uint4* t1 = smem_hb + NP * (HP / 8);     // do or v
+  uint4* t0 = smem_hb;            // q (key role) or k (query role)
+  uint4* t1 = smem_hb + tile_u4;  // do's DP parts (key role) or v
   const uint32_t* w0 = reinterpret_cast<const uint32_t*>(t0);
   const uint32_t* w1 = reinterpret_cast<const uint32_t*>(t1);
 
   if (key_role) {
-    float* lse_s = reinterpret_cast<float*>(t1 + NP * (HP / 8));
-    float* del_s = lse_s + NP;
+    float* del_s = reinterpret_cast<float*>(t1 + DP * tile_u4);
+    float* lse_s = del_s + NP;  // a bf16 do's only
+    const float* lse_k = DP == 3 ? lse_bh : lse_s;
     uint32_t ka[HP / 4], va[HP / 4];
     ldg_a<HD>(ka, k, b, r0, col0, N, WIDE);
     ldg_a<HD>(va, v, b, r0, col0, N, WIDE);
     stage_tile<HD>(t0, q, b, col0, N, NP, WIDE);
-    stage_tile<HD>(t1, dout, b, col0, N, NP, WIDE);
+    if constexpr (DP == 3)
+      stage_split<HD>(reinterpret_cast<uint32_t*>(t1), 4 * tile_u4, dout, b, col0, N, NP);
+    else
+      stage_tile<HD>(t1, dout, b, col0, N, NP, WIDE);
     for (int i = threadIdx.x; i < NP; i += blockDim.x) {
-      lse_s[i] = i < N ? lse_bh[i] : 0.f;
+      if constexpr (DP == 1) lse_s[i] = i < N ? lse_bh[i] : 0.f;
       del_s[i] = i < N ? row_delta<HD>(o, dout, b, i, col0, WIDE) : 0.f;
     }
     wait_copies();
@@ -1630,22 +1902,26 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
       for (int nq = 0; nq < 2; ++nq) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nq][e] = dp[nq][e] = 0.f;
-        uint32_t bq[HP / 8], bd[HP / 8];
-        lds_b<HP>(bq, w0, 16 * it + 8 * nq + g);
-        lds_b<HP>(bd, w1, 16 * it + 8 * nq + g);
+        uint32_t bq[HP / 8], bd[DP][HP / 8];
+        lds_b<HD>(bq, w0, 16 * it + 8 * nq + g);
+#pragma unroll
+        for (int p = 0; p < DP; ++p) lds_b<HD>(bd[p], w1 + 4 * p * tile_u4, 16 * it + 8 * nq + g);
         hmma<HP>(s[nq], ka, bq);
-        hmma<HP>(dp[nq], va, bd);
+#pragma unroll
+        for (int p = 0; p < DP; ++p) hmma<HP>(dp[nq], va, bd[p]);
       }
       if (keys_full && 16 * (it + 1) <= N)  // warp-uniform
-        key_elems16<false>(s, dp, lse_s, del_s, r0 + g, 16 * it, N, scale);
+        key_elems16<false>(s, dp, lse_k, del_s, r0 + g, 16 * it, N, scale);
       else
-        key_elems16<true>(s, dp, lse_s, del_s, r0 + g, 16 * it, N, scale);
-      uint32_t pf[4], sf[4], bo[HP / 4], bq[HP / 4];
+        key_elems16<true>(s, dp, lse_k, del_s, r0 + g, 16 * it, N, scale);
+      uint32_t pf[4], sf[4], bo[DP][HP / 4], bq[HP / 4];
       pack_a16(pf, s[0], s[1]);
       pack_a16(sf, dp[0], dp[1]);
-      ldsm_rows<HP>(bo, smem_u32(t1), 16 * it);
-      ldsm_rows<HP>(bq, smem_u32(t0), 16 * it);
-      hmma_rows<HP>(dva, pf, bo);
+#pragma unroll
+      for (int p = 0; p < DP; ++p) ldsm_rows<HD>(bo[p], smem_u32(t1 + p * tile_u4), 16 * it);
+      ldsm_rows<HD>(bq, smem_u32(t0), 16 * it);
+#pragma unroll
+      for (int p = 0; p < DP; ++p) hmma_rows<HP>(dva, pf, bo[p]);
       hmma_rows<HP>(dka, sf, bq);
     }
 #pragma unroll
@@ -1663,9 +1939,10 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
       }
     }
   } else {
-    uint32_t qa[HP / 4], da[HP / 4];
+    uint32_t qa[HP / 4], da[DP][HP / 4];
     ldg_a<HD>(qa, q, b, r0, col0, N, WIDE);
-    ldg_a<HD>(da, dout, b, r0, col0, N, WIDE);
+    if constexpr (DP == 3) ldg_a_split<HD>(da, dout, b, r0, col0, N);
+    else ldg_a<HD>(da[0], dout, b, r0, col0, N, WIDE);
     float lse_r[2], del_r[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1691,10 +1968,11 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nk][e] = dp[nk][e] = 0.f;
         uint32_t bk[HP / 8], bv[HP / 8];
-        lds_b<HP>(bk, w0, 16 * jt + 8 * nk + g);
-        lds_b<HP>(bv, w1, 16 * jt + 8 * nk + g);
+        lds_b<HD>(bk, w0, 16 * jt + 8 * nk + g);
+        lds_b<HD>(bv, w1, 16 * jt + 8 * nk + g);
         hmma<HP>(s[nk], qa, bk);
-        hmma<HP>(dp[nk], da, bv);
+#pragma unroll
+        for (int p = 0; p < DP; ++p) hmma<HP>(dp[nk], da[p], bv);
       }
       if (rows_full && 16 * (jt + 1) <= N)  // warp-uniform
         query_elems16<false>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
@@ -1702,7 +1980,7 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
         query_elems16<true>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
       uint32_t sf[4], bk[HP / 4];
       pack_a16(sf, dp[0], dp[1]);
-      ldsm_rows<HP>(bk, smem_u32(t0), 16 * jt);
+      ldsm_rows<HD>(bk, smem_u32(t0), 16 * jt);
       hmma_rows<HP>(dqa, sf, bk);
     }
 #pragma unroll
@@ -1722,26 +2000,15 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o,
 // launchers
 // ---------------------------------------------------------------------------
 
-// the row kernels' chunks of a (b, h): at most kRowThreads rows a CTA,
-// spread evenly, the CTA rounded up to warps (attention_fused.py:
-// bf16_row_plan)
-void row_plan(int N, int* chunks, int* rows, int* threads) {
-  *chunks = (N + kRowThreads - 1) / kRowThreads;
-  *rows = (N + *chunks - 1) / *chunks;
-  *threads = (*rows + 31) / 32 * 32;
-}
-
-size_t row_smem(int N, int HD, bool backward) {
-  return sizeof(float) * (2 * (size_t)N * HD + (backward ? 2 * (size_t)N : 0));
-}
-
 // the tensor-core kernels' dynamic shared memory (attention_fused.py:
-// bf16_smem_bytes): the alignment slack, then the forward's k and v blocks,
-// its two q tiles and four mbarriers; the backward's larger role (the key
-// role: k, v and a two-stage ring of q and do's parts, lse and delta) and
-// three mbarriers
+// bf16_smem_bytes): the alignment slack, then the one-pass forward's k and
+// v blocks, its two q tiles and four mbarriers (the two-pass forward's q
+// tile, two ring stages of k and v, the o tile and three mbarriers); the
+// backward's larger role (the key role: k, v and a two-stage ring of q and
+// do's parts, lse and delta) and three mbarriers
 size_t fwd_mma_smem(int N) {
   const size_t blocks = (N + kTile - 1) / kTile;
+  if (blocks > kMaxKeyBlocks) return kSmemAlign + 6 * kTileBytes + 3 * sizeof(uint64_t);
   return kSmemAlign + (2 * blocks + 3) * kTileBytes + 128;
 }
 
@@ -1756,12 +2023,6 @@ bool takes_width(const View<bf16>& x, int vw) {
          x.sr % vw == 0;
 }
 
-template <typename TO>
-bool any_takes_width(const View<TO>& x, int vw) {
-  if constexpr (std::is_same<TO, float>::value) return true;  // read a float at a time
-  else return takes_width(x, vw);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
   if (bytes <= *allowed) return cudaSuccess;
@@ -1769,48 +2030,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) *allowed = bytes;
   return err;
-}
-
-template <int HD, int VW>
-int fwd_rows(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
-             float scale, cudaStream_t s) {
-  static size_t allowed = 48 * 1024;
-  if (!takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW)) return kBadCopyWidth;
-  int chunks, rows, threads;
-  row_plan(N, &chunks, &rows, &threads);
-  const size_t smem = row_smem(N, HD, false);
-  cudaError_t err = allow_smem(attn_fwd_row_bf16<HD, VW>, smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_row_bf16<HD, VW><<<B * H * chunks, threads, smem, s>>>(q, k, v, o, lse, N, H, chunks,
-                                                                  rows, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD, int VW, typename TO>
-int bwd_rows(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
-             View<TO> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H, float scale,
-             cudaStream_t s) {
-  static size_t allowed = 48 * 1024;
-  if (!takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW) ||
-      !any_takes_width(dout, VW) || !any_takes_width(o, VW))
-    return kBadCopyWidth;
-  int chunks, rows, threads;
-  row_plan(N, &chunks, &rows, &threads);
-  const size_t smem = row_smem(N, HD, true);
-  cudaError_t err = allow_smem(attn_bwd_row_bf16<HD, VW, TO>, smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_row_bf16<HD, VW, TO><<<2 * B * H * chunks, threads, smem, s>>>(
-      q, k, v, o, lse, dout, dq, dk, dv, N, H, chunks, rows, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the row copy width in bytes (16, 8, 4, 2) -> bf16 elements a copy, 0 if
-// it does not divide HD
-template <int HD>
-constexpr int elems(int width) {
-  return (width == 16 || width == 8 || width == 4 || width == 2) && HD % (width / 2) == 0
-             ? width / 2
-             : 0;
 }
 
 template <int NKB, int TW>
@@ -1836,6 +2055,19 @@ int fwd_mma_tail(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, 
   return fwd_mma_blocks<NKB, 64>(q, k, v, o, lse, B, N, H, hd, scale, s);
 }
 
+// the two-pass form: a CTA a 64-row query tile
+int fwd_mma2(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
+             int hd, float scale, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  const size_t smem = fwd_mma_smem(N);
+  cudaError_t err = allow_smem(attn_fwd_mma2_bf16, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nb = (N + kTile - 1) / kTile;
+  attn_fwd_mma2_bf16<<<B * H * nb, kWg, smem, s>>>(q, k, v, o, lse, N, H, hd, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the one-pass form up to kMaxKeyBlocks key blocks, the two-pass past them
 int fwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
             int hd, float scale, cudaStream_t s) {
   switch ((N + kTile - 1) / kTile) {
@@ -1844,7 +2076,7 @@ int fwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B
     case 3: return fwd_mma_tail<3>(q, k, v, o, lse, B, N, H, hd, scale, s);
     case 4: return fwd_mma_tail<4>(q, k, v, o, lse, B, N, H, hd, scale, s);
     case 5: return fwd_mma_tail<5>(q, k, v, o, lse, B, N, H, hd, scale, s);
-    default: return kBadLength;
+    default: return fwd_mma2(q, k, v, o, lse, B, N, H, hd, scale, s);
   }
 }
 
@@ -1878,19 +2110,20 @@ int bwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* l
 }
 
 // the hd <= 16 tensor-core kernels' dynamic shared memory
-// (attention_fused.py: bf16_smem_bytes): two [NP][HD] bf16 tiles, N padded
-// to NP = 16 ceil(N / 16) rows (k, v; the backward's key role q, do), and
-// the key role's lse and delta rows
-size_t hmma_smem(int N, int HD, bool backward) {
-  const size_t np = 16 * (size_t)((N + 15) / 16);
-  return 2 * np * hd_pad(HD) * sizeof(bf16) + (backward ? 2 * np * sizeof(float) : 0);
+// (attention_fused.py: bf16_smem_bytes): N padded to NP = 16 ceil(N / 16)
+// rows, [NP][HD] bf16 tiles: the forward's k and v; the backward's larger
+// role, the key role: q, do's parts (one, or three of a float32 do), the
+// delta row and, beside a bf16 do, the lse row
+size_t hmma_smem(int N, int HD, bool backward, int do_parts = 1) {
+  const size_t np = 16 * (size_t)((N + 15) / 16), tile = np * HD * sizeof(bf16);
+  return backward ? (1 + do_parts) * tile + (do_parts == 3 ? 1 : 2) * np * sizeof(float)
+                  : 2 * tile;
 }
 
 // whether a plan of `chunks` CTAs a (b, h), `warps` 16-row tiles a CTA,
 // covers N (the caller's, attention_fused.py: bf16_hmma_plan)
 bool hmma_plan_ok(int N, int chunks, int warps) {
-  return N <= kHmmaMaxKeys && chunks >= 1 && warps >= 1 && warps <= kHmmaWarps &&
-         16 * chunks * warps >= N;
+  return chunks >= 1 && warps >= 1 && warps <= kHmmaWarps && 16 * chunks * warps >= N;
 }
 
 // whether every view takes the tensor-core row kernels' 16-byte copies
@@ -1914,15 +2147,33 @@ int fwd_hmma_tiles(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse
   return static_cast<int>(cudaGetLastError());
 }
 
-// `tiles`, the register tier (attention_fused.py: bf16_hmma_score_tiles),
-// one of HMMA_SCORE_TILES and at least ceil(N / 8); views that do not all
-// take 16-byte copies run the largest tier, built for them alone (off every
-// model's path: its q, k, v take them)
+template <int HD, bool WIDE>
+int fwd_hmma2(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
+              float scale, int chunks, int warps, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  const size_t smem = hmma_smem(N, HD, false);
+  cudaError_t err = allow_smem(attn_fwd_hmma2_bf16<HD, WIDE>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_hmma2_bf16<HD, WIDE><<<B * H * chunks, 32 * warps, smem, s>>>(q, k, v, o, lse, N, H,
+                                                                         chunks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `tiles`, the one-pass form's register tier (attention_fused.py:
+// bf16_hmma_score_tiles), one of HMMA_SCORE_TILES and at least ceil(N / 8),
+// or 0: the two-pass form (N past kHmmaMaxKeys). Views that do not all take
+// 16-byte copies run the one-pass form's largest tier, built for them alone
+// (off every model's path: its q, k, v take them).
 template <int HD>
 int fwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
              float scale, int tiles, int chunks, int warps, cudaStream_t s) {
-  if (!hmma_plan_ok(N, chunks, warps) || 8 * tiles < N) return kBadPlan;
-  if (!wide_views<HD>({q, k, v}))
+  if (!hmma_plan_ok(N, chunks, warps)) return kBadPlan;
+  const bool wide = wide_views<HD>({q, k, v});
+  if (tiles == 0)
+    return wide ? fwd_hmma2<HD, true>(q, k, v, o, lse, B, N, H, scale, chunks, warps, s)
+                : fwd_hmma2<HD, false>(q, k, v, o, lse, B, N, H, scale, chunks, warps, s);
+  if (N > kHmmaMaxKeys || 8 * tiles < N) return kBadPlan;
+  if (!wide)
     return fwd_hmma_tiles<HD, kHmmaMaxKeys / 8, false>(q, k, v, o, lse, B, N, H, scale, chunks,
                                                         warps, s);
   switch (tiles) {
@@ -1936,87 +2187,52 @@ int fwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int 
   }
 }
 
-template <int HD, bool WIDE>
-int bwd_hmma_launch(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o, const float* lse,
-                    View<bf16> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H,
-                    float scale, int chunks, int warps, size_t smem, cudaStream_t s) {
+template <int HD, bool WIDE, typename TO>
+int bwd_hmma_launch(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
+                    View<TO> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H,
+                    float scale, int chunks, int warps, cudaStream_t s) {
   static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(attn_bwd_hmma_bf16<HD, WIDE>, smem, &allowed);
+  const size_t smem = hmma_smem(N, HD, true, std::is_same<TO, float>::value ? 3 : 1);
+  cudaError_t err = allow_smem(attn_bwd_hmma_bf16<HD, WIDE, TO>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_hmma_bf16<HD, WIDE><<<2 * B * H * chunks, 32 * warps, smem, s>>>(
+  attn_bwd_hmma_bf16<HD, WIDE, TO><<<2 * B * H * chunks, 32 * warps, smem, s>>>(
       q, k, v, o, lse, dout, dq, dk, dv, N, H, chunks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-int bwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, View<bf16> o, const float* lse,
-             View<bf16> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H, float scale,
+// WIDE where q, k, v (and a bf16 o and do) all take 16-byte copies
+template <int HD, typename TO>
+int bwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
+             View<TO> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H, float scale,
              int chunks, int warps, cudaStream_t s) {
   if (!hmma_plan_ok(N, chunks, warps)) return kBadPlan;
-  const size_t smem = hmma_smem(N, HD, true);
-  if (wide_views<HD>({q, k, v, o, dout}))
-    return bwd_hmma_launch<HD, true>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks,
-                                     warps, smem, s);
-  return bwd_hmma_launch<HD, false>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks,
-                                    warps, smem, s);
+  bool wide = wide_views<HD>({q, k, v});
+  if constexpr (std::is_same<TO, bf16>::value) wide = wide && wide_views<HD>({o, dout});
+  if (wide)
+    return bwd_hmma_launch<HD, true, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale,
+                                         chunks, warps, s);
+  return bwd_hmma_launch<HD, false, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks,
+                                        warps, s);
 }
 
-// hd 2, 8 and 16: the tensor-core row kernels where the caller passes
-// their plan (chunks > 0; attention_fused.py: bf16_row_kernel), else the
-// FP32-core row kernels
+// hd 2, 8 and 16: the tensor-core row kernels with the caller's plan
+// (attention_fused.py: bf16_hmma_plan, bf16_hmma_score_tiles); from 32 up
+// the wgmma kernels
 template <int HD>
 int launch_fwd(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
-               float scale, int width, int tiles, int chunks, int warps, cudaStream_t s) {
-  if constexpr (HD >= 32) {
-    return fwd_mma(q, k, v, o, lse, B, N, H, HD, scale, s);
-  } else {
-    if (chunks > 0) return fwd_hmma<HD>(q, k, v, o, lse, B, N, H, scale, tiles, chunks, warps, s);
-    switch (elems<HD>(width)) {
-      case 8:
-        if constexpr (HD % 8 == 0) return fwd_rows<HD, 8>(q, k, v, o, lse, B, N, H, scale, s);
-        return kBadCopyWidth;
-      case 4:
-        if constexpr (HD % 4 == 0) return fwd_rows<HD, 4>(q, k, v, o, lse, B, N, H, scale, s);
-        return kBadCopyWidth;
-      case 2:
-        return fwd_rows<HD, 2>(q, k, v, o, lse, B, N, H, scale, s);
-      case 1:
-        return fwd_rows<HD, 1>(q, k, v, o, lse, B, N, H, scale, s);
-      default:
-        return kBadCopyWidth;
-    }
-  }
+               float scale, int tiles, int chunks, int warps, cudaStream_t s) {
+  if constexpr (HD >= 32) return fwd_mma(q, k, v, o, lse, B, N, H, HD, scale, s);
+  else return fwd_hmma<HD>(q, k, v, o, lse, B, N, H, scale, tiles, chunks, warps, s);
 }
 
 template <int HD, typename TO>
 int launch_bwd(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
                View<TO> dout, bf16* dq, bf16* dk, bf16* dv, float* delta, bf16* split, int B,
-               int N, int H, float scale, int width, int chunks, int warps, cudaStream_t s) {
-  if constexpr (HD >= 32) {
+               int N, int H, float scale, int chunks, int warps, cudaStream_t s) {
+  if constexpr (HD >= 32)
     return bwd_mma<TO>(q, k, v, o, lse, dout, dq, dk, dv, delta, split, B, N, H, HD, scale, s);
-  } else {
-    if (chunks > 0) {
-      if constexpr (std::is_same<TO, bf16>::value)
-        return bwd_hmma<HD>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks, warps, s);
-      return kBadPlan;  // a float32 o and do take the FP32-core kernels
-    }
-    switch (elems<HD>(width)) {
-      case 8:
-        if constexpr (HD % 8 == 0)
-          return bwd_rows<HD, 8, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
-        return kBadCopyWidth;
-      case 4:
-        if constexpr (HD % 4 == 0)
-          return bwd_rows<HD, 4, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
-        return kBadCopyWidth;
-      case 2:
-        return bwd_rows<HD, 2, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
-      case 1:
-        return bwd_rows<HD, 1, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
-      default:
-        return kBadCopyWidth;
-    }
-  }
+  else
+    return bwd_hmma<HD, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks, warps, s);
 }
 
 }  // namespace
@@ -2026,18 +2242,17 @@ int launch_bwd(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float
 // tensor-core kernels.
 #define ATTN_BF16_HEAD_DIMS(X) X(2) X(8) X(16) X(32) X(48) X(64)
 
-// The kernels' constants (kRowThreads, kTile, kHdp, kMaxKeyBlocks,
-// kHmmaWarps, kHmmaMaxKeys, then the 7 HMMA_SCORE_TILES):
-// ops/attention_fused.py plans grids and shared memory with them and
-// refuses a library whose constants differ.
+// The kernels' constants (kTile, kHdp, kMaxKeyBlocks, kHmmaWarps,
+// kHmmaMaxKeys, then the 3 HMMA_SCORE_TILES): ops/attention_fused.py plans
+// grids and shared memory with them and refuses a library whose constants
+// differ.
 extern "C" void attention_bf16_tiles(int* out) {
-  out[0] = kRowThreads;
-  out[1] = kTile;
-  out[2] = kHdp;
-  out[3] = kMaxKeyBlocks;
-  out[4] = kHmmaWarps;
-  out[5] = kHmmaMaxKeys;
-  int i = 6;
+  out[0] = kTile;
+  out[1] = kHdp;
+  out[2] = kMaxKeyBlocks;
+  out[3] = kHmmaWarps;
+  out[4] = kHmmaMaxKeys;
+  int i = 5;
 #define HMMA_TIER_OUT(NT) out[i++] = NT;
   HMMA_SCORE_TILES(HMMA_TIER_OUT)
 #undef HMMA_TIER_OUT
@@ -2045,36 +2260,33 @@ extern "C" void attention_bf16_tiles(int* out) {
 
 // Both entry points launch on `stream`, allocate nothing and return
 // cudaGetLastError() as an int (0 on success), -1 for a head dim that is
-// not built, -2 for a row copy width that a view contradicts, -3 for a
-// forward past 64 kMaxKeyBlocks keys at hd >= 32, or -4 for a tensor-core
-// row plan that does not cover N or is not built. q, k, v and do are
-// [B, N, H*hd] views with unit column stride, batch stride *_sb and row
-// stride *_sr in elements; at hd >= 32 their pointers and strides are
-// multiples of 16 bytes. At hd <= 16, hmma_chunks > 0 runs the tensor-core
-// row kernels with that plan (hmma_chunks CTAs a (b, h), hmma_warps warps
-// a CTA, the forward's register tier hmma_tiles; bf16 o and do), which
-// take any view; else the FP32-core row kernels copy rows row_copy_bytes
-// (16, 8, 4 or 2) at a time, which every bf16 view's pointer and strides,
-// and hd * 2, must be multiples of. o and do are bf16, or both float32
-// when o_do_f32 is set (hybrid_attention's eager forward and its
-// cotangent). The outputs o, lse [B, H, N] (float32), dq, dk, dv are
-// contiguous. At hd >= 32 the backward writes delta, a float32
-// [B, H, N] workspace, and for a float32 do its three bf16 parts to
-// do_split, a contiguous [3, B, N, H*hd] bf16 workspace (unused otherwise).
+// not built, or -4 for a tensor-core row plan (hd <= 16) that does not
+// cover N or whose tier is not built. q, k, v and do are [B, N, H*hd]
+// views with unit column stride, batch stride *_sb and row stride *_sr in
+// elements; at hd >= 32 their pointers and strides are multiples of 16
+// bytes. At hd <= 16 the caller passes the tensor-core row kernels' plan:
+// hmma_chunks CTAs a (b, h), hmma_warps warps a CTA and the forward's
+// register tier hmma_tiles (0: the two-pass form, N past kHmmaMaxKeys);
+// they take any view. o and do are bf16, or both float32 when o_do_f32 is
+// set (hybrid_attention's eager forward and its cotangent). The outputs o,
+// lse [B, H, N] (float32), dq, dk, dv are contiguous. At hd >= 32 the
+// backward writes delta, a float32 [B, H, N] workspace, and for a float32
+// do its three bf16 parts to do_split, a contiguous [3, B, N, H*hd] bf16
+// workspace (unused otherwise).
 extern "C" int attention_bf16_forward(const void* q, long long q_sb, long long q_sr,
                                       const void* k, long long k_sb, long long k_sr,
                                       const void* v, long long v_sb, long long v_sr, void* o,
                                       float* lse, int B, int N, int H, int hd, float scale,
-                                      int row_copy_bytes, int hmma_tiles, int hmma_chunks,
-                                      int hmma_warps, void* stream) {
+                                      int hmma_tiles, int hmma_chunks, int hmma_warps,
+                                      void* stream) {
   const View<bf16> qv{static_cast<const bf16*>(q), q_sb, q_sr},
       kv{static_cast<const bf16*>(k), k_sb, k_sr}, vv{static_cast<const bf16*>(v), v_sb, v_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-#define ATTN_FWD_CASE(HD) \
-  case HD:                \
-    return launch_fwd<HD>(qv, kv, vv, static_cast<bf16*>(o), lse, B, N, H, scale, row_copy_bytes, \
-                          hmma_tiles, hmma_chunks, hmma_warps, s);
+#define ATTN_FWD_CASE(HD)                                                                    \
+  case HD:                                                                                   \
+    return launch_fwd<HD>(qv, kv, vv, static_cast<bf16*>(o), lse, B, N, H, scale, hmma_tiles, \
+                          hmma_chunks, hmma_warps, s);
     ATTN_BF16_HEAD_DIMS(ATTN_FWD_CASE)
 #undef ATTN_FWD_CASE
     default:
@@ -2089,8 +2301,8 @@ extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long 
                                        const float* lse, const void* dout, long long do_sb,
                                        long long do_sr, void* dq, void* dk, void* dv,
                                        float* delta, void* do_split, int B, int N, int H, int hd,
-                                       float scale, int row_copy_bytes, int hmma_chunks,
-                                       int hmma_warps, void* stream) {
+                                       float scale, int hmma_chunks, int hmma_warps,
+                                       void* stream) {
   const View<bf16> qv{static_cast<const bf16*>(q), q_sb, q_sr},
       kv{static_cast<const bf16*>(k), k_sb, k_sr}, vv{static_cast<const bf16*>(v), v_sb, v_sr};
   const View<bf16> ob{static_cast<const bf16*>(o), o_sb, o_sr},
@@ -2104,15 +2316,12 @@ extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long 
 #define ATTN_BWD_CASE(HD)                                                                      \
   case HD:                                                                                     \
     return o_do_f32 ? launch_bwd<HD, float>(qv, kv, vv, of, lse, dof, dqb, dkb, dvb, delta,     \
-                                            split, B, N, H, scale, row_copy_bytes,             \
-                                            hmma_chunks, hmma_warps, s)                        \
+                                            split, B, N, H, scale, hmma_chunks, hmma_warps, s) \
                     : launch_bwd<HD, bf16>(qv, kv, vv, ob, lse, dob, dqb, dkb, dvb, delta,      \
-                                           split, B, N, H, scale, row_copy_bytes, hmma_chunks, \
-                                           hmma_warps, s);
+                                           split, B, N, H, scale, hmma_chunks, hmma_warps, s);
     ATTN_BF16_HEAD_DIMS(ATTN_BWD_CASE)
 #undef ATTN_BWD_CASE
     default:
       return kBadHeadDim;
   }
 }
-

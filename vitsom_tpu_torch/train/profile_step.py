@@ -68,8 +68,8 @@ WARMUP_STEPS = 10
 # the hand-written kernels of the train path, found by name
 KERNELS = ("som_partial_kernel", "som_finalize_kernel", "attn_fwd_kernel",
            "attn_fwd_mma_kernel", "attn_bwd_kernel", "attn_bwd_mma_kernel",
-           "attn_fwd_row_bf16", "attn_fwd_hmma_bf16", "attn_fwd_mma_bf16", "attn_bwd_row_bf16",
-           "attn_bwd_hmma_bf16", "attn_bwd_mma_bf16")
+           "attn_fwd_hmma_bf16", "attn_fwd_hmma2_bf16", "attn_fwd_mma_bf16",
+           "attn_fwd_mma2_bf16", "attn_bwd_hmma_bf16", "attn_bwd_mma_bf16")
 MODES = ("eager", "graphed")
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, run between the modes
 
