@@ -445,6 +445,28 @@ K. bf16 inputs to the attention kernels, the bf16 models and optimizer
    no kernel. K5 ``bench.py``'s configuration + ``train.adam_mu_dtype:
    bfloat16``: TRAIN_STEPS steps, every first moment bf16, held against
    eager, the step ms beside B's.
+Q. every head dim the JAX kernel takes, and the SOM at any depth
+   (``phase_head_dims``): the float32 and bf16 attention kernels, forward,
+   backward and (bf16) on hybrid's float32 o and do, at hd 1, 3, 4, 5, 12,
+   17, 24, 25, 28, 31, 36, 40, 80, 96, 128, 192 (Q_HEAD_DIMS) and N 9, 65,
+   197, 257, 321, 1025, on strided q, k, v views of one qkv buffer (B by
+   ``q_batch``, 2 heads), and on views one element off their buffer's
+   16-byte boundaries at hd 4, 24, 96, 192, against their plain versions as
+   phases 6 and K1 hold them (float32 1e-5 and the float64 rule; bf16 1 ulp
+   on all but 0.1 % against ``bwd_rounded64``, atol/rtol 1e-2, lse 1e-5,
+   the float64 rule), two runs bitwise; the float32 kernels at tier 32 (hd
+   25, 28, 31, 32) and N 9, 65 from 20 seeds more, their float64 ratios
+   printed (Q_EDGE); every launch counted against its call; the SOM kernel
+   on 4-byte copies at (B 12, D 33, P 42) and D 3137 from a row stride of
+   3139 floats, one float into its buffer (B 128, P 1600), as phase 3 holds
+   it. Q_TIMED in both dtypes beside SDPA, L2 flushed, each timed call held
+   against the plain version's output. Then the heads overrides on the
+   trainer, K3_STEPS graphed steps each held against eager, launches equal
+   to the formula, step 0 against one eager ``xla`` step: the flagship at
+   ``vit.heads: 4`` (hd 4 and 1) with ``pallas`` in float32 (within TOL)
+   and bf16 (P_XLA_RTOL), and ``vit_som_tiny-imagenet.yaml`` at
+   ``vit.heads: 2`` (hd 96 and 48, emb 192, B 512, depth cut from 12 to 2,
+   printed) in bf16.
 
 The launch counts below count what the wrappers issue from Python. A
 graphed run of S > 2 steps issues its two warm-up steps and the one step
@@ -487,8 +509,9 @@ kernels are on; the bf16 attention kernels' K3's; with every path's count
 under ``launches_by_path``, the phase-H, K4 paths and phase I's MobileViT
 paths and J4 at 0, I4's ViT-SOM host run with its SOM launches, J1-J3's;
 the SOM row's timings at (512, 49152, 196) and the attention rows' at
-(512, 257, 3, 64), phase E1's and K3's shapes), the nvidia-smi line and
-the result. The whole script takes about 14 minutes on an H100, the builds
+(512, 257, 3, 64), phase E1's and K3's shapes; then phase Q's designs on
+its trainer paths, each with the path, its encoder's shape and that
+path's launches), the nvidia-smi line and the result. The whole script takes about 14 minutes on an H100, the builds
 included; ``PhaseClock`` prints each group of phases' seconds and the
 card's memory. Any failure prints ``FAIL in phase <group>: <error>`` and
 its traceback on standard output and standard error, and exits 1.
@@ -1921,7 +1944,7 @@ def phase_attention_vs_plain(dev):
                     for x, e in zip(sdpa, (eo, *exact[2:]))]
         same = (torch.equal(o, o2) and torch.equal(lse, lse2)
                 and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
-        if hd not in attention_fused.MMA_HEAD_DIMS:
+        if attention_fused.head_tier(hd) in attention_fused.ROW_TIERS:
             width = attention_fused.row_copy_width((q, k, v, ro, do), hd)
             check(layout != "odd" or width == 4, f"odd views at {shape} copy {width} bytes")
             layout += f", {width}-byte row copies"
@@ -2007,7 +2030,7 @@ def phase_attention_timings(dev):
                 sdpa_backend(*leaves),
             ),
         }
-        tensor = hd in attention_fused.MMA_HEAD_DIMS
+        tensor = attention_fused.head_tier(hd) in attention_fused.MMA_TIERS
         for name, (fns, flops, nbytes, n_exp, backend) in cases.items():
             t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}
             # the tensor-core kernels do a float32-accurate product as three
@@ -2340,26 +2363,50 @@ def phase_block_timings(dev):
     return rows
 
 
+def sass_tensor_ops(cuobjdump, path):
+    """{function: {instruction: count}} of the HGMMA and HMMA instructions
+    in a built library's SASS (``cuobjdump -sass``)."""
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    ops, function = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :", 1)[1].strip()
+            ops[function] = {}
+        for word in line.replace(";", " ").split():
+            if function and word.startswith(("HGMMA", "HMMA")):
+                ops[function][word] = ops[function].get(word, 0) + 1
+    return ops
+
+
 def phase_build():
-    """Phase 2: one nvcc per source, all started together."""
+    """Phase 2: one nvcc per source, all started together, each source's
+    SASS read (cuobjdump, ~7 s for attention_bf16's) as soon as it is
+    built."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
+
+    def build(name):
+        info = _build.build(name)
+        return info, sass_tensor_ops(cuobjdump, info["path"])
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        infos = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+        built = dict(zip(KERNEL_SOURCES, pool.map(build, KERNEL_SOURCES)))
+    infos = {name: info for name, (info, _) in built.items()}
+    tensor_ops = {name: ops for name, (_, ops) in built.items()}  # {source: {function: ops}}
     print(f"build: {time.perf_counter() - t0:.2f} s for "
-          + ", ".join(f"{name}.cu ({info['seconds']:.2f} s)" for name, info in infos.items()),
-          flush=True)
+          + ", ".join(f"{name}.cu ({info['seconds']:.2f} s)" for name, info in infos.items())
+          + " (the SASS read included)", flush=True)
     for name, info in infos.items():
         for line in info["log"].splitlines():
             if any(w in line for w in ("entry function", "registers", "spill")) or (
                     "error" in line.lower()):
                 print(f"build[{name}]: {line.strip()}", flush=True)
-    # the SOM kernel's, the hd >= 32 attention kernels' and every block
+    # the SOM kernel's, the hd >= 25 attention kernels' and every block
     # kernel instantiation's products must run on the tensor cores in TF32
     # (wgmma: HGMMA; mma.sync: HMMA in SASS), the bf16 attention kernels'
-    # in bf16, on wgmma from hd 32 up and on mma.sync below
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    check(os.path.isfile(cuobjdump), f"no cuobjdump beside nvcc to inspect the SASS: {cuobjdump}")
-    tensor_ops = {}  # {source: {function: {instruction: count}}}
+    # in bf16, on wgmma from hd 17 up and on mma.sync below
     for name, kernels, kinds, dtype in (
             ("som_fused", ("som_partial_kernel",), ("HGMMA",), "TF32"),
             ("attention", ("attn_fwd_mma_kernel", "attn_bwd_mma_kernel"), ("HMMA", "HGMMA"),
@@ -2369,18 +2416,6 @@ def phase_build():
             ("attention_bf16", ("attn_fwd_hmma_bf16", "attn_fwd_hmma2_bf16", "attn_bwd_hmma_bf16"),
              ("HMMA",), "BF16"),
             ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",), "TF32")):
-        if name not in tensor_ops:  # one cuobjdump a source (~7 s for attention_bf16's)
-            sass = subprocess.run([cuobjdump, "-sass", infos[name]["path"]],
-                                  capture_output=True, text=True, check=True).stdout
-            ops, function = {}, None  # {function: {instruction: count}}
-            for line in sass.splitlines():
-                if "Function :" in line:
-                    function = line.split("Function :", 1)[1].strip()
-                    ops[function] = {}
-                for word in line.replace(";", " ").split():
-                    if function and word.startswith(("HGMMA", "HMMA")):
-                        ops[function][word] = ops[function].get(word, 0) + 1
-            tensor_ops[name] = ops
         ops = tensor_ops[name]
         for kernel in kernels:
             found = {f: c for f, c in ops.items() if kernel in f}
@@ -4306,47 +4341,56 @@ def phase_long_sequences(dev, smi):
              {"vit.patch_size": 2}),
             ("p2_flagship_patch1_bf16_pallas", CONFIG, "pallas", {"vit.patch_size": 1}),
             ("p3_flagship_bf16_hybrid", CONFIG, "hybrid", {})):
-        cfg, dm, hist, keys, launches, ms, peak, params = long_run(dev, label, config, impl,
-                                                                   extra)
-        n = (cfg.data.input_size // cfg.vit.patch_size) ** 2 + 1
-        kernels = {side: sorted({attention_fused.bf16_kernel(n, hd, side == "bwd")
-                                 for _, hd in model_head_dims(cfg)}) for side in ("fwd", "bwd")}
-        print(f"{label}: N={n} head dims {[hd for _, hd in model_head_dims(cfg)]} kernels "
-              f"forward={kernels['fwd'] if impl == 'pallas' else 'none (hybrid: eager)'} "
-              f"backward={kernels['bwd']} graphed median_step_ms={ms:.4f} "
-              f"images_per_s={cfg.batch_size / ms * 1e3:.1f} peak_memory_gb={peak:.3f} "
-              f"(torch.cuda.max_memory_allocated) card: {smi}", flush=True)
-        check(launches["attention_bwd_bf16"] > 0
-              and (impl == "hybrid") == (launches["attention_fwd_bf16"] == 0),
-              f"{label}: the bf16 kernels did not run as {impl} runs them")
-        paths[label] = launches
-        _, _, hist_e, _, _, ms_e, _, params_e = long_run(dev, label + "_eager", config, impl,
-                                                         extra, eager=True, dm=dm)
-        for k in keys:
-            a, b = np.asarray(hist[k]), np.asarray(hist_e[k])
-            rel = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
-            print(f"{label} graphed_vs_eager {k}: steps={len(a)} max_rel_diff={rel:.3e} "
-                  f"bitwise_equal_steps={int((a == b).sum())}", flush=True)
-            check(a.shape == b.shape and rel <= GRAPH_RTOL,
-                  f"{label}: graphed {k} differs from eager by {rel:.3e}")
-        worst = max((float(((params[k] - params_e[k]).abs()
-                            / params_e[k].abs().clamp_min(1e-30)).max()), k) for k in params)
-        print(f"{label} graphed_vs_eager params and buffers: max_rel_diff={worst[0]:.3e} "
-              f"({worst[1]}) eager median_step_ms={ms_e:.4f}", flush=True)
-        check(all(bool(((params[k] - params_e[k]).abs()
-                        <= GRAPH_RTOL * params_e[k].abs()).all()) for k in params),
-              f"{label}: final parameters differ graphed vs eager ({worst})")
-        remat = {"train.remat_blocks": True} if cfg.classification else {}
-        _, _, hist_x, _, _, _, _, _ = long_run(dev, label + "_xla_step0", config, "xla",
-                                               {**extra, **remat}, eager=True, steps=1, dm=dm)
-        for k in keys:
-            a, b = float(hist[k][0]), float(hist_x[k][0])
-            rel = abs(a - b) / max(abs(b), 1e-30)
-            print(f"{label} step0 {k}={a:.8f} xla={b:.8f} rel_err={rel:.3e}", flush=True)
-            check(rel <= P_XLA_RTOL, f"{label}: step-0 {k} differs from xla's: {a} vs {b}")
-        del dm, params, params_e
-        torch.cuda.empty_cache()
+        paths[label] = bf16_path(dev, smi, label, config, impl, extra)
     return paths
+
+
+def bf16_path(dev, smi, label, config, impl, extra):
+    """One P or Q path under bf16 (``phase_long_sequences``' docstring):
+    K3_STEPS graphed steps with launches equal to the formula, the same
+    steps eagerly within GRAPH_RTOL, and one eager ``xla`` step whose
+    step-0 losses the graphed run's hold within rtol P_XLA_RTOL. Returns
+    the graphed run's launch counts."""
+    cfg, dm, hist, keys, launches, ms, peak, params = long_run(dev, label, config, impl,
+                                                               extra)
+    n = (cfg.data.input_size // cfg.vit.patch_size) ** 2 + 1
+    kernels = {side: sorted({attention_fused.bf16_kernel(n, hd, side == "bwd")
+                             for _, hd in model_head_dims(cfg)}) for side in ("fwd", "bwd")}
+    print(f"{label}: N={n} head dims {[hd for _, hd in model_head_dims(cfg)]} kernels "
+          f"forward={kernels['fwd'] if impl == 'pallas' else 'none (hybrid: eager)'} "
+          f"backward={kernels['bwd']} graphed median_step_ms={ms:.4f} "
+          f"images_per_s={cfg.batch_size / ms * 1e3:.1f} peak_memory_gb={peak:.3f} "
+          f"(torch.cuda.max_memory_allocated) card: {smi}", flush=True)
+    check(launches["attention_bwd_bf16"] > 0
+          and (impl == "hybrid") == (launches["attention_fwd_bf16"] == 0),
+          f"{label}: the bf16 kernels did not run as {impl} runs them")
+    _, _, hist_e, _, _, ms_e, _, params_e = long_run(dev, label + "_eager", config, impl,
+                                                     extra, eager=True, dm=dm)
+    for k in keys:
+        a, b = np.asarray(hist[k]), np.asarray(hist_e[k])
+        rel = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+        print(f"{label} graphed_vs_eager {k}: steps={len(a)} max_rel_diff={rel:.3e} "
+              f"bitwise_equal_steps={int((a == b).sum())}", flush=True)
+        check(a.shape == b.shape and rel <= GRAPH_RTOL,
+              f"{label}: graphed {k} differs from eager by {rel:.3e}")
+    worst = max((float(((params[k] - params_e[k]).abs()
+                        / params_e[k].abs().clamp_min(1e-30)).max()), k) for k in params)
+    print(f"{label} graphed_vs_eager params and buffers: max_rel_diff={worst[0]:.3e} "
+          f"({worst[1]}) eager median_step_ms={ms_e:.4f}", flush=True)
+    check(all(bool(((params[k] - params_e[k]).abs()
+                    <= GRAPH_RTOL * params_e[k].abs()).all()) for k in params),
+          f"{label}: final parameters differ graphed vs eager ({worst})")
+    remat = {"train.remat_blocks": True} if cfg.classification else {}
+    _, _, hist_x, _, _, _, _, _ = long_run(dev, label + "_xla_step0", config, "xla",
+                                           {**extra, **remat}, eager=True, steps=1, dm=dm)
+    for k in keys:
+        a, b = float(hist[k][0]), float(hist_x[k][0])
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        print(f"{label} step0 {k}={a:.8f} xla={b:.8f} rel_err={rel:.3e}", flush=True)
+        check(rel <= P_XLA_RTOL, f"{label}: step-0 {k} differs from xla's: {a} vs {b}")
+    del dm, params, params_e
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_baselines_bf16(dev, smi):
@@ -4414,6 +4458,431 @@ def phase_bench_bf16_mu(dev, smi, bench_ms):
           and dtypes == {(torch.bfloat16, torch.float32)}, "K5: the first moment is not bf16")
     phase_graphed_vs_eager(dev, "k5_bench_bf16_mu", None, run, smi, extra=extra)
     return run[4]
+
+
+# ---------------------------------------------------------------------------
+# phase Q: every head dim the JAX kernel takes, and the SOM at any depth
+# ---------------------------------------------------------------------------
+
+# the head dims held (each design's edges and the shipped widths' heads
+# overrides: 1 and 4 the flagship's at vit.heads 4, 12, 24, 96 and 192 the
+# emb-192 configs' at vit.heads 16, 8, 2 and 1, 80 and 128 the public
+# ViTs'; 25, 28 and 31 the 3xTF32 kernels' lower edge, padded to tier 32)
+# at each sequence length, float32 and bf16, forward, backward and hybrid's
+# float32 o and do
+Q_HEAD_DIMS = (1, 3, 4, 5, 12, 17, 24, 25, 28, 31, 36, 40, 80, 96, 128, 192)
+# the 3xTF32 kernels at tier 32 (hd 25-31 padded, and 32 as shipped) at
+# short N, where their float64 error comes nearest F64_FACTOR x the plain
+# version's: from Q_EDGE_SEEDS more seeds, held to 1e-5 against plain and
+# bitwise, the float64 ratios measured (printed, not held: ROADMAP Queue 3)
+Q_EDGE = [(hd, n) for hd in (25, 28, 31, 32) for n in (9, 65)]
+Q_EDGE_SEEDS = 20
+Q_SEQ = (9, 65, 197, 257, 321, 1025)
+Q_HEADS = 2
+# B of a hold: at least 2, and enough rows that each output holds
+# Q_ELEMENTS elements, so the bf16 bound's 0.1 % past 1 ulp is 16 of them
+# (at B 2, hd 1, N 1025 an output holds 4100: one element is 0.024 %)
+Q_ELEMENTS = 1 << 14
+# views one element off their buffer's 16-byte boundaries (every copy
+# narrower than 16 bytes) at a head dim at its tier in each design
+Q_ODD = [(2, 197, 2, hd) for hd in (4, 24, 96, 192)]
+# timed beside SDPA: the flagship at vit.heads 4 (encoder, decoder),
+# tiny-imagenet at vit.heads 2 and 1 and 16 (encoder), hd 128, and hd 24
+# beside 16 at (128, 197, 8): the bf16 wgmma kernels from hd 17 against the
+# mma.sync row kernels below
+Q_TIMED = [(128, 197, 4, 4), (128, 197, 4, 1), (512, 257, 2, 96), (512, 257, 1, 192),
+           (512, 257, 16, 12), (512, 257, 2, 128), (128, 197, 8, 24), (128, 197, 8, 16)]
+# the SOM off 16-byte copies: the JAX tests' (B, P, D) at ldx D (map 6 x
+# 7), and D 3137 from a row stride of 3139 floats, one float into its
+# buffer (map 40 x 40, the flagship's B)
+Q_SOM = [((12, 33, 42, (6, 7)), 33, 0), ((128, 3137, 1600, (40, 40)), 3139, 1)]
+Q_FLAGSHIP_HEADS = {"vit.heads": 4}
+Q_TINY = {"vit.heads": 2, "vit.depth": 2}
+
+
+def q_batch(n, hd):
+    """Q_HEADS heads of ``hd`` at ``n`` tokens: the batch of a hold."""
+    return max(2, -(-Q_ELEMENTS // (Q_HEADS * n * hd)))
+
+
+def q_design(dtype, hd):
+    """The design a call at ``hd`` runs: float32 rows (1-24), mma (25-64),
+    mma_sliced (65-192); bf16 hmma (1-16), wgmma1-3 (the head in 1-3
+    column tiles)."""
+    if dtype == torch.float32:
+        tier = attention_fused.head_tier(hd)
+        return ("rows" if tier in attention_fused.ROW_TIERS else "mma" if tier <= 64
+                else "mma_sliced")
+    tier = attention_fused.bf16_tier(hd)
+    return "hmma" if tier <= 16 else f"wgmma{tier // 64}"
+
+
+def q_inputs(shape, seed, dev, layout, dtype):
+    """q, k, v (strided views of one [B, N, 3, D] buffer, as the model
+    slices them; or "odd": one element into a [B, N, 3 D + 1] buffer) in
+    ``dtype``, and a float32 cotangent."""
+    b, n, h, hd = shape
+    d = h * hd
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "odd":
+        buf = torch.randn(b, n, 3 * d + 1, generator=g, device=dev).to(dtype)
+        q, k, v = (buf[:, :, 1 + i * d:1 + (i + 1) * d] for i in range(3))
+    else:
+        buf = torch.randn(b, n, 3, d, generator=g, device=dev).to(dtype)
+        q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+    return q, k, v, torch.randn(b, n, d, generator=g, device=dev)
+
+
+def q_hold_float32(shape, layout, dev, seed=0, hold_f64=True):
+    """The float32 kernels at ``shape`` against their plain versions (1e-5)
+    and float64 (at most F64_FACTOR x the plain version's error +
+    F64_SLACK, unless not ``hold_f64``; the backward on the float64
+    forward's o and lse), two runs bitwise equal. Returns ({"fwd": err,
+    "bwd": err}, the largest float64 ratio, kernel's error over the plain
+    version's, the outputs past the float64 rule)."""
+    b, n, h, hd = shape
+    q, k, v, do = q_inputs(shape, 7000 + n + hd + 1000 * seed, dev, layout, torch.float32)
+    o, lse = attention_fused._kernel_forward(q, k, v, h)
+    o2, lse2 = attention_fused._kernel_forward(q, k, v, h)
+    ro, rlse = attention_fused.fused_attention_reference(q, k, v, h)
+    grads = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
+    again = attention_fused._kernel_backward(q, k, v, ro, rlse, do, h)
+    rgrads = attention_fused.fused_attention_bwd_reference(q, k, v, ro, rlse, do, h)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    eo, else64 = attention_fused.fused_attention_reference(q64, k64, v64, h)
+    exact = (eo, else64, *attention_fused.fused_attention_bwd_reference(
+        q64, k64, v64, eo, else64, do64, h))
+    res = (eo.float(), else64.float())
+    kgrads = attention_fused._kernel_backward(q, k, v, *res, do, h)
+    pgrads = attention_fused.fused_attention_bwd_reference(q, k, v, *res, do, h)
+    errs = {"o": allclose_err(o, ro, TOL, TOL), "lse": allclose_err(lse, rlse, TOL, TOL)}
+    for name, a, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        errs[name] = allclose_err(a, r, TOL, TOL)
+    f64 = {name: float64_err(a, r, e) for name, a, r, e in
+           zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *kgrads), (ro, rlse, *pgrads), exact)}
+    same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(x, y) for x, y in zip(grads, again)))
+    ratio = max(ke / pe for ke, pe, _ in f64.values() if pe > 0)
+    label = (f"(B,N,H,hd)={shape} float32 {layout} {q_design(torch.float32, hd)}"
+             + (f" seed {seed}" if seed else ""))
+    print(f"q attention_vs_plain {label}: "
+          + " ".join(f"{key}={e:.2e}" for key, (e, _) in errs.items())
+          + " float64 kernel/plain: "
+          + " ".join(f"{key}={ke:.2e}/{pe:.2e}" for key, (ke, pe, _) in f64.items())
+          + f" ratio={ratio:.3f} deterministic={same}", flush=True)
+    for key, (e, ok) in errs.items():
+        check(ok, f"Q: float32 attention {key} disagrees with plain at {label}: {e}")
+    for key, (ke, pe, ok) in f64.items():
+        check(ok or not hold_f64, f"Q: float32 attention {key} further from float64 than "
+                                  f"{F64_FACTOR} x the plain version's + {F64_SLACK} at "
+                                  f"{label}: {ke} vs {pe}")
+    check(same, f"Q: two float32 attention kernel runs differ at {label}")
+    return ({"fwd": max(errs["o"][0], errs["lse"][0]),
+             "bwd": max(errs[x][0] for x in ("dq", "dk", "dv"))}, ratio,
+            [key for key, (_, _, ok) in f64.items() if not ok])
+
+
+def q_hold_bf16(shape, layout, dev):
+    """The bf16 kernels at ``shape`` against their plain versions, as K1
+    holds them: o within 1 bf16 ulp on all but 0.1 % and atol/rtol 1e-2,
+    lse 1e-5; the backwards on bf16 o and do (``pallas``) and on float32
+    ones (``hybrid``) within 1 ulp of ``bwd_rounded64`` on all but 0.1 %
+    and atol/rtol 1e-2 of plain; the float64 rule; two runs bitwise equal.
+    Returns {"fwd": err, "bwd": err}."""
+    b, n, h, hd = shape
+    q, k, v, do32 = q_inputs(shape, 8000 + n + hd, dev, layout, torch.bfloat16)
+    do = do32.to(torch.bfloat16)
+    o, lse = attention_fused._kernel_forward(q, k, v, h)
+    o2, lse2 = attention_fused._kernel_forward(q, k, v, h)
+    ho, hlse = attention_fused.fused_attention_reference(q, k, v, h)
+    po = ho.to(torch.bfloat16)
+    q64, k64, v64 = (x.double() for x in (q, k, v))
+    eo, else64 = attention_fused.fused_attention_reference(q64, k64, v64, h)
+    errs = {"o": bf16_close(o, po)}
+    e_lse = float((lse - hlse).abs().max())
+    errs["lse"] = (e_lse, 0.0, e_lse <= TOL + TOL * float(hlse.abs().max()))
+    f64 = {"o": (float((o.double() - eo).abs().max()), float((po.double() - eo).abs().max())),
+           "lse": (float((lse.double() - else64).abs().max()),
+                   float((hlse.double() - else64).abs().max()))}
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    for kind, (ro, g) in (("pallas", (po, do)), ("hybrid", (ho, do32))):
+        grads = attention_fused._kernel_backward(q, k, v, ro, hlse, g, h)
+        again = attention_fused._kernel_backward(q, k, v, ro, hlse, g, h)
+        pgrads = attention_fused.fused_attention_bwd_reference(q, k, v, ro, hlse, g, h)
+        mgrads = bwd_rounded64(q, k, v, ro, hlse, g, h)
+        same = same and all(torch.equal(x, y) for x, y in zip(grads, again))
+        exact = attention_fused.fused_attention_bwd_reference(q64, k64, v64, eo, else64,
+                                                              g.double(), h)
+        res = (eo.to(ro.dtype), else64.float())
+        kgrads = attention_fused._kernel_backward(q, k, v, *res, g, h)
+        rgrads = attention_fused.fused_attention_bwd_reference(q, k, v, *res, g, h)
+        for name, a, r, m, kg, rg, e in zip(("dq", "dk", "dv"), grads, pgrads, mgrads, kgrads,
+                                            rgrads, exact):
+            e_plain, _, _ = bf16_close(a, r)
+            _, sh_m, ok_m = bf16_close(a, m)
+            gap = (a.double() - r.double()).abs()
+            within = bool((gap <= 1e-2 + 1e-2 * r.double().abs()).all())
+            errs[f"{kind}_{name}"] = (e_plain, sh_m, ok_m and within)
+            f64[f"{kind}_{name}"] = (float((kg.double() - e).abs().max()),
+                                     float((rg.double() - e).abs().max()))
+    label = f"(B,N,H,hd)={shape} bf16 {layout} {q_design(torch.bfloat16, hd)}"
+    print(f"q attention_bf16_vs_plain {label}: "
+          + " ".join(f"{key}={e:.2e}/{sh:.1e}" for key, (e, sh, _) in errs.items())
+          + " float64 kernel/plain: "
+          + " ".join(f"{key}={ke:.2e}/{pe:.2e}" for key, (ke, pe) in f64.items())
+          + f" deterministic={same} kernels={attention_fused.bf16_kernel(n, hd, views=(q, k, v))}"
+          f"/{attention_fused.bf16_kernel(n, hd, True)}", flush=True)
+    for key, (e, sh, ok) in errs.items():
+        check(ok, f"Q: bf16 attention {key} disagrees with plain at {label}: {e} (share past "
+                  f"1 ulp {sh})")
+    for key, (ke, pe) in f64.items():
+        check(ke <= F64_FACTOR * pe + F64_SLACK,
+              f"Q: bf16 attention {key} further from float64 than {F64_FACTOR} x the plain "
+              f"version's + {F64_SLACK} at {label}: {ke} vs {pe}")
+    check(same, f"Q: two bf16 attention kernel runs differ at {label}")
+    return {"fwd": max(errs["o"][0], errs["lse"][0]),
+            "bwd": max(e for key, (e, _, _) in errs.items() if key not in ("o", "lse"))}
+
+
+def q_hold_som(dev):
+    """The SOM kernel off 16-byte copies (Q_SOM) against its plain version
+    and float64, as phase 3 holds it: distances within 1e-5, BMUs equal up
+    to near ties, the loss at the kernel's BMUs within 1e-5, two runs
+    bitwise equal, cosine and euclidean. Returns the largest error."""
+    worst, temp = 0.0, 3.7
+    for (b, d, p, map_size), ldx, offset in Q_SOM:
+        g = torch.Generator(device=dev).manual_seed(9000 + d)
+        buf = torch.randn(b, ldx, generator=g, device=dev)
+        x = buf[:, offset:offset + d]
+        protos = torch.randn(p, d, generator=g, device=dev) * 0.5
+        wide = som_fused.wide_copies(d, x.stride(0), x.data_ptr(), protos.data_ptr())
+        check(not wide, f"Q: the SOM at D {d}, ldx {ldx} takes 16-byte copies")
+        cols = map_size[1]
+        for distance in ("cosine", "euclidean"):
+            kl, kb, kd = som_fused._kernel_forward(x, protos, temp, cols, "square", distance)
+            kl2, _, kd2 = som_fused._kernel_forward(x, protos, temp, cols, "square", distance)
+            rl, rb, rd = som_fused.fused_som_reference(x, protos, temp, cols, "square", distance)
+            exact = som_fused.fused_som_reference(x.double(), protos.double(), temp, cols,
+                                                  "square", distance)[2]
+            derr, dok = allclose_err(kd, rd, TOL, TOL)
+            near_tie, _ = near_ties(rd, distance)
+            mismatch = int(((kb != rb) & ~near_tie).sum())
+            w = torch.exp(-som_fused.grid_d2_rows(kb, p, cols, "square") / som.two_t_squared(temp))
+            lerr, lok = allclose_err(kl, torch.sum(w * rd) / (b * p), TOL, TOL)
+            kerr, perr, f64_ok = float64_err(kd, rd, exact)
+            same = torch.equal(kl, kl2) and torch.equal(kd, kd2)
+            where = f"B={b} D={d} P={p} ldx={ldx} offset={offset} {distance}"
+            print(f"q som_vs_plain {where} (4-byte copies): dist_max_abs_err={derr:.3e} "
+                  f"loss_abs_err={lerr:.3e} bmu_mismatch={mismatch} "
+                  f"near_tie_rows={int(near_tie.sum())} float64: kernel_err={kerr:.3e} "
+                  f"plain_err={perr:.3e} deterministic={same}", flush=True)
+            check(dok and lok and mismatch == 0 and f64_ok and same,
+                  f"Q: the SOM kernel disagrees with plain at {where}")
+            worst = max(worst, derr, lerr)
+    return worst
+
+
+def q_timed_err(name, shape, kernel_out, plain_out, rounded=None):
+    """The timed call's outputs at ``shape`` held against the plain
+    version's on the same inputs: float32 within TOL; bf16 as
+    ``q_hold_bf16`` holds them (o within 1 ulp on all but 0.1 % and
+    atol/rtol 1e-2, lse TOL; dq, dk, dv within 1 ulp of ``rounded``, the
+    ``bwd_rounded64`` values, on all but 0.1 % and atol/rtol 1e-2 of
+    plain). Returns the largest |kernel - plain|."""
+    errs = []
+    bf16 = kernel_out[0].dtype == torch.bfloat16
+    for i, (a, r) in enumerate(zip(kernel_out, plain_out)):
+        if not bf16:
+            e, ok = allclose_err(a, r, TOL, TOL)
+        elif rounded is None and i == 1:  # the bf16 forward's float32 lse
+            e = float((a - r).abs().max())
+            ok = e <= TOL + TOL * float(r.abs().max())
+        elif rounded is None:
+            e, _, ok = bf16_close(a, r.to(torch.bfloat16))
+        else:
+            e, _, _ = bf16_close(a, r)
+            _, share, ok = bf16_close(a, rounded[i])
+            ok = ok and bool((a.double() - r.double()).abs().le(
+                1e-2 + 1e-2 * r.double().abs()).all())
+        check(ok, f"Q: the timed {name} at {shape} disagrees with plain: {e}")
+        errs.append(e)
+    return max(errs)
+
+
+def q_timings(dev):
+    """Q_TIMED in both dtypes, L2 flushed: kernel, plain version and SDPA
+    (the library call, same dtype) beside the bound: bytes at 3.35 TB/s,
+    operations (float32: 3 TF32 products at 495 TFLOP/s from hd 25, FP32
+    at 67 below; bf16 at 989), or the exponentials at 16 a clock an SM,
+    the longest. Each kernel's output is held against the plain version's
+    at its shape (``q_timed_err``). Returns {(shape, kernel name): row}."""
+    rows = {}
+    l2_flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp_per_s = sms * SFU_EXP_PER_CLOCK * SM_CLOCK_HZ
+    for shape in Q_TIMED:
+        b, n, h, hd = shape
+        d = h * hd
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do32 = q_inputs(shape, 9500 + n + hd, dev, "strided", dtype)
+            do = do32.to(dtype)
+            o, lse = attention_fused._kernel_forward(q, k, v, h)
+            rows_ref = max(1, K1_REF_SCORES // (h * n * n))
+            heads_first = [x.reshape(b, n, h, hd).transpose(1, 2).contiguous() for x in (q, k, v)]
+            leaves = [x.clone().requires_grad_() for x in heads_first]
+            do_t = do.reshape(b, n, h, hd).transpose(1, 2).contiguous()
+            sdpa_out = F.scaled_dot_product_attention(*leaves)
+            size = torch.finfo(dtype).bits // 8
+
+            def fwd_ref(*x):
+                return attention_fused.fused_attention_reference(*x, h)
+
+            def bwd_ref(*x):
+                return attention_fused.fused_attention_bwd_reference(*x, h)
+
+            bf16 = dtype == torch.bfloat16
+            suffix = "_bf16" if bf16 else ""
+            cases = {
+                f"attention_fwd{suffix}": (
+                    {"kernel": lambda: attention_fused._kernel_forward(q, k, v, h),
+                     "plain": lambda: by_batch(fwd_ref, rows_ref, q, k, v),
+                     "library": lambda: F.scaled_dot_product_attention(*heads_first)},
+                    4 * b * h * n * n * hd, 4 * size * b * n * d + 4 * b * h * n),
+                f"attention_bwd{suffix}": (
+                    {"kernel": lambda: attention_fused._kernel_backward(q, k, v, o, lse, do, h),
+                     "plain": lambda: by_batch(bwd_ref, rows_ref, q, k, v, o, lse, do),
+                     "library": lambda: torch.autograd.grad(sdpa_out, leaves, do_t,
+                                                            retain_graph=True)},
+                    10 * b * h * n * n * hd, 8 * size * b * n * d + 4 * b * h * n),
+            }
+            big = b * h * n * n > K1_REF_SCORES
+            design = q_design(dtype, hd)
+            for name, (fns, flops, nbytes) in cases.items():
+                rounded = (by_batch(lambda *x: bwd_rounded64(*x, h), rows_ref, q, k, v, o, lse,
+                                    do) if bf16 and "_bwd" in name else None)
+                err = q_timed_err(name, shape, fns["kernel"](), fns["plain"](), rounded)
+                del rounded
+                t = {key: time_call(fn, l2_flush, **({"runs": 5, "warmup": 1, "chunk": 1}
+                                                     if big and key == "plain" else
+                                                     {"runs": 10}))[0]
+                     for key, fn in fns.items()}
+                if bf16:
+                    t_ops, unit = flops / BF16_FLOPS * 1e3, "bf16 tensor-core operations"
+                elif design == "rows":
+                    t_ops, unit = flops / FP32_FLOPS * 1e3, "fp32"
+                else:
+                    t_ops, unit = 3 * flops / TF32_FLOPS * 1e3, "3xTF32"
+                t_exp = b * h * n * n / exp_per_s * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                bound_ms = max(t_ops, t_exp, t_bytes)
+                bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
+                detail = ("bytes" if bound_by == "bytes" else
+                          "exponentials" if t_exp > t_ops else unit)
+                print(f"q timing {name} (B,N,H,hd)={shape} {design} (L2 flushed): "
+                      f"kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
+                      f"library_ms={t['library']:.5f} (sdpa {str(dtype)[6:]}, backend "
+                      f"{sdpa_backend(*heads_first)}) bound_ms={bound_ms:.5f} ({detail}: "
+                      f"{flops / 1e6:.1f} MFLOP {t_ops:.5f} ms, {nbytes / 1e6:.3f} MB "
+                      f"{t_bytes:.5f} ms, {b * h * n * n / 1e6:.3f} M exp {t_exp:.5f} ms) "
+                      f"kernel_share_of_bound={bound_ms / t['kernel']:.4f} "
+                      f"kernel_vs_library={t['kernel'] / t['library']:.3f} "
+                      f"max_abs_err={err:.3e} (kernel against plain)", flush=True)
+                rows[(shape, name)] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                                           library_ms=t["library"], bound_ms=bound_ms,
+                                           bound_by=bound_by)
+            del q, k, v, do, do32, o, lse, heads_first, leaves, do_t, sdpa_out
+    return rows
+
+
+def q_holds(dev):
+    """Phase Q's kernel holds: every Q_HEAD_DIMS x Q_SEQ at (``q_batch``, N,
+    Q_HEADS, hd) and Q_ODD, float32 and bf16, Q_EDGE from Q_EDGE_SEEDS more
+    seeds (float32; the float64 ratios measured), then the SOM (Q_SOM). The launches of each wrapper are
+    counted and must equal its calls. Returns ({(dtype, design, side):
+    largest error}, SOM error)."""
+    worst = {}
+    reset_launches()
+    calls = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_bf16": 0,
+             "attention_bwd_bf16": 0}
+    cases = [((q_batch(n, hd), n, Q_HEADS, hd), "strided") for hd in Q_HEAD_DIMS for n in Q_SEQ]
+    for shape, layout in cases + [(s, "odd") for s in Q_ODD]:
+        hd = shape[3]
+        for dtype, hold in ((torch.float32, q_hold_float32), (torch.bfloat16, q_hold_bf16)):
+            errs = hold(shape, layout, dev)
+            if dtype == torch.float32:
+                errs = errs[0]
+            for side, e in errs.items():
+                key = (str(dtype)[6:], q_design(dtype, hd), side)
+                worst[key] = max(worst.get(key, 0.0), e)
+            bf16 = dtype == torch.bfloat16
+            calls["attention_fwd_bf16" if bf16 else "attention_fwd"] += 2
+            calls["attention_bwd_bf16" if bf16 else "attention_bwd"] += 6 if bf16 else 3
+    for hd, n in Q_EDGE:
+        shape = (q_batch(n, hd), n, Q_HEADS, hd)
+        ratios, past = [], []
+        for seed in range(1, 1 + Q_EDGE_SEEDS):
+            errs, ratio, outside = q_hold_float32(shape, "strided", dev, seed, hold_f64=False)
+            ratios.append(ratio)
+            past += [f"seed {seed} {key}" for key in outside]
+            for side, e in errs.items():
+                key = ("float32", q_design(torch.float32, hd), side)
+                worst[key] = max(worst.get(key, 0.0), e)
+            calls["attention_fwd"] += 2
+            calls["attention_bwd"] += 3
+        print(f"q 3xtf32 tier 32 (B,N,H,hd)={shape}: float64 error ratio kernel/plain over "
+              f"seeds 1-{Q_EDGE_SEEDS}: max {max(ratios):.3f} median "
+              f"{statistics.median(ratios):.3f}; past the float64 rule ({F64_FACTOR} x plain + "
+              f"{F64_SLACK}): {', '.join(past) or 'none'}", flush=True)
+    som_err = q_hold_som(dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    calls["som_fused"] = 2 * 2 * len(Q_SOM)
+    print("q launches: " + " ".join(f"{k}={launches[k]} (calls {v})" for k, v in calls.items()),
+          flush=True)
+    check(all(launches[k] == v for k, v in calls.items()),
+          f"Q: launches {launches} differ from the calls {calls}")
+    return worst, som_err
+
+
+def phase_head_dims(dev, smi):
+    """Phase Q: ``q_holds``, ``q_timings``, then the heads overrides on the
+    trainer: the flagship at vit.heads 4 (hd 4 and 1) with ``pallas`` in
+    float32 (K3_STEPS graphed steps, launches equal to the formula, held
+    against its eager run; one eager ``xla`` step's losses within rtol TOL
+    of its step 0) and in bf16 (``bf16_path``), and ``vit_som_tiny-imagenet.
+    yaml`` at vit.heads 2 (hd 96 and 48) at full width (emb 192, B 512),
+    depth cut from 12 to 2, with ``pallas`` in bf16. Returns (holds' errors,
+    SOM error, timings, {path: launches})."""
+    t0 = time.perf_counter()
+    worst, som_err = q_holds(dev)
+    t_holds = time.perf_counter() - t0
+    timing = q_timings(dev)
+    t_timing = time.perf_counter() - t0 - t_holds
+    paths = {}
+    label = "q_flagship_heads4_pallas"
+    run = train_run(dev, label, "pallas", K3_STEPS, False, extra=Q_FLAGSHIP_HEADS, falls=False)
+    check([hd for _, hd in model_head_dims(run[0])] == [4, 1], f"{label}: not hd 4 and 1")
+    paths[label] = run[4]
+    phase_graphed_vs_eager(dev, label, "pallas", run, smi, extra=Q_FLAGSHIP_HEADS)
+    xla = train_run(dev, label + "_xla_step0", "xla", 1, False, extra=Q_FLAGSHIP_HEADS,
+                    eager=True, falls=False)
+    check_first_losses(label, run[3], {k: float(xla[3][k][0]) for k in FIRST_LOSSES})
+    del run, xla
+    torch.cuda.empty_cache()
+    paths["q_flagship_heads4_bf16_pallas"] = bf16_path(
+        dev, smi, "q_flagship_heads4_bf16_pallas", CONFIG, "pallas", Q_FLAGSHIP_HEADS)
+    cut = load_config(TINY_CONFIG, Q_TINY)
+    print(f"q_tiny_imagenet_heads2: {os.path.basename(TINY_CONFIG)} at vit.heads 2: emb "
+          f"{cut.vit.emb_dim}, dec_emb {cut.vit.dec_emb_dim}, head dims "
+          f"{[hd for _, hd in model_head_dims(cut)]}, B {cut.batch_size}; depth cut from "
+          f"{load_config(TINY_CONFIG).vit.depth} to {cut.vit.depth} (dec_depth "
+          f"{cut.vit.dec_depth} as shipped)", flush=True)
+    paths["q_tiny_imagenet_heads2_bf16_pallas"] = bf16_path(
+        dev, smi, "q_tiny_imagenet_heads2_bf16_pallas", TINY_CONFIG, "pallas", Q_TINY)
+    print(f"phase Q: holds {t_holds:.1f} s, timings {t_timing:.1f} s, trainer paths "
+          f"{time.perf_counter() - t0 - t_holds - t_timing:.1f} s, total "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return worst, som_err, timing, paths
 
 
 class PhaseClock:
@@ -4542,6 +5011,8 @@ def run_smoke(clock) -> int:
     k4_paths = phase_baselines_bf16(dev, smi)
     clock("K5")
     k_paths["k5_bench_bf16_mu"] = phase_bench_bf16_mu(dev, smi, bench_ms)
+    clock("Q")
+    q_err, q_som_err, q_timing, q_paths = phase_head_dims(dev, smi)
     clock("kernels")
 
     # launches: phase G4's protocol run of vit_som_cifar-10 from its
@@ -4551,7 +5022,7 @@ def run_smoke(clock) -> int:
     # attention kernels' main path is K3, tiny-imagenet under bf16
     paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
              "cifar10_clustering_pallas": cifar, **m_paths, **cls_paths, **family_paths,
-             **protocol_paths, **k_paths}
+             **protocol_paths, **k_paths, **q_paths}
     main_path = protocol_paths["protocol_cifar10_pallas"]
     main_bf16 = k_paths["k3_tiny_imagenet_bf16_pallas"]
 
@@ -4571,7 +5042,7 @@ def run_smoke(clock) -> int:
         "replaces": "vitsom_tpu/ops/som_pallas.py:95",
         "launches": main_path["som_fused"],
         "launches_by_path": by_path("som_fused"),
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, q_som_err),
         **timing,
     }]
     for name, replaces in (("attention_fwd", "vitsom_tpu/ops/attention_pallas.py:100"),
@@ -4609,6 +5080,36 @@ def run_smoke(clock) -> int:
             "launches_by_path": by_path(name),
             "max_abs_err": k1_err[name],
             **k1_timing[(K1_MAIN, name)],
+        })
+    # phase Q's designs on its trainer paths (the heads overrides): the
+    # launches of the graphed run whose model runs them, the error and times
+    # at the run's encoder shape, and the largest error of the design's holds
+    for name, base, path, shape, design in (
+            ("attention_fwd_q_rows", "attention_fwd", "q_flagship_heads4_pallas",
+             (128, 197, 4, 4), ("float32", "rows")),
+            ("attention_bwd_q_rows", "attention_bwd", "q_flagship_heads4_pallas",
+             (128, 197, 4, 4), ("float32", "rows")),
+            ("attention_fwd_bf16_q_hmma", "attention_fwd_bf16", "q_flagship_heads4_bf16_pallas",
+             (128, 197, 4, 4), ("bfloat16", "hmma")),
+            ("attention_bwd_bf16_q_hmma", "attention_bwd_bf16", "q_flagship_heads4_bf16_pallas",
+             (128, 197, 4, 4), ("bfloat16", "hmma")),
+            ("attention_fwd_bf16_q_wgmma2", "attention_fwd_bf16",
+             "q_tiny_imagenet_heads2_bf16_pallas", (512, 257, 2, 96), ("bfloat16", "wgmma2")),
+            ("attention_bwd_bf16_q_wgmma2", "attention_bwd_bf16",
+             "q_tiny_imagenet_heads2_bf16_pallas", (512, 257, 2, 96), ("bfloat16", "wgmma2"))):
+        side = "bwd" if "_bwd" in name else "fwd"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": ("vitsom_tpu_torch/ops/csrc/attention_bf16.cu" if base.endswith("_bf16")
+                       else "vitsom_tpu_torch/ops/csrc/attention.cu"),
+            "replaces": ("vitsom_tpu/ops/attention_pallas.py:163" if side == "bwd"
+                         else "vitsom_tpu/ops/attention_pallas.py:100"),
+            "path": path,
+            "shape": list(shape),
+            "launches": q_paths[path][base],
+            **q_timing[(shape, base)],
+            "holds_max_abs_err": q_err[(*design, side)],
         })
     clock("result")
     print(json.dumps({"kernels": kernels}), flush=True)

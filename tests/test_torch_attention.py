@@ -173,7 +173,7 @@ def test_shipped_vit_head_dims_are_built():
             if emb:
                 hd = emb // vit["heads"]
                 seen.add((hd, n))
-                assert hd in tfused.HEAD_DIMS, (path, hd)
+                assert tfused.head_tier(hd) == hd, (path, hd)
                 assert tfused.smem_bytes(n, hd, backward=True) <= tfused.SMEM_LIMIT_BYTES, path
     assert {2, 8, 32, 64} <= {hd for hd, _ in seen}
     assert max(n for _, n in seen) == 257
@@ -189,9 +189,16 @@ def test_tiles_and_shared_memory_match_the_kernel_source():
               re.findall(r"constexpr int (kRowTile|kMaxWarps|kPad|kKeyBlock) = (\d+);", src)}
     assert consts == {"kRowTile": tfused.ROW_TILE, "kMaxWarps": tfused.MAX_WARPS,
                       "kPad": tfused.SMEM_PAD, "kKeyBlock": tfused.KEY_BLOCK}
-    built = re.findall(r"X\((\d+), (launch_fwd(?:_mma)?),", src)
-    assert tuple(int(hd) for hd, _ in built) == tfused.HEAD_DIMS
-    assert tuple(int(hd) for hd, fwd in built if fwd == "launch_fwd_mma") == tfused.MMA_HEAD_DIMS
+    def tiers(name):
+        body = re.search(rf"#define {name}\(X\)((?:[^\n]*\\\n)*[^\n]*)", src).group(1)
+        return tuple(int(x) for x in re.findall(r"X\((\d+)\)", body))
+
+    assert tiers("ATTN_ROW_TIERS") == tfused.ROW_TIERS
+    assert tiers("ATTN_MMA_TIERS") == tfused.MMA_TIERS
+    # the shipped (2, 8, 32, 64) and JAX-test (16, 48) head dims are tiers
+    # of their own, from 32 up the tensor-core kernels'
+    assert {2, 8, 16} <= set(tfused.ROW_TIERS)
+    assert {32, 48, 64} <= set(tfused.MMA_TIERS)
     rows = re.findall(
         r"smem N (\d+), hd (\d+): (\d+) x (\d+), (\d+) CTAs(?: at B (\d+))?; "
         r"forward (\d+) B, backward (\d+) B", src)
@@ -225,8 +232,11 @@ def test_check_shape_takes_every_shipped_vit_som_shape(path):
 
 
 def test_check_shape_refuses_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError, match="not built"):
-        tfused.check_shape(65, 24, backward=False)
+    # every head dim up to 192 runs at a tier (hd 24 at its own); past it
+    # the refusal names the widest
+    tfused.check_shape(65, 24, backward=False)
+    with pytest.raises(ValueError, match="outside 1..192"):
+        tfused.check_shape(65, 200, backward=False)
     # the tensor-core kernels stream keys (forward) and query tiles
     # (backward); only the backward's lse and delta rows grow with N
     assert tfused.smem_bytes(4096, 64, backward=False) == tfused.smem_bytes(65, 64, backward=False)

@@ -247,8 +247,8 @@ def test_bf16_forward_refuses_more_keys_than_its_registers_hold():
     forwards take the call, so every N from 321 to 1025 is taken forward,
     backward and on hybrid's float32 o and do at every built hd, by the
     kernels ``bf16_kernel`` names."""
-    for hd in tfused.HEAD_DIMS:
-        kind = "mma" if hd in tfused.MMA_HEAD_DIMS else "hmma"
+    for hd in (2, 8, 16, 32, 48, 64):  # the shipped and JAX-test head dims
+        kind = "mma" if tfused.bf16_tier(hd) >= tfused.BF16_HDP else "hmma"
         one_pass = 320 if kind == "mma" else 72
         assert tfused.bf16_kernel(one_pass, hd) == f"attn_fwd_{kind}_bf16"
         assert tfused.bf16_kernel(one_pass + 1, hd) == f"attn_fwd_{kind}2_bf16"
@@ -264,17 +264,23 @@ def test_bf16_forward_refuses_more_keys_than_its_registers_hold():
 def test_16_byte_rows_take_the_model_views(d):
     """q, k and v sliced out of the model's [B, N, 3, D] qkv buffer (D 96,
     144, 192: hd 32, 48, 64 at 3 heads) start their rows on 16-byte
-    boundaries in bf16 and float32, and so do contiguous tensors; a view
-    one element off, or with an odd row stride, is refused."""
+    boundaries in bf16 and float32, and so do contiguous tensors: the
+    tensor-core kernels copy them 16 bytes at a time (``wide_copies``). A
+    view one element off, or with an odd row stride, takes narrower copies,
+    and the bf16 forward then runs its two-pass form."""
+    hd = d // 3
     for dtype in (torch.bfloat16, torch.float32):
         buf = torch.zeros(2, 9, 3, d, dtype=dtype)
-        tfused.check_16_byte_rows([buf[:, :, i] for i in range(3)])
-        tfused.check_16_byte_rows([torch.zeros(2, 9, d, dtype=dtype)])
+        views = [buf[:, :, i] for i in range(3)]
+        assert tfused.wide_copies(views, hd)
+        assert tfused.wide_copies([torch.zeros(2, 9, d, dtype=dtype)], hd)
         flat = torch.zeros(2, 9, 3 * d + 1, dtype=dtype)
-        with pytest.raises(ValueError, match="16 bytes"):
-            tfused.check_16_byte_rows([flat[:, :, 1:d + 1]])
-        with pytest.raises(ValueError, match="16 bytes"):
-            tfused.check_16_byte_rows([flat[:, :, :d]])
+        assert not tfused.wide_copies([flat[:, :, 1:d + 1]], hd)
+        assert not tfused.wide_copies([flat[:, :, :d]], hd)
+        if dtype == torch.bfloat16:
+            odd = [flat[:, :, 1 + i * d:1 + (i + 1) * d] for i in range(3)]
+            assert tfused.bf16_kernel(9, hd, views=views) == "attn_fwd_mma_bf16"
+            assert tfused.bf16_kernel(9, hd, views=odd) == "attn_fwd_mma2_bf16"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

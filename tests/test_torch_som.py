@@ -231,21 +231,19 @@ def test_check_shape_accepts_shipped_layouts(b, n, e, p):
     # x is tokens[:, 1:].reshape(B, -1): rows (1 + N) E floats apart,
     # starting E floats into the token buffer
     base = 1 << 20
-    som_fused.check_shape(b, p, n * e, (1 + n) * e, x_ptr=base + 4 * e, p_ptr=base)
+    som_fused.check_shape(b, p, n * e, (1 + n) * e)
+    assert som_fused.wide_copies(n * e, (1 + n) * e, base + 4 * e, base)
 
 
 def test_check_shape_names_what_it_refuses():
     som_fused.check_shape(8, 16, 64, 64)
-    with pytest.raises(ValueError, match="ldx % 4"):
-        som_fused.check_shape(8, 16, 64, 66)
+    # rows off 16-byte copies are taken, by 4-byte ones
+    for d, ldx, x_ptr, p_ptr in ((64, 66, 0, 0), (62, 64, 0, 0), (64, 64, 8, 0), (64, 64, 0, 4)):
+        som_fused.check_shape(8, 16, d, ldx)
+        assert not som_fused.wide_copies(d, ldx, x_ptr, p_ptr)
+    assert som_fused.wide_copies(64, 64, 0, 0)
     with pytest.raises(ValueError, match="ldx"):
         som_fused.check_shape(8, 16, 64, 60)
-    with pytest.raises(ValueError, match="D % 4"):
-        som_fused.check_shape(8, 16, 62, 64)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        som_fused.check_shape(8, 16, 64, 64, x_ptr=8)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        som_fused.check_shape(8, 16, 64, 64, p_ptr=4)
     with pytest.raises(ValueError, match="empty"):
         som_fused.check_shape(0, 16, 64, 64)
 

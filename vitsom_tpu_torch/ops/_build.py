@@ -22,10 +22,13 @@ from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vitsom_tpu_torch"
+# --split-compile=0: the front end and ptxas work on a source's kernels in
+# parallel, one thread a core (attention_bf16.cu's many instantiations took
+# 81-128 s in one thread, 43.5 s so on the H100 machine's 8 cores)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "--split-compile=0",
 ]
 
 # dynamic shared memory one CTA may opt into on Hopper (H100, H200); the

@@ -1,6 +1,7 @@
 """Times the bf16 attention kernels of source trees in turns on one card.
 
-    python3 -m vitsom_tpu_torch.ops.attention_bf16_turns [--k2] [--shapes S] TREE [TREE ...]
+    python3 -m vitsom_tpu_torch.ops.attention_bf16_turns [--k2] [--shapes S] [--shares SEEDS]
+        TREE [TREE ...]
 
 Each TREE is a checkout of the repository (``.`` for this one). The trees
 are timed in the order given, each in a fresh interpreter whose working
@@ -21,6 +22,15 @@ each turn also runs ``profile_step`` on the flagship under bf16 with
 are q, k, v as the model hands them over: bf16 slices of one [B, N, 3, D]
 buffer, made on the card from a seed. ``--shapes "B,N,H,hd;B,N,H,hd"``
 times those shapes in place of SHAPES.
+
+With ``--shares SEEDS`` a turn times nothing: at each shape, from each of
+SEEDS seeds, it runs the bf16 backward on the forward kernel's bf16 o and
+lse and a bf16 do (``pallas``), and gives for dq, dk and dv the share of
+elements more than 1 bf16 ulp from ``chip_smoke.bwd_rounded64`` (the tree's
+own), the kernel's (``kernel``) beside the float32 plain version's
+(``plain``), and a digest of the kernel's outputs (``sha1``: equal digests
+in two trees are bitwise-equal outputs); a head dim the tree refuses gives
+its error.
 """
 
 from __future__ import annotations
@@ -89,6 +99,45 @@ def _two_pass(af, q, k, v, h):
         af.bf16_hmma_score_tiles = tiers
 
 
+def shares(shapes, seeds: int) -> dict:
+    """One tree's 1-ulp shares of the bf16 backward (``--shares``)."""
+    import hashlib
+
+    import torch
+
+    from chip_smoke import bf16_ulp, bwd_rounded64
+    from vitsom_tpu_torch.ops import attention_fused as af
+
+    dev = torch.device("cuda")
+    out = {"tree": os.getcwd(), "card": _smi(), "shares": {}}
+    for shape in shapes:
+        b, n, h, hd = shape
+        d = h * hd
+        for seed in range(seeds):
+            g = torch.Generator(device=dev).manual_seed(6000 + n + hd + 1000 * seed)
+            buf = torch.randn(b, n, 3, d, generator=g, device=dev).to(torch.bfloat16)
+            q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+            do = torch.randn(b, n, d, generator=g, device=dev).to(torch.bfloat16)
+            key = f"{shape} seed {seed}"
+            try:
+                o, lse = af._kernel_forward(q, k, v, h)
+            except ValueError as e:
+                out["shares"][key] = str(e)
+                continue
+            grads = af._kernel_backward(q, k, v, o, lse, do, h)
+            plain = af.fused_attention_bwd_reference(q, k, v, o, lse, do, h)
+            ref = bwd_rounded64(q, k, v, o, lse, do, h)
+            row = {"sha1": hashlib.sha1(b"".join(
+                x.view(torch.int16).cpu().numpy().tobytes() for x in grads)).hexdigest()}
+            for name, a, p, r in zip(("dq", "dk", "dv"), grads, plain, ref):
+                ulp = bf16_ulp(r.double())
+                row[name] = {
+                    "kernel": float(((a.double() - r.double()).abs() > ulp).double().mean()),
+                    "plain": float(((p.double() - r.double()).abs() > ulp).double().mean())}
+            out["shares"][key] = row
+    return out
+
+
 def turn(k2: bool, shapes) -> dict:
     """One tree's times (the working directory's package)."""
     import torch
@@ -142,13 +191,16 @@ def main(argv=None) -> int:
     ap.add_argument("--k2", action="store_true", help="also the flagship's bf16 graphed step")
     ap.add_argument("--shapes", default=None,
                     help='shapes to time in place of SHAPES: "B,N,H,hd;B,N,H,hd"')
+    ap.add_argument("--shares", type=int, default=0,
+                    help="seeds of the backward's 1-ulp shares at each shape, in place of times")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     shapes = (SHAPES if args.shapes is None else
               [tuple(int(x) for x in s.split(",")) for s in args.shapes.split(";")])
     if args.turn:
         sys.path.insert(0, os.getcwd())  # the tree's package, not this file's
-        print("TURN " + json.dumps(turn(args.k2, shapes)), flush=True)
+        out = shares(shapes, args.shares) if args.shares else turn(args.k2, shapes)
+        print("TURN " + json.dumps(out), flush=True)
         return 0
     if not args.trees:
         ap.error("name at least one tree")
@@ -156,7 +208,8 @@ def main(argv=None) -> int:
         env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn"] + (["--k2"] if args.k2 else [])
-            + ([] if args.shapes is None else ["--shapes", args.shapes]),
+            + ([] if args.shapes is None else ["--shapes", args.shapes])
+            + (["--shares", str(args.shares)] if args.shares else []),
             cwd=tree, env=env, capture_output=True, text=True)
         lines = [x for x in proc.stdout.splitlines() if x.startswith("TURN ")]
         if proc.returncode != 0 or not lines:

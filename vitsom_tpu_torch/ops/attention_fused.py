@@ -16,20 +16,34 @@ are column slices), as in the JAX package:
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU
 tensor it runs the plain PyTorch version beside it. There is no fallback
 from one to the other. q, k and v may be strided views (the model slices
-them out of its fused qkv buffer) as long as their column stride is 1; at
-head dims from 32 up (the tensor-core kernels) their rows must also start
-on 16-byte boundaries, as the model's views do (``check_16_byte_rows``).
-Below (the row kernels) any such view is taken: the float32 wrapper
-passes the widest row copy, 16, 8 or 4 bytes, that the views' pointers and
-strides allow (``row_copy_width``); the bf16 kernels take 16-byte copies
-where every view allows them and 2-byte loads elsewhere. The bf16 backward
-also takes a float32 o with its float32 cotangent (``hybrid``'s output).
-bf16 below hd 32 runs the tensor-core row kernels (mma.sync) with the plan
-the wrapper passes (``bf16_hmma_plan``, ``bf16_hmma_score_tiles``); from
-hd 32 up the wgmma kernels. The forwards hold a row's scores in registers
-up to N 72 (mma.sync; the split measured in csrc/attention_bf16.cu) or
-320 (wgmma) and walk the keys twice past it; ``bf16_kernel`` names the kernel
-a call runs.
+them out of its fused qkv buffer) as long as their column stride is 1, at
+any alignment.
+
+Every head dim from 1 to 192 is taken (``MAX_HEAD_DIM``), as the JAX
+kernel takes any: each runs at a tier, the first at least as wide
+(``head_tier``, ``bf16_tier``), its staged rows and fragments zero past hd.
+
+- float32 (``csrc/attention.cu``): hd 1-24 the row kernels on the FP32
+  cores at tiers 2, 4, 8, 16, 24 (``ROW_TIERS``); at its tier a head's rows
+  are copied 16, 8 or 4 bytes at a time as the views' pointers and strides
+  allow (``row_copy_width``), below it 4 bytes. hd 25-192 the 3xTF32
+  tensor-core kernels (mma.sync) at the multiples of 8 in ``MMA_TIERS``;
+  past 64 a CTA forms one slice of ceil(tier / 64) of the output columns
+  (``mma_slices``), each recomputing the scores. 16-byte copies where hd is
+  the tier and the rows start on 16-byte boundaries, else 4-byte ones.
+- bf16 (``csrc/attention_bf16.cu``): hd 1-16 the tensor-core row kernels
+  (mma.sync) at tiers 2, 8, 16 with the plan the wrapper passes
+  (``bf16_hmma_plan``, ``bf16_hmma_score_tiles``); hd 17-192 the wgmma
+  kernels, the head in 1, 2 or 3 column tiles of 64 (``BF16_TIERS``), a CTA
+  a 64-column slice of the output. 16-byte copies where hd is the tier
+  (a multiple of 8 for wgmma) and every view allows them, 2-byte loads
+  elsewhere. The forwards hold a row's scores in registers up to N 72
+  (mma.sync; the split measured in csrc/attention_bf16.cu) or 320 (wgmma)
+  and walk the keys twice past it; ``bf16_kernel`` names the kernel a call
+  runs. The bf16 backward also takes a float32 o with its float32
+  cotangent (``hybrid``'s output).
+
+A head dim past 192 is refused by ``check_shape``.
 """
 
 from __future__ import annotations
@@ -49,20 +63,23 @@ LAUNCHES_BWD = 0
 LAUNCHES_FWD_BF16 = 0
 LAUNCHES_BWD_BF16 = 0
 
-# head dims the kernels are built for (csrc/attention.cu, ATTN_HEAD_DIMS);
-# from 32 up they run the tensor-core kernels
-HEAD_DIMS = (2, 8, 16, 32, 48, 64)
-MMA_HEAD_DIMS = (32, 48, 64)
+# the tiers a head dim runs at, the first at least as wide (csrc/
+# attention.cu: ATTN_ROW_TIERS, ATTN_MMA_TIERS; csrc/attention_bf16.cu:
+# ATTN_BF16_TIERS), and the widest head dim the kernels take
+ROW_TIERS = (2, 4, 8, 16, 24)
+MMA_TIERS = (32, 40, 48, 56, 64, 80, 96, 112, 128, 192)
+BF16_TIERS = (2, 8, 16, 64, 128, 192)
+MAX_HEAD_DIM = 192
 # the tensor-core kernels' tile constants (kRowTile, kMaxWarps, kPad,
 # kKeyBlock: 8-key tiles a forward ring stage holds)
 ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = 16, 8, 4, 4
-# the row kernels' (hd <= 16): threads of a CTA at most (kRowThreads),
+# the row kernels' (hd <= 24): threads of a CTA at most (kRowThreads),
 # lanes of a row group (kRowLanes) and rows a group (kRowRows)
 ROW_THREADS, ROW_LANES, ROW_ROWS = 128, 2, 2
 # the bf16 kernels' (csrc/attention_bf16.cu: kTile, kHdp, kMaxKeyBlocks):
-# from hd 32 up the 64-row wgmma tiles, their head dim padded to 64
-# (128-byte rows), and the one-pass forward's key blocks at most (its scores
-# stay in registers: N <= 320; the two-pass forward takes longer sequences)
+# from hd 17 up the 64-row wgmma tiles, 64 columns (128-byte rows) each,
+# and the one-pass forward's key blocks at most (its scores stay in
+# registers: N <= 320; the two-pass forward takes longer sequences)
 BF16_TILE, BF16_HDP, BF16_MAX_KEY_BLOCKS = 64, 64, 5
 BF16_TILE_BYTES = BF16_TILE * BF16_HDP * 2
 BF16_SMEM_ALIGN = 1024  # the tiles' 128-byte swizzle repeats every 8 rows
@@ -104,6 +121,12 @@ def _lib():
                 "attention.cu tiles (kRowTile, kMaxWarps, kPad, kKeyBlock, kRowThreads, "
                 f"kRowLanes, kRowRows) = {tuple(tiles)} differ from the wrapper's {want}"
             )
+        tiers = (ctypes.c_int * 32)()
+        lib.attention_head_tiers(tiers)
+        got = tuple(tiers)[:len(ROW_TIERS) + len(MMA_TIERS) + 2]
+        if got != (*ROW_TIERS, 0, *MMA_TIERS, 0):
+            raise RuntimeError(f"attention.cu head-dim tiers {got} differ from the wrapper's "
+                               f"{ROW_TIERS} and {MMA_TIERS}")
         _LIB = lib
     return _LIB
 
@@ -134,6 +157,11 @@ def _lib_bf16():
                 f"kHmmaMaxKeys, HMMA_SCORE_TILES) = {tuple(tiles)} differ from the wrapper's "
                 f"{want}"
             )
+        tiers = (ctypes.c_int * 16)()
+        lib.attention_bf16_head_tiers(tiers)
+        if tuple(tiers)[:len(BF16_TIERS) + 1] != (*BF16_TIERS, 0):
+            raise RuntimeError(f"attention_bf16.cu head-dim tiers {tuple(tiers)} differ from "
+                               f"the wrapper's {BF16_TIERS}")
         _LIB_BF16 = lib
     return _LIB_BF16
 
@@ -142,23 +170,54 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def mma_plan(n: int) -> Tuple[int, int]:
+def head_tier(head_dim: int) -> int:
+    """The float32 kernels' tier for ``head_dim``: the first of ROW_TIERS
+    (1-24, the row kernels) or MMA_TIERS (25-192, the tensor-core kernels)
+    at least as wide."""
+    for tier in ROW_TIERS + MMA_TIERS:
+        if 1 <= head_dim <= tier:
+            return tier
+    raise ValueError(f"head_dim {head_dim} is outside 1..{MAX_HEAD_DIM}")
+
+
+def bf16_tier(head_dim: int) -> int:
+    """The bf16 kernels' tier for ``head_dim``: 2, 8, 16 (the tensor-core
+    row kernels) or 64, 128, 192 (wgmma, the head in tier / 64 column
+    tiles)."""
+    for tier in BF16_TIERS:
+        if 1 <= head_dim <= tier:
+            return tier
+    raise ValueError(f"head_dim {head_dim} is outside 1..{MAX_HEAD_DIM}")
+
+
+def mma_slices(head_dim: int) -> int:
+    """Output column slices of the float32 tensor-core kernels at
+    ``head_dim`` (a CTA each, the scores formed in every one): one up to
+    tier 64, else ceil(tier / 64)."""
+    tier = head_tier(head_dim)
+    return 1 if tier <= 64 else _cdiv(tier, 64)
+
+
+def mma_plan(n: int, head_dim: int = 64) -> Tuple[int, int]:
     """(chunks C, warps W) of one (b, h) in the tensor-core kernels: the
     ceil(N / 16) row tiles (query tiles in the forward, key tiles in the
-    backward) cut into C chunks of at most ``MAX_WARPS`` warp tiles each."""
+    backward) cut into C chunks of at most ``MAX_WARPS`` warp tiles each
+    (half as many at tier 192, where the backward's K and V rows of 16 W
+    keys would not fit in shared memory)."""
+    most = MAX_WARPS if head_tier(head_dim) <= 128 else MAX_WARPS // 2
     tiles = _cdiv(n, ROW_TILE)
-    chunks = _cdiv(tiles, MAX_WARPS)
+    chunks = _cdiv(tiles, most)
     return chunks, _cdiv(tiles, chunks)
 
 
 def row_plan(n: int, head_dim: int, backward: bool) -> Tuple[int, ...]:
-    """The row kernels' grid at sequence length ``n`` (head dims below 32,
-    the same plan at each): a group of ``ROW_LANES`` lanes holds
+    """The row kernels' grid at sequence length ``n`` (head dims 1-24, the
+    same plan at each): a group of ``ROW_LANES`` lanes holds
     ``ROW_ROWS`` rows, a CTA at most ``ROW_THREADS`` threads; the N rows of a
     (b, h) are spread evenly over C chunks, a CTA each, rounded up to warps.
     Forward (C, threads); backward (C_A, C_B, threads), the key chunks of
     pass A and the query chunks of pass B in one launch."""
-    if head_dim not in HEAD_DIMS or head_dim in MMA_HEAD_DIMS:
+    if not 1 <= head_dim <= ROW_TIERS[-1]:
         raise ValueError(f"head_dim {head_dim} has no row kernel")
     chunks = _cdiv(n, ROW_THREADS // ROW_LANES * ROW_ROWS)
     threads = _cdiv(_cdiv(_cdiv(n, chunks), ROW_ROWS) * ROW_LANES, 32) * 32
@@ -170,7 +229,11 @@ def row_copy_width(views, head_dim: int) -> int:
     head's row in the float32 ``views``: 16, 8 or 4. Each view's pointer and
     batch and row strides, and the head offsets (``head_dim`` elements),
     must be multiples of it. The flagship encoder's q, k, v views (rows 48
-    floats, heads 8 apart) take 16; its decoder's (heads 2 apart) 8."""
+    floats, heads 8 apart) take 16; its decoder's (heads 2 apart) 8. A head
+    dim below its tier (``head_tier``) runs the padded kernels, 4 bytes a
+    copy."""
+    if head_dim not in ROW_TIERS:
+        return 4
     for width in (16, 8):
         f = width // 4
         if head_dim % f == 0 and all(
@@ -192,28 +255,30 @@ def row_launch(b: int, n: int, heads: int, head_dim: int, backward: bool,
 
 
 def smem_bytes(n: int, head_dim: int, backward: bool) -> int:
-    """Dynamic shared memory of one CTA (``csrc/attention.cu``'s header).
+    """Dynamic shared memory of one CTA (``csrc/attention.cu``'s header),
+    at the head dim's tier T (``head_tier``).
 
-    hd <= 16: two staged [N, hd] operands, plus lse and delta rows in the
-    backward. hd >= 32: rows of hd + SMEM_PAD floats; the forward a
-    two-stage ring of K and V blocks of 8 * KEY_BLOCK keys; the backward its
-    chunk's K and V rows, a two-stage ring of 16-row q and do tiles, lse and
-    delta (N rounded up to 16) and a [16, keys] ds tile whose row stride is
-    8 mod 32 floats."""
-    if head_dim not in MMA_HEAD_DIMS:
-        return 4 * (2 * n * head_dim + (2 * n if backward else 0))
-    ld = head_dim + SMEM_PAD
+    hd <= 24: two staged [N, T] operands, plus lse and delta rows in the
+    backward. hd >= 25: rows of T + SMEM_PAD floats; the forward a
+    two-stage ring of K blocks and of V blocks (the slice's T / slices
+    columns) of 8 * KEY_BLOCK keys; the backward its chunk's K and V rows,
+    a two-stage ring of 16-row q and do tiles, lse and delta (N rounded up
+    to 16) and a [16, keys] ds tile whose row stride is 8 mod 32 floats."""
+    tier = head_tier(head_dim)
+    if tier <= ROW_TIERS[-1]:
+        return 4 * (2 * n * tier + (2 * n if backward else 0))
+    ld = tier + SMEM_PAD
     if not backward:
-        return 4 * 2 * 2 * 8 * KEY_BLOCK * ld
+        return 4 * 2 * 8 * KEY_BLOCK * (ld + tier // mma_slices(head_dim) + SMEM_PAD)
     nq = _cdiv(n, ROW_TILE) * ROW_TILE
-    keys = mma_plan(n)[1] * ROW_TILE
+    keys = mma_plan(n, head_dim)[1] * ROW_TILE
     lds = keys + (8 - keys) % 32
     return 4 * ((2 * keys + 4 * ROW_TILE) * ld + 2 * nq + ROW_TILE * lds)
 
 
 def bf16_mma_plan(n: int) -> Tuple[int, int, int]:
-    """The bf16 tensor-core kernels' grid a (b, h) at sequence length ``n``
-    (hd >= 32), CTAs of one warpgroup (128 threads): (forward CTAs, the
+    """The bf16 wgmma kernels' grid a (b, h) at sequence length ``n`` (hd
+    17-64; from 65 the grid's y dimension adds the column slices), CTAs of one warpgroup (128 threads): (forward CTAs, the
     forward's 64-key blocks, which are also its 64-row query tiles,
     backward CTAs: a key-role and a query-role CTA a 64-row tile). The
     one-pass forward (up to BF16_MAX_KEY_BLOCKS blocks) runs one CTA over
@@ -222,21 +287,41 @@ def bf16_mma_plan(n: int) -> Tuple[int, int, int]:
     return 1 if tiles <= BF16_MAX_KEY_BLOCKS else tiles, tiles, 2 * tiles
 
 
-def bf16_kernel(n: int, head_dim: int, backward: bool = False) -> str:
+def wide_copies(views, head_dim: int) -> bool:
+    """Whether the tensor-core kernels (float32 from hd 25, bf16 from 17)
+    copy every head's rows of ``views`` 16 bytes at a time: hd is its tier
+    (float32) or a multiple of 8 (bf16), and every view's pointer and batch
+    and row strides are multiples of 16 bytes (``csrc/attention.cu``:
+    mma_pad; ``csrc/attention_bf16.cu``: mma_narrow). Elsewhere they copy 4
+    bytes (float32) or 2 (bf16) at a time. The model's q, k and v, column
+    slices of its [B, N, 3, D] qkv buffer, take 16 at every shipped width."""
+    size = views[0].element_size()
+    if head_dim % (16 // size) or (size == 4 and head_tier(head_dim) != head_dim):
+        return False
+    return all(x.data_ptr() % 16 == 0 and (x.stride(0) * size) % 16 == 0
+               and (x.stride(1) * size) % 16 == 0 for x in views)
+
+
+def bf16_kernel(n: int, head_dim: int, backward: bool = False, views=None) -> str:
     """The bf16 kernel that serves a call at sequence length ``n`` and
-    ``head_dim`` (``csrc/attention_bf16.cu``; the name the profiler shows):
-    below hd 32 the tensor-core row kernels (mma.sync), from 32 up the
-    wgmma ones. A forward holds a row's scores in registers up to
-    BF16_HMMA_MAX_KEYS (``attn_fwd_hmma_bf16``) or 320 keys
-    (``attn_fwd_mma_bf16``) and walks the keys twice past it (``attn_fwd_hmma2_bf16``, ``attn_fwd_mma2_bf16``); the
-    backwards (``attn_bwd_hmma_bf16``, ``attn_bwd_mma_bf16``) take any N,
-    on bf16 or float32 o and do, whatever the views' alignment."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} is not built; the kernels cover {HEAD_DIMS}")
-    kind = "mma" if head_dim in MMA_HEAD_DIMS else "hmma"
+    ``head_dim`` on the q, k, v ``views`` (None: views that take 16-byte
+    copies, as the model's do) (``csrc/attention_bf16.cu``; the name the
+    profiler shows): hd 1-16 the tensor-core row kernels (mma.sync), 17-192
+    the wgmma ones. A forward holds a row's scores in registers up to
+    BF16_HMMA_MAX_KEYS (``attn_fwd_hmma_bf16``) or, at hd 17-64, 320 keys
+    (``attn_fwd_mma_bf16``) and walks the keys twice past it, and on wgmma
+    at every N from hd 65 on and where the rows take no 16-byte copies
+    (``wide_copies``: hd not a multiple of 8, or views off 16-byte
+    boundaries) (``attn_fwd_hmma2_bf16``, ``attn_fwd_mma2_bf16``); the
+    backwards (``attn_bwd_hmma_bf16``, ``attn_bwd_mma_bf16``) take any N, on
+    bf16 or float32 o and do, whatever the views' alignment."""
+    tier = bf16_tier(head_dim)
+    kind = "mma" if tier >= BF16_HDP else "hmma"
     if backward:
         return f"attn_bwd_{kind}_bf16"
-    two_pass = n > BF16_TILE * BF16_MAX_KEY_BLOCKS if kind == "mma" else n > BF16_HMMA_MAX_KEYS
+    narrow = head_dim % 8 or (views is not None and not wide_copies(views, head_dim))
+    two_pass = (n > BF16_HMMA_MAX_KEYS if kind == "hmma" else
+                tier > BF16_HDP or narrow or n > BF16_TILE * BF16_MAX_KEY_BLOCKS)
     return f"attn_fwd_{kind}{'2' if two_pass else ''}_bf16"
 
 
@@ -263,44 +348,66 @@ def bf16_hmma_score_tiles(n: int) -> int:
     return min(t for t in BF16_HMMA_SCORE_TILES if 8 * t >= n)
 
 
+def bf16_key_stages(head_dim: int, f32_do: bool = False) -> int:
+    """Ring stages of the wgmma backward's key role: two where a second
+    stage of q and do's parts fits beside k and v, else one (hd 129-192 on
+    hybrid's float32 do, whose three parts take 3 column tiles each)."""
+    hc, parts = bf16_tier(head_dim) // BF16_HDP, 3 if f32_do else 1
+    two = (BF16_SMEM_ALIGN + (2 * hc + 2 * hc * (1 + parts)) * BF16_TILE_BYTES
+           + 2 * 2 * BF16_TILE * 4 + 3 * 8)
+    return 2 if two <= SMEM_LIMIT_BYTES else 1
+
+
 def bf16_smem_bytes(n: int, head_dim: int, backward: bool, f32_do: bool = False) -> int:
     """Dynamic shared memory of one CTA of the bf16 kernels
     (``csrc/attention_bf16.cu``); ``f32_do``: hybrid's float32 do, split
     into three bf16 parts.
     hd <= 16 (the tensor-core row kernels, both forward forms alike):
-    [NP][hd] bf16 tiles, N padded to NP = 16 ceil(N / 16) rows: the
-    forward's k and v; the backward's key role q and do's parts (one, or
-    three), its NP delta floats and, beside a bf16 do, NP lse floats (on a
-    float32 do it reads lse from global memory). Every N the float32
-    kernels take at the same hd fits.
-    hd >= 32: [64][64] bf16 tiles (BF16_TILE_BYTES, hd padded to 64) after
-    BF16_SMEM_ALIGN bytes of slack for their 1024-byte alignment; the
-    one-pass forward every key block of k and of v, two q tiles, 128 bytes
-    for four 8-byte mbarriers and the o tile that stages its stores; the
-    two-pass forward (past BF16_MAX_KEY_BLOCKS blocks) its q tile, a
-    two-stage ring of k and v tiles, the o tile and three mbarriers; the
-    backward its larger role, the key role's k and v tiles and a two-stage
-    ring of a q tile and do's parts with 64 lse and 64 delta floats a
-    stage, and an mbarrier for k and v and one a stage."""
+    [NP][T] bf16 tiles (T the tier: 2, 8, 16), N padded to NP = 16
+    ceil(N / 16) rows: the forward's k and v; the backward's key role q and
+    do's parts (one, or three), its NP delta floats and, beside a bf16 do,
+    NP lse floats (on a float32 do it reads lse from global memory). Every
+    N the float32 kernels take at the same hd fits.
+    hd >= 17: [64][64] bf16 tiles (BF16_TILE_BYTES), the head padded to HC
+    = 1, 2 or 3 column tiles, after BF16_SMEM_ALIGN bytes of slack for their
+    1024-byte alignment; the one-pass forward (HC 1) every key block of k
+    and of v, two q tiles, 128 bytes for four 8-byte mbarriers and the o
+    tile that stages its stores; the two-pass forward (past
+    BF16_MAX_KEY_BLOCKS blocks, HC 2 and 3, or hd % 8) its q tiles, a two-stage ring
+    of k and the slice's v, the o tile and three mbarriers; the backward
+    its larger role: the key role's k and v and S (``bf16_key_stages``)
+    ring stages of q and do's parts with 64 lse and 64 delta floats a stage,
+    an mbarrier for k and v and one a stage; or the query role's q and do's
+    parts, a two-stage ring of k and v and three mbarriers."""
     parts = 3 if f32_do else 1
-    if head_dim not in MMA_HEAD_DIMS:
+    tier = bf16_tier(head_dim)
+    if tier < BF16_HDP:
         rows = 16 * _cdiv(n, 16)
-        tile = rows * head_dim * 2
+        tile = rows * tier * 2
         return (1 + parts) * tile + (1 if f32_do else 2) * rows * 4 if backward else 2 * tile
+    hc = tier // BF16_HDP
     if not backward:
         blocks = bf16_mma_plan(n)[1]
-        if blocks > BF16_MAX_KEY_BLOCKS:
-            return BF16_SMEM_ALIGN + 6 * BF16_TILE_BYTES + 3 * 8
+        if hc > 1 or head_dim % 8 or blocks > BF16_MAX_KEY_BLOCKS:
+            return BF16_SMEM_ALIGN + (3 * hc + 3) * BF16_TILE_BYTES + 3 * 8
         return BF16_SMEM_ALIGN + (2 * blocks + 3) * BF16_TILE_BYTES + 128
-    return BF16_SMEM_ALIGN + (4 + 2 * parts) * BF16_TILE_BYTES + 2 * 2 * BF16_TILE * 4 + 3 * 8
+    stages = bf16_key_stages(head_dim, f32_do)
+    keys = (BF16_SMEM_ALIGN + (2 * hc + stages * hc * (1 + parts)) * BF16_TILE_BYTES
+            + stages * 2 * BF16_TILE * 4 + (1 + stages) * 8)
+    queries = BF16_SMEM_ALIGN + (hc * (1 + parts) + 4 * hc) * BF16_TILE_BYTES + 3 * 8
+    return max(keys, queries)
 
 
 def check_shape(n: int, head_dim: int, backward: bool, dtype=torch.float32,
                 f32_do: bool = False) -> None:
     """Raises ValueError unless the kernels take sequence length ``n`` at
-    ``head_dim`` (built, and its CTA's working set fits in shared memory)."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} is not built; the kernels cover {HEAD_DIMS}")
+    ``head_dim`` (1 to MAX_HEAD_DIM, and its CTA's working set fits in
+    shared memory)."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head_dim {head_dim} is outside 1..{MAX_HEAD_DIM}: the kernels pad a head to a "
+            f"tier of at most {MAX_HEAD_DIM} columns (float32 {ROW_TIERS + MMA_TIERS}, bf16 "
+            f"{BF16_TIERS})")
     need = (bf16_smem_bytes(n, head_dim, backward, f32_do) if dtype == torch.bfloat16
             else smem_bytes(n, head_dim, backward))
     if need > SMEM_LIMIT_BYTES:
@@ -308,21 +415,6 @@ def check_shape(n: int, head_dim: int, backward: bool, dtype=torch.float32,
             f"N={n} at head_dim {head_dim} needs {need} bytes of shared memory per block, "
             f"more than {SMEM_LIMIT_BYTES}"
         )
-
-
-def check_16_byte_rows(views) -> None:
-    """Raises ValueError unless every view's pointer and batch and row
-    strides are multiples of 16 bytes: the tensor-core kernels (hd >= 32)
-    copy rows in 16-byte pieces. The model's q, k and v, column slices of
-    its [B, N, 3, D] qkv buffer, pass at every shipped width (D 192: rows
-    1152 bytes apart, heads 128 bytes apart)."""
-    for x in views:
-        size = x.element_size()
-        if x.data_ptr() % 16 or (x.stride(0) * size) % 16 or (x.stride(1) * size) % 16:
-            raise ValueError(
-                "head dims from 32 up read rows in 16-byte pieces: pointer and row/batch "
-                f"strides {x.stride()[:2]} ({x.dtype}) must be multiples of 16 bytes"
-            )
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -361,8 +453,9 @@ def fused_attention_reference(
     accumulated in float32 (float64 for float64 inputs) and scaled, then
     ``m``, ``p = exp(s - m)`` (``_exp``), ``l``, ``attn = (p / l)`` rounded to v's
     dtype (a no-op unless bf16) and ``attn v`` accumulated as the scores
-    are. Returns that accumulated o, which is ``_hybrid_fwd``'s output; the
-    kernel (and :func:`attention_forward`) stores it in the inputs' dtype."""
+    are. Returns that accumulated o, contiguous (``_hybrid_fwd``'s output,
+    which the backward kernel takes); the kernel (and
+    :func:`attention_forward`) stores it in the inputs' dtype."""
     b, n, d = q.shape
     scale = (d // heads) ** -0.5
     qh, kh, vh = (_acc(_split(x, heads)) for x in (q, k, v))
@@ -372,7 +465,7 @@ def fused_attention_reference(
     denom = torch.sum(p, dim=-1, keepdim=True)
     attn = (p / denom).to(v.dtype).to(p.dtype)
     o = torch.einsum("bhnm,bmhd->bnhd", attn, vh)
-    return o.reshape(b, n, d), (m + torch.log(denom))[..., 0]
+    return o.reshape(b, n, d).contiguous(), (m + torch.log(denom))[..., 0]
 
 
 def attention_delta_reference(o: torch.Tensor, do: torch.Tensor, heads: int) -> torch.Tensor:
@@ -415,9 +508,7 @@ def fused_attention_bwd_reference(q, k, v, o, lse, do, heads: int):
 def _check(tensors, heads: int, backward: bool):
     """(B, N, hd) after checking what the kernels take; raises otherwise.
     All are float32, or all bf16 (the bf16 kernels); a bf16 backward's o
-    and do (``tensors[3:]``) may instead both be float32 (hybrid). From hd
-    32 up every view's rows start on 16-byte boundaries
-    (``check_16_byte_rows``)."""
+    and do (``tensors[3:]``) may instead both be float32 (hybrid)."""
     ref = tensors[0]
     if ref.ndim != 3:
         raise ValueError(f"attention kernels take [B, N, D] tensors, got {tuple(ref.shape)}")
@@ -439,8 +530,6 @@ def _check(tensors, heads: int, backward: bool):
         raise ValueError(f"bad attention shape B={b} N={n} D={d} heads={heads}")
     hd = d // heads
     check_shape(n, hd, backward, ref.dtype, backward and tensors[4].dtype != ref.dtype)
-    if hd in MMA_HEAD_DIMS:
-        check_16_byte_rows(tensors)
     return b, n, hd
 
 
@@ -455,7 +544,7 @@ def _stream(dev):
 def _hmma_plan(n: int, hd: int) -> Tuple[int, int]:
     """(chunks, warps) of the bf16 tensor-core row kernels (hd <= 16), else
     (0, 0): the wgmma kernels plan their own grid."""
-    return (0, 0) if hd in MMA_HEAD_DIMS else bf16_hmma_plan(n)
+    return (0, 0) if bf16_tier(hd) >= BF16_HDP else bf16_hmma_plan(n)
 
 
 def _kernel_forward(q, k, v, heads: int):
@@ -491,7 +580,8 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
             or tuple(lse.shape) != (b, heads, n) or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous float32 [B, H, N] tensor beside q")
     bf16 = q.dtype == torch.bfloat16
-    mma = hd in MMA_HEAD_DIMS
+    # the tensor-core kernels: bf16 wgmma from hd 17, float32 3xTF32 from 25
+    mma = bf16_tier(hd) >= BF16_HDP if bf16 else head_tier(hd) in MMA_TIERS
     dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
                   for _ in range(3))
     lib = _lib_bf16() if bf16 else _lib()
@@ -511,7 +601,7 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
                 b, n, heads, hd, hd**-0.5, *_hmma_plan(n, hd), _stream(q.device),
             )
         else:
-            chunks = mma_plan(n)[0] if mma else 1
+            chunks = mma_plan(n, hd)[0] if mma else 1
             # the key chunks' dq partials, summed in chunk order by a second launch
             part = (torch.empty((chunks, b, n, heads * hd), device=q.device,
                                 dtype=torch.float32) if chunks > 1 else None)

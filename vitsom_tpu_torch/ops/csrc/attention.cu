@@ -14,9 +14,17 @@
 // No N x N tensor reaches device memory, there are no atomics and every sum
 // has a fixed order, so two runs give bitwise-equal outputs.
 //
-// Two designs, chosen by head dim:
+// Two designs, chosen by head dim. The JAX kernel takes any head dim, and
+// so do these: every hd from 1 to 192 runs at a tier, the first at least
+// as wide (ATTN_ROW_TIERS, ATTN_MMA_TIERS below; ops/attention_fused.py:
+// head_tier), instantiated once. A head at its tier copies rows as before;
+// one below it runs the tier's kernel with a runtime hd, on 4-byte copies
+// zero past hd (PAD in the row kernels, `pad` in the tensor-core ones),
+// which leaves every score and sum as it is: zero columns of q and k add
+// nothing to a score, zero columns of v and do give output columns that
+// are not stored.
 //
-// 1. hd <= 16 (the flagship's 8 and 2; 16 of the JAX tests): attn_fwd_kernel
+// 1. hd <= 24 (the flagship's 8 and 2; 16 of the JAX tests): attn_fwd_kernel
 //    / attn_bwd_kernel on the FP32 cores. A TF32 product is 8 deep, so at
 //    hd 2 it would waste three quarters of every product: the tensor cores
 //    do not pay here.
@@ -53,6 +61,16 @@
 //      row_copy_width). The kernels are instantiated per width, so their
 //      copy loops carry no branch, and the launcher refuses a width that a
 //      view contradicts.
+//    - Tiers 2, 4, 8, 16 and 24: hd 1 runs at 2, 3 at 4, 5-7 at 8, 9-15 at
+//      16 and 17-23 at 24, PAD (a float a copy, zero past hd; stores of the
+//      columns below hd alone). The flagship at vit.heads 4 runs hd 4 (its
+//      own tier) in its encoder and hd 1 in its decoder. Tier 24 is here,
+//      not on the tensor cores: a 3xTF32 product keeps 22 of an operand's
+//      24 significant bits (two 11-bit parts), which over short sums (a
+//      head of 17-23 columns, few keys) shows past the float64 rule below:
+//      at (54, 9, 2, 17) the 3xTF32 tier 24 put dk 1.81e-6 from float64,
+//      the plain version 6.38e-7 (chip_smoke.py phase Q's hold, NVIDIA H100
+//      80GB HBM3, 700.00 W). Its staged K and V limit N to 1162 (backward).
 //    - Bound at (128, 197, 2, 8): FP32 operations at 67 TFLOP/s (forward
 //      4.75 us, backward 11.9 us). At hd 2 the forward's 9.9 M exponentials
 //      at 16 a clock an SM (the SFU rate) take 2.38 us, above its FP32
@@ -82,9 +100,27 @@
 //     rows bwd N 9, hd 8: 1 + 1 x 32 threads, 2 CTAs at B 1, H 1; 648 B; 16 an SM
 //
 
-// 2. hd >= 32 (the emb-192 configs' 64 and 32; 48 of the JAX tests):
+// 2. 25 <= hd <= 192 (the emb-192 configs' 64 and 32; 48 of the JAX tests):
 //    attn_fwd_mma_kernel / attn_bwd_mma_kernel, 3xTF32 products on the
-//    tensor cores with mma.sync m16n8k8.
+//    tensor cores with mma.sync m16n8k8, at tiers that are multiples of
+//    the product's 8-deep k-step: 32, 40, 48, 56, 64, 80, 96, 112, 128 and
+//    192.
+//    - Past 64 the tier is cut into ceil(tier / 64) slices of output
+//      columns (80: 2 x 40, 96: 2 x 48, 112: 2 x 56, 128: 2 x 64, 192:
+//      3 x 64), a CTA each (blockIdx.y). A slice's CTA forms the scores
+//      over the whole head, then o (forward), or dq, dk and dv (backward),
+//      of its columns alone: the accumulators a warp holds stay those of
+//      at most 64 columns (dk and dv 2 x 32 floats a lane at hd 64), so
+//      registers do not grow with hd, at the cost of the scores formed
+//      once a slice. These tiers run one CTA of 8 warps an SM (launch
+//      bounds of 255 registers: q's TF32 fragments are hd / 2 floats a
+//      lane in the forward). The backward stages its chunk's K and V rows
+//      of the whole head, hd + kPad floats each: at tier 192 a CTA holds 4
+//      warp tiles (64 keys, 150 KB), below it 8 (tier 128: 135 KB).
+//    - Below the tier (hd % 8 != 0, or a head between two tiers), and for
+//      views whose rows are not 16-byte aligned, the staging copies are
+//      4-byte cp.async, zero past hd; q's fragments are zero past hd; the
+//      stores are a float at a time at odd hd (float2 at even hd).
 //    - Why mma.sync and not wgmma: the shipped N are 64k + 1 (65, 197, 257,
 //      the CLS token). A warp's 16-row tile wastes 15 of 80 rows at N 65 and
 //      11 of 208 at N 197; a 64-row wgmma tile would waste 63 of 128 at N 65.
@@ -103,8 +139,9 @@
 //      be summed index 2t and column t + 4 index 2t + 1; the B operand's
 //      rows follow the same order, so the score registers are the A fragment
 //      as they are.
-//    - Staging: 16-byte cp.async from the strided views (rows 16-byte
-//      aligned, checked by the wrapper), zero-filled past N, into rows of
+//    - Staging: 16-byte cp.async from the strided views (where hd is the
+//      tier and their rows start on 16-byte boundaries; else the 4-byte
+//      copies above), zero-filled past N, into rows of
 //      hd + kPad floats; that stride makes every fragment load of the
 //      kernels, by rows (4g + t) or by summed index (8t + g), hit 32 banks.
 //    - Grid: a (b, h) is cut into C chunks of W warp tiles of kRowTile rows,
@@ -154,14 +191,19 @@
 //   (512, 257, 3, 64): fwd 121.14 us | 157.40 us; bwd 241.80 | 393.51 us: ops
 //   (512, 257, 3, 32): fwd 60.80 us | 78.70 us; bwd 121.14 | 196.75 us: ops
 // ptxas (sm_90a), registers / spill stores: attn_fwd_mma_kernel hd 64
-// 128 / 172 B, hd 48 127 / 0, hd 32 122 / 0; attn_bwd_mma_kernel hd 64
-// 128 / 172 B, hd 48 128 / 136 B, hd 32 128 / 0; the row kernels forward /
-// backward hd 8 96 / 118, hd 2 56 / 48, hd 16 128 / 200, no spills
-// (chip_smoke.py phase 2 prints them for every build).
+// 128 / 176 B, hd 48 128 / 0, hd 32 124 / 0; attn_bwd_mma_kernel hd 64
+// 128 / 180 B, hd 48 128 / 120 B, hd 32 128 / 8 B; past 64 (255 a
+// thread) the forward 183-255 registers (200 B spilled at tier 192), the
+// backward 254-255 (124-312 B at 96, 112, 192); the row kernels forward /
+// backward hd 2 56 / 48, hd 4 72 / 64, hd 8 96 / 118, hd 16 128 / 200, hd
+// 24 165 / 248-255 (4 B spilled, PAD) (chip_smoke.py phase 2 prints them
+// for every build).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "tf32_mma.cuh"
 
@@ -170,7 +212,7 @@ namespace {
 constexpr int kKeyChunk = 8;    // keys of a row kernel's online-softmax step
 constexpr int kBadHeadDim = -1;
 constexpr int kBadCopyWidth = -2;
-// the row kernels (hd <= 16): threads of a CTA at most, lanes of a row
+// the row kernels (hd <= 24): threads of a CTA at most, lanes of a row
 // group (a power of two that divides 32) and rows a group
 constexpr int kRowThreads = 128;
 constexpr int kRowLanes = 2;
@@ -198,7 +240,7 @@ __device__ __forceinline__ const float* row_ptr(const View& x, int b, int r, int
 }
 
 // ---------------------------------------------------------------------------
-// hd <= 16: row groups of kRowLanes lanes and kRowRows rows, on the FP32 cores
+// hd <= 24: row groups of kRowLanes lanes and kRowRows rows, on the FP32 cores
 // ---------------------------------------------------------------------------
 
 // VW consecutive floats, device memory -> registers -> shared memory. VW is
@@ -257,12 +299,20 @@ __device__ __forceinline__ void lds(const float* s, float (&r)[W]) {
   }
 }
 
-// one head's HD floats of row r of a strided view, in VW-float copies
-template <int HD, int VW>
-__device__ __forceinline__ void ldg_row(const View& x, int b, int r, int col0, float (&out)[HD]) {
+// one head's HD floats of row r of a strided view, in VW-float copies;
+// PAD (a padded tier: the head's hd columns fewer than HD) a float a copy,
+// zero past column hd
+template <int HD, int VW, bool PAD>
+__device__ __forceinline__ void ldg_row(const View& x, int b, int r, int col0, int hd,
+                                        float (&out)[HD]) {
   const float* g = row_ptr(x, b, r, col0);
+  if constexpr (PAD) {
 #pragma unroll
-  for (int i = 0; i < HD / VW; ++i) ldg_vec<VW>(g + VW * i, out + VW * i);
+    for (int i = 0; i < HD; ++i) out[i] = i < hd ? __ldg(g + i) : 0.f;
+  } else {
+#pragma unroll
+    for (int i = 0; i < HD / VW; ++i) ldg_vec<VW>(g + VW * i, out + VW * i);
+  }
 }
 
 template <int W>
@@ -275,13 +325,22 @@ __device__ __forceinline__ float dot(const float (&a)[W], const float (&b)[W]) {
 
 // rows [0, N) of one head's HD columns of two strided views -> dense [N][HD]
 // tiles in shared memory, VW floats a copy (HD / VW copies a row: a shift,
-// not a division)
-template <int HD, int VW>
+// not a division); PAD a float a copy, zero past column hd
+template <int HD, int VW, bool PAD>
 __device__ __forceinline__ void stage2(float* sa, float* sb, const View& a, const View& b, int bi,
-                                       int col0, int N) {
+                                       int col0, int N, int hd) {
   constexpr unsigned kPerRow = HD / VW;
   const float* ga = row_ptr(a, bi, 0, col0);
   const float* gb = row_ptr(b, bi, 0, col0);
+  if constexpr (PAD) {
+    for (unsigned e = threadIdx.x; e < N * HD; e += blockDim.x) {
+      const unsigned r = e / HD, c = e % HD;
+      const bool in = (int)c < hd;
+      sa[e] = in ? __ldg(ga + r * a.sr + c) : 0.f;
+      sb[e] = in ? __ldg(gb + r * b.sr + c) : 0.f;
+    }
+    return;
+  }
   for (unsigned e = threadIdx.x; e < N * kPerRow; e += blockDim.x) {
     const unsigned r = e / kPerRow, c = VW * (e % kPerRow);
     float x[VW], y[VW];
@@ -310,16 +369,23 @@ __device__ __forceinline__ void group_sum(float (&x)[W]) {
 }
 
 // lane `lane` of a row group stores its HD / L columns of a row in vector
-// stores
-template <int HD, int L>
-__device__ __forceinline__ void store_cols(float* row, const float (&x)[HD], int lane) {
+// stores; PAD a float a store, the columns below hd alone
+template <int HD, int L, bool PAD>
+__device__ __forceinline__ void store_cols(float* row, const float (&x)[HD], int lane, int hd) {
   constexpr int W = HD / L;                                 // columns a lane stores
   constexpr int S = W % 4 == 0 ? 4 : (W % 2 == 0 ? 2 : 1);  // floats a store
 #pragma unroll
   for (int g = 0; g < HD / W; ++g)
-    if (lane == g)
+    if (lane == g) {
+      if constexpr (PAD) {
 #pragma unroll
-      for (int w = 0; w < W; w += S) st_vec<S>(row + g * W + w, x + g * W + w);
+        for (int w = 0; w < W; ++w)
+          if (g * W + w < hd) row[g * W + w] = x[g * W + w];
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; w += S) st_vec<S>(row + g * W + w, x + g * W + w);
+      }
+    }
 }
 
 // one online-softmax step over K keys j0, j0 + L, ..., all < N, for a
@@ -377,25 +443,28 @@ __device__ __forceinline__ void softmax_step(const float (&qr)[R][HD], const flo
 // of L consecutive threads, lane l of the group taking keys j = l (mod L) in
 // online-softmax steps of kKeyChunk keys, then 4, 2, 1. The lanes' partials
 // (m, l, acc) of a row merge by xor shuffles, the lower lane of each pair
-// always first, so every lane of the group holds the same bits.
-template <int HD, int VW>
+// always first, so every lane of the group holds the same bits. HD is the
+// tier (hd itself, or with PAD the tier hd is padded to: the staged rows and
+// q zero past hd, which leaves every score and sum as it is).
+template <int HD, int VW, bool PAD>
 __global__ void __launch_bounds__(kRowThreads)
 attn_fwd_kernel(View q, View k, View v, float* __restrict__ o, float* __restrict__ lse, int N,
-                int H, int chunks, int rows, float scale) {
+                int H, int hd_arg, int chunks, int rows, float scale) {
   constexpr int L = kRowLanes, R = kRowRows;
+  const int hd = PAD ? hd_arg : HD;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
   float* vs = smem + N * HD;
 
   const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
-  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int b = bh / H, h = bh - b * H, col0 = h * hd;
   const int g = threadIdx.x / L, lane = threadIdx.x % L;
   const int end = min(c * rows + rows, N);  // past this chunk's last row
   const int i0 = c * rows + g * R;          // this group's first row
   float qr[R][HD];
 #pragma unroll
-  for (int r = 0; r < R; ++r) ldg_row<HD, VW>(q, b, min(i0 + r, N - 1), col0, qr[r]);
-  stage2<HD, VW>(ks, vs, k, v, b, col0, N);
+  for (int r = 0; r < R; ++r) ldg_row<HD, VW, PAD>(q, b, min(i0 + r, N - 1), col0, hd, qr[r]);
+  stage2<HD, VW, PAD>(ks, vs, k, v, b, col0, N, hd);
   __syncthreads();
   if (i0 >= end) return;  // whole groups: every shuffle below has its lanes
 
@@ -443,7 +512,7 @@ attn_fwd_kernel(View q, View k, View v, float* __restrict__ o, float* __restrict
     if (i < end) {
 #pragma unroll
       for (int d = 0; d < HD; ++d) acc[r][d] = acc[r][d] / l[r];
-      store_cols<HD, L>(o + ((long long)b * N + i) * H * HD + col0, acc[r], lane);
+      store_cols<HD, L, PAD>(o + ((long long)b * N + i) * H * hd + col0, acc[r], lane, hd);
       if (lane == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
     }
   }
@@ -457,24 +526,25 @@ attn_fwd_kernel(View q, View k, View v, float* __restrict__ o, float* __restrict
 // v and forms its own rows' deltas. Rows go R at a time to a group of L
 // lanes, which split the other side's rows (lane l takes those = l mod L),
 // read each of them from shared memory once for all R, and sum their
-// partials by xor shuffles.
-template <int HD, int VW>
+// partials by xor shuffles. HD and PAD as in the forward.
+template <int HD, int VW, bool PAD>
 __global__ void __launch_bounds__(kRowThreads)
 attn_bwd_kernel(View q, View k, View v, View o, const float* __restrict__ lse, View dout,
                 float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int N,
-                int H, int chunks, int rows, float scale) {
+                int H, int hd_arg, int chunks, int rows, float scale) {
   constexpr int L = kRowLanes, R = kRowRows;
+  const int hd = PAD ? hd_arg : HD;
   extern __shared__ __align__(16) float smem[];
   const int per_pass = gridDim.x / 2;
   const bool pass_a = blockIdx.x < per_pass;
   const int idx = pass_a ? blockIdx.x : blockIdx.x - per_pass;
   const int bh = idx / chunks, c = idx - bh * chunks;
-  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int b = bh / H, h = bh - b * H, col0 = h * hd;
   const int g = threadIdx.x / L, lane = threadIdx.x % L;
   const int end = min(c * rows + rows, N);
   const int r0 = c * rows + g * R;  // this group's first row: keys in pass A, queries in B
   const float* lse_bh = lse + (long long)bh * N;
-  const long long D = (long long)H * HD;
+  const long long D = (long long)H * hd;
 
   if (pass_a) {
     float* qs = smem;  // [N][HD]
@@ -484,14 +554,14 @@ attn_bwd_kernel(View q, View k, View v, View o, const float* __restrict__ lse, V
     float kr[R][HD], vr[R][HD];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      ldg_row<HD, VW>(k, b, min(r0 + r, N - 1), col0, kr[r]);
-      ldg_row<HD, VW>(v, b, min(r0 + r, N - 1), col0, vr[r]);
+      ldg_row<HD, VW, PAD>(k, b, min(r0 + r, N - 1), col0, hd, kr[r]);
+      ldg_row<HD, VW, PAD>(v, b, min(r0 + r, N - 1), col0, hd, vr[r]);
     }
-    stage2<HD, VW>(qs, dos, q, dout, b, col0, N);
+    stage2<HD, VW, PAD>(qs, dos, q, dout, b, col0, N, hd);
     for (int i = threadIdx.x; i < N; i += blockDim.x) {
       float orow[HD], drow[HD];
-      ldg_row<HD, VW>(o, b, i, col0, orow);
-      ldg_row<HD, VW>(dout, b, i, col0, drow);
+      ldg_row<HD, VW, PAD>(o, b, i, col0, hd, orow);
+      ldg_row<HD, VW, PAD>(dout, b, i, col0, hd, drow);
       lse_s[i] = lse_bh[i];
       delta_s[i] = dot<HD>(orow, drow);
     }
@@ -527,8 +597,8 @@ attn_bwd_kernel(View q, View k, View v, View o, const float* __restrict__ lse, V
       group_sum<L>(dvr[r]);
       if (r0 + r < end) {
         const long long out = ((long long)b * N + r0 + r) * D + col0;
-        store_cols<HD, L>(dk + out, dkr[r], lane);
-        store_cols<HD, L>(dv + out, dvr[r], lane);
+        store_cols<HD, L, PAD>(dk + out, dkr[r], lane, hd);
+        store_cols<HD, L, PAD>(dv + out, dvr[r], lane, hd);
       }
     }
   } else {
@@ -539,13 +609,13 @@ attn_bwd_kernel(View q, View k, View v, View o, const float* __restrict__ lse, V
     for (int r = 0; r < R; ++r) {
       const int i = min(r0 + r, N - 1);
       float oi[HD];
-      ldg_row<HD, VW>(q, b, i, col0, qi[r]);
-      ldg_row<HD, VW>(dout, b, i, col0, doi[r]);
-      ldg_row<HD, VW>(o, b, i, col0, oi);
+      ldg_row<HD, VW, PAD>(q, b, i, col0, hd, qi[r]);
+      ldg_row<HD, VW, PAD>(dout, b, i, col0, hd, doi[r]);
+      ldg_row<HD, VW, PAD>(o, b, i, col0, hd, oi);
       lse_i[r] = lse_bh[i];
       delta_i[r] = dot<HD>(oi, doi[r]);
     }
-    stage2<HD, VW>(ks, vs, k, v, b, col0, N);
+    stage2<HD, VW, PAD>(ks, vs, k, v, b, col0, N, hd);
     __syncthreads();
     if (r0 >= end) return;
     // dq_i = sum_j ds_ij k_j
@@ -572,13 +642,14 @@ attn_bwd_kernel(View q, View k, View v, View o, const float* __restrict__ lse, V
     for (int r = 0; r < R; ++r) {
       group_sum<L>(dqr[r]);
       if (r0 + r < end)
-        store_cols<HD, L>(dq + ((long long)b * N + r0 + r) * D + col0, dqr[r], lane);
+        store_cols<HD, L, PAD>(dq + ((long long)b * N + r0 + r) * D + col0, dqr[r], lane, hd);
     }
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// hd >= 32: 3xTF32 products on the tensor cores
+// 17 <= hd <= 192: 3xTF32 products on the tensor cores
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -592,6 +663,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const float* gmem, bool
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -601,36 +678,73 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows [r0, r0 + rows) of one head's HD columns of a strided view -> smem rows
-// of HD + kPad floats, zero past row N
-template <int HD>
-__device__ __forceinline__ void stage_async(float* dst, const View& x, int b, int col0, int r0,
-                                            int rows, int N) {
-  constexpr int LD = HD + kPad, V4 = HD / 4;
-  for (int e = threadIdx.x; e < rows * V4; e += blockDim.x) {
-    const int r = e / V4, c = e - (e / V4) * V4;
+// rows [r0, r0 + rows) of W columns of a strided view from column `col` ->
+// smem rows of W + kPad floats, zero past row N. 16-byte copies, or with
+// `pad` (a head of fewer than W columns, or a view whose rows are not
+// 16-byte aligned) 4-byte ones, zero past the `cols` columns that exist
+template <int W>
+__device__ __forceinline__ void stage_async(float* dst, const View& x, int b, int col, int r0,
+                                            int rows, int N, int cols, bool pad) {
+  constexpr int LD = W + kPad, V4 = W / 4;
+  if (!pad) {
+    for (int e = threadIdx.x; e < rows * V4; e += blockDim.x) {
+      const int r = e / V4, c = e - (e / V4) * V4;
+      const int gr = r0 + r;
+      cp_async16(smem_u32(dst + r * LD + 4 * c), row_ptr(x, b, min(gr, N - 1), col + 4 * c),
+                 gr < N);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rows * W; e += blockDim.x) {
+    const int r = e / W, c = e - (e / W) * W;
     const int gr = r0 + r;
-    cp_async16(smem_u32(dst + r * LD + 4 * c), row_ptr(x, b, min(gr, N - 1), col0 + 4 * c),
-               gr < N);
+    cp_async4(smem_u32(dst + r * LD + c), row_ptr(x, b, min(gr, N - 1), col + min(c, cols - 1)),
+              gr < N && c < cols);
   }
 }
 
+// a pair of adjacent output columns (col, col + 1) of a contiguous float32
+// row: one 8-byte store where hd is even (then col + 1 < hd with col), else
+// the columns below hd a float at a time
+__device__ __forceinline__ void store_pair(float* row, int col, int hd, float a, float b) {
+  if (!(hd & 1)) {
+    if (col < hd) *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
+  } else {
+    if (col < hd) row[col] = a;
+    if (col + 1 < hd) row[col + 1] = b;
+  }
+}
+
+// the warps a tensor-core CTA holds at most at tier HD: the backward's K
+// and V rows of 16 W keys, hd + kPad floats each, fit in shared memory
+__host__ __device__ constexpr int mma_max_warps(int HD) {
+  return HD <= 128 ? kMaxWarps : kMaxWarps / 2;
+}
+
 // C query chunks of W warps per (b, h); warp w of chunk c owns query rows
-// 16 (c W + w) .. + 16. blockIdx.x = (b H + h) C + c.
-template <int HD>
-__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
+// 16 (c W + w) .. + 16. blockIdx.x = (b H + h) C + c; blockIdx.y is the
+// slice of SW output columns (from SW * blockIdx.y) this CTA forms: the
+// scores take all HD columns of q and k, o only its slice of v. HD is the
+// tier (hd padded to a multiple of 8; q, k and v zero past hd), SW = HD up
+// to 64 (one slice), else HD / ceil(HD / 64).
+template <int HD, int SW>
+__global__ void __launch_bounds__(kMaxWarps * 32, HD <= 64 ? kMinBlocks : 1)
 attn_fwd_mma_kernel(View q, View k, View v, float* __restrict__ o, float* __restrict__ lse, int N,
-                    int H, int chunks, float scale) {
-  constexpr int LD = HD + kPad;
-  constexpr int KS = HD / 8;  // 8-deep k-steps of q k^T, and 8-wide column tiles of o
+                    int H, int hd, int chunks, int pad, float scale) {
+  constexpr int LD = HD + kPad, LDV = SW + kPad;
+  constexpr int KS = HD / 8;  // 8-deep k-steps of q k^T
+  constexpr int MS = SW / 8;  // 8-wide column tiles of o
   constexpr int BK = kKeyBlock * 8;  // keys of a ring stage
-  extern __shared__ __align__(16) float smem[];  // [2 stages][K, V][BK][LD]
+  extern __shared__ __align__(16) float smem[];  // [2 stages][K [BK][LD], V [BK][LDV]]
+  constexpr int kStage = BK * (LD + LDV);
   const int n_tiles = (N + 7) / 8;  // 8-key tiles
 
   const int bh = blockIdx.x / chunks, c = blockIdx.x % chunks;
-  const int b = bh / H, h = bh % H, col0 = h * HD;
-  stage_async<HD>(smem, k, b, col0, 0, BK, N);
-  stage_async<HD>(smem + BK * LD, v, b, col0, 0, BK, N);
+  const int b = bh / H, h = bh % H, col0 = h * hd;
+  const int sc = SW == HD ? 0 : SW * blockIdx.y;  // the slice's first column in the head
+  const int vcols = min(SW, hd - sc);          // its columns that exist
+  stage_async<HD>(smem, k, b, col0, 0, BK, N, hd, pad);
+  stage_async<SW>(smem + BK * LD, v, b, col0 + sc, 0, BK, N, vcols, pad);
   cp_async_commit();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -638,22 +752,24 @@ attn_fwd_mma_kernel(View q, View k, View v, float* __restrict__ o, float* __rest
   const int i0 = (c * (blockDim.x / 32) + warp) * kRowTile;
   const bool active = i0 < N;
 
-  // this warp's q rows i0 + g and i0 + g + 8 as A fragments, straight from device memory
+  // this warp's q rows i0 + g and i0 + g + 8 as A fragments, straight from
+  // device memory, zero past hd
   float qf[KS][4];
   {
-    const float* qa = row_ptr(q, b, min(i0 + g, N - 1), col0 + t);
-    const float* qb = row_ptr(q, b, min(i0 + g + 8, N - 1), col0 + t);
+    const float* qa = row_ptr(q, b, min(i0 + g, N - 1), col0);
+    const float* qb = row_ptr(q, b, min(i0 + g + 8, N - 1), col0);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      qf[kk][0] = __ldg(qa + 8 * kk);
-      qf[kk][1] = __ldg(qb + 8 * kk);
-      qf[kk][2] = __ldg(qa + 8 * kk + 4);
-      qf[kk][3] = __ldg(qb + 8 * kk + 4);
+      const int d0 = 8 * kk + t, d1 = d0 + 4;
+      qf[kk][0] = d0 < hd ? __ldg(qa + d0) : 0.f;
+      qf[kk][1] = d0 < hd ? __ldg(qb + d0) : 0.f;
+      qf[kk][2] = d1 < hd ? __ldg(qa + d1) : 0.f;
+      qf[kk][3] = d1 < hd ? __ldg(qb + d1) : 0.f;
     }
   }
-  float acc[KS][4];
+  float acc[MS][4];
 #pragma unroll
-  for (int n = 0; n < KS; ++n)
+  for (int n = 0; n < MS; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   // running max and this thread's part of the running sum, rows g and g + 8
@@ -665,13 +781,13 @@ attn_fwd_mma_kernel(View q, View k, View v, float* __restrict__ o, float* __rest
     cp_async_wait_all();
     __syncthreads();
     if (nb + kKeyBlock < n_tiles) {
-      float* next = smem + ((nb / kKeyBlock + 1) & 1) * 2 * BK * LD;
-      stage_async<HD>(next, k, b, col0, (nb + kKeyBlock) * 8, BK, N);
-      stage_async<HD>(next + BK * LD, v, b, col0, (nb + kKeyBlock) * 8, BK, N);
+      float* next = smem + ((nb / kKeyBlock + 1) & 1) * kStage;
+      stage_async<HD>(next, k, b, col0, (nb + kKeyBlock) * 8, BK, N, hd, pad);
+      stage_async<SW>(next + BK * LD, v, b, col0 + sc, (nb + kKeyBlock) * 8, BK, N, vcols, pad);
     }
     cp_async_commit();
     if (!active) continue;
-    const float* ks = smem + ((nb / kKeyBlock) & 1) * 2 * BK * LD;
+    const float* ks = smem + ((nb / kKeyBlock) & 1) * kStage;
     const float* vs = ks + BK * LD;
     float s[kKeyBlock][4];
 #pragma unroll
@@ -710,7 +826,7 @@ attn_fwd_mma_kernel(View q, View k, View v, float* __restrict__ o, float* __rest
       m[r] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < MS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
 #pragma unroll
@@ -723,40 +839,43 @@ attn_fwd_mma_kernel(View q, View k, View v, float* __restrict__ o, float* __rest
         }
         // o += p v: key tile j is a k-step, column t <-> key 2t, t + 4 <-> 2t + 1
         const Frag a = split_a(s[j][0], s[j][2], s[j][1], s[j][3]);
-        const float* vr = vs + (j * 8 + 2 * t) * LD + g;
+        const float* vr = vs + (j * 8 + 2 * t) * LDV + g;
 #pragma unroll
-        for (int n = 0; n < KS; ++n) mma3(acc[n], a, vr[8 * n], vr[8 * n + LD]);
+        for (int n = 0; n < MS; ++n) mma3(acc[n], a, vr[8 * n], vr[8 * n + LDV]);
       }
     }
   }
 
   if (!active) return;
-  const long long D = (long long)H * HD;
+  const long long D = (long long)H * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + g + 8 * r;
     const float lsum = quad_sum(l[r]);
     if (i < N) {
-      float* orow = o + ((long long)b * N + i) * D + col0 + 2 * t;
+      float* orow = o + ((long long)b * N + i) * D + col0;
 #pragma unroll
-      for (int n = 0; n < KS; ++n)
-        *reinterpret_cast<float2*>(orow + 8 * n) =
-            make_float2(acc[n][2 * r] / lsum, acc[n][2 * r + 1] / lsum);
-      if (t == 0) lse[(long long)bh * N + i] = m[r] + logf(lsum);
+      for (int n = 0; n < MS; ++n)
+        store_pair(orow, sc + 8 * n + 2 * t, hd, acc[n][2 * r] / lsum, acc[n][2 * r + 1] / lsum);
+      if (t == 0 && sc == 0) lse[(long long)bh * N + i] = m[r] + logf(lsum);
     }
   }
 }
 
 // C key chunks of W warps per (b, h); warp w of chunk c owns keys
-// 16 (c W + w) .. + 16. blockIdx.x = (b H + h) C + c. With C > 1, dq goes to
-// dq_part[c] ([C, B, N, D]) for dq_sum_kernel.
-template <int HD>
-__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
+// 16 (c W + w) .. + 16. blockIdx.x = (b H + h) C + c; blockIdx.y is the
+// slice of SW columns of dq, dk and dv this CTA forms (s and dp take all
+// HD columns of q, k, v and do). With C > 1, dq goes to dq_part[c] ([C, B,
+// N, D]) for dq_sum_kernel. HD, SW and pad as in the forward.
+template <int HD, int SW>
+__global__ void __launch_bounds__(kMaxWarps * 32, HD <= 64 ? kMinBlocks : 1)
 attn_bwd_mma_kernel(View q, View k, View v, View o, const float* __restrict__ lse, View dout,
                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                    float* __restrict__ dq_part, int N, int H, int chunks, float scale) {
+                    float* __restrict__ dq_part, int N, int H, int hd, int chunks, int pad,
+                    float scale) {
   constexpr int LD = HD + kPad;
   constexpr int KS = HD / 8;
+  constexpr int MS = SW / 8;
   constexpr int DL = (HD + 31) / 32;  // floats of a row a lane holds in the delta prologue
   extern __shared__ __align__(16) float smem[];
   const int warps = blockDim.x / 32;
@@ -771,12 +890,13 @@ attn_bwd_mma_kernel(View q, View k, View v, View o, const float* __restrict__ ls
   float* dsb = delta_s + NQ;  // [kRowTile][LDS]
 
   const int bh = blockIdx.x / chunks, c = blockIdx.x % chunks;
-  const int b = bh / H, h = bh % H, col0 = h * HD;
+  const int b = bh / H, h = bh % H, col0 = h * hd;
+  const int sc = SW == HD ? 0 : SW * blockIdx.y;  // the slice's first column in the head
   const int key0 = c * KC;
-  stage_async<HD>(kst, k, b, col0, key0, KC, N);
-  stage_async<HD>(vst, v, b, col0, key0, KC, N);
-  stage_async<HD>(ring, q, b, col0, 0, kRowTile, N);
-  stage_async<HD>(ring + kRowTile * LD, dout, b, col0, 0, kRowTile, N);
+  stage_async<HD>(kst, k, b, col0, key0, KC, N, hd, pad);
+  stage_async<HD>(vst, v, b, col0, key0, KC, N, hd, pad);
+  stage_async<HD>(ring, q, b, col0, 0, kRowTile, N, hd, pad);
+  stage_async<HD>(ring + kRowTile * LD, dout, b, col0, 0, kRowTile, N, hd, pad);
   cp_async_commit();
   // padded query rows get lse = inf, hence p = 0
   for (int i = threadIdx.x; i < NQ; i += blockDim.x)
@@ -793,7 +913,7 @@ attn_bwd_mma_kernel(View q, View k, View v, View o, const float* __restrict__ ls
 #pragma unroll
       for (int u = 0; u < DL; ++u) {
         const int d = lane + 32 * u;
-        const bool ok = r0 + r < N && d < HD;
+        const bool ok = r0 + r < N && d < hd;
         ov[r][u] = ok ? __ldg(row_ptr(o, b, r0 + r, col0 + d)) : 0.f;
         dv_[r][u] = ok ? __ldg(row_ptr(dout, b, r0 + r, col0 + d)) : 0.f;
       }
@@ -813,13 +933,13 @@ attn_bwd_mma_kernel(View q, View k, View v, View o, const float* __restrict__ ls
   const float* kr = kst + warp * kRowTile * LD;
   const float* vr = vst + warp * kRowTile * LD;
   const int dq_steps = (min(KC, N - key0) + 7) / 8;  // 8-key k-steps of dq
-  float dka[KS][4], dva[KS][4];
+  float dka[MS][4], dva[MS][4];
 #pragma unroll
-  for (int n = 0; n < KS; ++n)
+  for (int n = 0; n < MS; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  const long long D = (long long)H * HD;
+  const long long D = (long long)H * hd;
   float* dq_out = chunks == 1 ? dq : dq_part + (long long)c * (gridDim.x / chunks / H) * N * D;
   const int n_tiles = NQ / kRowTile;
   for (int qt = 0; qt < n_tiles; ++qt) {
@@ -830,8 +950,8 @@ attn_bwd_mma_kernel(View q, View k, View v, View o, const float* __restrict__ ls
     __syncthreads();
     if (qt + 1 < n_tiles) {
       float* next = ring + ((qt + 1) & 1) * 2 * kRowTile * LD;
-      stage_async<HD>(next, q, b, col0, i0 + kRowTile, kRowTile, N);
-      stage_async<HD>(next + kRowTile * LD, dout, b, col0, i0 + kRowTile, kRowTile, N);
+      stage_async<HD>(next, q, b, col0, i0 + kRowTile, kRowTile, N, hd, pad);
+      stage_async<HD>(next + kRowTile * LD, dout, b, col0, i0 + kRowTile, kRowTile, N, hd, pad);
     }
     cp_async_commit();
     const float* qs = ring + (qt & 1) * 2 * kRowTile * LD;
@@ -870,38 +990,39 @@ attn_bwd_mma_kernel(View q, View k, View v, View o, const float* __restrict__ ls
           dp[n][e] = ds;
           dsb[qi * LDS + warp * kRowTile + key] = ds;
         }
-      // dv += p^T do, dk += ds^T q: score tile n is a k-step, column t <->
-      // query 2t, t + 4 <-> 2t + 1
+      // dv += p^T do, dk += ds^T q over the slice's columns: score tile n
+      // is a k-step, column t <-> query 2t, t + 4 <-> 2t + 1
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const Frag fp = split_a(s[n][0], s[n][2], s[n][1], s[n][3]);
         const Frag fs = split_a(dp[n][0], dp[n][2], dp[n][1], dp[n][3]);
-        const int row = (8 * n + 2 * t) * LD + g;
+        const int row = (8 * n + 2 * t) * LD + sc + g;
 #pragma unroll
-        for (int m = 0; m < KS; ++m) {
+        for (int m = 0; m < MS; ++m) {
           mma3(dva[m], fp, dos[row + 8 * m], dos[row + LD + 8 * m]);
           mma3(dka[m], fs, qs[row + 8 * m], qs[row + LD + 8 * m]);
         }
       }
     }
     __syncthreads();
-    // dq of rows i0.. over this CTA's keys: ds [16, keys] k [keys, HD]; warp
-    // w owns column tiles w, w + W, ...; column t <-> key 2t, t + 4 <-> 2t + 1
-    for (int m = warp; m < KS; m += warps) {
+    // dq of rows i0.. over this CTA's keys and the slice's columns: ds [16,
+    // keys] k [keys, SW]; warp w owns column tiles w, w + W, ...; column t
+    // <-> key 2t, t + 4 <-> 2t + 1
+    for (int m = warp; m < MS; m += warps) {
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
       for (int st = 0; st < dq_steps; ++st) {
         const float2 x0 = *reinterpret_cast<const float2*>(dsb + g * LDS + 8 * st + 2 * t);
         const float2 x1 = *reinterpret_cast<const float2*>(dsb + (g + 8) * LDS + 8 * st + 2 * t);
         const Frag f = split_a(x0.x, x1.x, x0.y, x1.y);
-        const float* kb = kst + (8 * st + 2 * t) * LD + 8 * m + g;
+        const float* kb = kst + (8 * st + 2 * t) * LD + sc + 8 * m + g;
         mma3(acc, f, kb[0], kb[LD]);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = i0 + g + 8 * r;
         if (i < N)
-          *reinterpret_cast<float2*>(dq_out + ((long long)b * N + i) * D + col0 + 8 * m + 2 * t) =
-              make_float2(acc[2 * r], acc[2 * r + 1]);
+          store_pair(dq_out + ((long long)b * N + i) * D + col0, sc + 8 * m + 2 * t, hd,
+                     acc[2 * r], acc[2 * r + 1]);
       }
     }
   }
@@ -911,11 +1032,11 @@ attn_bwd_mma_kernel(View q, View k, View v, View o, const float* __restrict__ ls
     for (int r = 0; r < 2; ++r) {
       const int j = kw + g + 8 * r;
       if (j < N) {
-        const long long off = ((long long)b * N + j) * D + col0 + 2 * t;
+        const long long off = ((long long)b * N + j) * D + col0;
 #pragma unroll
-        for (int m = 0; m < KS; ++m) {
-          *reinterpret_cast<float2*>(dk + off + 8 * m) = make_float2(dka[m][2 * r], dka[m][2 * r + 1]);
-          *reinterpret_cast<float2*>(dv + off + 8 * m) = make_float2(dva[m][2 * r], dva[m][2 * r + 1]);
+        for (int m = 0; m < MS; ++m) {
+          store_pair(dk + off, sc + 8 * m + 2 * t, hd, dka[m][2 * r], dka[m][2 * r + 1]);
+          store_pair(dv + off, sc + 8 * m + 2 * t, hd, dva[m][2 * r], dva[m][2 * r + 1]);
         }
       }
     }
@@ -935,6 +1056,17 @@ __global__ void dq_sum_kernel(const float4* __restrict__ part, float4* __restric
       a.z += x.z;
       a.w += x.w;
     }
+    dq[e] = a;
+  }
+}
+
+// the same a float at a time, where B N D is not a multiple of 4 (odd hd)
+__global__ void dq_sum1_kernel(const float* __restrict__ part, float* __restrict__ dq,
+                               long long n, int chunks) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    float a = part[e];
+    for (int c = 1; c < chunks; ++c) a += part[c * n + e];
     dq[e] = a;
   }
 }
@@ -959,10 +1091,11 @@ bool takes_width(const View& x, int vw) {
          x.sr % vw == 0;
 }
 
-// chunks C and warps W of a (b, h) at sequence length N (see the header)
-void mma_plan(int N, int* chunks, int* warps) {
-  const int tiles = (N + kRowTile - 1) / kRowTile;
-  *chunks = (tiles + kMaxWarps - 1) / kMaxWarps;
+// chunks C and warps W of a (b, h) at sequence length N and tier HD (see
+// the header)
+void mma_plan(int N, int HD, int* chunks, int* warps) {
+  const int tiles = (N + kRowTile - 1) / kRowTile, most = mma_max_warps(HD);
+  *chunks = (tiles + most - 1) / most;
   *warps = (tiles + *chunks - 1) / *chunks;
 }
 
@@ -976,51 +1109,56 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
-template <int HD, int VW>
-int launch_fwd_rows(View q, View k, View v, float* o, float* lse, int B, int N, int H, float scale,
-                    cudaStream_t s) {
+template <int HD, int VW, bool PAD>
+int launch_fwd_rows(View q, View k, View v, float* o, float* lse, int B, int N, int H, int hd,
+                    float scale, cudaStream_t s) {
   static size_t allowed = 48 * 1024;
-  if (HD % VW || !takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW))
+  if (!PAD && (HD % VW || !takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW)))
     return kBadCopyWidth;
   int chunks, rows, threads;
   row_plan(N, &chunks, &rows, &threads);
   const size_t smem = row_smem(N, HD, false);
-  cudaError_t err = allow_smem(attn_fwd_kernel<HD, VW>, smem, &allowed);
+  cudaError_t err = allow_smem(attn_fwd_kernel<HD, VW, PAD>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_kernel<HD, VW><<<B * H * chunks, threads, smem, s>>>(q, k, v, o, lse, N, H, chunks,
-                                                                rows, scale);
+  attn_fwd_kernel<HD, VW, PAD><<<B * H * chunks, threads, smem, s>>>(q, k, v, o, lse, N, H, hd,
+                                                                     chunks, rows, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int VW>
+template <int HD, int VW, bool PAD>
 int launch_bwd_rows(View q, View k, View v, View o, const float* lse, View dout, float* dq,
-                    float* dk, float* dv, int B, int N, int H, float scale, cudaStream_t s) {
+                    float* dk, float* dv, int B, int N, int H, int hd, float scale,
+                    cudaStream_t s) {
   static size_t allowed = 48 * 1024;
-  if (HD % VW || !takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW) ||
-      !takes_width(o, VW) || !takes_width(dout, VW))
+  if (!PAD && (HD % VW || !takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW) ||
+               !takes_width(o, VW) || !takes_width(dout, VW)))
     return kBadCopyWidth;
   int chunks, rows, threads;
   row_plan(N, &chunks, &rows, &threads);
   const size_t smem = row_smem(N, HD, true);
-  cudaError_t err = allow_smem(attn_bwd_kernel<HD, VW>, smem, &allowed);
+  cudaError_t err = allow_smem(attn_bwd_kernel<HD, VW, PAD>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_kernel<HD, VW><<<2 * B * H * chunks, threads, smem, s>>>(
-      q, k, v, o, lse, dout, dq, dk, dv, N, H, chunks, rows, scale);
+  attn_bwd_kernel<HD, VW, PAD><<<2 * B * H * chunks, threads, smem, s>>>(
+      q, k, v, o, lse, dout, dq, dk, dv, N, H, hd, chunks, rows, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the row launchers at the copy width the wrapper chose (bytes: 16, 8, 4)
+// the row launchers at tier HD: hd below the tier runs the padded kernel
+// (4-byte copies, whatever the width); hd at the tier the copy width the
+// wrapper chose (bytes: 16, 8, 4)
 template <int HD>
-int launch_fwd(View q, View k, View v, float* o, float* lse, int B, int N, int H, float scale,
-               int width, cudaStream_t s) {
+int launch_fwd(View q, View k, View v, float* o, float* lse, int B, int N, int H, int hd,
+               float scale, int width, cudaStream_t s) {
+  if (hd != HD) return launch_fwd_rows<HD, 1, true>(q, k, v, o, lse, B, N, H, hd, scale, s);
   switch (width) {
     case 16:
-      if constexpr (HD % 4 == 0) return launch_fwd_rows<HD, 4>(q, k, v, o, lse, B, N, H, scale, s);
+      if constexpr (HD % 4 == 0)
+        return launch_fwd_rows<HD, 4, false>(q, k, v, o, lse, B, N, H, hd, scale, s);
       return kBadCopyWidth;
     case 8:
-      return launch_fwd_rows<HD, 2>(q, k, v, o, lse, B, N, H, scale, s);
+      return launch_fwd_rows<HD, 2, false>(q, k, v, o, lse, B, N, H, hd, scale, s);
     case 4:
-      return launch_fwd_rows<HD, 1>(q, k, v, o, lse, B, N, H, scale, s);
+      return launch_fwd_rows<HD, 1, false>(q, k, v, o, lse, B, N, H, hd, scale, s);
     default:
       return kBadCopyWidth;
   }
@@ -1028,56 +1166,92 @@ int launch_fwd(View q, View k, View v, float* o, float* lse, int B, int N, int H
 
 template <int HD>
 int launch_bwd(View q, View k, View v, View o, const float* lse, View dout, float* dq, float* dk,
-               float* dv, float*, int B, int N, int H, float scale, int width, cudaStream_t s) {
+               float* dv, float*, int B, int N, int H, int hd, float scale, int width,
+               cudaStream_t s) {
+  if (hd != HD)
+    return launch_bwd_rows<HD, 1, true>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, hd, scale, s);
   switch (width) {
     case 16:
       if constexpr (HD % 4 == 0)
-        return launch_bwd_rows<HD, 4>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
+        return launch_bwd_rows<HD, 4, false>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, hd,
+                                             scale, s);
       return kBadCopyWidth;
     case 8:
-      return launch_bwd_rows<HD, 2>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
+      return launch_bwd_rows<HD, 2, false>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, hd, scale,
+                                           s);
     case 4:
-      return launch_bwd_rows<HD, 1>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, s);
+      return launch_bwd_rows<HD, 1, false>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, hd, scale,
+                                           s);
     default:
       return kBadCopyWidth;
   }
 }
 
+// the output slices of tier HD: one up to 64 columns, else ceil(HD / 64)
+__host__ __device__ constexpr int mma_slices(int HD) { return HD <= 64 ? 1 : (HD + 63) / 64; }
+
+// whether the tensor-core kernels take 4-byte copies at this call: hd below
+// its tier, or a view whose pointer or strides are not 16-byte multiples
+bool mma_pad(int HD, int hd, std::initializer_list<View> views) {
+  if (hd != HD) return true;
+  for (const View& x : views)
+    if (!takes_width(x, 4)) return true;
+  return false;
+}
+
+size_t fwd_mma_smem(int HD) {
+  constexpr int BK = kKeyBlock * 8;
+  const int SW = HD / mma_slices(HD);
+  return sizeof(float) * 2 * BK * (HD + SW + 2 * kPad);
+}
+
+size_t bwd_mma_smem(int N, int HD, int warps) {
+  const size_t nq = (N + kRowTile - 1) / kRowTile * kRowTile, kc = warps * kRowTile;
+  const size_t lds = kc + ((8 - kc) & 31);
+  return sizeof(float) * ((2 * kc + 4 * kRowTile) * (HD + kPad) + 2 * nq + kRowTile * lds);
+}
+
 template <int HD>
-int launch_fwd_mma(View q, View k, View v, float* o, float* lse, int B, int N, int H, float scale,
-                   int, cudaStream_t s) {
+int launch_fwd_mma(View q, View k, View v, float* o, float* lse, int B, int N, int H, int hd,
+                   float scale, int, cudaStream_t s) {
+  constexpr int SW = HD / mma_slices(HD);
   static size_t allowed = 48 * 1024;
   int chunks, warps;
-  mma_plan(N, &chunks, &warps);
-  const size_t smem = sizeof(float) * 4 * kKeyBlock * 8 * (HD + kPad);
-  cudaError_t err = allow_smem(attn_fwd_mma_kernel<HD>, smem, &allowed);
+  mma_plan(N, HD, &chunks, &warps);
+  const size_t smem = fwd_mma_smem(HD);
+  cudaError_t err = allow_smem(attn_fwd_mma_kernel<HD, SW>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_mma_kernel<HD><<<B * H * chunks, 32 * warps, smem, s>>>(q, k, v, o, lse, N, H, chunks,
-                                                                   scale);
+  const int pad = mma_pad(HD, hd, {q, k, v});
+  attn_fwd_mma_kernel<HD, SW><<<dim3(B * H * chunks, mma_slices(HD)), 32 * warps, smem, s>>>(
+      q, k, v, o, lse, N, H, hd, chunks, pad, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_bwd_mma(View q, View k, View v, View o, const float* lse, View dout, float* dq,
-                   float* dk, float* dv, float* dq_part, int B, int N, int H, float scale, int,
-                   cudaStream_t s) {
+                   float* dk, float* dv, float* dq_part, int B, int N, int H, int hd, float scale,
+                   int, cudaStream_t s) {
+  constexpr int SW = HD / mma_slices(HD);
   static size_t allowed = 48 * 1024;
   int chunks, warps;
-  mma_plan(N, &chunks, &warps);
-  const size_t nq = (N + kRowTile - 1) / kRowTile * kRowTile, kc = warps * kRowTile;
-  const size_t lds = kc + ((8 - kc) & 31);
-  const size_t smem = sizeof(float) * ((2 * kc + 4 * kRowTile) * (HD + kPad) + 2 * nq +
-                                       kRowTile * lds);
-  cudaError_t err = allow_smem(attn_bwd_mma_kernel<HD>, smem, &allowed);
+  mma_plan(N, HD, &chunks, &warps);
+  const size_t smem = bwd_mma_smem(N, HD, warps);
+  cudaError_t err = allow_smem(attn_bwd_mma_kernel<HD, SW>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_mma_kernel<HD><<<B * H * chunks, 32 * warps, smem, s>>>(
-      q, k, v, o, lse, dout, dq, dk, dv, dq_part, N, H, chunks, scale);
+  const int pad = mma_pad(HD, hd, {q, k, v, o, dout});
+  attn_bwd_mma_kernel<HD, SW><<<dim3(B * H * chunks, mma_slices(HD)), 32 * warps, smem, s>>>(
+      q, k, v, o, lse, dout, dq, dk, dv, dq_part, N, H, hd, chunks, pad, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
-  const long long n4 = (long long)B * N * H * HD / 4;
-  const int blocks = (int)((n4 + 255) / 256 < 1056 ? (n4 + 255) / 256 : 1056);
-  dq_sum_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(dq_part),
-                                       reinterpret_cast<float4*>(dq), n4, chunks);
+  const long long n = (long long)B * N * H * hd, n4 = n / 4;
+  if (n % 4 == 0) {
+    const int blocks = (int)((n4 + 255) / 256 < 1056 ? (n4 + 255) / 256 : 1056);
+    dq_sum_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(dq_part),
+                                         reinterpret_cast<float4*>(dq), n4, chunks);
+  } else {
+    const int blocks = (int)((n + 255) / 256 < 1056 ? (n + 255) / 256 : 1056);
+    dq_sum1_kernel<<<blocks, 256, 0, s>>>(dq_part, dq, n, chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1098,22 +1272,23 @@ int row_info(Kernel kernel, int ctas_per_chunk, int N, int HD, bool backward, in
   return static_cast<int>(err);
 }
 
-template <int HD, int VW>
+template <int HD, int VW, bool PAD>
 int row_info_at(int B, int N, int H, int backward, int* out) {
-  return backward ? row_info(attn_bwd_kernel<HD, VW>, 2 * B * H, N, HD, true, out)
-                  : row_info(attn_fwd_kernel<HD, VW>, B * H, N, HD, false, out);
+  return backward ? row_info(attn_bwd_kernel<HD, VW, PAD>, 2 * B * H, N, HD, true, out)
+                  : row_info(attn_fwd_kernel<HD, VW, PAD>, B * H, N, HD, false, out);
 }
 
 template <int HD>
-int row_info_width(int B, int N, int H, int backward, int width, int* out) {
+int row_info_width(int B, int N, int H, int hd, int backward, int width, int* out) {
+  if (hd != HD) return row_info_at<HD, 1, true>(B, N, H, backward, out);
   switch (width) {
     case 16:
-      if constexpr (HD % 4 == 0) return row_info_at<HD, 4>(B, N, H, backward, out);
+      if constexpr (HD % 4 == 0) return row_info_at<HD, 4, false>(B, N, H, backward, out);
       return kBadCopyWidth;
     case 8:
-      return row_info_at<HD, 2>(B, N, H, backward, out);
+      return row_info_at<HD, 2, false>(B, N, H, backward, out);
     case 4:
-      return row_info_at<HD, 1>(B, N, H, backward, out);
+      return row_info_at<HD, 1, false>(B, N, H, backward, out);
     default:
       return kBadCopyWidth;
   }
@@ -1121,12 +1296,17 @@ int row_info_width(int B, int N, int H, int backward, int width, int* out) {
 
 }  // namespace
 
-// The head dims the kernels are built for, with their launchers: every
-// head_dim of a shipped ViT config (2, 8, 32, 64) and 16, 48 of the JAX tests.
-#define ATTN_HEAD_DIMS(X)                                                                  \
-  X(2, launch_fwd, launch_bwd) X(8, launch_fwd, launch_bwd) X(16, launch_fwd, launch_bwd)    \
-  X(32, launch_fwd_mma, launch_bwd_mma) X(48, launch_fwd_mma, launch_bwd_mma)                \
-  X(64, launch_fwd_mma, launch_bwd_mma)
+// The tiers a head dim is padded to, with their launchers: hd runs at the
+// first tier at least as wide. The row kernels (FP32 cores) up to 24; the
+// 3xTF32 tensor-core kernels from 25, their tiers multiples of 8, past 64
+// cut into ceil(tier / 64) output slices of a multiple of 8 columns (80:
+// 2 x 40, 96: 2 x 48, 112: 2 x 56, 128: 2 x 64, 192: 3 x 64). A head dim
+// at its tier (the shipped 2, 8, 32, 64; 4, 16, 48, ...) copies rows as
+// the wrapper's width allows (row kernels) or 16 bytes a copy (tensor
+// cores, where the views allow it); one below its tier runs the same
+// kernels on 4-byte copies, zero past hd.
+#define ATTN_ROW_TIERS(X) X(2) X(4) X(8) X(16) X(24)
+#define ATTN_MMA_TIERS(X) X(32) X(40) X(48) X(56) X(64) X(80) X(96) X(112) X(128) X(192)
 
 // The kernels' tile constants (kRowTile, kMaxWarps, kPad, kKeyBlock of the
 // tensor-core kernels; kRowThreads, kRowLanes, kRowRows of the row
@@ -1143,49 +1323,59 @@ extern "C" void attention_tiles(int* out) {
   out[6] = kRowRows;
 }
 
-// A row kernel's launch (hd 2, 8, 16; forward, or backward when `backward`)
+// The tiers, row kernels' first, each list ended by a 0 (at most 32
+// entries in all): ops/attention_fused.py checks them against its own.
+extern "C" void attention_head_tiers(int* out) {
+  int i = 0;
+#define ATTN_TIER_OUT(T) out[i++] = T;
+  ATTN_ROW_TIERS(ATTN_TIER_OUT)
+  out[i++] = 0;
+  ATTN_MMA_TIERS(ATTN_TIER_OUT)
+  out[i++] = 0;
+#undef ATTN_TIER_OUT
+}
+
+// A row kernel's launch (hd 1 to 24; forward, or backward when `backward`)
 // at the copy width `row_copy_bytes`: out = {CTAs, threads, dynamic shared
 // memory bytes, resident CTAs an SM}. Returns 0, or an error code.
 extern "C" int attention_row_launch(int B, int N, int H, int hd, int backward,
                                     int row_copy_bytes, int* out) {
-  switch (hd) {
-    case 2:
-      return row_info_width<2>(B, N, H, backward, row_copy_bytes, out);
-    case 8:
-      return row_info_width<8>(B, N, H, backward, row_copy_bytes, out);
-    case 16:
-      return row_info_width<16>(B, N, H, backward, row_copy_bytes, out);
-    default:
-      return kBadHeadDim;
-  }
+  if (hd < 1) return kBadHeadDim;
+#define ATTN_ROW_INFO(T) \
+  if (hd <= T) return row_info_width<T>(B, N, H, hd, backward, row_copy_bytes, out);
+  ATTN_ROW_TIERS(ATTN_ROW_INFO)
+#undef ATTN_ROW_INFO
+  return kBadHeadDim;
 }
 
 // Both entry points launch on `stream`, allocate nothing and return
-// cudaGetLastError() as an int (0 on success), -1 for a head dim that is
-// not built, or -2 for a row copy width that a view contradicts. q, k, v,
+// cudaGetLastError() as an int (0 on success), -1 for a head dim past the
+// last tier, or -2 for a row copy width that a view contradicts. q, k, v,
 // o and do are [B, N, H*hd] views with unit column stride, batch stride
 // *_sb and row stride *_sr in floats (the model hands over q, k, v sliced
-// out of its fused qkv buffer, rows 3*D apart); at hd >= 32 they and their
-// strides are 16-byte aligned. At hd <= 16 the row kernels copy rows
-// row_copy_bytes (16, 8 or 4) at a time, which every view's pointer and
-// strides, and hd * 4, must be multiples of; hd >= 32 ignores it. The
-// outputs o, lse [B, H, N], dq, dk, dv are contiguous. dq_part is the
-// backward's [C, B, N, D] workspace, read only where the plan has C > 1.
+// out of its fused qkv buffer, rows 3*D apart). At hd <= 24 the row
+// kernels at hd's tier copy rows row_copy_bytes (16, 8 or 4) at a time,
+// which every view's pointer and strides, and hd * 4, must be multiples
+// of; below the tier, and from hd 25 on, it is ignored. The outputs o, lse
+// [B, H, N], dq, dk, dv are contiguous. dq_part is the backward's [C, B,
+// N, D] workspace, read only where the plan has C > 1.
 extern "C" int attention_forward(const float* q, long long q_sb, long long q_sr, const float* k,
                                  long long k_sb, long long k_sr, const float* v, long long v_sb,
                                  long long v_sr, float* o, float* lse, int B, int N, int H,
                                  int hd, float scale, int row_copy_bytes, void* stream) {
   const View qv{q, q_sb, q_sr}, kv{k, k_sb, k_sr}, vv{v, v_sb, v_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-#define ATTN_FWD_CASE(HD, FWD, BWD) \
-  case HD:                          \
-    return FWD<HD>(qv, kv, vv, o, lse, B, N, H, scale, row_copy_bytes, s);
-    ATTN_HEAD_DIMS(ATTN_FWD_CASE)
+  if (hd < 1) return kBadHeadDim;
+#define ATTN_FWD_CASE(T) \
+  if (hd <= T) return LAUNCH<T>(qv, kv, vv, o, lse, B, N, H, hd, scale, row_copy_bytes, s);
+#define LAUNCH launch_fwd
+  ATTN_ROW_TIERS(ATTN_FWD_CASE)
+#undef LAUNCH
+#define LAUNCH launch_fwd_mma
+  ATTN_MMA_TIERS(ATTN_FWD_CASE)
+#undef LAUNCH
 #undef ATTN_FWD_CASE
-    default:
-      return kBadHeadDim;
-  }
+  return kBadHeadDim;
 }
 
 extern "C" int attention_backward(const float* q, long long q_sb, long long q_sr, const float* k,
@@ -1198,14 +1388,17 @@ extern "C" int attention_backward(const float* q, long long q_sb, long long q_sr
   const View qv{q, q_sb, q_sr}, kv{k, k_sb, k_sr}, vv{v, v_sb, v_sr}, ov{o, o_sb, o_sr},
       dov{dout, do_sb, do_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-#define ATTN_BWD_CASE(HD, FWD, BWD) \
-  case HD:                          \
-    return BWD<HD>(qv, kv, vv, ov, lse, dov, dq, dk, dv, dq_part, B, N, H, scale, \
-                    row_copy_bytes, s);
-    ATTN_HEAD_DIMS(ATTN_BWD_CASE)
+  if (hd < 1) return kBadHeadDim;
+#define ATTN_BWD_CASE(T)                                                                       \
+  if (hd <= T)                                                                                 \
+    return LAUNCH<T>(qv, kv, vv, ov, lse, dov, dq, dk, dv, dq_part, B, N, H, hd, scale,        \
+                     row_copy_bytes, s);
+#define LAUNCH launch_bwd
+  ATTN_ROW_TIERS(ATTN_BWD_CASE)
+#undef LAUNCH
+#define LAUNCH launch_bwd_mma
+  ATTN_MMA_TIERS(ATTN_BWD_CASE)
+#undef LAUNCH
 #undef ATTN_BWD_CASE
-    default:
-      return kBadHeadDim;
-  }
+  return kBadHeadDim;
 }

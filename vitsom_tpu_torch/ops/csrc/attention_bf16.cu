@@ -24,14 +24,22 @@
 // An online softmax rescales o after the product with v, so it cannot
 // round attn where JAX does: the forward kernels find a row's max and sum
 // before they form attn, from scores held in registers up to N 72 (hd <=
-// 16) or 320 (hd >= 32) and by a first pass over the keys past it (two
-// passes: the max and l, rescaled as the max moves, then attn v). Only
-// shared memory bounds N. There are
-// no atomics and every sum has a fixed order, so two runs give
-// bitwise-equal outputs.
+// 16) or 320 (hd 17-64, rows that take 16-byte copies) and by a first pass
+// over the keys past it (two passes: the max and l, rescaled as the max
+// moves, then attn v). Only shared memory bounds N. There are no atomics
+// and every sum has a fixed order, so two runs give bitwise-equal outputs.
 //
-// Two designs, by head dim (below hd 32 the caller passes the plan:
-// attention_fused.py: bf16_hmma_plan, bf16_hmma_score_tiles):
+// Two designs, by head dim (up to hd 16 the caller passes the plan:
+// attention_fused.py: bf16_hmma_plan, bf16_hmma_score_tiles). The JAX
+// kernel takes any head dim, and so do these: every hd from 1 to 192 runs
+// at a tier, the first at least as wide (ATTN_BF16_TIERS below;
+// attention_fused.py: bf16_tier), 2 (hd 1, 2), 8 (3-8) and 16 (9-16) in
+// design 1, 64 (17-64), 128 (65-128) and 192 (129-192) in design 2. A head
+// narrower than its tier is zero past hd in the staged tiles and the
+// fragments, which leaves every score and sum as it is; its rows are then
+// copied 2 bytes at a time (design 1: the kernels built for views off
+// 16-byte copies, with a runtime hd; design 2: `narrow`, below), and its
+// outputs stored a pair of columns at a time at even hd, one at odd hd.
 //
 // 1. hd 2, 8 and 16 (every ViT-SOM encoder and decoder below emb 192,
 //    the JAX tests' 16), at any N that shared memory holds, on bf16 or
@@ -144,9 +152,10 @@
 //    registers, the backward 55-80 (8 bytes spilled at hd 16 on a float32
 //    do), no other spills.
 //
-// 2. hd >= 32 (the emb-192 configs' 64 and 32, the JAX tests' 48):
-//    attn_fwd_mma_bf16 (N <= kMaxKeyBlocks * 64 = 320) and
-//    attn_fwd_mma2_bf16 (past it) replace _attn_fwd_kernel's bf16 branch
+// 2. hd 17-192 (the emb-192 configs' 64 and 32, the JAX tests' 48):
+//    attn_fwd_mma_bf16 (hd <= 64, N <= kMaxKeyBlocks * 64 = 320) and
+//    attn_fwd_mma2_bf16 (past it, from hd 65 at every N, and for narrow
+//    heads) replace _attn_fwd_kernel's bf16 branch
 //    (attention_pallas.py:100), attn_bwd_mma_bf16 with its pre-pass
 //    attn_delta_bf16 replaces _attn_bwd_kernel's (:163), on Hopper's
 //    warpgroup products (wgmma: bf16 in, float32 accumulators; a CTA is one
@@ -156,12 +165,45 @@
 //    read K-major (hd contiguous) or MN-major (hd as the output's columns).
 //    Tiles come in by cp.async, 16 bytes a copy, zero past N and past hd,
 //    each group behind an mbarrier that its copies arrive on; a proxy fence
-//    then hands them to wgmma. The views' rows start on 16-byte boundaries
-//    (attention_fused.py:check_16_byte_rows; the model's q, k, v slices of
-//    its qkv buffer do). An accumulator's fragment is the A fragment of the
+//    then hands them to wgmma. Where hd is not a multiple of 8 or a view's
+//    rows do not start on 16-byte boundaries (`narrow`; the model's q, k,
+//    v slices of its qkv buffer do at every hd that is), each thread loads
+//    and stores 2-byte elements into the swizzled tiles, fences them to the
+//    async proxy and arrives on the mbarrier with a plain (releasing)
+//    arrive. An accumulator's fragment is the A fragment of the
 //    next product (its rows, 16 columns a k-step), so bf16(attn), bf16(p)
 //    and bf16(ds) are packed straight from registers into register-A
 //    products: JAX's rounding points come for free.
+//    - Head dims 65-192: the head is HC = 2 or 3 column tiles of 64 (kHdp
+//      stays the tile's width), side by side a row block; the products over
+//      hd take 4 HC k-steps, the tile of k-step kk at kk / 4. Every kernel
+//      runs HC slices of 64 output columns, a CTA each (blockIdx.y), which
+//      form the scores over the whole head and o (or dq, dk, dv) of their
+//      columns alone: the accumulators stay 32 floats a thread, as at hd
+//      64, at the cost of the scores formed HC times. The forward takes the
+//      two-pass form at every N: one pass would hold 5 key blocks of k of
+//      the whole head beside v (27 tiles at HC 3), and its 10 more
+//      instantiations took attention_bf16.cu's nvcc from 90.8 to 109.6 s
+//      (two builds on the H100 machine). The backward's key role holds k
+//      and v of the whole
+//      head and S ring stages of q and do's parts; at HC 3 on hybrid's
+//      float32 do (three parts) two stages would take 1024 + 30 tiles of 8
+//      KB, past the 232448 B a CTA may take, so it runs one stage
+//      (key_stages).
+//    - Head dims 17-31 run here too, padded to 64: the only design built
+//      for them. At (128, 197, 8, 24) the forward takes 0.07710 ms and the
+//      backward 0.25426, against the mma.sync row kernels' 0.06744 and
+//      0.10600 at hd 16 on the same (B, N, H) (chip_smoke.py phase Q, L2
+//      flushed, NVIDIA H100 80GB HBM3, 700.00 W): a row kernel of two
+//      16-deep k-steps (hd 32) is the untried alternative.
+//    - A float32 do's parts enter dp smallest first (lo, mid, hi): the
+//      tensor cores truncate what they add into their accumulator, so the
+//      small parts, added last into a sum as large as hi's, lost a share
+//      of their bits on each add. Added last (hi first), hybrid's backward
+//      at (2, 1025, 2, 192) put 1.40e-3 of dq's and dk's elements past 1
+//      bf16 ulp of bwd_rounded64, and 5.8e-4 and 5.3e-4 added first
+//      (chip_smoke.py phase Q's holds, NVIDIA H100 80GB HBM3, two calls;
+//      the plain version's own share there is 3.6e-4).
 //    - Forward up to N 320: one CTA a (b, h) reads its k and v once (NKB
 //      key blocks of 64, the copies behind the first q tile so they
 //      overlap its products); 64-row q tiles follow through a two-stage
@@ -309,7 +351,7 @@ __device__ __forceinline__ void ldg_bf16(const bf16* g, float* r) {
 
 
 // ---------------------------------------------------------------------------
-// hd >= 32: bf16 products on the tensor cores (wgmma)
+// hd >= 17: bf16 products on the tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 
 constexpr int kWg = 128;           // threads of a tensor-core CTA: one warpgroup
@@ -318,6 +360,7 @@ constexpr int kHdp = 64;           // head dims padded to 64 bf16: rows of 128 b
 constexpr int kMaxKeyBlocks = 5;   // the one-pass forward holds the scores of 5 * 64 keys at most
 constexpr int kTileBytes = kTile * kHdp * 2;
 constexpr int kSmemAlign = 1024;   // the 128-byte swizzle's period (8 rows)
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a CTA may take (ops/_build.py)
 constexpr unsigned long long kWaitNs = 4000000000ull;  // a copy that never lands traps
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -514,12 +557,39 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// a bf16 element's bits, by a 2-byte load: the copies of a view whose rows
+// are not 16-byte aligned (`narrow` below; WIDE false in the hd <= 16
+// kernels)
+__device__ __forceinline__ uint32_t ldg_u16(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+__device__ __forceinline__ void sts_u16(uint32_t addr, uint16_t x) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(x) : "memory");
+}
+
+// columns (col, col + 1) of a contiguous bf16 row whose head is hd wide:
+// one 4-byte store where hd is even (col + 1 < hd with col, and the row's
+// head starts on a 4-byte boundary), else the columns below hd one at a
+// time; ANY false: hd is known to be a multiple of 8
+template <bool ANY = true>
+__device__ __forceinline__ void store_bf16_pair(bf16* row, int col, int hd, float a, float b) {
+  if (!ANY || !(hd & 1)) {
+    if (col < hd) *reinterpret_cast<uint32_t*>(row + col) = pack_bf16(a, b);
+  } else {
+    if (col < hd) row[col] = __float2bfloat16_rn(a);
+    if (col + 1 < hd) row[col + 1] = __float2bfloat16_rn(b);
+  }
+}
+
 // a 64-row accumulator tile (rows r0 ..) as bf16 rows of out (row i at out
-// + i * D, the first hd columns, rows below N), through shared memory:
+// + i * D, the first `cols` columns, rows below N), through shared memory:
 // each warp writes its 16 rows to its part of the swizzled tile at `tile`,
-// then stores them 16 bytes a lane, a row's 8 lanes side by side
+// then stores them 16 bytes a lane, a row's 8 lanes side by side, or
+// (`narrow`: rows that do not start on 16-byte boundaries) 2 bytes a lane
+template <bool NARROW>
 __device__ __forceinline__ void store_rows(uint8_t* tile, const float (&acc)[32], bf16* out,
-                                           long long D, int r0, int N, int hd) {
+                                           long long D, int r0, int N, int cols) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   uint8_t* ow = tile + warp * 16 * 128;
   __syncwarp();
@@ -530,35 +600,74 @@ __device__ __forceinline__ void store_rows(uint8_t* tile, const float (&acc)[32]
       *reinterpret_cast<uint32_t*>(ow + swz(g + 8 * r, c) + 4 * t4) =
           pack_bf16(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
   __syncwarp();
+  if constexpr (!NARROW) {
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = lane + 32 * u, r = e >> 3, c = e & 7, i = r0 + 16 * warp + r;
-    if (i < N && 8 * c < hd)
-      *reinterpret_cast<uint4*>(out + i * D + 8 * c) = *reinterpret_cast<const uint4*>(ow + swz(r, c));
+    for (int u = 0; u < 4; ++u) {
+      const int e = lane + 32 * u, r = e >> 3, c = e & 7, i = r0 + 16 * warp + r;
+      if (i < N && 8 * c < cols)
+        *reinterpret_cast<uint4*>(out + i * D + 8 * c) = *reinterpret_cast<const uint4*>(ow + swz(r, c));
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int u = 0; u < 32; ++u) {
+    const int e = lane + 32 * u, r = e >> 6, cc = e & 63, i = r0 + 16 * warp + r;
+    if (i < N && cc < cols)
+      out[i * D + cc] = *reinterpret_cast<const bf16*>(ow + swz(r, cc >> 3) + 2 * (cc & 7));
   }
 }
 
-// rows [r0, r0 + 64) of one head's hd columns of a bf16 view -> a swizzled
-// tile at shared address dst, zero past row N and past column hd; 16 bytes
-// a copy, 4 a thread, 8 threads a row
-__device__ __forceinline__ void load_tile(uint32_t dst, const View<bf16>& x, int b, int col0,
-                                          int r0, int N, int hd) {
+// rows [r0, r0 + 64) of the 64 columns from `col` of a bf16 view -> a
+// swizzled tile at shared address dst, zero past row N and past the `cols`
+// columns that exist (the head's hd); 16 bytes a copy by cp.async, 4 a
+// thread, 8 threads a row, or (`narrow`: a head whose width or rows are off
+// 16-byte boundaries) a 2-byte load and store an element, 32 a thread
+template <bool NARROW>
+__device__ __forceinline__ void load_tile(uint32_t dst, const View<bf16>& x, int b, int col,
+                                          int r0, int N, int cols) {
+  if constexpr (!NARROW) {
 #pragma unroll
-  for (int u = 0; u < kTile * 8 / kWg; ++u) {
-    const int e = threadIdx.x + kWg * u, r = e >> 3, c = e & 7;
-    const bool in = r0 + r < N && 8 * c < hd;
-    cp_async16(dst + swz(r, c), in ? row_ptr(x, b, r0 + r, col0 + 8 * c) : x.ptr, in ? 16 : 0);
+    for (int u = 0; u < kTile * 8 / kWg; ++u) {
+      const int e = threadIdx.x + kWg * u, r = e >> 3, c = e & 7;
+      const bool in = r0 + r < N && 8 * c < cols;
+      cp_async16(dst + swz(r, c), in ? row_ptr(x, b, r0 + r, col + 8 * c) : x.ptr, in ? 16 : 0);
+    }
+    return;
+  }
+#pragma unroll 8
+  for (int u = 0; u < kTile * kHdp / kWg; ++u) {
+    const int e = threadIdx.x + kWg * u, r = e >> 6, cc = e & 63;
+    const bool in = r0 + r < N && cc < cols;
+    sts_u16(dst + swz(r, cc >> 3) + 2 * (cc & 7), in ? ldg_u16(row_ptr(x, b, r0 + r, col + cc)) : 0);
   }
 }
 
-// o (bf16) and lse of one (b, h): a CTA of one warpgroup. k and v of every
-// key come in once (cp.async into swizzled tiles, one mbarrier each) behind
-// the first query tile; query tiles of 64 rows follow through a two-stage
-// ring. A tile's scores against all keys stay in registers (wgmma: s =
-// q k^T; NKB blocks, the last TW keys wide), so each is formed and
-// exponentiated once: the exact row max, l = sum exp(s - m), attn =
+// this thread's arrival on `bar` once its copies of the phase have landed:
+// cp.async's arrive, or (`narrow`: plain loads and stores) a proxy fence
+// that hands the stores to wgmma and an arrive that releases them
+template <bool NARROW>
+__device__ __forceinline__ void tile_arrive(uint64_t* bar) {
+  if constexpr (!NARROW) {
+    cp_async_arrive(bar);
+    return;
+  }
+  fence_async_smem();
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the byte offset of k-step kk (16 columns) of a row block held as HC
+// column tiles side by side (each [64][64], hd padded to 64 HC)
+__device__ __forceinline__ uint32_t kstep(int kk) { return (kk >> 2) * kTileBytes + 32 * (kk & 3); }
+
+// o (bf16) and lse of one (b, h) at hd 17-64: a CTA of one warpgroup. k and
+// v of every key come in once (cp.async into swizzled tiles, one mbarrier
+// each) behind the first query tile; query tiles of 64 rows follow through
+// a two-stage ring. A tile's scores against all keys stay in registers
+// (wgmma: s = q k^T; NKB blocks, the last TW keys wide), so each is formed
+// and exponentiated once: the exact row max, l = sum exp(s - m), attn =
 // bf16(exp(s - m) / l) packed straight into the A fragments of o = attn v
-// (wgmma, v MN-major).
+// (wgmma, v MN-major). Heads whose rows take 16-byte copies alone (a
+// narrow head runs the two-pass form).
 template <int NKB, int TW>
 __global__ void __launch_bounds__(kWg)
 attn_fwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
@@ -566,8 +675,9 @@ attn_fwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o
   constexpr int kLastChunks = TW / 8;  // 8-key chunks of the last block
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = aligned_smem(smem_raw);
+  // k blocks, v blocks, two q tiles, then four mbarriers and the o tile
   const uint32_t ks = smem_u32(sm), vs = ks + NKB * kTileBytes, qs = vs + NKB * kTileBytes;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + (2 * NKB + 2) * kTileBytes);  // k, v, q0, q1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + (2 * NKB + 2) * kTileBytes);
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H, col0 = h * hd;
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -575,18 +685,21 @@ attn_fwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  load_tile(qs, q, b, col0, 0, N, hd);
-  cp_async_arrive(bars + 2);
+  // query tile t into ring stage st (k, v and q: bars 0, 1 and 2 + st)
+  auto load_q = [&](int st, int t) {
+    load_tile<false>(qs + st * kTileBytes, q, b, col0, kTile * t, N, hd);
+    tile_arrive<false>(bars + 2 + st);
+  };
+  load_q(0, 0);
 #pragma unroll
-  for (int j = 0; j < NKB; ++j) load_tile(ks + j * kTileBytes, k, b, col0, kTile * j, N, hd);
-  cp_async_arrive(bars);
+  for (int j = 0; j < NKB; ++j)
+    load_tile<false>(ks + j * kTileBytes, k, b, col0, kTile * j, N, hd);
+  tile_arrive<false>(bars);
 #pragma unroll
-  for (int j = 0; j < NKB; ++j) load_tile(vs + j * kTileBytes, v, b, col0, kTile * j, N, hd);
-  cp_async_arrive(bars + 1);
-  if (NKB > 1) {
-    load_tile(qs + kTileBytes, q, b, col0, kTile, N, hd);
-    cp_async_arrive(bars + 3);
-  }
+  for (int j = 0; j < NKB; ++j)
+    load_tile<false>(vs + j * kTileBytes, v, b, col0, kTile * j, N, hd);
+  tile_arrive<false>(bars + 1);
+  if (NKB > 1) load_q(1, 1);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const long long D = (long long)H * hd;
@@ -612,10 +725,7 @@ attn_fwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o
     for (int j = 0; j < NKB - 1; ++j) fence_regs(s[j]);
     fence_regs<TW / 2>(s[NKB - 1]);
     __syncthreads();  // every warp's products are done with the q tile
-    if (t + 2 < NKB) {
-      load_tile(qt, q, b, col0, kTile * (t + 2), N, hd);
-      cp_async_arrive(bars + 2 + st);
-    }
+    if (t + 2 < NKB) load_q(st, t + 2);
 
     // s[j][4c + e]: row g + 8 (e / 2) of this warp's 16, key 64 j + 8 c +
     // 2 t4 + (e & 1). Only the last block has keys past N: it alone is
@@ -706,8 +816,8 @@ attn_fwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o
     wg_wait();
     fence_regs(acc);
 
-    store_rows(sm + (2 * NKB + 2) * kTileBytes + 128, acc, o + (long long)b * N * D + col0, D,
-               kTile * t, N, hd);
+    store_rows<false>(reinterpret_cast<uint8_t*>(bars) + 128, acc, o + (long long)b * N * D + col0,
+                      D, kTile * t, N, hd);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = kTile * t + 16 * warp + g + 8 * r;
@@ -776,28 +886,34 @@ __device__ __forceinline__ void block_attn(float (&s)[32], const float (&m)[2], 
 
 // o (bf16) and lse past kMaxKeyBlocks * 64 keys, where a tile's scores
 // against every key no longer fit in registers (nor k and v in shared
-// memory): a CTA of one warpgroup a 64-row query tile, blockIdx.x = (b H +
-// h) NB + t (NB = ceil(N / 64)). The q tile comes in once; the key blocks
-// stream through a two-stage ring, k alone in pass 1, k and v in pass 2.
-// Pass 1 forms s = q k^T block by block (wgmma from shared memory), the
-// exact row max m and l = sum exp(s - m), rescaled as the max moves. Pass
-// 2 forms the scores again, attn = bf16(exp(s - m) / l) packed straight
-// into the A fragments of o += attn v (wgmma, v MN-major), so attn is
-// rounded where JAX rounds it: a one-pass online softmax would round
-// exp(s - m_running) and rescale the sum of products afterwards. The last
-// block runs 8 keys wide where N leaves at most 8 in it.
+// memory), and at every N from hd 65 on (the head in HC column tiles, each
+// slice's CTAs forming the scores again): a
+// CTA of one warpgroup a 64-row query tile and a 64-column slice of o,
+// blockIdx.x = (b H + h) NB + t (NB = ceil(N / 64)), blockIdx.y the slice.
+// The q tile comes in once; the key blocks stream through a two-stage
+// ring, k alone in pass 1, k and the slice's v in pass 2. Pass 1 forms s =
+// q k^T block by block (wgmma from shared memory), the exact row max m and
+// l = sum exp(s - m), rescaled as the max moves. Pass 2 forms the scores
+// again, attn = bf16(exp(s - m) / l) packed straight into the A fragments
+// of o += attn v (wgmma, v MN-major), so attn is rounded where JAX rounds
+// it: a one-pass online softmax would round exp(s - m_running) and rescale
+// the sum of products afterwards. The last block runs 8 keys wide where N
+// leaves at most 8 in it.
+template <int HC, bool NARROW>
 __global__ void __launch_bounds__(kWg, 4)
 attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
                    float* __restrict__ lse, int N, int H, int hd, float scale) {
+  constexpr int kStage = HC + 1;  // tiles of a ring stage: k's HC, the slice's v
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = aligned_smem(smem_raw);
   // q, the ring's two stages of (k, v), the o tile, then three mbarriers
-  const uint32_t qs = smem_u32(sm), ring = qs + kTileBytes;
-  uint8_t* ot = sm + 5 * kTileBytes;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + 6 * kTileBytes);  // q, stage 0, stage 1
+  const uint32_t qs = smem_u32(sm), ring = qs + HC * kTileBytes;
+  uint8_t* ot = sm + (HC + 2 * kStage) * kTileBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ot + kTileBytes);  // q, stage 0, stage 1
   const int nb = (N + kTile - 1) / kTile;
   const int bh = blockIdx.x / nb, t = blockIdx.x - bh * nb;
   const int b = bh / H, h = bh - b * H, col0 = h * hd;
+  const int sc = HC == 1 ? 0 : kHdp * blockIdx.y;  // the slice's first column in the head
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) mbar_init(bars + i, kWg);
@@ -807,13 +923,19 @@ attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
   // ring item u: key block u of pass 1 (k), then block u - nb of pass 2 (k, v)
   auto fill = [&](int u) {
     const int st = u & 1, j = u < nb ? u : u - nb;
-    const uint32_t base = ring + 2 * st * kTileBytes;
-    load_tile(base, k, b, col0, kTile * j, N, hd);
-    if (u >= nb) load_tile(base + kTileBytes, v, b, col0, kTile * j, N, hd);
-    cp_async_arrive(bars + 1 + st);
+    const uint32_t base = ring + st * kStage * kTileBytes;
+#pragma unroll
+    for (int c = 0; c < HC; ++c)
+      load_tile<NARROW>(base + c * kTileBytes, k, b, col0 + kHdp * c, kTile * j, N,
+                        hd - kHdp * c);
+    if (u >= nb)
+      load_tile<NARROW>(base + HC * kTileBytes, v, b, col0 + sc, kTile * j, N, hd - sc);
+    tile_arrive<NARROW>(bars + 1 + st);
   };
-  load_tile(qs, q, b, col0, kTile * t, N, hd);
-  cp_async_arrive(bars);
+#pragma unroll
+  for (int c = 0; c < HC; ++c)
+    load_tile<NARROW>(qs + c * kTileBytes, q, b, col0 + kHdp * c, kTile * t, N, hd - kHdp * c);
+  tile_arrive<NARROW>(bars);
   fill(0);
   fill(1);
 
@@ -828,11 +950,11 @@ attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
     mbar_wait(bars + 1 + st, (u >> 1) & 1);
     if (u == 0) mbar_wait(bars, 0);
     fence_async_smem();
-    const uint32_t kt = ring + 2 * st * kTileBytes;
+    const uint32_t kt = ring + st * kStage * kTileBytes;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHdp / 16; ++kk)
-      wgmma_ss_w<W>(s, desc(qs + 32 * kk), desc(kt + 32 * kk), kk);
+    for (int kk = 0; kk < 4 * HC; ++kk)
+      wgmma_ss_w<W>(s, desc(qs + kstep(kk)), desc(kt + kstep(kk)), kk);
     wg_commit();
     wg_wait();
     fence_regs<W / 2>(s);
@@ -842,7 +964,7 @@ attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
     __syncthreads();
     if (u + 2 < 2 * nb) fill(u + 2);
   };
-  const bool narrow = N - kTile * (nb - 1) <= 8;
+  const bool narrow_last = N - kTile * (nb - 1) <= 8;
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   auto pass1 = [&](auto width, int j) {
@@ -855,7 +977,7 @@ attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
     else block_stats<true, W>(s, m, l, kTile * j, N, scale);
   };
   for (int j = 0; j < nb - 1; ++j) pass1(std::integral_constant<int, kTile>(), j);
-  if (narrow) pass1(std::integral_constant<int, 8>(), nb - 1);
+  if (narrow_last) pass1(std::integral_constant<int, 8>(), nb - 1);
   else pass1(std::integral_constant<int, kTile>(), nb - 1);
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = live ? quad_sum(l[r]) : 1.f;
@@ -877,7 +999,7 @@ attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
       pack_a(af[kk], s, kk, W / 8);
       fence_regs(af[kk]);
     }
-    const uint32_t vt = ring + (2 * (u & 1) + 1) * kTileBytes;
+    const uint32_t vt = ring + ((u & 1) * kStage + HC) * kTileBytes;
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk)
@@ -888,28 +1010,31 @@ attn_fwd_mma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
     release(u);
   };
   for (int j = 0; j < nb - 1; ++j) pass2(std::integral_constant<int, kTile>(), j);
-  if (narrow) pass2(std::integral_constant<int, 8>(), nb - 1);
+  if (narrow_last) pass2(std::integral_constant<int, 8>(), nb - 1);
   else pass2(std::integral_constant<int, kTile>(), nb - 1);
 
   const long long D = (long long)H * hd;
-  store_rows(ot, acc, o + (long long)b * N * D + col0, D, kTile * t, N, hd);
+  store_rows<NARROW>(ot, acc, o + (long long)b * N * D + col0 + sc, D, kTile * t, N, hd - sc);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = kTile * t + 16 * warp + g + 8 * r;
-    if (i < N && t4 == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
+    if (i < N && t4 == 0 && sc == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
   }
 }
 
 // delta = rowsum(do * o) of each (b, i, h), a thread each, summed over the
-// head's columns in order (16-byte loads). A float32 do (hybrid) is also
-// split into three bf16 parts, hi = bf16(do), mid = bf16(do - hi),
-// lo = bf16(do - hi - mid), whose sum is do exactly (both residuals are
-// exact in float32, the second has at most 8 significant bits): split[p]
-// is a contiguous [B, N, H * hd] bf16 array.
+// head's columns in order (16-byte loads, or with `narrow` an element at a
+// time: the same sum). A float32 do (hybrid) is also split into three bf16
+// parts, hi = bf16(do), mid = bf16(do - hi), lo = bf16(do - hi - mid), whose
+// sum is do exactly (both residuals are exact in float32, the second has at
+// most 8 significant bits): split[p] is a contiguous [B, N, H * hd] bf16
+// array.
 template <typename TO>
 __global__ void attn_delta_bf16(View<TO> o, View<TO> dout, float* __restrict__ delta,
-                                bf16* __restrict__ split, int B, int N, int H, int hd) {
+                                bf16* __restrict__ split, int B, int N, int H, int hd,
+                                int narrow) {
   constexpr int VW = 16 / sizeof(TO);
+  constexpr bool kF32 = std::is_same<TO, float>::value;
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= (long long)B * N * H) return;
   const int h = (int)(e % H);
@@ -917,9 +1042,29 @@ __global__ void attn_delta_bf16(View<TO> o, View<TO> dout, float* __restrict__ d
   const int i = (int)(bi % N), b = (int)(bi / N), col0 = h * hd;
   const long long D = (long long)H * hd, n_all = (long long)B * N * D;
   float x = 0.f;
+  if (narrow) {
+    for (int d = 0; d < hd; ++d) {
+      float a, c;
+      if constexpr (kF32) {
+        a = __ldg(row_ptr(o, b, i, col0 + d));
+        c = __ldg(row_ptr(dout, b, i, col0 + d));
+        const float hi = round_bf16(c), rest = c - hi, mid = round_bf16(rest);
+        const long long off = bi * D + col0 + d;
+        split[off] = __float2bfloat16_rn(hi);
+        split[n_all + off] = __float2bfloat16_rn(mid);
+        split[2 * n_all + off] = __float2bfloat16_rn(round_bf16(rest - mid));
+      } else {
+        a = __bfloat162float(*row_ptr(o, b, i, col0 + d));
+        c = __bfloat162float(*row_ptr(dout, b, i, col0 + d));
+      }
+      x = fmaf(c, a, x);
+    }
+    delta[((long long)b * H + h) * N + i] = x;
+    return;
+  }
   for (int d0 = 0; d0 < hd; d0 += VW) {
     float a[VW], c[VW];
-    if constexpr (std::is_same<TO, float>::value) {
+    if constexpr (kF32) {
       const float4 oa = __ldg(reinterpret_cast<const float4*>(row_ptr(o, b, i, col0 + d0)));
       const float4 ca = __ldg(reinterpret_cast<const float4*>(row_ptr(dout, b, i, col0 + d0)));
       a[0] = oa.x; a[1] = oa.y; a[2] = oa.z; a[3] = oa.w;
@@ -1007,46 +1152,71 @@ struct DoParts {
   View<bf16> p[3];
 };
 
-// Backward, key role: dk and dv of keys 64 kt .. 64 kt + 63 of (b, h). k
-// and v are wgmma A tiles; the query tiles (q, do's parts, lse and delta)
-// stream through a two-stage ring. s^T = k q^T and dp^T = v do^T (SS),
-// p^T = exp(s^T scale - lse), ds^T = bf16(p^T (dp^T - delta) scale); then
-// dv += bf16(p^T) do and dk += ds^T q with A from registers (RS, do and q
-// MN-major).
-template <int DP>
+// the key role's ring stages: two where a second stage of q and do's parts
+// fits in shared memory beside k and v, else one (hd 129-192 on hybrid's
+// float32 do: its three parts)
+__host__ __device__ constexpr int key_stages(int HC, int DP) {
+  return kSmemAlign + (2 * HC + 2 * HC * (1 + DP)) * kTileBytes + 2 * 2 * kTile * 4 + 3 * 8 <=
+                 kSmemLimit
+             ? 2
+             : 1;
+}
+
+// Backward, key role: dk and dv of keys 64 kt .. 64 kt + 63 of (b, h), the
+// 64 columns of the slice (blockIdx.y). k and v are wgmma A tiles (all HC
+// column tiles); the query tiles (q, do's parts, lse and delta) stream
+// through a ring of S stages. s^T = k q^T and dp^T = v do^T (SS, over the
+// whole head), p^T = exp(s^T scale - lse), ds^T = bf16(p^T (dp^T - delta)
+// scale); then dv += bf16(p^T) do and dk += ds^T q over the slice's
+// columns with A from registers (RS, do and q MN-major).
+template <int DP, int HC, bool NARROW>
 __device__ __forceinline__ void bwd_keys(uint8_t* sm, const View<bf16>& q, const View<bf16>& k,
                                          const View<bf16>& v, const DoParts& dout,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ delta, bf16* __restrict__ dk,
                                          bf16* __restrict__ dv, int b, int h, int kt, int N,
                                          int H, int hd, float scale) {
-  constexpr int kStage = 1 + DP;  // tiles of a ring stage: q, do's parts
-  constexpr int kTiles = 2 + 2 * kStage;
+  constexpr int S = key_stages(HC, DP);
+  constexpr int kStage = HC * (1 + DP);  // tiles of a ring stage: q, do's parts
+  constexpr int kTiles = 2 * HC + S * kStage;
   const uint32_t s0 = smem_u32(sm);
-  float* ring_f = reinterpret_cast<float*>(sm + kTiles * kTileBytes);  // [2][lse 64, delta 64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_f + 2 * 2 * kTile);  // k and v, 2 stages
+  float* ring_f = reinterpret_cast<float*>(sm + kTiles * kTileBytes);  // [S][lse 64, delta 64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_f + S * 2 * kTile);  // k and v, S stages
   const int bh = b * H + h, col0 = h * hd, nt = (N + kTile - 1) / kTile;
+  const int sl = HC == 1 ? 0 : blockIdx.y, sc = kHdp * sl;
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) mbar_init(bars + i, kWg);
+    for (int i = 0; i < 1 + S; ++i) mbar_init(bars + i, kWg);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   auto fill = [&](int st, int it) {
-    const uint32_t base = s0 + (2 + st * kStage) * kTileBytes;
-    load_tile(base, q, b, col0, kTile * it, N, hd);
+    const uint32_t base = s0 + (2 * HC + st * kStage) * kTileBytes;
 #pragma unroll
-    for (int p = 0; p < DP; ++p) load_tile(base + (1 + p) * kTileBytes, dout.p[p], b, col0, kTile * it, N, hd);
+    for (int c = 0; c < HC; ++c)
+      load_tile<NARROW>(base + c * kTileBytes, q, b, col0 + kHdp * c, kTile * it, N,
+                        hd - kHdp * c);
+#pragma unroll
+    for (int p = 0; p < DP; ++p)
+#pragma unroll
+      for (int c = 0; c < HC; ++c)
+        load_tile<NARROW>(base + (HC * (1 + p) + c) * kTileBytes, dout.p[p], b,
+                          col0 + kHdp * c, kTile * it, N, hd - kHdp * c);
     const int i = kTile * it + threadIdx.x % kTile;
     const float* src = (threadIdx.x < kTile ? lse : delta) + (long long)bh * N + min(i, N - 1);
-    cp_async4(smem_u32(ring_f + st * 2 * kTile + threadIdx.x), src, i < N ? 4 : 0);
-    cp_async_arrive(bars + 1 + st);
+    if constexpr (NARROW) ring_f[st * 2 * kTile + threadIdx.x] = i < N ? *src : 0.f;
+    else cp_async4(smem_u32(ring_f + st * 2 * kTile + threadIdx.x), src, i < N ? 4 : 0);
+    tile_arrive<NARROW>(bars + 1 + st);
   };
-  load_tile(s0, k, b, col0, kTile * kt, N, hd);
-  load_tile(s0 + kTileBytes, v, b, col0, kTile * kt, N, hd);
-  cp_async_arrive(bars);
+#pragma unroll
+  for (int c = 0; c < HC; ++c) {
+    load_tile<NARROW>(s0 + c * kTileBytes, k, b, col0 + kHdp * c, kTile * kt, N, hd - kHdp * c);
+    load_tile<NARROW>(s0 + (HC + c) * kTileBytes, v, b, col0 + kHdp * c, kTile * kt, N,
+                      hd - kHdp * c);
+  }
+  tile_arrive<NARROW>(bars);
   fill(0, 0);
-  if (nt > 1) fill(1, 1);
+  if (S > 1 && nt > 1) fill(1, 1);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const int kw = kTile * kt + 16 * warp;  // this warp's first key
@@ -1055,20 +1225,24 @@ __device__ __forceinline__ void bwd_keys(uint8_t* sm, const View<bf16>& q, const
   // queries (N 65, 197, 257), whose products and elements shrink to match
   auto step = [&](auto width, int it) {
     constexpr int W = decltype(width)::value, kSteps = (W / 8 + 1) / 2;
-    const int st = it & 1;
-    const uint32_t qt = s0 + (2 + st * kStage) * kTileBytes;
-    mbar_wait(bars + 1 + st, (it >> 1) & 1);
+    const int st = static_cast<unsigned>(it) % S;
+    const uint32_t qt = s0 + (2 * HC + st * kStage) * kTileBytes;
+    mbar_wait(bars + 1 + st, (static_cast<unsigned>(it) / S) & 1);
     if (it == 0) mbar_wait(bars, 0);
     fence_async_smem();
     float s[32], dp[32];  // the first W / 2 of each
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHdp / 16; ++kk) wgmma_ss_w<W>(s, desc(s0 + 32 * kk), desc(qt + 32 * kk), kk);
+    for (int kk = 0; kk < 4 * HC; ++kk)
+      wgmma_ss_w<W>(s, desc(s0 + kstep(kk)), desc(qt + kstep(kk)), kk);
+    // do's parts smallest first: each lands while the sum is still as
+    // small as it, so the tensor cores' truncating adds lose less of it
 #pragma unroll
-    for (int p = 0; p < DP; ++p)
+    for (int p = DP - 1; p >= 0; --p)
 #pragma unroll
-      for (int kk = 0; kk < kHdp / 16; ++kk)
-        wgmma_ss_w<W>(dp, desc(s0 + kTileBytes + 32 * kk), desc(qt + (1 + p) * kTileBytes + 32 * kk), p + kk);
+      for (int kk = 0; kk < 4 * HC; ++kk)
+        wgmma_ss_w<W>(dp, desc(s0 + HC * kTileBytes + kstep(kk)),
+                      desc(qt + HC * (1 + p) * kTileBytes + kstep(kk)), DP - 1 - p + kk);
     wg_commit();
     wg_wait();
     fence_regs<W / 2>(s);
@@ -1097,16 +1271,18 @@ __device__ __forceinline__ void bwd_keys(uint8_t* sm, const View<bf16>& q, const
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk)
         if (kTile * it + 16 * kk < N)
-          wgmma_rs(dva, pf[kk], desc(qt + (1 + p) * kTileBytes + 2048 * kk), it + p + kk);
+          wgmma_rs(dva, pf[kk], desc(qt + (HC * (1 + p) + sl) * kTileBytes + 2048 * kk),
+                   it + p + kk);
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk)
-      if (kTile * it + 16 * kk < N) wgmma_rs(dka, sf[kk], desc(qt + 2048 * kk), it + kk);
+      if (kTile * it + 16 * kk < N)
+        wgmma_rs(dka, sf[kk], desc(qt + sl * kTileBytes + 2048 * kk), it + kk);
     wg_commit();
     wg_wait();
     fence_regs(dka);
     fence_regs(dva);
     __syncthreads();  // every warp's products are done with the stage
-    if (it + 2 < nt) fill(st, it + 2);
+    if (it + S < nt) fill(st, it + S);
   };
   for (int it = 0; it < nt - 1; ++it) step(std::integral_constant<int, kTile>(), it);
   if (N - kTile * (nt - 1) <= 8) step(std::integral_constant<int, 8>(), nt - 1);
@@ -1117,31 +1293,35 @@ __device__ __forceinline__ void bwd_keys(uint8_t* sm, const View<bf16>& q, const
   for (int r = 0; r < 2; ++r) {
     const int j = kw + g + 8 * r;
     if (j >= N) continue;
-    const long long off = ((long long)b * N + j) * D + col0 + 2 * t4;
+    const long long off = ((long long)b * N + j) * D + col0;
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (8 * c < hd) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * c) = pack_bf16(dka[4 * c + 2 * r], dka[4 * c + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * c) = pack_bf16(dva[4 * c + 2 * r], dva[4 * c + 2 * r + 1]);
-      }
+    for (int c = 0; c < 8; ++c) {
+      store_bf16_pair<NARROW>(dk + off, sc + 8 * c + 2 * t4, hd, dka[4 * c + 2 * r],
+                              dka[4 * c + 2 * r + 1]);
+      store_bf16_pair<NARROW>(dv + off, sc + 8 * c + 2 * t4, hd, dva[4 * c + 2 * r],
+                              dva[4 * c + 2 * r + 1]);
+    }
   }
 }
 
-// Backward, query role: dq of queries 64 qt .. 64 qt + 63 of (b, h). q and
-// do's parts are wgmma A tiles; the key tiles (k, v) stream through a
-// two-stage ring. s = q k^T, dp = do v^T (SS), p and ds as the key role
-// forms them (from the query's side), dq += ds k (RS, k MN-major).
-template <int DP>
+// Backward, query role: dq of queries 64 qt .. 64 qt + 63 of (b, h), the 64
+// columns of the slice. q and do's parts are wgmma A tiles (all HC column
+// tiles); the key tiles (k, v) stream through a two-stage ring. s = q k^T,
+// dp = do v^T (SS), p and ds as the key role forms them (from the query's
+// side), dq += ds k over the slice's columns (RS, k MN-major).
+template <int DP, int HC, bool NARROW>
 __device__ __forceinline__ void bwd_queries(uint8_t* sm, const View<bf16>& q, const View<bf16>& k,
                                             const View<bf16>& v, const DoParts& dout,
                                             const float* __restrict__ lse,
                                             const float* __restrict__ delta,
                                             bf16* __restrict__ dq, int b, int h, int qt, int N,
                                             int H, int hd, float scale) {
-  constexpr int kOwn = 1 + DP;  // q and do's parts; then the ring's k, v tiles
+  constexpr int kOwn = HC * (1 + DP);  // q and do's parts; then the ring's k, v tiles
+  constexpr int kStage = 2 * HC;
   const uint32_t s0 = smem_u32(sm);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + (kOwn + 4) * kTileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + (kOwn + 2 * kStage) * kTileBytes);
   const int bh = b * H + h, col0 = h * hd, nt = (N + kTile - 1) / kTile;
+  const int sl = HC == 1 ? 0 : blockIdx.y, sc = kHdp * sl;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) mbar_init(bars + i, kWg);
@@ -1149,15 +1329,25 @@ __device__ __forceinline__ void bwd_queries(uint8_t* sm, const View<bf16>& q, co
   }
   __syncthreads();
   auto fill = [&](int st, int jt) {
-    const uint32_t base = s0 + (kOwn + 2 * st) * kTileBytes;
-    load_tile(base, k, b, col0, kTile * jt, N, hd);
-    load_tile(base + kTileBytes, v, b, col0, kTile * jt, N, hd);
-    cp_async_arrive(bars + 1 + st);
-  };
-  load_tile(s0, q, b, col0, kTile * qt, N, hd);
+    const uint32_t base = s0 + (kOwn + st * kStage) * kTileBytes;
 #pragma unroll
-  for (int p = 0; p < DP; ++p) load_tile(s0 + (1 + p) * kTileBytes, dout.p[p], b, col0, kTile * qt, N, hd);
-  cp_async_arrive(bars);
+    for (int c = 0; c < HC; ++c) {
+      load_tile<NARROW>(base + c * kTileBytes, k, b, col0 + kHdp * c, kTile * jt, N,
+                        hd - kHdp * c);
+      load_tile<NARROW>(base + (HC + c) * kTileBytes, v, b, col0 + kHdp * c, kTile * jt, N,
+                        hd - kHdp * c);
+    }
+    tile_arrive<NARROW>(bars + 1 + st);
+  };
+#pragma unroll
+  for (int c = 0; c < HC; ++c) {
+    load_tile<NARROW>(s0 + c * kTileBytes, q, b, col0 + kHdp * c, kTile * qt, N, hd - kHdp * c);
+#pragma unroll
+    for (int p = 0; p < DP; ++p)
+      load_tile<NARROW>(s0 + (HC * (1 + p) + c) * kTileBytes, dout.p[p], b, col0 + kHdp * c,
+                        kTile * qt, N, hd - kHdp * c);
+  }
+  tile_arrive<NARROW>(bars);
   fill(0, 0);
   if (nt > 1) fill(1, 1);
 
@@ -1175,19 +1365,21 @@ __device__ __forceinline__ void bwd_queries(uint8_t* sm, const View<bf16>& q, co
   auto step = [&](auto width, int jt) {
     constexpr int W = decltype(width)::value, kSteps = (W / 8 + 1) / 2;
     const int st = jt & 1;
-    const uint32_t kt_s = s0 + (kOwn + 2 * st) * kTileBytes, vt_s = kt_s + kTileBytes;
+    const uint32_t kt_s = s0 + (kOwn + st * kStage) * kTileBytes, vt_s = kt_s + HC * kTileBytes;
     mbar_wait(bars + 1 + st, (jt >> 1) & 1);
     if (jt == 0) mbar_wait(bars, 0);
     fence_async_smem();
     float s[32], dp[32];  // the first W / 2 of each
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHdp / 16; ++kk) wgmma_ss_w<W>(s, desc(s0 + 32 * kk), desc(kt_s + 32 * kk), kk);
+    for (int kk = 0; kk < 4 * HC; ++kk)
+      wgmma_ss_w<W>(s, desc(s0 + kstep(kk)), desc(kt_s + kstep(kk)), kk);
 #pragma unroll
-    for (int p = 0; p < DP; ++p)
+    for (int p = DP - 1; p >= 0; --p)  // smallest first, as the key role's
 #pragma unroll
-      for (int kk = 0; kk < kHdp / 16; ++kk)
-        wgmma_ss_w<W>(dp, desc(s0 + (1 + p) * kTileBytes + 32 * kk), desc(vt_s + 32 * kk), p + kk);
+      for (int kk = 0; kk < 4 * HC; ++kk)
+        wgmma_ss_w<W>(dp, desc(s0 + HC * (1 + p) * kTileBytes + kstep(kk)), desc(vt_s + kstep(kk)),
+                      DP - 1 - p + kk);
     wg_commit();
     wg_wait();
     fence_regs<W / 2>(s);
@@ -1208,7 +1400,8 @@ __device__ __forceinline__ void bwd_queries(uint8_t* sm, const View<bf16>& q, co
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk)
-      if (kTile * jt + 16 * kk < N) wgmma_rs(dqa, sf[kk], desc(kt_s + 2048 * kk), jt + kk);
+      if (kTile * jt + 16 * kk < N)
+        wgmma_rs(dqa, sf[kk], desc(kt_s + sl * kTileBytes + 2048 * kk), jt + kk);
     wg_commit();
     wg_wait();
     fence_regs(dqa);
@@ -1224,17 +1417,18 @@ __device__ __forceinline__ void bwd_queries(uint8_t* sm, const View<bf16>& q, co
   for (int r = 0; r < 2; ++r) {
     const int i = qw + g + 8 * r;
     if (i >= N) continue;
-    bf16* row = dq + ((long long)b * N + i) * D + col0 + 2 * t4;
+    bf16* row = dq + ((long long)b * N + i) * D + col0;
 #pragma unroll
     for (int c = 0; c < 8; ++c)
-      if (8 * c < hd)
-        *reinterpret_cast<uint32_t*>(row + 8 * c) = pack_bf16(dqa[4 * c + 2 * r], dqa[4 * c + 2 * r + 1]);
+      store_bf16_pair<NARROW>(row, sc + 8 * c + 2 * t4, hd, dqa[4 * c + 2 * r],
+                              dqa[4 * c + 2 * r + 1]);
   }
 }
 
-// 2 ceil(N / 64) CTAs a (b, h): blockIdx.x = (b H + h) 2 T + r, the key
-// role for r < T (key tile r), the query role after (query tile r - T)
-template <int DP>
+// 2 ceil(N / 64) CTAs a (b, h) and slice: blockIdx.x = (b H + h) 2 T + r,
+// the key role for r < T (key tile r), the query role after (query tile
+// r - T); blockIdx.y the slice of 64 output columns
+template <int DP, int HC, bool NARROW>
 __global__ void __launch_bounds__(kWg, 3)
 attn_bwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, DoParts dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1246,10 +1440,11 @@ attn_bwd_mma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, DoParts dout,
   const int bh = blockIdx.x / (2 * nt), r = blockIdx.x - bh * 2 * nt;
   const int b = bh / H, h = bh - b * H;
   if (r < nt)
-    bwd_keys<DP>(sm, q, k, v, dout, lse, delta, dk, dv, b, h, r, N, H, hd, scale);
+    bwd_keys<DP, HC, NARROW>(sm, q, k, v, dout, lse, delta, dk, dv, b, h, r, N, H, hd, scale);
   else
-    bwd_queries<DP>(sm, q, k, v, dout, lse, delta, dq, b, h, r - nt, N, H, hd, scale);
+    bwd_queries<DP, HC, NARROW>(sm, q, k, v, dout, lse, delta, dq, b, h, r - nt, N, H, hd, scale);
 }
+
 
 // ---------------------------------------------------------------------------
 // hd <= 16: bf16 products on the tensor cores (mma.sync)
@@ -1289,27 +1484,22 @@ __device__ __forceinline__ void hmma(float (&d)[4], const uint32_t (&a)[HD / 4],
   }
 }
 
-// a bf16 element's bits, by a 2-byte load: the copies of a view whose rows
-// are not 16-byte aligned (WIDE false in the kernels below)
-__device__ __forceinline__ uint32_t ldg_u16(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned short*>(p));
-}
-
-// rows r0 .. r0 + 15 of one head's HD columns of a bf16 view, each clamped
-// to row N - 1, as the A fragment of a 16 x 8 x hd_pad(HD) product (zero
-// past column HD): a 4-byte load a pair of columns, or two 2-byte loads
-// unless `wide`
+// rows r0 .. r0 + 15 of one head's hd columns (hd <= HD, the tier) of a
+// bf16 view, each clamped to row N - 1, as the A fragment of a 16 x 8 x
+// hd_pad(HD) product (zero past column hd): a 4-byte load a pair of
+// columns, or unless `wide` (hd == HD, rows 16-byte aligned) a 2-byte load
+// a column
 template <int HD>
 __device__ __forceinline__ void ldg_a(uint32_t (&a)[hd_pad(HD) / 4], const View<bf16>& x, int b,
-                                      int r0, int col0, int N, bool wide) {
+                                      int r0, int col0, int N, bool wide, int hd) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int u = 0; u < hd_pad(HD) / 4; ++u) {
     const int col = 2 * t4 + 8 * (u >> 1);
     const bf16* p = row_ptr(x, b, min(r0 + g + 8 * (u & 1), N - 1), col0 + col);
-    a[u] = col >= HD ? 0u
+    a[u] = col >= hd ? 0u
            : wide    ? __ldg(reinterpret_cast<const unsigned int*>(p))
-                     : ldg_u16(p) | ldg_u16(p + 1) << 16;
+                     : ldg_u16(p) | (col + 1 < hd ? ldg_u16(p + 1) << 16 : 0u);
   }
 }
 
@@ -1374,22 +1564,22 @@ __device__ __forceinline__ void hmma_rows(float (&d)[HD / 8][4], const uint32_t 
   }
 }
 
-// rows [0, NP) of one head's HD columns of a bf16 view -> a dense
-// [NP][HD] bf16 tile in shared memory by cp.async, 16 bytes a copy (hd 2:
-// its 4-byte row), zero past row N (a zero row times a zero weight adds
-// nothing; garbage could be NaN). The copies are all in flight at once:
-// wait_copies() then a CTA barrier before the tile is read. Unless `wide`
-// (rows not 16-byte aligned; hd 2: 4-byte), 2-byte loads and stores, an
-// element at a time.
+// rows [0, NP) of one head's hd columns of a bf16 view -> a dense
+// [NP][HD] bf16 tile in shared memory (HD the tier) by cp.async, 16 bytes a
+// copy (hd 2: its 4-byte row), zero past row N (a zero row times a zero
+// weight adds nothing; garbage could be NaN). The copies are all in flight
+// at once: wait_copies() then a CTA barrier before the tile is read.
+// Unless `wide` (hd == HD and rows 16-byte aligned; hd 2: 4-byte), 2-byte
+// loads and stores, an element at a time, zero past column hd.
 template <int HD>
 __device__ __forceinline__ void stage_tile(uint4* dst, const View<bf16>& x, int b, int col0, int N,
-                                           int NP, bool wide) {
+                                           int NP, bool wide, int hd) {
   const uint32_t base = smem_u32(dst);
   if (!wide) {
     unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
     for (int e = threadIdx.x; e < NP * HD; e += blockDim.x) {
       const int r = e / HD, c = e - r * HD;
-      d16[e] = r < N ? ldg_u16(row_ptr(x, b, r, col0 + c)) : 0;
+      d16[e] = r < N && c < hd ? ldg_u16(row_ptr(x, b, r, col0 + c)) : 0;
     }
   } else if constexpr (HD >= 8) {
     constexpr int kPer = HD / 8;
@@ -1408,23 +1598,25 @@ __device__ __forceinline__ void stage_tile(uint4* dst, const View<bf16>& x, int 
 
 __device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
-// delta = rowsum(do * o) of row i, in column order: both backward roles
-// form it with this expression, so they agree bit for bit. A float32 o and
-// do (hybrid) are read a float at a time.
+// delta = rowsum(do * o) of row i over its hd columns, in column order:
+// both backward roles form it with this expression, so they agree bit for
+// bit. A float32 o and do (hybrid) are read a float at a time.
 template <int HD, typename TO>
 __device__ __forceinline__ float row_delta(const View<TO>& o, const View<TO>& dout, int b, int i,
-                                           int col0, bool wide) {
+                                           int col0, bool wide, int hd) {
   constexpr int VW = HD < 8 ? HD : 8;
   float x = 0.f;
   if constexpr (std::is_same<TO, float>::value) {
 #pragma unroll
     for (int c = 0; c < HD; ++c)
-      x = fmaf(__ldg(row_ptr(dout, b, i, col0 + c)), __ldg(row_ptr(o, b, i, col0 + c)), x);
+      if (c < hd)
+        x = fmaf(__ldg(row_ptr(dout, b, i, col0 + c)), __ldg(row_ptr(o, b, i, col0 + c)), x);
   } else if (!wide) {  // an element a copy, the same order
 #pragma unroll
     for (int c = 0; c < HD; ++c)
-      x = fmaf(__bfloat162float(*row_ptr(dout, b, i, col0 + c)),
-               __bfloat162float(*row_ptr(o, b, i, col0 + c)), x);
+      if (c < hd)
+        x = fmaf(__bfloat162float(*row_ptr(dout, b, i, col0 + c)),
+                 __bfloat162float(*row_ptr(o, b, i, col0 + c)), x);
   } else {
 #pragma unroll
     for (int c = 0; c < HD / VW; ++c) {
@@ -1452,16 +1644,16 @@ __device__ __forceinline__ void split3(float x, float (&part)[3]) {
 // at a time and split (split3) into the A fragments of its three parts
 template <int HD>
 __device__ __forceinline__ void ldg_a_split(uint32_t (&a)[3][hd_pad(HD) / 4], const View<float>& x,
-                                            int b, int r0, int col0, int N) {
+                                            int b, int r0, int col0, int N, int hd) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int u = 0; u < hd_pad(HD) / 4; ++u) {
     const int col = 2 * t4 + 8 * (u >> 1);
     float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
-    if (col < HD) {
+    if (col < hd) {
       const float* p = row_ptr(x, b, min(r0 + g + 8 * (u & 1), N - 1), col0 + col);
       split3(__ldg(p), x0);
-      split3(__ldg(p + 1), x1);
+      if (col + 1 < hd) split3(__ldg(p + 1), x1);
     }
 #pragma unroll
     for (int z = 0; z < 3; ++z) a[z][u] = pack_bf16(x0[z], x1[z]);
@@ -1470,19 +1662,19 @@ __device__ __forceinline__ void ldg_a_split(uint32_t (&a)[3][hd_pad(HD) / 4], co
 
 // stage_tile of a float32 view (hybrid's do) as the three [NP][HD] bf16
 // tiles of its parts (split3), `words` 32-bit words apart; plain loads and
-// stores, a pair of columns a thread, zero past row N. The caller's CTA
-// barrier makes them visible.
+// stores, a pair of columns a thread, zero past row N and past column hd.
+// The caller's CTA barrier makes them visible.
 template <int HD>
 __device__ __forceinline__ void stage_split(uint32_t* dst, int words, const View<float>& x, int b,
-                                            int col0, int N, int NP) {
+                                            int col0, int N, int NP, int hd) {
   constexpr int kPairs = HD / 2;
   for (int e = threadIdx.x; e < NP * kPairs; e += blockDim.x) {
     const int r = e / kPairs, c = 2 * (e - r * kPairs);
     float x0[3] = {0.f, 0.f, 0.f}, x1[3] = {0.f, 0.f, 0.f};
-    if (r < N) {
+    if (r < N && c < hd) {
       const float* p = row_ptr(x, b, r, col0 + c);
       split3(__ldg(p), x0);
-      split3(__ldg(p + 1), x1);
+      if (c + 1 < hd) split3(__ldg(p + 1), x1);
     }
 #pragma unroll
     for (int z = 0; z < 3; ++z) dst[z * words + e] = pack_bf16(x0[z], x1[z]);
@@ -1506,25 +1698,28 @@ __device__ __forceinline__ void pack_a16(uint32_t (&a)[4], const float (&x)[4],
 // exponentiated once: the exact row max, l = sum exp(s - m), then attn =
 // bf16(exp(s - m) / l) packed straight from the accumulators into the A
 // fragments of o += attn v (m16n8k16, v read by ldmatrix). NT is the
-// register array's 8-key tiles, at least ceil(N / 8). WIDE: every view
-// takes 16-byte copies (hd 2: 4-byte), else 2-byte loads.
+// register array's 8-key tiles, at least ceil(N / 8). HD is the tier (2, 8
+// or 16) and hd the head's width, at most HD: q, k and v zero past it.
+// WIDE: hd == HD and every view takes 16-byte copies (hd 2: 4-byte), else
+// 2-byte loads.
 template <int HD, int NT, bool WIDE>
 __global__ void __launch_bounds__(kHmmaWarps * 32, 2)
 attn_fwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
-                   float* __restrict__ lse, int N, int H, int chunks, float scale) {
+                   float* __restrict__ lse, int N, int H, int hd_arg, int chunks, float scale) {
   constexpr int HP = hd_pad(HD);
+  const int hd = WIDE ? HD : hd_arg;
   extern __shared__ __align__(16) uint4 smem_hm[];
   const int tiles = (N + 15) / 16, nt = (N + 7) / 8, NP = 16 * tiles;
   uint4* ks = smem_hm;
   uint4* vs = smem_hm + NP * HD / 8;
   const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
-  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int b = bh / H, h = bh - b * H, col0 = h * hd;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const int r0 = 16 * (c + chunks * warp);
   uint32_t qa[HP / 4];
-  ldg_a<HD>(qa, q, b, r0, col0, N, WIDE);
-  stage_tile<HD>(ks, k, b, col0, N, NP, WIDE);
-  stage_tile<HD>(vs, v, b, col0, N, NP, WIDE);
+  ldg_a<HD>(qa, q, b, r0, col0, N, WIDE, hd);
+  stage_tile<HD>(ks, k, b, col0, N, NP, WIDE, hd);
+  stage_tile<HD>(vs, v, b, col0, N, NP, WIDE, hd);
   wait_copies();
   __syncthreads();
   if (r0 >= N) return;  // a tile past the last (the chunks' uneven split)
@@ -1610,16 +1805,15 @@ attn_fwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ 
     hmma_rows<HP>(acc, af, vb);
   }
 
-  const long long D = (long long)H * HD;
+  const long long D = (long long)H * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = r0 + g + 8 * r;
     if (i >= N) continue;
-    bf16* row = o + ((long long)b * N + i) * D + col0 + 2 * t4;
+    bf16* row = o + ((long long)b * N + i) * D + col0;
 #pragma unroll
     for (int n = 0; n < HP / 8; ++n)
-      if (8 * n + 2 * t4 < HD)
-        *reinterpret_cast<uint32_t*>(row + 8 * n) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+      store_bf16_pair(row, 8 * n + 2 * t4, hd, acc[n][2 * r], acc[n][2 * r + 1]);
     if (t4 == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
   }
 }
@@ -1724,24 +1918,25 @@ __device__ __forceinline__ void hmma_attn_v(const uint32_t (&qa)[HP / 4], const 
 // packed into the A fragments of o += attn v (m16n8k16, v by ldmatrix).
 // attn is rounded where JAX rounds it: a one-pass online softmax would
 // round exp(s - m_running) and rescale the sum of products afterwards.
-// WIDE as in the one-pass form.
+// HD, hd and WIDE as in the one-pass form.
 template <int HD, bool WIDE>
 __global__ void __launch_bounds__(kHmmaWarps * 32, 2)
 attn_fwd_hmma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int N, int H, int chunks, float scale) {
+                    float* __restrict__ lse, int N, int H, int hd_arg, int chunks, float scale) {
   constexpr int HP = hd_pad(HD);
+  const int hd = WIDE ? HD : hd_arg;
   extern __shared__ __align__(16) uint4 smem_h2[];
   const int tiles = (N + 15) / 16, nt = (N + 7) / 8, NP = 16 * tiles;
   uint4* ks = smem_h2;
   uint4* vs = smem_h2 + NP * HD / 8;
   const int bh = blockIdx.x / chunks, c = blockIdx.x - bh * chunks;
-  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int b = bh / H, h = bh - b * H, col0 = h * hd;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const int r0 = 16 * (c + chunks * warp);
   uint32_t qa[HP / 4];
-  ldg_a<HD>(qa, q, b, r0, col0, N, WIDE);
-  stage_tile<HD>(ks, k, b, col0, N, NP, WIDE);
-  stage_tile<HD>(vs, v, b, col0, N, NP, WIDE);
+  ldg_a<HD>(qa, q, b, r0, col0, N, WIDE, hd);
+  stage_tile<HD>(ks, k, b, col0, N, NP, WIDE, hd);
+  stage_tile<HD>(vs, v, b, col0, N, NP, WIDE, hd);
   wait_copies();
   __syncthreads();
   if (r0 >= N) return;  // a tile past the last (the chunks' uneven split)
@@ -1767,16 +1962,15 @@ attn_fwd_hmma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__
     else hmma_attn_v<HD, true>(qa, k32, vt, kk0, nt, N, scale, m, l, rl, acc);
   }
 
-  const long long D = (long long)H * HD;
+  const long long D = (long long)H * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = r0 + g + 8 * r;
     if (i >= N) continue;
-    bf16* row = o + ((long long)b * N + i) * D + col0 + 2 * t4;
+    bf16* row = o + ((long long)b * N + i) * D + col0;
 #pragma unroll
     for (int n = 0; n < HP / 8; ++n)
-      if (8 * n + 2 * t4 < HD)
-        *reinterpret_cast<uint32_t*>(row + 8 * n) = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+      store_bf16_pair(row, 8 * n + 2 * t4, hd, acc[n][2 * r], acc[n][2 * r + 1]);
     if (t4 == 0) lse[(long long)bh * N + i] = m[r] + logf(l[r]);
   }
 }
@@ -1845,15 +2039,16 @@ __device__ __forceinline__ void query_elems16(const float (&s)[2][4], float (&dp
 // three bf16 parts (split3: staged as three tiles by the key role, three A
 // fragments in the query role) and each product with do taken as the sum
 // of the parts' products, exact as JAX's float32 products with the
-// unrounded do are. WIDE as in the forward, over q, k, v (and a bf16 o and
-// do); a float32 o and do are read a float at a time.
+// unrounded do are. HD, hd and WIDE as in the forward, over q, k, v (and a
+// bf16 o and do); a float32 o and do are read a float at a time.
 template <int HD, bool WIDE, typename TO>
 __global__ void __launch_bounds__(kHmmaWarps * 32)
 attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
                    const float* __restrict__ lse, View<TO> dout, bf16* __restrict__ dq,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, int chunks,
-                   float scale) {
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H, int hd_arg,
+                   int chunks, float scale) {
   constexpr int HP = hd_pad(HD);
+  const int hd = WIDE ? HD : hd_arg;
   constexpr int DP = std::is_same<TO, float>::value ? 3 : 1;  // do's bf16 parts
   extern __shared__ __align__(16) uint4 smem_hb[];
   const int tiles = (N + 15) / 16, NP = 16 * tiles, tile_u4 = NP * HD / 8;
@@ -1861,11 +2056,11 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
   const bool key_role = blockIdx.x < per_role;
   const int idx = key_role ? blockIdx.x : blockIdx.x - per_role;
   const int bh = idx / chunks, c = idx - bh * chunks;
-  const int b = bh / H, h = bh - b * H, col0 = h * HD;
+  const int b = bh / H, h = bh - b * H, col0 = h * hd;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const int r0 = 16 * (c + chunks * warp);  // this warp's first key (query) row
   const float* lse_bh = lse + (long long)bh * N;
-  const long long D = (long long)H * HD;
+  const long long D = (long long)H * hd;
   uint4* t0 = smem_hb;            // q (key role) or k (query role)
   uint4* t1 = smem_hb + tile_u4;  // do's DP parts (key role) or v
   const uint32_t* w0 = reinterpret_cast<const uint32_t*>(t0);
@@ -1876,16 +2071,16 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
     float* lse_s = del_s + NP;  // a bf16 do's only
     const float* lse_k = DP == 3 ? lse_bh : lse_s;
     uint32_t ka[HP / 4], va[HP / 4];
-    ldg_a<HD>(ka, k, b, r0, col0, N, WIDE);
-    ldg_a<HD>(va, v, b, r0, col0, N, WIDE);
-    stage_tile<HD>(t0, q, b, col0, N, NP, WIDE);
+    ldg_a<HD>(ka, k, b, r0, col0, N, WIDE, hd);
+    ldg_a<HD>(va, v, b, r0, col0, N, WIDE, hd);
+    stage_tile<HD>(t0, q, b, col0, N, NP, WIDE, hd);
     if constexpr (DP == 3)
-      stage_split<HD>(reinterpret_cast<uint32_t*>(t1), 4 * tile_u4, dout, b, col0, N, NP);
+      stage_split<HD>(reinterpret_cast<uint32_t*>(t1), 4 * tile_u4, dout, b, col0, N, NP, hd);
     else
-      stage_tile<HD>(t1, dout, b, col0, N, NP, WIDE);
+      stage_tile<HD>(t1, dout, b, col0, N, NP, WIDE, hd);
     for (int i = threadIdx.x; i < NP; i += blockDim.x) {
       if constexpr (DP == 1) lse_s[i] = i < N ? lse_bh[i] : 0.f;
-      del_s[i] = i < N ? row_delta<HD>(o, dout, b, i, col0, WIDE) : 0.f;
+      del_s[i] = i < N ? row_delta<HD>(o, dout, b, i, col0, WIDE, hd) : 0.f;
     }
     wait_copies();
     __syncthreads();
@@ -1928,30 +2123,27 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
     for (int r = 0; r < 2; ++r) {
       const int j = r0 + g + 8 * r;
       if (j >= N) continue;
-      const long long off = ((long long)b * N + j) * D + col0 + 2 * t4;
+      const long long off = ((long long)b * N + j) * D + col0;
 #pragma unroll
       for (int n = 0; n < HP / 8; ++n) {
-        if (8 * n + 2 * t4 >= HD) continue;
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
-            pack_bf16(dka[n][2 * r], dka[n][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-            pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+        store_bf16_pair(dk + off, 8 * n + 2 * t4, hd, dka[n][2 * r], dka[n][2 * r + 1]);
+        store_bf16_pair(dv + off, 8 * n + 2 * t4, hd, dva[n][2 * r], dva[n][2 * r + 1]);
       }
     }
   } else {
     uint32_t qa[HP / 4], da[DP][HP / 4];
-    ldg_a<HD>(qa, q, b, r0, col0, N, WIDE);
-    if constexpr (DP == 3) ldg_a_split<HD>(da, dout, b, r0, col0, N);
-    else ldg_a<HD>(da[0], dout, b, r0, col0, N, WIDE);
+    ldg_a<HD>(qa, q, b, r0, col0, N, WIDE, hd);
+    if constexpr (DP == 3) ldg_a_split<HD>(da, dout, b, r0, col0, N, hd);
+    else ldg_a<HD>(da[0], dout, b, r0, col0, N, WIDE, hd);
     float lse_r[2], del_r[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = min(r0 + g + 8 * r, N - 1);
       lse_r[r] = lse_bh[i];
-      del_r[r] = row_delta<HD>(o, dout, b, i, col0, WIDE);
+      del_r[r] = row_delta<HD>(o, dout, b, i, col0, WIDE, hd);
     }
-    stage_tile<HD>(t0, k, b, col0, N, NP, WIDE);
-    stage_tile<HD>(t1, v, b, col0, N, NP, WIDE);
+    stage_tile<HD>(t0, k, b, col0, N, NP, WIDE, hd);
+    stage_tile<HD>(t1, v, b, col0, N, NP, WIDE, hd);
     wait_copies();
     __syncthreads();
     if (r0 >= N) return;
@@ -1987,11 +2179,10 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
     for (int r = 0; r < 2; ++r) {
       const int i = r0 + g + 8 * r;
       if (i >= N) continue;
-      bf16* row = dq + ((long long)b * N + i) * D + col0 + 2 * t4;
+      bf16* row = dq + ((long long)b * N + i) * D + col0;
 #pragma unroll
       for (int n = 0; n < HP / 8; ++n)
-        if (8 * n + 2 * t4 < HD)
-          *reinterpret_cast<uint32_t*>(row + 8 * n) = pack_bf16(dqa[n][2 * r], dqa[n][2 * r + 1]);
+        store_bf16_pair(row, 8 * n + 2 * t4, hd, dqa[n][2 * r], dqa[n][2 * r + 1]);
     }
   }
 }
@@ -2001,26 +2192,50 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
 // ---------------------------------------------------------------------------
 
 // the tensor-core kernels' dynamic shared memory (attention_fused.py:
-// bf16_smem_bytes): the alignment slack, then the one-pass forward's k and
-// v blocks, its two q tiles and four mbarriers (the two-pass forward's q
-// tile, two ring stages of k and v, the o tile and three mbarriers); the
-// backward's larger role (the key role: k, v and a two-stage ring of q and
-// do's parts, lse and delta) and three mbarriers
+// bf16_smem_bytes) with the head in HC column tiles: the alignment slack,
+// then the one-pass forward's (HC 1) k and v blocks, its two q tiles, four
+// mbarriers and the o tile (the two-pass forward's q tiles, two ring
+// stages of k and the slice's v, the o tile and three mbarriers); the
+// backward's larger role: the key role's
+// k and v, S ring stages (key_stages) of q and do's parts, lse and delta,
+// and 1 + S mbarriers, or the query role's q and do's parts, two ring
+// stages of k and v and three mbarriers
 size_t fwd_mma_smem(int N) {
-  const size_t blocks = (N + kTile - 1) / kTile;
-  if (blocks > kMaxKeyBlocks) return kSmemAlign + 6 * kTileBytes + 3 * sizeof(uint64_t);
-  return kSmemAlign + (2 * blocks + 3) * kTileBytes + 128;
+  return kSmemAlign + (2 * (size_t)((N + kTile - 1) / kTile) + 3) * kTileBytes + 128;
 }
 
-size_t bwd_mma_smem(int do_parts) {
-  return kSmemAlign + (4 + 2 * (size_t)do_parts) * kTileBytes + 2 * 2 * kTile * sizeof(float) +
-         3 * sizeof(uint64_t);
+size_t fwd_mma2_smem(int HC) {
+  return kSmemAlign + (3 * (size_t)HC + 3) * kTileBytes + 3 * sizeof(uint64_t);
+}
+
+size_t bwd_mma_smem(int do_parts, int HC) {
+  const int S = key_stages(HC, do_parts);
+  const size_t keys = kSmemAlign + (2 * HC + (size_t)S * HC * (1 + do_parts)) * kTileBytes +
+                      S * 2 * kTile * sizeof(float) + (1 + S) * sizeof(uint64_t);
+  const size_t queries =
+      kSmemAlign + ((size_t)HC * (1 + do_parts) + 4 * HC) * kTileBytes + 3 * sizeof(uint64_t);
+  return keys > queries ? keys : queries;
 }
 
 // whether a bf16 view's pointer and strides take VW-element copies
 bool takes_width(const View<bf16>& x, int vw) {
   return reinterpret_cast<uintptr_t>(x.ptr) % (sizeof(bf16) * vw) == 0 && x.sb % vw == 0 &&
          x.sr % vw == 0;
+}
+
+// whether a float32 view's pointer and strides are multiples of 16 bytes
+bool takes_16_bytes(const View<float>& x) {
+  return reinterpret_cast<uintptr_t>(x.ptr) % 16 == 0 && x.sb % 4 == 0 && x.sr % 4 == 0;
+}
+
+// the wgmma kernels' staging: 16-byte copies where hd is a multiple of 8
+// and every view's rows start on 16-byte boundaries, else (`narrow`) 2-byte
+// loads
+bool mma_narrow(int hd, std::initializer_list<View<bf16>> views) {
+  if (hd % 8) return true;
+  for (const View<bf16>& x : views)
+    if (!takes_width(x, 8)) return true;
+  return false;
 }
 
 template <typename Kernel>
@@ -2055,42 +2270,72 @@ int fwd_mma_tail(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, 
   return fwd_mma_blocks<NKB, 64>(q, k, v, o, lse, B, N, H, hd, scale, s);
 }
 
-// the two-pass form: a CTA a 64-row query tile
-int fwd_mma2(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
-             int hd, float scale, cudaStream_t s) {
+// the two-pass form: a CTA a 64-row query tile and 64-column slice
+template <int HC, bool NARROW>
+int fwd_mma2_launch(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N,
+                    int H, int hd, float scale, cudaStream_t s) {
   static size_t allowed = 48 * 1024;
-  const size_t smem = fwd_mma_smem(N);
-  cudaError_t err = allow_smem(attn_fwd_mma2_bf16, smem, &allowed);
+  const size_t smem = fwd_mma2_smem(HC);
+  cudaError_t err = allow_smem(attn_fwd_mma2_bf16<HC, NARROW>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nb = (N + kTile - 1) / kTile;
-  attn_fwd_mma2_bf16<<<B * H * nb, kWg, smem, s>>>(q, k, v, o, lse, N, H, hd, scale);
+  attn_fwd_mma2_bf16<HC, NARROW><<<dim3(B * H * nb, HC), kWg, smem, s>>>(q, k, v, o, lse, N, H,
+                                                                        hd, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the one-pass form up to kMaxKeyBlocks key blocks, the two-pass past them
+template <int HC>
+int fwd_mma2(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
+             int hd, float scale, cudaStream_t s) {
+  return mma_narrow(hd, {q, k, v})
+             ? fwd_mma2_launch<HC, true>(q, k, v, o, lse, B, N, H, hd, scale, s)
+             : fwd_mma2_launch<HC, false>(q, k, v, o, lse, B, N, H, hd, scale, s);
+}
+
+// at hd 17-64 the one-pass form up to kMaxKeyBlocks key blocks, the
+// two-pass past them and for narrow heads (`mma_narrow`); from hd 65 the
+// two-pass form at every N
+template <int HC>
 int fwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
             int hd, float scale, cudaStream_t s) {
+  if (HC > 1 || mma_narrow(hd, {q, k, v}))
+    return fwd_mma2<HC>(q, k, v, o, lse, B, N, H, hd, scale, s);
   switch ((N + kTile - 1) / kTile) {
     case 1: return fwd_mma_tail<1>(q, k, v, o, lse, B, N, H, hd, scale, s);
     case 2: return fwd_mma_tail<2>(q, k, v, o, lse, B, N, H, hd, scale, s);
     case 3: return fwd_mma_tail<3>(q, k, v, o, lse, B, N, H, hd, scale, s);
     case 4: return fwd_mma_tail<4>(q, k, v, o, lse, B, N, H, hd, scale, s);
     case 5: return fwd_mma_tail<5>(q, k, v, o, lse, B, N, H, hd, scale, s);
-    default: return fwd_mma2(q, k, v, o, lse, B, N, H, hd, scale, s);
+    default: return fwd_mma2<1>(q, k, v, o, lse, B, N, H, hd, scale, s);
   }
 }
 
+template <int DP, int HC, bool NARROW>
+int bwd_mma_launch(dim3 grid, View<bf16> q, View<bf16> k, View<bf16> v, const DoParts& parts,
+                   const float* lse, const float* delta, bf16* dq, bf16* dk, bf16* dv, int N,
+                   int H, int hd, float scale, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  const size_t smem = bwd_mma_smem(DP, HC);
+  cudaError_t err = allow_smem(attn_bwd_mma_bf16<DP, HC, NARROW>, smem, &allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_mma_bf16<DP, HC, NARROW><<<grid, kWg, smem, s>>>(q, k, v, parts, lse, delta, dq, dk,
+                                                            dv, N, H, hd, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the delta pre-pass (and, for a float32 do, its split), then one launch
-// of both roles
-template <typename TO>
+// of both roles over the HC slices
+template <typename TO, int HC>
 int bwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
             View<TO> dout, bf16* dq, bf16* dk, bf16* dv, float* delta, bf16* split, int B, int N,
             int H, int hd, float scale, cudaStream_t s) {
   constexpr int DP = std::is_same<TO, float>::value ? 3 : 1;
-  static size_t allowed = 48 * 1024;
   const long long rows = (long long)B * N * H;
+  bool delta_narrow = hd % 8 != 0;
+  if constexpr (DP == 3) delta_narrow = delta_narrow || !takes_16_bytes(o) || !takes_16_bytes(dout);
+  else delta_narrow = delta_narrow || !takes_width(o, 8) || !takes_width(dout, 8);
   attn_delta_bf16<TO><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(o, dout, delta, split, B, N,
-                                                                      H, hd);
+                                                                      H, hd, delta_narrow);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   DoParts parts;
@@ -2100,20 +2345,19 @@ int bwd_mma(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* l
     if constexpr (DP == 3) parts.p[p] = View<bf16>{split + p * (long long)B * N * D, N * D, D};
     else parts.p[p] = dout;
   }
-  const size_t smem = bwd_mma_smem(DP);
-  err = allow_smem(attn_bwd_mma_bf16<DP>, smem, &allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nt = (N + kTile - 1) / kTile;
-  attn_bwd_mma_bf16<DP><<<2 * B * H * nt, kWg, smem, s>>>(q, k, v, parts, lse, delta, dq, dk, dv,
-                                                         N, H, hd, scale);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(2 * B * H * ((N + kTile - 1) / kTile), HC);
+  if (mma_narrow(hd, {q, k, v, parts.p[0]}))
+    return bwd_mma_launch<DP, HC, true>(grid, q, k, v, parts, lse, delta, dq, dk, dv, N, H, hd,
+                                        scale, s);
+  return bwd_mma_launch<DP, HC, false>(grid, q, k, v, parts, lse, delta, dq, dk, dv, N, H, hd,
+                                       scale, s);
 }
 
 // the hd <= 16 tensor-core kernels' dynamic shared memory
 // (attention_fused.py: bf16_smem_bytes): N padded to NP = 16 ceil(N / 16)
-// rows, [NP][HD] bf16 tiles: the forward's k and v; the backward's larger
-// role, the key role: q, do's parts (one, or three of a float32 do), the
-// delta row and, beside a bf16 do, the lse row
+// rows, [NP][HD] bf16 tiles (HD the tier): the forward's k and v; the
+// backward's larger role, the key role: q, do's parts (one, or three of a
+// float32 do), the delta row and, beside a bf16 do, the lse row
 size_t hmma_smem(int N, int HD, bool backward, int do_parts = 1) {
   const size_t np = 16 * (size_t)((N + 15) / 16), tile = np * HD * sizeof(bf16);
   return backward ? (1 + do_parts) * tile + (do_parts == 3 ? 1 : 2) * np * sizeof(float)
@@ -2127,9 +2371,10 @@ bool hmma_plan_ok(int N, int chunks, int warps) {
 }
 
 // whether every view takes the tensor-core row kernels' 16-byte copies
-// (hd 2: its whole 4-byte row)
+// (hd 2: its whole 4-byte row) at hd == HD
 template <int HD>
-bool wide_views(std::initializer_list<View<bf16>> views) {
+bool wide_views(int hd, std::initializer_list<View<bf16>> views) {
+  if (hd != HD) return false;
   for (const View<bf16>& x : views)
     if (!takes_width(x, HD < 8 ? HD : 8)) return false;
   return true;
@@ -2137,49 +2382,50 @@ bool wide_views(std::initializer_list<View<bf16>> views) {
 
 template <int HD, int NT, bool WIDE>
 int fwd_hmma_tiles(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N,
-                   int H, float scale, int chunks, int warps, cudaStream_t s) {
+                   int H, int hd, float scale, int chunks, int warps, cudaStream_t s) {
   static size_t allowed = 48 * 1024;
   const size_t smem = hmma_smem(N, HD, false);
   cudaError_t err = allow_smem(attn_fwd_hmma_bf16<HD, NT, WIDE>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_fwd_hmma_bf16<HD, NT, WIDE><<<B * H * chunks, 32 * warps, smem, s>>>(q, k, v, o, lse, N, H,
-                                                                            chunks, scale);
+                                                                            hd, chunks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD, bool WIDE>
 int fwd_hmma2(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
-              float scale, int chunks, int warps, cudaStream_t s) {
+              int hd, float scale, int chunks, int warps, cudaStream_t s) {
   static size_t allowed = 48 * 1024;
   const size_t smem = hmma_smem(N, HD, false);
   cudaError_t err = allow_smem(attn_fwd_hmma2_bf16<HD, WIDE>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_fwd_hmma2_bf16<HD, WIDE><<<B * H * chunks, 32 * warps, smem, s>>>(q, k, v, o, lse, N, H,
-                                                                         chunks, scale);
+                                                                         hd, chunks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // `tiles`, the one-pass form's register tier (attention_fused.py:
 // bf16_hmma_score_tiles), one of HMMA_SCORE_TILES and at least ceil(N / 8),
 // or 0: the two-pass form (N past kHmmaMaxKeys). Views that do not all take
-// 16-byte copies run the one-pass form's largest tier, built for them alone
-// (off every model's path: its q, k, v take them).
+// 16-byte copies, and head dims below their tier, run the one-pass form's
+// largest tier, built for them alone (off the shipped models' paths: their
+// q, k, v take them).
 template <int HD>
 int fwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
-             float scale, int tiles, int chunks, int warps, cudaStream_t s) {
+             int hd, float scale, int tiles, int chunks, int warps, cudaStream_t s) {
   if (!hmma_plan_ok(N, chunks, warps)) return kBadPlan;
-  const bool wide = wide_views<HD>({q, k, v});
+  const bool wide = wide_views<HD>(hd, {q, k, v});
   if (tiles == 0)
-    return wide ? fwd_hmma2<HD, true>(q, k, v, o, lse, B, N, H, scale, chunks, warps, s)
-                : fwd_hmma2<HD, false>(q, k, v, o, lse, B, N, H, scale, chunks, warps, s);
+    return wide ? fwd_hmma2<HD, true>(q, k, v, o, lse, B, N, H, hd, scale, chunks, warps, s)
+                : fwd_hmma2<HD, false>(q, k, v, o, lse, B, N, H, hd, scale, chunks, warps, s);
   if (N > kHmmaMaxKeys || 8 * tiles < N) return kBadPlan;
   if (!wide)
-    return fwd_hmma_tiles<HD, kHmmaMaxKeys / 8, false>(q, k, v, o, lse, B, N, H, scale, chunks,
+    return fwd_hmma_tiles<HD, kHmmaMaxKeys / 8, false>(q, k, v, o, lse, B, N, H, hd, scale, chunks,
                                                         warps, s);
   switch (tiles) {
 #define HMMA_TIER_CASE(NT) \
   case NT:                 \
-    return fwd_hmma_tiles<HD, NT, true>(q, k, v, o, lse, B, N, H, scale, chunks, warps, s);
+    return fwd_hmma_tiles<HD, NT, true>(q, k, v, o, lse, B, N, H, hd, scale, chunks, warps, s);
     HMMA_SCORE_TILES(HMMA_TIER_CASE)
 #undef HMMA_TIER_CASE
     default:
@@ -2189,58 +2435,64 @@ int fwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int 
 
 template <int HD, bool WIDE, typename TO>
 int bwd_hmma_launch(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
-                    View<TO> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H,
+                    View<TO> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H, int hd,
                     float scale, int chunks, int warps, cudaStream_t s) {
   static size_t allowed = 48 * 1024;
   const size_t smem = hmma_smem(N, HD, true, std::is_same<TO, float>::value ? 3 : 1);
   cudaError_t err = allow_smem(attn_bwd_hmma_bf16<HD, WIDE, TO>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_bwd_hmma_bf16<HD, WIDE, TO><<<2 * B * H * chunks, 32 * warps, smem, s>>>(
-      q, k, v, o, lse, dout, dq, dk, dv, N, H, chunks, scale);
+      q, k, v, o, lse, dout, dq, dk, dv, N, H, hd, chunks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// WIDE where q, k, v (and a bf16 o and do) all take 16-byte copies
+// WIDE where hd is the tier and q, k, v (and a bf16 o and do) all take
+// 16-byte copies
 template <int HD, typename TO>
 int bwd_hmma(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
-             View<TO> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H, float scale,
+             View<TO> dout, bf16* dq, bf16* dk, bf16* dv, int B, int N, int H, int hd, float scale,
              int chunks, int warps, cudaStream_t s) {
   if (!hmma_plan_ok(N, chunks, warps)) return kBadPlan;
-  bool wide = wide_views<HD>({q, k, v});
-  if constexpr (std::is_same<TO, bf16>::value) wide = wide && wide_views<HD>({o, dout});
+  bool wide = wide_views<HD>(hd, {q, k, v});
+  if constexpr (std::is_same<TO, bf16>::value) wide = wide && wide_views<HD>(hd, {o, dout});
   if (wide)
-    return bwd_hmma_launch<HD, true, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale,
+    return bwd_hmma_launch<HD, true, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, hd, scale,
                                          chunks, warps, s);
-  return bwd_hmma_launch<HD, false, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks,
-                                        warps, s);
+  return bwd_hmma_launch<HD, false, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, hd, scale,
+                                        chunks, warps, s);
 }
 
-// hd 2, 8 and 16: the tensor-core row kernels with the caller's plan
-// (attention_fused.py: bf16_hmma_plan, bf16_hmma_score_tiles); from 32 up
-// the wgmma kernels
-template <int HD>
+// a head dim's tier: the tensor-core row kernels (mma.sync) at 2, 8 and 16
+// with the caller's plan (attention_fused.py: bf16_hmma_plan,
+// bf16_hmma_score_tiles); the wgmma kernels from 17 on, the head in 1, 2
+// or 3 column tiles of 64 (tiers 64, 128, 192)
+template <int T>
 int launch_fwd(View<bf16> q, View<bf16> k, View<bf16> v, bf16* o, float* lse, int B, int N, int H,
-               float scale, int tiles, int chunks, int warps, cudaStream_t s) {
-  if constexpr (HD >= 32) return fwd_mma(q, k, v, o, lse, B, N, H, HD, scale, s);
-  else return fwd_hmma<HD>(q, k, v, o, lse, B, N, H, scale, tiles, chunks, warps, s);
+               int hd, float scale, int tiles, int chunks, int warps, cudaStream_t s) {
+  if constexpr (T >= 64) return fwd_mma<T / 64>(q, k, v, o, lse, B, N, H, hd, scale, s);
+  else return fwd_hmma<T>(q, k, v, o, lse, B, N, H, hd, scale, tiles, chunks, warps, s);
 }
 
-template <int HD, typename TO>
+template <int T, typename TO>
 int launch_bwd(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o, const float* lse,
                View<TO> dout, bf16* dq, bf16* dk, bf16* dv, float* delta, bf16* split, int B,
-               int N, int H, float scale, int chunks, int warps, cudaStream_t s) {
-  if constexpr (HD >= 32)
-    return bwd_mma<TO>(q, k, v, o, lse, dout, dq, dk, dv, delta, split, B, N, H, HD, scale, s);
+               int N, int H, int hd, float scale, int chunks, int warps, cudaStream_t s) {
+  if constexpr (T >= 64)
+    return bwd_mma<TO, T / 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, split, B, N, H, hd,
+                               scale, s);
   else
-    return bwd_hmma<HD, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, scale, chunks, warps, s);
+    return bwd_hmma<T, TO>(q, k, v, o, lse, dout, dq, dk, dv, B, N, H, hd, scale, chunks, warps,
+                           s);
 }
 
 }  // namespace
 
-// The head dims the kernels are built for: every head_dim of a shipped ViT
-// config (2, 8, 32, 64) and 16, 48 of the JAX tests; from 32 up the
-// tensor-core kernels.
-#define ATTN_BF16_HEAD_DIMS(X) X(2) X(8) X(16) X(32) X(48) X(64)
+// The tiers a head dim runs at, the first at least as wide: the
+// tensor-core row kernels at 2 (hd 1, 2), 8 (3-8) and 16 (9-16), the
+// wgmma kernels at 64 (17-64), 128 (65-128) and 192 (129-192). A head
+// narrower than its tier is zero past hd in the staged tiles and
+// fragments.
+#define ATTN_BF16_TIERS(X) X(2) X(8) X(16) X(64) X(128) X(192)
 
 // The kernels' constants (kTile, kHdp, kMaxKeyBlocks, kHmmaWarps,
 // kHmmaMaxKeys, then the 3 HMMA_SCORE_TILES): ops/attention_fused.py plans
@@ -2258,18 +2510,28 @@ extern "C" void attention_bf16_tiles(int* out) {
 #undef HMMA_TIER_OUT
 }
 
+// The head-dim tiers (ATTN_BF16_TIERS), ended by a 0 (at most 16 entries):
+// ops/attention_fused.py checks them against its own.
+extern "C" void attention_bf16_head_tiers(int* out) {
+  int i = 0;
+#define TIER_OUT(T) out[i++] = T;
+  ATTN_BF16_TIERS(TIER_OUT)
+#undef TIER_OUT
+  out[i] = 0;
+}
+
 // Both entry points launch on `stream`, allocate nothing and return
-// cudaGetLastError() as an int (0 on success), -1 for a head dim that is
-// not built, or -4 for a tensor-core row plan (hd <= 16) that does not
+// cudaGetLastError() as an int (0 on success), -1 for a head dim past the
+// last tier, or -4 for a tensor-core row plan (hd <= 16) that does not
 // cover N or whose tier is not built. q, k, v and do are [B, N, H*hd]
 // views with unit column stride, batch stride *_sb and row stride *_sr in
-// elements; at hd >= 32 their pointers and strides are multiples of 16
-// bytes. At hd <= 16 the caller passes the tensor-core row kernels' plan:
-// hmma_chunks CTAs a (b, h), hmma_warps warps a CTA and the forward's
-// register tier hmma_tiles (0: the two-pass form, N past kHmmaMaxKeys);
-// they take any view. o and do are bf16, or both float32 when o_do_f32 is
-// set (hybrid_attention's eager forward and its cotangent). The outputs o,
-// lse [B, H, N] (float32), dq, dk, dv are contiguous. At hd >= 32 the
+// elements, any alignment (rows off 16-byte boundaries take narrower
+// copies). At hd <= 16 the caller passes the tensor-core row kernels'
+// plan: hmma_chunks CTAs a (b, h), hmma_warps warps a CTA and the
+// forward's register tier hmma_tiles (0: the two-pass form, N past
+// kHmmaMaxKeys). o and do are bf16, or both float32 when o_do_f32 is set
+// (hybrid_attention's eager forward and its cotangent). The outputs o,
+// lse [B, H, N] (float32), dq, dk, dv are contiguous. From hd 17 on the
 // backward writes delta, a float32 [B, H, N] workspace, and for a float32
 // do its three bf16 parts to do_split, a contiguous [3, B, N, H*hd] bf16
 // workspace (unused otherwise).
@@ -2282,16 +2544,14 @@ extern "C" int attention_bf16_forward(const void* q, long long q_sb, long long q
   const View<bf16> qv{static_cast<const bf16*>(q), q_sb, q_sr},
       kv{static_cast<const bf16*>(k), k_sb, k_sr}, vv{static_cast<const bf16*>(v), v_sb, v_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-#define ATTN_FWD_CASE(HD)                                                                    \
-  case HD:                                                                                   \
-    return launch_fwd<HD>(qv, kv, vv, static_cast<bf16*>(o), lse, B, N, H, scale, hmma_tiles, \
-                          hmma_chunks, hmma_warps, s);
-    ATTN_BF16_HEAD_DIMS(ATTN_FWD_CASE)
+  if (hd < 1) return kBadHeadDim;
+#define ATTN_FWD_CASE(T)                                                                       \
+  if (hd <= T)                                                                                 \
+    return launch_fwd<T>(qv, kv, vv, static_cast<bf16*>(o), lse, B, N, H, hd, scale,           \
+                         hmma_tiles, hmma_chunks, hmma_warps, s);
+  ATTN_BF16_TIERS(ATTN_FWD_CASE)
 #undef ATTN_FWD_CASE
-    default:
-      return kBadHeadDim;
-  }
+  return kBadHeadDim;
 }
 
 extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long q_sr,
@@ -2312,16 +2572,16 @@ extern "C" int attention_bf16_backward(const void* q, long long q_sb, long long 
   bf16 *dqb = static_cast<bf16*>(dq), *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
   bf16* split = static_cast<bf16*>(do_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-#define ATTN_BWD_CASE(HD)                                                                      \
-  case HD:                                                                                     \
-    return o_do_f32 ? launch_bwd<HD, float>(qv, kv, vv, of, lse, dof, dqb, dkb, dvb, delta,     \
-                                            split, B, N, H, scale, hmma_chunks, hmma_warps, s) \
-                    : launch_bwd<HD, bf16>(qv, kv, vv, ob, lse, dob, dqb, dkb, dvb, delta,      \
-                                           split, B, N, H, scale, hmma_chunks, hmma_warps, s);
-    ATTN_BF16_HEAD_DIMS(ATTN_BWD_CASE)
+  if (hd < 1) return kBadHeadDim;
+#define ATTN_BWD_CASE(T)                                                                        \
+  if (hd <= T)                                                                                  \
+    return o_do_f32 ? launch_bwd<T, float>(qv, kv, vv, of, lse, dof, dqb, dkb, dvb, delta,      \
+                                           split, B, N, H, hd, scale, hmma_chunks, hmma_warps, \
+                                           s)                                                   \
+                    : launch_bwd<T, bf16>(qv, kv, vv, ob, lse, dob, dqb, dkb, dvb, delta,       \
+                                          split, B, N, H, hd, scale, hmma_chunks, hmma_warps,  \
+                                          s);
+  ATTN_BF16_TIERS(ATTN_BWD_CASE)
 #undef ATTN_BWD_CASE
-    default:
-      return kBadHeadDim;
-  }
+  return kBadHeadDim;
 }

@@ -111,6 +111,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const float* gmem, bool
                : "memory");
 }
 
+// 4 bytes, zero-filled unless `valid`: the copies of rows whose length or
+// start is not a multiple of 16 bytes
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -204,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
 som_partial_kernel(const float* __restrict__ x, long long ldx, const float* __restrict__ p,
                    float* __restrict__ part_dot, float* __restrict__ part_x2,
                    float* __restrict__ part_p2, unsigned int* __restrict__ rows_done, int B,
-                   int P, int D, int split_chunks) {
+                   int P, int D, int split_chunks, int wide) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: stages start on such a boundary
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -287,12 +295,22 @@ som_partial_kernel(const float* __restrict__ x, long long ldx, const float* __re
       return i < kVecsX ? swz(r0 + kRowStep * i, j)
                         : kXBytes + swz(r0 + kRowStep * (i - kVecsX), j);
     };
+    // 16 bytes a copy where the rows allow it (`wide`), else a float a
+    // copy, zero past D
     auto load_chunk = [&](int c) {
       const uint32_t st = smem_u32(smem + (c % kStages) * kStageBytes);
-      const bool k_ok = (chunk0 + c) * kBK + 4 * j < D;
+      const int k0 = (chunk0 + c) * kBK + 4 * j;
+      if (wide) {
 #pragma unroll
-      for (int i = 0; i < kVecsX + kVecsP; ++i)
-        cp_async16(st + off(i), src[i] + c * kBK, k_ok && (row_ok >> i & 1));
+        for (int i = 0; i < kVecsX + kVecsP; ++i)
+          cp_async16(st + off(i), src[i] + c * kBK, k0 < D && (row_ok >> i & 1));
+      } else {
+#pragma unroll
+        for (int i = 0; i < kVecsX + kVecsP; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            cp_async4(st + off(i) + 4 * e, src[i] + c * kBK + e, k0 + e < D && (row_ok >> i & 1));
+      }
     };
     float sq[kVecsX + kVecsP];
 #pragma unroll
@@ -592,8 +610,9 @@ extern "C" void som_fused_tiles(int* out) {
 // Launches (a) and (b) on `stream` and returns the CUDA error code (0 on
 // success). x rows are `ldx` floats apart (the model hands over a strided
 // view of its token buffer); p and the outputs are contiguous. The caller
-// checks what the copies need (ops/som_fused.py:check_shape): x and p
-// 16-byte aligned, ldx and D multiples of 4. The grid has `splits` splits
+// says whether every row takes 16-byte copies (`wide`: x and p 16-byte
+// aligned, ldx and D multiples of 4; ops/som_fused.py:wide_copies), else
+// the producers copy a float at a time, zero past D. The grid has `splits` splits
 // of `split_chunks` 32-deep chunks (the last may have fewer, none is
 // empty). `workspace` holds splits * (B*P + B + P) + B + 1 floats (the last
 // one the row counter). `temperature` points to one float on the device,
@@ -601,7 +620,8 @@ extern "C" void som_fused_tiles(int* out) {
 extern "C" int som_fused_forward(const float* x, long long ldx, const float* p, float* dist,
                                  long long* bmu, float* workspace, float* loss, int B, int P,
                                  int D, int splits, int split_chunks, int cols, int hexa,
-                                 int cosine, const float* temperature, void* stream) {
+                                 int cosine, const float* temperature, int wide,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool smem_raised = false;
   if (!smem_raised) {
@@ -618,7 +638,7 @@ extern "C" int som_fused_forward(const float* x, long long ldx, const float* p, 
 
   const dim3 grid((P + kBN - 1) / kBN, (B + kBM - 1) / kBM, splits);
   cudaError_t err = launch(som_partial_kernel, grid, kThreads, kSmemBytes, s, false, x, ldx, p,
-                           part_dot, part_x2, part_p2, rows_done, B, P, D, split_chunks);
+                           part_dot, part_x2, part_p2, rows_done, B, P, D, split_chunks, wide);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // C columns by G split groups, at most kFinalizeThreads threads

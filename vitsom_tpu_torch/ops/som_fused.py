@@ -34,9 +34,11 @@ and 130 CTAs. Bound there on an H100 SXM: 3 TF32 products of 2*B*P*D =
 operations. What still holds the kernel back: shared-memory bandwidth (3
 reads of both operands a product, beside the copies and splits), the
 consumer's wait for its accumulator once a chunk, and the finalize's fixed
-cost. ``check_shape`` states what the copies need (16-byte aligned
-operands, ``ldx`` and D multiples of 4); every shipped ViT-SOM config meets
-it.
+cost. The copies are 16 bytes wide where x's and the prototypes' base
+addresses are 16-byte aligned and ``ldx`` and D are multiples of 4 floats
+(``wide_copies``; every shipped ViT-SOM config), else 4 bytes wide, zero
+past D: any D >= 1 and any row stride ``ldx >= D`` is taken
+(``check_shape``), as the JAX kernel takes any D.
 
 On a CPU tensor the op runs ``fused_som_reference``, the plain PyTorch
 version of the same function. A CUDA tensor never falls back to the plain
@@ -86,6 +88,7 @@ def _lib():
             ctypes.c_int, ctypes.c_int,  # splits, chunks per split
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # cols, hexa, cosine
             ctypes.c_void_p,  # temperature: one float on the device
+            ctypes.c_int,  # wide: 16-byte copies (wide_copies), else 4-byte
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -139,25 +142,23 @@ def workspace_floats(b: int, p: int, splits: int) -> int:
     return splits * (b * p + b + p) + b + 1
 
 
-def check_shape(b: int, p: int, d: int, ldx: int, x_ptr: int = 0, p_ptr: int = 0) -> None:
-    """Raises ValueError unless the kernel takes this shape and layout: its
-    16-byte ``cp.async`` copies need x's and the prototypes' base addresses
-    16-byte aligned and x's row stride ``ldx`` and the depth D multiples of 4
-    floats. Needs no CUDA."""
+def check_shape(b: int, p: int, d: int, ldx: int) -> None:
+    """Raises ValueError unless the kernel takes this shape: any B, P, D >=
+    1 and x's row stride ``ldx >= D`` (rows that do not fit 16-byte copies
+    take 4-byte ones: ``wide_copies``). Needs no CUDA."""
     if min(b, p, d) < 1:
         raise ValueError(f"empty input: B={b}, P={p}, D={d}")
-    if d % 4:
-        raise ValueError(f"the fused SOM kernel needs D % 4 == 0 (16-byte copies), got D={d}")
-    if ldx % 4 or ldx < d:
-        raise ValueError(
-            f"the fused SOM kernel needs x's row stride ldx % 4 == 0 and ldx >= D, "
-            f"got ldx={ldx}, D={d}"
-        )
-    if x_ptr % 16 or p_ptr % 16:
-        raise ValueError(
-            "the fused SOM kernel needs x and the prototypes 16-byte aligned, got "
-            f"addresses {x_ptr:#x} and {p_ptr:#x}"
-        )
+    if ldx < d:
+        raise ValueError(f"x's rows overlap: row stride ldx={ldx} is less than D={d}")
+
+
+def wide_copies(d: int, ldx: int, x_ptr: int, p_ptr: int) -> bool:
+    """Whether the kernel's copies are 16 bytes wide (``cp.async`` of 4
+    floats): x's and the prototypes' base addresses 16-byte aligned and
+    x's row stride ``ldx`` and the depth D multiples of 4 floats. Else each
+    float is copied alone (4 bytes), zero past D. Every shipped ViT-SOM
+    config takes the wide copies."""
+    return d % 4 == 0 and ldx % 4 == 0 and x_ptr % 16 == 0 and p_ptr % 16 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +249,7 @@ def _kernel_forward(x, prototypes, temperature, cols, topology, distance_fcn):
         raise ValueError("x needs unit column stride and prototypes must be contiguous")
     b, d = x.shape
     p = prototypes.shape[0]
-    check_shape(b, p, d, x.stride(0), x.data_ptr(), prototypes.data_ptr())
+    check_shape(b, p, d, x.stride(0))
     splits, depth = plan_splits(b, p, d)
     dev = x.device
     dist = torch.empty((b, p), device=dev, dtype=torch.float32)
@@ -264,7 +265,8 @@ def _kernel_forward(x, prototypes, temperature, cols, topology, distance_fcn):
             dist.data_ptr(), bmu.data_ptr(), workspace.data_ptr(), loss.data_ptr(),
             b, p, d, splits, depth // CHUNK,
             cols, int(topology == "hexa"), int(distance_fcn == "cosine"),
-            temperature.data_ptr(), stream,
+            temperature.data_ptr(),
+            int(wide_copies(d, x.stride(0), x.data_ptr(), prototypes.data_ptr())), stream,
         )
     if rc != 0:
         raise RuntimeError(f"som_fused_forward launch failed with CUDA error {rc}")
