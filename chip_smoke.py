@@ -13,8 +13,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    beside nvcc) of the SOM kernel, which fails without a TF32 wgmma
    (HGMMA), of the two hd >= 32 attention kernels, which fail without a
    TF32 mma (HMMA or HGMMA), and of every instantiation of the fused block's
-   ``block_fwd_kernel`` and ``block_bwd_kernel``, which fail without a TF32
-   mma (HMMA), of the three hd >= 32 bf16 attention kernels (the one- and
+   ``block_fwd_kernel`` and ``block_bwd_kernel`` and of its streamed
+   ``block_fwd_streamed`` and ``block_bwd_streamed``, which fail without a
+   TF32 mma (HMMA), of the three hd >= 32 bf16 attention kernels (the one- and
    two-pass forwards, the backward), which fail without a bf16 wgmma
    (HGMMA ... BF16), and of the three hd <= 16 bf16 ones (every
    instantiation), which fail without a bf16 mma.sync (HMMA ... BF16);
@@ -107,7 +108,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    gradient), at (B, N, D, H, mlp_ratio) = (128, 197, 16, 2, 4) and
    (128, 197, 4, 2, 4) (the flagship's encoder and decoder blocks at full
    width) and the JAX tests' (8, 197, 16, 2, 4), (4, 65, 24, 3, 4),
-   (3, 17, 16, 2, 2), (4, 33, 16, 2, 4); two runs of each kernel must agree
+   (3, 17, 16, 2, 2), (4, 33, 16, 2, 4) (the resident design, csrc/block.cu),
+   and since slice 23 the streamed design's (csrc/block_streamed.cu) twelve
+   (``BLOCK_SHAPES``: emb 192 at N 65, 197, 257, its decoder, N 785 and
+   1025, hd 4, 12, 192, D 768 with M 3072; (8, 400, 16, 2, 4) runs the
+   resident forward and the streamed backward), each line naming the design
+   ``block_fused.block_plan`` gave each direction; an output that misses
+   a float32 yardstick (the plain version, eager autograd) must meet these
+   tolerances against the float64 evaluation and be no further from it
+   than the yardstick (the line names it; two float32 sums over 2050 rows
+   can differ by more than atol 2e-5); two runs of each kernel must agree
    bitwise; y, dx and each of the 12 gradients may be at most
    ``BLOCK_F64_FACTOR`` (5) times the plain float32 version's error against
    a float64 evaluation of the plain version, plus ``F64_SLACK``, which a
@@ -125,8 +135,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``blk(x)`` at phase 10's bounds; then a fixed cotangent is backpropagated
    through the first encoder and the first decoder block both ways and the
    parameters' and inputs' gradients compared;
-12. block timings at the two flagship shapes: each kernel (the backward with
-   its reduction launch), its plain version, and the port's eager Block
+12. block timings at the two flagship shapes and, since slice 23, the
+   streamed design at the vit_som_cifar-10 encoder (128, 65, 192, 3, 4) and
+   at N 257 (tiny-imagenet, cifar-100): each kernel (the resident backward
+   with its reduction launch; the streamed kernels' persistent grid and
+   workspace bytes printed), its plain version, and the port's eager Block
    (forward under no_grad, and forward + backward) with ``attn_impl`` xla
    and pallas, L2 flushed, against the bound, with each kernel's CTAs,
    threads and shared memory. No single PyTorch call computes a block, so
@@ -144,6 +157,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    q k^T (p recomputed from lse), its second exponential of each pair and
    its [B, W] partial gradients are artifacts of its design, not of the
    function, and are not counted.
+13b (since slice 23; inside phase 13, on its xla run's model). The fused
+   block on the emb-192 path, as phase 11 on the flagship's: every block
+   input of ``vit_som_cifar-10.yaml`` captured on an eval batch (12 encoder
+   blocks of D 192, M 768 and 2 decoder blocks of D 96, M 384; 3 heads,
+   N 65, B 128), all 14 through ``make_fused_block`` against the eager
+   blocks, the backward of blocks 0 and 12 against autograd, the design of
+   each printed (all streamed), launches held to the count of calls
+   (``block_fwd_streamed`` 16, ``block_bwd_streamed`` 2);
 13. the emb-192 ViT-SOM: ``configs/vit_som/vit_som_cifar-10.yaml`` at its
    full widths and depth (emb 192, depth 12, 3 heads: hd 64; decoder emb 96,
    depth 2: hd 32; N 65; 4x4 map, SOM latent 64 x 192; batch 128, float32,
@@ -455,8 +476,12 @@ Q. every head dim the JAX kernel takes, and the SOM at any depth
    phases 6 and K1 hold them (float32 1e-5 and the float64 rule; bf16 1 ulp
    on all but 0.1 % against ``bwd_rounded64``, atol/rtol 1e-2, lse 1e-5,
    the float64 rule), two runs bitwise; the float32 kernels at tier 32 (hd
-   25, 28, 31, 32) and N 9, 65 from 20 seeds more, their float64 ratios
-   printed (Q_EDGE); every launch counted against its call; the SOM kernel
+   25, 28, 31, 32) and N 9, 65 from 20 seeds more (the row kernels since
+   slice 23) and N 1025 from 5 (the 3xTF32 kernels), their float64 ratios
+   printed and every miss raised (Q_EDGE, Q_EDGE_LONG); bf16 hd 1 at (2,
+   1025, 2, 1) from 5 seeds, the backward's share past 1 ulp of
+   ``bwd_rounded64`` at most 1e-3 in dq, dk and dv (Q_HD1); every launch
+   counted against its call; the SOM kernel
    on 4-byte copies at (B 12, D 33, P 42) and D 3137 from a row stride of
    3139 floats, one float into its buffer (B 128, P 1600), as phase 3 holds
    it. Q_TIMED in both dtypes beside SDPA, L2 flushed, each timed call held
@@ -496,7 +521,9 @@ baseline (no decoder, no SOM) the forward 12 S + 12 E times, the backward
 12 S times and the SOM kernel never. Phase 11
 launches the block forward kernel once per flagship block plus once for
 each of the two blocks it backpropagates through (6 + 2 = 8), and the
-backward kernel once for each of those (2). Under ``compute_dtype:
+backward kernel once for each of those (2); phase 13b launches the
+streamed forward once per cifar-10 block plus twice more (14 + 2 = 16) and
+the streamed backward twice. Under ``compute_dtype:
 bfloat16`` (K2, K3, P1-P3) the same counts go to the bf16 kernels, and
 the float32 kernels' are 0.
 
@@ -509,7 +536,10 @@ kernels are on; the bf16 attention kernels' K3's; with every path's count
 under ``launches_by_path``, the phase-H, K4 paths and phase I's MobileViT
 paths and J4 at 0, I4's ViT-SOM host run with its SOM launches, J1-J3's;
 the SOM row's timings at (512, 49152, 196) and the attention rows' at
-(512, 257, 3, 64), phase E1's and K3's shapes; then phase Q's designs on
+(512, 257, 3, 64), phase E1's and K3's shapes; the resident block rows at
+the flagship encoder, the streamed rows (``block_fwd_streamed``,
+``block_bwd_streamed``) with phase 13b's launches at the cifar-10 encoder
+(128, 65, 192, 3, 4); then phase Q's designs on
 its trainer paths, each with the path, its encoder's shape and that
 path's launches), the nvidia-smi line and the result. The whole script takes about 14 minutes on an H100, the builds
 included; ``PhaseClock`` prints each group of phases' seconds and the
@@ -622,7 +652,7 @@ BENCH_OVERRIDES = {
 # a graphed run's per-step losses and final parameters against the eager
 # run's (the same step body and kernels: bitwise equality is expected)
 GRAPH_RTOL = 1e-5
-KERNEL_SOURCES = ("som_fused", "attention", "attention_bf16", "block")
+KERNEL_SOURCES = ("som_fused", "attention", "attention_bf16", "block", "block_streamed")
 # (B, N, H, hd): every encoder and decoder attention shape of a shipped ViT
 # config (B, N from the yaml; heads 2 and 3)
 ATTN_SHAPES = [
@@ -639,16 +669,31 @@ ATTN_TEST_SHAPES = [(2, 33, 2, 16), (1, 9, 1, 8)]
 # an hd 2 shape whose q, k, v rows start 4 bytes off an 8-byte boundary (row
 # stride 3 D + 1 floats): the row kernels' 4-byte copies
 ATTN_ODD_SHAPES = [(128, 197, 2, 2)]
-# the tensor-core kernels' shapes (hd >= 32) and the six row-kernel shapes
+# the emb-192 shapes (hd 64 on the tensor cores; hd 32 on them until slice
+# 22, on the row kernels since slice 23) and the six row-kernel shapes
 ATTN_TIMED = [s for s in ATTN_SHAPES if s[3] >= 32] + ATTN_SHAPES[:6]
 # the main path's (phase E1, vit_som_tiny-imagenet) encoder shape: the
 # kernels JSON line's attention rows
 ATTN_MAIN = (512, 257, 3, 64)
 # (B, N, D, H, mlp_ratio): the flagship's encoder and decoder blocks at full
-# width, then the JAX tests' blocks (tests/test_block_pallas.py:46-53, :68)
+# width, then the JAX tests' blocks (tests/test_block_pallas.py:46-53, :68):
+# the resident design (csrc/block.cu); then the streamed design's
+# (csrc/block_streamed.cu, since slice 23): the vit_som_cifar-10 encoder and
+# decoder blocks, emb 192 at N 197 (flowers, medmnist) and 257 (cifar-100,
+# tiny-imagenet), the port's CPU test shape, the flagship block past N 256
+# (P2's patch-1 override: its forward at N 400 stays resident), hd 4 with M
+# 60, hd 12, hd 192, N 1025, and the limits (D 768, M 3072, hd 192)
 BLOCK_SHAPES = [(128, 197, 16, 2, 4.0), (128, 197, 4, 2, 4.0), (8, 197, 16, 2, 4.0),
-                (4, 65, 24, 3, 4.0), (3, 17, 16, 2, 2.0), (4, 33, 16, 2, 4.0)]
-BLOCK_TIMED = BLOCK_SHAPES[:2]
+                (4, 65, 24, 3, 4.0), (3, 17, 16, 2, 2.0), (4, 33, 16, 2, 4.0),
+                (128, 65, 192, 3, 4.0), (128, 65, 96, 3, 4.0), (128, 197, 192, 3, 4.0),
+                (128, 257, 192, 3, 4.0), (2, 9, 128, 2, 4.0), (8, 400, 16, 2, 4.0),
+                (8, 785, 16, 2, 4.0), (3, 17, 20, 5, 3.0), (2, 33, 12, 1, 4.0),
+                (2, 65, 384, 2, 4.0), (2, 1025, 192, 3, 4.0), (2, 9, 768, 4, 4.0)]
+# the flagship's blocks (resident), then the cifar-10 encoder block at N 65
+# and the tiny-imagenet / cifar-100 one at N 257 (streamed)
+BLOCK_TIMED = BLOCK_SHAPES[:2] + [(128, 65, 192, 3, 4.0), (128, 257, 192, 3, 4.0)]
+# the streamed design's row of the kernels JSON line: the cifar-10 encoder
+BLOCK_STREAMED_MAIN = (128, 65, 192, 3, 4.0)
 BLOCK_Y_TOL = (2e-5, 1e-5)
 BLOCK_GRAD_TOL = (2e-5, 1e-4)
 # The block kernels' outputs against float64 may be at most this factor of
@@ -937,6 +982,8 @@ def reset_launches():
     attention_fused.LAUNCHES_BWD_BF16 = 0
     block_fused.LAUNCHES_FWD = 0
     block_fused.LAUNCHES_BWD = 0
+    block_fused.LAUNCHES_FWD_STREAMED = 0
+    block_fused.LAUNCHES_BWD_STREAMED = 0
 
 
 def read_launches():
@@ -944,7 +991,9 @@ def read_launches():
             "attention_bwd": attention_fused.LAUNCHES_BWD,
             "attention_fwd_bf16": attention_fused.LAUNCHES_FWD_BF16,
             "attention_bwd_bf16": attention_fused.LAUNCHES_BWD_BF16,
-            "block_fwd": block_fused.LAUNCHES_FWD, "block_bwd": block_fused.LAUNCHES_BWD}
+            "block_fwd": block_fused.LAUNCHES_FWD, "block_bwd": block_fused.LAUNCHES_BWD,
+            "block_fwd_streamed": block_fused.LAUNCHES_FWD_STREAMED,
+            "block_bwd_streamed": block_fused.LAUNCHES_BWD_STREAMED}
 
 
 def issued_steps(steps, eager):
@@ -979,6 +1028,8 @@ def expected_launches(cfg, impl, steps, eval_batches, part="all"):
         "attention_bwd_bf16": bwd if bf16 else 0,
         "block_fwd": 0,
         "block_bwd": 0,
+        "block_fwd_streamed": 0,
+        "block_bwd_streamed": 0,
     }
 
 
@@ -1159,16 +1210,23 @@ def phase_graphed_vs_eager(dev, label, impl, graphed, smi, extra=None, config=CO
 def compare_runs(label, cfg, tr_g, hist_g, tr_e, hist_e, losses, smi):
     """A graphed run's ``losses`` at every step and final parameters against
     its eager run's, within rtol GRAPH_RTOL (phases A, B, D), and both
-    runs' median ms a step and images/s."""
+    runs' median ms a step and images/s. Every loss and tensor is compared
+    and printed before the first miss raises; the message names the first
+    step whose losses differ and the tensors that miss."""
+    summary, misses = [], []
     for k in losses:
         a, b = np.asarray(hist_g[k]), np.asarray(hist_e[k])
         check(a.shape == b.shape, f"{label}: {k} has {a.shape} steps graphed, {b.shape} eager")
         diff = np.abs(a - b)
         rel = float((diff / np.maximum(np.abs(b), 1e-30)).max())
+        first = np.flatnonzero(a != b)
+        summary.append(f"{k} bitwise_equal_steps={int((a == b).sum())}/{len(a)} first_unequal_step="
+                       f"{int(first[0]) if len(first) else None}")
         print(f"{label} graphed_vs_eager {k}: steps={len(a)} max_abs_diff={diff.max():.3e} "
               f"max_rel_diff={rel:.3e} bitwise_equal_steps={int((a == b).sum())}", flush=True)
-        check(rel <= GRAPH_RTOL, f"{label}: graphed {k} differs from eager by {rel:.3e}")
-    worst, equal, total = (0.0, ""), 0, 0
+        if not rel <= GRAPH_RTOL:  # a NaN misses too
+            misses.append(f"graphed {k} differs from eager by {rel:.3e}")
+    worst, equal, total, unequal = (0.0, ""), 0, 0, []
     named_g = [*tr_g.model.named_parameters(), *tr_g.model.named_buffers()]
     named_e = [*tr_e.model.named_parameters(), *tr_e.model.named_buffers()]
     check([n for n, _ in named_g] == [n for n, _ in named_e], f"{label}: models differ")
@@ -1176,13 +1234,23 @@ def compare_runs(label, cfg, tr_g, hist_g, tr_e, hist_e, losses, smi):
         d = (pg.detach() - pe.detach()).abs()
         rel = float((d / pe.detach().abs().clamp_min(1e-30)).max())
         worst = max(worst, (rel, name))
-        equal += int((d == 0).sum())
+        n_equal = int((d == 0).sum())
+        equal += n_equal
         total += d.numel()
-        check(bool((d <= GRAPH_RTOL * pe.detach().abs()).all()),
-              f"{label}: final {name} differs graphed vs eager (max rel {rel:.3e})")
+        if n_equal < d.numel():
+            unequal.append((rel, name, d.numel() - n_equal, float(d.max())))
+        if not bool((d <= GRAPH_RTOL * pe.detach().abs()).all()):
+            misses.append(f"final {name} differs graphed vs eager (max rel {rel:.3e})")
     n_buffers = sum(b.numel() for _, b in tr_g.model.named_buffers())
+    unequal.sort(reverse=True)
+    summary.append(f"tensors not bitwise equal {len(unequal)}/{len(named_g)}, the worst (max rel, "
+                   f"name, values unequal, max abs): "
+                   + "; ".join(f"{r:.3e} {n} {c} {m:.3e}" for r, n, c, m in unequal[:5]))
     print(f"{label} graphed_vs_eager params and buffers ({n_buffers} buffer values): "
           f"max_rel_diff={worst[0]:.3e} ({worst[1]}) bitwise_equal={equal}/{total}", flush=True)
+    print(f"{label} graphed_vs_eager summary: " + "; ".join(summary), flush=True)
+    check(not misses, f"{label}: " + "; ".join(misses[:3]) + f" ({len(misses)} misses; "
+          + "; ".join(summary) + ")")
     for mode, tr in (("graphed", tr_g), ("eager", tr_e)):
         ms = steady_ms(tr.step_ms)
         print(f"{label} {mode}: median_step_ms={ms:.4f} images_per_s={cfg.batch_size / ms * 1e3:.1f} "
@@ -1256,23 +1324,25 @@ def profile_check(label, config, over, smi):
     """``profile_step`` on ``config`` with ``over`` (profile_run), its
     numbers printed beside the card's name and power limit, and each
     hand-written kernel's count under R = PROFILE_STEPS steps held to R
-    times its count a step, in both modes (the hd <= 16 configurations run
-    the row kernels, hd >= 32 the tensor-core kernels; under bf16 each
-    block's launches go to the kernel ``model_bf16_kernel`` names). Returns
-    the JSON."""
+    times its count a step, in both modes (float32: each block's launches go
+    to the row kernels where ``row_kernels`` says, hd <= 24 and, since slice
+    23, the emb-192 decoders' hd 32, else to the tensor-core kernels; under
+    bf16 to the kernel ``model_bf16_kernel`` names). Returns the JSON."""
     res = profile_run(label, over, config)
     cfg = load_config(config, {"data.allow_synthetic": True, **over})
     per = expected_launches(cfg, model_attn_impl(cfg), PROFILE_STEPS, 0)
-    mma = cfg.vit.emb_dim // cfg.vit.heads >= 32
+    tokens = (cfg.data.input_size // cfg.vit.patch_size) ** 2 + 1
     want = {"som_partial_kernel": per["som_fused"], "som_finalize_kernel": per["som_fused"]}
     for side in ("fwd", "bwd"):
-        n, n16 = per[f"attention_{side}"], per[f"attention_{side}_bf16"]
-        want.update({f"attn_{side}_kernel": 0 if mma else n,
-                     f"attn_{side}_mma_kernel": n if mma else 0})
+        want.update({f"attn_{side}_kernel": 0, f"attn_{side}_mma_kernel": 0})
         want.update({k: 0 for k in BF16_KERNELS if k.startswith(f"attn_{side}_")})
-        for part, hd in model_head_dims(cfg):  # each block's bf16 launches, by its kernel
-            want[model_bf16_kernel(cfg, hd, side == "bwd")] += expected_launches(
-                cfg, model_attn_impl(cfg), PROFILE_STEPS, 0, part)[f"attention_{side}_bf16"]
+        for part, hd in model_head_dims(cfg):  # each block's launches, by its kernel
+            part_launches = expected_launches(cfg, model_attn_impl(cfg), PROFILE_STEPS, 0, part)
+            rows = attention_fused.row_kernels(tokens, hd)
+            want[f"attn_{side}_{'' if rows else 'mma_'}kernel"] += part_launches[
+                f"attention_{side}"]
+            want[model_bf16_kernel(cfg, hd, side == "bwd")] += part_launches[
+                f"attention_{side}_bf16"]
     for mode in ("eager", "graphed"):
         r = res[mode]
         print(f"profile {label} {mode}: wall_ms_per_step={r['wall_ms_per_step']:.4f} "
@@ -1322,8 +1392,8 @@ def phase_profiles(smi):
 
 def phase_train_cifar(dev):
     """Phase 13: the emb-192 ViT-SOM at full width on the clustering of an
-    augmented dataset; returns the pallas run's launch counts (its train
-    steps and its eval).
+    augmented dataset; returns (the pallas run's launch counts (its train
+    steps and its eval), phase 13b's block launch counts).
 
     ``configs/vit_som/vit_som_cifar-10.yaml`` at its full widths and depth
     (emb 192, depth 12, 3 heads, decoder emb 96 and depth 2, 4x4 map, SOM
@@ -1340,7 +1410,8 @@ def phase_train_cifar(dev):
     train-mode split), once for both runs. The pallas run's step-0 losses
     equal the xla run's within rtol 1e-5 and its launch counts the formula
     (module docstring); its reconstructions of one eval batch are finite
-    and [128, 32, 32, 3]."""
+    and [128, 32, 32, 3]. Phase 13b (``phase_block_cifar``) runs on the xla
+    run's trained model."""
     over = {"data.num_classes": 0, "data.synthetic_size": C13_SIZE}
     eval_cfg = load_config(CIFAR_CONFIG, {"data.allow_synthetic": True, "data.num_classes": 0,
                                           "data.synthetic_size": C13_EVAL_SIZE})
@@ -1353,7 +1424,7 @@ def phase_train_cifar(dev):
     print(f"cifar10 clustering eval: {rows} rows through the host train transform in "
           f"{host_s:.3f} s (default_rng(0), in order)", flush=True)
     data = "synthetic 32x32x3 images, clustering split augmented on the device"
-    first, launches = None, None
+    first, launches, block_launches = None, None, None
     for impl in ("xla", "pallas"):
         label = f"cifar10_{impl}"
         cfg, dm, trainer, hist, launches = train_run(
@@ -1389,8 +1460,12 @@ def phase_train_cifar(dev):
               flush=True)
         check(tuple(recon_img.shape) == shape == (128, 32, 32, 3), "bad cifar-10 recon shape")
         check(bool(torch.isfinite(recon_img).all()), "non-finite cifar-10 reconstruction")
+        if impl == "xla":
+            t1 = time.perf_counter()
+            block_launches = phase_block_cifar(dev, trainer, eval_dm)
+            print(f"phase 13b (block_cifar): {time.perf_counter() - t1:.1f} s", flush=True)
         del trainer, dm
-    return launches
+    return launches, block_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1944,7 +2019,7 @@ def phase_attention_vs_plain(dev):
                     for x, e in zip(sdpa, (eo, *exact[2:]))]
         same = (torch.equal(o, o2) and torch.equal(lse, lse2)
                 and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
-        if attention_fused.head_tier(hd) in attention_fused.ROW_TIERS:
+        if attention_fused.row_kernels(n, hd):
             width = attention_fused.row_copy_width((q, k, v, ro, do), hd)
             check(layout != "odd" or width == 4, f"odd views at {shape} copy {width} bytes")
             layout += f", {width}-byte row copies"
@@ -2030,7 +2105,7 @@ def phase_attention_timings(dev):
                 sdpa_backend(*leaves),
             ),
         }
-        tensor = attention_fused.head_tier(hd) in attention_fused.MMA_TIERS
+        tensor = not attention_fused.row_kernels(n, hd)
         for name, (fns, flops, nbytes, n_exp, backend) in cases.items():
             t = {key: time_call(fn, l2_flush)[0] for key, fn in fns.items()}
             # the tensor-core kernels do a float32-accurate product as three
@@ -2162,10 +2237,16 @@ def grad_err(a, b):
 
 def phase_block_vs_plain(dev):
     """Phase 10; returns the largest forward and backward errors against the
-    plain versions."""
-    worst = {"block_fwd": 0.0, "block_bwd": 0.0}
+    plain versions, by design ({"block_fwd": ..., "block_fwd_streamed": ...,
+    ...})."""
+    worst = {f"block_{side}{suffix}": 0.0 for side in ("fwd", "bwd")
+             for suffix in ("", "_streamed")}
     for shape in BLOCK_SHAPES:
         b, n, d, h, ratio = shape
+        m = int(d * ratio)
+        plans = {side: block_fused.block_plan(b, n, d, h, m, side == "bwd")
+                 for side in ("fwd", "bwd")}
+        t0 = time.perf_counter()
         blk, x, dy = block_inputs(shape, 6000 + n + d, dev)
         w = {k: v.detach() for k, v in block_weights(blk).items()}
         y = block_fused._kernel_forward(x, w, h)
@@ -2186,27 +2267,55 @@ def phase_block_vs_plain(dev):
         f64 = {"y": float64_err(y, yr, y64), "dx": float64_err(dx, dxr, dx64)}
         f64.update({k: float64_err(dw[k], dwr[k], dw64[k]) for k in block_fused.WEIGHT_NAMES})
         torch.cuda.synchronize()
-        errs = {"y": allclose_err(y, yr, *BLOCK_Y_TOL),
-                "y_vs_eager": allclose_err(y, ye.detach(), *BLOCK_Y_TOL),
-                "dx": grad_err(dx, dxr), "dx_vs_autograd": grad_err(dx, xl.grad)}
+        # each output against the plain version and eager autograd at the
+        # plain tolerances. Two float32 evaluations of a long sum of large
+        # terms can differ by more than these: at (2, 1025, 192, 3) fc1's
+        # and fc2's weight gradients sum 2050 rows of O(1) terms, and the
+        # kernel misses the plain version by more than atol 2e-5 where the
+        # gradient is near 0 while half the plain's distance from float64.
+        # An output that misses a float32 yardstick passes only within the
+        # same tolerances of the float64 evaluation and no further from it
+        # than the yardstick
+        held_f64 = []
+
+        def against(fn, key, a, ref, exact):
+            err, ok = fn(a, ref)
+            if ok:
+                return err, ok
+            held_f64.append(key)
+            closer = (float((a.double() - exact).abs().max())
+                      <= float((ref.double() - exact).abs().max()))
+            return err, fn(a, exact)[1] and closer
+
+        def y_err(a, b):
+            return allclose_err(a, b, *BLOCK_Y_TOL)
+
+        errs = {"y": against(y_err, "y", y, yr, y64),
+                "y_vs_eager": against(y_err, "y_vs_eager", y, ye.detach(), y64),
+                "dx": against(grad_err, "dx", dx, dxr, dx64),
+                "dx_vs_autograd": against(grad_err, "dx_vs_autograd", dx, xl.grad, dx64)}
         rel = 0.0
         for name in block_fused.WEIGHT_NAMES:
-            errs[name] = grad_err(dw[name], dwr[name])
-            errs[name + "_vs_autograd"] = grad_err(dw[name], dwa[name])
+            errs[name] = against(grad_err, name, dw[name], dwr[name], dw64[name])
+            errs[name + "_vs_autograd"] = against(grad_err, name + "_vs_autograd", dw[name],
+                                                  dwa[name], dw64[name])
             rel = max(rel, errs[name][0] / float(dwr[name].abs().max()))
         same = (torch.equal(y, y2) and torch.equal(dx, dx2)
                 and all(torch.equal(dw[k], dw2[k]) for k in dw))
         wname = max(block_fused.WEIGHT_NAMES, key=lambda k: errs[k][0])
         aname = max(block_fused.WEIGHT_NAMES, key=lambda k: errs[k + "_vs_autograd"][0])
         print(
-            f"block_vs_plain (B,N,D,H,mlp)={shape} dy_std={float(dy.std()):.4f}: "
+            f"block_vs_plain (B,N,D,H,mlp)={shape} design fwd={plans['fwd']} "
+            f"bwd={plans['bwd']} dy_std={float(dy.std()):.4f}: "
             f"y_max_abs_err={errs['y'][0]:.3e} y_vs_eager={errs['y_vs_eager'][0]:.3e} "
             f"dx={errs['dx'][0]:.3e} dx_vs_autograd={errs['dx_vs_autograd'][0]:.3e} "
             f"weight_grads: worst={errs[wname][0]:.3e} ({wname}) "
             f"worst_vs_autograd={errs[aname + '_vs_autograd'][0]:.3e} ({aname}) "
             f"rel_to_max={rel:.3e} "
             f"max_abs_grad={max(float(g.abs().max()) for g in dwr.values()):.3e} "
-            f"deterministic={same}",
+            f"deterministic={same} seconds={time.perf_counter() - t0:.2f}"
+            + (f" held_against_float64={','.join(held_f64)} (off their float32 yardstick: "
+               f"within the tolerance of float64 and closer to it)" if held_f64 else ""),
             flush=True,
         )
         print(f"block_vs_float64 (B,N,D,H,mlp)={shape}: "
@@ -2219,9 +2328,10 @@ def phase_block_vs_plain(dev):
                   f"{F64_SLACK} at {shape}: {ke} vs {pe}")
         for k, (e, ok) in errs.items():
             check(ok, f"block {k} disagrees at {shape}: {e}")
-            side = "block_fwd" if k in ("y", "y_vs_eager") else "block_bwd"
+            side = "fwd" if k in ("y", "y_vs_eager") else "bwd"
+            key = f"block_{side}{'_streamed' if plans[side] == 'streamed' else ''}"
             if not k.endswith("_vs_autograd") and k != "y_vs_eager":
-                worst[side] = max(worst[side], e)
+                worst[key] = max(worst[key], e)
         check(same, f"two block kernel runs differ at {shape}")
         check(y.shape == x.shape and dx.shape == x.shape, "bad block output shape")
         check(all(tuple(dw[k].shape) == tuple(w[k].shape) for k in w), "bad weight grad shape")
@@ -2279,10 +2389,94 @@ def phase_block_flagship(dev, trainer, dm):
             check(ok, f"fused block {idx} gradient {k} disagrees with autograd: {e}")
     launches = read_launches()
     want = {"som_fused": 0, "attention_fwd": 0, "attention_bwd": 0, "attention_fwd_bf16": 0,
-            "attention_bwd_bf16": 0, "block_fwd": len(blocks) + 2, "block_bwd": 2}
+            "attention_bwd_bf16": 0, "block_fwd": len(blocks) + 2, "block_bwd": 2,
+            "block_fwd_streamed": 0, "block_bwd_streamed": 0}
     print("block_flagship launches: "
           + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items()), flush=True)
     check(launches == want, f"block launch counts {launches} != {want}")
+    return launches
+
+
+def phase_block_cifar(dev, trainer, dm):
+    """Phase 13b, beside 11 on the emb-192 path: the fused block on
+    ``vit_som_cifar-10.yaml``'s own activations at full width (12 encoder
+    blocks of D 192, 3 heads, M 768 and 2 decoder blocks of D 96, 3 heads, M
+    384, N 65, B 128), every block's input captured on an eval batch of
+    phase 13's ``xla`` trainer: all 14 through ``make_fused_block`` against
+    the eager blocks, the backward of blocks 0 and 12 against autograd,
+    every call on the design ``block_plan`` names (the streamed one at these
+    shapes). Returns the launch counts of that run."""
+    vit = trainer.model.vit
+    blocks = list(vit.blocks) + list(vit.decoder_blocks)
+    captured = []
+    hooks = [blk.register_forward_pre_hook(lambda mod, args: captured.append(args[0].detach().clone()))
+             for blk in blocks]
+    with torch.no_grad():
+        vit(next(dm.eval_batches())["image"])
+    for hook in hooks:
+        hook.remove()
+    check(len(captured) == len(blocks) == 14, f"captured {len(captured)} block inputs, not 14")
+
+    def fused_for(blk, x):
+        ratio = blk.mlp.fc1.out_features / blk.attn.dim
+        return block_fused.make_fused_block(blk.attn.dim, blk.attn.num_heads, ratio, x.shape[1])
+
+    def design(blk, x, backward):
+        return block_fused.block_plan(x.shape[0], x.shape[1], blk.attn.dim, blk.attn.num_heads,
+                                      blk.mlp.fc1.out_features, backward)
+
+    want = dict.fromkeys(read_launches(), 0)
+    reset_launches()
+    for idx, (blk, x) in enumerate(zip(blocks, captured)):
+        with torch.no_grad():
+            y = fused_for(blk, x)(x, block_weights(blk))
+            ye = blk(x)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(y, ye, *BLOCK_Y_TOL)
+        kind = "encoder" if idx < len(vit.blocks) else "decoder"
+        plan = design(blk, x, False)
+        want["block_fwd_streamed" if plan == "streamed" else "block_fwd"] += 1
+        print(f"block_cifar {kind} block {idx} x={tuple(x.shape)} D={blk.attn.dim} "
+              f"heads={blk.attn.num_heads} M={blk.mlp.fc1.out_features} design={plan} "
+              f"|x|max={float(x.abs().max()):.3f}: y_vs_eager max_abs_err={err:.3e}", flush=True)
+        check(ok, f"cifar fused block {idx} disagrees with the eager block: {err}")
+    for idx in (0, len(vit.blocks)):
+        blk, x = blocks[idx], captured[idx]
+        g = torch.Generator(device=dev).manual_seed(8100 + idx)
+        cot = torch.randn(x.shape, generator=g, device=dev) / x.shape[0]
+        blk.zero_grad(set_to_none=True)
+        xf = x.clone().requires_grad_()
+        fused_for(blk, x)(xf, block_weights(blk)).backward(cot)
+        for backward in (False, True):
+            plan = design(blk, x, backward)
+            side = "bwd" if backward else "fwd"
+            want[f"block_{side}_streamed" if plan == "streamed" else f"block_{side}"] += 1
+        # the gradients in the fused layout, as phase 10 holds them: at emb
+        # 192 the Block keeps q, k, v apart, and the key bias's gradient is
+        # exactly 0 (softmax takes no shift of every key), float32 noise in
+        # any evaluation, which no bound relative to its own largest value
+        # can hold; in qkv_bias it sits beside the query's and value's
+        fused = block_param_grads(blk)
+        blk.zero_grad(set_to_none=True)
+        xe = x.clone().requires_grad_()
+        blk(xe).backward(cot)
+        torch.cuda.synchronize()
+        eager = block_param_grads(blk)
+        errs = {"dx": grad_err(xf.grad, xe.grad)}
+        errs.update({name: grad_err(fused[name], eager[name]) for name in block_fused.WEIGHT_NAMES})
+        blk.zero_grad(set_to_none=True)
+        wname = max(errs, key=lambda k: errs[k][0])
+        print(f"block_cifar grads block {idx} design={design(blk, x, True)}: "
+              f"dx_max_abs_err={errs['dx'][0]:.3e} worst={errs[wname][0]:.3e} ({wname}) "
+              f"weights={len(errs) - 1} (fused layout)", flush=True)
+        for k, (e, ok) in errs.items():
+            check(ok, f"cifar fused block {idx} gradient {k} disagrees with autograd: {e}")
+    launches = read_launches()
+    print("block_cifar launches: "
+          + " ".join(f"{k}={v} (expected {want[k]})" for k, v in launches.items()), flush=True)
+    check(launches == want, f"cifar block launch counts {launches} != {want}")
+    check(want["block_fwd_streamed"] == 16 and want["block_bwd_streamed"] == 2,
+          f"the cifar blocks did not all run the streamed design: {want}")
     return launches
 
 
@@ -2343,18 +2537,26 @@ def phase_block_timings(dev):
             detail = ("bytes" if bound_by == "bytes" else
                       "exponentials" if t_exp > t_ops else "3xTF32")
             eager = "forward" if name == "block_fwd" else "forward + backward"
-            threads = (block_fused.fwd_threads(n) if name == "block_fwd"
-                       else block_fused.bwd_threads(n))
+            backward = name == "block_bwd"
+            design = block_fused.block_plan(b, n, d, h, m, backward)
+            if design == "resident":
+                threads = block_fused.fwd_threads(n) if not backward else block_fused.bwd_threads(n)
+                launch = (f"ctas={b} threads={threads} "
+                          f"smem_bytes={block_fused.smem_bytes(n, d, h, m, backward)}")
+            else:
+                ctas, per_sm, n_sm = block_fused.streamed_grid(backward)
+                launch = (f"ctas={ctas} ({per_sm} an SM x {n_sm} SMs, persistent) "
+                          f"threads={block_fused.STREAMED_THREADS} workspace_bytes="
+                          f"{block_fused.workspace_bytes(b, n, d, h, m, backward)}")
             print(
-                f"timing {name} (B,N,D,H,M)={(b, n, d, h, m)} (L2 flushed): "
+                f"timing {name} {design} (B,N,D,H,M)={(b, n, d, h, m)} (L2 flushed): "
                 f"kernel_ms={t['kernel']:.5f} plain_ms={t['plain']:.5f} "
                 f"eager_block_xla_ms={t['eager_xla']:.5f} eager_block_pallas_ms={t['eager_pallas']:.5f} "
                 f"(eager Block {eager}) bound_ms={bound_ms:.5f} ({detail}: {flops / 1e6:.1f} MFLOP "
                 f"as 3xTF32 {t_ops:.5f} ms, {nbytes / 1e6:.3f} MB {t_bytes:.5f} ms; "
                 f"fp32_non_tensor_ms={t_fp32:.5f}; exp needed={n_exp / 1e6:.3f} M at {sms} SMs x "
                 f"{SFU_EXP_PER_CLOCK} a clock x {SM_CLOCK_HZ / 1e9:.2f} GHz {t_exp:.5f} ms) "
-                f"kernel_share_of_bound={bound_ms / t['kernel']:.4f} ctas={b} threads={threads} "
-                f"smem_bytes={block_fused.smem_bytes(n, d, h, m, name == 'block_bwd')}",
+                f"kernel_share_of_bound={bound_ms / t['kernel']:.4f} {launch}",
                 flush=True,
             )
             rows[(shape, name)] = dict(ms=t["kernel"], plain_ms=t["plain"],
@@ -2415,7 +2617,9 @@ def phase_build():
              ("HGMMA",), "BF16"),
             ("attention_bf16", ("attn_fwd_hmma_bf16", "attn_fwd_hmma2_bf16", "attn_bwd_hmma_bf16"),
              ("HMMA",), "BF16"),
-            ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",), "TF32")):
+            ("block", ("block_fwd_kernel", "block_bwd_kernel"), ("HMMA",), "TF32"),
+            ("block_streamed", ("block_fwd_streamed", "block_bwd_streamed"), ("HMMA",),
+             "TF32")):
         ops = tensor_ops[name]
         for kernel in kernels:
             found = {f: c for f, c in ops.items() if kernel in f}
@@ -3086,7 +3290,8 @@ def phase_eval_decode_pallas(dev, tr, decoded_xla, exact):
     finally:
         attention_fused._kernel_forward = kernel_forward
     want = {"som_fused": 0, "attention_fwd": cfg.vit.dec_depth, "attention_bwd": 0,
-            "attention_fwd_bf16": 0, "attention_bwd_bf16": 0, "block_fwd": 0, "block_bwd": 0}
+            "attention_fwd_bf16": 0, "attention_bwd_bf16": 0, "block_fwd": 0, "block_bwd": 0,
+            "block_fwd_streamed": 0, "block_bwd_streamed": 0}
     check_launches("J2", launches, want, f"one decode call, {cfg.vit.dec_depth} decoder blocks")
     diff = float((decoded - decoded_xla).abs().max())
     perr, scale = decode_err(decoded, exact)
@@ -4471,12 +4676,22 @@ def phase_bench_bf16_mu(dev, smi, bench_ms):
 # at each sequence length, float32 and bf16, forward, backward and hybrid's
 # float32 o and do
 Q_HEAD_DIMS = (1, 3, 4, 5, 12, 17, 24, 25, 28, 31, 36, 40, 80, 96, 128, 192)
-# the 3xTF32 kernels at tier 32 (hd 25-31 padded, and 32 as shipped) at
-# short N, where their float64 error comes nearest F64_FACTOR x the plain
-# version's: from Q_EDGE_SEEDS more seeds, held to 1e-5 against plain and
-# bitwise, the float64 ratios measured (printed, not held: ROADMAP Queue 3)
+# tier 32 (hd 25-31 padded, and 32 as shipped) where the float64 rule came
+# nearest: short N, since slice 23 on the row kernels (the 3xTF32 kernels
+# broke the rule on 5 of these 160 (hd, N, seed)), from Q_EDGE_SEEDS more
+# seeds; and N 1025, on the 3xTF32 kernels, from Q_EDGE_LONG_SEEDS. Each
+# held to 1e-5 against plain, bitwise, and to the float64 rule
 Q_EDGE = [(hd, n) for hd in (25, 28, 31, 32) for n in (9, 65)]
 Q_EDGE_SEEDS = 20
+Q_EDGE_LONG = [(hd, 1025) for hd in (25, 28, 31, 32)]
+Q_EDGE_LONG_SEEDS = 5
+# the padded bf16 tier 2 at hd 1, N 1025, B 2 (4100 elements an output, one
+# 0.024 %): the backward's share past 1 ulp of bwd_rounded64 at most
+# Q_HD1_SHARE over Q_HD1_SEEDS seeds (the inputs of ops/
+# attention_bf16_turns.py --shares: seed s there is s - 1)
+Q_HD1 = (2, 1025, 2, 1)
+Q_HD1_SEEDS = 5
+Q_HD1_SHARE = 1e-3
 Q_SEQ = (9, 65, 197, 257, 321, 1025)
 Q_HEADS = 2
 # B of a hold: at least 2, and enough rows that each output holds
@@ -4505,13 +4720,13 @@ def q_batch(n, hd):
     return max(2, -(-Q_ELEMENTS // (Q_HEADS * n * hd)))
 
 
-def q_design(dtype, hd):
-    """The design a call at ``hd`` runs: float32 rows (1-24), mma (25-64),
-    mma_sliced (65-192); bf16 hmma (1-16), wgmma1-3 (the head in 1-3
-    column tiles)."""
+def q_design(dtype, hd, n):
+    """The design a call at ``hd`` and ``n`` runs: float32 rows (1-24, and
+    25-32 up to N 880), mma (25-64), mma_sliced (65-192); bf16 hmma (1-16),
+    wgmma1-3 (the head in 1-3 column tiles)."""
     if dtype == torch.float32:
         tier = attention_fused.head_tier(hd)
-        return ("rows" if tier in attention_fused.ROW_TIERS else "mma" if tier <= 64
+        return ("rows" if attention_fused.row_kernels(n, hd) else "mma" if tier <= 64
                 else "mma_sliced")
     tier = attention_fused.bf16_tier(hd)
     return "hmma" if tier <= 16 else f"wgmma{tier // 64}"
@@ -4563,7 +4778,7 @@ def q_hold_float32(shape, layout, dev, seed=0, hold_f64=True):
     same = (torch.equal(o, o2) and torch.equal(lse, lse2)
             and all(torch.equal(x, y) for x, y in zip(grads, again)))
     ratio = max(ke / pe for ke, pe, _ in f64.values() if pe > 0)
-    label = (f"(B,N,H,hd)={shape} float32 {layout} {q_design(torch.float32, hd)}"
+    label = (f"(B,N,H,hd)={shape} float32 {layout} {q_design(torch.float32, hd, n)}"
              + (f" seed {seed}" if seed else ""))
     print(f"q attention_vs_plain {label}: "
           + " ".join(f"{key}={e:.2e}" for key, (e, _) in errs.items())
@@ -4625,7 +4840,7 @@ def q_hold_bf16(shape, layout, dev):
             errs[f"{kind}_{name}"] = (e_plain, sh_m, ok_m and within)
             f64[f"{kind}_{name}"] = (float((kg.double() - e).abs().max()),
                                      float((rg.double() - e).abs().max()))
-    label = f"(B,N,H,hd)={shape} bf16 {layout} {q_design(torch.bfloat16, hd)}"
+    label = f"(B,N,H,hd)={shape} bf16 {layout} {q_design(torch.bfloat16, hd, n)}"
     print(f"q attention_bf16_vs_plain {label}: "
           + " ".join(f"{key}={e:.2e}/{sh:.1e}" for key, (e, sh, _) in errs.items())
           + " float64 kernel/plain: "
@@ -4642,6 +4857,39 @@ def q_hold_bf16(shape, layout, dev):
     check(same, f"Q: two bf16 attention kernel runs differ at {label}")
     return {"fwd": max(errs["o"][0], errs["lse"][0]),
             "bwd": max(e for key, (e, _, _) in errs.items() if key not in ("o", "lse"))}
+
+
+def q_hold_hd1(dev):
+    """The padded bf16 tier 2 at Q_HD1 (hd 1) from Q_HD1_SEEDS seeds: the
+    backward on the forward kernel's bf16 o and lse and a bf16 do
+    (``pallas``), each of dq, dk, dv more than 1 bf16 ulp from
+    ``bwd_rounded64`` on at most Q_HD1_SHARE of its elements (the plain
+    version's share printed beside it)."""
+    b, n, h, hd = Q_HD1
+    d = h * hd
+    worst = 0.0
+    for seed in range(1, 1 + Q_HD1_SEEDS):
+        g = torch.Generator(device=dev).manual_seed(6000 + n + hd + 1000 * (seed - 1))
+        buf = torch.randn(b, n, 3, d, generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+        do = torch.randn(b, n, d, generator=g, device=dev).to(torch.bfloat16)
+        o, lse = attention_fused._kernel_forward(q, k, v, h)
+        grads = attention_fused._kernel_backward(q, k, v, o, lse, do, h)
+        plain = attention_fused.fused_attention_bwd_reference(q, k, v, o, lse, do, h)
+        ref = bwd_rounded64(q, k, v, o, lse, do, h)
+        shares = {}
+        for name, a, p, r in zip(("dq", "dk", "dv"), grads, plain, ref):
+            ulp = bf16_ulp(r.double())
+            shares[name] = (float(((a.double() - r.double()).abs() > ulp).double().mean()),
+                            float(((p.double() - r.double()).abs() > ulp).double().mean()))
+        worst = max(worst, *(kern for kern, _ in shares.values()))
+        print(f"q bf16 hd 1 (B,N,H,hd)={Q_HD1} seed {seed}: share past 1 ulp of bwd_rounded64 "
+              f"kernel/plain " + " ".join(f"{k}={a:.2e}/{p:.2e}" for k, (a, p) in shares.items())
+              + f" kernel={attention_fused.bf16_kernel(n, hd, True)}", flush=True)
+        for name, (kern, _) in shares.items():
+            check(kern <= Q_HD1_SHARE, f"Q: bf16 hd 1 {name} past 1 ulp of bwd_rounded64 on "
+                                       f"{kern} of its elements at {Q_HD1} seed {seed}")
+    return worst
 
 
 def q_hold_som(dev):
@@ -4756,7 +5004,7 @@ def q_timings(dev):
                     10 * b * h * n * n * hd, 8 * size * b * n * d + 4 * b * h * n),
             }
             big = b * h * n * n > K1_REF_SCORES
-            design = q_design(dtype, hd)
+            design = q_design(dtype, hd, n)
             for name, (fns, flops, nbytes) in cases.items():
                 rounded = (by_batch(lambda *x: bwd_rounded64(*x, h), rows_ref, q, k, v, o, lse,
                                     do) if bf16 and "_bwd" in name else None)
@@ -4796,8 +5044,10 @@ def q_timings(dev):
 
 def q_holds(dev):
     """Phase Q's kernel holds: every Q_HEAD_DIMS x Q_SEQ at (``q_batch``, N,
-    Q_HEADS, hd) and Q_ODD, float32 and bf16, Q_EDGE from Q_EDGE_SEEDS more
-    seeds (float32; the float64 ratios measured), then the SOM (Q_SOM). The launches of each wrapper are
+    Q_HEADS, hd) and Q_ODD, float32 and bf16, Q_EDGE from Q_EDGE_SEEDS and
+    Q_EDGE_LONG from Q_EDGE_LONG_SEEDS more seeds (float32; the float64
+    ratios printed, every miss raised after the sweep), Q_HD1
+    (``q_hold_hd1``), then the SOM (Q_SOM). The launches of each wrapper are
     counted and must equal its calls. Returns ({(dtype, design, side):
     largest error}, SOM error)."""
     worst = {}
@@ -4812,27 +5062,35 @@ def q_holds(dev):
             if dtype == torch.float32:
                 errs = errs[0]
             for side, e in errs.items():
-                key = (str(dtype)[6:], q_design(dtype, hd), side)
+                key = (str(dtype)[6:], q_design(dtype, hd, shape[1]), side)
                 worst[key] = max(worst.get(key, 0.0), e)
             bf16 = dtype == torch.bfloat16
             calls["attention_fwd_bf16" if bf16 else "attention_fwd"] += 2
             calls["attention_bwd_bf16" if bf16 else "attention_bwd"] += 6 if bf16 else 3
-    for hd, n in Q_EDGE:
+    misses = []
+    for (hd, n), seeds in ([(e, Q_EDGE_SEEDS) for e in Q_EDGE]
+                           + [(e, Q_EDGE_LONG_SEEDS) for e in Q_EDGE_LONG]):
         shape = (q_batch(n, hd), n, Q_HEADS, hd)
         ratios, past = [], []
-        for seed in range(1, 1 + Q_EDGE_SEEDS):
+        design = q_design(torch.float32, hd, n)
+        for seed in range(1, 1 + seeds):
             errs, ratio, outside = q_hold_float32(shape, "strided", dev, seed, hold_f64=False)
             ratios.append(ratio)
             past += [f"seed {seed} {key}" for key in outside]
             for side, e in errs.items():
-                key = ("float32", q_design(torch.float32, hd), side)
+                key = ("float32", design, side)
                 worst[key] = max(worst.get(key, 0.0), e)
             calls["attention_fwd"] += 2
             calls["attention_bwd"] += 3
-        print(f"q 3xtf32 tier 32 (B,N,H,hd)={shape}: float64 error ratio kernel/plain over "
-              f"seeds 1-{Q_EDGE_SEEDS}: max {max(ratios):.3f} median "
+        misses += [f"{shape} {miss}" for miss in past]
+        print(f"q tier 32 {design} (B,N,H,hd)={shape}: float64 error ratio kernel/plain over "
+              f"seeds 1-{seeds}: max {max(ratios):.3f} median "
               f"{statistics.median(ratios):.3f}; past the float64 rule ({F64_FACTOR} x plain + "
               f"{F64_SLACK}): {', '.join(past) or 'none'}", flush=True)
+    check(not misses, f"Q: tier 32 past the float64 rule at {', '.join(misses)}")
+    q_hold_hd1(dev)
+    calls["attention_fwd_bf16"] += Q_HD1_SEEDS
+    calls["attention_bwd_bf16"] += Q_HD1_SEEDS
     som_err = q_hold_som(dev)
     torch.cuda.synchronize()
     launches = read_launches()
@@ -4979,7 +5237,7 @@ def run_smoke(clock) -> int:
     block_launches = phase_block_flagship(dev, flagship[2], flagship[1])
     block_timing = phase_block_timings(dev)
     clock("13")
-    cifar = phase_train_cifar(dev)
+    cifar, cifar_blocks = phase_train_cifar(dev)
     clock("M")
     m_paths = {"m1_flagship_dp_nccl_pallas": phase_dp_nccl(dev, p7, smi),
                "m2_flagship_dp_gloo_pallas_rank0": phase_dp_gloo(dev, smi)}
@@ -5021,7 +5279,7 @@ def run_smoke(clock) -> int:
     # and DeiT: no kernel is on their path, their counts are 0); the bf16
     # attention kernels' main path is K3, tiny-imagenet under bf16
     paths = {"flagship_xla": flagship[4], "flagship_pallas": flagship_pallas,
-             "cifar10_clustering_pallas": cifar, **m_paths, **cls_paths, **family_paths,
+             "cifar10_clustering_pallas": cifar, "block_cifar10_vit_som": cifar_blocks, **m_paths, **cls_paths, **family_paths,
              **protocol_paths, **k_paths, **q_paths}
     main_path = protocol_paths["protocol_cifar10_pallas"]
     main_bf16 = k_paths["k3_tiny_imagenet_bf16_pallas"]
@@ -5031,8 +5289,8 @@ def run_smoke(clock) -> int:
                    "eval_desom_kmeans": protocol_paths["eval_desom_kmeans"]}
 
     def by_path(name):
-        out = {path: counts[name] for path, counts in paths.items() if counts[name]}
-        out.update({path: counts[name] for path, counts in kernel_free.items()})
+        out = {path: counts[name] for path, counts in paths.items() if counts.get(name)}
+        out.update({path: counts.get(name, 0) for path, counts in kernel_free.items()})
         return out
 
     kernels = [{
@@ -5068,6 +5326,24 @@ def run_smoke(clock) -> int:
             "launches_by_path": by_path(name),
             "max_abs_err": block_err[name],
             **block_timing[(BLOCK_TIMED[0], name)],
+        })
+    # the streamed design on the emb-192 path (phase 13b: vit_som_cifar-10's
+    # 14 blocks), its error the largest of phase 10's streamed holds, its
+    # times at the cifar-10 encoder block (phase 12)
+    for name, base, replaces in (
+            ("block_fwd_streamed", "block_fwd", "vitsom_tpu/ops/block_pallas.py:226"),
+            ("block_bwd_streamed", "block_bwd", "vitsom_tpu/ops/block_pallas.py:235")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vitsom_tpu_torch/ops/csrc/block_streamed.cu",
+            "replaces": replaces,
+            "path": "block_cifar10_vit_som",
+            "shape": list(BLOCK_STREAMED_MAIN),
+            "launches": cifar_blocks[name],
+            "launches_by_path": by_path(name),
+            "max_abs_err": block_err[name],
+            **block_timing[(BLOCK_STREAMED_MAIN, base)],
         })
     for name, replaces in (("attention_fwd_bf16", "vitsom_tpu/ops/attention_pallas.py:100"),
                            ("attention_bwd_bf16", "vitsom_tpu/ops/attention_pallas.py:163")):

@@ -202,7 +202,7 @@ def test_tiles_and_shared_memory_match_the_kernel_source():
     rows = re.findall(
         r"smem N (\d+), hd (\d+): (\d+) x (\d+), (\d+) CTAs(?: at B (\d+))?; "
         r"forward (\d+) B, backward (\d+) B", src)
-    assert len(rows) == 6
+    assert len(rows) == 3  # hd 64 at N 65, 197, 257 (hd 32 there runs the row kernels)
     for n, hd, chunks, warps, ctas, batch, fwd, bwd in rows:
         n, hd = int(n), int(hd)
         assert tfused.mma_plan(n) == (int(chunks), int(warps))

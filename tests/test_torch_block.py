@@ -11,6 +11,7 @@ rtol 1e-5 for values (``test_block_pallas.py:64``), atol 2e-5 / rtol 1e-4
 for gradients (``:89-94``).
 """
 
+import contextlib
 import copy
 import re
 from pathlib import Path
@@ -80,6 +81,9 @@ def _jnp(w):
         (4, 65, 24, 3, 4.0),    # odd N, 3 heads
         (3, 17, 16, 2, 2.0),    # mlp_ratio 2
         (2, 197, 4, 2, 4.0),    # the flagship decoder block, head_dim 2
+        (2, 9, 192, 3, 4.0),    # emb 192: the cifar, tiny-imagenet and family encoders
+        (2, 9, 96, 3, 4.0),     # their decoders (dec_emb 96, head_dim 32)
+        (2, 17, 20, 5, 3.0),    # head_dim 4, M 60
     ],
 )
 def test_reference_matches_jax(b, n, dim, heads, ratio):
@@ -93,7 +97,9 @@ def test_reference_matches_jax(b, n, dim, heads, ratio):
     np.testing.assert_allclose(y.numpy(), np.asarray(jfused), **Y_TOL)
 
 
-@pytest.mark.parametrize("b,n,dim,heads,ratio", [(4, 33, 16, 2, 4.0), (2, 33, 4, 2, 4.0)])
+@pytest.mark.parametrize("b,n,dim,heads,ratio", [(4, 33, 16, 2, 4.0), (2, 33, 4, 2, 4.0),
+                                                 (2, 9, 192, 3, 4.0), (2, 9, 96, 3, 4.0),
+                                                 (2, 17, 20, 5, 3.0)])
 def test_bwd_reference_matches_jax_and_autograd(b, n, dim, heads, ratio):
     """The backward kernel's plain version (closed form, no autograd)
     against ``jax.grad`` through the JAX fused block and the Flax Block, and
@@ -171,20 +177,25 @@ def _small_weights(dim, mlp_hidden, dtype):
             for name, shape in tblock.weight_shapes(dim, mlp_hidden).items()}
 
 
-@pytest.mark.parametrize("case", ["emb192", "not_built", "float64", "cpu_tensor", "bwd_past_16_tiles"])
+@pytest.mark.parametrize("case", ["float64", "cpu_tensor", "bad_heads", "past_dim",
+                                  "past_head_dim", "past_mlp", "past_seq_len"])
 def test_kernel_checks_refuse(case):
-    """What the kernels do not cover raises ValueError before any launch."""
-    launches = tblock.LAUNCHES_FWD
-    if case == "emb192":  # 1.8 MB of weights: no one-CTA-per-sample block
-        with pytest.raises(ValueError, match="shared memory"):
-            tblock.check_shape(2, 65, 192, 3, 768, backward=False)
-    elif case == "not_built":
-        with pytest.raises(ValueError, match="not built"):
-            tblock.check_shape(2, 17, 32, 2, 128, backward=False)
-    elif case == "bwd_past_16_tiles":  # the backward gives each row tile a warp
-        tblock.check_shape(2, 257, 16, 2, 64, backward=False)
-        with pytest.raises(ValueError, match="warps"):
-            tblock.check_shape(2, 257, 16, 2, 64, backward=True)
+    """What the kernels do not cover raises ValueError before any launch:
+    a malformed shape, one past the limits, a dtype or device they do not
+    take."""
+    launches = (tblock.LAUNCHES_FWD, tblock.LAUNCHES_FWD_STREAMED)
+    past = {"past_dim": ((2, 9, 1024, 8, 4096), "D up to 768"),
+            "past_head_dim": ((2, 9, 256, 1, 1024), "head_dim up to 192"),
+            "past_mlp": ((2, 9, 768, 4, 4096), "M up to 3072"),
+            "past_seq_len": ((2, 1026, 192, 3, 768), "N up to 1025")}
+    if case == "bad_heads":
+        with pytest.raises(ValueError, match="bad block shape"):
+            tblock.check_shape(2, 9, 192, 5, 768, backward=False)
+    elif case in past:
+        shape, what = past[case]
+        for backward in (False, True):
+            with pytest.raises(ValueError, match=what):
+                tblock.check_shape(*shape, backward)
     elif case == "float64":
         w = _small_weights(16, 64, torch.float64)
         with pytest.raises(ValueError, match="float32"):
@@ -193,7 +204,121 @@ def test_kernel_checks_refuse(case):
         w = _small_weights(16, 64, torch.float32)
         with pytest.raises(ValueError, match="CUDA"):
             tblock._kernel_forward(torch.zeros(2, 17, 16), w, 2)
-    assert tblock.LAUNCHES_FWD == launches
+    assert (tblock.LAUNCHES_FWD, tblock.LAUNCHES_FWD_STREAMED) == launches
+
+
+# (B, N, D, heads, M) the JAX kernel computes and the resident design does
+# not hold: emb 192 and its decoders, a (D, hd, M) that is not built, the
+# backward past 16 row tiles, hd 4, 12 and 192, N 1025, the limits
+STREAMED_SHAPES = [(2, 65, 192, 3, 768), (128, 65, 192, 3, 768), (128, 65, 96, 3, 384),
+                   (128, 197, 192, 3, 768), (128, 257, 192, 3, 768), (2, 17, 32, 2, 128),
+                   (2, 9, 128, 2, 512), (8, 785, 16, 2, 64), (3, 17, 20, 5, 60),
+                   (2, 33, 12, 1, 48), (2, 65, 384, 2, 1536), (2, 1025, 192, 3, 768),
+                   (2, 9, 768, 4, 3072)]
+
+
+@pytest.mark.parametrize("shape", STREAMED_SHAPES)
+def test_check_shape_takes_what_the_jax_kernel_takes(shape):
+    """``check_shape`` takes every shape above, forward and backward, and
+    ``block_plan`` gives it the streamed design; the backward past 16 row
+    tiles at the flagship's widths too (its forward stays resident)."""
+    for backward in (False, True):
+        tblock.check_shape(*shape, backward)
+        assert tblock.block_plan(*shape, backward) == "streamed"
+    tblock.check_shape(2, 257, 16, 2, 64, backward=True)
+    assert tblock.block_plan(2, 257, 16, 2, 64, True) == "streamed"
+    assert tblock.block_plan(2, 257, 16, 2, 64, False) == "resident"
+
+
+def test_block_plan_keeps_the_built_shapes_resident():
+    """The four built (D, hd, M) run the resident kernels at the flagship's
+    N and the JAX tests' shapes, forward and backward."""
+    for b, n, dim, heads, m in BLOCK_SHAPES:
+        for backward in (False, True):
+            assert tblock.block_plan(b, n, dim, heads, m, backward) == "resident"
+    assert tblock.block_plan(8, 400, 16, 2, 64, True) == "streamed"
+
+
+def test_workspace_bytes_by_hand():
+    """The streamed workspace at the vit_som_cifar-10 encoder block (B 128,
+    N 65, D 192, 3 heads, M 768: R = 8320 rows, every buffer a multiple of
+    32 floats): the barrier's 32 floats, qkv, o, r, m1, two row statistics
+    and lse; the backward's dm1, dh2, dr, do, dqkv, dh1 and 5 slices of the
+    444,864 weight floats."""
+    r, d, m = 8320, 192, 768
+    fwd = 32 + 3 * r * d + r * d + r * d + r * m + 2 * r + 2 * r + 3 * r
+    w = 3 * d * d + d * d + 2 * d * m + 9 * d + m
+    assert w == 444864 and tblock.wgrad_slices(r) == 5
+    bwd = fwd + r * m + 3 * r * d + 3 * r * d + r * d + 5 * w
+    assert tblock.workspace_bytes(128, 65, 192, 3, 768, False) == 4 * fwd == 57740928
+    assert tblock.workspace_bytes(128, 65, 192, 3, 768, True) == 4 * bwd
+    # 1 slice up to 2048 rows, one a 2048 rows begun, at most 16
+    assert [tblock.wgrad_slices(x) for x in (18, 2048, 2049, 32896, 10**6)] == [1, 1, 2, 16, 16]
+
+
+def test_streamed_constants_match_the_kernel_source():
+    """The wrapper's streamed constants are csrc/block_streamed.cu's (the
+    loaded library is checked against them too)."""
+    src = (Path(tblock.__file__).parent / "csrc" / "block_streamed.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    names = ("kThreads", "kTileM", "kTileN", "kTileK", "kChunkK", "kAttnRows", "kAttnCols",
+             "kSumRows", "kSliceRows", "kMaxSlices", "kAlign")
+    assert tuple(consts[k] for k in names) == tblock.STREAMED_CONSTANTS
+    body = re.search(r"block_streamed_constants\(int\* out\) \{\n  const int c\[\] = "
+                     r"\{([^}]*)\}", src).group(1)
+    assert tuple(x.strip() for x in body.split(",")) == names
+
+
+class _Recorder:
+    """A stand-in for a built library: records each entry point's arguments
+    and returns 0."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 16, 2, 64), (2, 17, 20, 5, 60), (2, 300, 16, 2, 64)])
+def test_wrappers_dispatch_by_plan(monkeypatch, shape):
+    """Each wrapper launches the design ``block_plan`` names, hands the
+    streamed kernels a workspace of ``workspace_bytes`` and counts the
+    launch under that design alone."""
+    b, n, dim, heads, m = shape
+    lib = _Recorder()
+    for name in ("_lib", "_lib_streamed"):
+        monkeypatch.setattr(tblock, name, lambda: lib)
+    monkeypatch.setattr(tblock, "_check", lambda x, w, h, backward, dy=None: (b, n, dim, m))
+    monkeypatch.setattr(tblock, "_stream", lambda dev: None)
+    monkeypatch.setattr(tblock.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    w = _small_weights(dim, m, torch.float32)
+    x = torch.zeros(b, n, dim)
+    for backward in (False, True):
+        before = (tblock.LAUNCHES_FWD, tblock.LAUNCHES_BWD, tblock.LAUNCHES_FWD_STREAMED,
+                  tblock.LAUNCHES_BWD_STREAMED)
+        lib.calls.clear()
+        if backward:
+            tblock._kernel_backward(x, x, w, heads)
+        else:
+            tblock._kernel_forward(x, w, heads)
+        streamed = tblock.block_plan(b, n, dim, heads, m, backward) == "streamed"
+        entry = {(False, False): "block_forward", (False, True): "block_streamed_forward",
+                 (True, False): "block_backward", (True, True): "block_streamed_backward"}
+        assert list(lib.calls) == [entry[(backward, streamed)]]
+        args = lib.calls[entry[(backward, streamed)]]
+        if streamed:
+            assert args[7 if backward else 5] == (
+                tblock.workspace_bytes(b, n, dim, heads, m, backward) // 4)
+            assert args[-7:-2] == (b, n, dim, heads, m)
+        after = (tblock.LAUNCHES_FWD, tblock.LAUNCHES_BWD, tblock.LAUNCHES_FWD_STREAMED,
+                 tblock.LAUNCHES_BWD_STREAMED)
+        bumped = [a - c for a, c in zip(after, before)]
+        assert bumped == [int(k == (backward, streamed)) for k in
+                          ((False, False), (True, False), (False, True), (True, True))]
 
 
 def test_flagship_block_shapes_fit():

@@ -213,8 +213,8 @@ def test_wrappers_pass_each_design_its_workspaces(monkeypatch, hd):
     """The kernel wrappers hand each design what it takes: the bf16 row
     plan up to hd 16 and none from 17 (wgmma plans its own grid), whose
     backward gets the delta workspace and, on a float32 do, the three
-    parts' workspace; the float32 backward's dq partials from hd 25 (the
-    tensor cores) where the plan has more than one chunk."""
+    parts' workspace; the float32 backward's dq partials on the tensor
+    cores (hd 33 up at N 257) where the plan has more than one chunk."""
     n, h = 257, 2
     lib = _Recorder()
     for name in ("_lib", "_lib_bf16"):
@@ -237,8 +237,45 @@ def test_wrappers_pass_each_design_its_workspaces(monkeypatch, hd):
     x = [t.float() for t in x]
     tfused._kernel_backward(*x[:4], lse, x[4], h)
     args = lib.calls["attention_backward"]
-    assert (args[19] is not None) == (hd > 24)  # dq partials: 3 chunks at N 257
+    # dq partials: 3 chunks at N 257 on the tensor cores (hd 25-32 runs the
+    # row kernels up to N 880)
+    assert (args[19] is not None) == (hd > 32)
     assert args[-2] == tfused.row_copy_width(x, hd)
+
+
+@pytest.mark.parametrize("hd", [25, 28, 31, 32])
+def test_tier_32_runs_the_row_kernels_up_to_n_880(hd):
+    """hd 25-32 runs the FP32-core row kernels at tier 32, a row a lane
+    group, where their staged [N, 32] operands fit (N <= 880: the backward's
+    264 N bytes), and the 3xTF32 tensor-core kernels past it; the source's
+    constants, dispatch and row plan say the same. Every N 1-1025 stays
+    taken in both directions."""
+    src = (Path(tfused.__file__).parent / "csrc" / "attention.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kRowWideTier|kRowWideMaxN) = (\d+);", src)}
+    assert consts == {"kRowWideTier": tfused.ROW_WIDE_TIER,
+                      "kRowWideMaxN": tfused.ROW_WIDE_MAX_N} == {
+        "kRowWideTier": 32, "kRowWideMaxN": 880}
+    assert "if (hd > 24 && hd <= kRowWideTier && N <= kRowWideMaxN)" in src
+    assert "return HD > 24 ? 1 : kRowRows;" in src
+    for n in (1, 9, 65, 197, 257, 880):
+        assert tfused.row_kernels(n, hd)
+        for backward in (False, True):
+            assert tfused.smem_bytes(n, hd, backward) == 4 * (64 * n + (2 * n if backward else 0))
+            assert tfused.smem_bytes(n, hd, backward) <= tfused.SMEM_LIMIT_BYTES
+    assert tfused.smem_bytes(881, hd, True) != 4 * (64 * 881 + 2 * 881)
+    assert 4 * (64 * 881 + 2 * 881) > tfused.SMEM_LIMIT_BYTES
+    for n in (881, 1025):
+        assert not tfused.row_kernels(n, hd)
+    for n in range(1, 1026, 8):
+        for backward in (False, True):
+            tfused.check_shape(n, hd, backward)
+    # one row a group: 64 rows a CTA of 128 threads, 2 lanes a row
+    assert tfused.row_rows(hd) == 1 and tfused.row_rows(24) == tfused.ROW_ROWS == 2
+    assert tfused.row_plan(65, hd, False) == (2, 96)
+    assert tfused.row_plan(197, hd, True) == (4, 4, 128)
+    assert tfused.row_plan(197, 24, True) == (2, 2, 128)
+    assert tfused.row_copy_width([torch.zeros(2, 9, 4 * hd)], hd) == (16 if hd == 32 else 4)
 
 
 def test_tiers_match_the_kernel_sources():

@@ -1,7 +1,7 @@
 """Times the bf16 attention kernels of source trees in turns on one card.
 
     python3 -m vitsom_tpu_torch.ops.attention_bf16_turns [--k2] [--shapes S] [--shares SEEDS]
-        TREE [TREE ...]
+        [--float32] TREE [TREE ...]
 
 Each TREE is a checkout of the repository (``.`` for this one). The trees
 are timed in the order given, each in a fresh interpreter whose working
@@ -31,6 +31,11 @@ own), the kernel's (``kernel``) beside the float32 plain version's
 (``plain``), and a digest of the kernel's outputs (``sha1``: equal digests
 in two trees are bitwise-equal outputs); a head dim the tree refuses gives
 its error.
+
+With ``--float32`` a turn times the float32 kernels in place of the bf16
+ones: at each shape the forward (``fwd``) and the backward on its o and
+lse (``bwd``), on float32 q, k, v sliced from one [B, N, 3, D] buffer as
+the model hands them over, and a digest of o, lse, dq, dk, dv (``sha1``).
 """
 
 from __future__ import annotations
@@ -185,6 +190,36 @@ def turn(k2: bool, shapes) -> dict:
     return out
 
 
+def turn_float32(shapes) -> dict:
+    """One tree's float32 times and digests (``--float32``)."""
+    import hashlib
+
+    import torch
+
+    from vitsom_tpu_torch.ops import attention_fused as af
+
+    dev = torch.device("cuda")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    out = {"tree": os.getcwd(), "card": _smi(), "times": {}}
+    for shape in shapes:
+        b, n, h, hd = shape
+        d = h * hd
+        g = torch.Generator(device=dev).manual_seed(6000 + n + hd)
+        buf = torch.randn(b, n, 3, d, generator=g, device=dev)
+        q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+        do = torch.randn(b, n, d, generator=g, device=dev)
+        o, lse = af._kernel_forward(q, k, v, h)
+        grads = af._kernel_backward(q, k, v, o, lse, do, h)
+        digest = hashlib.sha1(b"".join(
+            x.contiguous().view(torch.int32).cpu().numpy().tobytes()
+            for x in (o, lse, *grads))).hexdigest()
+        out["times"][str(shape)] = {
+            "fwd": time_ms(torch, lambda: af._kernel_forward(q, k, v, h), flush),
+            "bwd": time_ms(torch, lambda: af._kernel_backward(q, k, v, o, lse, do, h), flush),
+            "sha1": digest}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", help="checkouts to time, in this order")
@@ -193,13 +228,16 @@ def main(argv=None) -> int:
                     help='shapes to time in place of SHAPES: "B,N,H,hd;B,N,H,hd"')
     ap.add_argument("--shares", type=int, default=0,
                     help="seeds of the backward's 1-ulp shares at each shape, in place of times")
+    ap.add_argument("--float32", action="store_true",
+                    help="time the float32 kernels (and digest their outputs) in place of bf16")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     shapes = (SHAPES if args.shapes is None else
               [tuple(int(x) for x in s.split(",")) for s in args.shapes.split(";")])
     if args.turn:
         sys.path.insert(0, os.getcwd())  # the tree's package, not this file's
-        out = shares(shapes, args.shares) if args.shares else turn(args.k2, shapes)
+        out = (turn_float32(shapes) if args.float32 else
+               shares(shapes, args.shares) if args.shares else turn(args.k2, shapes))
         print("TURN " + json.dumps(out), flush=True)
         return 0
     if not args.trees:
@@ -209,7 +247,8 @@ def main(argv=None) -> int:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn"] + (["--k2"] if args.k2 else [])
             + ([] if args.shapes is None else ["--shapes", args.shapes])
-            + (["--shares", str(args.shares)] if args.shares else []),
+            + (["--shares", str(args.shares)] if args.shares else [])
+            + (["--float32"] if args.float32 else []),
             cwd=tree, env=env, capture_output=True, text=True)
         lines = [x for x in proc.stdout.splitlines() if x.startswith("TURN ")]
         if proc.returncode != 0 or not lines:

@@ -24,9 +24,11 @@ kernel takes any: each runs at a tier, the first at least as wide
 (``head_tier``, ``bf16_tier``), its staged rows and fragments zero past hd.
 
 - float32 (``csrc/attention.cu``): hd 1-24 the row kernels on the FP32
-  cores at tiers 2, 4, 8, 16, 24 (``ROW_TIERS``); at its tier a head's rows
+  cores at tiers 2, 4, 8, 16, 24 (``ROW_TIERS``), and hd 25-32 there at tier
+  32 up to N 880 (``ROW_WIDE_TIER``, ``ROW_WIDE_MAX_N``; ``row_kernels``
+  says which calls); at its tier a head's rows
   are copied 16, 8 or 4 bytes at a time as the views' pointers and strides
-  allow (``row_copy_width``), below it 4 bytes. hd 25-192 the 3xTF32
+  allow (``row_copy_width``), below it 4 bytes. hd 25-192 (25-32 past N 880) the 3xTF32
   tensor-core kernels (mma.sync) at the multiples of 8 in ``MMA_TIERS``;
   past 64 a CTA forms one slice of ceil(tier / 64) of the output columns
   (``mma_slices``), each recomputing the scores. 16-byte copies where hd is
@@ -76,6 +78,9 @@ ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK = 16, 8, 4, 4
 # the row kernels' (hd <= 24): threads of a CTA at most (kRowThreads),
 # lanes of a row group (kRowLanes) and rows a group (kRowRows)
 ROW_THREADS, ROW_LANES, ROW_ROWS = 128, 2, 2
+# tier 32 on the row kernels (kRowWideTier, kRowWideMaxN): hd 25-32 up to
+# N 880, a row a group; past it the tensor-core tier 32
+ROW_WIDE_TIER, ROW_WIDE_MAX_N = 32, 880
 # the bf16 kernels' (csrc/attention_bf16.cu: kTile, kHdp, kMaxKeyBlocks):
 # from hd 17 up the 64-row wgmma tiles, 64 columns (128-byte rows) each,
 # and the one-pass forward's key blocks at most (its scores stay in
@@ -113,13 +118,15 @@ def _lib():
         lib.attention_backward.restype = ctypes.c_int
         lib.attention_row_launch.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.attention_row_launch.restype = ctypes.c_int
-        tiles = (ctypes.c_int * 7)()
+        tiles = (ctypes.c_int * 9)()
         lib.attention_tiles(tiles)
-        want = (ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK, ROW_THREADS, ROW_LANES, ROW_ROWS)
+        want = (ROW_TILE, MAX_WARPS, SMEM_PAD, KEY_BLOCK, ROW_THREADS, ROW_LANES, ROW_ROWS,
+                ROW_WIDE_TIER, ROW_WIDE_MAX_N)
         if tuple(tiles) != want:
             raise RuntimeError(
                 "attention.cu tiles (kRowTile, kMaxWarps, kPad, kKeyBlock, kRowThreads, "
-                f"kRowLanes, kRowRows) = {tuple(tiles)} differ from the wrapper's {want}"
+                f"kRowLanes, kRowRows, kRowWideTier, kRowWideMaxN) = {tuple(tiles)} differ "
+                f"from the wrapper's {want}"
             )
         tiers = (ctypes.c_int * 32)()
         lib.attention_head_tiers(tiers)
@@ -173,7 +180,8 @@ def _cdiv(a: int, b: int) -> int:
 def head_tier(head_dim: int) -> int:
     """The float32 kernels' tier for ``head_dim``: the first of ROW_TIERS
     (1-24, the row kernels) or MMA_TIERS (25-192, the tensor-core kernels)
-    at least as wide."""
+    at least as wide. Tier 32 runs on the row kernels up to N
+    ROW_WIDE_MAX_N (``row_kernels``)."""
     for tier in ROW_TIERS + MMA_TIERS:
         if 1 <= head_dim <= tier:
             return tier
@@ -188,6 +196,25 @@ def bf16_tier(head_dim: int) -> int:
         if 1 <= head_dim <= tier:
             return tier
     raise ValueError(f"head_dim {head_dim} is outside 1..{MAX_HEAD_DIM}")
+
+
+def row_kernels(n: int, head_dim: int) -> bool:
+    """Whether a float32 call at sequence length ``n`` runs the row kernels
+    on the FP32 cores: hd 1-24, and hd 25-32 (tier ROW_WIDE_TIER) up to N
+    ROW_WIDE_MAX_N; else the 3xTF32 tensor-core kernels."""
+    return head_dim <= ROW_TIERS[-1] or (head_dim <= ROW_WIDE_TIER and n <= ROW_WIDE_MAX_N)
+
+
+def row_tier(head_dim: int) -> int:
+    """The row kernels' tier for ``head_dim``: its ``head_tier`` up to 24,
+    ROW_WIDE_TIER for 25-32."""
+    return head_tier(head_dim) if head_dim <= ROW_TIERS[-1] else ROW_WIDE_TIER
+
+
+def row_rows(head_dim: int) -> int:
+    """Rows a row group holds (csrc/attention.cu row_rows): ROW_ROWS up to
+    hd 24, one at tier 32."""
+    return ROW_ROWS if head_dim <= ROW_TIERS[-1] else 1
 
 
 def mma_slices(head_dim: int) -> int:
@@ -212,15 +239,16 @@ def mma_plan(n: int, head_dim: int = 64) -> Tuple[int, int]:
 
 def row_plan(n: int, head_dim: int, backward: bool) -> Tuple[int, ...]:
     """The row kernels' grid at sequence length ``n`` (head dims 1-24, the
-    same plan at each): a group of ``ROW_LANES`` lanes holds
-    ``ROW_ROWS`` rows, a CTA at most ``ROW_THREADS`` threads; the N rows of a
+    same plan at each, and 25-32): a group of ``ROW_LANES`` lanes holds
+    ``row_rows`` rows, a CTA at most ``ROW_THREADS`` threads; the N rows of a
     (b, h) are spread evenly over C chunks, a CTA each, rounded up to warps.
     Forward (C, threads); backward (C_A, C_B, threads), the key chunks of
     pass A and the query chunks of pass B in one launch."""
-    if not 1 <= head_dim <= ROW_TIERS[-1]:
+    if not 1 <= head_dim <= ROW_WIDE_TIER:
         raise ValueError(f"head_dim {head_dim} has no row kernel")
-    chunks = _cdiv(n, ROW_THREADS // ROW_LANES * ROW_ROWS)
-    threads = _cdiv(_cdiv(_cdiv(n, chunks), ROW_ROWS) * ROW_LANES, 32) * 32
+    rows = row_rows(head_dim)
+    chunks = _cdiv(n, ROW_THREADS // ROW_LANES * rows)
+    threads = _cdiv(_cdiv(_cdiv(n, chunks), rows) * ROW_LANES, 32) * 32
     return (chunks, chunks, threads) if backward else (chunks, threads)
 
 
@@ -232,7 +260,7 @@ def row_copy_width(views, head_dim: int) -> int:
     floats, heads 8 apart) take 16; its decoder's (heads 2 apart) 8. A head
     dim below its tier (``head_tier``) runs the padded kernels, 4 bytes a
     copy."""
-    if head_dim not in ROW_TIERS:
+    if head_dim not in ROW_TIERS + (ROW_WIDE_TIER,):
         return 4
     for width in (16, 8):
         f = width // 4
@@ -256,17 +284,17 @@ def row_launch(b: int, n: int, heads: int, head_dim: int, backward: bool,
 
 def smem_bytes(n: int, head_dim: int, backward: bool) -> int:
     """Dynamic shared memory of one CTA (``csrc/attention.cu``'s header),
-    at the head dim's tier T (``head_tier``).
+    at the head dim's tier T (``head_tier``; ``row_tier`` on the row kernels).
 
-    hd <= 24: two staged [N, T] operands, plus lse and delta rows in the
-    backward. hd >= 25: rows of T + SMEM_PAD floats; the forward a
+    The row kernels (``row_kernels``): two staged [N, T] operands, plus lse
+    and delta rows in the backward. The tensor-core kernels: rows of T + SMEM_PAD floats; the forward a
     two-stage ring of K blocks and of V blocks (the slice's T / slices
     columns) of 8 * KEY_BLOCK keys; the backward its chunk's K and V rows,
     a two-stage ring of 16-row q and do tiles, lse and delta (N rounded up
     to 16) and a [16, keys] ds tile whose row stride is 8 mod 32 floats."""
+    if row_kernels(n, head_dim):
+        return 4 * (2 * n * row_tier(head_dim) + (2 * n if backward else 0))
     tier = head_tier(head_dim)
-    if tier <= ROW_TIERS[-1]:
-        return 4 * (2 * n * tier + (2 * n if backward else 0))
     ld = tier + SMEM_PAD
     if not backward:
         return 4 * 2 * 8 * KEY_BLOCK * (ld + tier // mma_slices(head_dim) + SMEM_PAD)
@@ -581,7 +609,8 @@ def _kernel_backward(q, k, v, o, lse, do, heads: int):
         raise ValueError("lse must be a contiguous float32 [B, H, N] tensor beside q")
     bf16 = q.dtype == torch.bfloat16
     # the tensor-core kernels: bf16 wgmma from hd 17, float32 3xTF32 from 25
-    mma = bf16_tier(hd) >= BF16_HDP if bf16 else head_tier(hd) in MMA_TIERS
+    # (25-32 past N ROW_WIDE_MAX_N)
+    mma = bf16_tier(hd) >= BF16_HDP if bf16 else not row_kernels(n, hd)
     dq, dk, dv = (torch.empty((b, n, heads * hd), device=q.device, dtype=q.dtype)
                   for _ in range(3))
     lib = _lib_bf16() if bf16 else _lib()

@@ -2,8 +2,9 @@
 backward kernels.
 
 Counterpart of ``vitsom_tpu/ops/block_pallas.py``. The kernels in
-``csrc/block.cu`` replace its TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``;
-the source's header gives their design and their bound on the H100. One op
+``csrc/block.cu`` and ``csrc/block_streamed.cu`` replace its TPU kernels
+``_fwd_kernel`` and ``_bwd_kernel``; the sources' headers give their designs
+and their bounds on the H100. One op
 runs a whole block on x [B, N, D] f32:
 
     LN1 -> QKV -> per-head attention -> proj -> residual
@@ -26,10 +27,23 @@ by at most 1.5e-7, far inside the 2e-5 tolerance the block is held to.
 
 On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. There is no fallback from one to
-the other. The kernels cover the (D, head_dim, M) in ``BUILT_SHAPES`` and any
-N whose per-CTA working set fits in shared memory (the backward, which gives
-each 16-row tile a warp, up to N 256); a wide block such as emb 192 (1.8 MB
-of weights) needs a weight-streaming design and is refused.
+the other. Two designs take every shape the JAX kernel takes
+(``block_plan`` names the one a call runs):
+
+- ``"resident"`` (``csrc/block.cu``): a CTA a sample, every weight and the
+  sample's intermediates in shared memory, at the (D, head_dim, M) in
+  ``BUILT_SHAPES`` (the flagship's encoder and decoder, the JAX tests'
+  blocks) where that working set fits (the backward, a warp a 16-row tile,
+  up to N 256);
+- ``"streamed"`` (``csrc/block_streamed.cu``): every other shape, emb 192
+  and its 1.8 MB of weights included. One persistent cooperative launch a
+  direction, phases over a float32 workspace in device memory
+  (``workspace_bytes``), weights streamed through shared memory as k-tiles.
+
+``check_shape`` refuses malformed shapes and those past ``MAX_DIM``,
+``MAX_HEAD_DIM``, ``MAX_MLP_HIDDEN`` and ``MAX_SEQ_LEN``, the widest the
+card has held the streamed design at; a CUDA call also refuses a workspace
+larger than the card's free memory.
 """
 
 from __future__ import annotations
@@ -51,18 +65,36 @@ WEIGHT_NAMES = (
     "fc2_kernel", "fc2_bias",
 )
 
-# Kernel launches since the last reset, one per wrapper call (the backward's
-# weight-gradient reduction is part of its call). Plain ints: chip_smoke.py
-# zeroes them before a main-path run and reads them after.
+# Kernel launches since the last reset, one per wrapper call, by design (the
+# resident backward's weight-gradient reduction, and the streamed design's
+# 8-byte memset of its barrier, are part of their call). Plain ints:
+# chip_smoke.py zeroes them before a main-path run and reads them after.
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FWD_STREAMED = 0
+LAUNCHES_BWD_STREAMED = 0
 
 # (dim, head_dim, mlp_hidden) the kernels are built for (csrc/block.cu,
 # BLOCK_SHAPES): the flagship's encoder and decoder blocks and the JAX tests'
 # blocks
 BUILT_SHAPES = ((16, 8, 64), (16, 8, 32), (24, 8, 96), (4, 2, 16))
 
+# csrc/block_streamed.cu's constants (block_streamed_constants): threads of
+# a CTA, a product's output tile (rows, columns) and staged depth, the depth
+# summed from zero before it joins a tile's total, an attention warp's rows
+# and output columns, the rows a lane sums from zero in a column sum, a
+# weight-gradient slice's rows at least and the slices at most, and the
+# floats each workspace buffer is aligned to
+STREAMED_CONSTANTS = (128, 64, 64, 32, 256, 16, 64, 32, 2048, 16, 32)
+STREAMED_THREADS = STREAMED_CONSTANTS[0]
+STREAMED_SLICE_ROWS, STREAMED_MAX_SLICES, STREAMED_ALIGN = STREAMED_CONSTANTS[8:]
+# the widest block the kernels take: emb 768 (ViT-B) with heads of up to 192
+# columns and a 4x MLP, and 1025 tokens (chip_smoke.py phase 10 holds the
+# streamed design at each)
+MAX_DIM, MAX_HEAD_DIM, MAX_MLP_HIDDEN, MAX_SEQ_LEN = 768, 192, 3072, 1025
+
 _LIB = None
+_LIB_STREAMED = None
 
 
 def weight_shapes(dim: int, mlp_hidden: int) -> Dict[str, Tuple[int, ...]]:
@@ -88,6 +120,38 @@ def _lib():
         lib.block_backward.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _lib_streamed():
+    global _LIB_STREAMED
+    if _LIB_STREAMED is None:
+        lib = _build.load("block_streamed")
+        ptr, size = ctypes.c_void_p, ctypes.c_longlong
+        # ws floats, B, N, D, heads, M, scale, stream
+        dims = [size] + [ctypes.c_int] * 5 + [ctypes.c_float, ptr]
+        lib.block_streamed_forward.argtypes = [ptr] * 5 + dims
+        lib.block_streamed_forward.restype = ctypes.c_int
+        lib.block_streamed_backward.argtypes = [ptr] * 7 + dims
+        lib.block_streamed_backward.restype = ctypes.c_int
+        lib.block_streamed_grid.argtypes = [ctypes.c_int, ptr]
+        lib.block_streamed_grid.restype = ctypes.c_int
+        got = (ctypes.c_int * len(STREAMED_CONSTANTS))()
+        lib.block_streamed_constants(got)
+        if tuple(got) != STREAMED_CONSTANTS:
+            raise RuntimeError(f"block_streamed.cu constants {tuple(got)} differ from the "
+                               f"wrapper's {STREAMED_CONSTANTS}")
+        _LIB_STREAMED = lib
+    return _LIB_STREAMED
+
+
+def streamed_grid(backward: bool) -> Tuple[int, int, int]:
+    """(CTAs, CTAs an SM, SMs) of the streamed kernels' persistent launch on
+    the current card (CUDA only)."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib_streamed().block_streamed_grid(int(backward), out)
+    if rc != 0:
+        raise RuntimeError(f"block_streamed_grid failed with code {rc}")
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -281,28 +345,61 @@ def smem_bytes(n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) ->
                 + max(fwd_mlp, attn) + wgrad_scratch(dim, mlp_hidden))
 
 
+def resident_fits(b: int, n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> bool:
+    """Whether the resident kernels (csrc/block.cu) take this shape: its (D,
+    head_dim, M) is built, the backward has at most MAX_THREADS / 32 row
+    tiles (a warp each), and one CTA's working set fits in shared memory."""
+    return ((dim, dim // heads, mlp_hidden) in BUILT_SHAPES
+            and not (backward and row_tiles(n) > MAX_THREADS // 32)
+            and smem_bytes(n, dim, heads, mlp_hidden, backward) <= SMEM_LIMIT_BYTES)
+
+
+def block_plan(b: int, n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> str:
+    """The design a call runs: ``"resident"`` (csrc/block.cu) where
+    ``resident_fits``, else ``"streamed"`` (csrc/block_streamed.cu). Needs
+    no CUDA."""
+    check_shape(b, n, dim, heads, mlp_hidden, backward)
+    return "resident" if resident_fits(b, n, dim, heads, mlp_hidden, backward) else "streamed"
+
+
+def _aligned(n: int) -> int:
+    return -(-n // STREAMED_ALIGN) * STREAMED_ALIGN
+
+
+def wgrad_slices(rows: int) -> int:
+    """Row slices of a streamed weight gradient's sum over ``rows`` = B N
+    rows (csrc/block_streamed.cu wgrad_slices): one each STREAMED_SLICE_ROWS
+    rows begun, 1 to STREAMED_MAX_SLICES."""
+    return max(1, min(STREAMED_MAX_SLICES, -(-rows // STREAMED_SLICE_ROWS)))
+
+
+def workspace_bytes(b: int, n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> int:
+    """Bytes of the streamed kernels' float32 workspace (csrc/
+    block_streamed.cu make_layout), R = B N rows, each buffer at a multiple
+    of STREAMED_ALIGN floats after the barrier's STREAMED_ALIGN: qkv [R, 3D],
+    o, r [R, D], m1 [R, M], LN1's and LN2's row statistics [R, 2], the log2-
+    sum-exp2 [B, H, N]; the backward's besides: dm1 [R, M], dh2, dr, do [R,
+    D], dqkv [R, 3D], dh1 [R, D] and the weight gradients' slices
+    [wgrad_slices(R), W], W the 12 weights' floats."""
+    r, d, m = b * n, dim, mlp_hidden
+    sizes = [3 * r * d, r * d, r * d, r * m, 2 * r, 2 * r, r * heads]
+    if backward:
+        w = sum(math.prod(s) for s in weight_shapes(d, m).values())
+        sizes += [r * m, r * d, r * d, r * d, 3 * r * d, r * d, wgrad_slices(r) * w]
+    return 4 * (STREAMED_ALIGN + sum(_aligned(x) for x in sizes))
+
+
 def check_shape(b: int, n: int, dim: int, heads: int, mlp_hidden: int, backward: bool) -> None:
-    """Raises ValueError unless the kernels take this block shape. Needs no
-    CUDA."""
+    """Raises ValueError unless the kernels take this block shape: a
+    well-formed one within MAX_DIM, MAX_HEAD_DIM, MAX_MLP_HIDDEN and
+    MAX_SEQ_LEN. Needs no CUDA."""
     if min(b, n, dim, heads, mlp_hidden) < 1 or dim % heads:
         raise ValueError(f"bad block shape B={b} N={n} D={dim} heads={heads} M={mlp_hidden}")
-    if backward and row_tiles(n) > MAX_THREADS // 32:
-        raise ValueError(
-            f"the fused block backward at N={n} needs {row_tiles(n)} warps, one a 16-row tile, "
-            f"more than {MAX_THREADS // 32}"
-        )
-    need = smem_bytes(n, dim, heads, mlp_hidden, backward)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"the fused block at N={n} D={dim} M={mlp_hidden} needs {need} bytes of shared "
-            f"memory per CTA, more than {SMEM_LIMIT_BYTES}: a block this wide or this long "
-            "needs a weight-streaming design the kernels do not have"
-        )
-    if (dim, dim // heads, mlp_hidden) not in BUILT_SHAPES:
-        raise ValueError(
-            f"(dim, head_dim, mlp_hidden) = {(dim, dim // heads, mlp_hidden)} is not built; "
-            f"the kernels cover {BUILT_SHAPES}"
-        )
+    limits = (("D", dim, MAX_DIM), ("head_dim", dim // heads, MAX_HEAD_DIM),
+              ("M", mlp_hidden, MAX_MLP_HIDDEN), ("N", n, MAX_SEQ_LEN))
+    for name, value, most in limits:
+        if value > most:
+            raise ValueError(f"the fused block takes {name} up to {most}, got {value}")
 
 
 def _check(x: torch.Tensor, w: Mapping[str, torch.Tensor], heads: int, backward: bool,
@@ -329,6 +426,13 @@ def _check(x: torch.Tensor, w: Mapping[str, torch.Tensor], heads: int, backward:
         raise ValueError("fused block kernel inputs must be on the same CUDA device")
     if any(t.data_ptr() % 16 for t in acts):
         raise ValueError("x and dy must be 16-byte aligned")
+    if block_plan(b, n, d, heads, m, backward) == "streamed":
+        need = workspace_bytes(b, n, d, heads, m, backward)
+        free = (torch.cuda.mem_get_info(x.device)[0] + torch.cuda.memory_reserved(x.device)
+                - torch.cuda.memory_allocated(x.device))
+        if need > free:
+            raise ValueError(f"the fused block at B={b} N={n} D={d} M={m} needs a {need}-byte "
+                             f"workspace, more than the card's {free} free bytes")
     return b, n, d, m
 
 
@@ -346,38 +450,64 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _workspace(b, n, d, heads, m, backward, dev):
+    return torch.empty(workspace_bytes(b, n, d, heads, m, backward) // 4, device=dev,
+                       dtype=torch.float32)
+
+
 def _kernel_forward(x, w, heads: int):
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_FWD_STREAMED
     b, n, d, m = _check(x, w, heads, backward=False)
+    streamed = block_plan(b, n, d, heads, m, False) == "streamed"
     y = torch.empty_like(x)
     ptrs, strides = _weight_args(w)
-    lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.block_forward(x.data_ptr(), ptrs, strides, y.data_ptr(),
-                               b, n, d, d // heads, m, (d // heads) ** -0.5, _stream(x.device))
+        if streamed:
+            ws = _workspace(b, n, d, heads, m, False, x.device)
+            rc = _lib_streamed().block_streamed_forward(
+                x.data_ptr(), ptrs, strides, y.data_ptr(), ws.data_ptr(), ws.numel(),
+                b, n, d, heads, m, (d // heads) ** -0.5, _stream(x.device))
+        else:
+            rc = _lib().block_forward(x.data_ptr(), ptrs, strides, y.data_ptr(), b, n, d,
+                                      d // heads, m, (d // heads) ** -0.5, _stream(x.device))
     if rc != 0:
-        raise RuntimeError(f"block_forward launch failed with code {rc}")
-    LAUNCHES_FWD += 1
+        raise RuntimeError(f"block forward ({'streamed' if streamed else 'resident'}) launch "
+                           f"failed with code {rc}")
+    if streamed:
+        LAUNCHES_FWD_STREAMED += 1
+    else:
+        LAUNCHES_FWD += 1
     return y
 
 
 def _kernel_backward(x, dy, w, heads: int):
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, LAUNCHES_BWD_STREAMED
     b, n, d, m = _check(x, w, heads, backward=True, dy=dy)
+    streamed = block_plan(b, n, d, heads, m, True) == "streamed"
     shapes = weight_shapes(d, m)
     sizes = [math.prod(shapes[name]) for name in WEIGHT_NAMES]
     dx = torch.empty_like(x)
-    part = torch.empty((b, sum(sizes)), device=x.device, dtype=torch.float32)
     dw = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
     ptrs, strides = _weight_args(w)
-    lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.block_backward(x.data_ptr(), dy.data_ptr(), ptrs, strides, dx.data_ptr(),
-                                part.data_ptr(), dw.data_ptr(),
-                                b, n, d, d // heads, m, (d // heads) ** -0.5, _stream(x.device))
+        if streamed:
+            ws = _workspace(b, n, d, heads, m, True, x.device)
+            rc = _lib_streamed().block_streamed_backward(
+                x.data_ptr(), dy.data_ptr(), ptrs, strides, dx.data_ptr(), dw.data_ptr(),
+                ws.data_ptr(), ws.numel(), b, n, d, heads, m, (d // heads) ** -0.5,
+                _stream(x.device))
+        else:
+            part = torch.empty((b, sum(sizes)), device=x.device, dtype=torch.float32)
+            rc = _lib().block_backward(x.data_ptr(), dy.data_ptr(), ptrs, strides, dx.data_ptr(),
+                                       part.data_ptr(), dw.data_ptr(), b, n, d, d // heads, m,
+                                       (d // heads) ** -0.5, _stream(x.device))
     if rc != 0:
-        raise RuntimeError(f"block_backward launch failed with code {rc}")
-    LAUNCHES_BWD += 1
+        raise RuntimeError(f"block backward ({'streamed' if streamed else 'resident'}) launch "
+                           f"failed with code {rc}")
+    if streamed:
+        LAUNCHES_BWD_STREAMED += 1
+    else:
+        LAUNCHES_BWD += 1
     grads = {name: g.view(shapes[name]) for name, g in zip(WEIGHT_NAMES, dw.split(sizes))}
     return dx, grads
 

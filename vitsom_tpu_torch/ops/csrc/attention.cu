@@ -71,6 +71,12 @@
 //      at (54, 9, 2, 17) the 3xTF32 tier 24 put dk 1.81e-6 from float64,
 //      the plain version 6.38e-7 (chip_smoke.py phase Q's hold, NVIDIA H100
 //      80GB HBM3, 700.00 W). Its staged K and V limit N to 1162 (backward).
+//    - Tier 32 (hd 25-32) runs here too up to N kRowWideMaxN = 880, where
+//      its staged [N, 32] operands fit, a row a group (kRowRows rows would
+//      hold 2 x 4 x 32 floats of k, v, dk, dv a thread): the 3xTF32 tier 32
+//      broke the same rule on some seeds at short N (dq 2.845x the plain
+//      version's float64 error at hd 32, N 65; ROADMAP Queue 3). Past N 880
+//      tier 32 stays on the tensor cores.
 //    - Bound at (128, 197, 2, 8): FP32 operations at 67 TFLOP/s (forward
 //      4.75 us, backward 11.9 us). At hd 2 the forward's 9.9 M exponentials
 //      at 16 a clock an SM (the SFU rate) take 2.38 us, above its FP32
@@ -174,11 +180,9 @@
 // Per shipped shape (B, N, H, hd), C x W, CTAs (B*H*C) and dynamic shared
 // memory per CTA (ops/attention_fused.py:smem_bytes gives the same):
 //   smem N 65, hd 64: 1 x 5, 384 CTAs; forward 34816 B, backward 68224 B
-//   smem N 65, hd 32: 1 x 5, 384 CTAs; forward 18432 B, backward 39552 B
 //   smem N 197, hd 64: 2 x 7, 768 CTAs; forward 34816 B, backward 88704 B
-//   smem N 197, hd 32: 2 x 7, 768 CTAs; forward 18432 B, backward 51840 B
 //   smem N 257, hd 64: 3 x 6, 4608 CTAs at B 512; forward 34816 B, backward 78464 B
-//   smem N 257, hd 32: 3 x 6, 4608 CTAs at B 512; forward 18432 B, backward 45696 B
+// (the shipped hd 32, the emb-192 decoders', runs the row kernels at these N)
 //
 // Bound on an H100 SXM, each input and output byte counted once, operations
 // 4 B H N^2 hd (forward) and 10 B H N^2 hd (backward: s, dv, dp, dq, dk), as
@@ -217,6 +221,14 @@ constexpr int kBadCopyWidth = -2;
 constexpr int kRowThreads = 128;
 constexpr int kRowLanes = 2;
 constexpr int kRowRows = 2;
+// hd 25-32 at N up to kRowWideMaxN (the staged [N, 32] q and do, lse and
+// delta of the backward's pass A fill 232320 of a CTA's 232448 bytes there)
+// run the row kernels at tier kRowWideTier, a row a group: two rows' k, v,
+// dk, dv at 32 columns would pass 255 registers
+constexpr int kRowWideTier = 32;
+constexpr int kRowWideMaxN = 880;
+// rows a row group holds at tier HD
+__host__ __device__ constexpr int row_rows(int HD) { return HD > 24 ? 1 : kRowRows; }
 // at most two lanes, so a row group's first lane always holds a key and the
 // forward's merge never meets two lanes without one
 static_assert(kRowLanes == 1 || kRowLanes == 2, "row groups of one or two lanes");
@@ -450,7 +462,7 @@ template <int HD, int VW, bool PAD>
 __global__ void __launch_bounds__(kRowThreads)
 attn_fwd_kernel(View q, View k, View v, float* __restrict__ o, float* __restrict__ lse, int N,
                 int H, int hd_arg, int chunks, int rows, float scale) {
-  constexpr int L = kRowLanes, R = kRowRows;
+  constexpr int L = kRowLanes, R = row_rows(HD);
   const int hd = PAD ? hd_arg : HD;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
@@ -532,7 +544,7 @@ __global__ void __launch_bounds__(kRowThreads)
 attn_bwd_kernel(View q, View k, View v, View o, const float* __restrict__ lse, View dout,
                 float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int N,
                 int H, int hd_arg, int chunks, int rows, float scale) {
-  constexpr int L = kRowLanes, R = kRowRows;
+  constexpr int L = kRowLanes, R = row_rows(HD);
   const int hd = PAD ? hd_arg : HD;
   extern __shared__ __align__(16) float smem[];
   const int per_pass = gridDim.x / 2;
@@ -1072,13 +1084,13 @@ __global__ void dq_sum1_kernel(const float* __restrict__ part, float* __restrict
 }
 
 // the row kernels' chunks C of a (b, h) at sequence length N: at most
-// kRowThreads / kRowLanes * kRowRows rows a CTA, spread evenly over the
+// kRowThreads / kRowLanes * row_rows(HD) rows a CTA, spread evenly over the
 // chunks, the CTA rounded up to warps (ops/attention_fused.py:row_plan)
-void row_plan(int N, int* chunks, int* rows, int* threads) {
-  const int most = kRowThreads / kRowLanes * kRowRows;
+void row_plan(int N, int HD, int* chunks, int* rows, int* threads) {
+  const int R = row_rows(HD), most = kRowThreads / kRowLanes * R;
   *chunks = (N + most - 1) / most;
   *rows = (N + *chunks - 1) / *chunks;
-  *threads = ((*rows + kRowRows - 1) / kRowRows * kRowLanes + 31) / 32 * 32;
+  *threads = ((*rows + R - 1) / R * kRowLanes + 31) / 32 * 32;
 }
 
 size_t row_smem(int N, int HD, bool backward) {
@@ -1116,7 +1128,7 @@ int launch_fwd_rows(View q, View k, View v, float* o, float* lse, int B, int N, 
   if (!PAD && (HD % VW || !takes_width(q, VW) || !takes_width(k, VW) || !takes_width(v, VW)))
     return kBadCopyWidth;
   int chunks, rows, threads;
-  row_plan(N, &chunks, &rows, &threads);
+  row_plan(N, HD, &chunks, &rows, &threads);
   const size_t smem = row_smem(N, HD, false);
   cudaError_t err = allow_smem(attn_fwd_kernel<HD, VW, PAD>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1134,7 +1146,7 @@ int launch_bwd_rows(View q, View k, View v, View o, const float* lse, View dout,
                !takes_width(o, VW) || !takes_width(dout, VW)))
     return kBadCopyWidth;
   int chunks, rows, threads;
-  row_plan(N, &chunks, &rows, &threads);
+  row_plan(N, HD, &chunks, &rows, &threads);
   const size_t smem = row_smem(N, HD, true);
   cudaError_t err = allow_smem(attn_bwd_kernel<HD, VW, PAD>, smem, &allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1260,10 +1272,15 @@ int launch_bwd_mma(View q, View k, View v, View o, const float* lse, View dout, 
 template <typename Kernel>
 int row_info(Kernel kernel, int ctas_per_chunk, int N, int HD, bool backward, int* out) {
   int chunks, rows, threads;
-  row_plan(N, &chunks, &rows, &threads);
+  row_plan(N, HD, &chunks, &rows, &threads);
   const size_t smem = row_smem(N, HD, backward);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(smem > 48 * 1024 ? smem : 48 * 1024));
+  // raise the kernel's dynamic shared memory limit, never lower it: the
+  // launchers remember the largest they set (allow_smem) and launch a
+  // larger N later without setting it again
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && (int)smem > attr.maxDynamicSharedSizeBytes)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, kernel, threads, smem);
   out[0] = ctas_per_chunk * chunks;
@@ -1309,8 +1326,8 @@ int row_info_width(int B, int N, int H, int hd, int backward, int width, int* ou
 #define ATTN_MMA_TIERS(X) X(32) X(40) X(48) X(56) X(64) X(80) X(96) X(112) X(128) X(192)
 
 // The kernels' tile constants (kRowTile, kMaxWarps, kPad, kKeyBlock of the
-// tensor-core kernels; kRowThreads, kRowLanes, kRowRows of the row
-// kernels): ops/attention_fused.py plans the grids, shared memory and the
+// tensor-core kernels; kRowThreads, kRowLanes, kRowRows, kRowWideTier,
+// kRowWideMaxN of the row kernels): ops/attention_fused.py plans the grids, shared memory and the
 // dq workspace with them and refuses to load a library whose constants
 // differ.
 extern "C" void attention_tiles(int* out) {
@@ -1321,6 +1338,8 @@ extern "C" void attention_tiles(int* out) {
   out[4] = kRowThreads;
   out[5] = kRowLanes;
   out[6] = kRowRows;
+  out[7] = kRowWideTier;
+  out[8] = kRowWideMaxN;
 }
 
 // The tiers, row kernels' first, each list ended by a 0 (at most 32
@@ -1335,12 +1354,15 @@ extern "C" void attention_head_tiers(int* out) {
 #undef ATTN_TIER_OUT
 }
 
-// A row kernel's launch (hd 1 to 24; forward, or backward when `backward`)
+// A row kernel's launch (hd 1 to 24, and 25 to 32 up to N kRowWideMaxN;
+// forward, or backward when `backward`)
 // at the copy width `row_copy_bytes`: out = {CTAs, threads, dynamic shared
 // memory bytes, resident CTAs an SM}. Returns 0, or an error code.
 extern "C" int attention_row_launch(int B, int N, int H, int hd, int backward,
                                     int row_copy_bytes, int* out) {
   if (hd < 1) return kBadHeadDim;
+  if (hd > 24 && hd <= kRowWideTier && N <= kRowWideMaxN)
+    return row_info_width<kRowWideTier>(B, N, H, hd, backward, row_copy_bytes, out);
 #define ATTN_ROW_INFO(T) \
   if (hd <= T) return row_info_width<T>(B, N, H, hd, backward, row_copy_bytes, out);
   ATTN_ROW_TIERS(ATTN_ROW_INFO)
@@ -1366,6 +1388,8 @@ extern "C" int attention_forward(const float* q, long long q_sb, long long q_sr,
   const View qv{q, q_sb, q_sr}, kv{k, k_sb, k_sr}, vv{v, v_sb, v_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd < 1) return kBadHeadDim;
+  if (hd > 24 && hd <= kRowWideTier && N <= kRowWideMaxN)
+    return launch_fwd<kRowWideTier>(qv, kv, vv, o, lse, B, N, H, hd, scale, row_copy_bytes, s);
 #define ATTN_FWD_CASE(T) \
   if (hd <= T) return LAUNCH<T>(qv, kv, vv, o, lse, B, N, H, hd, scale, row_copy_bytes, s);
 #define LAUNCH launch_fwd
@@ -1389,6 +1413,9 @@ extern "C" int attention_backward(const float* q, long long q_sb, long long q_sr
       dov{dout, do_sb, do_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd < 1) return kBadHeadDim;
+  if (hd > 24 && hd <= kRowWideTier && N <= kRowWideMaxN)
+    return launch_bwd<kRowWideTier>(qv, kv, vv, ov, lse, dov, dq, dk, dv, dq_part, B, N, H, hd,
+                                    scale, row_copy_bytes, s);
 #define ATTN_BWD_CASE(T)                                                                       \
   if (hd <= T)                                                                                 \
     return LAUNCH<T>(qv, kv, vv, ov, lse, dov, dq, dk, dv, dq_part, B, N, H, hd, scale,        \

@@ -1975,12 +1975,27 @@ attn_fwd_hmma2_bf16(View<bf16> q, View<bf16> k, View<bf16> v, bf16* __restrict__
   }
 }
 
+// exp(x) for the backward's p: fast_exp, or with kExact the float64 exp
+// rounded once to float32, the plain version's (attention_fused._exp). The
+// padded tier-2 kernel (hd 1, and hd 2 views off 4-byte copies) takes the
+// exact form: at hd 1 a score is one product, and ex2.approx's last bits
+// flipped enough bf16(p) roundings to put 1.71e-3 of dv's elements past
+// 1 ulp of chip_smoke.bwd_rounded64 at (2, 1025, 2, 1) (seed 2 of 5), the
+// exact exponential 4.9e-4 at most over the five seeds (ops/
+// attention_bf16_turns.py --shares 5, NVIDIA H100 80GB HBM3, 700.00 W).
+// The shipped hd 2 and 8 kernels keep fast_exp.
+template <bool kExact>
+__device__ __forceinline__ float bwd_exp(float x) {
+  if constexpr (kExact) return (float)exp((double)x);
+  return fast_exp(x);
+}
+
 // The key role's p^T and ds^T in place of s^T and dp^T over one 16 x 16
 // block: s[nq][e] is key `key` + 8 (e / 2), query q0 + 8 nq + 2 t4 + (e & 1)
 // (the index of lse, staged or global, and of the staged delta). kMask (a
 // ragged block): keys and queries past N give 0, by selects (lse read at
-// N - 1 for them).
-template <bool kMask>
+// N - 1 for them). kExact: bwd_exp's exact form.
+template <bool kMask, bool kExact>
 __device__ __forceinline__ void key_elems16(float (&s)[2][4], float (&dp)[2][4], const float* lse_s,
                                             const float* del_s, int key, int q0, int N,
                                             float scale) {
@@ -1994,7 +2009,7 @@ __device__ __forceinline__ void key_elems16(float (&s)[2][4], float (&dp)[2][4],
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int e = 2 * r + z;
-        const float p = fast_exp(__fmul_rn(s[nq][e], scale) - ls);
+        const float p = bwd_exp<kExact>(__fmul_rn(s[nq][e], scale) - ls);
         const float ds = p * (dp[nq][e] - dl) * scale;
         const bool in = !kMask || (key + 8 * r < N && col < N);
         s[nq][e] = in ? p : 0.f;
@@ -2006,7 +2021,7 @@ __device__ __forceinline__ void key_elems16(float (&s)[2][4], float (&dp)[2][4],
 // The query role's ds in place of dp over one 16 x 16 block: s[nk][e] is
 // query `row` + 8 (e / 2) (lse_r, del_r), key k0 + 8 nk + 2 t4 + (e & 1);
 // masked as key_elems16, with the same expressions.
-template <bool kMask>
+template <bool kMask, bool kExact>
 __device__ __forceinline__ void query_elems16(const float (&s)[2][4], float (&dp)[2][4],
                                               const float (&lse_r)[2], const float (&del_r)[2],
                                               int row, int k0, int N, float scale) {
@@ -2016,7 +2031,7 @@ __device__ __forceinline__ void query_elems16(const float (&s)[2][4], float (&dp
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e / 2;
-      const float p = fast_exp(__fmul_rn(s[nk][e], scale) - lse_r[r]);
+      const float p = bwd_exp<kExact>(__fmul_rn(s[nk][e], scale) - lse_r[r]);
       const float ds = p * (dp[nk][e] - del_r[r]) * scale;
       const bool in = !kMask || (row + 8 * r < N && k0 + 8 * nk + 2 * t4 + (e & 1) < N);
       dp[nk][e] = in ? ds : 0.f;
@@ -2050,6 +2065,7 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
   constexpr int HP = hd_pad(HD);
   const int hd = WIDE ? HD : hd_arg;
   constexpr int DP = std::is_same<TO, float>::value ? 3 : 1;  // do's bf16 parts
+  constexpr bool kExactExp = HD == 2 && !WIDE;  // the padded tier 2 (bwd_exp)
   extern __shared__ __align__(16) uint4 smem_hb[];
   const int tiles = (N + 15) / 16, NP = 16 * tiles, tile_u4 = NP * HD / 8;
   const int per_role = gridDim.x / 2;
@@ -2106,9 +2122,9 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
         for (int p = 0; p < DP; ++p) hmma<HP>(dp[nq], va, bd[p]);
       }
       if (keys_full && 16 * (it + 1) <= N)  // warp-uniform
-        key_elems16<false>(s, dp, lse_k, del_s, r0 + g, 16 * it, N, scale);
+        key_elems16<false, kExactExp>(s, dp, lse_k, del_s, r0 + g, 16 * it, N, scale);
       else
-        key_elems16<true>(s, dp, lse_k, del_s, r0 + g, 16 * it, N, scale);
+        key_elems16<true, kExactExp>(s, dp, lse_k, del_s, r0 + g, 16 * it, N, scale);
       uint32_t pf[4], sf[4], bo[DP][HP / 4], bq[HP / 4];
       pack_a16(pf, s[0], s[1]);
       pack_a16(sf, dp[0], dp[1]);
@@ -2167,9 +2183,9 @@ attn_bwd_hmma_bf16(View<bf16> q, View<bf16> k, View<bf16> v, View<TO> o,
         for (int p = 0; p < DP; ++p) hmma<HP>(dp[nk], da[p], bv);
       }
       if (rows_full && 16 * (jt + 1) <= N)  // warp-uniform
-        query_elems16<false>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
+        query_elems16<false, kExactExp>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
       else
-        query_elems16<true>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
+        query_elems16<true, kExactExp>(s, dp, lse_r, del_r, r0 + g, 16 * jt, N, scale);
       uint32_t sf[4], bk[HP / 4];
       pack_a16(sf, dp[0], dp[1]);
       ldsm_rows<HD>(bk, smem_u32(t0), 16 * jt);

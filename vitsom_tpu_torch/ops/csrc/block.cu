@@ -34,8 +34,11 @@
 //
 // Design. One CTA a batch row (the TPU kernel's per-sample fori_loop is the
 // grid), all weights and the sample's intermediates in dynamic shared memory
-// (96 KB forward, 215 KB backward at the encoder; the wrapper refuses shapes
-// that do not fit in 227 KB). Measured on the card (PERF.md), the earlier
+// (96 KB forward, 215 KB backward at the encoder). This resident design
+// runs the (D, hd, M) of BLOCK_SHAPES where that fits in 227 KB (the
+// backward, a warp a 16-row tile, to N 256); every other shape runs the
+// streamed design in block_streamed.cu (ops/block_fused.py: block_plan).
+// Measured on the card (PERF.md), the earlier
 // one-row-a-thread kernels spent their time handing each thread whole weight
 // and K/V rows from shared memory. Here:
 // - Every product with a contraction of 8 or more runs on the tensor cores as
